@@ -1,0 +1,467 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (flappie_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; nothing is caught):
+
+1. Card and build: the card's name and power limit, the torch/CUDA
+   versions, then every CUDA kernel of the main path built from
+   flappie_tpu_torch/csrc/ with nvcc for sm_90a (one nvcc per source,
+   all at once) and the build seconds.
+2. Kernels: each kernel held against its plain PyTorch version on the
+   card at production shapes -- K1 fused LSTM layer (T=2560, B=256,
+   IN=H=256, both directions, ragged lengths including 0 and T) within
+   max |delta| 1e-4; K3/K4 CRF sum scan within rtol 1e-5; K5 Viterbi
+   and K6 traceback bit-equal (T=2560, S=8, B=256, ragged nblocks).
+   Times are CUDA-event medians after a warm-up; the bound is the larger
+   of bytes over the card's memory rate and f32 operations over its
+   non-tensor f32 rate, counted for this run's inputs.
+3. Main path, full width: seeded synthetic fast5 reads (64 of ~100k
+   samples, chunked into three 256-chunk batches, and 16 of <= 12.8k
+   samples on the bucket path) through flappie_tpu_torch.cli.flappie.main
+   at r941_native width with synthetic weights, default flags and then
+   --viterbi.  Every launch counter is zeroed just before each run and
+   read just after; one FASTQ record per read; 4 reads held against the
+   port's own CPU path (identity >= 99.5%, |score delta| <= 1e-4).
+4. The card line, one JSON line with every kernel's numbers, and the
+   last line {"ok": true, "device": {...}}.
+
+Imports nothing of JAX or of the JAX package.  Writes only under
+build/chip_smoke/ in the checkout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(HERE, "build", "chip_smoke")
+
+# Published peaks (NVIDIA data sheets, dense): f32 outside the tensor
+# cores and HBM bandwidth, for the SXM part (at its 700 W limit) and the
+# PCIe part, so a PCIe card is not held to SXM numbers.
+PEAKS = {
+    "sxm": {"f32_ops": 67e12, "bytes": 3.35e12},
+    "pcie": {"f32_ops": 51e12, "bytes": 2.0e12},
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def bound(bytes_: float, ops: float, peak: dict):
+    t_bytes = bytes_ / peak["bytes"] * 1e3
+    t_ops = ops / peak["f32_ops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 2: kernels --------------------------------------------------------
+
+
+def check_kernels(torch, peak: dict) -> list:
+    from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
+    from flappie_tpu_torch.ops.crf import flipflop_index
+    from flappie_tpu_torch.ops.crf_bm import _dense_tm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    rows = []
+
+    # K1: fused LSTM layer
+    T, B, IN, H = 2560, 256, 256, 256
+    lengths = torch.randint(1, T, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = T, 0
+    mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :])[..., None]
+    x = torch.randn(T, B, IN, generator=gen, device=dev) * mask
+    iW = torch.randn(IN, 4 * H, generator=gen, device=dev) / IN ** 0.5
+    sW = torch.randn(H, 4 * H, generator=gen, device=dev) / H ** 0.5
+    b = torch.zeros(4 * H, device=dev)
+    b[H : 2 * H] = 1.0
+    err = 0.0
+    for backward in (False, True):
+        got = rnn_cuda.lstm_layer_tm(x, iW, b, sW, backward, lengths)
+        want = rnn_cuda.lstm_layer_tm_plain(x, iW, b, sW, backward, lengths)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+    if not err <= 1e-4:
+        raise AssertionError(f"K1 lstm_layer: max |delta| {err} > 1e-4")
+    ms = cuda_ms(torch, lambda: rnn_cuda.lstm_layer_tm(x, iW, b, sW, True, lengths), 3)
+    plain_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_layer_tm_plain(x, iW, b, sW, True, lengths), 1)
+    # yardstick: one cuDNN LSTM call on the packed ragged batch (same
+    # gate order u=i, f, g, o; forward direction; zero-length rows count
+    # as one step, which pack_padded_sequence requires)
+    ref = torch.nn.LSTM(IN, H).to(dev)
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(iW.T)
+        ref.weight_hh_l0.copy_(sW.T)
+        ref.bias_ih_l0.copy_(b)
+        ref.bias_hh_l0.zero_()
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x, lengths.clamp(min=1).cpu(), enforce_sorted=False)
+    with torch.no_grad():
+        library_ms = cuda_ms(torch, lambda: ref(packed), 3)
+    nvalid = int(lengths.sum().item())
+    k1_bytes = 4 * (nvalid * IN + IN * 4 * H + 4 * H + H * 4 * H + B + T * B * H)
+    k1_ops = 2 * nvalid * (IN + H) * 4 * H
+    bms, by = bound(k1_bytes, k1_ops, peak)
+    rows.append(dict(name="lstm_layer", kid="K1", route="cuda",
+                     source="flappie_tpu_torch/csrc/lstm.cu",
+                     replaces="flappie_tpu/ops/rnn_pallas.py:273",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                     bound_by=by, library_ms=library_ms, launches_per_batch=5))
+
+    # K3/K4, K5, K6 on one dense batch
+    S = 8
+    idx = flipflop_index(4)
+    trans = torch.randn(T, idx.nparam, B, generator=gen, device=dev) * 2.0
+    nblocks = torch.randint(1, T, (B,), generator=gen, device=dev)
+    nblocks[0], nblocks[1] = T, 0
+    tvalid = torch.arange(T, device=dev)[:, None] < nblocks[None, :]
+    dense = _dense_tm(trans, idx)
+    nv = int(tvalid.sum().item())
+    dense_bytes = 4 * T * S * S * B
+
+    err = 0.0
+    for backward in (False, True):
+        got = crf_bm_cuda.sum_states(dense, tvalid, backward)
+        want = crf_bm_cuda.sum_states_plain(dense, tvalid, backward)
+        torch.cuda.synchronize()
+        delta = (got - want).abs()
+        if not bool((delta <= 1e-5 * want.abs() + 1e-5).all()):
+            raise AssertionError(f"K3/K4 crf_sum_scan (backward={backward}): outside rtol 1e-5")
+        err = max(err, delta.max().item())
+    ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states(dense, tvalid, False), 5)
+    plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states_plain(dense, tvalid, False), 1)
+    bms, by = bound(dense_bytes + 4 * T * B + 4 * (T + 1) * S * B, nv * (5 * S * S + 5 * S), peak)
+    rows.append(dict(name="crf_sum_scan", kid="K3/K4", route="cuda",
+                     source="flappie_tpu_torch/csrc/crf_scan.cu",
+                     replaces="flappie_tpu/ops/crf_bm_pallas.py:69",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                     bound_by=by, library_ms=None, launches_per_batch=3))
+
+    alpha, bps = crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank)
+    alpha0, bps0 = crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank)
+    if not (torch.equal(alpha, alpha0) and torch.equal(bps, bps0)):
+        raise AssertionError("K5 crf_viterbi: not bit-equal to its plain version")
+    ms = cuda_ms(torch, lambda: crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank), 5)
+    plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank), 1)
+    bms, by = bound(dense_bytes + 4 * T * B + 4 * S * S + 4 * T * S * B + 4 * S * B,
+                    nv * (4 * S * S + 3 * S), peak)
+    rows.append(dict(name="crf_viterbi", kid="K5", route="cuda",
+                     source="flappie_tpu_torch/csrc/crf_scan.cu",
+                     replaces="flappie_tpu/ops/crf_bm_pallas.py:135",
+                     max_abs_err=(alpha - alpha0).abs().max().item(), ms=ms,
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                     launches_per_batch=1))
+
+    last = alpha.argmax(dim=0).to(torch.int32)
+    path = crf_bm_cuda.traceback(bps, tvalid, last)
+    path0 = crf_bm_cuda.traceback_plain(bps, tvalid, last)
+    if not torch.equal(path, path0):
+        raise AssertionError("K6 crf_traceback: not equal to its plain version")
+    ms = cuda_ms(torch, lambda: crf_bm_cuda.traceback(bps, tvalid, last), 5)
+    plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.traceback_plain(bps, tvalid, last), 1)
+    bms, by = bound(4 * T * S * B + 4 * T * B + 4 * B + 4 * (T + 1) * B, nv * S, peak)
+    rows.append(dict(name="crf_traceback", kid="K6", route="cuda",
+                     source="flappie_tpu_torch/csrc/crf_scan.cu",
+                     replaces="flappie_tpu/ops/crf_bm_pallas.py:170",
+                     max_abs_err=float((path - path0).abs().max().item()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                     launches_per_batch=1))
+    for r in rows:
+        log("kernel " + json.dumps({
+            "kernel": r["name"], "id": r["kid"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "launches_per_batch": r["launches_per_batch"], "library_ms": r["library_ms"],
+            "max_abs_err": r["max_abs_err"],
+        }))
+    return rows
+
+
+# -- phase 3: main path --------------------------------------------------------
+
+
+def write_reads(np, rng, outdir: str) -> list:
+    from flappie_tpu_torch.signal.fast5 import write_single_read_fast5
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    os.makedirs(outdir)
+    sizes = [int(n) for n in rng.integers(95_000, 105_000, 64)]
+    sizes += [int(n) for n in rng.integers(6_000, 12_800, 16)]
+    names = []
+    for k, n in enumerate(sizes):
+        name = f"read{k:03d}.fast5"
+        write_single_read_fast5(os.path.join(outdir, name), synthetic_adc(n, rng),
+                                f"00000000-0000-4000-8000-{k:012d}")
+        names.append((name, n))
+    return names
+
+
+def expected_programs(reads_dir: str, names: list) -> int:
+    """Program dispatches the CLI's default settings give these reads:
+    chunk batches of 256 across the long reads, plus bucket batches of
+    at most 32 same-bucket short reads."""
+    from flappie_tpu_torch.basecall import bucket_length, preprocess_batch
+    from flappie_tpu_torch.parallel.chunking import plan_chunks
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    t0 = time.perf_counter()
+    pre = preprocess_batch([read_raw(os.path.join(reads_dir, n)) for n, _ in names])
+    log(f"host: fast5 read + preprocessing of {len(names)} reads on one thread: "
+        f"{time.perf_counter() - t0:.3f} s")
+    nchunk, buckets = 0, {}
+    for rt in pre:
+        L = rt.end - rt.start
+        if L > 12800:
+            nchunk += plan_chunks(L, 5, 12800, 1600).nchunk
+        else:
+            buckets[bucket_length(L)] = buckets.get(bucket_length(L), 0) + 1
+    return -(-nchunk // 256) + sum(-(-c // 32) for c in buckets.values())
+
+
+def parse_fastq(text: str) -> dict:
+    lines = text.splitlines()
+    if len(lines) % 4:
+        raise AssertionError("FASTQ: line count is not a multiple of 4")
+    recs = {}
+    for i in range(0, len(lines), 4):
+        head, seq, plus, qual = lines[i : i + 4]
+        if not head.startswith("@") or plus != "+" or len(seq) != len(qual) or not seq:
+            raise AssertionError(f"malformed FASTQ record at line {i + 1}")
+        if set(seq) - set("ACGT") or any(not 33 <= ord(c) <= 126 for c in qual):
+            raise AssertionError(f"bad sequence or quality characters at line {i + 1}")
+        meta = json.loads(head.split("  ", 1)[1])
+        recs[meta["filename"]] = (seq, meta["normalised_score"])
+    return recs
+
+
+def identity(a: str, b: str, band: int = 256) -> float:
+    """1 - edit distance / longer length (banded; exact for distances
+    below the band)."""
+    if a == b:
+        return 1.0
+    import numpy as np
+
+    x, y = np.frombuffer(a.encode(), np.uint8), np.frombuffer(b.encode(), np.uint8)
+    n, m = x.size, y.size
+    big = n + m
+    prev = np.arange(m + 1, dtype=np.int64)
+    jj = np.arange(m + 1)
+    for i in range(1, n + 1):
+        cost = np.concatenate(([big], (y != x[i - 1]).astype(np.int64)))
+        diag = np.concatenate(([big], prev[:-1])) + cost
+        a_ = np.minimum(prev + 1, diag)
+        a_[0] = i
+        a_[np.abs(jj - i) > band] = big
+        prev = np.minimum.accumulate(a_ - jj) + jj
+    return 1.0 - prev[m] / max(n, m)
+
+
+def time_chunk_program(torch, np, rng, card: str) -> None:
+    """Device time of one full 256-chunk batch of the chunk program
+    (the int16 wire, fb decode), outside the CLI."""
+    from flappie_tpu_torch.basecall import (
+        _device_basecall_chunk_packed_i16, pack_chunk_inputs_i16)
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.models.params import init_synthetic, params_to_torch
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    cfg = get_model_config("r941_native")
+    params = params_to_torch(init_synthetic(cfg, seed=0), "cuda")
+    CB, W = 256, 12800
+    adc = np.stack([synthetic_adc(W, rng) for _ in range(CB)])
+    pa = (adc.astype(np.float32) + np.float32(16.0)) * np.float32(1373.41 / 8192.0)
+    med = np.median(pa, axis=1).astype(np.float32)
+    mad = (np.median(np.abs(pa - med[:, None]), axis=1) * 1.4826).astype(np.float32)
+    scal = np.stack([np.full(CB, 16.0), np.full(CB, 1373.41 / 8192.0), med, mad], 1)
+    full = np.full(CB, W, np.int32)
+    buf = torch.from_numpy(pack_chunk_inputs_i16(adc, full, np.full(CB, 1), full // 5, scal))
+    buf = buf.to("cuda")
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: _device_basecall_chunk_packed_i16(
+            params, buf, cfg, 1.0, False, False), 2)
+    log(f"device: chunk program, one batch of {CB} x {W} samples: {ms:.1f} ms = "
+        f"{CB * W / ms / 1e3:.3f} Msamples/s device-only [{card}]")
+
+
+def profiled_run(torch, reads_dir: str, card: str) -> None:
+    """The default run once more under torch.profiler (device activity
+    only): the device busy share of the wall, and kernel time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = run_cli(torch, [reads_dir, "-o", os.path.join(WORK, "gpu_fb_profiled.fastq")])
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log("profile: no device events recorded; device busy share not measured")
+        return
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for t0, t1, name in spans:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+    log(f"profile (fb run, profiler on): wall {wall:.3f} s, device busy {busy / 1e6:.3f} s "
+        f"= {100 * busy / 1e6 / wall:.1f}% of the wall, span of device work "
+        f"{(end - spans[0][0]) / 1e6:.3f} s [{card}]")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  kernel time {us / 1e3:9.1f} ms  {name[:90]}")
+
+
+def run_cli(torch, args: list) -> float:
+    from flappie_tpu_torch.cli.flappie import main
+
+    t0 = time.perf_counter()
+    rc = main(args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"flappie CLI exited {rc} for {args}")
+    return wall
+
+
+def main_path(torch, np, card: str) -> dict:
+    from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
+
+    counters = {
+        "lstm_layer": rnn_cuda.lstm_layer_tm,
+        "crf_sum_scan": crf_bm_cuda.sum_states,
+        "crf_viterbi": crf_bm_cuda.viterbi_fwd,
+        "crf_traceback": crf_bm_cuda.traceback,
+    }
+    shutil.rmtree(WORK, ignore_errors=True)
+    reads_dir = os.path.join(WORK, "reads")
+    rng = np.random.default_rng(20261016)
+    names = write_reads(np, rng, reads_dir)
+    nsample = sum(n for _, n in names)
+    P = expected_programs(reads_dir, names)
+    log(f"main path: {len(names)} reads, {nsample} samples, {P} programs per run")
+
+    launches = {}
+    outputs = {}
+    for mode, extra in (("fb", []), ("viterbi", ["--viterbi"])):
+        out = os.path.join(WORK, f"gpu_{mode}.fastq")
+        for fn in counters.values():
+            fn.launches = 0
+        wall = run_cli(torch, [reads_dir, "-o", out] + extra)
+        got = {k: fn.launches for k, fn in counters.items()}
+        want = {"lstm_layer": 5 * P, "crf_sum_scan": (3 if mode == "fb" else 1) * P,
+                "crf_viterbi": P, "crf_traceback": P}
+        if got != want:
+            raise AssertionError(f"{mode}: kernel launches {got}, expected {want}")
+        with open(out) as fh:
+            recs = parse_fastq(fh.read())
+        if sorted(recs) != sorted(n for n, _ in names):
+            raise AssertionError(f"{mode}: {len(recs)} FASTQ records for {len(names)} reads")
+        outputs[mode] = recs
+        if mode == "fb":
+            launches = got
+        log(f"main path {mode}: {len(recs)} reads, wall {wall:.3f} s, "
+            f"{nsample / wall / 1e6:.3f} Msamples/s, launches {json.dumps(got)} [{card}]")
+
+    # a subset against the port's own CPU path
+    subset = [names[0][0], names[1][0], names[-2][0], names[-1][0]]
+    sub_dir = os.path.join(WORK, "subset")
+    os.makedirs(sub_dir)
+    for n in subset:
+        shutil.copy(os.path.join(reads_dir, n), sub_dir)
+    cpu_out = os.path.join(WORK, "cpu_fb.fastq")
+    cpu_wall = run_cli(torch, [sub_dir, "-o", cpu_out, "--device", "cpu"])
+    with open(cpu_out) as fh:
+        cpu = parse_fastq(fh.read())
+    worst_id, worst_ds = 1.0, 0.0
+    for n in subset:
+        ident = identity(outputs["fb"][n][0], cpu[n][0])
+        ds = abs(outputs["fb"][n][1] - cpu[n][1])
+        worst_id, worst_ds = min(worst_id, ident), max(worst_ds, ds)
+        log(f"gpu vs cpu {n}: identity {ident:.6f}, |score delta| {ds:.2e}")
+        if not (ident >= 0.995 and ds <= 1e-4):
+            raise AssertionError(f"{n}: GPU vs CPU outside the band (identity {ident}, "
+                                 f"score delta {ds})")
+    log(f"gpu vs cpu: {len(subset)} reads, min identity {worst_id:.6f}, "
+        f"max |score delta| {worst_ds:.2e}, cpu wall {cpu_wall:.1f} s")
+    time_chunk_program(torch, np, rng, card)
+    profiled_run(torch, reads_dir, card)
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    import flappie_tpu_torch
+    from flappie_tpu_torch.ops import cuda_build
+
+    pkg = os.path.dirname(os.path.abspath(flappie_tpu_torch.__file__))
+    if pkg != os.path.join(HERE, "flappie_tpu_torch"):
+        raise AssertionError(f"flappie_tpu_torch imported from {pkg}, not this checkout")
+
+    card = card_line()
+    log(f"card: {card}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}")
+    peak = PEAKS["pcie" if "PCIe" in card else "sxm"]
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    log(f"build: {built} in {time.perf_counter() - t0:.2f} s")
+    for name, text in cuda_build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    rows = check_kernels(torch, peak)
+    launches = main_path(torch, np, card)
+
+    kernels = [{
+        "name": r["name"], "route": r["route"], "source": r["source"],
+        "replaces": r["replaces"], "launches": launches[r["name"]],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    } for r in rows]
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

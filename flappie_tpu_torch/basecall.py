@@ -1,0 +1,690 @@
+"""End-to-end basecalling: raw reads -> BasecallResult.
+
+Counterpart of flappie_tpu/basecall.py.  Reads are preprocessed on the
+host (numpy, in waves on a background thread), long reads are cut into
+overlapping chunks that are batched across reads through one fixed-shape
+chunk program, short reads are bucketed to power-of-two lengths through
+the full-read program, and each program runs the network forward, the
+CRF forward-backward (unless viterbi-only) and the Viterbi decode with
+traceback on the device.  Host code only converts paths to strings.
+
+Decode-mode semantics (src/flappie.c:276-300):
+- default (fb): Viterbi runs over the *normalised log posterior*, so
+  qualities are posterior-derived;
+- --viterbi: Viterbi runs over the raw transition weights.
+
+Each program takes ONE packed input buffer and returns ONE byte matrix
+(the JAX package's layouts, so the two can be compared byte for byte).
+On the GPU a batch is uploaded from pinned host memory and its output
+copied back into pinned memory asynchronously on the current stream; a
+short queue of batches in flight lets the host pack the next batch while
+the device computes.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+from dataclasses import replace
+from types import SimpleNamespace
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .decode.seq import path_to_basecall
+from .io.fastx import BasecallResult
+from .models.config import ModelConfig, get_model_config
+from .models.network import check_supported, transitions
+from .models.params import init_synthetic, load_npz, params_to_torch, validate
+from .ops.crf import phred_from_qpath
+from .ops.crf_bm import decode_bm
+from .parallel.chunking import chunk_records, plan_chunks
+from .signal.preprocess import RawTable, normalise_signal, trim_and_segment
+
+F32 = np.float32
+
+MIN_BUCKET = 2048
+
+# Batches queued on the device before the oldest is collected.  Launches
+# return at once, so batches in flight keep the device busy while the
+# host packs the next batch and formats the last one.
+PIPELINE_DEPTH = 2
+# CUDA streams the batches rotate over.  The LSTM recurrence kernel
+# fills only 32 SMs at 256 rows (8 rows per block), so batches on
+# separate streams run concurrently on the rest of the card.
+STREAMS = PIPELINE_DEPTH + 1
+
+
+def bucket_length(n: int, min_bucket: int = MIN_BUCKET) -> int:
+    """Pad target: next power-of-two bucket (bounds the program shapes)."""
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return b
+
+
+# Reads per preprocessing wave: wave k+1 is preprocessed on a background
+# thread while wave k's chunks pack and dispatch, so the first batch
+# leaves after one wave.  Outputs are identical for any wave size.
+PREPROCESS_WAVE = 16
+
+
+# -- fault injection (reference CHAOSMONKEY, src/flappie_stdlib.h:18-35) -----
+#
+# FLAPPIE_TPU_CHAOS_DEVICE=p corrupts each preprocessed read with
+# probability p (alternating NaN signal / zero-length);
+# FLAPPIE_TPU_CHAOS_DISPATCH=p fails each dispatch with probability p.
+# Both degrade to "No basecall returned" for the affected reads only.
+
+
+def _chaos_p(var: str) -> float:
+    v = os.environ.get(var)
+    return float(v) if v else 0.0
+
+
+def _chaos_corrupt_reads(processed, counter: list) -> None:
+    p = _chaos_p("FLAPPIE_TPU_CHAOS_DEVICE")
+    if not p:
+        return
+    rng = np.random.default_rng()
+    for rt in processed:
+        if rt is None or rng.random() >= p:
+            continue
+        counter[0] += 1
+        if counter[0] % 2 == 1 and rt.end > rt.start:
+            rt.raw[rt.start : rt.end] = np.nan
+            rt.adc = None  # corruption must reach the device either way
+        else:
+            rt.end = rt.start  # zero-length active window
+
+
+def _chaos_maybe_fail_dispatch() -> None:
+    p = _chaos_p("FLAPPIE_TPU_CHAOS_DISPATCH")
+    if p and np.random.default_rng().random() < p:
+        raise RuntimeError("chaos: injected dispatch failure")
+
+
+def preprocess_batch(reads, trim_start=200, trim_end=10, varseg_chunk=100,
+                     varseg_thresh=0.0, delta=0.0) -> List[Optional[RawTable]]:
+    """Trim + normalise each read (numpy).  Inputs are never mutated;
+    None where trimming consumed the read."""
+    out: List[Optional[RawTable]] = []
+    for rt in reads:
+        if rt.raw is None:
+            out.append(None)
+            continue
+        rt = replace(rt, raw=rt.raw.copy())  # callers keep their data
+        rt = trim_and_segment(rt, trim_start, trim_end, varseg_chunk, varseg_thresh)
+        out.append(normalise_signal(rt, delta) if rt.valid else None)
+    return out
+
+
+def _i16_capable(rt) -> bool:
+    return rt.adc is not None and rt.cal is not None and rt.norm is not None
+
+
+# -- device programs ---------------------------------------------------------
+
+
+def _device_basecall(params, signal, lengths, cfg: ModelConfig, temperature: float,
+                     viterbi_only: bool, compute_trace: bool):
+    """Full-read program: (score, path int8 [B, T+1], qchar uint8,
+    nblocks, trace)."""
+    trans, nblocks = transitions(params, cfg, signal, lengths, temperature)
+    score, path, qpath, trace = decode_bm(trans, nblocks, cfg.nbase, viterbi_only,
+                                          compute_trace)
+    return score, path.to(torch.int8), phred_from_qpath(qpath), nblocks, trace
+
+
+def _device_basecall_chunk(params, signal, lengths, qlo, qhi, cfg: ModelConfig,
+                           temperature: float, viterbi_only: bool, compute_trace: bool):
+    """Chunk program: as _device_basecall, but the score is the masked
+    sum of qpath over each chunk's OWNED local range [qlo, qhi), so chunk
+    scores sum to the read's score."""
+    if viterbi_only:
+        # Exact cross-chunk score: undo each chunk's own shift over the
+        # owned range and subtract the owned partition increments, which
+        # stitch the full-read logZ; the alpha0 log(nstate) constant
+        # lands on the first chunk (qlo == 1).
+        trans, nblocks, shift, incs = transitions(
+            params, cfg, signal, lengths, temperature, return_norm=True)
+    else:
+        trans, nblocks = transitions(params, cfg, signal, lengths, temperature)
+    _, path, qpath, trace = decode_bm(trans, nblocks, cfg.nbase, viterbi_only,
+                                      compute_trace)
+    t = torch.arange(qpath.shape[1], device=qpath.device)[None, :]
+    keep = (t >= qlo[:, None]) & (t < qhi[:, None])
+    score_part = torch.sum(torch.where(keep, qpath, torch.zeros_like(qpath)), dim=1)
+    if viterbi_only:
+        cnt = (qhi - qlo).to(trans.dtype)
+        tr = torch.arange(incs.shape[1], device=incs.device)[None, :]
+        keep_inc = (tr >= qlo[:, None] - 1) & (tr < qhi[:, None] - 1)
+        owned_inc = torch.sum(torch.where(keep_inc, incs, torch.zeros_like(incs)), dim=1)
+        first = (qlo == 1).to(trans.dtype)
+        score_part = (score_part + shift * cnt - owned_inc
+                      - first * float(np.float32(math.log(cfg.nstate))))
+    return score_part, path.to(torch.int8), phred_from_qpath(qpath), nblocks, trace
+
+
+def _pack_outputs(score, path, qchar, nblocks, trace, compute_trace: bool):
+    """One byte matrix per batch:
+
+        [B, (T+1)          path  (int8 states)
+            + (T+1)        qchar (phred bytes)
+            (+ (T+1)*S     trace bytes, when compute_trace)
+            + 4            score f32, bitcast
+            + 4 ]          nblocks i32, bitcast
+    """
+    B = path.shape[0]
+    parts = [path.view(torch.uint8), qchar]
+    if compute_trace:
+        parts.append(trace.reshape(B, -1))
+    parts.append(score.to(torch.float32).contiguous().view(torch.uint8).reshape(B, 4))
+    parts.append(nblocks.to(torch.int32).contiguous().view(torch.uint8).reshape(B, 4))
+    return torch.cat(parts, dim=1)
+
+
+def _unpack_i16(buf):
+    """Device prologue of the int16 wire: one [B, T+16] int16 buffer ->
+    (normalised f32 signal [B, T], lengths, qlo, qhi).
+
+    The 16 tail int16 are 8 bitcast f32: (length, qlo, qhi, offset,
+    raw_unit, med, mad, unused).  The device replays the host pipeline
+    -- pA = (adc + offset) * raw_unit (src/fast5_interface.c:297-303),
+    then (pA - med) / mad (src/util.c:198-213) -- from the int16 ADC
+    counts.  Each eager op rounds on its own, so nothing contracts into
+    an FMA here; the mask stays between the multiply and the subtract as
+    in the JAX version (basecall.py:434-441), where it is what keeps
+    XLA from contracting them."""
+    tail = buf[:, -16:].contiguous().view(torch.float32)  # [B, 8]
+    lengths = tail[:, 0].to(torch.int32)
+    qlo = tail[:, 1].to(torch.int32)
+    qhi = tail[:, 2].to(torch.int32)
+    offset, raw_unit = tail[:, 3:4], tail[:, 4:5]
+    med, mad = tail[:, 5:6], tail[:, 6:7]
+    x = buf[:, :-16].to(torch.float32)
+    T = x.shape[1]
+    mask = torch.arange(T, device=buf.device)[None, :] < lengths[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=buf.device)
+    x = (x + offset) * raw_unit
+    x = torch.where(mask, x, zero)
+    x = (x - med) / mad
+    sig = torch.where(mask, x, zero)
+    return sig, lengths, qlo, qhi
+
+
+def _device_basecall_packed(params, buf, cfg, temperature, viterbi_only, compute_trace):
+    """f32 bucket program: [B, bucket+4] (signal + float-encoded length)."""
+    sig = buf[:, :-4]
+    lengths = buf[:, -4].to(torch.int32)
+    score, path, qchar, nblocks, trace = _device_basecall(
+        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace)
+    return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
+
+
+def _device_basecall_chunk_packed(params, buf, cfg, temperature, viterbi_only, compute_trace):
+    """f32 chunk program: [CB, chunk+4] (signal + length, qlo, qhi, pad)."""
+    sig = buf[:, :-4]
+    meta = buf[:, -4:].to(torch.int32)
+    score, path, qchar, nblocks, trace = _device_basecall_chunk(
+        params, sig, meta[:, 0], meta[:, 1], meta[:, 2], cfg, temperature,
+        viterbi_only, compute_trace)
+    return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
+
+
+def _device_basecall_packed_i16(params, buf, cfg, temperature, viterbi_only, compute_trace):
+    """int16-wire bucket program (the short-read path)."""
+    sig, lengths, _qlo, _qhi = _unpack_i16(buf)
+    score, path, qchar, nblocks, trace = _device_basecall(
+        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace)
+    return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
+
+
+def _device_basecall_chunk_packed_i16(params, buf, cfg, temperature, viterbi_only,
+                                      compute_trace):
+    """int16-wire chunk program (the production long-read path)."""
+    sig, lengths, qlo, qhi = _unpack_i16(buf)
+    score, path, qchar, nblocks, trace = _device_basecall_chunk(
+        params, sig, lengths, qlo, qhi, cfg, temperature, viterbi_only, compute_trace)
+    return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
+
+
+def _unpack_chunk_outputs(buf: np.ndarray, T1: int, nstate: int, compute_trace: bool):
+    """Inverse of the packed layout -> (score, path, qchar, nblocks, trace)."""
+    path = buf[:, :T1].astype(np.int8)
+    qchar = buf[:, T1 : 2 * T1]
+    ofs = 2 * T1
+    trace = None
+    if compute_trace:
+        trace = buf[:, ofs : ofs + T1 * nstate].reshape(-1, T1, nstate)
+        ofs += T1 * nstate
+    score = buf[:, ofs : ofs + 4].copy().view(np.float32)[:, 0]
+    nblocks = buf[:, ofs + 4 : ofs + 8].copy().view(np.int32)[:, 0]
+    return score, path, qchar, nblocks, trace
+
+
+def pack_chunk_inputs(signals, lengths, qlo, qhi) -> np.ndarray:
+    """f32 wire: one [CB, chunk+4] array per batch, signal plus
+    float-encoded int metadata (exact below 2^24)."""
+    meta = np.stack(
+        [
+            np.asarray(lengths, np.int32),
+            np.asarray(qlo, np.int32),
+            np.asarray(qhi, np.int32),
+            np.zeros(np.shape(signals)[0], np.int32),
+        ],
+        axis=1,
+    ).astype(np.float32)
+    return np.concatenate([np.asarray(signals, np.float32), meta], axis=1)
+
+
+def pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal) -> np.ndarray:
+    """int16 wire: one [CB, chunk+16] int16 array per batch.  ``scal``:
+    [CB, 4] f32 (offset, raw_unit, med, mad); the 16 tail int16 are 8 f32
+    (length, qlo, qhi, offset, raw_unit, med, mad, 0) bit-cast to int16
+    pairs (little-endian both sides); the device inverse is _unpack_i16."""
+    B = np.shape(adc)[0]
+    tail = np.zeros((B, 8), np.float32)
+    tail[:, 0] = lengths
+    tail[:, 1] = qlo
+    tail[:, 2] = qhi
+    tail[:, 3:7] = scal
+    return np.concatenate([np.asarray(adc, np.int16), tail.view(np.int16)], axis=1)
+
+
+class _InFlight:
+    """One dispatched batch: its output bytes land in ``host`` (pinned
+    memory on the GPU) once ``event`` has completed.  ``keep`` holds the
+    pinned input buffer until then."""
+
+    def __init__(self, host, event=None, keep=None):
+        self.host, self.event, self.keep = host, event, keep
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class _Pipeline:
+    """Dispatch-ahead queue: push (tag, in-flight batch) pairs; the oldest
+    is collected once more than ``depth`` are queued.  ``on_error(tag,
+    exc)``, when given, absorbs a collect failure so one bad batch
+    degrades to its own reads (reference NULL-propagation,
+    src/flappie_stdlib.h:37-45)."""
+
+    def __init__(self, collect, depth: int = PIPELINE_DEPTH, on_error=None):
+        self._collect = collect
+        self._depth = depth
+        self._on_error = on_error
+        self._q: list = []
+
+    def _run(self, tag, pending) -> None:
+        try:
+            self._collect(tag, pending.result())
+        except Exception as exc:  # noqa: BLE001 - per-batch isolation
+            if self._on_error is None:
+                raise
+            self._on_error(tag, exc)
+
+    def push(self, tag, pending) -> None:
+        self._q.append((tag, pending))
+        if len(self._q) > self._depth:
+            self._run(*self._q.pop(0))
+
+    def drain(self) -> None:
+        for tag, pending in self._q:
+            self._run(tag, pending)
+        self._q.clear()
+
+
+class Basecaller:
+    """Batched basecaller for one model on one device (``cuda`` unless
+    ``device`` says otherwise)."""
+
+    def __init__(
+        self,
+        model="r941_native",
+        params=None,
+        checkpoint: Optional[str] = None,
+        temperature: float = 1.0,
+        viterbi_only: bool = False,
+        compute_trace: bool = True,
+        seed: int = 0,
+        chunk: Optional[int] = None,
+        overlap: int = 1600,
+        chunk_batch: int = 256,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = get_model_config(model) if isinstance(model, str) else model
+        check_supported(self.cfg)
+        if params is None:
+            params = load_npz(checkpoint) if checkpoint is not None else init_synthetic(
+                self.cfg, seed=seed)
+        validate(params, self.cfg)
+        self.params = params_to_torch(params, self.device)
+        self.temperature = float(temperature)
+        self.viterbi_only = bool(viterbi_only)
+        self.compute_trace = bool(compute_trace)
+        # Chunked fast path (0 disables): reads longer than `chunk`
+        # samples are split into overlapping chunks batched through ONE
+        # fixed-shape program and stitched at overlap midpoints
+        # (parallel/chunking.py); the default gives every model 2,560
+        # serial blocks per chunk.
+        stride = self.cfg.total_stride
+        if chunk is None:
+            chunk = 2560 * stride
+        self.chunk = int(chunk) - int(chunk) % stride if chunk else 0
+        self.overlap = int(overlap)
+        self.chunk_batch = int(chunk_batch)
+        self._chaos_counter = [0]
+        self._streams = []
+        self._next_stream = 0
+        if self.device.type == "cuda":
+            self._streams = [torch.cuda.Stream(self.device) for _ in range(STREAMS)]
+            # the weights were uploaded on the current stream; the batch
+            # streams read them, so the upload must be complete first
+            torch.cuda.synchronize(self.device)
+
+    # -- device side ------------------------------------------------------
+
+    def _dispatch(self, program, buf: np.ndarray) -> _InFlight:
+        """Upload one packed batch and enqueue its program on the next
+        stream; returns at once on the GPU (the output bytes are
+        collected later)."""
+        _chaos_maybe_fail_dispatch()
+        host = torch.from_numpy(np.ascontiguousarray(buf))
+        if self.device.type != "cuda":
+            with torch.inference_mode():
+                return _InFlight(program(self.params, host, self.cfg, self.temperature,
+                                         self.viterbi_only, self.compute_trace))
+        stream = self._streams[self._next_stream % len(self._streams)]
+        self._next_stream += 1
+        host = host.pin_memory()
+        with torch.cuda.stream(stream), torch.inference_mode():
+            dev = host.to(self.device, non_blocking=True)
+            out = program(self.params, dev, self.cfg, self.temperature,
+                          self.viterbi_only, self.compute_trace)
+            pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            pinned.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return _InFlight(pinned, event, keep=host)
+
+    # -- full pipeline ----------------------------------------------------
+
+    def basecall_raw_tables(
+        self,
+        reads: Sequence[RawTable],
+        trim_start: int = 200,
+        trim_end: int = 10,
+        varseg_chunk: int = 100,
+        varseg_thresh: float = 0.0,
+        delta: float = 0.0,
+        reverse: bool = False,
+        max_batch: int = 32,
+    ) -> List[Optional[BasecallResult]]:
+        """Preprocess, chunk or bucket, batch and decode a set of reads.
+
+        Entries of ``reads`` may be RawTables or zero-arg callables
+        returning one (lazy reads, materialised on the preprocessing
+        thread).  Returns one BasecallResult per input (None where the
+        read failed), in input order.
+        """
+
+        def _pre(batch):
+            batch = [r() if callable(r) else r for r in batch]
+            return preprocess_batch(batch, trim_start, trim_end, varseg_chunk,
+                                    varseg_thresh, delta)
+
+        results: List[Optional[BasecallResult]] = [None] * len(reads)
+        chunked = self._chunked_run(results, reverse) if self.chunk else None
+        prepped: list = []  # short reads -> the bucketed path below
+
+        def _absorb(processed, base):
+            # reads longer than one chunk go through the chunked program,
+            # dispatched incrementally so later waves' preprocessing
+            # overlaps earlier waves' device work
+            _chaos_corrupt_reads(processed, self._chaos_counter)
+            batch = [(base + k, rt) for k, rt in enumerate(processed) if rt is not None]
+            if chunked is not None:
+                long_items = [(i, rt) for i, rt in batch if rt.end - rt.start > self.chunk]
+                batch = [(i, rt) for i, rt in batch if rt.end - rt.start <= self.chunk]
+                if long_items:
+                    chunked.add(long_items)
+            prepped.extend(batch)
+
+        wave = PREPROCESS_WAVE
+        if len(reads) > wave:
+            from concurrent.futures import ThreadPoolExecutor
+
+            offsets = list(range(0, len(reads), wave))
+            with ThreadPoolExecutor(1, thread_name_prefix="flappie-pre") as ex:
+                fut = ex.submit(_pre, reads[:wave])
+                for w, ofs in enumerate(offsets):
+                    processed = fut.result()
+                    if w + 1 < len(offsets):
+                        nxt = offsets[w + 1]
+                        fut = ex.submit(_pre, reads[nxt : nxt + wave])
+                    _absorb(processed, ofs)
+        else:
+            _absorb(_pre(reads), 0)
+        if chunked is not None:
+            chunked.flush()
+
+        # group by bucket to keep shapes static; batch within bucket
+        by_bucket: dict = {}
+        for i, rt in prepped:
+            by_bucket.setdefault(bucket_length(rt.end - rt.start), []).append((i, rt))
+
+        def _dispatch(part, bucket):
+            B = len(part)
+            lengths = np.zeros(B, np.int32)
+            zeros = np.zeros(B, np.int32)
+            if all(_i16_capable(rt) for _, rt in part):
+                adc = np.zeros((B, bucket), np.int16)
+                scal = np.zeros((B, 4), F32)
+                scal[:, 3] = 1.0  # pad rows: mad=1 -> exact zero signal
+                for j, (_, rt) in enumerate(part):
+                    L = rt.end - rt.start
+                    adc[j, :L] = rt.adc[rt.start : rt.end]
+                    lengths[j] = L
+                    scal[j] = (rt.cal[0], rt.cal[1], rt.norm[0], rt.norm[1])
+                buf = pack_chunk_inputs_i16(adc, lengths, zeros, zeros, scal)
+                return self._dispatch(_device_basecall_packed_i16, buf)
+            sig = np.zeros((B, bucket), F32)
+            for j, (_, rt) in enumerate(part):
+                seg = rt.active()
+                sig[j, : seg.size] = seg
+                lengths[j] = seg.size
+            return self._dispatch(_device_basecall_packed,
+                                  pack_chunk_inputs(sig, lengths, zeros, zeros))
+
+        def _collect(tag, out):
+            part, bucket = tag
+            T1 = -(-bucket // self.cfg.total_stride) + 1
+            score, path, qchar, nblocks, trace = _unpack_chunk_outputs(
+                out, T1, self.cfg.nstate, self.compute_trace)
+            for j, (i, rt) in enumerate(part):
+                results[i] = self._assemble(
+                    rt, score[j], path[j], qchar[j], int(nblocks[j]),
+                    None if trace is None else trace[j], reverse)
+
+        def _on_error(tag, exc):
+            part, _bucket = tag
+            print(f"basecall batch failed ({exc}); dropping {len(part)} read(s)",
+                  file=sys.stderr)
+
+        pipe = _Pipeline(_collect, on_error=_on_error)
+        for bucket, items in sorted(by_bucket.items()):
+            for ofs in range(0, len(items), max_batch):
+                part = items[ofs : ofs + max_batch]
+                try:
+                    pipe.push((part, bucket), _dispatch(part, bucket))
+                except Exception as exc:  # noqa: BLE001 - batch isolation
+                    _on_error((part, bucket), exc)
+        if chunked is not None:
+            chunked.drain()
+        pipe.drain()
+        return results
+
+    # -- chunked production path -------------------------------------------
+
+    def _chunked_run(self, results, reverse: bool):
+        """Returns an object whose ``add(items)`` registers long reads and
+        dispatches every FULL chunk batch at once, whose ``flush()``
+        dispatches the remainder, and whose ``drain()`` collects every
+        batch in flight: full batches at self.chunk_batch, then one final
+        (possibly bucketed) tail."""
+        stride = self.cfg.total_stride
+        chunk_T = self.chunk
+        nstate = self.cfg.nstate
+        jobs = []  # (read index, ChunkRecord) not yet packed
+        state: dict = {}
+        dispatched = [False]  # has any full batch been packed yet?
+
+        def _register(items):
+            for i, rt in items:
+                seg = rt.active()
+                plan = plan_chunks(seg.size, stride, chunk_T, self.overlap)
+                recs = chunk_records(plan)
+                nb = plan.nblocks
+                i16 = _i16_capable(rt)
+                state[i] = {
+                    "rt": rt,
+                    "seg": seg,
+                    "adc_seg": rt.adc[rt.start : rt.end] if i16 else None,
+                    "scal": (rt.cal[0], rt.cal[1], rt.norm[0], rt.norm[1]) if i16 else None,
+                    "nb": nb,
+                    "remaining": len(recs),
+                    "score": 0.0,
+                    "path": np.zeros(nb + 1, np.int8),
+                    "qchar": np.zeros(nb + 1, np.uint8),
+                    "trace": (np.zeros((nb + 1, nstate), np.uint8)
+                              if self.compute_trace else None),
+                }
+                jobs.extend((i, r) for r in recs)
+
+        def _pack_dispatch(job_slice, CB):
+            # dummy rows: a few valid samples, empty score range
+            lengths = np.full(CB, stride, np.int32)
+            qlo = np.zeros(CB, np.int32)
+            qhi = np.zeros(CB, np.int32)
+            if all(state[i]["adc_seg"] is not None for i, _ in job_slice):
+                adc = np.zeros((CB, chunk_T), np.int16)
+                scal = np.zeros((CB, 4), F32)
+                scal[:, 3] = 1.0  # dummy rows: mad=1 -> exact zero signal
+                for j, (i, r) in enumerate(job_slice):
+                    adc[j, : r.length] = state[i]["adc_seg"][r.start : r.start + r.length]
+                    lengths[j] = r.length
+                    qlo[j] = r.qlo
+                    qhi[j] = r.qhi
+                    scal[j] = state[i]["scal"]
+                buf = pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal)
+                return self._dispatch(_device_basecall_chunk_packed_i16, buf)
+            sig = np.zeros((CB, chunk_T), F32)
+            for j, (i, r) in enumerate(job_slice):
+                sig[j, : r.length] = state[i]["seg"][r.start : r.start + r.length]
+                lengths[j] = r.length
+                qlo[j] = r.qlo
+                qhi[j] = r.qhi
+            return self._dispatch(_device_basecall_chunk_packed,
+                                  pack_chunk_inputs(sig, lengths, qlo, qhi))
+
+        def _finish(i):
+            st = state[i]
+            if st["remaining"] > 0:
+                return
+            results[i] = None if st.get("failed") else self._assemble(
+                st["rt"], st["score"], st["path"], st["qchar"], st["nb"],
+                st["trace"], reverse)
+            state[i] = {"remaining": 0}  # free the buffers
+
+        def _collect(job_slice, out):
+            score, path, qchar, _, trace = _unpack_chunk_outputs(
+                out, chunk_T // stride + 1, nstate, self.compute_trace)
+            for j, (i, r) in enumerate(job_slice):
+                st = state[i]
+                if st["remaining"] <= 0:
+                    continue
+                end = r.keep_hi + (1 if r.last else 0)  # fencepost entry
+                lo, g0 = r.keep_lo, r.g0
+                st["path"][lo:end] = path[j, lo - g0 : end - g0]
+                st["qchar"][lo:end] = qchar[j, lo - g0 : end - g0]
+                if st["trace"] is not None:
+                    st["trace"][lo:end] = trace[j, lo - g0 : end - g0]
+                st["score"] += float(score[j])
+                st["remaining"] -= 1
+                _finish(i)
+
+        def _on_error(job_slice, exc):
+            # a failed chunk batch fails only the reads it carries
+            fails = sorted({i for i, _ in job_slice})
+            print(f"chunk batch failed ({exc}); dropping read(s) {fails}",
+                  file=sys.stderr)
+            for i, _r in job_slice:
+                st = state[i]
+                if st["remaining"] <= 0:
+                    continue
+                st["failed"] = True
+                st["remaining"] -= 1
+                _finish(i)
+
+        pipe = _Pipeline(_collect, on_error=_on_error)
+
+        def _route(part, CB):
+            try:
+                pipe.push(part, _pack_dispatch(part, CB))
+            except Exception as exc:  # noqa: BLE001 - batch isolation
+                _on_error(part, exc)
+
+        def add(items):
+            _register(items)
+            while len(jobs) >= self.chunk_batch:
+                part = jobs[: self.chunk_batch]
+                del jobs[: self.chunk_batch]
+                dispatched[0] = True
+                _route(part, self.chunk_batch)
+
+        def flush():
+            # Tail batch size: when no full batch was ever reached, a
+            # handful of chunks should not pay a full batch of padding;
+            # after any full batch keep the production size.
+            if jobs:
+                CB = (self.chunk_batch if dispatched[0]
+                      else min(self.chunk_batch, bucket_length(len(jobs), 8)))
+                while jobs:
+                    part = jobs[:CB]
+                    del jobs[:CB]
+                    _route(part, CB)
+
+        return SimpleNamespace(add=add, flush=flush, drain=pipe.drain)
+
+    def _assemble(self, rt, score, path, qpath, nblock, trace, reverse) -> Optional[BasecallResult]:
+        # Per-read validity net: a poisoned read inside a batch (NaN
+        # signal, zero-length row) surfaces as a non-finite score or an
+        # empty block range; it degrades to None without touching its
+        # batchmates.
+        score = float(score)
+        if not np.isfinite(score) or nblock < 1:
+            return None
+        basecall, quality = path_to_basecall(path, qpath, nblock, self.cfg.nbase)
+        if reverse:
+            basecall = basecall[::-1]
+            quality = quality[::-1]
+        return BasecallResult(
+            uuid=rt.uuid,
+            score=float(score),
+            basecall=basecall,
+            quality=quality,
+            nblock=nblock,
+            nsample=rt.n,
+            trim_start=rt.start,
+            trim_end=rt.end,
+            trace=trace[: nblock + 1] if self.compute_trace else None,
+            signal=rt.active().copy(),
+        )

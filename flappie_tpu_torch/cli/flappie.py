@@ -1,0 +1,236 @@
+"""flappie-compatible CLI on the PyTorch/CUDA port.
+
+Counterpart of flappie_tpu/cli/flappie.py (reference src/flappie.c:42-399):
+the same flags, defaults, glob/dir expansion and per-read fault
+isolation, and the same output bytes.  Runs on ``cuda`` unless
+``--device cpu`` is given (the counterpart of the JAX CLI's
+JAX_PLATFORMS handling); without a GPU the default raises.
+
+Run as ``python -m flappie_tpu_torch.cli.flappie reads/ > calls.fastq``.
+
+Not ported yet, and refused with an error when given: ``--trace``,
+``--qcal``, ``--fast``, ``--mesh N`` (N > 1) and ``--multi``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob as globmod
+import os
+import sys
+
+from .. import __version__
+from ..io.fastx import OUTFORMATS, format_read
+from ..models.config import FLAPPIE_MODELS, MODELS
+from ..signal.fast5 import read_raw
+
+DEFAULT_MODEL = "r941_native"
+
+
+def model_help_text(default_model: str = DEFAULT_MODEL, models=FLAPPIE_MODELS) -> str:
+    lines = []
+    for name in models:
+        cfg = MODELS[name]
+        tag = "(default)" if name == default_model else ""
+        lines.append(f"{name:>10} : {cfg.description}  {tag}")
+    return "\n".join(lines) + "\n"
+
+
+def trim_pair(arg: str):
+    parts = arg.split(":")
+    start = int(parts[0])
+    end = int(parts[1]) if len(parts) > 1 and parts[1] else start
+    if start < 0 or end < 0:
+        raise argparse.ArgumentTypeError("trim values must be >= 0")
+    return start, end
+
+
+def segmentation_pair(arg: str):
+    parts = arg.split(":")
+    if len(parts) != 2:
+        raise argparse.ArgumentTypeError("--segmentation should be of form chunk:percentile")
+    chunk = int(parts[0])
+    thresh = float(parts[1]) / 100.0
+    if not (0.0 < thresh < 1.0):
+        raise argparse.ArgumentTypeError("percentile must be in (0, 100)")
+    return chunk, thresh
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="flappie",
+        description="Flappie basecaller -- basecall from raw signal",
+    )
+    p.add_argument("files", nargs="*", metavar="fast5", help="fast5 file or directory")
+    p.add_argument("--version", action="version",
+                   version=f"flappie {__version__} (flappie-tpu-torch)")
+    p.add_argument("--delta", "-d", type=float, default=0.0, metavar="factor",
+                   help="Use delta samples with scaling factor")
+    p.add_argument("--format", "-f", default="fastq", metavar="format",
+                   help="Format to output reads (fasta, fastq or sam)")
+    p.add_argument("--limit", "-l", type=int, default=0, metavar="nreads",
+                   help="Maximum number of reads to call (0 is unlimited)")
+    p.add_argument("--model", "-m", default=DEFAULT_MODEL, metavar="name",
+                   help='Model to use ("help" to list)')
+    p.add_argument("--output", "-o", default=None, metavar="filename",
+                   help="Write to file rather than stdout")
+    p.add_argument("--prefix", "-p", default="", metavar="string",
+                   help="Prefix to append to name of each read")
+    p.add_argument("--reverse", "-r", dest="reverse", action="store_true", default=False,
+                   help="Reverse output base calls")
+    p.add_argument("--no-reverse", dest="reverse", action="store_false",
+                   help="Don't reverse output base calls")
+    p.add_argument("--temperature", type=float, default=1.0, metavar="factor",
+                   help="Temperature for weights")
+    p.add_argument("--trim", "-t", type=trim_pair, default=(200, 10), metavar="start:end",
+                   help="Number of samples to trim, as start:end")
+    p.add_argument("--trace", "-T", default=None, metavar="filename",
+                   help="Dump trace to HDF5 file (not ported yet)")
+    p.add_argument("--licence", "--license", action="store_true", default=False,
+                   help="Print licensing information")
+    p.add_argument("--segmentation", type=segmentation_pair, default=(100, 0.0),
+                   metavar="chunk:percentile",
+                   help="Chunk size and percentile for variance based segmentation")
+    p.add_argument("--viterbi", "-v", dest="viterbi", action="store_true", default=False,
+                   help="Use viterbi decoding only")
+    p.add_argument("--no-viterbi", "--fb", dest="viterbi", action="store_false",
+                   help="Use forward-backward followed by viterbi")
+    p.add_argument("--hdf5-compression", type=int, default=1, metavar="level",
+                   help="Gzip compression level for HDF5 output (0:off, 1:quickest, 9:best)")
+    p.add_argument("--hdf5-chunk", type=int, default=200, metavar="size",
+                   help="Chunk size for HDF5 output")
+    p.add_argument("--uuid", dest="uuid", action="store_true", default=True,
+                   help="Output UUID")
+    p.add_argument("--no-uuid", dest="uuid", action="store_false",
+                   help="Output read file")
+    # flappie-tpu extensions
+    p.add_argument("--checkpoint", default=None, metavar="npz",
+                   help="Model weights (npz checkpoint); synthetic if omitted")
+    p.add_argument("--batch", type=int, default=32, metavar="B",
+                   help="Maximum device batch size")
+    p.add_argument("--chunk", type=int, default=None, metavar="samples",
+                   help="Chunked fast path: reads longer than this are split into "
+                        "overlapping chunks batched through one fixed-shape program "
+                        "and stitched at overlap midpoints (default: 2560 blocks x "
+                        "model stride = 12800 at stride 5; 0 disables)")
+    p.add_argument("--overlap", type=int, default=1600, metavar="samples",
+                   help="Chunk overlap; each stitched block sits at least "
+                        "overlap/2 samples from its chunk's edges")
+    p.add_argument("--chunk-batch", type=int, default=256, metavar="N",
+                   help="Maximum chunks per device batch on the chunked path")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="Shard batches over N devices (not ported yet)")
+    p.add_argument("--multi", action="store_true", default=False,
+                   help="Basecall every read in multi-read fast5 files (not ported yet)")
+    p.add_argument("--fast", action="store_true", default=False,
+                   help="Low-precision speed mode (not ported yet)")
+    p.add_argument("--qcal", default=None, metavar="slope:offset|file",
+                   help="Calibrate quality scores post-hoc (not ported yet)")
+    # port extension
+    p.add_argument("--device", default="cuda", metavar="name",
+                   help="Torch device to run on (default cuda; 'cpu' runs the "
+                        "kernels' plain PyTorch versions)")
+    return p
+
+
+def expand_files(args_files):
+    """Directory -> dir/*.fast5 glob; warn on misses (flappie.c:338-362)."""
+    out = []
+    for f in args_files:
+        pattern = os.path.join(f, "*.fast5") if os.path.isdir(f) else f
+        matches = sorted(globmod.glob(pattern))
+        if not matches:
+            print(
+                f'File or directory "{f}" does not exist or no fast5 files found.',
+                file=sys.stderr,
+            )
+            continue
+        out.extend(matches)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    if args.licence:
+        print("flappie-tpu-torch: a PyTorch/CUDA port of flappie-tpu, a "
+              "reimplementation of the Flappie basecaller.")
+        print("Original Flappie is (c) Oxford Nanopore Technologies, Ltd (ONT Public Licence).")
+        return 0
+
+    if args.model.lower() == "help":
+        sys.stdout.write(model_help_text())
+        return 0
+    if args.model not in MODELS:
+        print(f'Invalid Flappie model "{args.model}".')
+        sys.stdout.write(model_help_text())
+        return 1
+    if args.format not in OUTFORMATS:
+        print(f'Unrecognised output format "{args.format}".', file=sys.stderr)
+        return 1
+    if not args.temperature > 0.0:
+        print(f"Invalid temperature {args.temperature} -- must be > 0.", file=sys.stderr)
+        return 1
+    unported = [flag for flag, on in (
+        ("--trace", args.trace is not None), ("--qcal", args.qcal is not None),
+        ("--fast", args.fast), ("--mesh", args.mesh > 1), ("--multi", args.multi),
+    ) if on]
+    if unported:
+        parser.error(f"{', '.join(unported)}: not ported to flappie_tpu_torch yet")
+    if not args.files:
+        parser.error("the following arguments are required: fast5")
+
+    from ..basecall import Basecaller
+
+    files = expand_files(args.files)
+    if args.limit > 0:
+        files = files[: args.limit]
+
+    caller = Basecaller(
+        model=args.model,
+        checkpoint=args.checkpoint,
+        temperature=args.temperature,
+        viterbi_only=args.viterbi,
+        compute_trace=False,
+        chunk=args.chunk,
+        overlap=args.overlap,
+        chunk_batch=args.chunk_batch,
+        device=args.device,
+    )
+
+    # lazy reads: one per file, materialised on the preprocessing
+    # thread so fast5 IO overlaps dispatch (read_raw returns an invalid
+    # RawTable on failure, so fault isolation is unchanged)
+    reads = [lambda fn=fn: read_raw(fn, scale_to_pA=True) for fn in files]
+    names = [os.path.basename(fn) for fn in files]
+
+    trim_start, trim_end = args.trim
+    varseg_chunk, varseg_thresh = args.segmentation
+    results = caller.basecall_raw_tables(
+        reads,
+        trim_start=trim_start,
+        trim_end=trim_end,
+        varseg_chunk=varseg_chunk,
+        varseg_thresh=varseg_thresh,
+        delta=args.delta,
+        reverse=args.reverse,
+        max_batch=args.batch,
+    )
+
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        for fn, name, res in zip(files, names, results):
+            if res is None:
+                print(f"No basecall returned for {fn}", file=sys.stderr)
+                continue
+            out.write(format_read(args.format, res.uuid, name, args.uuid, args.prefix, res))
+            out.flush()
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,233 @@
+// Fused LSTM layer (K1) for Hopper, sm_90a.
+//
+// Replaces flappie_tpu/ops/rnn_pallas.py:273 _lstm_fused_kernel (step body
+// _lstm_fused_body:219; its bit-equal two-chain twin _lstm_fused_dual_kernel
+// :322 is covered too), reached through lstm_layer_tm:563.
+//
+// Work per layer: the block input affine xa = x.iW + b over [T*B, IN] x
+// [IN, 4H], then T dependent steps of xF = xa_t + h.sW (gate order u, f, g,
+// o), c = f*c + u*g, h = o*tanh(c).  At T=2560, B=256, IN=H=256 that is
+// 2.T.B.(IN+H).4H ~ 687 GFLOP of f32 FMA.
+//
+// What bounds it on this card: the parity tier is true f32, so no tensor
+// cores: the affine half is bound by the f32 CUDA-core rate; the recurrent
+// half is a chain of T steps, each of which must read all of sW.  sW is
+// H.4H.4 B = 1 MiB, more than one block's 227 KB of shared memory, so it is
+// read from L2 (where it stays resident: 50 MB) once per step per block.
+//
+// Design (simple and right first):
+//  1. affine_kernel, a tiled f32 SGEMM (128x128 tiles, 8x8 outputs per
+//     thread, bias added after the dot as in the TPU kernel) writes xa
+//     [T, B, 4H] to device memory.  It is fully parallel.
+//  2. lstm_recurrence_kernel splits the batch across blocks of R=8 rows
+//     (32 blocks at B=256); each block walks all T steps.  Its 2H threads
+//     split the product h.sW in two halves of the k (hidden unit) range;
+//     each thread owns 4 consecutive gate columns, reads them as one float4
+//     of sW per k through L2 (h broadcast from shared memory), and keeps
+//     4R independent f32 FMA chains, so enough loads stay in flight to hide
+//     L2 latency.  The two halves' partial sums meet in shared memory, and
+//     each thread then updates R/2 (row, unit) cells whose c stays in
+//     registers.  The next step's xa is loaded before the current step's sW
+//     loop, hiding its latency.  Backward layers walk t from T-1 down; a
+//     step at or past a read's length freezes (h, c) and writes 0, so a
+//     backward read starts from the zero state at its own last valid step
+//     (rnn_pallas.py:236-266).
+// The fast design -- a thread-block cluster splitting sW's columns across
+// blocks and exchanging h through distributed shared memory -- is later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;  // 256 threads
+constexpr int ROWS = 8;  // batch rows per recurrence block
+
+__global__ void __launch_bounds__(256)
+affine_kernel(const float* __restrict__ A, const float* __restrict__ W,
+              const float* __restrict__ bias, float* __restrict__ C,
+              long M, int N, int K) {
+  __shared__ __align__(16) float As[BK][BM + 4];  // padded: conflict-free stores
+  __shared__ __align__(16) float Bs[BK][BN];
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tc = tid % 16;
+  const long row0 = (long)blockIdx.x * BM;
+  const int col0 = blockIdx.y * BN;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = tid + q * 256;
+      const int r = i / BK, c = i % BK;
+      const long gr = row0 + r;
+      const int gc = k0 + c;
+      As[c][r] = (gr < M && gc < K) ? A[gr * K + gc] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = tid + q * 256;
+      const int r = i / BN, c = i % BN;
+      const int gr = k0 + r, gc = col0 + c;
+      Bs[r][c] = (gr < K && gc < N) ? W[(long)gr * N + gc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tr * TM]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][tr * TM + 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][BN / 2 + tc * 4]);
+      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long gr = row0 + tr * TM + i;
+    if (gr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gc = col0 + (j < 4 ? tc * 4 + j : BN / 2 + tc * 4 + j - 4);
+      if (gc < N) C[gr * N + gc] = acc[i][j] + bias[gc];
+    }
+  }
+}
+
+__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+template <int R>
+__global__ void __launch_bounds__(512)
+lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
+                       const float* __restrict__ sW,     // [H, 4H]
+                       const int* __restrict__ lengths,  // [B]
+                       float* __restrict__ out,          // [T, B, H]
+                       int T, int B, int H, int backward) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = 4 * H;
+  float* h_s = smem;          // [H][R]: h of the block's rows, unit-major
+  float* g_s = smem + H * R;  // [2][R][4H]: the two halves' partial sums
+  const int tid = threadIdx.x;  // blockDim.x == 2H
+  const int half = tid / H;     // which half of the k (hidden unit) range
+  const int col = 4 * (tid % H);
+  const int k0 = half * (H / 2), k1 = k0 + H / 2;
+  const int row0 = blockIdx.x * R;
+  constexpr int NC = R / 2;  // (row, unit) cells per thread in the update
+
+  for (int i = tid; i < H * R; i += 2 * H) h_s[i] = 0.f;
+  float c[NC];
+  int len[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    c[q] = 0.f;
+    const int row = row0 + tid / H + 2 * q;
+    len[q] = row < B ? lengths[row] : 0;
+  }
+  // the first half starts from xa, the second from zero
+  float4 nx[R];
+  auto load_xa = [&](int t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = row0 + r;
+      nx[r] = (row < B && half == 0)
+                  ? *reinterpret_cast<const float4*>(xa + ((long)t * B + row) * G + col)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  if (T > 0) load_xa(backward ? T - 1 : 0);
+  __syncthreads();
+  const float4* w = reinterpret_cast<const float4*>(sW + col);
+  float* g_mine = g_s + half * R * G;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = backward ? T - 1 - s : s;
+    float4 acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = nx[r];
+    if (s + 1 < T) load_xa(backward ? t - 1 : t + 1);
+#pragma unroll 8
+    for (int k = k0; k < k1; ++k) {
+      const float4 wv = __ldg(w + (long)k * (G / 4));
+      float hr[R];
+#pragma unroll
+      for (int r4 = 0; r4 < R / 4; ++r4) {
+        const float4 hv = *reinterpret_cast<const float4*>(h_s + k * R + 4 * r4);
+        hr[4 * r4 + 0] = hv.x;
+        hr[4 * r4 + 1] = hv.y;
+        hr[4 * r4 + 2] = hv.z;
+        hr[4 * r4 + 3] = hv.w;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r].x = fmaf(hr[r], wv.x, acc[r].x);
+        acc[r].y = fmaf(hr[r], wv.y, acc[r].y);
+        acc[r].z = fmaf(hr[r], wv.z, acc[r].z);
+        acc[r].w = fmaf(hr[r], wv.w, acc[r].w);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) *reinterpret_cast<float4*>(g_mine + r * G + col) = acc[r];
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int r = tid / H + 2 * q;
+      const int j = tid % H;
+      const int row = row0 + r;
+      const float* ga = g_s + r * G;
+      const float* gb = g_s + (R + r) * G;
+      const float u = sigmoidf_(ga[j] + gb[j]);
+      const float f = sigmoidf_(ga[H + j] + gb[H + j]);
+      const float gg = tanhf(ga[2 * H + j] + gb[2 * H + j]);
+      const float o = sigmoidf_(ga[3 * H + j] + gb[3 * H + j]);
+      const float c2 = f * c[q] + u * gg;
+      const float h2 = o * tanhf(c2);
+      const bool valid = t < len[q];
+      if (row < B) out[((long)t * B + row) * H + j] = valid ? h2 : 0.f;
+      if (valid) {
+        c[q] = c2;
+        h_s[j * R + r] = h2;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" const char* flappie_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// One fused layer: affine into the xa scratch [T*B, 4H], then the
+// recurrence into out [T, B, H].  Returns the launch error code (0 = ok).
+extern "C" int flappie_lstm_layer(const float* x, const float* iW, const float* b,
+                                  const float* sW, const int* lengths, float* xa,
+                                  float* out, int T, int B, int IN, int H,
+                                  int backward, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)T * B;
+  const int N = 4 * H;
+  if (M == 0) return 0;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+  affine_kernel<<<grid, 256, 0, st>>>(x, iW, b, xa, M, N, IN);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = (size_t)(H * ROWS + 2 * ROWS * 4 * H) * sizeof(float);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(lstm_recurrence_kernel<ROWS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  lstm_recurrence_kernel<ROWS><<<(B + ROWS - 1) / ROWS, 2 * H, smem, st>>>(
+      xa, sW, lengths, out, T, B, H, backward);
+  return cudaGetLastError();
+}

@@ -1,0 +1,84 @@
+"""Batched forward graph: raw signal -> CRF transition weights.
+
+Counterpart of flappie_tpu/models/network.py:207 ``transitions`` for the
+stride-5 LSTM graph with the flip-flop head (r941_native and the models
+sharing its graph; reference flipflop5_guppy_transitions,
+src/networks.c:539-586).  The conv stack runs batch-major [B, T, C];
+the LSTM stack runs time-major [T, B, H] through the fused layer kernel
+(ops/rnn_cuda.py), as the JAX package's ``_rnn_stack_fused_tm`` does:
+direction and per-read tail masking live inside the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.activations import ACTIVATIONS
+from ..ops.conv import conv1d_same
+from ..ops.heads import globalnorm_flipflop
+from ..ops.masking import mask_tail
+from ..ops.rnn_cuda import lstm_layer_tm
+from .config import ModelConfig
+
+
+def ceil_div(a, b):
+    return -((-a) // b)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a graph the port does not run yet."""
+    if cfg.head != "flipflop" or any(r.kind != "lstm" or r.residual for r in cfg.rnns):
+        raise NotImplementedError(
+            f"model {cfg.name!r}: the port runs the LSTM flip-flop graph only so far"
+        )
+
+
+def conv_stack(params, cfg: ModelConfig, x, lengths):
+    """x: [B, T, 1] float32, lengths: [B] -> (y [B, T', C], lengths')."""
+    for i, c in enumerate(cfg.convs):
+        p = params[f"conv{i}"]
+        x = conv1d_same(x, p["W"], p["b"], c.stride, lengths)
+        x = ACTIVATIONS[c.activation](x)
+        lengths = ceil_div(lengths, c.stride)
+        # zero the padded tail: the reference zero-pads past the read
+        # end, so the next conv/affine must see zeros there too
+        x = mask_tail(x, lengths)
+    return x, lengths
+
+
+def rnn_stack_tm(params, cfg: ModelConfig, x, lengths):
+    """[B, T, C] -> [B, T, H]: one fused kernel per layer, time-major
+    in between (one transpose in, one out)."""
+    x_tm = x.transpose(0, 1).contiguous()
+    for i, r in enumerate(cfg.rnns):
+        p = params[f"rnn{i}"]
+        x_tm = lstm_layer_tm(x_tm, p["iW"], p["b"], p["sW"],
+                             backward=r.backward, lengths=lengths)
+    return x_tm.transpose(0, 1)
+
+
+def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
+                return_norm: bool = False):
+    """signal: [B, T] or [B, T, 1] normalised signal (zero-padded),
+    lengths: [B] int32 valid sample counts.
+
+    Returns (trans [B, ceil(T/stride), out_dim], nblocks [B]); with
+    ``return_norm`` additionally the per-read global-norm shift [B] and
+    the per-block partition increments [B, T'] used to stitch exact
+    viterbi scores across chunks.
+    """
+    check_supported(cfg)
+    if signal.dim() == 2:
+        signal = signal[..., None]
+    signal = signal.to(torch.float32)
+    # zero beyond each read's end: valid outputs must not depend on
+    # whatever the caller left in the padded tail
+    signal = mask_tail(signal, lengths)
+    x, nblocks = conv_stack(params, cfg, signal, lengths)
+    x = rnn_stack_tm(params, cfg, x, nblocks)
+    W, b = params["ff"]["W"], params["ff"]["b"]
+    if return_norm:
+        out, shift, incs = globalnorm_flipflop(
+            x, W, b, temperature, nblocks, cfg.nbase, return_norm=True)
+        return out, nblocks, shift, incs
+    return globalnorm_flipflop(x, W, b, temperature, nblocks, cfg.nbase), nblocks

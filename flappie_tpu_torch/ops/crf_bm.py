@@ -1,0 +1,112 @@
+"""Batch-minor CRF decode (counterpart of flappie_tpu/ops/crf_bm.py).
+
+The whole decode stays time-major with the batch minor: forward,
+backward + transition posterior, Viterbi, traceback; only the byte-sized
+outputs transpose back at the end.  The four scans are the port's CRF
+kernels (ops/crf_bm_cuda.py); everything around them is plain tensor
+code.
+
+Reference semantics: src/decode.c:119-204 (Viterbi), :377-498
+(forward/backward transition posterior), src/layers.c:1035 (partition).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import crf_bm_cuda
+from .crf import NEG_BIG, TransIndex, flipflop_index, lse
+
+
+def _dense_tm(trans_tm, idx: TransIndex):
+    """[T, P, B] -> [T, S, S, B] (from, to); forbidden = NEG_BIG."""
+    T, P, B = trans_tm.shape
+    S = idx.nstate
+    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0).reshape(-1), device=trans_tm.device)
+    gathered = trans_tm.index_select(1, pidx).reshape(T, S, S, B)
+    allowed = torch.as_tensor(idx.allowed, device=trans_tm.device)[None, :, :, None]
+    return torch.where(allowed, gathered, torch.full_like(gathered, NEG_BIG))
+
+
+def _fwd_states_tm(dense_tm, tvalid_tm):
+    """alphas [T+1, S, B] of the sum-semiring forward scan (K3)."""
+    return crf_bm_cuda.fwd_states(dense_tm, tvalid_tm)
+
+
+def _bwd_states_tm(dense_tm, tvalid_tm):
+    """betas [T+1, S, B]: beta[T]=0, beta[t]=lse_j m[t,i,j]+beta[t+1,j] (K4)."""
+    return crf_bm_cuda.bwd_states(dense_tm, tvalid_tm)
+
+
+def _transpost_tm(trans_tm, tvalid_tm, idx: TransIndex):
+    """Per-block transition posteriors [T, P, B], log-normalised per
+    block (log_row_normalise, src/flappie_matrix.c:450-467)."""
+    dense = _dense_tm(trans_tm, idx)
+    alphas = _fwd_states_tm(dense, tvalid_tm)
+    betas = _bwd_states_tm(dense, tvalid_tm)
+    dev = trans_tm.device
+    fr = torch.as_tensor(idx.from_state, dtype=torch.int64, device=dev)
+    to = torch.as_tensor(idx.to_state, dtype=torch.int64, device=dev)
+    tpost = alphas[:-1].index_select(1, fr) + trans_tm + betas[1:].index_select(1, to)
+    return tpost - lse(tpost, 1)[:, None, :]
+
+
+def _viterbi_fwd_tm(dense_tm, tvalid_tm, idx: TransIndex):
+    """Max-plus forward (K5): (score [B], last_state [B], backptr [T,S,B])."""
+    alpha, bps = crf_bm_cuda.viterbi_fwd(dense_tm, tvalid_tm, idx.tie_rank)
+    score = alpha.amax(dim=0)
+    last_state = alpha.argmax(dim=0).to(torch.int32)
+    return score, last_state, bps
+
+
+def _traceback_tm(backptr_tm, last_state, tvalid_tm):
+    """path [T+1, B] int32 from [T, S, B] backpointers (K6)."""
+    return crf_bm_cuda.traceback(backptr_tm, tvalid_tm, last_state)
+
+
+def decode_bm(trans, nblocks, nbase: int, viterbi_only: bool, compute_trace: bool,
+              idx: TransIndex | None = None):
+    """Full decode of [B, T, P] transition weights, batch-minor inside.
+
+    Returns (score [B], path [B, T+1] int32, qpath [B, T+1] f32,
+    trace [B, T+1, S] uint8 or a [B, 1, S] dummy).  In fb mode the
+    Viterbi runs over the per-block-normalised transition posterior
+    (src/flappie.c:276-300); the trace is built from exp() of whichever
+    matrix was decoded.
+    """
+    idx = idx if idx is not None else flipflop_index(nbase)
+    B, T, P = trans.shape
+    S = idx.nstate
+    dev = trans.device
+
+    trans_tm = trans.permute(1, 2, 0).contiguous()  # [T, P, B]
+    tvalid_tm = torch.arange(T, device=dev)[:, None] < nblocks[None, :]
+
+    mat_tm = trans_tm if viterbi_only else _transpost_tm(trans_tm, tvalid_tm, idx)
+
+    dense = _dense_tm(mat_tm, idx)
+    score, last_state, backptr = _viterbi_fwd_tm(dense, tvalid_tm, idx)
+    path_tm = _traceback_tm(backptr, last_state, tvalid_tm).to(torch.int64)  # [T+1, B]
+
+    # qpath[t] = mat[t-1, pidx[path[t-1], path[t]]]; qpath[0] = NaN
+    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0), dtype=torch.int64, device=dev)
+    sel = pidx[path_tm[:-1], path_tm[1:]]  # [T, B]
+    q = torch.gather(mat_tm, 1, sel[:, None, :])[:, 0]  # [T, B]
+    nan = torch.full((1, B), float("nan"), dtype=trans.dtype, device=dev)
+    qpath_tm = torch.cat([nan, q], dim=0)
+
+    if compute_trace:
+        from_onehot = torch.as_tensor(np.eye(S, dtype=np.float32)[idx.from_state], device=dev)
+        to_onehot = torch.as_tensor(np.eye(S, dtype=np.float32)[idx.to_state], device=dev)
+        ep = torch.exp(mat_tm)  # [T, P, B]
+        first = torch.einsum("pb,ps->sb", ep[0], from_onehot)
+        rest = torch.einsum("tpb,ps->tsb", ep, to_onehot)
+        occ = torch.cat([first[None], rest], dim=0)  # [T+1, S, B]
+        # roundf = half away from zero for the non-negative occupancies
+        trace = torch.clamp(torch.floor(255.0 * occ + 0.5), 0.0, 255.0).to(
+            torch.uint8).permute(2, 0, 1)
+    else:
+        trace = torch.zeros(B, 1, S, dtype=torch.uint8, device=dev)
+
+    return score, path_tm.to(torch.int32).T, qpath_tm.T, trace

@@ -1,0 +1,192 @@
+"""Batch-minor CRF decode scans: kernels K3/K4, K5, K6
+(csrc/crf_scan.cu) and their plain versions.
+
+Counterparts of flappie_tpu/ops/crf_bm_pallas.py: ``fwd_states`` /
+``bwd_states`` (``fwd_states_pallas:194`` / ``bwd_states_pallas:218``,
+one kernel with a direction flag, as ``_sum_kernel`` is),
+``viterbi_fwd`` (``viterbi_fwd_pallas:300``) and ``traceback``
+(``traceback_pallas:333``).  Shapes: dense [T, S, S, B] (from, to,
+read), tvalid [T, B] bool, states [T+1, S, B].
+
+Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
+plain version beside it for a CPU tensor; any other device raises.  The
+plain versions repeat the kernels' arithmetic step for step: lse = max
++ log(sum(exp(z - max))), invalid steps blended as v*nxt + (1-v)*a,
+Viterbi backpointers by lowest tie_rank among the maxima and identity on
+invalid steps.  ``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+RANK_BIG = 10**6
+
+
+def _lse_over(z, dim: int):
+    mx = z.amax(dim=dim)
+    return mx + torch.log(torch.sum(torch.exp(z - mx.unsqueeze(dim)), dim=dim))
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def sum_states_plain(dense_tm, tvalid_tm, backward: bool):
+    T, S, _, B = dense_tm.shape
+    v = tvalid_tm.to(dense_tm.dtype)
+    a = dense_tm.new_zeros(S, B)
+    out = dense_tm.new_empty(T + 1, S, B)
+    if backward:
+        out[T] = a
+        for t in range(T - 1, -1, -1):
+            nxt = _lse_over(dense_tm[t] + a[None, :, :], 1)
+            a = v[t] * nxt + (1.0 - v[t]) * a
+            out[t] = a
+    else:
+        out[0] = a
+        for t in range(T):
+            nxt = _lse_over(a[:, None, :] + dense_tm[t], 0)
+            a = v[t] * nxt + (1.0 - v[t]) * a
+            out[t + 1] = a
+    return out
+
+
+def viterbi_fwd_plain(dense_tm, tvalid_tm, tie_rank):
+    T, S, _, B = dense_tm.shape
+    v = tvalid_tm.to(dense_tm.dtype)
+    rank = torch.as_tensor(tie_rank, dtype=torch.int64, device=dense_tm.device)[:, :, None]
+    ident = torch.arange(S, device=dense_tm.device)[:, None].expand(S, B)
+    big = torch.full((), RANK_BIG, dtype=torch.int64, device=dense_tm.device)
+    a = dense_tm.new_zeros(S, B)
+    bps = torch.empty(T, S, B, dtype=torch.int32, device=dense_tm.device)
+    for t in range(T):
+        z = a[:, None, :] + dense_tm[t]  # [from, to, B]
+        best = z.amax(dim=0)
+        bp = torch.where(z == best[None], rank, big).argmin(dim=0)
+        a = v[t] * best + (1.0 - v[t]) * a
+        bps[t] = torch.where(tvalid_tm[t][None, :], bp, ident)
+    return a, bps
+
+
+def traceback_plain(backptr_tm, tvalid_tm, last_state):
+    T, S, B = backptr_tm.shape
+    s = last_state.to(torch.int64)
+    out = torch.empty(T + 1, B, dtype=torch.int32, device=backptr_tm.device)
+    out[T] = s
+    for t in range(T - 1, -1, -1):
+        prev = backptr_tm[t].to(torch.int64).gather(0, s[None, :])[0]
+        s = torch.where(tvalid_tm[t], prev, s)
+        out[t] = s
+    return out
+
+
+# -- kernels -----------------------------------------------------------------
+
+
+def _lib():
+    lib = cuda_build.load("crf_scan")
+    if lib.flappie_crf_sum.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.flappie_crf_sum.argtypes = [P, P, P, I, I, I, I, P]
+        lib.flappie_crf_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
+        lib.flappie_crf_traceback.argtypes = [P, P, P, P, I, I, I, P]
+        for fn in (lib.flappie_crf_sum, lib.flappie_crf_viterbi, lib.flappie_crf_traceback):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(name, t, S=None):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if S is not None and S not in (8, 10):
+        raise ValueError(f"{name}: the kernel is compiled for S in (8, 10), got {S}")
+
+
+def _dense_args(name, dense_tm, tvalid_tm):
+    T, S, S2, B = dense_tm.shape
+    _check_cuda(name, dense_tm, S)
+    if S2 != S or tuple(tvalid_tm.shape) != (T, B) or dense_tm.dtype != torch.float32:
+        raise ValueError(f"{name}: dense must be float32 [T, S, S, B] with tvalid [T, B]")
+    return (dense_tm.contiguous(), tvalid_tm.to(device=dense_tm.device, dtype=torch.int32).contiguous(),
+            T, S, B)
+
+
+def sum_states(dense_tm, tvalid_tm, backward: bool = False):
+    """Sum-semiring scan: alphas (forward) or betas (backward), [T+1, S, B]."""
+    if dense_tm.device.type == "cpu":
+        return sum_states_plain(dense_tm, tvalid_tm, backward)
+    dense, valid, T, S, B = _dense_args("sum_states", dense_tm, tvalid_tm)
+    out = torch.empty(T + 1, S, B, dtype=torch.float32, device=dense.device)
+    lib = _lib()
+    rc = lib.flappie_crf_sum(cuda_build.ptr(dense), cuda_build.ptr(valid),
+                             cuda_build.ptr(out), T, S, B, int(backward),
+                             cuda_build.stream_of(dense))
+    cuda_build.check(lib, rc, "sum_states")
+    sum_states.launches += 1
+    return out
+
+
+sum_states.launches = 0
+
+
+def fwd_states(dense_tm, tvalid_tm):
+    """alphas [T+1, S, B]: alpha_0 = 0, alpha_{t+1}[to] =
+    lse_from(alpha_t + m_t), frozen at invalid t (K3)."""
+    return sum_states(dense_tm, tvalid_tm, backward=False)
+
+
+def bwd_states(dense_tm, tvalid_tm):
+    """betas [T+1, S, B]: beta_T = 0, beta_t[from] =
+    lse_to(m_t + beta_{t+1}), frozen at invalid t (K4)."""
+    return sum_states(dense_tm, tvalid_tm, backward=True)
+
+
+def viterbi_fwd(dense_tm, tvalid_tm, tie_rank):
+    """Max-plus forward (K5): (alpha_final [S, B], backptr [T, S, B] int32)."""
+    if dense_tm.device.type == "cpu":
+        return viterbi_fwd_plain(dense_tm, tvalid_tm, tie_rank)
+    dense, valid, T, S, B = _dense_args("viterbi_fwd", dense_tm, tvalid_tm)
+    rank = torch.as_tensor(tie_rank, dtype=torch.int32).to(dense.device).contiguous()
+    if tuple(rank.shape) != (S, S):
+        raise ValueError(f"viterbi_fwd: tie_rank must be [{S}, {S}]")
+    alpha = torch.empty(S, B, dtype=torch.float32, device=dense.device)
+    bps = torch.empty(T, S, B, dtype=torch.int32, device=dense.device)
+    lib = _lib()
+    rc = lib.flappie_crf_viterbi(cuda_build.ptr(dense), cuda_build.ptr(valid),
+                                 cuda_build.ptr(rank), cuda_build.ptr(alpha),
+                                 cuda_build.ptr(bps), T, S, B,
+                                 cuda_build.stream_of(dense))
+    cuda_build.check(lib, rc, "viterbi_fwd")
+    viterbi_fwd.launches += 1
+    return alpha, bps
+
+
+viterbi_fwd.launches = 0
+
+
+def traceback(backptr_tm, tvalid_tm, last_state):
+    """[T, S, B] backptr, [T, B] valid, [B] last -> path [T+1, B] int32 (K6)."""
+    if backptr_tm.device.type == "cpu":
+        return traceback_plain(backptr_tm, tvalid_tm, last_state)
+    T, S, B = backptr_tm.shape
+    _check_cuda("traceback", backptr_tm, S)
+    if tuple(tvalid_tm.shape) != (T, B) or tuple(last_state.shape) != (B,):
+        raise ValueError("traceback: expected tvalid [T, B] and last_state [B]")
+    bp = backptr_tm.to(torch.int32).contiguous()
+    valid = tvalid_tm.to(device=bp.device, dtype=torch.int32).contiguous()
+    last = last_state.to(device=bp.device, dtype=torch.int32).contiguous()
+    out = torch.empty(T + 1, B, dtype=torch.int32, device=bp.device)
+    lib = _lib()
+    rc = lib.flappie_crf_traceback(cuda_build.ptr(bp), cuda_build.ptr(valid),
+                                   cuda_build.ptr(last), cuda_build.ptr(out),
+                                   T, S, B, cuda_build.stream_of(bp))
+    cuda_build.check(lib, rc, "traceback")
+    traceback.launches += 1
+    return out
+
+
+traceback.launches = 0

@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+Each source ``flappie_tpu_torch/csrc/<name>.cu`` exposes a plain C
+interface and is compiled by ``nvcc`` for ``sm_90a`` into
+``build/flappie_tpu_torch/lib<name>.so`` (a directory .gitignore lists)
+the first time a wrapper launches one of its kernels, then loaded with
+ctypes.  A source newer than its library is rebuilt.  ``build()``
+compiles several sources at once, one ``nvcc`` process each.  No
+``--use_fast_math``: precise ``expf``/``logf``/``tanhf`` belong to the
+parity tier.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "flappie_tpu_torch")
+SOURCES = ("lstm", "crf_scan")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.RLock()
+_libs: dict = {}
+# nvcc's output per source from the last build in this process: ptxas
+# prints each kernel's registers, shared memory and spills there
+build_log: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _paths(name: str):
+    return (os.path.join(CSRC_DIR, name + ".cu"),
+            os.path.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def _stale(name: str) -> bool:
+    src, so = _paths(name)
+    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+
+
+def build(names=SOURCES) -> list:
+    """Compile every stale source in ``names`` (one nvcc per source, all
+    started together); returns the names that were compiled."""
+    with _lock:
+        todo = [n for n in names if _stale(n)]
+        if not todo:
+            return []
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        try:
+            for n in todo:
+                src, so = _paths(n)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                proc = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )
+                jobs.append((n, proc, tmp, so))
+        finally:
+            failed = []
+            for n, proc, tmp, so in jobs:
+                out, err = proc.communicate()
+                build_log[n] = out + err
+                if proc.returncode == 0:
+                    os.replace(tmp, so)
+                else:
+                    failed.append(f"{n}.cu:\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return todo
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(_paths(name)[1])
+            lib.flappie_cuda_error_string.restype = ctypes.c_char_p
+            lib.flappie_cuda_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a launch error code returned by a C entry point."""
+    if rc != 0:
+        msg = lib.flappie_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

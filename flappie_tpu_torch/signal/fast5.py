@@ -1,0 +1,148 @@
+"""fast5 (HDF5) raw-signal reading.
+
+Mirrors the reference reader semantics (src/fast5_interface.c:231-318):
+the first read group under ``/Raw/Reads/`` is taken, its ``read_id``
+attribute is the uuid, and the int16 ``Signal`` dataset is converted to
+float32 and scaled to pA as ``(raw + offset) * range / digitisation``
+using the ``/UniqueGlobalKey/channel_id`` attributes.
+
+A copy of the single-read part of the JAX package's fast5 module
+(multi-read files, ``--multi``, are not ported yet).  Where h5py is not
+installed, files are written and read through the minimal HDF5 codec in
+hdf5_min.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+try:
+    import h5py
+except ImportError:  # hdf5_min.py takes its place
+    h5py = None
+
+from .preprocess import F32, RawTable
+
+
+def _decode_attr(val) -> str:
+    if isinstance(val, bytes):
+        return val.decode("utf-8")
+    return str(val)
+
+
+def _scale_signal(sig: np.ndarray, channel_attrs, scale_to_pA: bool):
+    """Returns (pA float32 signal, int16 ADC or None, (offset, raw_unit)).
+
+    The ADC counts + calibration ride along on the RawTable so the
+    device can rebuild the normalised signal from half the upload bytes
+    (basecall._unpack_i16); kept only when the source samples are
+    integral int16, as real fast5 Signal datasets are."""
+    raw = sig.astype(F32)
+    adc = None
+    cal = None
+    if scale_to_pA:
+        digitisation = F32(channel_attrs["digitisation"])
+        offset = F32(channel_attrs["offset"])
+        rng = F32(channel_attrs["range"])
+        raw_unit = rng / digitisation  # float32 divide, as reference
+        raw = (raw + offset) * raw_unit
+        if np.issubdtype(sig.dtype, np.integer) and sig.dtype.itemsize <= 2:
+            adc = np.ascontiguousarray(sig, dtype=np.int16)
+            cal = (offset, raw_unit)
+    return raw, adc, cal
+
+
+def read_raw(filename: str, scale_to_pA: bool = True) -> RawTable:
+    """Read the first read of a single-read fast5 file.
+
+    Returns an invalid RawTable (raw=None) on any failure, matching the
+    reference's NULL-propagation fault isolation.
+    """
+    if h5py is None:
+        return _read_raw_min(filename, scale_to_pA)
+    try:
+        with h5py.File(filename, "r") as f:
+            reads = f.get("/Raw/Reads")
+            if reads is None or len(reads) == 0:
+                return RawTable(None, 0, 0, 0, None)
+            name = sorted(reads.keys())[0]
+            grp = reads[name]
+            uuid = _decode_attr(grp.attrs["read_id"])
+            sig = grp["Signal"][()]
+            raw, adc, cal = _scale_signal(
+                sig, f["/UniqueGlobalKey/channel_id"].attrs, scale_to_pA
+            )
+            return RawTable(uuid, raw.size, 0, raw.size, raw, adc=adc, cal=cal)
+    except Exception:
+        return RawTable(None, 0, 0, 0, None)
+
+
+def _read_raw_min(filename: str, scale_to_pA: bool) -> RawTable:
+    """read_raw through the minimal HDF5 codec (no h5py)."""
+    from . import hdf5_min
+
+    try:
+        root = hdf5_min.read(filename)
+        reads = root.get("/Raw/Reads")
+        if reads is None or not reads.children:
+            return RawTable(None, 0, 0, 0, None)
+        grp = reads.children[sorted(reads.children)[0]]
+        uuid = _decode_attr(grp.attrs["read_id"])
+        raw, adc, cal = _scale_signal(
+            grp.children["Signal"].data,
+            root.get("/UniqueGlobalKey/channel_id").attrs, scale_to_pA,
+        )
+        return RawTable(uuid, raw.size, 0, raw.size, raw, adc=adc, cal=cal)
+    except Exception:
+        return RawTable(None, 0, 0, 0, None)
+
+
+def write_single_read_fast5(
+    filename: str,
+    signal: np.ndarray,
+    read_id: str,
+    digitisation: float = 8192.0,
+    offset: float = 16.0,
+    range_: float = 1373.41,
+    sampling_rate: float = 4000.0,
+    read_number: int = 1,
+) -> None:
+    """Write a single-read fast5 with the layout the reference reads.
+
+    Used by tests and benchmarks: the bundled reads/ fast5 files are
+    git-LFS pointers in this checkout, so real fast5 inputs are
+    synthesised from the bundled .crp signal fixtures.  ``signal`` is in
+    ADC units (typically int16 range).
+    """
+    sig = np.asarray(signal)
+    if sig.dtype.kind == "f":
+        sig = np.round(sig).astype(np.int16)
+    if h5py is None:
+        from . import hdf5_min
+
+        read = hdf5_min.Node(
+            attrs={"read_id": np.bytes_(read_id), "read_number": np.int32(read_number)},
+            children={"Signal": hdf5_min.Node(data=np.asarray(sig, np.int16))},
+        )
+        channel = hdf5_min.Node(attrs={
+            "digitisation": np.float64(digitisation), "offset": np.float64(offset),
+            "range": np.float64(range_), "sampling_rate": np.float64(sampling_rate),
+            "channel_number": np.bytes_("1"),
+        })
+        hdf5_min.write(filename, hdf5_min.Node(children={
+            "Raw": hdf5_min.Node(children={"Reads": hdf5_min.Node(
+                children={f"Read_{read_number}": read})}),
+            "UniqueGlobalKey": hdf5_min.Node(children={"channel_id": channel}),
+        }))
+        return
+    with h5py.File(filename, "w") as f:
+        grp = f.create_group(f"/Raw/Reads/Read_{read_number}")
+        grp.attrs["read_id"] = np.bytes_(read_id)
+        grp.attrs["read_number"] = np.int32(read_number)
+        grp.create_dataset("Signal", data=sig, dtype=np.int16)
+        ch = f.create_group("/UniqueGlobalKey/channel_id")
+        ch.attrs["digitisation"] = np.float64(digitisation)
+        ch.attrs["offset"] = np.float64(offset)
+        ch.attrs["range"] = np.float64(range_)
+        ch.attrs["sampling_rate"] = np.float64(sampling_rate)
+        ch.attrs["channel_number"] = np.bytes_("1")

@@ -1,0 +1,168 @@
+"""PyTorch port: the kernels' plain versions against the TPU kernels.
+
+Each CUDA kernel of the port (K1 fused LSTM, K3/K4 CRF sum scan, K5
+Viterbi, K6 traceback) has a plain PyTorch version beside its wrapper,
+which the wrapper runs for CPU tensors.  Here those plain versions are
+held to the JAX package's Pallas kernels, run in interpret mode on the
+CPU as the JAX package's own tests run them, and to its scan paths:
+
+- K1 within 5e-6 (the CPU transition band);
+- sum scans within rtol 1e-5 (reassociation of an 8-term sum);
+- Viterbi bit-equal on dyadic inputs (adds and compares only);
+- traceback exact.
+
+The kernels themselves only run on a GPU: tests/test_torch_cuda.py
+holds them to these plain versions on the card (and skips without one),
+and chip_smoke.py does so at production shapes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from flappie_tpu.ops import crf_bm as j_bm
+from flappie_tpu.ops import crf_bm_pallas as j_pal
+from flappie_tpu.ops import rnn as j_rnn
+from flappie_tpu.ops import rnn_pallas as j_rnn_pal
+from flappie_tpu.ops.crf import flipflop_index
+from flappie_tpu.ops.masking import reverse_sequence
+
+from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
+from flappie_tpu_torch.ops.crf_bm import _dense_tm
+
+
+def rnd(*shape, scale=1.0, seed=0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+LSTM_CASE = dict(B=5, T=37, IN=12, H=16, lengths=np.array([37, 29, 0, 5, 33], np.int32))
+
+
+def _lstm_inputs(seed=0):
+    c = LSTM_CASE
+    x = rnd(c["B"], c["T"], c["IN"], seed=seed)
+    x = x * (np.arange(c["T"])[None, :, None] < c["lengths"][:, None, None])
+    return (x, rnd(c["IN"], 4 * c["H"], scale=0.3, seed=seed + 1),
+            rnd(4 * c["H"], scale=0.2, seed=seed + 2), rnd(c["H"], 4 * c["H"], scale=0.3, seed=seed + 3))
+
+
+def _plain_lstm(x, iW, b, sW, backward, lengths):
+    x_tm = torch.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2)))
+    before = rnn_cuda.lstm_layer_tm.launches
+    out = rnn_cuda.lstm_layer_tm(x_tm, torch.from_numpy(iW), torch.from_numpy(b),
+                                 torch.from_numpy(sW), backward=backward,
+                                 lengths=torch.from_numpy(lengths))
+    assert rnn_cuda.lstm_layer_tm.launches == before  # CPU tensors: plain version
+    return out.numpy()
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_lstm_plain_matches_fused_pallas_kernel(backward, monkeypatch):
+    x, iW, b, sW = _lstm_inputs()
+    lengths = LSTM_CASE["lengths"]
+    # small time block: interpret mode unrolls K steps into the traced
+    # graph, and compile time dominates at the default K
+    monkeypatch.setenv("FLAPPIE_TPU_RNN_K", "4")
+    want = np.asarray(j_rnn_pal.lstm_layer_tm(
+        jnp.asarray(x.transpose(1, 0, 2)), jnp.asarray(iW), jnp.asarray(b), jnp.asarray(sW),
+        interpret=True, backward=backward, lengths=jnp.asarray(lengths)))
+    got = _plain_lstm(x, iW, b, sW, backward, lengths)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_lstm_plain_matches_jax_scan_path(backward):
+    """The JAX scan path: affine, reverse per read for backward layers,
+    lax.scan LSTM, reverse back, zero the tail."""
+    x, iW, b, sW = _lstm_inputs(seed=10)
+    lengths = LSTM_CASE["lengths"]
+    jl = jnp.asarray(lengths)
+    xa = j_rnn.affine(jnp.asarray(x), jnp.asarray(iW), jnp.asarray(b))
+    if backward:
+        xa = reverse_sequence(xa, jl)
+    y = j_rnn.lstm_seq(xa, jnp.asarray(sW))
+    if backward:
+        y = reverse_sequence(y, jl)
+    want = np.asarray(y) * (np.arange(LSTM_CASE["T"])[None, :, None] < lengths[:, None, None])
+    got = _plain_lstm(x, iW, b, sW, backward, lengths).transpose(1, 0, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
+
+
+def _scan_inputs(T, B, seed, dyadic=False):
+    idx = flipflop_index(4)
+    rng = np.random.default_rng(seed)
+    trans = rng.normal(0, 2, size=(B, T, idx.nparam)).astype(np.float32)
+    if dyadic:
+        trans = np.round(trans * 8.0) / 8.0
+    trans[:, 9] = trans[:, 8]  # exact repeats to probe tie order
+    nblocks = np.minimum(np.array([T, 60, 1, T, 33, 0, 2, 17], np.int32)[:B], T)
+    tvalid = np.arange(T)[:, None] < nblocks[None, :]
+    dense = np.array(j_bm._dense_tm(jnp.asarray(trans).transpose(1, 2, 0), idx))
+    t_dense = _dense_tm(torch.from_numpy(np.ascontiguousarray(trans.transpose(1, 2, 0))), idx)
+    np.testing.assert_array_equal(t_dense.numpy(), dense)
+    return idx, dense, tvalid, nblocks
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_sum_scan_plain_matches_pallas(backward, monkeypatch):
+    idx, dense, tvalid, _ = _scan_inputs(75, 8, seed=5)
+    monkeypatch.setattr(j_pal, "TIME_BLOCK", 8)
+    fn = j_pal.bwd_states_pallas if backward else j_pal.fwd_states_pallas
+    want = np.asarray(fn(jnp.asarray(dense), jnp.asarray(tvalid), interpret=True))
+    t_fn = crf_bm_cuda.bwd_states if backward else crf_bm_cuda.fwd_states
+    got = t_fn(torch.from_numpy(dense), torch.from_numpy(tvalid)).numpy()
+    assert got.shape == want.shape == (76, 8, 8)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_sum_scan_plain_matches_jax_scan():
+    _, dense, tvalid, _ = _scan_inputs(120, 8, seed=6)
+    for backward, j_fn in ((False, j_bm._fwd_states_tm), (True, j_bm._bwd_states_tm)):
+        want = np.asarray(j_fn(jnp.asarray(dense), jnp.asarray(tvalid)))
+        got = crf_bm_cuda.sum_states(torch.from_numpy(dense), torch.from_numpy(tvalid),
+                                     backward).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_viterbi_plain_bit_equal_to_pallas_on_dyadic(monkeypatch):
+    idx, dense, tvalid, _ = _scan_inputs(75, 8, seed=7, dyadic=True)
+    monkeypatch.setattr(j_pal, "TIME_BLOCK", 8)
+    a_want, bp_want = (np.array(v) for v in j_pal.viterbi_fwd_pallas(
+        jnp.asarray(dense), jnp.asarray(tvalid), idx.tie_rank, interpret=True))
+    a_got, bp_got = crf_bm_cuda.viterbi_fwd(torch.from_numpy(dense),
+                                            torch.from_numpy(tvalid), idx.tie_rank)
+    np.testing.assert_array_equal(a_got.numpy(), a_want)
+    np.testing.assert_array_equal(bp_got.numpy(), bp_want)
+
+
+def test_traceback_plain_exact(monkeypatch):
+    idx, dense, tvalid, _ = _scan_inputs(75, 8, seed=8, dyadic=True)
+    monkeypatch.setattr(j_pal, "TIME_BLOCK", 8)
+    alpha, bps = (np.array(v) for v in j_pal.viterbi_fwd_pallas(
+        jnp.asarray(dense), jnp.asarray(tvalid), idx.tie_rank, interpret=True))
+    last = np.argmax(alpha, axis=0).astype(np.int32)
+    want = np.asarray(j_pal.traceback_pallas(jnp.asarray(bps), jnp.asarray(tvalid),
+                                             jnp.asarray(last), interpret=True))
+    got = crf_bm_cuda.traceback(torch.from_numpy(bps), torch.from_numpy(tvalid),
+                                torch.from_numpy(last)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wrappers_refuse_other_devices():
+    """No quiet fallback: a tensor on neither the CPU nor a CUDA device
+    raises instead of taking the plain version."""
+    meta = torch.empty(3, 2, 4, device="meta")
+    with pytest.raises(ValueError):
+        rnn_cuda.lstm_layer_tm(meta, torch.empty(4, 16, device="meta"),
+                               torch.empty(16, device="meta"), torch.empty(4, 16, device="meta"))
+    with pytest.raises(ValueError):
+        crf_bm_cuda.fwd_states(torch.empty(3, 8, 8, 2, device="meta"),
+                               torch.empty(3, 2, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError):
+        crf_bm_cuda.traceback(torch.empty(3, 8, 2, dtype=torch.int32, device="meta"),
+                              torch.empty(3, 2, dtype=torch.bool, device="meta"),
+                              torch.empty(2, dtype=torch.int32, device="meta"))
