@@ -6,24 +6,31 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Card and build: the card's name and power limit, the torch/CUDA
-   versions, then every CUDA kernel of the main path built from
+   versions, then every CUDA kernel of the main paths built from
    flappie_tpu_torch/csrc/ with nvcc for sm_90a (one nvcc per source,
    all at once) and the build seconds.
 2. Kernels: each kernel held against its plain PyTorch version on the
-   card at production shapes -- K1 fused LSTM layer (T=2560, B=256,
-   IN=H=256, both directions, ragged lengths including 0 and T) within
-   max |delta| 1e-4; K3/K4 CRF sum scan within rtol 1e-5; K5 Viterbi
-   and K6 traceback bit-equal (T=2560, S=8, B=256, ragged nblocks).
-   Times are CUDA-event medians after a warm-up; the bound is the larger
-   of bytes over the card's memory rate and f32 operations over its
-   non-tensor f32 rate, counted for this run's inputs.
-3. Main path, full width: seeded synthetic fast5 reads (64 of ~100k
-   samples, chunked into three 256-chunk batches, and 16 of <= 12.8k
-   samples on the bucket path) through flappie_tpu_torch.cli.flappie.main
-   at r941_native width with synthetic weights, default flags and then
-   --viterbi.  Every launch counter is zeroed just before each run and
-   read just after; one FASTQ record per read; 4 reads held against the
-   port's own CPU path (identity >= 99.5%, |score delta| <= 1e-4).
+   card at production shapes -- K1 fused LSTM layer and K7 fused GRU-mod
+   layer (T=2560, B=256, IN=H=256, both directions, ragged lengths
+   including 0 and T, K7 with a candidate bias far from zero) within max
+   |delta| 1e-4; K3/K4 CRF sum scan within rtol 1e-5; K5 Viterbi and K6
+   traceback bit-equal (T=2560, B=256, ragged nblocks), at S=8 (4 bases)
+   and at S=10 (5 bases).  Times are CUDA-event medians after a warm-up;
+   the bound is the larger of bytes over the card's memory rate and f32
+   operations over its non-tensor f32 rate, counted for this run's
+   inputs; the library time is one cuDNN nn.LSTM / nn.GRU call on the
+   packed ragged batch.
+3. Main paths, full width, synthetic weights, through
+   flappie_tpu_torch.cli.flappie.main, default flags and then --viterbi:
+   r941_native on 64 seeded synthetic fast5 reads of ~100k samples
+   (three 256-chunk batches of 12800 samples) and 16 of <= 12.8k samples
+   (the bucket path); r941_5mC on 24 reads of 40k-60k samples (two
+   256-chunk batches of 5120 samples) and 8 of 2k-5k samples.  Every
+   launch counter is zeroed just before each run and read just after
+   and must equal the count the reads imply; one FASTQ record per read;
+   4 reads of each model held against the port's own CPU path (identity
+   >= 99.5%, |score delta| <= 1e-4); the device time of one full chunk
+   batch; one more fb run under torch.profiler.
 4. The card line, one JSON line with every kernel's numbers, and the
    last line {"ok": true, "device": {...}}.
 
@@ -89,61 +96,107 @@ def bound(bytes_: float, ops: float, peak: dict):
 # -- phase 2: kernels --------------------------------------------------------
 
 
-def check_kernels(torch, peak: dict) -> list:
-    from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
-    from flappie_tpu_torch.ops.crf import flipflop_index
-    from flappie_tpu_torch.ops.crf_bm import _dense_tm
+def row(name, kid, source, replaces, run, counter, **numbers) -> dict:
+    """One kernel's line: ``run`` is the model whose fb main-path run
+    supplies its launch count, read from counter ``counter``."""
+    return dict(name=name, kid=kid, route="cuda", source="flappie_tpu_torch/csrc/" + source,
+                replaces="flappie_tpu/ops/" + replaces, run=run, counter=counter, **numbers)
+
+
+def cudnn_gru_order(w, H: int):
+    """GRU-mod gate order (z, r, hbar) -> cuDNN's (r, z, n) along dim 0:
+    the inverse of the taiyaki converter's cudnn-to-guppy reordering."""
+    import torch
+
+    return torch.cat([w[H : 2 * H], w[:H], w[2 * H :]])
+
+
+def check_layer(torch, peak: dict, gen, kind: str) -> dict:
+    """K1 (kind "lstm") or K7 ("grumod") at T=2560, B=256, IN=H=256."""
+    from flappie_tpu_torch.ops import rnn_cuda
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    rows = []
-
-    # K1: fused LSTM layer
+    gates = {"lstm": 4, "grumod": 3}[kind]
+    fn = {"lstm": rnn_cuda.lstm_layer_tm, "grumod": rnn_cuda.grumod_layer_tm}[kind]
+    plain = {"lstm": rnn_cuda.lstm_layer_tm_plain, "grumod": rnn_cuda.grumod_layer_tm_plain}[kind]
     T, B, IN, H = 2560, 256, 256, 256
+    G = gates * H
     lengths = torch.randint(1, T, (B,), generator=gen, device=dev, dtype=torch.int32)
     lengths[0], lengths[1] = T, 0
     mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :])[..., None]
     x = torch.randn(T, B, IN, generator=gen, device=dev) * mask
-    iW = torch.randn(IN, 4 * H, generator=gen, device=dev) / IN ** 0.5
-    sW = torch.randn(H, 4 * H, generator=gen, device=dev) / H ** 0.5
-    b = torch.zeros(4 * H, device=dev)
-    b[H : 2 * H] = 1.0
+    iW = torch.randn(IN, G, generator=gen, device=dev) / IN ** 0.5
+    sW = torch.randn(H, G, generator=gen, device=dev) / H ** 0.5
+    if kind == "lstm":
+        b = torch.zeros(G, device=dev)
+        b[H : 2 * H] = 1.0
+    else:
+        # the candidate third far from zero: xa_h summed into the
+        # recurrent product would show
+        b = torch.randn(G, generator=gen, device=dev) * 0.2
+        b[2 * H :] += 0.75
     err = 0.0
     for backward in (False, True):
-        got = rnn_cuda.lstm_layer_tm(x, iW, b, sW, backward, lengths)
-        want = rnn_cuda.lstm_layer_tm_plain(x, iW, b, sW, backward, lengths)
+        got = fn(x, iW, b, sW, backward, lengths)
+        want = plain(x, iW, b, sW, backward, lengths)
         torch.cuda.synchronize()
         err = max(err, (got - want).abs().max().item())
+    kid = {"lstm": "K1", "grumod": "K7"}[kind]
     if not err <= 1e-4:
-        raise AssertionError(f"K1 lstm_layer: max |delta| {err} > 1e-4")
-    ms = cuda_ms(torch, lambda: rnn_cuda.lstm_layer_tm(x, iW, b, sW, True, lengths), 3)
-    plain_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_layer_tm_plain(x, iW, b, sW, True, lengths), 1)
-    # yardstick: one cuDNN LSTM call on the packed ragged batch (same
-    # gate order u=i, f, g, o; forward direction; zero-length rows count
-    # as one step, which pack_padded_sequence requires)
-    ref = torch.nn.LSTM(IN, H).to(dev)
+        raise AssertionError(f"{kid} {kind}_layer: max |delta| {err} > 1e-4")
+    ms = cuda_ms(torch, lambda: fn(x, iW, b, sW, True, lengths), 3)
+    plain_ms = cuda_ms(torch, lambda: plain(x, iW, b, sW, True, lengths), 1)
+    # yardstick: one cuDNN call on the packed ragged batch, forward
+    # direction; zero-length rows count as one step, which
+    # pack_padded_sequence requires.  nn.LSTM's gate order (i, f, g, o)
+    # is K1's (u, f, g, o); nn.GRU's n = tanh(W_in x + b_in + r*(W_hn h +
+    # b_hn)) is GRU-mod's candidate when b_hh = 0, after reordering the
+    # gates to (r, z, n).
+    if kind == "lstm":
+        ref = torch.nn.LSTM(IN, H).to(dev)
+        w_ih, w_hh, b_ih = iW.T, sW.T, b
+    else:
+        ref = torch.nn.GRU(IN, H).to(dev)
+        w_ih, w_hh, b_ih = (cudnn_gru_order(w, H) for w in (iW.T, sW.T, b))
     with torch.no_grad():
-        ref.weight_ih_l0.copy_(iW.T)
-        ref.weight_hh_l0.copy_(sW.T)
-        ref.bias_ih_l0.copy_(b)
+        ref.weight_ih_l0.copy_(w_ih)
+        ref.weight_hh_l0.copy_(w_hh)
+        ref.bias_ih_l0.copy_(b_ih)
         ref.bias_hh_l0.zero_()
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         x, lengths.clamp(min=1).cpu(), enforce_sorted=False)
     with torch.no_grad():
+        lib_out, _ = torch.nn.utils.rnn.pad_packed_sequence(ref(packed)[0], total_length=T)
         library_ms = cuda_ms(torch, lambda: ref(packed), 3)
+    got = fn(x, iW, b, sW, False, lengths)
+    lib_err = ((lib_out - got) * mask).abs().max().item()
+    log(f"{kid} library call computes the same function: max |cuDNN - kernel| {lib_err:.2e} "
+        "over the valid steps (forward)")
     nvalid = int(lengths.sum().item())
-    k1_bytes = 4 * (nvalid * IN + IN * 4 * H + 4 * H + H * 4 * H + B + T * B * H)
-    k1_ops = 2 * nvalid * (IN + H) * 4 * H
-    bms, by = bound(k1_bytes, k1_ops, peak)
-    rows.append(dict(name="lstm_layer", kid="K1", route="cuda",
-                     source="flappie_tpu_torch/csrc/lstm.cu",
-                     replaces="flappie_tpu/ops/rnn_pallas.py:273",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                     bound_by=by, library_ms=library_ms, launches_per_batch=5))
+    layer_bytes = 4 * (nvalid * IN + IN * G + G + H * G + B + T * B * H)
+    layer_ops = 2 * nvalid * (IN + H) * G
+    bms, by = bound(layer_bytes, layer_ops, peak)
+    source, replaces, run = {
+        "lstm": ("lstm.cu", "rnn_pallas.py:273", "r941_native"),
+        "grumod": ("grumod.cu", "rnn_pallas.py:290", "r941_5mC"),
+    }[kind]
+    return row(f"{kind}_layer", kid, source, replaces, run, f"{kind}_layer",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=library_ms)
 
-    # K3/K4, K5, K6 on one dense batch
-    S = 8
-    idx = flipflop_index(4)
+
+def check_scans(torch, peak: dict, gen, nbase: int) -> list:
+    """K3/K4, K5, K6 on one dense batch, T=2560, B=256, S=2*nbase."""
+    from flappie_tpu_torch.ops import crf_bm_cuda
+    from flappie_tpu_torch.ops.crf import flipflop_index
+    from flappie_tpu_torch.ops.crf_bm import _dense_tm
+
+    dev = torch.device("cuda")
+    T, B = 2560, 256
+    S = 2 * nbase
+    run, sfx = ("r941_native", "") if nbase == 4 else ("r941_5mC", f"_s{S}")
+    rows = []
+    idx = flipflop_index(nbase)
     trans = torch.randn(T, idx.nparam, B, generator=gen, device=dev) * 2.0
     nblocks = torch.randint(1, T, (B,), generator=gen, device=dev)
     nblocks[0], nblocks[1] = T, 0
@@ -159,66 +212,72 @@ def check_kernels(torch, peak: dict) -> list:
         torch.cuda.synchronize()
         delta = (got - want).abs()
         if not bool((delta <= 1e-5 * want.abs() + 1e-5).all()):
-            raise AssertionError(f"K3/K4 crf_sum_scan (backward={backward}): outside rtol 1e-5")
+            raise AssertionError(f"K3/K4 crf_sum_scan S={S} (backward={backward}): "
+                                 "outside rtol 1e-5")
         err = max(err, delta.max().item())
     ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states(dense, tvalid, False), 5)
     plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states_plain(dense, tvalid, False), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * (T + 1) * S * B, nv * (5 * S * S + 5 * S), peak)
-    rows.append(dict(name="crf_sum_scan", kid="K3/K4", route="cuda",
-                     source="flappie_tpu_torch/csrc/crf_scan.cu",
-                     replaces="flappie_tpu/ops/crf_bm_pallas.py:69",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                     bound_by=by, library_ms=None, launches_per_batch=3))
+    rows.append(row("crf_sum_scan" + sfx, "K3/K4", "crf_scan.cu", "crf_bm_pallas.py:69", run,
+                    "crf_sum_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None))
 
     alpha, bps = crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank)
     alpha0, bps0 = crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank)
     if not (torch.equal(alpha, alpha0) and torch.equal(bps, bps0)):
-        raise AssertionError("K5 crf_viterbi: not bit-equal to its plain version")
+        raise AssertionError(f"K5 crf_viterbi S={S}: not bit-equal to its plain version")
     ms = cuda_ms(torch, lambda: crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank), 5)
     plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * S * S + 4 * T * S * B + 4 * S * B,
                     nv * (4 * S * S + 3 * S), peak)
-    rows.append(dict(name="crf_viterbi", kid="K5", route="cuda",
-                     source="flappie_tpu_torch/csrc/crf_scan.cu",
-                     replaces="flappie_tpu/ops/crf_bm_pallas.py:135",
-                     max_abs_err=(alpha - alpha0).abs().max().item(), ms=ms,
-                     plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-                     launches_per_batch=1))
+    rows.append(row("crf_viterbi" + sfx, "K5", "crf_scan.cu", "crf_bm_pallas.py:135", run,
+                    "crf_viterbi", max_abs_err=(alpha - alpha0).abs().max().item(), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
 
     last = alpha.argmax(dim=0).to(torch.int32)
     path = crf_bm_cuda.traceback(bps, tvalid, last)
     path0 = crf_bm_cuda.traceback_plain(bps, tvalid, last)
     if not torch.equal(path, path0):
-        raise AssertionError("K6 crf_traceback: not equal to its plain version")
+        raise AssertionError(f"K6 crf_traceback S={S}: not equal to its plain version")
     ms = cuda_ms(torch, lambda: crf_bm_cuda.traceback(bps, tvalid, last), 5)
     plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.traceback_plain(bps, tvalid, last), 1)
     bms, by = bound(4 * T * S * B + 4 * T * B + 4 * B + 4 * (T + 1) * B, nv * S, peak)
-    rows.append(dict(name="crf_traceback", kid="K6", route="cuda",
-                     source="flappie_tpu_torch/csrc/crf_scan.cu",
-                     replaces="flappie_tpu/ops/crf_bm_pallas.py:170",
-                     max_abs_err=float((path - path0).abs().max().item()), ms=ms,
-                     plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-                     launches_per_batch=1))
+    rows.append(row("crf_traceback" + sfx, "K6", "crf_scan.cu", "crf_bm_pallas.py:170", run,
+                    "crf_traceback", max_abs_err=float((path - path0).abs().max().item()),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    return rows
+
+
+def check_kernels(torch, peak: dict) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    rows = [check_layer(torch, peak, gen, "lstm"), check_layer(torch, peak, gen, "grumod")]
+    rows += check_scans(torch, peak, gen, nbase=4) + check_scans(torch, peak, gen, nbase=5)
     for r in rows:
         log("kernel " + json.dumps({
             "kernel": r["name"], "id": r["kid"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "launches_per_batch": r["launches_per_batch"], "library_ms": r["library_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "max_abs_err": r["max_abs_err"],
         }))
     return rows
 
 
-# -- phase 3: main path --------------------------------------------------------
+# -- phase 3: main paths -------------------------------------------------------
+
+# model -> (long reads: count, min, max samples), (short reads: ...)
+RUNS = {
+    "r941_native": ((64, 95_000, 105_000), (16, 6_000, 12_800)),
+    "r941_5mC": ((24, 40_000, 60_000), (8, 2_000, 5_000)),
+}
 
 
-def write_reads(np, rng, outdir: str) -> list:
+def write_reads(np, rng, outdir: str, long: tuple, short: tuple) -> list:
     from flappie_tpu_torch.signal.fast5 import write_single_read_fast5
     from flappie_tpu_torch.signal.synthetic import synthetic_adc
 
     os.makedirs(outdir)
-    sizes = [int(n) for n in rng.integers(95_000, 105_000, 64)]
-    sizes += [int(n) for n in rng.integers(6_000, 12_800, 16)]
+    sizes = []
+    for count, lo, hi in (long, short):
+        sizes += [int(n) for n in rng.integers(lo, hi, count)]
     names = []
     for k, n in enumerate(sizes):
         name = f"read{k:03d}.fast5"
@@ -228,14 +287,17 @@ def write_reads(np, rng, outdir: str) -> list:
     return names
 
 
-def expected_programs(reads_dir: str, names: list) -> int:
+def expected_programs(reads_dir: str, names: list, cfg) -> int:
     """Program dispatches the CLI's default settings give these reads:
-    chunk batches of 256 across the long reads, plus bucket batches of
-    at most 32 same-bucket short reads."""
+    chunk batches of 256 chunks of 2560 blocks (2560 x the model's
+    stride samples) across the long reads, plus bucket batches of at
+    most 32 same-bucket short reads."""
     from flappie_tpu_torch.basecall import bucket_length, preprocess_batch
     from flappie_tpu_torch.parallel.chunking import plan_chunks
     from flappie_tpu_torch.signal.fast5 import read_raw
 
+    stride = cfg.total_stride
+    chunk = 2560 * stride
     t0 = time.perf_counter()
     pre = preprocess_batch([read_raw(os.path.join(reads_dir, n)) for n, _ in names])
     log(f"host: fast5 read + preprocessing of {len(names)} reads on one thread: "
@@ -243,14 +305,14 @@ def expected_programs(reads_dir: str, names: list) -> int:
     nchunk, buckets = 0, {}
     for rt in pre:
         L = rt.end - rt.start
-        if L > 12800:
-            nchunk += plan_chunks(L, 5, 12800, 1600).nchunk
+        if L > chunk:
+            nchunk += plan_chunks(L, stride, chunk, 1600).nchunk
         else:
             buckets[bucket_length(L)] = buckets.get(bucket_length(L), 0) + 1
     return -(-nchunk // 256) + sum(-(-c // 32) for c in buckets.values())
 
 
-def parse_fastq(text: str) -> dict:
+def parse_fastq(text: str, alphabet: str) -> dict:
     lines = text.splitlines()
     if len(lines) % 4:
         raise AssertionError("FASTQ: line count is not a multiple of 4")
@@ -259,7 +321,7 @@ def parse_fastq(text: str) -> dict:
         head, seq, plus, qual = lines[i : i + 4]
         if not head.startswith("@") or plus != "+" or len(seq) != len(qual) or not seq:
             raise AssertionError(f"malformed FASTQ record at line {i + 1}")
-        if set(seq) - set("ACGT") or any(not 33 <= ord(c) <= 126 for c in qual):
+        if set(seq) - set(alphabet) or any(not 33 <= ord(c) <= 126 for c in qual):
             raise AssertionError(f"bad sequence or quality characters at line {i + 1}")
         meta = json.loads(head.split("  ", 1)[1])
         recs[meta["filename"]] = (seq, meta["normalised_score"])
@@ -288,53 +350,53 @@ def identity(a: str, b: str, band: int = 256) -> float:
     return 1.0 - prev[m] / max(n, m)
 
 
-def time_chunk_program(torch, np, rng, card: str) -> None:
+def time_chunk_program(torch, np, rng, card: str, cfg) -> None:
     """Device time of one full 256-chunk batch of the chunk program
-    (the int16 wire, fb decode), outside the CLI."""
+    (the int16 wire, fb decode, 2560 blocks a chunk), outside the CLI."""
     from flappie_tpu_torch.basecall import (
         _device_basecall_chunk_packed_i16, pack_chunk_inputs_i16)
-    from flappie_tpu_torch.models.config import get_model_config
     from flappie_tpu_torch.models.params import init_synthetic, params_to_torch
     from flappie_tpu_torch.signal.synthetic import synthetic_adc
 
-    cfg = get_model_config("r941_native")
     params = params_to_torch(init_synthetic(cfg, seed=0), "cuda")
-    CB, W = 256, 12800
+    CB, W = 256, 2560 * cfg.total_stride
     adc = np.stack([synthetic_adc(W, rng) for _ in range(CB)])
     pa = (adc.astype(np.float32) + np.float32(16.0)) * np.float32(1373.41 / 8192.0)
     med = np.median(pa, axis=1).astype(np.float32)
     mad = (np.median(np.abs(pa - med[:, None]), axis=1) * 1.4826).astype(np.float32)
     scal = np.stack([np.full(CB, 16.0), np.full(CB, 1373.41 / 8192.0), med, mad], 1)
     full = np.full(CB, W, np.int32)
-    buf = torch.from_numpy(pack_chunk_inputs_i16(adc, full, np.full(CB, 1), full // 5, scal))
+    buf = torch.from_numpy(pack_chunk_inputs_i16(adc, full, np.full(CB, 1),
+                                                 full // cfg.total_stride, scal))
     buf = buf.to("cuda")
     with torch.inference_mode():
         ms = cuda_ms(torch, lambda: _device_basecall_chunk_packed_i16(
             params, buf, cfg, 1.0, False, False), 2)
-    log(f"device: chunk program, one batch of {CB} x {W} samples: {ms:.1f} ms = "
+    log(f"device {cfg.name}: chunk program, one batch of {CB} x {W} samples: {ms:.1f} ms = "
         f"{CB * W / ms / 1e3:.3f} Msamples/s device-only [{card}]")
 
 
-def profiled_run(torch, reads_dir: str, card: str) -> None:
+def profiled_run(torch, reads_dir: str, card: str, model: str) -> None:
     """The default run once more under torch.profiler (device activity
     only): the device busy share of the wall, and kernel time by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = os.path.join(os.path.dirname(reads_dir), "gpu_fb_profiled.fastq")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = run_cli(torch, [reads_dir, "-o", os.path.join(WORK, "gpu_fb_profiled.fastq")])
+        wall = run_cli(torch, [reads_dir, "-o", out, "--model", model])
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        log("profile: no device events recorded; device busy share not measured")
+        log(f"profile {model}: no device events recorded; device busy share not measured")
         return
     busy, end, by_name = 0.0, float("-inf"), {}
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
-    log(f"profile (fb run, profiler on): wall {wall:.3f} s, device busy {busy / 1e6:.3f} s "
-        f"= {100 * busy / 1e6 / wall:.1f}% of the wall, span of device work "
+    log(f"profile {model} (fb run, profiler on): wall {wall:.3f} s, device busy "
+        f"{busy / 1e6:.3f} s = {100 * busy / 1e6 / wall:.1f}% of the wall, span of device work "
         f"{(end - spans[0][0]) / 1e6:.3f} s [{card}]")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  kernel time {us / 1e3:9.1f} ms  {name[:90]}")
@@ -353,68 +415,77 @@ def run_cli(torch, args: list) -> float:
     return wall
 
 
-def main_path(torch, np, card: str) -> dict:
+def main_path(torch, np, card: str, model: str) -> dict:
+    """One model's main path in fb and --viterbi; returns the fb run's
+    launch counts."""
+    from flappie_tpu_torch.models.config import get_model_config
     from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
 
+    cfg = get_model_config(model)
     counters = {
         "lstm_layer": rnn_cuda.lstm_layer_tm,
+        "grumod_layer": rnn_cuda.grumod_layer_tm,
         "crf_sum_scan": crf_bm_cuda.sum_states,
         "crf_viterbi": crf_bm_cuda.viterbi_fwd,
         "crf_traceback": crf_bm_cuda.traceback,
     }
-    shutil.rmtree(WORK, ignore_errors=True)
-    reads_dir = os.path.join(WORK, "reads")
+    layer = {"lstm": "lstm_layer", "grumod": "grumod_layer"}[cfg.rnns[0].kind]
+    alphabet = "ACGTZ"[: cfg.nbase]
+    wdir = os.path.join(WORK, model)
+    reads_dir = os.path.join(wdir, "reads")
     rng = np.random.default_rng(20261016)
-    names = write_reads(np, rng, reads_dir)
+    names = write_reads(np, rng, reads_dir, *RUNS[model])
     nsample = sum(n for _, n in names)
-    P = expected_programs(reads_dir, names)
-    log(f"main path: {len(names)} reads, {nsample} samples, {P} programs per run")
+    P = expected_programs(reads_dir, names, cfg)
+    log(f"main path {model}: {len(names)} reads, {nsample} samples, {P} programs per run")
 
     launches = {}
     outputs = {}
     for mode, extra in (("fb", []), ("viterbi", ["--viterbi"])):
-        out = os.path.join(WORK, f"gpu_{mode}.fastq")
+        out = os.path.join(wdir, f"gpu_{mode}.fastq")
         for fn in counters.values():
             fn.launches = 0
-        wall = run_cli(torch, [reads_dir, "-o", out] + extra)
+        wall = run_cli(torch, [reads_dir, "-o", out, "--model", model] + extra)
         got = {k: fn.launches for k, fn in counters.items()}
-        want = {"lstm_layer": 5 * P, "crf_sum_scan": (3 if mode == "fb" else 1) * P,
-                "crf_viterbi": P, "crf_traceback": P}
+        want = dict.fromkeys(counters, 0)
+        want.update({layer: len(cfg.rnns) * P, "crf_sum_scan": (3 if mode == "fb" else 1) * P,
+                     "crf_viterbi": P, "crf_traceback": P})
         if got != want:
-            raise AssertionError(f"{mode}: kernel launches {got}, expected {want}")
+            raise AssertionError(f"{model} {mode}: kernel launches {got}, expected {want}")
         with open(out) as fh:
-            recs = parse_fastq(fh.read())
+            recs = parse_fastq(fh.read(), alphabet)
         if sorted(recs) != sorted(n for n, _ in names):
-            raise AssertionError(f"{mode}: {len(recs)} FASTQ records for {len(names)} reads")
+            raise AssertionError(f"{model} {mode}: {len(recs)} FASTQ records for "
+                                 f"{len(names)} reads")
         outputs[mode] = recs
         if mode == "fb":
             launches = got
-        log(f"main path {mode}: {len(recs)} reads, wall {wall:.3f} s, "
+        log(f"main path {model} {mode}: {len(recs)} reads, wall {wall:.3f} s, "
             f"{nsample / wall / 1e6:.3f} Msamples/s, launches {json.dumps(got)} [{card}]")
 
     # a subset against the port's own CPU path
     subset = [names[0][0], names[1][0], names[-2][0], names[-1][0]]
-    sub_dir = os.path.join(WORK, "subset")
+    sub_dir = os.path.join(wdir, "subset")
     os.makedirs(sub_dir)
     for n in subset:
         shutil.copy(os.path.join(reads_dir, n), sub_dir)
-    cpu_out = os.path.join(WORK, "cpu_fb.fastq")
-    cpu_wall = run_cli(torch, [sub_dir, "-o", cpu_out, "--device", "cpu"])
+    cpu_out = os.path.join(wdir, "cpu_fb.fastq")
+    cpu_wall = run_cli(torch, [sub_dir, "-o", cpu_out, "--model", model, "--device", "cpu"])
     with open(cpu_out) as fh:
-        cpu = parse_fastq(fh.read())
+        cpu = parse_fastq(fh.read(), alphabet)
     worst_id, worst_ds = 1.0, 0.0
     for n in subset:
         ident = identity(outputs["fb"][n][0], cpu[n][0])
         ds = abs(outputs["fb"][n][1] - cpu[n][1])
         worst_id, worst_ds = min(worst_id, ident), max(worst_ds, ds)
-        log(f"gpu vs cpu {n}: identity {ident:.6f}, |score delta| {ds:.2e}")
+        log(f"gpu vs cpu {model} {n}: identity {ident:.6f}, |score delta| {ds:.2e}")
         if not (ident >= 0.995 and ds <= 1e-4):
-            raise AssertionError(f"{n}: GPU vs CPU outside the band (identity {ident}, "
-                                 f"score delta {ds})")
-    log(f"gpu vs cpu: {len(subset)} reads, min identity {worst_id:.6f}, "
+            raise AssertionError(f"{model} {n}: GPU vs CPU outside the band (identity "
+                                 f"{ident}, score delta {ds})")
+    log(f"gpu vs cpu {model}: {len(subset)} reads, min identity {worst_id:.6f}, "
         f"max |score delta| {worst_ds:.2e}, cpu wall {cpu_wall:.1f} s")
-    time_chunk_program(torch, np, rng, card)
-    profiled_run(torch, reads_dir, card)
+    time_chunk_program(torch, np, rng, card, cfg)
+    profiled_run(torch, reads_dir, card, model)
     return launches
 
 
@@ -447,11 +518,12 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     rows = check_kernels(torch, peak)
-    launches = main_path(torch, np, card)
+    shutil.rmtree(WORK, ignore_errors=True)
+    launches = {model: main_path(torch, np, card, model) for model in RUNS}
 
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
-        "replaces": r["replaces"], "launches": launches[r["name"]],
+        "replaces": r["replaces"], "launches": launches[r["run"]][r["counter"]],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in rows]

@@ -112,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Chunked fast path: reads longer than this are split into "
                         "overlapping chunks batched through one fixed-shape program "
                         "and stitched at overlap midpoints (default: 2560 blocks x "
-                        "model stride = 12800 at stride 5; 0 disables)")
+                        "model stride = 12800 at stride 5, 5120 at stride 2; "
+                        "0 disables)")
     p.add_argument("--overlap", type=int, default=1600, metavar="samples",
                    help="Chunk overlap; each stitched block sits at least "
                         "overlap/2 samples from its chunk's edges")

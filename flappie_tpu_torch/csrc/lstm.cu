@@ -16,9 +16,10 @@
 // read from L2 (where it stays resident: 50 MB) once per step per block.
 //
 // Design (simple and right first):
-//  1. affine_kernel, a tiled f32 SGEMM (128x128 tiles, 8x8 outputs per
-//     thread, bias added after the dot as in the TPU kernel) writes xa
-//     [T, B, 4H] to device memory.  It is fully parallel.
+//  1. affine_kernel (affine.cuh, shared with K7), a tiled f32 SGEMM
+//     (128x128 tiles, 8x8 outputs per thread, bias added after the dot as
+//     in the TPU kernel) writes xa [T, B, 4H] to device memory.  It is
+//     fully parallel.
 //  2. lstm_recurrence_kernel splits the batch across blocks of R=8 rows
 //     (32 blocks at B=256); each block walks all T steps.  Its 2H threads
 //     split the product h.sW in two halves of the k (hidden unit) range;
@@ -37,73 +38,13 @@
 
 #include <cuda_runtime.h>
 
+#include "affine.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;  // 256 threads
+using flappie::sigmoidf_;
+
 constexpr int ROWS = 8;  // batch rows per recurrence block
-
-__global__ void __launch_bounds__(256)
-affine_kernel(const float* __restrict__ A, const float* __restrict__ W,
-              const float* __restrict__ bias, float* __restrict__ C,
-              long M, int N, int K) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // padded: conflict-free stores
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const long row0 = (long)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = tid + q * 256;
-      const int r = i / BK, c = i % BK;
-      const long gr = row0 + r;
-      const int gc = k0 + c;
-      As[c][r] = (gr < M && gc < K) ? A[gr * K + gc] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = tid + q * 256;
-      const int r = i / BN, c = i % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      Bs[r][c] = (gr < K && gc < N) ? W[(long)gr * N + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tr * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][tr * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][BN / 2 + tc * 4]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long gr = row0 + tr * TM + i;
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = col0 + (j < 4 ? tc * 4 + j : BN / 2 + tc * 4 + j - 4);
-      if (gc < N) C[gr * N + gc] = acc[i][j] + bias[gc];
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
 template <int R>
 __global__ void __launch_bounds__(512)
@@ -215,11 +156,8 @@ extern "C" int flappie_lstm_layer(const float* x, const float* iW, const float* 
                                   int backward, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)T * B;
-  const int N = 4 * H;
   if (M == 0) return 0;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  affine_kernel<<<grid, 256, 0, st>>>(x, iW, b, xa, M, N, IN);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = flappie::launch_affine(x, iW, b, xa, M, 4 * H, IN, st);
   if (err != cudaSuccess) return err;
   const size_t smem = (size_t)(H * ROWS + 2 * ROWS * 4 * H) * sizeof(float);
   if (smem > 48 * 1024) {

@@ -1,12 +1,15 @@
 """Batched forward graph: raw signal -> CRF transition weights.
 
 Counterpart of flappie_tpu/models/network.py:207 ``transitions`` for the
-stride-5 LSTM graph with the flip-flop head (r941_native and the models
-sharing its graph; reference flipflop5_guppy_transitions,
-src/networks.c:539-586).  The conv stack runs batch-major [B, T, C];
-the LSTM stack runs time-major [T, B, H] through the fused layer kernel
-(ops/rnn_cuda.py), as the JAX package's ``_rnn_stack_fused_tm`` does:
-direction and per-read tail masking live inside the kernel.
+non-residual LSTM and GRU-mod graphs with the flip-flop head: the
+stride-5 LSTM graph of r941_native, r941_rna002 and r103_native
+(reference flipflop5_guppy_transitions, src/networks.c:539-586) and the
+stride-2 GRU-mod graph of r941_5mC (flipflop_guppy_transitions,
+:450-489).  The conv stack runs batch-major [B, T, C]; the recurrent
+stack runs time-major [T, B, H] through the fused layer kernels
+(ops/rnn_cuda.py: K1 for LSTM, K7 for GRU-mod), as the JAX package's
+``_rnn_stack_fused_tm`` does: direction and per-read tail masking live
+inside the kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from ..ops.activations import ACTIVATIONS
 from ..ops.conv import conv1d_same
 from ..ops.heads import globalnorm_flipflop
 from ..ops.masking import mask_tail
-from ..ops.rnn_cuda import lstm_layer_tm
+from ..ops.rnn_cuda import grumod_layer_tm, lstm_layer_tm
 from .config import ModelConfig
 
 
@@ -25,11 +28,16 @@ def ceil_div(a, b):
     return -((-a) // b)
 
 
+# the fused layer kernel for each recurrent kind the port runs
+LAYERS = {"lstm": lstm_layer_tm, "grumod": grumod_layer_tm}
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a graph the port does not run yet."""
-    if cfg.head != "flipflop" or any(r.kind != "lstm" or r.residual for r in cfg.rnns):
+    if cfg.head != "flipflop" or any(r.kind not in LAYERS or r.residual for r in cfg.rnns):
         raise NotImplementedError(
-            f"model {cfg.name!r}: the port runs the LSTM flip-flop graph only so far"
+            f"model {cfg.name!r}: the port runs the non-residual LSTM and GRU-mod "
+            "flip-flop graphs only so far"
         )
 
 
@@ -52,8 +60,8 @@ def rnn_stack_tm(params, cfg: ModelConfig, x, lengths):
     x_tm = x.transpose(0, 1).contiguous()
     for i, r in enumerate(cfg.rnns):
         p = params[f"rnn{i}"]
-        x_tm = lstm_layer_tm(x_tm, p["iW"], p["b"], p["sW"],
-                             backward=r.backward, lengths=lengths)
+        x_tm = LAYERS[r.kind](x_tm, p["iW"], p["b"], p["sW"],
+                              backward=r.backward, lengths=lengths)
     return x_tm.transpose(0, 1)
 
 

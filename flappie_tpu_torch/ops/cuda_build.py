@@ -4,7 +4,8 @@ Each source ``flappie_tpu_torch/csrc/<name>.cu`` exposes a plain C
 interface and is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/flappie_tpu_torch/lib<name>.so`` (a directory .gitignore lists)
 the first time a wrapper launches one of its kernels, then loaded with
-ctypes.  A source newer than its library is rebuilt.  ``build()``
+ctypes.  A library older than its source or than any shared header
+``csrc/*.cuh`` is rebuilt.  ``build()``
 compiles several sources at once, one ``nvcc`` process each.  No
 ``--use_fast_math``: precise ``expf``/``logf``/``tanhf`` belong to the
 parity tier.
@@ -21,7 +22,7 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "flappie_tpu_torch")
-SOURCES = ("lstm", "crf_scan")
+SOURCES = ("lstm", "grumod", "crf_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,7 +49,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    deps = [src] + [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
 def build(names=SOURCES) -> list:

@@ -6,6 +6,12 @@ step ``xF = xAffine_t + h sW``; gate order in xF is [update, forget,
 candidate, output]; no peepholes; zero initial state;
 ``c = sigma(f)*c + sigma(u)*tanh(g)``; ``h = sigma(o)*tanh(c)``.
 
+GRU-mod (src/layers.c:664-715): ``v = h sW`` (3H, gate order [z, r,
+hbar]); ``z = sigma(x_t[:H] + v[:H])``, ``r = sigma(x_t[H:2H] +
+v[H:2H])``, ``hbar = tanh(r * v[2H:] + x_t[2H:])``, ``h' = z*h +
+(1-z)*hbar``.  The candidate's input term is added after the multiply
+by r, never summed into v.
+
 These scan forward over batch-major [B, T, ...] tensors; the network
 itself runs the fused time-major layer in rnn_cuda.py, which handles
 direction and lengths inside the kernel.
@@ -43,5 +49,26 @@ def lstm_seq(xaffine, sW):
     ys = []
     for t in range(T):
         h, c = lstm_step(xaffine[:, t], h, c, sW)
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
+def grumod_step(xa_t, h, sW):
+    """One GRU-mod step: returns h'."""
+    H = h.shape[-1]
+    v = h @ sW
+    z = torch.sigmoid(xa_t[:, :H] + v[:, :H])
+    r = torch.sigmoid(xa_t[:, H : 2 * H] + v[:, H : 2 * H])
+    hbar = torch.tanh(r * v[:, 2 * H :] + xa_t[:, 2 * H :])
+    return z * h + (1 - z) * hbar
+
+
+def grumod_seq(xaffine, sW):
+    """xaffine: [B, T, 3H] (= x iW + b), sW: [H, 3H] -> [B, T, H]."""
+    B, T, H3 = xaffine.shape
+    h = xaffine.new_zeros(B, H3 // 3)
+    ys = []
+    for t in range(T):
+        h = grumod_step(xaffine[:, t], h, sW)
         ys.append(h)
     return torch.stack(ys, dim=1)

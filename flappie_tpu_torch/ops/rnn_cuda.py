@@ -1,15 +1,17 @@
-"""Fused LSTM layer: kernel K1 (csrc/lstm.cu) and its plain version.
+"""Fused recurrent layers: kernels K1 (LSTM, csrc/lstm.cu) and K7
+(GRU-mod, csrc/grumod.cu), and their plain versions.
 
-Counterpart of flappie_tpu/ops/rnn_pallas.py:563 ``lstm_layer_tm``
-(``_lstm_fused_kernel``): time-major in and out, the block input affine
-computed by the kernel itself, backward layers walking time in reverse,
-and steps at or past a read's length freezing the carried state and
-writing zeros.
+Counterparts of flappie_tpu/ops/rnn_pallas.py:563 ``lstm_layer_tm``
+(``_lstm_fused_kernel``) and :578 ``grumod_layer_tm``
+(``_grumod_fused_kernel``): time-major in and out, the block input
+affine computed by the kernel itself, backward layers walking time in
+reverse, and steps at or past a read's length freezing the carried state
+and writing zeros.
 
-``lstm_layer_tm`` launches the CUDA kernel for a CUDA tensor and runs
-``lstm_layer_tm_plain`` for a CPU tensor; any other device raises.  The
-recurrent product is true f32 (the TPU's bf16x3 split is not the parity
-tier).  ``lstm_layer_tm.launches`` counts kernel launches.
+Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
+plain version for a CPU tensor; any other device raises.  The recurrent
+product is true f32 (the TPU's bf16x3 split is not the parity tier).
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .rnn import lstm_step
+from .rnn import grumod_step, lstm_step
 
 
 def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
@@ -41,13 +43,60 @@ def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     return out
 
 
-def _lib():
-    lib = cuda_build.load("lstm")
-    fn = lib.flappie_lstm_layer
+def grumod_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math)."""
+    T, B, _ = x_tm.shape
+    H = sW.shape[0]
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
+    xa = torch.matmul(x_tm, iW) + b  # [T, B, 3H]
+    h = x_tm.new_zeros(B, H)
+    out = x_tm.new_empty(T, B, H)
+    for t in (range(T - 1, -1, -1) if backward else range(T)):
+        h2 = grumod_step(xa[t], h, sW)
+        valid = (t < lengths)[:, None]
+        out[t] = torch.where(valid, h2, torch.zeros_like(h2))
+        h = torch.where(valid, h2, h)
+    return out
+
+
+def _lib(name: str, entry: str):
+    lib = cuda_build.load(name)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return lib, fn
+
+
+def _launch_layer(what, source, entry, gates, max_h, x_tm, iW, b, sW, backward, lengths):
+    """Checks shared by the fused-layer wrappers, then one launch of the
+    C entry point ``entry`` of ``csrc/<source>.cu``."""
+    T, B, IN = x_tm.shape
+    H = sW.shape[0]
+    G = gates * H
+    if tuple(iW.shape) != (IN, G) or tuple(b.shape) != (G,) or tuple(sW.shape) != (H, G):
+        raise ValueError(f"{what}: bad weight shapes {tuple(iW.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(sW.shape)} for IN={IN}, H={H}")
+    if H % 16 or H > max_h:
+        raise ValueError(f"{what}: kernel needs H % 16 == 0 and H <= {max_h}, got {H}")
+    for name, t in (("x", x_tm), ("iW", iW), ("b", b), ("sW", sW)):
+        if t.dtype != torch.float32 or t.device != x_tm.device:
+            raise ValueError(f"{what}: {name} must be float32 on {x_tm.device}")
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
+    x_tm, iW, b, sW = (t.contiguous() for t in (x_tm, iW, b, sW))
+    lengths = lengths.to(device=x_tm.device, dtype=torch.int32).contiguous()
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"{what}: lengths must be [{B}]")
+    xa = torch.empty(T * B, G, dtype=torch.float32, device=x_tm.device)
+    out = torch.empty(T, B, H, dtype=torch.float32, device=x_tm.device)
+    lib, fn = _lib(source, entry)
+    rc = fn(cuda_build.ptr(x_tm), cuda_build.ptr(iW), cuda_build.ptr(b),
+            cuda_build.ptr(sW), cuda_build.ptr(lengths), cuda_build.ptr(xa),
+            cuda_build.ptr(out), T, B, IN, H, int(backward), cuda_build.stream_of(x_tm))
+    cuda_build.check(lib, rc, what)
+    return out
 
 
 def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
@@ -57,32 +106,26 @@ def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type != "cuda":
         raise ValueError(f"lstm_layer_tm: unsupported device {x_tm.device}")
-    T, B, IN = x_tm.shape
-    H = sW.shape[0]
-    if tuple(iW.shape) != (IN, 4 * H) or tuple(b.shape) != (4 * H,) or tuple(sW.shape) != (H, 4 * H):
-        raise ValueError(f"lstm_layer_tm: bad weight shapes {tuple(iW.shape)}, "
-                         f"{tuple(b.shape)}, {tuple(sW.shape)} for IN={IN}, H={H}")
-    if H % 16 or H > 512:
-        raise ValueError(f"lstm_layer_tm: kernel needs H % 16 == 0 and H <= 512, got {H}")
-    for name, t in (("x", x_tm), ("iW", iW), ("b", b), ("sW", sW)):
-        if t.dtype != torch.float32 or t.device != x_tm.device:
-            raise ValueError(f"lstm_layer_tm: {name} must be float32 on {x_tm.device}")
-    if lengths is None:
-        lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
-    x_tm, iW, b, sW = (t.contiguous() for t in (x_tm, iW, b, sW))
-    lengths = lengths.to(device=x_tm.device, dtype=torch.int32).contiguous()
-    xa = torch.empty(T * B, 4 * H, dtype=torch.float32, device=x_tm.device)
-    out = torch.empty(T, B, H, dtype=torch.float32, device=x_tm.device)
-    lib = _lib()
-    rc = lib.flappie_lstm_layer(
-        cuda_build.ptr(x_tm), cuda_build.ptr(iW), cuda_build.ptr(b),
-        cuda_build.ptr(sW), cuda_build.ptr(lengths), cuda_build.ptr(xa),
-        cuda_build.ptr(out), T, B, IN, H, int(backward),
-        cuda_build.stream_of(x_tm),
-    )
-    cuda_build.check(lib, rc, "lstm_layer_tm")
+    out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4, 512,
+                        x_tm, iW, b, sW, backward, lengths)
     lstm_layer_tm.launches += 1
     return out
 
 
 lstm_layer_tm.launches = 0
+
+
+def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """Fused input affine + GRU-mod recurrence, time-major [T, B, IN] ->
+    [T, B, H]; ``lengths`` [B] int32 (default: all T)."""
+    if x_tm.device.type == "cpu":
+        return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.device.type != "cuda":
+        raise ValueError(f"grumod_layer_tm: unsupported device {x_tm.device}")
+    out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3, 256,
+                        x_tm, iW, b, sW, backward, lengths)
+    grumod_layer_tm.launches += 1
+    return out
+
+
+grumod_layer_tm.launches = 0

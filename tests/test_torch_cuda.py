@@ -7,7 +7,7 @@ without JAX, skip tests/conftest.py (which sets JAX up):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: K1 max |delta| <= 1e-4 (FMA contraction and another
+Tolerances: K1 and K7 max |delta| <= 1e-4 (FMA contraction and another
 summation order over H products per step, compounding over T steps);
 sum scans rtol 1e-5 (reassociation); Viterbi and traceback bit-equal.
 """
@@ -50,6 +50,28 @@ def test_lstm_kernel_matches_plain(cuda, B, T, IN, H, backward):
     got = rnn_cuda.lstm_layer_tm(*args, backward=backward, lengths=lengths)
     assert rnn_cuda.lstm_layer_tm.launches == before + 1
     want = rnn_cuda.lstm_layer_tm_plain(*args, backward=backward, lengths=lengths)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("B,T,IN,H", [(5, 37, 12, 16), (19, 64, 256, 256)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_grumod_kernel_matches_plain(cuda, B, T, IN, H, backward):
+    """K7; the candidate third of the bias is far from zero, so summing
+    xa_h into the recurrent product would show."""
+    gen = torch.Generator().manual_seed(B * T + H + 1)
+    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
+    lengths[0], lengths[-1] = T, 0
+    x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
+    b = _rnd(gen, 3 * H, scale=0.2)
+    b[2 * H :] += 0.75
+    args = [t.to(cuda) for t in (x, _rnd(gen, IN, 3 * H, scale=IN ** -0.5), b,
+                                 _rnd(gen, H, 3 * H, scale=H ** -0.5))]
+    lengths = lengths.to(cuda)
+    before = rnn_cuda.grumod_layer_tm.launches
+    got = rnn_cuda.grumod_layer_tm(*args, backward=backward, lengths=lengths)
+    assert rnn_cuda.grumod_layer_tm.launches == before + 1
+    want = rnn_cuda.grumod_layer_tm_plain(*args, backward=backward, lengths=lengths)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
 

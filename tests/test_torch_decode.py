@@ -2,9 +2,12 @@
 
 - decode_bm: path and quality bytes equal to the JAX package's,
   score within float32 reassociation, trace bytes within one count;
-- the C oracle's own transition dumps (tests/goldens/ff_*_fastq.npz)
-  decode to the golden FASTQ records;
-- transitions within 5e-6 (the CPU band) and independent of padding;
+- the C oracle's own transition dumps (tests/goldens/ff_*_fastq.npz,
+  and mc5_fb.npz for the 5-base r941_5mC model) decode to the golden
+  FASTQ records;
+- transitions within 5e-6 (the CPU band) and independent of padding, for
+  the r941_native graph and the r941_5mC graph (stride-2 tanh conv,
+  GRU-mod layers, 5 bases) at small widths;
 - the packed int16 chunk and bucket programs give the JAX programs'
   output bytes: path, quality (but the unused NaN byte 0), nblocks
   bytes equal, trace bytes within one count, the bit-cast f32 score
@@ -44,15 +47,22 @@ GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 _SCORE_RE = re.compile(r'"normalised_score" : (-?[\d.]+|nan)')
 
 
-def _small_cfgs(hid=24):
-    """The r941_native graph at a small width, in both packages."""
+def _small_cfgs(hid=24, model="r941_native", nrnn=None):
+    """``model``'s graph at a small width (its last conv and every
+    recurrent layer ``hid`` wide; the first ``nrnn`` recurrent layers
+    only, if given), in both packages."""
     out = []
     for mod in (j_config, t_config):
-        cfg = mod.MODELS["r941_native"]
-        convs = (replace(cfg.convs[0]), replace(cfg.convs[1]),
-                 replace(cfg.convs[2], out_ch=hid))
-        out.append(replace(cfg, convs=convs, rnns=tuple(replace(r, size=hid) for r in cfg.rnns)))
+        cfg = mod.MODELS[model]
+        convs = cfg.convs[:-1] + (replace(cfg.convs[-1], out_ch=hid),)
+        rnns = tuple(replace(r, size=hid) for r in cfg.rnns[:nrnn])
+        out.append(replace(cfg, convs=convs, rnns=rnns))
     return out
+
+
+def _small_5mc_cfgs():
+    """r941_5mC shrunk: the stride-2 tanh conv, 2 GRU-mod layers of 16."""
+    return _small_cfgs(hid=16, model="r941_5mC", nrnn=2)
 
 
 @pytest.mark.parametrize("viterbi_only", [False, True])
@@ -79,21 +89,24 @@ def test_decode_bm_matches_jax(viterbi_only, compute_trace):
     assert tt.shape == jt.shape
 
 
-@pytest.mark.parametrize("case", ["ff_fb_fastq", "ff_ckpt_fastq"])
+@pytest.mark.parametrize("case", ["ff_fb_fastq", "ff_ckpt_fastq", "mc5_fb"])
 def test_decode_golden_transitions(case):
     """The C oracle's transition dump through the port's decode and
     formatting gives the golden FASTQ record: header bytes except the
     score's last digit, sequence and qualities byte for byte."""
     with open(os.path.join(GOLDENS, "manifest.json")) as fh:
         man = json.load(fh)
+    nbase = t_config.MODELS[man["cases"][case]["model"]].nbase
     z = np.load(os.path.join(GOLDENS, f"{case}.npz"))
     trans, gold_trace = z["trans"], z["trace"]
     T = trans.shape[0]
+    assert trans.shape[1] == 2 * nbase * (nbase + 1)
     buf = np.zeros((1, -(-T // 256) * 256, trans.shape[1]), np.float32)
     buf[0, :T] = trans
-    score, path, qpath, trace = decode_bm(torch.from_numpy(buf), torch.tensor([T]), 4,
+    score, path, qpath, trace = decode_bm(torch.from_numpy(buf), torch.tensor([T]), nbase,
                                           False, True)
-    seq, qual = path_to_basecall(path[0].numpy(), phred_from_qpath(qpath)[0].numpy(), T, 4)
+    seq, qual = path_to_basecall(path[0].numpy(), phred_from_qpath(qpath)[0].numpy(), T, nbase)
+    assert trace.shape[2] == 2 * nbase
     ns = man["nsample"]
     res = BasecallResult(uuid=man["uuid"], score=float(score[0]), basecall=seq, quality=qual,
                          nblock=T, nsample=ns, trim_start=200, trim_end=ns - 10)
@@ -117,10 +130,16 @@ def _signal_batch(seed=0):
     return sig, lengths
 
 
-@pytest.mark.parametrize("return_norm", [False, True])
-def test_transitions_match_jax(return_norm):
-    jcfg, tcfg = _small_cfgs()
-    params = init_synthetic(jcfg, seed=3)
+def _nonzero_biases(params, seed):
+    """init_synthetic leaves most biases 0; give every bias a value, so
+    that a bias applied at the wrong place shows."""
+    rng = np.random.default_rng(seed)
+    for layer in params.values():
+        layer["b"] = layer["b"] + rng.normal(0, 0.2, layer["b"].shape).astype(np.float32)
+    return params
+
+
+def _check_transitions(jcfg, tcfg, params, return_norm, incs_atol=5e-5):
     sig, lengths = _signal_batch()
     want = j_transitions(jax.tree.map(jnp.asarray, params), jcfg, jnp.asarray(sig),
                          jnp.asarray(lengths), 0.9, "scan", return_norm=return_norm)
@@ -130,12 +149,29 @@ def test_transitions_match_jax(return_norm):
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=5e-6)
     if return_norm:
         np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5, atol=5e-6)
-        np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), rtol=0, atol=5e-5)
+        np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), rtol=0, atol=incs_atol)
 
 
-def test_transitions_ignore_padding():
-    _, tcfg = _small_cfgs()
-    params = params_to_torch(init_synthetic(_small_cfgs()[0], seed=4), "cpu")
+@pytest.mark.parametrize("return_norm", [False, True])
+def test_transitions_match_jax(return_norm):
+    jcfg, tcfg = _small_cfgs()
+    _check_transitions(jcfg, tcfg, init_synthetic(jcfg, seed=3), return_norm)
+
+
+@pytest.mark.parametrize("return_norm", [False, True])
+def test_transitions_5mc_match_jax(return_norm):
+    jcfg, tcfg = _small_5mc_cfgs()
+    assert (tcfg.total_stride, tcfg.nstate, tcfg.out_dim) == (2, 10, 60)
+    params = _nonzero_biases(init_synthetic(jcfg, seed=13), seed=14)
+    # each increment is the difference of two running log-partitions,
+    # which reach |logZ| ~ 2.1e3 over the 602 stride-2 blocks of this
+    # batch (vs ~7e2 over 241 stride-5 blocks above), where one float32
+    # ulp is 2.4e-4: two ulps of reassociation
+    _check_transitions(jcfg, tcfg, params, return_norm, incs_atol=4.9e-4)
+
+
+def _check_ignore_padding(jcfg, tcfg):
+    params = params_to_torch(init_synthetic(jcfg, seed=4), "cpu")
     sig, lengths = _signal_batch(seed=1)
     a, nb = t_transitions(params, tcfg, torch.from_numpy(sig), torch.from_numpy(lengths))
     junk = sig + 50.0 * (np.arange(sig.shape[1])[None, :] >= lengths[:, None])
@@ -150,6 +186,14 @@ def test_transitions_ignore_padding():
         np.testing.assert_allclose(b[r, :n].numpy(), a[r, :n].numpy(), rtol=0, atol=5e-6)
     n = int(nb[2])
     np.testing.assert_allclose(alone[0, :n].numpy(), a[2, :n].numpy(), rtol=0, atol=5e-6)
+
+
+def test_transitions_ignore_padding():
+    _check_ignore_padding(*_small_cfgs())
+
+
+def test_transitions_5mc_ignore_padding():
+    _check_ignore_padding(*_small_5mc_cfgs())
 
 
 def _i16_buffer(width, lengths, qlo, qhi, seed):
@@ -170,15 +214,9 @@ def _i16_buffer(width, lengths, qlo, qhi, seed):
     return t_bc.pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal)
 
 
-@pytest.mark.parametrize("viterbi_only", [False, True])
-@pytest.mark.parametrize("program", ["chunk", "bucket"])
-def test_packed_i16_programs_match_jax(program, viterbi_only):
-    jcfg, tcfg = _small_cfgs()
-    params = init_synthetic(jcfg, seed=5)
+def _check_packed_programs(jcfg, tcfg, params, program, viterbi_only, qlo, qhi):
     W = 2000
     lengths = np.array([2000, 1700, 5, 900], np.int32)
-    qlo = np.array([1, 40, 0, 1], np.int32)
-    qhi = np.array([360, 341, 0, 181], np.int32)
     buf = _i16_buffer(W, lengths, qlo, qhi, seed=6)
     np.testing.assert_array_equal(buf, j_bc.Basecaller.pack_chunk_inputs_i16(
         buf[:, :W], lengths, qlo, qhi,
@@ -193,9 +231,11 @@ def test_packed_i16_programs_match_jax(program, viterbi_only):
         got = t_prog(params_to_torch(params, "cpu"), torch.from_numpy(buf), tcfg, 1.0,
                      viterbi_only, True).numpy()
     assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
-    T1 = W // 5 + 1
-    js, jp, jq, jn, jt = j_bc._unpack_chunk_outputs(want, T1, 8, True)
-    ts, tp, tq, tn, tt = t_bc._unpack_chunk_outputs(got, T1, 8, True)
+    T1 = W // tcfg.total_stride + 1
+    js, jp, jq, jn, jt = j_bc._unpack_chunk_outputs(want, T1, jcfg.nstate, True)
+    ts, tp, tq, tn, tt = t_bc._unpack_chunk_outputs(got, T1, tcfg.nstate, True)
+    assert tt.shape == (len(lengths), T1, tcfg.nstate)
+    np.testing.assert_array_equal(tn, -(-lengths // tcfg.total_stride))
     np.testing.assert_array_equal(tn, jn)
     for b in range(len(lengths)):
         n = int(jn[b]) + 1
@@ -206,3 +246,24 @@ def test_packed_i16_programs_match_jax(program, viterbi_only):
         np.testing.assert_array_equal(tq[b, 1:n], jq[b, 1:n])
         assert np.abs(tt[b, :n].astype(int) - jt[b, :n].astype(int)).max() <= 1
     np.testing.assert_allclose(ts, js, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("viterbi_only", [False, True])
+@pytest.mark.parametrize("program", ["chunk", "bucket"])
+def test_packed_i16_programs_match_jax(program, viterbi_only):
+    jcfg, tcfg = _small_cfgs()
+    _check_packed_programs(jcfg, tcfg, init_synthetic(jcfg, seed=5), program, viterbi_only,
+                           qlo=np.array([1, 40, 0, 1], np.int32),
+                           qhi=np.array([360, 341, 0, 181], np.int32))
+
+
+@pytest.mark.parametrize("viterbi_only", [False, True])
+@pytest.mark.parametrize("program", ["chunk", "bucket"])
+def test_packed_i16_programs_5mc_match_jax(program, viterbi_only):
+    """Stride 2, 10 states, 60 parameters per block through the packed
+    programs and the output unpacking."""
+    jcfg, tcfg = _small_5mc_cfgs()
+    params = _nonzero_biases(init_synthetic(jcfg, seed=15), seed=16)
+    _check_packed_programs(jcfg, tcfg, params, program, viterbi_only,
+                           qlo=np.array([1, 100, 0, 1], np.int32),
+                           qhi=np.array([900, 851, 0, 451], np.int32))

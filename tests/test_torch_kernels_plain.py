@@ -1,12 +1,13 @@
 """PyTorch port: the kernels' plain versions against the TPU kernels.
 
-Each CUDA kernel of the port (K1 fused LSTM, K3/K4 CRF sum scan, K5
-Viterbi, K6 traceback) has a plain PyTorch version beside its wrapper,
+Each CUDA kernel of the port (K1 fused LSTM, K7 fused GRU-mod, K3/K4
+CRF sum scan, K5 Viterbi, K6 traceback) has a plain PyTorch version
+beside its wrapper,
 which the wrapper runs for CPU tensors.  Here those plain versions are
 held to the JAX package's Pallas kernels, run in interpret mode on the
 CPU as the JAX package's own tests run them, and to its scan paths:
 
-- K1 within 5e-6 (the CPU transition band);
+- K1 and K7 within 5e-6 (the CPU transition band);
 - sum scans within rtol 1e-5 (reassociation of an 8-term sum);
 - Viterbi bit-equal on dyadic inputs (adds and compares only);
 - traceback exact.
@@ -32,6 +33,7 @@ from flappie_tpu.ops.crf import flipflop_index
 from flappie_tpu.ops.masking import reverse_sequence
 
 from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
+from flappie_tpu_torch.ops import rnn as t_rnn
 from flappie_tpu_torch.ops.crf_bm import _dense_tm
 
 
@@ -90,6 +92,86 @@ def test_lstm_plain_matches_jax_scan_path(backward):
     want = np.asarray(y) * (np.arange(LSTM_CASE["T"])[None, :, None] < lengths[:, None, None])
     got = _plain_lstm(x, iW, b, sW, backward, lengths).transpose(1, 0, 2)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
+
+
+GRU_CASE = dict(B=6, T=37, IN=12, H=16, lengths=np.array([37, 29, 0, 5, 33, 12], np.int32))
+
+
+def _grumod_inputs(seed=0):
+    """x (zero past each length), iW, b, sW.  The candidate third of b is
+    pushed well away from zero: a kernel that summed xa_h into the
+    recurrent product (tanh(r*(v_h + xa_h)) instead of tanh(r*v_h +
+    xa_h)) would then miss by far more than the tolerance."""
+    c = GRU_CASE
+    H = c["H"]
+    x = rnd(c["B"], c["T"], c["IN"], seed=seed)
+    x = x * (np.arange(c["T"])[None, :, None] < c["lengths"][:, None, None])
+    b = rnd(3 * H, scale=0.2, seed=seed + 2)
+    b[2 * H :] += 0.75
+    return (x, rnd(c["IN"], 3 * H, scale=0.3, seed=seed + 1), b,
+            rnd(H, 3 * H, scale=0.3, seed=seed + 3))
+
+
+def _plain_grumod(x, iW, b, sW, backward, lengths):
+    x_tm = torch.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2)))
+    before = rnn_cuda.grumod_layer_tm.launches
+    out = rnn_cuda.grumod_layer_tm(x_tm, torch.from_numpy(iW), torch.from_numpy(b),
+                                   torch.from_numpy(sW), backward=backward,
+                                   lengths=torch.from_numpy(lengths))
+    assert rnn_cuda.grumod_layer_tm.launches == before  # CPU tensors: plain version
+    return out.numpy()
+
+
+@pytest.mark.parametrize("dual", ["off", "on"])
+@pytest.mark.parametrize("backward", [False, True])
+def test_grumod_plain_matches_fused_pallas_kernel(backward, dual, monkeypatch):
+    """K7's plain version against _grumod_fused_kernel and (dual=on) its
+    two-chain twin _grumod_fused_dual_kernel, in interpret mode."""
+    x, iW, b, sW = _grumod_inputs()
+    lengths = GRU_CASE["lengths"]
+    monkeypatch.setenv("FLAPPIE_TPU_RNN_K", "4")
+    monkeypatch.setenv("FLAPPIE_TPU_RNN_DUAL", dual)
+    want = np.asarray(j_rnn_pal.grumod_layer_tm(
+        jnp.asarray(x.transpose(1, 0, 2)), jnp.asarray(iW), jnp.asarray(b), jnp.asarray(sW),
+        interpret=True, backward=backward, lengths=jnp.asarray(lengths)))
+    got = _plain_grumod(x, iW, b, sW, backward, lengths)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_grumod_plain_matches_jax_scan_path(backward):
+    """The JAX scan path: affine, reverse per read for backward layers,
+    lax.scan GRU-mod, reverse back, zero the tail."""
+    x, iW, b, sW = _grumod_inputs(seed=20)
+    lengths = GRU_CASE["lengths"]
+    jl = jnp.asarray(lengths)
+    xa = j_rnn.affine(jnp.asarray(x), jnp.asarray(iW), jnp.asarray(b))
+    if backward:
+        xa = reverse_sequence(xa, jl)
+    y = j_rnn.grumod_seq(xa, jnp.asarray(sW))
+    if backward:
+        y = reverse_sequence(y, jl)
+    want = np.asarray(y) * (np.arange(GRU_CASE["T"])[None, :, None] < lengths[:, None, None])
+    got = _plain_grumod(x, iW, b, sW, backward, lengths).transpose(1, 0, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
+
+
+def test_grumod_candidate_input_stays_out_of_recurrent_product():
+    """The trap K7 must avoid, shown on the plain version: summing xa_h
+    into v (as K1 seeds every gate) gives another function, by far more
+    than the tolerance, on these inputs."""
+    x, iW, b, sW = (torch.from_numpy(a) for a in _grumod_inputs(seed=30))
+    H = GRU_CASE["H"]
+    xa = x @ iW + b
+    h = torch.zeros(GRU_CASE["B"], H)
+    good = bad = h
+    for t in range(GRU_CASE["T"]):
+        good = t_rnn.grumod_step(xa[:, t], good, sW)
+        v = bad @ sW
+        z = torch.sigmoid(xa[:, t, :H] + v[:, :H])
+        r = torch.sigmoid(xa[:, t, H : 2 * H] + v[:, H : 2 * H])
+        bad = z * bad + (1 - z) * torch.tanh(r * (v[:, 2 * H :] + xa[:, t, 2 * H :]))
+    assert (good - bad).abs().max().item() > 1e-2
 
 
 def _scan_inputs(T, B, seed, dyadic=False):
@@ -166,3 +248,10 @@ def test_wrappers_refuse_other_devices():
         crf_bm_cuda.traceback(torch.empty(3, 8, 2, dtype=torch.int32, device="meta"),
                               torch.empty(3, 2, dtype=torch.bool, device="meta"),
                               torch.empty(2, dtype=torch.int32, device="meta"))
+
+
+def test_grumod_wrapper_refuses_other_devices():
+    meta = torch.empty(3, 2, 4, device="meta")
+    with pytest.raises(ValueError):
+        rnn_cuda.grumod_layer_tm(meta, torch.empty(4, 48, device="meta"),
+                                 torch.empty(48, device="meta"), torch.empty(16, 48, device="meta"))

@@ -101,6 +101,18 @@ def test_affine_and_lstm_seq():
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
 
 
+def test_grumod_seq():
+    """Non-zero candidate bias: the input term enters after the r gate."""
+    B, Tn, IN, H = 3, 40, 12, 16
+    x, W = rnd(B, Tn, IN, seed=4), rnd(IN, 3 * H, scale=0.3, seed=5)
+    b = rnd(3 * H, scale=0.2, seed=6) + np.repeat(np.float32([0.0, 0.0, 0.75]), H)
+    sW = rnd(H, 3 * H, scale=0.3, seed=7)
+    xa_j = j_rnn.affine(jnp.asarray(x), jnp.asarray(W), jnp.asarray(b))
+    want = np.asarray(j_rnn.grumod_seq(xa_j, jnp.asarray(sW)))
+    got = t_rnn.grumod_seq(T(np.asarray(xa_j)), T(sW)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
+
+
 def test_flipflop_index_equal():
     for nbase in (4, 5):
         a, b = j_crf.flipflop_index(nbase), t_crf.flipflop_index(nbase)
