@@ -35,6 +35,15 @@
 //     (rnn_pallas.py:236-266).
 // The fast design -- a thread-block cluster splitting sW's columns across
 // blocks and exchanging h through distributed shared memory -- is later work.
+//
+// K8, the training forward (flappie_lstm_layer_train), replaces
+// rnn_pallas.py:278 _lstm_fused_train_kernel (reached through
+// lstm_layer_tm_train:584): the same kernel with a second [T, B, H] output,
+// the carried cell state c at each step (0 at invalid steps), which the
+// recompute-gates adjoint (ops/rnn_vjp.py) needs.  As in the TPU kernels,
+// one step body serves both: WANT_C is a template flag, so K1's
+// instantiation carries no c store at all, and K8's h is K1's h bit for bit.
+// The extra write, T.B.H.4 bytes, is the only added traffic.
 
 #include <cuda_runtime.h>
 
@@ -46,12 +55,13 @@ using flappie::sigmoidf_;
 
 constexpr int ROWS = 8;  // batch rows per recurrence block
 
-template <int R>
+template <int R, bool WANT_C>
 __global__ void __launch_bounds__(512)
 lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
                        const float* __restrict__ sW,     // [H, 4H]
                        const int* __restrict__ lengths,  // [B]
                        float* __restrict__ out,          // [T, B, H]
+                       float* __restrict__ c_out,        // [T, B, H] if WANT_C
                        int T, int B, int H, int backward) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
@@ -132,7 +142,10 @@ lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
       const float c2 = f * c[q] + u * gg;
       const float h2 = o * tanhf(c2);
       const bool valid = t < len[q];
-      if (row < B) out[((long)t * B + row) * H + j] = valid ? h2 : 0.f;
+      if (row < B) {
+        out[((long)t * B + row) * H + j] = valid ? h2 : 0.f;
+        if (WANT_C) c_out[((long)t * B + row) * H + j] = valid ? c2 : 0.f;
+      }
       if (valid) {
         c[q] = c2;
         h_s[j * R + r] = h2;
@@ -142,18 +155,10 @@ lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
   }
 }
 
-}  // namespace
-
-extern "C" const char* flappie_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// One fused layer: affine into the xa scratch [T*B, 4H], then the
-// recurrence into out [T, B, H].  Returns the launch error code (0 = ok).
-extern "C" int flappie_lstm_layer(const float* x, const float* iW, const float* b,
-                                  const float* sW, const int* lengths, float* xa,
-                                  float* out, int T, int B, int IN, int H,
-                                  int backward, void* stream) {
+template <bool WANT_C>
+int lstm_layer(const float* x, const float* iW, const float* b, const float* sW,
+               const int* lengths, float* xa, float* out, float* c_out, int T, int B,
+               int IN, int H, int backward, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)T * B;
   if (M == 0) return 0;
@@ -161,11 +166,36 @@ extern "C" int flappie_lstm_layer(const float* x, const float* iW, const float* 
   if (err != cudaSuccess) return err;
   const size_t smem = (size_t)(H * ROWS + 2 * ROWS * 4 * H) * sizeof(float);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lstm_recurrence_kernel<ROWS>,
+    err = cudaFuncSetAttribute(lstm_recurrence_kernel<ROWS, WANT_C>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  lstm_recurrence_kernel<ROWS><<<(B + ROWS - 1) / ROWS, 2 * H, smem, st>>>(
-      xa, sW, lengths, out, T, B, H, backward);
+  lstm_recurrence_kernel<ROWS, WANT_C><<<(B + ROWS - 1) / ROWS, 2 * H, smem, st>>>(
+      xa, sW, lengths, out, c_out, T, B, H, backward);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" const char* flappie_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// One fused layer (K1): affine into the xa scratch [T*B, 4H], then the
+// recurrence into out [T, B, H].  Returns the launch error code (0 = ok).
+extern "C" int flappie_lstm_layer(const float* x, const float* iW, const float* b,
+                                  const float* sW, const int* lengths, float* xa,
+                                  float* out, int T, int B, int IN, int H,
+                                  int backward, void* stream) {
+  return lstm_layer<false>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H,
+                           backward, stream);
+}
+
+// The training forward (K8): K1 plus the cell state c_out [T, B, H].
+extern "C" int flappie_lstm_layer_train(const float* x, const float* iW, const float* b,
+                                        const float* sW, const int* lengths, float* xa,
+                                        float* out, float* c_out, int T, int B, int IN,
+                                        int H, int backward, void* stream) {
+  return lstm_layer<true>(x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward,
+                          stream);
 }

@@ -10,6 +10,12 @@ stack runs time-major [T, B, H] through the fused layer kernels
 (ops/rnn_cuda.py: K1 for LSTM, K7 for GRU-mod), as the JAX package's
 ``_rnn_stack_fused_tm`` does: direction and per-read tail masking live
 inside the kernel.
+
+``train=True`` is the differentiable path (the JAX package's
+``rnn_impl="train"``): the layers go through ops/rnn_vjp.py (K8 for
+LSTM, K7 for GRU-mod, each with its adjoint) and the head's logZ through
+``crf_partition_ad`` (K3 forward, K4 backward); the conv stack
+differentiates through autograd.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from ..ops.conv import conv1d_same
 from ..ops.heads import globalnorm_flipflop
 from ..ops.masking import mask_tail
 from ..ops.rnn_cuda import grumod_layer_tm, lstm_layer_tm
+from ..ops.rnn_vjp import grumod_layer_tm_ad, lstm_layer_tm_ad
 from .config import ModelConfig
 
 
@@ -30,6 +37,8 @@ def ceil_div(a, b):
 
 # the fused layer kernel for each recurrent kind the port runs
 LAYERS = {"lstm": lstm_layer_tm, "grumod": grumod_layer_tm}
+# ... and its differentiable wrapper, for training
+LAYERS_AD = {"lstm": lstm_layer_tm_ad, "grumod": grumod_layer_tm_ad}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -54,26 +63,28 @@ def conv_stack(params, cfg: ModelConfig, x, lengths):
     return x, lengths
 
 
-def rnn_stack_tm(params, cfg: ModelConfig, x, lengths):
+def rnn_stack_tm(params, cfg: ModelConfig, x, lengths, train: bool = False):
     """[B, T, C] -> [B, T, H]: one fused kernel per layer, time-major
     in between (one transpose in, one out)."""
+    layers = LAYERS_AD if train else LAYERS
     x_tm = x.transpose(0, 1).contiguous()
     for i, r in enumerate(cfg.rnns):
         p = params[f"rnn{i}"]
-        x_tm = LAYERS[r.kind](x_tm, p["iW"], p["b"], p["sW"],
+        x_tm = layers[r.kind](x_tm, p["iW"], p["b"], p["sW"],
                               backward=r.backward, lengths=lengths)
     return x_tm.transpose(0, 1)
 
 
 def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
-                return_norm: bool = False):
+                return_norm: bool = False, train: bool = False):
     """signal: [B, T] or [B, T, 1] normalised signal (zero-padded),
     lengths: [B] int32 valid sample counts.
 
     Returns (trans [B, ceil(T/stride), out_dim], nblocks [B]); with
     ``return_norm`` additionally the per-read global-norm shift [B] and
     the per-block partition increments [B, T'] used to stitch exact
-    viterbi scores across chunks.
+    viterbi scores across chunks.  ``train`` selects the differentiable
+    layers and partition (module docstring).
     """
     check_supported(cfg)
     if signal.dim() == 2:
@@ -83,10 +94,10 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     # whatever the caller left in the padded tail
     signal = mask_tail(signal, lengths)
     x, nblocks = conv_stack(params, cfg, signal, lengths)
-    x = rnn_stack_tm(params, cfg, x, nblocks)
+    x = rnn_stack_tm(params, cfg, x, nblocks, train)
     W, b = params["ff"]["W"], params["ff"]["b"]
     if return_norm:
         out, shift, incs = globalnorm_flipflop(
-            x, W, b, temperature, nblocks, cfg.nbase, return_norm=True)
+            x, W, b, temperature, nblocks, cfg.nbase, return_norm=True, train=train)
         return out, nblocks, shift, incs
-    return globalnorm_flipflop(x, W, b, temperature, nblocks, cfg.nbase), nblocks
+    return globalnorm_flipflop(x, W, b, temperature, nblocks, cfg.nbase, train=train), nblocks

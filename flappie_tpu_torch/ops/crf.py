@@ -113,6 +113,29 @@ def crf_partition(trans, nblocks, nbase: int, idx: TransIndex | None = None):
     return crf_forward(trans, nblocks, nbase, idx=idx)[1]
 
 
+def crf_partition_ad(trans, nblocks, nbase: int):
+    """Differentiable log partition function [B] (the training path):
+    K3 forward, K4 backward (ops/crf_bm.py ``PartitionScan``)."""
+    from .crf_bm import PartitionScan
+
+    return PartitionScan.apply(trans, nblocks, nbase)
+
+
+def path_score(trans, path, nblocks, nbase: int, idx: TransIndex | None = None):
+    """Total log-weight of a block path [B, T+1]: the sum over valid
+    blocks of trans[t, param_idx[path[t], path[t+1]]] (counterpart of
+    flappie_tpu/ops/crf.py:513 ``path_score``).  With globally-normalised
+    weights it is the path log-probability."""
+    idx = idx if idx is not None else flipflop_index(nbase)
+    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0), dtype=torch.int64, device=trans.device)
+    path = path.to(device=trans.device, dtype=torch.int64)
+    sel = pidx[path[:, :-1], path[:, 1:]]  # [B, T]
+    q = torch.gather(trans, 2, sel[..., None])[..., 0]
+    T = trans.shape[1]
+    valid = torch.arange(T, device=trans.device)[None, :] < nblocks[:, None]
+    return torch.where(valid, q, torch.zeros_like(q)).sum(dim=1)
+
+
 M_LOG10E = 0.43429448190325182765  # glibc math.h
 # The reference multiplies log1pf(-p) by the *double* -10*M_LOG10E
 # (src/util.h:288) and rounds once to float; emulate that without f64

@@ -52,6 +52,60 @@ def _transpost_tm(trans_tm, tvalid_tm, idx: TransIndex):
     return tpost - lse(tpost, 1)[:, None, :]
 
 
+class PartitionScan(torch.autograd.Function):
+    """``apply(trans [B, T, P], nblocks [B], nbase)`` -> logZ [B], the
+    differentiable log partition function of the training path.
+
+    Forward: the K3 scan over the dense matrix, the gather at each read's
+    ``nblocks``, then lse.  Backward: the K4 scan, then the edge
+    posteriors g_b * exp(alpha_t[i] + m_t[i, j] + beta_{t+1}[j] - logZ_b)
+    on valid blocks and 0 elsewhere (``_transpost_tm`` without its
+    per-block normalisation), gathered back to the P parameters.  That is
+    the gradient XLA computes for the scan the JAX package trains
+    through (flappie_tpu/ops/crf.py:246 ``crf_forward``, impl "scan").
+
+    Both scans run on a centred matrix m'_t = m_t - c_t with c_t =
+    lse_{i,j}(m_t) - log S, and logZ adds the c_t of the valid blocks
+    back.  The posterior is the same function of m' as of m, but
+    uncentred states grow by ~log S + a few units a block (thousands
+    after 512 blocks), where a float32 ulp is ~2e-4, and the rounding
+    that alpha and beta gather over the blocks then reaches the
+    exponent: at T=512 and S=10 the uncentred posteriors were ~1e-3 off
+    autograd through the plain scan on the card; centred states stay
+    near zero."""
+
+    @staticmethod
+    def forward(ctx, trans, nblocks, nbase: int):
+        idx = flipflop_index(nbase)
+        B, T, _ = trans.shape
+        S = idx.nstate
+        tvalid = torch.arange(T, device=trans.device)[:, None] < nblocks[None, :]
+        dense = _dense_tm(trans.permute(1, 2, 0), idx)  # [T, S, S, B]
+        c = lse(dense.reshape(T, S * S, B), 1) - float(np.log(S))  # [T, B]
+        dense = dense - c[:, None, None, :]
+        alphas = _fwd_states_tm(dense, tvalid)  # [T+1, S, B]
+        at = nblocks.to(device=trans.device, dtype=torch.int64)[None, None, :]
+        final = torch.gather(alphas, 0, at.expand(1, S, B))[0]
+        logZ_c = lse(final, 0)
+        ctx.idx = idx
+        ctx.save_for_backward(dense, tvalid, alphas, logZ_c)
+        return logZ_c + torch.where(tvalid, c, torch.zeros_like(c)).sum(dim=0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        dense, tvalid, alphas, logZ_c = ctx.saved_tensors
+        idx = ctx.idx
+        T, S, _, B = dense.shape
+        betas = _bwd_states_tm(dense, tvalid)
+        z = alphas[:-1, :, None, :] + dense + betas[1:, None, :, :] - logZ_c
+        post = torch.where(tvalid[:, None, None, :], torch.exp(z), torch.zeros_like(z))
+        flat = torch.as_tensor(idx.from_state * S + idx.to_state, dtype=torch.int64,
+                               device=dense.device)
+        d_tm = post.reshape(T, S * S, B).index_select(1, flat) * g
+        return d_tm.permute(2, 0, 1), None, None
+
+
 def _viterbi_fwd_tm(dense_tm, tvalid_tm, idx: TransIndex):
     """Max-plus forward (K5): (score [B], last_state [B], backptr [T,S,B])."""
     alpha, bps = crf_bm_cuda.viterbi_fwd(dense_tm, tvalid_tm, idx.tie_rank)

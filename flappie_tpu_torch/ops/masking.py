@@ -34,3 +34,12 @@ def reverse_sequence(x, lengths):
     L = lengths[:, None].to(torch.int64)
     idx = torch.where(t < L, L - 1 - t, t)
     return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def reverse_sequence_tm(x_tm, lengths):
+    """Time-major reverse_sequence: x [T, B, C]."""
+    T = x_tm.shape[0]
+    t = torch.arange(T, device=x_tm.device)[:, None]
+    L = lengths[None, :].to(device=x_tm.device, dtype=torch.int64)
+    idx = torch.where(t < L, L - 1 - t, t)
+    return torch.gather(x_tm, 0, idx[:, :, None].expand(-1, -1, x_tm.shape[2]))

@@ -1,8 +1,10 @@
-"""Fused recurrent layers: kernels K1 (LSTM, csrc/lstm.cu) and K7
-(GRU-mod, csrc/grumod.cu), and their plain versions.
+"""Fused recurrent layers: kernels K1 (LSTM, csrc/lstm.cu), K8 (its
+training forward, which also returns the cell state) and K7 (GRU-mod,
+csrc/grumod.cu), and their plain versions.
 
 Counterparts of flappie_tpu/ops/rnn_pallas.py:563 ``lstm_layer_tm``
-(``_lstm_fused_kernel``) and :578 ``grumod_layer_tm``
+(``_lstm_fused_kernel``), :584 ``lstm_layer_tm_train``
+(``_lstm_fused_train_kernel``) and :578 ``grumod_layer_tm``
 (``_grumod_fused_kernel``): time-major in and out, the block input
 affine computed by the kernel itself, backward layers walking time in
 reverse, and steps at or past a read's length freezing the carried state
@@ -24,8 +26,7 @@ from . import cuda_build
 from .rnn import grumod_step, lstm_step
 
 
-def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
-    """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math)."""
+def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool):
     T, B, _ = x_tm.shape
     H = sW.shape[0]
     if lengths is None:
@@ -34,13 +35,27 @@ def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     h = x_tm.new_zeros(B, H)
     c = x_tm.new_zeros(B, H)
     out = x_tm.new_empty(T, B, H)
+    cout = x_tm.new_empty(T, B, H) if want_c else None
     for t in (range(T - 1, -1, -1) if backward else range(T)):
         h2, c2 = lstm_step(xa[t], h, c, sW)
         valid = (t < lengths)[:, None]
         out[t] = torch.where(valid, h2, torch.zeros_like(h2))
+        if want_c:
+            cout[t] = torch.where(valid, c2, torch.zeros_like(c2))
         h = torch.where(valid, h2, h)
         c = torch.where(valid, c2, c)
-    return out
+    return (out, cout) if want_c else out
+
+
+def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math)."""
+    return _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c=False)
+
+
+def lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """x_tm [T, B, IN] -> (h [T, B, H], c [T, B, H]) with plain tensor
+    ops (same math); both are 0 at invalid steps."""
+    return _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c=True)
 
 
 def grumod_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
@@ -60,18 +75,20 @@ def grumod_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None)
     return out
 
 
-def _lib(name: str, entry: str):
+def _lib(name: str, entry: str, outputs: int):
     lib = cuda_build.load(name)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _launch_layer(what, source, entry, gates, max_h, x_tm, iW, b, sW, backward, lengths):
+def _launch_layer(what, source, entry, gates, max_h, x_tm, iW, b, sW, backward, lengths,
+                  want_c: bool = False):
     """Checks shared by the fused-layer wrappers, then one launch of the
-    C entry point ``entry`` of ``csrc/<source>.cu``."""
+    C entry point ``entry`` of ``csrc/<source>.cu``; with ``want_c`` it
+    also passes (and returns) the cell-state output."""
     T, B, IN = x_tm.shape
     H = sW.shape[0]
     G = gates * H
@@ -90,13 +107,15 @@ def _launch_layer(what, source, entry, gates, max_h, x_tm, iW, b, sW, backward, 
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"{what}: lengths must be [{B}]")
     xa = torch.empty(T * B, G, dtype=torch.float32, device=x_tm.device)
-    out = torch.empty(T, B, H, dtype=torch.float32, device=x_tm.device)
-    lib, fn = _lib(source, entry)
+    outs = [torch.empty(T, B, H, dtype=torch.float32, device=x_tm.device)
+            for _ in range(2 if want_c else 1)]
+    lib, fn = _lib(source, entry, len(outs))
     rc = fn(cuda_build.ptr(x_tm), cuda_build.ptr(iW), cuda_build.ptr(b),
             cuda_build.ptr(sW), cuda_build.ptr(lengths), cuda_build.ptr(xa),
-            cuda_build.ptr(out), T, B, IN, H, int(backward), cuda_build.stream_of(x_tm))
+            *(cuda_build.ptr(o) for o in outs), T, B, IN, H, int(backward),
+            cuda_build.stream_of(x_tm))
     cuda_build.check(lib, rc, what)
-    return out
+    return tuple(outs) if want_c else outs[0]
 
 
 def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
@@ -113,6 +132,23 @@ def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
 
 
 lstm_layer_tm.launches = 0
+
+
+def lstm_layer_tm_train(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K8: ``lstm_layer_tm`` that also returns the carried cell state,
+    (h [T, B, H], c [T, B, H]), both 0 at invalid steps; h is K1's h bit
+    for bit.  The forward of the training path (ops/rnn_vjp.py)."""
+    if x_tm.device.type == "cpu":
+        return lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.device.type != "cuda":
+        raise ValueError(f"lstm_layer_tm_train: unsupported device {x_tm.device}")
+    out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4, 512,
+                        x_tm, iW, b, sW, backward, lengths, want_c=True)
+    lstm_layer_tm_train.launches += 1
+    return out
+
+
+lstm_layer_tm_train.launches = 0
 
 
 def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):

@@ -1,0 +1,155 @@
+"""CRF training: supervised block-path negative log-likelihood.
+
+Counterpart of flappie_tpu/train/trainer.py.  The loss is the flip-flop
+CRF NLL of a supervised block path,
+
+    loss = -mean_b( path_score_b / nblocks_b )
+
+over the globally-normalised transition weights of the training path
+(``transitions(..., train=True)``: K8 or K7 forward with the
+recompute-gates adjoint, the head's logZ through K3 forward and K4
+backward).
+
+The optimiser is ``torch.optim.Adam`` with optax.adam's defaults (b1
+0.9, b2 0.999, eps 1e-8, lr 1e-4 unless given); the JAX package's
+``optax.adam`` computes the same update.  Training updates the
+parameter tensors in place (the JAX step returns new trees): one copy of
+the weights and moments lives on the device.
+
+The train-state npz uses the JAX package's key layout, so a checkpoint
+written by either package resumes in the other: ``p/['rnn0']['iW']``
+for a parameter, ``o/[0].count``, ``o/[0].mu[...]``, ``o/[0].nu[...]``
+for Adam's step and moments, and ``step``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.config import ModelConfig
+from ..models.network import transitions
+from ..models.params import params_to_torch
+from ..ops.crf import path_score
+
+
+def tree_leaves(params):
+    """(key, tensor) pairs of a parameter tree in the JAX package's leaf
+    order (sorted dict keys), keyed as jax.tree_util.keystr writes them."""
+    return [(f"['{layer}']['{k}']", params[layer][k])
+            for layer in sorted(params) for k in sorted(params[layer])]
+
+
+def nll_loss(params, cfg: ModelConfig, signal, lengths, target_path):
+    """signal [B, T], lengths [B], target_path [B, ceil(T/stride) + 1]
+    int32 -> scalar loss, differentiable in ``params``."""
+    trans, nblocks = transitions(params, cfg, signal, lengths, train=True)
+    score = path_score(trans, target_path, nblocks, cfg.nbase)
+    return -torch.mean(score / nblocks.to(trans.dtype))
+
+
+def adam(params, lr: float = 1e-4) -> torch.optim.Adam:
+    """Adam with optax.adam's defaults over the tree's leaves, which it
+    marks as requiring gradients."""
+    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def to_device(params, device=None):
+    """A tree of numpy arrays (``init_synthetic``, ``load_npz``) becomes
+    float32 tensors on ``device`` (``cuda`` unless the caller asks for
+    the CPU; raises without a GPU); a tree of tensors is returned as it
+    is."""
+    leaf = next(iter(next(iter(params.values())).values()))
+    if isinstance(leaf, torch.Tensor):
+        return params
+    return params_to_torch(params, resolve_device(device))
+
+
+def make_train_step(cfg: ModelConfig, lr: float = 1e-4, loss_fn=nll_loss):
+    """(train_step, init).  ``init(params, device=None)`` -> (params as
+    tensors on the device, their optimiser); ``train_step(params,
+    optimizer, *batch)`` runs one loss, gradient and Adam update in place
+    and returns the loss (a detached scalar)."""
+
+    def init(params, device=None):
+        params = to_device(params, device)
+        return params, adam(params, lr)
+
+    def train_step(params, optimizer, *batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, cfg, *batch)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step, init
+
+
+def _adam_count(params, optimizer) -> int:
+    steps = {int(optimizer.state[t]["step"]) if optimizer.state.get(t) else 0
+             for _, t in tree_leaves(params)}
+    if len(steps) != 1:
+        raise ValueError(f"optimiser leaves are at different steps {sorted(steps)}")
+    return steps.pop()
+
+
+def save_train_state(path: str, params, optimizer, step: int) -> None:
+    """Checkpoint params, Adam's step and moments, and ``step`` to one npz
+    in the JAX package's key layout (module docstring)."""
+    flat = {}
+    count = _adam_count(params, optimizer)
+    flat["o/[0].count"] = np.asarray(count, np.int32)
+    for key, t in tree_leaves(params):
+        flat["p/" + key] = t.detach().cpu().numpy()
+        st = optimizer.state.get(t) or {}
+        for name, moment in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            m = st.get(moment)
+            flat[f"o/[0].{name}{key}"] = (m.detach().cpu().numpy() if m is not None
+                                          else np.zeros(tuple(t.shape), np.float32))
+    flat["step"] = np.asarray(step, np.int64)
+    np.savez(path, **flat)
+
+
+def load_train_state(path: str, params, optimizer):
+    """Restore a state saved by either package's ``save_train_state`` into
+    ``params`` (copied in place) and ``optimizer`` (built over those
+    params); returns (params, optimizer, step).  Every leaf must be in the
+    file at the template's shape, or nothing is changed and this raises."""
+    with np.load(path) as z:
+        files = dict(z)
+    leaves = tree_leaves(params)
+    for key, t in leaves:
+        for k in ("p/" + key, "o/[0].mu" + key, "o/[0].nu" + key):
+            if k not in files:
+                raise KeyError(f"checkpoint missing {k}")
+            if files[k].shape != tuple(t.shape):
+                raise ValueError(f"checkpoint leaf {k} has shape {files[k].shape}, "
+                                 f"expected {tuple(t.shape)}")
+    for k in ("o/[0].count", "step"):
+        if k not in files:
+            raise KeyError(f"checkpoint missing {k}")
+    count = int(files["o/[0].count"])
+    with torch.no_grad():
+        for key, t in leaves:
+            t.copy_(torch.from_numpy(files["p/" + key]))
+            optimizer.state.pop(t, None)
+            if count:
+                optimizer.state[t] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    "exp_avg": torch.from_numpy(files["o/[0].mu" + key]).to(t.device),
+                    "exp_avg_sq": torch.from_numpy(files["o/[0].nu" + key]).to(t.device),
+                }
+    return params, optimizer, int(files["step"])
+
+
+def synthetic_batch(cfg: ModelConfig, B: int, T: int, seed: int = 0):
+    """A tiny synthetic supervised batch (for tests and dry runs), numpy."""
+    rng = np.random.default_rng(seed)
+    signal = rng.normal(size=(B, T)).astype(np.float32)
+    lengths = np.full(B, T, np.int32)
+    nblk = cfg.nblocks(T)
+    # random flip states: transitions into flip states are always allowed
+    path = rng.integers(0, cfg.nbase, size=(B, nblk + 1)).astype(np.int32)
+    return signal, lengths, path

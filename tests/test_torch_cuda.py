@@ -7,9 +7,13 @@ without JAX, skip tests/conftest.py (which sets JAX up):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: K1 and K7 max |delta| <= 1e-4 (FMA contraction and another
-summation order over H products per step, compounding over T steps);
-sum scans rtol 1e-5 (reassociation); Viterbi and traceback bit-equal.
+Tolerances: K1, K7 and K8 max |delta| <= 1e-4 (FMA contraction and
+another summation order over H products per step, compounding over T
+steps), K8's h bit-equal to K1's; sum scans rtol 1e-5 (reassociation);
+Viterbi and traceback bit-equal.  The training path's autograd
+Functions (ops/rnn_vjp.py, ``crf_partition_ad``) against autograd
+through the plain versions on the card: every gradient within 1e-3 of
+its max |value|.
 """
 
 from __future__ import annotations
@@ -18,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
-from flappie_tpu_torch.ops.crf import flipflop_index
+from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda, rnn_vjp
+from flappie_tpu_torch.ops.crf import crf_partition_ad, flipflop_index, lse
 from flappie_tpu_torch.ops.crf_bm import _dense_tm
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +99,71 @@ def test_crf_kernels_match_plain(cuda, nbase, B, T):
     last = a.argmax(dim=0).to(torch.int32)
     assert torch.equal(crf_bm_cuda.traceback(bp, v, last),
                        crf_bm_cuda.traceback_plain(bp, v, last))
+
+
+@pytest.mark.parametrize("B,T,IN,H", [(5, 37, 12, 16), (19, 64, 256, 256)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_lstm_train_kernel_matches_plain_and_k1(cuda, B, T, IN, H, backward):
+    """K8: h and c against the plain version; h bit-equal to K1's."""
+    gen = torch.Generator().manual_seed(B * T + H + 2)
+    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
+    lengths[0], lengths[-1] = T, 0
+    x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
+    args = [t.to(cuda) for t in (x, _rnd(gen, IN, 4 * H, scale=IN ** -0.5),
+                                 _rnd(gen, 4 * H, scale=0.2), _rnd(gen, H, 4 * H, scale=H ** -0.5))]
+    lengths = lengths.to(cuda)
+    before = rnn_cuda.lstm_layer_tm_train.launches
+    h, c = rnn_cuda.lstm_layer_tm_train(*args, backward=backward, lengths=lengths)
+    assert rnn_cuda.lstm_layer_tm_train.launches == before + 1
+    want_h, want_c = rnn_cuda.lstm_layer_tm_train_plain(*args, backward=backward, lengths=lengths)
+    h1 = rnn_cuda.lstm_layer_tm(*args, backward=backward, lengths=lengths)
+    torch.cuda.synchronize()
+    assert (h - want_h).abs().max().item() <= 1e-4
+    assert (c - want_c).abs().max().item() <= 1e-4
+    assert torch.equal(h, h1)
+
+
+def _grads_close(got, want):
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-3 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("kind", ["lstm", "grumod"])
+def test_layer_function_matches_plain_autograd(cuda, kind, backward):
+    B, T, IN, H = 7, 48, 32, 32
+    G = {"lstm": 4, "grumod": 3}[kind] * H
+    gen = torch.Generator().manual_seed(T + G + backward)
+    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
+    lengths[0], lengths[-1] = T, 0
+    x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
+    args = [t.to(cuda).requires_grad_() for t in (
+        x, _rnd(gen, IN, G, scale=IN ** -0.5), _rnd(gen, G, scale=0.2),
+        _rnd(gen, H, G, scale=H ** -0.5))]
+    cot = _rnd(gen, T, B, H).to(cuda)
+    lengths = lengths.to(cuda)
+    ad = {"lstm": rnn_vjp.lstm_layer_tm_ad, "grumod": rnn_vjp.grumod_layer_tm_ad}[kind]
+    plain = {"lstm": rnn_cuda.lstm_layer_tm_plain, "grumod": rnn_cuda.grumod_layer_tm_plain}[kind]
+    got = torch.autograd.grad((ad(*args, backward, lengths) * cot).sum(), args)
+    want = torch.autograd.grad((plain(*args, backward, lengths) * cot).sum(), args)
+    _grads_close(got, want)
+
+
+@pytest.mark.parametrize("nbase", [4, 5])
+def test_partition_function_matches_plain_autograd(cuda, nbase):
+    idx = flipflop_index(nbase)
+    B, T = 9, 70
+    gen = torch.Generator().manual_seed(nbase)
+    trans = (_rnd(gen, B, T, idx.nparam, scale=2.0)).to(cuda).requires_grad_()
+    nblocks = torch.randint(0, T + 1, (B,), generator=gen)
+    nblocks[0], nblocks[-1] = T, 0
+    nblocks = nblocks.to(cuda)
+    g = _rnd(gen, B).to(cuda)
+    before = crf_bm_cuda.sum_states.launches
+    (got,) = torch.autograd.grad((crf_partition_ad(trans, nblocks, nbase) * g).sum(), [trans])
+    assert crf_bm_cuda.sum_states.launches == before + 2  # K3 forward, K4 backward
+    tvalid = torch.arange(T, device=cuda)[:, None] < nblocks[None, :]
+    alphas = crf_bm_cuda.sum_states_plain(_dense_tm(trans.permute(1, 2, 0), idx), tvalid, False)
+    final = alphas.gather(0, nblocks[None, None, :].expand(1, idx.nstate, B))[0]
+    (want,) = torch.autograd.grad((lse(final, 0) * g).sum(), [trans])
+    _grads_close([got], [want])
