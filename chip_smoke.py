@@ -14,24 +14,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    variant (h and c; h bit-equal to K1's) and K7 fused GRU-mod layer
    (T=2560, B=256, IN=H=256, both directions, ragged lengths including 0
    and T, K7 with a candidate bias far from zero) within max |delta|
-   1e-4; K3/K4 CRF sum scan within rtol 1e-5; K5 Viterbi and K6
-   traceback bit-equal (T=2560, B=256, ragged nblocks), at S=8 (4 bases)
-   and at S=10 (5 bases).  Times are CUDA-event medians after a warm-up;
-   the bound is the larger of bytes over the card's memory rate and f32
-   operations over its non-tensor f32 rate, counted for this run's
-   inputs; the library time is one cuDNN nn.LSTM / nn.GRU call on the
-   packed ragged batch (for K8 its training-mode forward).
-3. Main paths, full width, synthetic weights, through
+   1e-4; the batch-minor scans (T=2560, B=256, ragged nblocks, S=8 for
+   4 bases and S=10 for 5): K3/K4 CRF sum scan within rtol 1e-5, K9 (K3
+   and K4 in one launch) within rtol 1e-5 and bit-equal to K3/K4, K5
+   Viterbi and K6 traceback bit-equal; the batch-major K11 (T=2560,
+   B=256, the run-length structure at S=8 and the flip-flop at S=8 and
+   S=10): forward scan within rtol 1e-5, Viterbi (alphas, int8
+   backpointers) and traceback bit-equal; and K3/K4, K5, K6 and K11 with
+   the run-length structure at the shape of runnie's heaviest program
+   (T=13,108 blocks, B=24), by the same rules.  Times are CUDA-event medians
+   after a warm-up; the bound is the larger of bytes over the card's
+   memory rate and f32 operations over its non-tensor f32 rate, counted
+   for this run's inputs; the library time is one cuDNN nn.LSTM / nn.GRU
+   call on the packed ragged batch (for K8 its training-mode forward).
+3. Main paths, full width, synthetic weights.  Through
    flappie_tpu_torch.cli.flappie.main, default flags and then --viterbi:
    r941_native on 64 seeded synthetic fast5 reads of ~100k samples
    (three 256-chunk batches of 12800 samples) and 16 of <= 12.8k samples
-   (the bucket path); r941_5mC on 24 reads of 40k-60k samples (two
-   256-chunk batches of 5120 samples) and 8 of 2k-5k samples.  Every
-   launch counter is zeroed just before each run and read just after
-   and must equal the count the reads imply; one FASTQ record per read;
-   4 reads of each model held against the port's own CPU path (identity
-   >= 99.5%, |score delta| <= 1e-4); the device time of one full chunk
-   batch; one more fb run under torch.profiler.
+   (the bucket path), then fb once more under FLAPPIE_TPU_SCANB_FB=fused
+   (K9) and once under FLAPPIE_TPU_CRF_IMPL=pallas (K11), each held to
+   the default fb run; r941_5mC on 24 reads of 40k-60k samples (two
+   256-chunk batches of 5120 samples) and 8 of 2k-5k samples.  Through
+   flappie_tpu_torch.cli.runnie.main: rle_r941_native on 32 reads of
+   20k-60k samples and 8 of 3k-12k (bucketed batches of up to 32 reads,
+   up to ~13.1k blocks a read), fb and --viterbi, each under the
+   default impl and under pallas, the .run records of the two impls held
+   to each other (equal, or base and dwell equal with shape and scale
+   within 2e-5).  Every CLI run sets both knobs (their defaults unless
+   the run is a knob's); every launch counter is zeroed just before each
+   run and read just after and must equal the count the reads imply; one
+   FASTQ or .run record per read; 4 reads of each model held against
+   the port's own CPU path (FASTQ: identity >= 99.5%, |score delta| <=
+   1e-4; .run: the rule above); runnie's heaviest program (bucket 65536,
+   24 reads) decoded on the card and on the CPU from the same
+   transitions under each impl (--viterbi paths bit-equal; fb: the
+   Viterbi over the card's posterior bit-equal, the CPU's own fb path
+   other in at most 1% of the blocks, the scans' drift logged); the
+   device time of one full chunk batch; one more fb run of each model
+   under torch.profiler.
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|) and one layer's adjoint
@@ -54,6 +74,7 @@ build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -255,6 +276,32 @@ def check_scans(torch, peak: dict, gen, nbase: int) -> list:
                     "crf_sum_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=None))
 
+    # K9: both chains in one launch, bit-equal to K3's and K4's outputs
+    got = crf_bm_cuda.fwdbwd_states(dense, tvalid)
+    want = crf_bm_cuda.fwdbwd_states_plain(dense, tvalid)
+    split = [crf_bm_cuda.sum_states(dense, tvalid, backward) for backward in (False, True)]
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, k in zip(got, want, split):
+        delta = (g - w).abs()
+        if not bool((delta <= 1e-5 * w.abs() + 1e-5).all()):
+            raise AssertionError(f"K9 crf_fwdbwd S={S}: outside rtol 1e-5 of its plain version")
+        if not torch.equal(g, k):
+            raise AssertionError(f"K9 crf_fwdbwd S={S}: not bit-equal to K3/K4")
+        err = max(err, delta.max().item())
+    ms = cuda_ms(torch, lambda: crf_bm_cuda.fwdbwd_states(dense, tvalid), 5)
+    split_ms = cuda_ms(torch, lambda: [crf_bm_cuda.sum_states(dense, tvalid, bw)
+                                       for bw in (False, True)], 5)
+    plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.fwdbwd_states_plain(dense, tvalid), 1)
+    bms, by = bound(dense_bytes + 4 * T * B + 8 * (T + 1) * S * B,
+                    2 * nv * (5 * S * S + 5 * S), peak)
+    log(f"K9 crf_fwdbwd S={S}: {ms:.3f} ms against K3 + K4 split {split_ms:.3f} ms, bit-equal "
+        f"to them; max |kernel - plain| {err:.2e}")
+    if nbase == 4:
+        rows.append(row("crf_fwdbwd", "K9", "crf_scan.cu", "crf_bm_pallas.py:95",
+                        "r941_native_fused", "crf_fwdbwd", max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+
     alpha, bps = crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank)
     alpha0, bps0 = crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank)
     if not (torch.equal(alpha, alpha0) and torch.equal(bps, bps0)):
@@ -281,10 +328,147 @@ def check_scans(torch, peak: dict, gen, nbase: int) -> list:
     return rows
 
 
+def check_bt_scans(torch, peak: dict, gen, kind: str, nbase: int = 4) -> list:
+    """K11 on one batch-major dense batch, T=2560, B=256, ragged nblocks:
+    the run-length structure (S=8, runnie's main path; rows) or the
+    flip-flop one of ``nbase`` bases (S=8, r941_native's path under
+    pallas; S=10; checked and logged, no row)."""
+    from flappie_tpu_torch.ops import crf_cuda
+    from flappie_tpu_torch.ops.crf import dense_from_params, flipflop_index, rle_index
+
+    dev = torch.device("cuda")
+    T, B = 2560, 256
+    idx = rle_index(nbase) if kind == "rle" else flipflop_index(nbase)
+    S = idx.nstate
+    trans = torch.randn(T, B, idx.nparam, generator=gen, device=dev) * 2.0
+    nblocks = torch.randint(1, T, (B,), generator=gen, device=dev)
+    nblocks[0], nblocks[1] = T, 0
+    valid = torch.arange(T, device=dev)[:, None] < nblocks[None, :]
+    dense = dense_from_params(trans, idx)  # [T, B, S, S]
+    nv = int(valid.sum().item())
+    dense_bytes = 4 * T * B * S * S
+    run, rows = "rle_r941_native_pallas", []
+    tag = f"K11 {kind} S={S}"
+
+    got = crf_cuda.fwd_scan(dense, valid)
+    want = crf_cuda.fwd_scan_plain(dense, valid)
+    torch.cuda.synchronize()
+    delta = (got - want).abs()
+    if not bool((delta <= 1e-5 * want.abs() + 1e-5).all()):
+        raise AssertionError(f"{tag} crf_bt_fwd: outside rtol 1e-5 of its plain version")
+    ms = cuda_ms(torch, lambda: crf_cuda.fwd_scan(dense, valid), 5)
+    plain_ms = cuda_ms(torch, lambda: crf_cuda.fwd_scan_plain(dense, valid), 1)
+    bms, by = bound(dense_bytes + 4 * T * B + 4 * T * B * S, nv * (5 * S * S + 5 * S), peak)
+    rows.append(row("crf_bt_fwd", "K11", "crf_bt.cu", "crf_pallas.py:45", run, "crf_bt_fwd",
+                    max_abs_err=delta.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None))
+
+    alphas, bps = crf_cuda.viterbi_scan(dense, valid, idx.tie_rank)
+    alphas0, bps0 = crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank)
+    if not (torch.equal(alphas, alphas0) and torch.equal(bps, bps0)):
+        raise AssertionError(f"{tag} crf_bt_viterbi: not bit-equal to its plain version")
+    ms = cuda_ms(torch, lambda: crf_cuda.viterbi_scan(dense, valid, idx.tie_rank), 5)
+    plain_ms = cuda_ms(torch, lambda: crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank), 1)
+    bms, by = bound(dense_bytes + 4 * T * B + 4 * S * S + 5 * T * B * S, nv * (4 * S * S + 3 * S),
+                    peak)
+    rows.append(row("crf_bt_viterbi", "K11", "crf_bt.cu", "crf_pallas.py:73", run,
+                    "crf_bt_viterbi", max_abs_err=(alphas - alphas0).abs().max().item(), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+
+    last = alphas[-1].argmax(dim=-1).to(torch.int32)
+    bp_rev, valid_rev = bps.flip(0), valid.flip(0)
+    states = crf_cuda.traceback_bt(bp_rev, valid_rev, last)
+    states0 = crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last)
+    if not torch.equal(states, states0):
+        raise AssertionError(f"{tag} crf_bt_traceback: not equal to its plain version")
+    ms = cuda_ms(torch, lambda: crf_cuda.traceback_bt(bp_rev, valid_rev, last), 5)
+    plain_ms = cuda_ms(torch, lambda: crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last), 1)
+    bms, by = bound(T * B * S + 4 * T * B + 4 * B + 4 * T * B, nv * S, peak)
+    rows.append(row("crf_bt_traceback", "K11", "crf_bt.cu", "crf_pallas.py:115", run,
+                    "crf_bt_traceback", max_abs_err=float((states - states0).abs().max().item()),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    if kind == "rle":
+        return rows
+    for r in rows:
+        log(f"{tag} {r['name']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |kernel - plain| "
+            f"{r['max_abs_err']:.2e}")
+    return []
+
+
+# runnie's heaviest program: bucket 65536 samples = 13,108 blocks, its 24
+# reads (RUNNIE_READS) filling part of the scans' last 32-read block
+RUNNIE_SCAN_SHAPE = (13_108, 24)
+
+
+def check_runnie_scans(torch, gen) -> None:
+    """Every CRF kernel of runnie's main path against its plain version at
+    the shape of its heaviest program (RUNNIE_SCAN_SHAPE), the run-length
+    structure, ragged nblocks including 0 and T: K3/K4, K5, K6 (default
+    impl) and K11's three (pallas), K11's forward scan also over the
+    transposed, time-reversed blocks of the backward pass.  Tolerances as
+    at T=2560; checked and logged, no row."""
+    from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda
+    from flappie_tpu_torch.ops.crf import dense_from_params, rle_index
+    from flappie_tpu_torch.ops.crf_bm import _dense_tm
+
+    dev = torch.device("cuda")
+    T, B = RUNNIE_SCAN_SHAPE
+    idx = rle_index(4)
+    trans = torch.randn(T, B, idx.nparam, generator=gen, device=dev) * 2.0
+    # the bucket's reads have more than half its blocks
+    nblocks = torch.randint(T // 2, T, (B,), generator=gen, device=dev)
+    nblocks[0], nblocks[1] = T, 0
+    valid = torch.arange(T, device=dev)[:, None] < nblocks[None, :]
+    tag = f"runnie scans at T={T}, B={B}, S={idx.nstate}"
+    errs = {}
+
+    def close(name, got, want):
+        torch.cuda.synchronize()
+        delta = (got - want).abs()
+        if not bool((delta <= 1e-5 * want.abs() + 1e-5).all()):
+            raise AssertionError(f"{tag}: {name} outside rtol 1e-5 of its plain version")
+        errs[name] = delta.max().item()
+
+    def equal(name, got, want):
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{tag}: {name} not bit-equal to its plain version")
+        errs[name] = 0.0
+
+    dense = _dense_tm(trans.permute(0, 2, 1), idx)  # [T, S, S, B]
+    for backward in (False, True):
+        close(f"K3/K4 (backward={backward})", crf_bm_cuda.sum_states(dense, valid, backward),
+              crf_bm_cuda.sum_states_plain(dense, valid, backward))
+    alpha, bps = crf_bm_cuda.viterbi_fwd(dense, valid, idx.tie_rank)
+    equal("K5", (alpha, bps), crf_bm_cuda.viterbi_fwd_plain(dense, valid, idx.tie_rank))
+    last = alpha.argmax(dim=0).to(torch.int32)
+    equal("K6", (crf_bm_cuda.traceback(bps, valid, last),),
+          (crf_bm_cuda.traceback_plain(bps, valid, last),))
+
+    dense = dense_from_params(trans, idx)  # [T, B, S, S]
+    close("K11 forward", crf_cuda.fwd_scan(dense, valid), crf_cuda.fwd_scan_plain(dense, valid))
+    rev = dense.flip(0).transpose(-1, -2)
+    close("K11 forward (backward pass)", crf_cuda.fwd_scan(rev, valid.flip(0)),
+          crf_cuda.fwd_scan_plain(rev, valid.flip(0)))
+    alphas, bps = crf_cuda.viterbi_scan(dense, valid, idx.tie_rank)
+    equal("K11 Viterbi", (alphas, bps), crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank))
+    last = alphas[-1].argmax(dim=-1).to(torch.int32)
+    bp_rev, valid_rev = bps.flip(0), valid.flip(0)
+    equal("K11 traceback", (crf_cuda.traceback_bt(bp_rev, valid_rev, last),),
+          (crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last),))
+    log(f"{tag}: every kernel within its tolerance of its plain version; max |kernel - plain| "
+        + json.dumps(errs))
+
+
 def check_kernels(torch, peak: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
     rows += check_scans(torch, peak, gen, nbase=4) + check_scans(torch, peak, gen, nbase=5)
+    rows += check_bt_scans(torch, peak, gen, "rle")
+    for nbase in (4, 5):
+        check_bt_scans(torch, peak, gen, "flipflop", nbase)
+    check_runnie_scans(torch, gen)
     for r in rows:
         log("kernel " + json.dumps({
             "kernel": r["name"], "id": r["kid"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -357,7 +541,7 @@ def parse_fastq(text: str, alphabet: str) -> dict:
         if set(seq) - set(alphabet) or any(not 33 <= ord(c) <= 126 for c in qual):
             raise AssertionError(f"bad sequence or quality characters at line {i + 1}")
         meta = json.loads(head.split("  ", 1)[1])
-        recs[meta["filename"]] = (seq, meta["normalised_score"])
+        recs[meta["filename"]] = (seq, meta["normalised_score"], "\n".join(lines[i : i + 4]))
     return recs
 
 
@@ -450,40 +634,107 @@ def profiled_run(torch, reads_dir: str, card: str, model: str) -> None:
     log_profile(f"{model} (fb run, profiler on)", prof, wall, card)
 
 
-def run_cli(torch, args: list) -> float:
-    from flappie_tpu_torch.cli.flappie import main
+# the CRF kernel knobs at their defaults; every CLI run sets both
+KNOBS = {"FLAPPIE_TPU_CRF_IMPL": "auto", "FLAPPIE_TPU_SCANB_FB": "split"}
 
-    t0 = time.perf_counter()
-    rc = main(args)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+@contextlib.contextmanager
+def knobs(env=None):
+    """KNOBS updated with ``env`` inside the block, as they were after it."""
+    saved = {k: os.environ.get(k) for k in KNOBS}
+    os.environ.update({**KNOBS, **(env or {})})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_cli(torch, args: list, main=None, env=None) -> float:
+    """Wall seconds of one CLI call (flappie's unless ``main`` is given),
+    the device synchronised at its end, under ``knobs(env)``."""
+    if main is None:
+        from flappie_tpu_torch.cli.flappie import main
+
+    with knobs(env):
+        t0 = time.perf_counter()
+        rc = main(args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"flappie CLI exited {rc} for {args}")
+        raise AssertionError(f"CLI exited {rc} for {args}")
     return wall
 
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by counter name."""
-    from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
+    from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda, rnn_cuda
 
     return {
         "lstm_layer": rnn_cuda.lstm_layer_tm,
         "lstm_layer_train": rnn_cuda.lstm_layer_tm_train,
         "grumod_layer": rnn_cuda.grumod_layer_tm,
         "crf_sum_scan": crf_bm_cuda.sum_states,
+        "crf_fwdbwd": crf_bm_cuda.fwdbwd_states,
         "crf_viterbi": crf_bm_cuda.viterbi_fwd,
         "crf_traceback": crf_bm_cuda.traceback,
+        "crf_bt_fwd": crf_cuda.fwd_scan,
+        "crf_bt_viterbi": crf_cuda.viterbi_scan,
+        "crf_bt_traceback": crf_cuda.traceback_bt,
     }
 
 
+def counted_run(torch, what: str, args: list, want: dict, main=None, env=None):
+    """One CLI run with every launch counter zeroed just before it and
+    read just after; the counts must equal ``want`` (0 for every counter
+    it leaves out).  ``env`` sets knobs for this run only (run_cli).
+    Returns (wall, counts)."""
+    zero_counts()
+    wall = run_cli(torch, args, main, env)
+    return wall, check_counts(what, want)
+
+
+# the knob runs of r941_native's fb path: each setting and the CRF kernel
+# launches it gives a program (K9 for the posterior's two scans; K11 for
+# the head's partition and the whole decode)
+KNOB_RUNS = {
+    "r941_native_fused": ({"FLAPPIE_TPU_SCANB_FB": "fused"},
+                          {"crf_sum_scan": 1, "crf_fwdbwd": 1, "crf_viterbi": 1,
+                           "crf_traceback": 1}),
+    "r941_native_pallas": ({"FLAPPIE_TPU_CRF_IMPL": "pallas"},
+                           {"crf_bt_fwd": 3, "crf_bt_viterbi": 1, "crf_bt_traceback": 1}),
+}
+
+
+def compare_fastq(what: str, got: dict, want: dict) -> None:
+    """Every read within the GPU-vs-CPU band (identity >= 99.5%, |score
+    delta| <= 1e-4) of ``want``; logs how many records are byte-equal."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: {len(got)} FASTQ records, expected {len(want)}")
+    worst_id, worst_ds, same = 1.0, 0.0, 0
+    for n in want:
+        ident = identity(got[n][0], want[n][0])
+        ds = abs(got[n][1] - want[n][1])
+        same += got[n][2] == want[n][2]
+        worst_id, worst_ds = min(worst_id, ident), max(worst_ds, ds)
+        if not (ident >= 0.995 and ds <= 1e-4):
+            raise AssertionError(f"{what} {n}: outside the band (identity {ident}, score "
+                                 f"delta {ds})")
+    log(f"{what}: {len(want)} reads, {same} records byte-equal, min identity "
+        f"{worst_id:.6f}, max |score delta| {worst_ds:.2e}")
+
+
 def main_path(torch, np, card: str, model: str) -> dict:
-    """One model's main path in fb and --viterbi; returns the fb run's
-    launch counts."""
+    """One model's main path in fb and --viterbi (for r941_native also fb
+    under each knob of KNOB_RUNS, held to the default fb run); returns
+    the fb runs' launch counts by run name."""
     from flappie_tpu_torch.models.config import get_model_config
 
     cfg = get_model_config(model)
-    counters = launch_counters()
     layer = {"lstm": "lstm_layer", "grumod": "grumod_layer"}[cfg.rnns[0].kind]
     alphabet = "ACGTZ"[: cfg.nbase]
     wdir = os.path.join(WORK, model)
@@ -498,15 +749,10 @@ def main_path(torch, np, card: str, model: str) -> dict:
     outputs = {}
     for mode, extra in (("fb", []), ("viterbi", ["--viterbi"])):
         out = os.path.join(wdir, f"gpu_{mode}.fastq")
-        for fn in counters.values():
-            fn.launches = 0
-        wall = run_cli(torch, [reads_dir, "-o", out, "--model", model] + extra)
-        got = {k: fn.launches for k, fn in counters.items()}
-        want = dict.fromkeys(counters, 0)
-        want.update({layer: len(cfg.rnns) * P, "crf_sum_scan": (3 if mode == "fb" else 1) * P,
-                     "crf_viterbi": P, "crf_traceback": P})
-        if got != want:
-            raise AssertionError(f"{model} {mode}: kernel launches {got}, expected {want}")
+        want = {layer: len(cfg.rnns) * P, "crf_sum_scan": (3 if mode == "fb" else 1) * P,
+                "crf_viterbi": P, "crf_traceback": P}
+        wall, got = counted_run(torch, f"{model} {mode}",
+                                [reads_dir, "-o", out, "--model", model] + extra, want)
         with open(out) as fh:
             recs = parse_fastq(fh.read(), alphabet)
         if sorted(recs) != sorted(n for n, _ in names):
@@ -514,8 +760,20 @@ def main_path(torch, np, card: str, model: str) -> dict:
                                  f"{len(names)} reads")
         outputs[mode] = recs
         if mode == "fb":
-            launches = got
+            launches[model] = got
         log(f"main path {model} {mode}: {len(recs)} reads, wall {wall:.3f} s, "
+            f"{nsample / wall / 1e6:.3f} Msamples/s, launches {json.dumps(got)} [{card}]")
+
+    for run, (env, per_program) in (KNOB_RUNS.items() if model == "r941_native" else ()):
+        out = os.path.join(wdir, f"gpu_{run}.fastq")
+        want = {layer: len(cfg.rnns) * P, **{k: n * P for k, n in per_program.items()}}
+        wall, got = counted_run(torch, run, [reads_dir, "-o", out, "--model", model], want,
+                                env=env)
+        launches[run] = got
+        with open(out) as fh:
+            compare_fastq(f"{run} fb vs the default fb run", parse_fastq(fh.read(), alphabet),
+                          outputs["fb"])
+        log(f"main path {run} ({json.dumps(env)}) fb: wall {wall:.3f} s, "
             f"{nsample / wall / 1e6:.3f} Msamples/s, launches {json.dumps(got)} [{card}]")
 
     # a subset against the port's own CPU path
@@ -528,20 +786,206 @@ def main_path(torch, np, card: str, model: str) -> dict:
     cpu_wall = run_cli(torch, [sub_dir, "-o", cpu_out, "--model", model, "--device", "cpu"])
     with open(cpu_out) as fh:
         cpu = parse_fastq(fh.read(), alphabet)
-    worst_id, worst_ds = 1.0, 0.0
-    for n in subset:
-        ident = identity(outputs["fb"][n][0], cpu[n][0])
-        ds = abs(outputs["fb"][n][1] - cpu[n][1])
-        worst_id, worst_ds = min(worst_id, ident), max(worst_ds, ds)
-        log(f"gpu vs cpu {model} {n}: identity {ident:.6f}, |score delta| {ds:.2e}")
-        if not (ident >= 0.995 and ds <= 1e-4):
-            raise AssertionError(f"{model} {n}: GPU vs CPU outside the band (identity "
-                                 f"{ident}, score delta {ds})")
-    log(f"gpu vs cpu {model}: {len(subset)} reads, min identity {worst_id:.6f}, "
-        f"max |score delta| {worst_ds:.2e}, cpu wall {cpu_wall:.1f} s")
+    compare_fastq(f"gpu vs cpu {model} (cpu wall {cpu_wall:.1f} s)",
+                  {n: outputs["fb"][n] for n in subset}, cpu)
     time_chunk_program(torch, np, rng, card, cfg)
     profiled_run(torch, reads_dir, card, model)
     return launches
+
+
+# runnie's reads: 32 of 20k-60k samples (buckets 32768 and 65536, up to
+# ~13.1k blocks a read) and 8 of 3k-12k
+RUNNIE_READS = ((32, 20_000, 60_000), (8, 3_000, 12_000))
+
+
+def runnie_buckets(reads_dir: str, names: list) -> tuple:
+    """(programs, each read's bucket): runnie runs batches of at most 32
+    same-bucket reads (no chunking)."""
+    from flappie_tpu_torch.basecall import bucket_length, preprocess_batch
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    of = [bucket_length(rt.end - rt.start) for rt in preprocess_batch(
+        [read_raw(os.path.join(reads_dir, n)) for n, _ in names])]
+    counts = {b: of.count(b) for b in sorted(set(of))}
+    log(f"runnie buckets (samples: reads): {json.dumps(counts)}")
+    return sum(-(-c // 32) for c in counts.values()), of
+
+
+def parse_run(text: str) -> dict:
+    """.run text -> {uuid: [(base, shape, scale, dwell) line, ...]}."""
+    recs, cur = {}, None
+    for line in text.splitlines():
+        if line.startswith("# "):
+            cur = recs.setdefault(line[2:], [])
+        else:
+            f = line.split("\t")
+            if cur is None or len(f) != 4 or f[0] not in "ACGT" or not f[3].isdigit():
+                raise AssertionError(f"malformed .run line {line!r}")
+            cur.append(line)
+    return recs
+
+
+def compare_runs(what: str, got: dict, want: dict) -> None:
+    """Records equal line for line, or base and dwell equal with shape
+    and scale within 2e-5; logs the count of lines that differ."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: {len(got)} .run records, expected {len(want)}")
+    nline = ndiff = 0
+    for uuid, lines in want.items():
+        if len(got[uuid]) != len(lines):
+            raise AssertionError(f"{what} {uuid}: {len(got[uuid])} runs, expected {len(lines)}")
+        for a, b in zip(got[uuid], lines):
+            nline += 1
+            if a == b:
+                continue
+            ndiff += 1
+            fa, fb = a.split("\t"), b.split("\t")
+            if (fa[0], fa[3]) != (fb[0], fb[3]) or any(
+                    abs(float(fa[i]) - float(fb[i])) > 2e-5 for i in (1, 2)):
+                raise AssertionError(f"{what} {uuid}: {a!r} against {b!r}")
+    log(f"{what}: {len(want)} records, {nline} lines, {ndiff} differ in a shape or scale "
+        "digit (within 2e-5)")
+
+
+def hold_heaviest_program(torch, reads_dir: str, names: list, bucket_of: list) -> None:
+    """runnie's heaviest program on its own reads (its largest bucket:
+    RUNNIE_SCAN_SHAPE), the network on the card, then under each impl the
+    decode on the card (kernels) and on the CPU (plain versions) from the
+    same transitions: --viterbi paths bit-equal; fb posteriors finite and
+    the Viterbi over the card's posterior bit-equal.  The sum scans are
+    held to their plain versions on one device by check_runnie_scans;
+    here the card's and the CPU's exp and log round apart over 13k
+    blocks of normalised weights by more than a relative bound of the
+    states allows, so their max |card - CPU| is logged beside max |state|
+    with the blocks where the CPU's own fb decode takes another path: near
+    ties those last bits decide, at most 1% of the blocks."""
+    from flappie_tpu_torch.basecall import _unpack_i16, pack_bucket, preprocess_batch
+    from flappie_tpu_torch.decode.runlength import rle_split, rle_transpost, rle_viterbi
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.models.network import transitions
+    from flappie_tpu_torch.models.params import init_synthetic, params_to_torch
+    from flappie_tpu_torch.ops.crf import crf_backward, crf_forward, rle_index
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    cfg = get_model_config("rle_r941_native")
+    bucket = max(bucket_of)
+    sel = [n for (n, _), b in zip(names, bucket_of) if b == bucket]
+    pre = preprocess_batch([read_raw(os.path.join(reads_dir, n)) for n in sel])
+    _, buf = pack_bucket(list(enumerate(pre)), bucket)
+    params = params_to_torch(init_synthetic(cfg, seed=0), "cuda")
+    with torch.inference_mode():
+        sig, lengths, _, _ = _unpack_i16(torch.from_numpy(buf).to("cuda"))
+        out, nblocks = transitions(params, cfg, sig, lengths, 1.0)
+    B, T, _ = out.shape
+    if (T, B) != RUNNIE_SCAN_SHAPE:
+        raise AssertionError(f"runnie's bucket-{bucket} program: T={T}, B={B}, expected "
+                             f"{RUNNIE_SCAN_SHAPE}")
+    out_c, nb_c = out.cpu(), nblocks.cpu()
+    valid = torch.arange(T)[None, :] < nb_c[:, None]
+    what = f"runnie bucket-{bucket} program (T={T}, B={B}, {int(nb_c.sum())} blocks)"
+    idx = rle_index(cfg.nbase)
+    scans = {"alphas": lambda t, n: crf_forward(t, n, cfg.nbase, idx=idx)[0],
+             "betas": lambda t, n: crf_backward(t, n, cfg.nbase, idx=idx)}
+    for impl in ("scanb", "pallas"):
+        with knobs({"FLAPPIE_TPU_CRF_IMPL": impl}), torch.inference_mode():
+            t0 = time.perf_counter()
+            if not torch.equal(rle_viterbi(out, nblocks, cfg.nbase)[1].cpu(),
+                               rle_viterbi(out_c, nb_c, cfg.nbase)[1]):
+                raise AssertionError(f"{what} {impl} --viterbi: card path is not the CPU's")
+            errs = {}
+            for name, scan in scans.items():
+                want = scan(rle_split(out_c, cfg.nbase)[2], nb_c)
+                errs[name] = [(scan(rle_split(out, cfg.nbase)[2], nblocks).cpu() - want).abs()
+                              .max().item(), want.abs().max().item()]
+            post_g = rle_transpost(out, nblocks, cfg.nbase)
+            post, post_c = post_g.cpu(), rle_transpost(out_c, nb_c, cfg.nbase)
+            if not bool(torch.isfinite(post).all()):
+                raise AssertionError(f"{what} {impl} fb: a posterior value is not finite")
+            errs["posterior"] = [
+                torch.where(valid[..., None], (post - post_c).abs(), 0.0).max().item(),
+                torch.where(valid[..., None], post_c.abs(), 0.0).max().item()]
+            path = rle_viterbi(post_g, nblocks, cfg.nbase)[1].cpu()
+            if not torch.equal(path, rle_viterbi(post, nb_c, cfg.nbase)[1]):
+                raise AssertionError(f"{what} {impl} fb: the card's Viterbi over its posterior "
+                                     "is not the CPU's")
+            path_c = rle_viterbi(post_c, nb_c, cfg.nbase)[1]
+            flips = int(((path != path_c) & valid).sum())
+            if flips > 0.01 * int(valid.sum()):
+                raise AssertionError(f"{what} {impl} fb: the CPU's own decode takes another "
+                                     f"path in {flips} blocks, more than 1% (not near ties)")
+        log(f"{what}, {impl}: card and CPU decodes of the same transitions: --viterbi paths "
+            f"equal; fb [max |card - CPU|, max |CPU|] {json.dumps(errs)}, the Viterbi over the "
+            f"card's posterior equal; {flips} blocks where the CPU's own fb decode takes "
+            f"another path ({time.perf_counter() - t0:.1f} s)")
+
+
+def runnie_path(torch, np, card: str) -> dict:
+    """rle_r941_native through flappie_tpu_torch.cli.runnie.main at full
+    width, fb and --viterbi, each under the default CRF impl and under
+    FLAPPIE_TPU_CRF_IMPL=pallas, exact launch counts; the .run bytes of
+    the two impls held to each other, the decode of the heaviest program
+    and 4 short reads to the port's CPU path.  Returns the pallas fb
+    run's launch counts."""
+    from flappie_tpu_torch.cli.runnie import main as runnie_main
+    from flappie_tpu_torch.models.config import get_model_config
+
+    cfg = get_model_config("rle_r941_native")
+    wdir = os.path.join(WORK, "rle_r941_native")
+    reads_dir = os.path.join(wdir, "reads")
+    names = write_reads(np, np.random.default_rng(20261017), reads_dir, *RUNNIE_READS)
+    nsample = sum(n for _, n in names)
+    uuids = sorted(f"00000000-0000-4000-8000-{k:012d}" for k in range(len(names)))
+    P, bucket_of = runnie_buckets(reads_dir, names)
+    log(f"main path rle_r941_native (runnie): {len(names)} reads, {nsample} samples, "
+        f"{P} programs per run")
+    L = len(cfg.rnns) * P
+    want = {
+        ("fb", "scanb"): {"crf_sum_scan": 3 * P, "crf_viterbi": P, "crf_traceback": P},
+        ("viterbi", "scanb"): {"crf_sum_scan": P, "crf_viterbi": P, "crf_traceback": P},
+        ("fb", "pallas"): {"crf_bt_fwd": 3 * P, "crf_bt_viterbi": P, "crf_bt_traceback": P},
+        ("viterbi", "pallas"): {"crf_bt_fwd": P, "crf_bt_viterbi": P, "crf_bt_traceback": P},
+    }
+    outputs, launches = {}, {}
+    for (mode, impl), counts in want.items():
+        out = os.path.join(wdir, f"gpu_{mode}_{impl}.run")
+        args = [reads_dir, "-o", out] + (["--viterbi"] if mode == "viterbi" else [])
+        wall, got = counted_run(torch, f"runnie {mode} {impl}", args,
+                                {"lstm_layer": L, **counts}, runnie_main,
+                                {"FLAPPIE_TPU_CRF_IMPL": impl})
+        with open(out) as fh:
+            recs = parse_run(fh.read())
+        if sorted(recs) != uuids:
+            raise AssertionError(f"runnie {mode} {impl}: {len(recs)} records for "
+                                 f"{len(names)} reads")
+        outputs[mode, impl] = recs
+        launches[mode, impl] = got
+        log(f"main path rle_r941_native {mode} {impl}: {len(recs)} reads, wall {wall:.3f} s, "
+            f"{nsample / wall / 1e6:.3f} Msamples/s, launches {json.dumps(got)} [{card}]")
+    for mode in ("fb", "viterbi"):
+        compare_runs(f"runnie {mode}: pallas vs scanb", outputs[mode, "pallas"],
+                     outputs[mode, "scanb"])
+
+    hold_heaviest_program(torch, reads_dir, names, bucket_of)
+
+    sub_dir = os.path.join(wdir, "subset")
+    os.makedirs(sub_dir)
+    subset = [k for k, (_, n) in enumerate(names) if n < 12_000][:4]
+    for k in subset:
+        shutil.copy(os.path.join(reads_dir, names[k][0]), sub_dir)
+    cpu_out = os.path.join(wdir, "cpu_fb.run")
+    cpu_wall = run_cli(torch, [sub_dir, "-o", cpu_out, "--device", "cpu"], runnie_main)
+    with open(cpu_out) as fh:
+        cpu = parse_run(fh.read())
+    compare_runs(f"runnie gpu vs cpu, fb ({len(subset)} reads, cpu wall {cpu_wall:.1f} s)",
+                 {u: outputs["fb", "scanb"][u] for u in cpu}, cpu)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = run_cli(torch, [reads_dir, "-o", os.path.join(wdir, "gpu_fb_profiled.run")],
+                       runnie_main)
+    log_profile("rle_r941_native (runnie fb run, profiler on)", prof, wall, card)
+    return launches["fb", "pallas"]
 
 
 # -- phase 4: training ---------------------------------------------------------
@@ -830,6 +1274,8 @@ def main() -> int:
     if pkg != os.path.join(HERE, "flappie_tpu_torch"):
         raise AssertionError(f"flappie_tpu_torch imported from {pkg}, not this checkout")
 
+    # every phase runs the knobs' defaults unless a CLI run sets one
+    os.environ.update(KNOBS)
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -845,7 +1291,10 @@ def main() -> int:
 
     rows = check_kernels(torch, peak)
     shutil.rmtree(WORK, ignore_errors=True)
-    launches = {model: main_path(torch, np, card, model) for model in RUNS}
+    launches = {}
+    for model in RUNS:
+        launches.update(main_path(torch, np, card, model))
+    launches["rle_r941_native_pallas"] = runnie_path(torch, np, card)
     check_gradients(torch, card)
     launches["r941_native_train"] = training(torch, np, card)
 

@@ -39,8 +39,7 @@ from .io.fastx import BasecallResult
 from .models.config import ModelConfig, get_model_config
 from .models.network import check_supported, transitions
 from .models.params import init_synthetic, load_npz, params_to_torch, validate
-from .ops.crf import phred_from_qpath
-from .ops.crf_bm import decode_bm
+from .ops.crf import crf_decode_fused, phred_from_qpath
 from .parallel.chunking import chunk_records, plan_chunks
 from .signal.preprocess import RawTable, normalise_signal, trim_and_segment
 
@@ -134,8 +133,8 @@ def _device_basecall(params, signal, lengths, cfg: ModelConfig, temperature: flo
     """Full-read program: (score, path int8 [B, T+1], qchar uint8,
     nblocks, trace)."""
     trans, nblocks = transitions(params, cfg, signal, lengths, temperature)
-    score, path, qpath, trace = decode_bm(trans, nblocks, cfg.nbase, viterbi_only,
-                                          compute_trace)
+    score, path, qpath, trace = crf_decode_fused(trans, nblocks, cfg.nbase, viterbi_only,
+                                                 compute_trace)
     return score, path.to(torch.int8), phred_from_qpath(qpath), nblocks, trace
 
 
@@ -153,8 +152,8 @@ def _device_basecall_chunk(params, signal, lengths, qlo, qhi, cfg: ModelConfig,
             params, cfg, signal, lengths, temperature, return_norm=True)
     else:
         trans, nblocks = transitions(params, cfg, signal, lengths, temperature)
-    _, path, qpath, trace = decode_bm(trans, nblocks, cfg.nbase, viterbi_only,
-                                      compute_trace)
+    _, path, qpath, trace = crf_decode_fused(trans, nblocks, cfg.nbase, viterbi_only,
+                                             compute_trace)
     t = torch.arange(qpath.shape[1], device=qpath.device)[None, :]
     keep = (t >= qlo[:, None]) & (t < qhi[:, None])
     score_part = torch.sum(torch.where(keep, qpath, torch.zeros_like(qpath)), dim=1)
@@ -295,6 +294,32 @@ def pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal) -> np.ndarray:
     return np.concatenate([np.asarray(adc, np.int16), tail.view(np.int16)], axis=1)
 
 
+def pack_bucket(items, bucket: int):
+    """One bucket batch of preprocessed reads ``items`` [(tag, RawTable)],
+    each padded to ``bucket`` samples -> (is_i16, packed buffer): the
+    int16 ADC wire when every read keeps its ADC counts, else the f32
+    wire of host-normalised signal."""
+    B = len(items)
+    lengths = np.zeros(B, np.int32)
+    zeros = np.zeros(B, np.int32)
+    if all(_i16_capable(rt) for _, rt in items):
+        adc = np.zeros((B, bucket), np.int16)
+        scal = np.zeros((B, 4), F32)
+        scal[:, 3] = 1.0  # pad rows: mad=1 -> exact zero signal
+        for j, (_, rt) in enumerate(items):
+            L = rt.end - rt.start
+            adc[j, :L] = rt.adc[rt.start : rt.end]
+            lengths[j] = L
+            scal[j] = (rt.cal[0], rt.cal[1], rt.norm[0], rt.norm[1])
+        return True, pack_chunk_inputs_i16(adc, lengths, zeros, zeros, scal)
+    sig = np.zeros((B, bucket), F32)
+    for j, (_, rt) in enumerate(items):
+        seg = rt.active()
+        sig[j, : seg.size] = seg
+        lengths[j] = seg.size
+    return False, pack_chunk_inputs(sig, lengths, zeros, zeros)
+
+
 class _InFlight:
     """One dispatched batch: its output bytes land in ``host`` (pinned
     memory on the GPU) once ``event`` has completed.  ``keep`` holds the
@@ -307,6 +332,41 @@ class _InFlight:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+class _DeviceQueue:
+    """Runs packed-batch programs on one device.  On the GPU each batch is
+    uploaded from pinned host memory on the next of STREAMS CUDA streams,
+    and its output bytes are copied back into pinned memory on the same
+    stream, so ``run`` returns at once; on the CPU it runs in place."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._streams = []
+        self._next = 0
+        if device.type == "cuda":
+            self._streams = [torch.cuda.Stream(device) for _ in range(STREAMS)]
+            # the caller uploaded the weights on the current stream; the
+            # batch streams read them, so the upload must be complete first
+            torch.cuda.synchronize(device)
+
+    def run(self, program, buf: np.ndarray) -> _InFlight:
+        """Enqueue ``program(device_buffer) -> output tensor`` on ``buf``."""
+        host = torch.from_numpy(np.ascontiguousarray(buf))
+        if self.device.type != "cuda":
+            with torch.inference_mode():
+                return _InFlight(program(host))
+        stream = self._streams[self._next % len(self._streams)]
+        self._next += 1
+        host = host.pin_memory()
+        with torch.cuda.stream(stream), torch.inference_mode():
+            dev = host.to(self.device, non_blocking=True)
+            out = program(dev)
+            pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            pinned.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return _InFlight(pinned, event, keep=host)
 
 
 class _Pipeline:
@@ -362,6 +422,10 @@ class Basecaller:
         self.device = resolve_device(device)
         self.cfg = get_model_config(model) if isinstance(model, str) else model
         check_supported(self.cfg)
+        if self.cfg.head != "flipflop":
+            raise NotImplementedError(
+                f"model {self.cfg.name!r}: the basecaller decodes flip-flop heads; the "
+                "run-length model runs through flappie_tpu_torch.cli.runnie")
         if params is None:
             params = load_npz(checkpoint) if checkpoint is not None else init_synthetic(
                 self.cfg, seed=seed)
@@ -382,38 +446,17 @@ class Basecaller:
         self.overlap = int(overlap)
         self.chunk_batch = int(chunk_batch)
         self._chaos_counter = [0]
-        self._streams = []
-        self._next_stream = 0
-        if self.device.type == "cuda":
-            self._streams = [torch.cuda.Stream(self.device) for _ in range(STREAMS)]
-            # the weights were uploaded on the current stream; the batch
-            # streams read them, so the upload must be complete first
-            torch.cuda.synchronize(self.device)
+        self._queue = _DeviceQueue(self.device)
 
     # -- device side ------------------------------------------------------
 
     def _dispatch(self, program, buf: np.ndarray) -> _InFlight:
-        """Upload one packed batch and enqueue its program on the next
-        stream; returns at once on the GPU (the output bytes are
-        collected later)."""
+        """Upload one packed batch and enqueue its program; returns at once
+        on the GPU (the output bytes are collected later)."""
         _chaos_maybe_fail_dispatch()
-        host = torch.from_numpy(np.ascontiguousarray(buf))
-        if self.device.type != "cuda":
-            with torch.inference_mode():
-                return _InFlight(program(self.params, host, self.cfg, self.temperature,
-                                         self.viterbi_only, self.compute_trace))
-        stream = self._streams[self._next_stream % len(self._streams)]
-        self._next_stream += 1
-        host = host.pin_memory()
-        with torch.cuda.stream(stream), torch.inference_mode():
-            dev = host.to(self.device, non_blocking=True)
-            out = program(self.params, dev, self.cfg, self.temperature,
-                          self.viterbi_only, self.compute_trace)
-            pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            pinned.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return _InFlight(pinned, event, keep=host)
+        return self._queue.run(
+            lambda dev: program(self.params, dev, self.cfg, self.temperature,
+                                self.viterbi_only, self.compute_trace), buf)
 
     # -- full pipeline ----------------------------------------------------
 
@@ -482,27 +525,9 @@ class Basecaller:
             by_bucket.setdefault(bucket_length(rt.end - rt.start), []).append((i, rt))
 
         def _dispatch(part, bucket):
-            B = len(part)
-            lengths = np.zeros(B, np.int32)
-            zeros = np.zeros(B, np.int32)
-            if all(_i16_capable(rt) for _, rt in part):
-                adc = np.zeros((B, bucket), np.int16)
-                scal = np.zeros((B, 4), F32)
-                scal[:, 3] = 1.0  # pad rows: mad=1 -> exact zero signal
-                for j, (_, rt) in enumerate(part):
-                    L = rt.end - rt.start
-                    adc[j, :L] = rt.adc[rt.start : rt.end]
-                    lengths[j] = L
-                    scal[j] = (rt.cal[0], rt.cal[1], rt.norm[0], rt.norm[1])
-                buf = pack_chunk_inputs_i16(adc, lengths, zeros, zeros, scal)
-                return self._dispatch(_device_basecall_packed_i16, buf)
-            sig = np.zeros((B, bucket), F32)
-            for j, (_, rt) in enumerate(part):
-                seg = rt.active()
-                sig[j, : seg.size] = seg
-                lengths[j] = seg.size
-            return self._dispatch(_device_basecall_packed,
-                                  pack_chunk_inputs(sig, lengths, zeros, zeros))
+            i16, buf = pack_bucket(part, bucket)
+            return self._dispatch(
+                _device_basecall_packed_i16 if i16 else _device_basecall_packed, buf)
 
         def _collect(tag, out):
             part, bucket = tag

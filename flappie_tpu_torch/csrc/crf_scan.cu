@@ -1,9 +1,11 @@
-// Batch-minor CRF decode scans (K3/K4, K5, K6) for Hopper, sm_90a.
+// Batch-minor CRF decode scans (K3/K4, K9, K5, K6) for Hopper, sm_90a.
 //
 // Replaces, in flappie_tpu/ops/crf_bm_pallas.py:
 //   crf_sum_kernel       <- _sum_kernel:69 (one kernel, direction flag), reached
 //                           through fwd_states_pallas:194 (K3) and
 //                           bwd_states_pallas:218 (K4);
+//   crf_fwdbwd_kernel    <- _fwdbwd_kernel:95 via fwdbwd_states_pallas:251 (K9:
+//                           K3's and K4's chains interleaved in one launch);
 //   crf_viterbi_kernel   <- _viterbi_kernel:135 via viterbi_fwd_pallas:300 (K5);
 //   crf_traceback_kernel <- _traceback_kernel:170 via traceback_pallas:333 (K6).
 //
@@ -35,6 +37,7 @@
 namespace {
 
 constexpr int RB = 32;           // reads per block (threadIdx.x)
+constexpr int FB_RB = 16;        // reads per block of the fused K9
 constexpr int RANK_BIG = 1000000;
 
 template <int S>
@@ -42,19 +45,20 @@ struct Tile {
   static constexpr int KT = S <= 8 ? 8 : 4;  // steps loaded ahead
 };
 
-// One thread per (state st, read b).  Forward: st is the to-state and the
-// thread reduces over from-states j of alpha_t[j] + m_t[j][st].  Backward:
-// st is the from-state and the thread reduces over to-states j of
-// m_t[st][j] + beta_{t+1}[j], walking t from T-1 down.
-template <int S>
-__global__ void crf_sum_kernel(const float* __restrict__ dense,  // [T, S, S, B]
-                               const int* __restrict__ valid,    // [T, B]
-                               float* __restrict__ out,          // [T+1, S, B]
-                               int T, int B, int backward) {
+// One chain of the sum-semiring scan, run by a group of NR x S threads: one
+// thread per (state st, read b = the group's read x).  Forward: st is the
+// to-state and the thread reduces over from-states j of alpha_t[j] +
+// m_t[j][st].  Backward: st is the from-state and the thread reduces over
+// to-states j of m_t[st][j] + beta_{t+1}[j], walking t from T-1 down.  Every
+// thread of the block calls it once, with the same T, so its __syncthreads
+// match across groups.
+template <int S, int NR>
+__device__ __forceinline__ void sum_chain(const float* __restrict__ dense,  // [T, S, S, B]
+                                          const int* __restrict__ valid,    // [T, B]
+                                          float* __restrict__ out,          // [T+1, S, B]
+                                          int T, int B, int b, int x, int st, bool backward,
+                                          float (&a_s)[2][S][NR]) {
   constexpr int KT = Tile<S>::KT;
-  __shared__ float a_s[2][S][RB];
-  const int x = threadIdx.x, st = threadIdx.y;
-  const int b = blockIdx.x * RB + x;
   const bool live = b < B;
   float a = 0.f;
   a_s[0][st][x] = 0.f;
@@ -111,6 +115,33 @@ __global__ void crf_sum_kernel(const float* __restrict__ dense,  // [T, S, S, B]
       for (int j = 0; j < S; ++j) m[k][j] = mn[k][j];
     }
   }
+}
+
+// K3/K4: one chain, 32 reads x S states a block.
+template <int S>
+__global__ void crf_sum_kernel(const float* __restrict__ dense, const int* __restrict__ valid,
+                               float* __restrict__ out, int T, int B, int backward) {
+  __shared__ float a_s[2][S][RB];
+  sum_chain<S, RB>(dense, valid, out, T, B, blockIdx.x * RB + threadIdx.x, threadIdx.x,
+                   threadIdx.y, backward != 0, a_s);
+}
+
+// K9: the alpha chain (threadIdx.z = 0) and the beta chain (threadIdx.z = 1)
+// of the same FB_RB reads in one block.  Each group runs K3's/K4's own step
+// code (sum_chain), so the outputs are bit-equal to theirs by construction;
+// the two chains share each step's barrier.  FB_RB = 16 keeps the block at
+// K3's 256 threads (S=8), within K3's register budget per thread.
+template <int S>
+__global__ void crf_fwdbwd_kernel(const float* __restrict__ dense,
+                                  const int* __restrict__ valid,
+                                  float* __restrict__ alphas,  // [T+1, S, B]
+                                  float* __restrict__ betas,   // [T+1, S, B]
+                                  int T, int B) {
+  __shared__ float a_s[2][2][S][FB_RB];
+  const int chain = threadIdx.z;
+  sum_chain<S, FB_RB>(dense, valid, chain ? betas : alphas, T, B,
+                      blockIdx.x * FB_RB + threadIdx.x, threadIdx.x, threadIdx.y, chain != 0,
+                      a_s[chain]);
 }
 
 // Max-plus forward; one thread per (to-state, read).
@@ -240,6 +271,14 @@ int launch_sum(const float* dense, const int* valid, float* out, int T, int B,
 }
 
 template <int S>
+int launch_fwdbwd(const float* dense, const int* valid, float* alphas, float* betas, int T,
+                  int B, cudaStream_t st) {
+  crf_fwdbwd_kernel<S><<<(B + FB_RB - 1) / FB_RB, dim3(FB_RB, S, 2), 0, st>>>(
+      dense, valid, alphas, betas, T, B);
+  return cudaGetLastError();
+}
+
+template <int S>
 int launch_viterbi(const float* dense, const int* valid, const int* rank,
                    float* alpha, int* bp, int T, int B, cudaStream_t st) {
   crf_viterbi_kernel<S><<<(B + RB - 1) / RB, dim3(RB, S), 0, st>>>(dense, valid, rank,
@@ -267,6 +306,15 @@ extern "C" int flappie_crf_sum(const float* dense, const int* valid, float* out,
   if (B == 0) return 0;
   if (S == 8) return launch_sum<8>(dense, valid, out, T, B, backward, st);
   if (S == 10) return launch_sum<10>(dense, valid, out, T, B, backward, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int flappie_crf_fwdbwd(const float* dense, const int* valid, float* alphas,
+                                  float* betas, int T, int S, int B, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0) return 0;
+  if (S == 8) return launch_fwdbwd<8>(dense, valid, alphas, betas, T, B, st);
+  if (S == 10) return launch_fwdbwd<10>(dense, valid, alphas, betas, T, B, st);
   return cudaErrorInvalidValue;
 }
 

@@ -2,15 +2,18 @@
 
 The whole decode stays time-major with the batch minor: forward,
 backward + transition posterior, Viterbi, traceback; only the byte-sized
-outputs transpose back at the end.  The four scans are the port's CRF
-kernels (ops/crf_bm_cuda.py); everything around them is plain tensor
-code.
+outputs transpose back at the end.  The scans are the port's CRF
+kernels (ops/crf_bm_cuda.py: K3/K4, or K9 for the posterior's two
+scans under FLAPPIE_TPU_SCANB_FB=fused, then K5 and K6); everything
+around them is plain tensor code.
 
 Reference semantics: src/decode.c:119-204 (Viterbi), :377-498
 (forward/backward transition posterior), src/layers.c:1035 (partition).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -39,12 +42,23 @@ def _bwd_states_tm(dense_tm, tvalid_tm):
     return crf_bm_cuda.bwd_states(dense_tm, tvalid_tm)
 
 
+def _use_fused_fb() -> bool:
+    """FLAPPIE_TPU_SCANB_FB=fused, read at call time: the posterior's
+    alpha and beta scans run as one launch (K9), bit-equal to the split
+    K3 and K4.  Opt-in, as in the JAX package (crf_bm.py:56), where it
+    measured slower on the TPU; default ``split``."""
+    return os.environ.get("FLAPPIE_TPU_SCANB_FB", "split") == "fused"
+
+
 def _transpost_tm(trans_tm, tvalid_tm, idx: TransIndex):
     """Per-block transition posteriors [T, P, B], log-normalised per
     block (log_row_normalise, src/flappie_matrix.c:450-467)."""
     dense = _dense_tm(trans_tm, idx)
-    alphas = _fwd_states_tm(dense, tvalid_tm)
-    betas = _bwd_states_tm(dense, tvalid_tm)
+    if _use_fused_fb():
+        alphas, betas = crf_bm_cuda.fwdbwd_states(dense, tvalid_tm)
+    else:
+        alphas = _fwd_states_tm(dense, tvalid_tm)
+        betas = _bwd_states_tm(dense, tvalid_tm)
     dev = trans_tm.device
     fr = torch.as_tensor(idx.from_state, dtype=torch.int64, device=dev)
     to = torch.as_tensor(idx.to_state, dtype=torch.int64, device=dev)

@@ -1,10 +1,11 @@
-"""Batch-minor CRF decode scans: kernels K3/K4, K5, K6
+"""Batch-minor CRF decode scans: kernels K3/K4, K9, K5, K6
 (csrc/crf_scan.cu) and their plain versions.
 
 Counterparts of flappie_tpu/ops/crf_bm_pallas.py: ``fwd_states`` /
 ``bwd_states`` (``fwd_states_pallas:194`` / ``bwd_states_pallas:218``,
 one kernel with a direction flag, as ``_sum_kernel`` is),
-``viterbi_fwd`` (``viterbi_fwd_pallas:300``) and ``traceback``
+``fwdbwd_states`` (``fwdbwd_states_pallas:251``: both chains in one
+launch, bit-equal to K3 and K4), ``viterbi_fwd`` (``viterbi_fwd_pallas:300``) and ``traceback``
 (``traceback_pallas:333``).  Shapes: dense [T, S, S, B] (from, to,
 read), tvalid [T, B] bool, states [T+1, S, B].
 
@@ -55,6 +56,13 @@ def sum_states_plain(dense_tm, tvalid_tm, backward: bool):
     return out
 
 
+def fwdbwd_states_plain(dense_tm, tvalid_tm):
+    """K9's plain version: the two chains are independent, so it is
+    K3's and K4's."""
+    return (sum_states_plain(dense_tm, tvalid_tm, False),
+            sum_states_plain(dense_tm, tvalid_tm, True))
+
+
 def viterbi_fwd_plain(dense_tm, tvalid_tm, tie_rank):
     T, S, _, B = dense_tm.shape
     v = tvalid_tm.to(dense_tm.dtype)
@@ -92,9 +100,11 @@ def _lib():
     if lib.flappie_crf_sum.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.flappie_crf_sum.argtypes = [P, P, P, I, I, I, I, P]
+        lib.flappie_crf_fwdbwd.argtypes = [P, P, P, P, I, I, I, P]
         lib.flappie_crf_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
         lib.flappie_crf_traceback.argtypes = [P, P, P, P, I, I, I, P]
-        for fn in (lib.flappie_crf_sum, lib.flappie_crf_viterbi, lib.flappie_crf_traceback):
+        for fn in (lib.flappie_crf_sum, lib.flappie_crf_fwdbwd, lib.flappie_crf_viterbi,
+                   lib.flappie_crf_traceback):
             fn.restype = ctypes.c_int
     return lib
 
@@ -143,6 +153,26 @@ def bwd_states(dense_tm, tvalid_tm):
     """betas [T+1, S, B]: beta_T = 0, beta_t[from] =
     lse_to(m_t + beta_{t+1}), frozen at invalid t (K4)."""
     return sum_states(dense_tm, tvalid_tm, backward=True)
+
+
+def fwdbwd_states(dense_tm, tvalid_tm):
+    """(alphas, betas), each [T+1, S, B]: K3's and K4's chains in one
+    launch (K9), bit-equal to ``fwd_states`` and ``bwd_states``."""
+    if dense_tm.device.type == "cpu":
+        return fwdbwd_states_plain(dense_tm, tvalid_tm)
+    dense, valid, T, S, B = _dense_args("fwdbwd_states", dense_tm, tvalid_tm)
+    alphas = torch.empty(T + 1, S, B, dtype=torch.float32, device=dense.device)
+    betas = torch.empty_like(alphas)
+    lib = _lib()
+    rc = lib.flappie_crf_fwdbwd(cuda_build.ptr(dense), cuda_build.ptr(valid),
+                                cuda_build.ptr(alphas), cuda_build.ptr(betas), T, S, B,
+                                cuda_build.stream_of(dense))
+    cuda_build.check(lib, rc, "fwdbwd_states")
+    fwdbwd_states.launches += 1
+    return alphas, betas
+
+
+fwdbwd_states.launches = 0
 
 
 def viterbi_fwd(dense_tm, tvalid_tm, tie_rank):

@@ -1,20 +1,27 @@
-"""Globally-normalised flip-flop head (counterpart of
-flappie_tpu/ops/heads.py:34 ``globalnorm_flipflop``).
+"""Globally-normalised output heads (counterpart of
+flappie_tpu/ops/heads.py).
 
-Reference globalnorm_flipflop (src/layers.c:1082-1106):
-``C = tanh(W^T x + b) * 5 / temperature`` then subtract ``logZ /
-nblocks`` (per read) from every parameter; the temperature scales
-*after* the tanh.  The other heads (run-length V1/V2) are not ported yet.
+- flip-flop (``globalnorm_flipflop``, reference globalnorm_flipflop,
+  src/layers.c:1082-1106): ``C = tanh(W^T x + b) * 5 / temperature``
+  then subtract ``logZ / nblocks`` (per read) from every parameter; the
+  temperature scales *after* the tanh.  With ``train=True`` the logZ is
+  ``crf_partition_ad`` (K3 forward, K4 backward), the differentiable
+  path of the training losses.
+- run-length V2 (``globalnorm_runlengthV2``, reference
+  globalnorm_runlengthV2, src/layers.c:1306-1359): shape = 1 +
+  softplus, scale = 1e-8 + softplus, transitions = 5*tanh/temperature,
+  global normalisation over the transition block only.
 
-With ``train=True`` the logZ is ``crf_partition_ad`` (K3 forward, K4
-backward), the differentiable path of the training losses.
+The V1 run-length head (``globalnorm_runlength``) is not ported yet
+(ROADMAP item 11).  The partitions run on the CRF kernels that
+ops/crf.py's FLAPPIE_TPU_CRF_IMPL selects (K3, or K11's forward scan).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .crf import crf_forward, crf_partition_ad, lse
+from .crf import crf_forward, crf_partition, crf_partition_ad, lse, rle_index
 from .masking import mask_tail
 from .rnn import affine
 
@@ -48,3 +55,22 @@ def globalnorm_flipflop(x, W, b, temperature, nblocks, nbase: int,
         return mask_tail(C - shift[:, None, None], nblocks), shift, incs
     logZ = logZ / _safe_n(nblocks, C.dtype)
     return mask_tail(C - logZ[:, None, None], nblocks)
+
+
+def _softplus(x):
+    """jax.nn.softplus's formula, log(1 + e^x) = max(x, 0) + log1p(e^-|x|)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def globalnorm_runlengthV2(x, W, b, temperature, nblocks, nbase: int):
+    """x: [B, T, H] -> params [B, T, 2*nbase + 2*nbase^2]: per block nbase
+    shapes, nbase scales, then the 2*nbase^2 transitions, logZ-normalised
+    per read over the transition block only.  Padded blocks are zeroed."""
+    raw = affine(x, W, b)
+    nrun = 2 * nbase
+    shape = 1.0 + _softplus(raw[..., :nbase])
+    scale = 1e-8 + _softplus(raw[..., nbase:nrun])
+    trans = torch.tanh(raw[..., nrun:]) * (5.0 / temperature)
+    logZ = crf_partition(trans, nblocks, 0, idx=rle_index(nbase)) / _safe_n(nblocks, raw.dtype)
+    out = torch.cat([shape, scale, trans - logZ[:, None, None]], dim=-1)
+    return mask_tail(out, nblocks)

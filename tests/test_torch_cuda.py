@@ -9,8 +9,11 @@ without JAX, skip tests/conftest.py (which sets JAX up):
 
 Tolerances: K1, K7 and K8 max |delta| <= 1e-4 (FMA contraction and
 another summation order over H products per step, compounding over T
-steps), K8's h bit-equal to K1's; sum scans rtol 1e-5 (reassociation);
-Viterbi and traceback bit-equal.  The training path's autograd
+steps), K8's h bit-equal to K1's; sum scans (K3/K4, K9, K11's forward)
+rtol 1e-5 (reassociation), K9 bit-equal to K3/K4; Viterbi and traceback
+(K5, K6 and K11's) bit-equal.  One runnie program (rle_r941_native at
+full width) on the card against the same program on the CPU: the path
+equal, the selected shape and scale within 1e-4.  The training path's autograd
 Functions (ops/rnn_vjp.py, ``crf_partition_ad``) against autograd
 through the plain versions on the card: every gradient within 1e-3 of
 its max |value|.
@@ -22,8 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda, rnn_vjp
-from flappie_tpu_torch.ops.crf import crf_partition_ad, flipflop_index, lse
+from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda, rnn_cuda, rnn_vjp
+from flappie_tpu_torch.ops.crf import (crf_partition_ad, dense_from_params, flipflop_index, lse,
+                                       rle_index)
 from flappie_tpu_torch.ops.crf_bm import _dense_tm
 
 pytestmark = pytest.mark.cuda
@@ -99,6 +103,83 @@ def test_crf_kernels_match_plain(cuda, nbase, B, T):
     last = a.argmax(dim=0).to(torch.int32)
     assert torch.equal(crf_bm_cuda.traceback(bp, v, last),
                        crf_bm_cuda.traceback_plain(bp, v, last))
+
+
+@pytest.mark.parametrize("nbase,B,T", [(4, 40, 75), (5, 7, 33)])
+def test_fused_fb_kernel_matches_plain_and_split(cuda, nbase, B, T):
+    """K9 within rtol 1e-5 of its plain version, bit-equal to K3/K4."""
+    idx = flipflop_index(nbase)
+    gen = torch.Generator().manual_seed(T + 1)
+    trans = _rnd(gen, T, idx.nparam, B, scale=2.0)
+    nblocks = torch.randint(0, T + 1, (B,), generator=gen)
+    nblocks[0], nblocks[-1] = T, 0
+    d = _dense_tm(trans.to(cuda), idx)
+    v = (torch.arange(T)[:, None] < nblocks[None, :]).to(cuda)
+    before = crf_bm_cuda.fwdbwd_states.launches
+    got = crf_bm_cuda.fwdbwd_states(d, v)
+    assert crf_bm_cuda.fwdbwd_states.launches == before + 1
+    want = crf_bm_cuda.fwdbwd_states_plain(d, v)
+    for g, w, backward in zip(got, want, (False, True)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g, crf_bm_cuda.sum_states(d, v, backward))
+
+
+@pytest.mark.parametrize("kind,nbase,B,T", [("flipflop", 4, 40, 75), ("rle", 4, 37, 70),
+                                            ("flipflop", 5, 7, 33)])
+def test_bt_kernels_match_plain(cuda, kind, nbase, B, T):
+    """K11: forward scan rtol 1e-5, Viterbi (alphas and int8
+    backpointers) and traceback bit-equal, on dyadic weights."""
+    idx = {"flipflop": flipflop_index, "rle": rle_index}[kind](nbase)
+    gen = torch.Generator().manual_seed(T + 2)
+    trans = torch.round(_rnd(gen, T, B, idx.nparam, scale=2.0) * 8.0) / 8.0
+    nblocks = torch.randint(0, T + 1, (B,), generator=gen)
+    nblocks[0], nblocks[-1] = T, 0
+    d = dense_from_params(trans.to(cuda), idx)  # [T, B, S, S]
+    v = (torch.arange(T)[:, None] < nblocks[None, :]).to(cuda)
+    before = [f.launches for f in (crf_cuda.fwd_scan, crf_cuda.viterbi_scan,
+                                   crf_cuda.traceback_bt)]
+    torch.testing.assert_close(crf_cuda.fwd_scan(d, v), crf_cuda.fwd_scan_plain(d, v),
+                               rtol=1e-5, atol=1e-5)
+    a, bp = crf_cuda.viterbi_scan(d, v, idx.tie_rank)
+    a0, bp0 = crf_cuda.viterbi_scan_plain(d, v, idx.tie_rank)
+    assert bp.dtype == torch.int8 and torch.equal(a, a0) and torch.equal(bp, bp0)
+    last = a[-1].argmax(dim=-1).to(torch.int32)
+    bp_rev, v_rev = bp.flip(0), v.flip(0)
+    assert torch.equal(crf_cuda.traceback_bt(bp_rev, v_rev, last),
+                       crf_cuda.traceback_bt_plain(bp_rev, v_rev, last))
+    assert [f.launches for f in (crf_cuda.fwd_scan, crf_cuda.viterbi_scan,
+                                 crf_cuda.traceback_bt)] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("impl", ["scanb", "pallas"])
+@pytest.mark.parametrize("viterbi_only", [False, True])
+def test_runnie_program_matches_cpu(cuda, monkeypatch, impl, viterbi_only):
+    """One runnie program at full width (rle_r941_native, synthetic
+    weights) on the card and on the CPU: the path equal, the selected
+    shape and scale within 1e-4, nblocks equal."""
+    from flappie_tpu_torch.cli.runnie import _device_runnie
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.models.params import init_synthetic, params_to_torch
+
+    monkeypatch.setenv("FLAPPIE_TPU_CRF_IMPL", impl)
+    cfg = get_model_config("rle_r941_native")
+    params = init_synthetic(cfg, seed=0)
+    rng = np.random.default_rng(5)
+    sig = rng.normal(size=(3, 2048)).astype(np.float32)
+    lengths = np.array([2048, 1500, 333], np.int32)
+    outs = []
+    for dev in ("cpu", cuda):
+        with torch.inference_mode():
+            got = _device_runnie(params_to_torch(params, dev), torch.from_numpy(sig).to(dev),
+                                 torch.from_numpy(lengths).to(dev), cfg, 1.0, viterbi_only)
+        outs.append([t.cpu() for t in got])
+    (nb0, _, p0, sh0, sc0), (nb1, _, p1, sh1, sc1) = outs
+    assert torch.equal(nb0, nb1)
+    for r in range(3):
+        n = int(nb0[r])
+        assert torch.equal(p0[r, :n], p1[r, :n])
+        torch.testing.assert_close(sh1[r, :n], sh0[r, :n], rtol=0, atol=1e-4)
+        torch.testing.assert_close(sc1[r, :n], sc0[r, :n], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("B,T,IN,H", [(5, 37, 12, 16), (19, 64, 256, 256)])

@@ -11,7 +11,9 @@
 - the packed int16 chunk and bucket programs give the JAX programs'
   output bytes: path, quality (but the unused NaN byte 0), nblocks
   bytes equal, trace bytes within one count, the bit-cast f32 score
-  within 2e-5 relative (summation order).
+  within 2e-5 relative (summation order);
+- the bucket packing (``pack_bucket``) carries each read's normalised
+  signal on either wire.
 """
 
 from __future__ import annotations
@@ -267,3 +269,41 @@ def test_packed_i16_programs_5mc_match_jax(program, viterbi_only):
     _check_packed_programs(jcfg, tcfg, params, program, viterbi_only,
                            qlo=np.array([1, 100, 0, 1], np.int32),
                            qhi=np.array([900, 851, 0, 451], np.int32))
+
+
+@pytest.mark.parametrize("wire", ["i16", "f32"])
+def test_pack_bucket_carries_each_reads_signal(tmp_path, wire):
+    """basecall.pack_bucket, the bucket packing of the flappie and runnie
+    CLIs: the int16 wire when every read keeps its ADC counts, else the
+    f32 wire; either unpacks to each read's host-normalised active
+    signal (i16 within 1e-5, replayed from the ADC counts on the device;
+    f32 exactly) and zero past its length."""
+    from flappie_tpu_torch.signal.fast5 import read_raw, write_single_read_fast5
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    rng = np.random.default_rng(21)
+    reads = []
+    for k, n in enumerate((3000, 2400, 1800)):
+        fn = str(tmp_path / f"r{k}.fast5")
+        write_single_read_fast5(fn, synthetic_adc(n, rng), f"00000000-0000-4000-8000-{k:012d}")
+        reads.append(read_raw(fn))
+    pre = t_bc.preprocess_batch(reads)
+    if wire == "f32":
+        pre[1] = replace(pre[1], adc=None)  # one read without its counts
+    bucket = 4096
+    i16, buf = t_bc.pack_bucket(list(enumerate(pre)), bucket)
+    assert i16 == (wire == "i16")
+    if i16:
+        assert buf.dtype == np.int16 and buf.shape == (3, bucket + 16)
+        sig, lengths, _, _ = (t.numpy() for t in t_bc._unpack_i16(torch.from_numpy(buf)))
+    else:
+        assert buf.dtype == np.float32 and buf.shape == (3, bucket + 4)
+        sig, lengths = buf[:, :bucket], buf[:, bucket].astype(np.int32)
+    for j, rt in enumerate(pre):
+        seg = rt.active()
+        assert lengths[j] == seg.size == rt.end - rt.start
+        if i16:
+            np.testing.assert_allclose(sig[j, : seg.size], seg, rtol=0, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(sig[j, : seg.size], seg)
+        assert not sig[j, seg.size :].any()

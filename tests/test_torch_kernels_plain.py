@@ -1,14 +1,16 @@
 """PyTorch port: the kernels' plain versions against the TPU kernels.
 
 Each CUDA kernel of the port (K1 fused LSTM, K7 fused GRU-mod, K3/K4
-CRF sum scan, K5 Viterbi, K6 traceback) has a plain PyTorch version
-beside its wrapper,
+CRF sum scan, K9 the two fused, K5 Viterbi, K6 traceback, and the
+batch-major K11 forward scan, Viterbi and traceback) has a plain PyTorch
+version beside its wrapper,
 which the wrapper runs for CPU tensors.  Here those plain versions are
 held to the JAX package's Pallas kernels, run in interpret mode on the
 CPU as the JAX package's own tests run them, and to its scan paths:
 
 - K1 and K7 within 5e-6 (the CPU transition band);
-- sum scans within rtol 1e-5 (reassociation of an 8-term sum);
+- sum scans (K3/K4, K9, K11's forward) within rtol 1e-5 (reassociation
+  of an 8-term sum);
 - Viterbi bit-equal on dyadic inputs (adds and compares only);
 - traceback exact.
 
@@ -27,12 +29,13 @@ import jax.numpy as jnp
 
 from flappie_tpu.ops import crf_bm as j_bm
 from flappie_tpu.ops import crf_bm_pallas as j_pal
+from flappie_tpu.ops import crf_pallas as j_bt_pal
 from flappie_tpu.ops import rnn as j_rnn
 from flappie_tpu.ops import rnn_pallas as j_rnn_pal
-from flappie_tpu.ops.crf import flipflop_index
+from flappie_tpu.ops.crf import flipflop_index, rle_index
 from flappie_tpu.ops.masking import reverse_sequence
 
-from flappie_tpu_torch.ops import crf_bm_cuda, rnn_cuda
+from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda, rnn_cuda
 from flappie_tpu_torch.ops import rnn as t_rnn
 from flappie_tpu_torch.ops.crf_bm import _dense_tm
 
@@ -234,6 +237,78 @@ def test_traceback_plain_exact(monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
+def test_fused_fb_plain_matches_pallas(monkeypatch):
+    """K9's plain version against fwdbwd_states_pallas (rtol 1e-5)."""
+    _, dense, tvalid, _ = _scan_inputs(75, 8, seed=9)
+    monkeypatch.setattr(j_pal, "TIME_BLOCK", 8)
+    want = [np.asarray(v) for v in j_pal.fwdbwd_states_pallas(
+        jnp.asarray(dense), jnp.asarray(tvalid), interpret=True)]
+    d, v = torch.from_numpy(dense), torch.from_numpy(tvalid)
+    before = crf_bm_cuda.fwdbwd_states.launches
+    got = crf_bm_cuda.fwdbwd_states(d, v)
+    assert crf_bm_cuda.fwdbwd_states.launches == before  # CPU tensors: plain version
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (76, 8, 8)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
+def _bt_inputs(idx, T, B, seed, dyadic=False):
+    """Batch-major dense blocks [T, B, S, S] and valid [T, B] for K11,
+    with repeated blocks and exact repeats inside a block to probe ties."""
+    rng = np.random.default_rng(seed)
+    trans = rng.normal(0, 2, size=(T, B, idx.nparam)).astype(np.float32)
+    if dyadic:
+        trans = np.round(trans * 8.0) / 8.0
+    trans[:, :, 9] = trans[:, :, 8]
+    trans[10:20] = trans[0]  # repeated blocks
+    dense = np.where(idx.allowed, trans[..., np.maximum(idx.param_idx, 0)], -3.0e38)
+    nblocks = np.minimum(np.array([T, 60, 1, T, 33, 0, 2, 17], np.int32)[:B], T)
+    return dense.astype(np.float32), np.arange(T)[:, None] < nblocks[None, :]
+
+
+@pytest.mark.parametrize("nbase", [4, 5])
+def test_bt_fwd_scan_plain_matches_pallas(nbase, monkeypatch):
+    dense, valid = _bt_inputs(flipflop_index(nbase), 75, 8, seed=40 + nbase)
+    monkeypatch.setattr(j_bt_pal, "TIME_BLOCK", 8)
+    want = np.asarray(j_bt_pal.fwd_scan_pallas(jnp.asarray(dense), jnp.asarray(valid),
+                                               interpret=True))
+    before = crf_cuda.fwd_scan.launches
+    got = crf_cuda.fwd_scan(torch.from_numpy(dense), torch.from_numpy(valid)).numpy()
+    assert crf_cuda.fwd_scan.launches == before
+    assert got.shape == want.shape == (75, 8, 2 * nbase)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["flipflop", "rle"])
+def test_bt_viterbi_plain_bit_equal_to_pallas_on_dyadic(kind, monkeypatch):
+    idx = {"flipflop": flipflop_index, "rle": rle_index}[kind](4)
+    dense, valid = _bt_inputs(idx, 75, 8, seed=44, dyadic=True)
+    monkeypatch.setattr(j_bt_pal, "TIME_BLOCK", 8)
+    a_want, bp_want = (np.array(v) for v in j_bt_pal.viterbi_scan_pallas(
+        jnp.asarray(dense), jnp.asarray(valid), tie_rank=idx.tie_rank, interpret=True))
+    a_got, bp_got = crf_cuda.viterbi_scan(torch.from_numpy(dense), torch.from_numpy(valid),
+                                          idx.tie_rank)
+    assert bp_got.dtype == torch.int8 and bp_want.dtype == np.int8
+    np.testing.assert_array_equal(a_got.numpy(), a_want)
+    np.testing.assert_array_equal(bp_got.numpy(), bp_want)
+
+
+@pytest.mark.parametrize("kind", ["flipflop", "rle"])
+def test_bt_traceback_plain_exact(kind, monkeypatch):
+    idx = {"flipflop": flipflop_index, "rle": rle_index}[kind](4)
+    dense, valid = _bt_inputs(idx, 75, 8, seed=45, dyadic=True)
+    monkeypatch.setattr(j_bt_pal, "TIME_BLOCK", 8)
+    alphas, bps = (np.array(v) for v in j_bt_pal.viterbi_scan_pallas(
+        jnp.asarray(dense), jnp.asarray(valid), tie_rank=idx.tie_rank, interpret=True))
+    last = np.argmax(alphas[-1], axis=-1).astype(np.int32)
+    bp_rev, valid_rev = np.ascontiguousarray(bps[::-1]), np.ascontiguousarray(valid[::-1])
+    want = np.asarray(j_bt_pal.traceback_pallas(jnp.asarray(bp_rev), jnp.asarray(valid_rev),
+                                                jnp.asarray(last), interpret=True))
+    got = crf_cuda.traceback_bt(torch.from_numpy(bp_rev), torch.from_numpy(valid_rev),
+                                torch.from_numpy(last)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_wrappers_refuse_other_devices():
     """No quiet fallback: a tensor on neither the CPU nor a CUDA device
     raises instead of taking the plain version."""
@@ -255,3 +330,18 @@ def test_grumod_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         rnn_cuda.grumod_layer_tm(meta, torch.empty(4, 48, device="meta"),
                                  torch.empty(48, device="meta"), torch.empty(16, 48, device="meta"))
+
+
+def test_crf_wrappers_of_this_slice_refuse_other_devices():
+    dense = torch.empty(3, 8, 8, 2, device="meta")
+    valid = torch.empty(3, 2, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        crf_bm_cuda.fwdbwd_states(dense, valid)
+    bt_dense = torch.empty(3, 2, 8, 8, device="meta")
+    with pytest.raises(ValueError):
+        crf_cuda.fwd_scan(bt_dense, valid)
+    with pytest.raises(ValueError):
+        crf_cuda.viterbi_scan(bt_dense, valid, np.zeros((8, 8), np.int32))
+    with pytest.raises(ValueError):
+        crf_cuda.traceback_bt(torch.empty(3, 2, 8, dtype=torch.int8, device="meta"), valid,
+                              torch.empty(2, dtype=torch.int32, device="meta"))
