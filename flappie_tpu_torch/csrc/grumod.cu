@@ -37,6 +37,15 @@
 //     past a read's length freezes h and writes 0 (rnn_pallas.py:307-317).
 // The cluster / distributed-shared-memory design that keeps sW on chip is
 // later work, as for K1.
+//
+// K12's GRU-mod half (flappie_grumod_seq) replaces rnn_pallas.py:69
+// _grumod_kernel (its pallas_call at :129 in _run_recurrent:113), reached
+// through grumod_seq_pallas:149: the recurrence alone over a caller's
+// affine, batch-major [B, T, 3H] -> [B, T, H], forward, zero initial state,
+// no length mask.  As in lstm.cu, the same recurrence kernel under a
+// BATCH_MAJOR template flag (K7's instantiation unchanged), with lengths
+// all equal to T.  Bound: operations, 2.T.B.H.3H of f32 FMA (257.7 GFLOP
+// at T=2560, B=256, H=256).
 
 #include <cuda_runtime.h>
 
@@ -49,12 +58,12 @@ using flappie::sigmoidf_;
 constexpr int ROWS = 8;         // batch rows per recurrence block
 constexpr int MAX_THREADS = 384;  // 3H/2 at H = 256
 
-template <int R>
+template <int R, bool BATCH_MAJOR>
 __global__ void __launch_bounds__(MAX_THREADS)
-grumod_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 3H]
+grumod_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 3H] or [B, T, 3H]
                          const float* __restrict__ sW,     // [H, 3H]
                          const int* __restrict__ lengths,  // [B]
-                         float* __restrict__ out,          // [T, B, H]
+                         float* __restrict__ out,          // [T, B, H] or [B, T, H]
                          int T, int B, int H, int backward) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int len_s[R];
@@ -71,6 +80,11 @@ grumod_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 3H]
   const int row0 = blockIdx.x * R;
   const bool seed = half == 0 && col < 2 * H;   // z, r columns start from xa
   const bool cand = half == 0 && col >= 2 * H;  // candidate columns park xa_h
+  // row-major offsets of (t, row) in xa (in units of G) and out (of H):
+  // time-major [T, B, .] (K7) or batch-major [B, T, .] (K12)
+  auto at = [&](int t, int row) {
+    return BATCH_MAJOR ? (long)row * T + t : (long)t * B + row;
+  };
 
   for (int i = tid; i < H * R; i += nthreads) h_s[i] = 0.f;
   if (tid < R) len_s[tid] = row0 + tid < B ? lengths[row0 + tid] : 0;
@@ -80,7 +94,7 @@ grumod_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 3H]
     for (int r = 0; r < R; ++r) {
       const int row = row0 + r;
       nx[r] = (row < B && half == 0)
-                  ? *reinterpret_cast<const float4*>(xa + ((long)t * B + row) * G + col)
+                  ? *reinterpret_cast<const float4*>(xa + at(t, row) * G + col)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
@@ -134,11 +148,30 @@ grumod_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 3H]
       const float h_old = h_s[j * R + r];
       const float h2 = z * h_old + (1.f - z) * hbar;
       const bool valid = t < len_s[r];
-      if (row < B) out[((long)t * B + row) * H + j] = valid ? h2 : 0.f;
+      if (row < B) out[at(t, row) * H + j] = valid ? h2 : 0.f;
       if (valid) h_s[j * R + r] = h2;
     }
     __syncthreads();
   }
+}
+
+// The recurrence alone over xa; returns the launch error code.  Needs
+// H % 16 == 0 and H <= 256.
+template <bool BATCH_MAJOR>
+cudaError_t launch_recurrence(const float* xa, const float* sW, const int* lengths, float* out,
+                              int T, int B, int H, int backward, cudaStream_t st) {
+  if (H % 16 != 0 || 3 * H / 2 > MAX_THREADS) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)(2 * H * ROWS + 2 * ROWS * 3 * H) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(grumod_recurrence_kernel<ROWS, BATCH_MAJOR>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (B + ROWS - 1) / ROWS;
+  grumod_recurrence_kernel<ROWS, BATCH_MAJOR><<<blocks, 3 * H / 2, smem, st>>>(
+      xa, sW, lengths, out, T, B, H, backward);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -158,15 +191,18 @@ extern "C" int flappie_grumod_layer(const float* x, const float* iW, const float
   const long M = (long)T * B;
   if (M == 0) return 0;
   if (H % 16 != 0 || 3 * H / 2 > MAX_THREADS) return cudaErrorInvalidValue;
-  cudaError_t err = flappie::launch_affine(x, iW, b, xa, M, 3 * H, IN, st);
+  const cudaError_t err = flappie::launch_affine(x, iW, b, xa, M, 3 * H, IN, st);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(2 * H * ROWS + 2 * ROWS * 3 * H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(grumod_recurrence_kernel<ROWS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  grumod_recurrence_kernel<ROWS><<<(B + ROWS - 1) / ROWS, 3 * H / 2, smem, st>>>(
-      xa, sW, lengths, out, T, B, H, backward);
-  return cudaGetLastError();
+  return launch_recurrence<false>(xa, sW, lengths, out, T, B, H, backward, st);
+}
+
+// K12 (GRU-mod): the recurrence alone over a caller's affine, batch-major
+// xa [B, T, 3H] -> out [B, T, H], forward, zero initial state, no length
+// mask: the caller passes lengths [B] all equal to T.  Needs H % 16 == 0
+// and H <= 256.  Returns the launch error code.
+extern "C" int flappie_grumod_seq(const float* xa, const float* sW, const int* lengths,
+                                  float* out, int T, int B, int H, void* stream) {
+  if ((long)T * B == 0) return 0;
+  return launch_recurrence<true>(xa, sW, lengths, out, T, B, H, 0,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -44,6 +44,17 @@
 // one step body serves both: WANT_C is a template flag, so K1's
 // instantiation carries no c store at all, and K8's h is K1's h bit for bit.
 // The extra write, T.B.H.4 bytes, is the only added traffic.
+//
+// K12's LSTM half (flappie_lstm_seq) replaces rnn_pallas.py:37 _lstm_kernel
+// (its pallas_call at :129 in _run_recurrent:113), reached through
+// lstm_seq_pallas:144: the recurrence alone over an affine the caller has
+// computed, batch-major [B, T, 4H] -> [B, T, H], forward, zero initial
+// state, no length mask.  It is the same recurrence kernel: a template
+// flag (BATCH_MAJOR) switches its row offsets, so the batch-major tensors
+// are read and written in place with no transpose and K1's and K8's
+// instantiations are unchanged; lengths all equal to T drop the mask.
+// Bound: operations, 2.T.B.H.4H of f32 FMA (343.6 GFLOP at T=2560, B=256,
+// H=256).
 
 #include <cuda_runtime.h>
 
@@ -55,18 +66,23 @@ using flappie::sigmoidf_;
 
 constexpr int ROWS = 8;  // batch rows per recurrence block
 
-template <int R, bool WANT_C>
+template <int R, bool WANT_C, bool BATCH_MAJOR>
 __global__ void __launch_bounds__(512)
-lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
+lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H] or [B, T, 4H]
                        const float* __restrict__ sW,     // [H, 4H]
                        const int* __restrict__ lengths,  // [B]
-                       float* __restrict__ out,          // [T, B, H]
+                       float* __restrict__ out,          // [T, B, H] or [B, T, H]
                        float* __restrict__ c_out,        // [T, B, H] if WANT_C
                        int T, int B, int H, int backward) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   float* h_s = smem;          // [H][R]: h of the block's rows, unit-major
   float* g_s = smem + H * R;  // [2][R][4H]: the two halves' partial sums
+  // row-major offsets of (t, row) in xa (in units of G) and out (of H):
+  // time-major [T, B, .] (K1, K8) or batch-major [B, T, .] (K12)
+  auto at = [&](int t, int row) {
+    return BATCH_MAJOR ? (long)row * T + t : (long)t * B + row;
+  };
   const int tid = threadIdx.x;  // blockDim.x == 2H
   const int half = tid / H;     // which half of the k (hidden unit) range
   const int col = 4 * (tid % H);
@@ -90,7 +106,7 @@ lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
     for (int r = 0; r < R; ++r) {
       const int row = row0 + r;
       nx[r] = (row < B && half == 0)
-                  ? *reinterpret_cast<const float4*>(xa + ((long)t * B + row) * G + col)
+                  ? *reinterpret_cast<const float4*>(xa + at(t, row) * G + col)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
@@ -143,8 +159,8 @@ lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
       const float h2 = o * tanhf(c2);
       const bool valid = t < len[q];
       if (row < B) {
-        out[((long)t * B + row) * H + j] = valid ? h2 : 0.f;
-        if (WANT_C) c_out[((long)t * B + row) * H + j] = valid ? c2 : 0.f;
+        out[at(t, row) * H + j] = valid ? h2 : 0.f;
+        if (WANT_C) c_out[at(t, row) * H + j] = valid ? c2 : 0.f;
       }
       if (valid) {
         c[q] = c2;
@@ -155,6 +171,24 @@ lstm_recurrence_kernel(const float* __restrict__ xa,     // [T, B, 4H]
   }
 }
 
+// The recurrence alone over xa; returns the launch error code.
+template <bool WANT_C, bool BATCH_MAJOR>
+cudaError_t launch_recurrence(const float* xa, const float* sW, const int* lengths,
+                              float* out, float* c_out, int T, int B, int H, int backward,
+                              cudaStream_t st) {
+  const size_t smem = (size_t)(H * ROWS + 2 * ROWS * 4 * H) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lstm_recurrence_kernel<ROWS, WANT_C, BATCH_MAJOR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (B + ROWS - 1) / ROWS;
+  lstm_recurrence_kernel<ROWS, WANT_C, BATCH_MAJOR><<<blocks, 2 * H, smem, st>>>(
+      xa, sW, lengths, out, c_out, T, B, H, backward);
+  return cudaGetLastError();
+}
+
 template <bool WANT_C>
 int lstm_layer(const float* x, const float* iW, const float* b, const float* sW,
                const int* lengths, float* xa, float* out, float* c_out, int T, int B,
@@ -162,17 +196,10 @@ int lstm_layer(const float* x, const float* iW, const float* b, const float* sW,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)T * B;
   if (M == 0) return 0;
-  cudaError_t err = flappie::launch_affine(x, iW, b, xa, M, 4 * H, IN, st);
+  const cudaError_t err = flappie::launch_affine(x, iW, b, xa, M, 4 * H, IN, st);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(H * ROWS + 2 * ROWS * 4 * H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lstm_recurrence_kernel<ROWS, WANT_C>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  lstm_recurrence_kernel<ROWS, WANT_C><<<(B + ROWS - 1) / ROWS, 2 * H, smem, st>>>(
-      xa, sW, lengths, out, c_out, T, B, H, backward);
-  return cudaGetLastError();
+  return launch_recurrence<WANT_C, false>(xa, sW, lengths, out, c_out, T, B, H, backward,
+                                          st);
 }
 
 }  // namespace
@@ -198,4 +225,15 @@ extern "C" int flappie_lstm_layer_train(const float* x, const float* iW, const f
                                         int H, int backward, void* stream) {
   return lstm_layer<true>(x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward,
                           stream);
+}
+
+// K12 (LSTM): the recurrence alone over a caller's affine, batch-major
+// xa [B, T, 4H] -> out [B, T, H], forward, zero initial state, no length
+// mask: the caller passes lengths [B] all equal to T.  Returns the launch
+// error code (0 = ok).
+extern "C" int flappie_lstm_seq(const float* xa, const float* sW, const int* lengths, float* out,
+                                int T, int B, int H, void* stream) {
+  if ((long)T * B == 0) return 0;
+  return launch_recurrence<false, true>(xa, sW, lengths, out, nullptr, T, B, H, 0,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -6,12 +6,22 @@ r941_native, r941_rna002 and r103_native (reference
 flipflop5_guppy_transitions, src/networks.c:539-586) and of the
 run-length model rle_r941_native (runlength5_guppy, :675-722, head
 runlengthV2), and the stride-2 GRU-mod graph of r941_5mC
-(flipflop_guppy_transitions, :450-489).  The conv stack runs
-batch-major [B, T, C]; the recurrent stack runs time-major [T, B, H]
-through the fused layer kernels (ops/rnn_cuda.py: K1 for LSTM, K7 for
-GRU-mod), as the JAX package's
-``_rnn_stack_fused_tm`` does: direction and per-read tail masking live
-inside the kernel.
+(flipflop_guppy_transitions, :450-489).
+
+The conv stack follows ``FLAPPIE_TPU_CONV_IMPL``, read at call time as
+in the JAX package: ``xla`` (``auto``; batch-major [B, T, C] through
+``F.conv1d``), ``fast`` (channels-major [B, C, T] shifted-slice convs and
+one strided im2col product) or ``pallas`` (``fast`` with the two leading
+stride-1 swish convs as one kernel, K10 in ops/conv_cuda.py).
+
+By default (``rnn_impl="auto"``) the recurrent stack runs time-major
+[T, B, H] through the fused layer kernels (ops/rnn_cuda.py: K1 for LSTM,
+K7 for GRU-mod), as the JAX package's ``_rnn_stack_fused_tm`` does:
+direction and per-read tail masking live inside the kernel.
+``rnn_impl="scan"`` is the JAX package's layer-by-layer ``rnn_stack``:
+affine, per-read reversal for backward layers, the recurrence alone
+(K12: ``lstm_seq_cuda`` / ``grumod_seq_cuda``), reversal back, the
+residual add, tail mask.
 
 ``train=True`` is the differentiable path (the JAX package's
 ``rnn_impl="train"``): the layers go through ops/rnn_vjp.py (K8 for
@@ -22,13 +32,17 @@ differentiates through autograd.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..ops.activations import ACTIVATIONS
-from ..ops.conv import conv1d_same
+from ..ops.conv import conv1d_same, conv1d_same_ct, conv1d_strided_ct
+from ..ops.conv_cuda import conv12_fused
 from ..ops.heads import globalnorm_flipflop, globalnorm_runlengthV2
-from ..ops.masking import mask_tail
-from ..ops.rnn_cuda import grumod_layer_tm, lstm_layer_tm
+from ..ops.masking import mask_tail, reverse_sequence
+from ..ops.rnn import affine
+from ..ops.rnn_cuda import grumod_layer_tm, grumod_seq_cuda, lstm_layer_tm, lstm_seq_cuda
 from ..ops.rnn_vjp import grumod_layer_tm_ad, lstm_layer_tm_ad
 from .config import ModelConfig
 
@@ -41,23 +55,92 @@ def ceil_div(a, b):
 LAYERS = {"lstm": lstm_layer_tm, "grumod": grumod_layer_tm}
 # ... and its differentiable wrapper, for training
 LAYERS_AD = {"lstm": lstm_layer_tm_ad, "grumod": grumod_layer_tm_ad}
-
+# the recurrence alone over a computed affine (K12), for rnn_impl="scan"
+SEQS = {"lstm": lstm_seq_cuda, "grumod": grumod_seq_cuda}
 
 HEADS = ("flipflop", "runlengthV2")
+RNN_IMPLS = ("auto", "scan")
 
 
-def check_supported(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig, rnn_impl: str = "auto") -> None:
     """Raise for a graph the port does not run yet (the V1 run-length
-    head and the GRU / residual graphs: ROADMAP item 11)."""
-    if cfg.head not in HEADS or any(r.kind not in LAYERS or r.residual for r in cfg.rnns):
+    head and the GRU graphs: ROADMAP item 11; residual layers run on
+    the ``scan`` path only)."""
+    if rnn_impl not in RNN_IMPLS:
+        raise ValueError(f"rnn_impl must be one of {RNN_IMPLS}, got {rnn_impl!r}")
+    if cfg.head not in HEADS or any(r.kind not in LAYERS for r in cfg.rnns):
         raise NotImplementedError(
-            f"model {cfg.name!r}: the port runs the non-residual LSTM and GRU-mod "
-            "graphs with the flip-flop or run-length V2 head only so far"
+            f"model {cfg.name!r}: the port runs the LSTM and GRU-mod graphs with the "
+            "flip-flop or run-length V2 head only so far (ROADMAP item 11)"
         )
+    if rnn_impl == "auto" and any(r.residual for r in cfg.rnns):
+        raise NotImplementedError(
+            f"model {cfg.name!r}: residual layers run with rnn_impl='scan' only")
+
+
+def _conv_impl() -> str:
+    """FLAPPIE_TPU_CONV_IMPL at call time: ``xla`` (``auto``), ``fast``
+    or ``pallas`` (flappie_tpu/models/network.py:42)."""
+    return os.environ.get("FLAPPIE_TPU_CONV_IMPL", "auto").replace("auto", "xla")
+
+
+def _conv_stack_fast(params, cfg: ModelConfig, x, lengths, fuse12: bool = False):
+    """Channels-major conv stack (flappie_tpu/models/network.py:59):
+    stride-1 layers stay [B, C, T], the strided layer emits the recurrent
+    stack's [B, T', C].  With ``fuse12`` (impl ``pallas``) the two leading
+    stride-1 swish convs of the stride-5 family run as K10."""
+    if (
+        fuse12
+        and len(cfg.convs) == 3
+        and cfg.convs[0].stride == 1
+        and cfg.convs[1].stride == 1
+        and cfg.convs[0].activation == cfg.convs[1].activation == "swish"
+        and cfg.convs[0].winlen == cfg.convs[1].winlen == 5
+        and (cfg.convs[0].in_ch, cfg.convs[0].out_ch, cfg.convs[1].out_ch)
+        == (1, 4, 16)
+    ):
+        y2 = conv12_fused(
+            x[..., 0],
+            params["conv0"]["W"], params["conv0"]["b"],
+            params["conv1"]["W"], params["conv1"]["b"],
+            lengths,
+        )  # [B, 16, T] masked
+        c3 = cfg.convs[2]
+        y = ACTIVATIONS[c3.activation](
+            conv1d_strided_ct(y2, params["conv2"]["W"], params["conv2"]["b"],
+                              c3.stride, lengths)
+        )
+        lengths = ceil_div(lengths, c3.stride)
+        return mask_tail(y, lengths), lengths
+
+    xc = x.transpose(1, 2)  # [B, C=1, T]
+    for i, c in enumerate(cfg.convs):
+        W = params[f"conv{i}"]["W"]
+        b = params[f"conv{i}"]["b"]
+        act = ACTIVATIONS[c.activation]
+        if c.stride == 1:
+            y = act(conv1d_same_ct(xc, W, b))
+            # zero the padded tail (t >= length) in channels-major
+            m = torch.arange(y.shape[-1], device=y.device)[None, None, :] < lengths[:, None, None]
+            xc = torch.where(m, y, 0.0)
+        else:
+            y = act(conv1d_strided_ct(xc, W, b, c.stride, lengths))
+            lengths = ceil_div(lengths, c.stride)
+            y = mask_tail(y, lengths)
+            if i != len(cfg.convs) - 1:  # a later stride-1 conv follows
+                xc = y.transpose(1, 2)
+            else:
+                return y, lengths
+    return xc.transpose(1, 2), lengths
 
 
 def conv_stack(params, cfg: ModelConfig, x, lengths):
-    """x: [B, T, 1] float32, lengths: [B] -> (y [B, T', C], lengths')."""
+    """x: [B, T, 1] float32, lengths: [B] -> (y [B, T', C], lengths');
+    the implementation is ``FLAPPIE_TPU_CONV_IMPL``'s (module docstring):
+    ``fast`` and ``pallas`` apply when the last conv is strided."""
+    impl = _conv_impl()
+    if impl in ("fast", "pallas") and cfg.convs[-1].stride > 1:
+        return _conv_stack_fast(params, cfg, x, lengths, fuse12=(impl == "pallas"))
     for i, c in enumerate(cfg.convs):
         p = params[f"conv{i}"]
         x = conv1d_same(x, p["W"], p["b"], c.stride, lengths)
@@ -81,8 +164,29 @@ def rnn_stack_tm(params, cfg: ModelConfig, x, lengths, train: bool = False):
     return x_tm.transpose(0, 1)
 
 
+def rnn_stack(params, cfg: ModelConfig, x, lengths):
+    """[B, T, C] -> [B, T, H] layer by layer, batch-major
+    (flappie_tpu/models/network.py:175-204 with ``rnn_impl="scan"``):
+    affine, per-read reversal for backward layers, the recurrence alone
+    (K12 on the card, the plain scan on the CPU), reversal back, the
+    residual add, tail mask."""
+    for i, r in enumerate(cfg.rnns):
+        p = params[f"rnn{i}"]
+        xa = affine(x, p["iW"], p["b"])
+        if r.backward:
+            xa = reverse_sequence(xa, lengths)
+        y = SEQS[r.kind](xa, p["sW"])
+        if r.backward:
+            y = reverse_sequence(y, lengths)
+        if r.residual:
+            # residual_inplace (src/layers.c:338-354)
+            y = y + x
+        x = mask_tail(y, lengths)
+    return x
+
+
 def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
-                return_norm: bool = False, train: bool = False):
+                return_norm: bool = False, train: bool = False, rnn_impl: str = "auto"):
     """signal: [B, T] or [B, T, 1] normalised signal (zero-padded),
     lengths: [B] int32 valid sample counts.
 
@@ -91,11 +195,15 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     only) additionally the per-read global-norm shift [B] and the
     per-block partition increments [B, T'] used to stitch exact viterbi
     scores across chunks.  ``train`` (flip-flop head only) selects the
-    differentiable layers and partition (module docstring).
+    differentiable layers and partition (module docstring); ``rnn_impl``
+    ``"auto"`` the fused layer kernels, ``"scan"`` the layer-by-layer
+    stack (inference only: K12 has no adjoint).
     """
-    check_supported(cfg)
+    check_supported(cfg, rnn_impl)
     if cfg.head != "flipflop" and (return_norm or train):
         raise ValueError("transitions: return_norm and train need the flip-flop head")
+    if train and rnn_impl != "auto":
+        raise ValueError("transitions: train runs the fused layers (rnn_impl='auto')")
     if signal.dim() == 2:
         signal = signal[..., None]
     signal = signal.to(torch.float32)
@@ -103,7 +211,10 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     # whatever the caller left in the padded tail
     signal = mask_tail(signal, lengths)
     x, nblocks = conv_stack(params, cfg, signal, lengths)
-    x = rnn_stack_tm(params, cfg, x, nblocks, train)
+    if rnn_impl == "scan":
+        x = rnn_stack(params, cfg, x, nblocks)
+    else:
+        x = rnn_stack_tm(params, cfg, x, nblocks, train)
     W, b = params["ff"]["W"], params["ff"]["b"]
     if cfg.head == "runlengthV2":
         return globalnorm_runlengthV2(x, W, b, temperature, nblocks, cfg.nbase), nblocks

@@ -1,7 +1,9 @@
 """Same-padded strided 1-D convolution with reference edge semantics.
 
-Counterpart of flappie_tpu/ops/conv.py (``conv1d_same`` and
-``_ref_edge_fix``).  The body is one library convolution
+Counterpart of flappie_tpu/ops/conv.py (``conv1d_same``,
+``_ref_edge_fix`` and the channels-major ``conv1d_same_ct`` /
+``conv1d_strided_ct`` of the ``fast``/``pallas`` conv stacks).  The
+body of ``conv1d_same`` is one library convolution
 (``F.conv1d``; the JAX package uses plain ``lax.conv`` here too), with
 ``ncol_out = ceil(T / stride)`` and the reference's asymmetric padding
 ``padL = (winlen-1)//2``, ``padR = winlen//2``.
@@ -99,6 +101,43 @@ def _ref_edge_fix(out, x, W, b, stride: int, lengths):
     target = torch.where(c >= 0, c, torch.full_like(c, Tout))
     padded[bidx[:, None], target] = new
     return padded[:, :Tout]
+
+
+def conv1d_same_ct(xc, W, b):
+    """Stride-1 same-conv in channels-major [B, C, T] layout (counterpart
+    of flappie_tpu/ops/conv.py:128): the winlen shifted slices stacked
+    and contracted over (k, c) in one product.
+
+    xc: [B, C_in, T]; W: [winlen, C_in, C_out]; returns [B, C_out, T].
+    The (k, c) sum runs in another order than ``conv1d_same``'s (float32
+    ulps); that path stays the parity reference.
+    """
+    winlen = W.shape[0]
+    T = xc.shape[-1]
+    xp = F.pad(xc, ((winlen - 1) // 2, winlen // 2))
+    xs = torch.stack([xp[:, :, k : k + T] for k in range(winlen)])  # [k, B, C, T]
+    return torch.einsum("kbct,kco->bot", xs, W) + b[None, :, None]
+
+
+def conv1d_strided_ct(xc, W, b, stride: int, lengths):
+    """Strided conv from channels-major [B, C_in, T] input to the
+    recurrent stack's [B, ceil(T/stride), C_out] (counterpart of
+    flappie_tpu/ops/conv.py:158): one strided im2col, one product, then
+    the reference right edge (``_ref_edge_fix`` on a time-major view)."""
+    winlen = W.shape[0]
+    B, _, T = xc.shape
+    Tout = -(-T // stride)
+    # pad so every strided window slice is in bounds (the extra zeros
+    # beyond T + padR sit in columns the edge fix rewrites)
+    xp = F.pad(xc, ((winlen - 1) // 2, winlen // 2 + (stride * Tout - T) + stride))
+    cols = torch.stack([xp[:, :, k : k + stride * Tout : stride]
+                        for k in range(winlen)])  # [k, B, C, Tout]
+    out = torch.einsum("kbct,kco->bto", cols, W) + b
+    if stride > 1 and winlen % stride != 0:
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32, device=xc.device)
+        out = _ref_edge_fix(out, xc.transpose(1, 2), W, b, stride, lengths)
+    return out
 
 
 def conv1d_same(x, W, b, stride: int, lengths=None):

@@ -22,7 +22,7 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "flappie_tpu_torch")
-SOURCES = ("lstm", "grumod", "crf_scan", "crf_bt")
+SOURCES = ("lstm", "grumod", "crf_scan", "crf_bt", "conv12")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,6 +1,7 @@
 """Fused recurrent layers: kernels K1 (LSTM, csrc/lstm.cu), K8 (its
 training forward, which also returns the cell state) and K7 (GRU-mod,
-csrc/grumod.cu), and their plain versions.
+csrc/grumod.cu), and their plain versions; and K12, the recurrences
+alone over a caller's affine (``lstm_seq_cuda``, ``grumod_seq_cuda``).
 
 Counterparts of flappie_tpu/ops/rnn_pallas.py:563 ``lstm_layer_tm``
 (``_lstm_fused_kernel``), :584 ``lstm_layer_tm_train``
@@ -9,6 +10,15 @@ Counterparts of flappie_tpu/ops/rnn_pallas.py:563 ``lstm_layer_tm``
 affine computed by the kernel itself, backward layers walking time in
 reverse, and steps at or past a read's length freezing the carried state
 and writing zeros.
+
+K12 is the counterpart of flappie_tpu/ops/rnn_pallas.py:144
+``lstm_seq_pallas`` and :149 ``grumod_seq_pallas`` (``_lstm_kernel``,
+``_grumod_kernel``): drop-ins for ops/rnn.py ``lstm_seq`` /
+``grumod_seq``, batch-major [B, T, G*H] -> [B, T, H], forward, zero
+initial state, no length mask, inference only.  They launch the same
+recurrence kernels as K1/K7, which read and write the batch-major
+tensors in place (a template flag on their row offsets), every row
+running all T steps.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor; any other device raises.  The recurrent
@@ -23,7 +33,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .rnn import grumod_step, lstm_step
+from .rnn import grumod_seq, grumod_step, lstm_seq, lstm_step
 
 
 def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool):
@@ -165,3 +175,62 @@ def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
 
 
 grumod_layer_tm.launches = 0
+
+
+def _launch_seq(what, source, entry, gates, max_h, xaffine, sW):
+    """Checks shared by the K12 wrappers, then one launch of ``entry``."""
+    if xaffine.dim() != 3:
+        raise ValueError(f"{what}: xaffine must be [B, T, G*H], got {tuple(xaffine.shape)}")
+    B, T, G = xaffine.shape
+    H = sW.shape[0]
+    if tuple(sW.shape) != (H, gates * H) or G != gates * H:
+        raise ValueError(f"{what}: bad shapes xaffine {tuple(xaffine.shape)}, "
+                         f"sW {tuple(sW.shape)} for {gates} gates")
+    if H % 16 or H > max_h:
+        raise ValueError(f"{what}: kernel needs H % 16 == 0 and H <= {max_h}, got {H}")
+    for name, t in (("xaffine", xaffine), ("sW", sW)):
+        if t.dtype != torch.float32 or t.device != xaffine.device:
+            raise ValueError(f"{what}: {name} must be float32 on {xaffine.device}")
+    xaffine, sW = xaffine.contiguous(), sW.contiguous()
+    # every row runs all T steps: the layer kernels' mask never fires
+    lengths = torch.full((B,), T, dtype=torch.int32, device=xaffine.device)
+    out = torch.empty(B, T, H, dtype=torch.float32, device=xaffine.device)
+    lib = cuda_build.load(source)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(*(cuda_build.ptr(t) for t in (xaffine, sW, lengths, out)), T, B, H,
+            cuda_build.stream_of(xaffine))
+    cuda_build.check(lib, rc, what)
+    return out
+
+
+def lstm_seq_cuda(xaffine, sW):
+    """K12: LSTM recurrence over xaffine [B, T, 4H] (= x iW + b), sW
+    [H, 4H] -> [B, T, H]; ops/rnn.py ``lstm_seq`` for a CPU tensor."""
+    if xaffine.device.type == "cpu":
+        return lstm_seq(xaffine, sW)
+    if xaffine.device.type != "cuda":
+        raise ValueError(f"lstm_seq_cuda: unsupported device {xaffine.device}")
+    out = _launch_seq("lstm_seq_cuda", "lstm", "flappie_lstm_seq", 4, 512, xaffine, sW)
+    lstm_seq_cuda.launches += 1
+    return out
+
+
+lstm_seq_cuda.launches = 0
+
+
+def grumod_seq_cuda(xaffine, sW):
+    """K12: GRU-mod recurrence over xaffine [B, T, 3H], sW [H, 3H] ->
+    [B, T, H]; ops/rnn.py ``grumod_seq`` for a CPU tensor."""
+    if xaffine.device.type == "cpu":
+        return grumod_seq(xaffine, sW)
+    if xaffine.device.type != "cuda":
+        raise ValueError(f"grumod_seq_cuda: unsupported device {xaffine.device}")
+    out = _launch_seq("grumod_seq_cuda", "grumod", "flappie_grumod_seq", 3, 256, xaffine, sW)
+    grumod_seq_cuda.launches += 1
+    return out
+
+
+grumod_seq_cuda.launches = 0

@@ -16,7 +16,9 @@ full width) on the card against the same program on the CPU: the path
 equal, the selected shape and scale within 1e-4.  The training path's autograd
 Functions (ops/rnn_vjp.py, ``crf_partition_ad``) against autograd
 through the plain versions on the card: every gradient within 1e-3 of
-its max |value|.
+its max |value|.  K10 (fused conv 1->4->16) within 1e-5 of its plain
+version, its autograd Function's gradients within 1e-5 of max |grad|;
+K12 (the recurrences alone, batch-major) within 1e-4.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda, rnn_cuda, rnn_vjp
+from flappie_tpu_torch.ops import conv_cuda, crf_bm_cuda, crf_cuda, rnn_cuda, rnn_vjp
+from flappie_tpu_torch.ops import rnn as t_rnn
 from flappie_tpu_torch.ops.crf import (crf_partition_ad, dense_from_params, flipflop_index, lse,
                                        rle_index)
 from flappie_tpu_torch.ops.crf_bm import _dense_tm
@@ -248,3 +251,51 @@ def test_partition_function_matches_plain_autograd(cuda, nbase):
     final = alphas.gather(0, nblocks[None, None, :].expand(1, idx.nstate, B))[0]
     (want,) = torch.autograd.grad((lse(final, 0) * g).sum(), [trans])
     _grads_close([got], [want])
+
+
+@pytest.mark.parametrize("B,T", [(3, 300), (8, 2049)])
+def test_conv12_kernel_matches_plain(cuda, B, T):
+    """K10 with lengths 0, 3 and T among them; a tile wholly past a
+    read's end and the ragged last tile write zeros."""
+    gen = torch.Generator().manual_seed(B + T)
+    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
+    lengths[0], lengths[1], lengths[-1] = T, 0, 3
+    x = _rnd(gen, B, T) * (torch.arange(T)[None, :] < lengths[:, None])
+    args = [t.to(cuda) for t in (x, _rnd(gen, 5, 1, 4, scale=0.5), _rnd(gen, 4, scale=0.1),
+                                 _rnd(gen, 5, 4, 16, scale=0.3), _rnd(gen, 16, scale=0.1),
+                                 lengths)]
+    before = conv_cuda.conv12_fused.launches
+    got = conv_cuda.conv12_fused(*args)
+    assert conv_cuda.conv12_fused.launches == before + 1
+    want = conv_cuda.conv12_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert not got[1].any() and not got[-1, :, 3:].any()
+
+    ins = [a.clone().requires_grad_() for a in args[:5]]
+    cot = torch.randn(got.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                      device=cuda)
+    g_k = torch.autograd.grad((conv_cuda.conv12_fused(*ins, args[5]) * cot).sum(), ins)
+    g_p = torch.autograd.grad((conv_cuda.conv12_fused_plain(*ins, args[5]) * cot).sum(), ins)
+    for a, b in zip(g_k, g_p):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 29, 16), (19, 64, 256)])
+@pytest.mark.parametrize("kind", ["lstm", "grumod"])
+def test_seq_kernel_matches_plain(cuda, kind, B, T, H):
+    """K12: batch-major, forward, no mask, against ops/rnn.py's scan."""
+    gates = 4 if kind == "lstm" else 3
+    gen = torch.Generator().manual_seed(B * T + H + gates)
+    xa = (_rnd(gen, B, T, gates * H) * 0.5).to(cuda)
+    sW = _rnd(gen, H, gates * H, scale=H ** -0.5).to(cuda)
+    fn = {"lstm": rnn_cuda.lstm_seq_cuda, "grumod": rnn_cuda.grumod_seq_cuda}[kind]
+    plain = {"lstm": t_rnn.lstm_seq, "grumod": t_rnn.grumod_seq}[kind]
+    before = fn.launches
+    got = fn(xa, sW)
+    assert fn.launches == before + 1
+    want = plain(xa, sW)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, H)
+    assert (got - want).abs().max().item() <= 1e-4
+

@@ -12,7 +12,8 @@ CPU as the JAX package's own tests run them, and to its scan paths:
 - sum scans (K3/K4, K9, K11's forward) within rtol 1e-5 (reassociation
   of an 8-term sum);
 - Viterbi bit-equal on dyadic inputs (adds and compares only);
-- traceback exact.
+- traceback exact;
+- K12 (the recurrences alone over a computed affine) within 1e-6.
 
 The kernels themselves only run on a GPU: tests/test_torch_cuda.py
 holds them to these plain versions on the card (and skips without one),
@@ -307,6 +308,38 @@ def test_bt_traceback_plain_exact(kind, monkeypatch):
     got = crf_cuda.traceback_bt(torch.from_numpy(bp_rev), torch.from_numpy(valid_rev),
                                 torch.from_numpy(last)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("T", [32, 29])
+@pytest.mark.parametrize("kind", ["lstm", "grumod"])
+def test_seq_plain_matches_pallas_recurrence(kind, T):
+    """K12's wrappers on CPU tensors (their plain versions, ops/rnn.py
+    lstm_seq / grumod_seq) against lstm_seq_pallas / grumod_seq_pallas in
+    interpret mode, at tests/test_ops.py:277's shapes (T=29 takes the JAX
+    kernel's K=1 time block)."""
+    B, H = 3, 16
+    gates = 4 if kind == "lstm" else 3
+    xa = rnd(B, T, gates * H, seed=50)
+    sW = rnd(H, gates * H, scale=0.3, seed=51)
+    j_fn = {"lstm": j_rnn_pal.lstm_seq_pallas, "grumod": j_rnn_pal.grumod_seq_pallas}[kind]
+    want = np.asarray(j_fn(jnp.asarray(xa), jnp.asarray(sW), interpret=True))
+    t_fn = {"lstm": rnn_cuda.lstm_seq_cuda, "grumod": rnn_cuda.grumod_seq_cuda}[kind]
+    before = t_fn.launches
+    got = t_fn(torch.from_numpy(xa), torch.from_numpy(sW))
+    assert t_fn.launches == before  # CPU tensors: plain version
+    assert got.shape == want.shape == (B, T, H)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_seq_wrappers_refuse_other_devices_and_shapes():
+    for fn, G in ((rnn_cuda.lstm_seq_cuda, 64), (rnn_cuda.grumod_seq_cuda, 48)):
+        with pytest.raises(ValueError):
+            fn(torch.empty(2, 5, G, device="meta"), torch.empty(16, G, device="meta"))
+    # shapes are checked before any launch: gate width, then H % 16
+    for xa, sW in ((torch.empty(2, 5, 68), torch.empty(16, 64)),
+                   (torch.empty(2, 5, 80), torch.empty(20, 80))):
+        with pytest.raises(ValueError):
+            rnn_cuda._launch_seq("lstm_seq_cuda", "lstm", "flappie_lstm_seq", 4, 512, xa, sW)
 
 
 def test_wrappers_refuse_other_devices():
