@@ -7,14 +7,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Card and build: the card's name and power limit, the torch/CUDA
    versions, then every CUDA kernel built from flappie_tpu_torch/csrc/
-   with nvcc for sm_90a (one nvcc per source, all at once) and the build
-   seconds.
+   with nvcc for sm_90a (one nvcc per source, all at once), the build
+   seconds, ptxas's registers and spills of each kernel, and the cluster
+   recurrence's plan for each instantiation (rows a cluster, clusters,
+   shared bytes, held to ops/rnn_cuda.py's _cluster_plan) with
+   cudaOccupancyMaxActiveClusters.
 2. Kernels: each kernel held against its plain PyTorch version on the
    card at production shapes -- K1 fused LSTM layer, K8 its training
    variant (h and c; h bit-equal to K1's) and K7 fused GRU-mod layer
    (T=2560, B=256, IN=H=256, both directions, ragged lengths including 0
    and T, K7 with a candidate bias far from zero) within max |delta|
-   1e-4; the batch-minor scans (T=2560, B=256, ragged nblocks, S=8 for
+   1e-4, each timed over 10 runs alternated with its cuDNN call (medians,
+   spread, kernel/cuDNN ratio); K1 also at runnie's heaviest program
+   (T=13,108, B=24) and at the training shape (T=512, B=32), held to its
+   plain version and timed beside cuDNN and the recurrence alone (K12),
+   with the per-step time and the cluster plan; the batch-minor scans (T=2560, B=256, ragged nblocks, S=8 for
    4 bases and S=10 for 5): K3/K4 CRF sum scan within rtol 1e-5, K9 (K3
    and K4 in one launch) within rtol 1e-5 and bit-equal to K3/K4, K5
    Viterbi and K6 traceback bit-equal; the batch-major K11 (T=2560,
@@ -66,8 +73,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    transitions under each impl (--viterbi paths bit-equal; fb: the
    Viterbi over the card's posterior bit-equal, the CPU's own fb path
    other in at most 1% of the blocks, the scans' drift logged); the
-   device time of one full chunk batch; one more fb run of each model
-   under torch.profiler.
+   device time of one full chunk batch (10 runs); one more fb run of each
+   model under torch.profiler.
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|; K10's Function at B=32,
@@ -143,6 +150,35 @@ def cuda_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def alternated_ms(torch, fns: dict, reps: int) -> dict:
+    """CUDA-event times of each function of ``fns`` over ``reps`` rounds
+    after one warm-up each; within a round the functions take turns, in
+    reverse order every other round: {name: [ms, ...]}."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    times = {k: [] for k in names}
+    for i in range(reps):
+        for k in names if i % 2 == 0 else names[::-1]:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[k]()
+            e1.record()
+            torch.cuda.synchronize()
+            times[k].append(e0.elapsed_time(e1))
+    return times
+
+
+def spread(ts: list) -> str:
+    return (f"median {statistics.median(ts):.3f} ms (min {min(ts):.3f}, max {max(ts):.3f}, "
+            f"{len(ts)} runs)")
+
+
+# runs a side of every kernel-against-cuDNN comparison
+ALTERNATED_REPS = 10
 
 
 def bound(bytes_: float, ops: float, peak: dict):
@@ -223,7 +259,6 @@ def check_layer(torch, peak: dict, gen, kind: str) -> dict:
         err = max([err] + [(g - w).abs().max().item() for g, w in zip(got, want)])
     if not err <= 1e-4:
         raise AssertionError(f"{kid} {kind}_layer: max |delta| {err} > 1e-4")
-    ms = cuda_ms(torch, lambda: fn(x, iW, b, sW, True, lengths), 3)
     plain_ms = cuda_ms(torch, lambda: plain(x, iW, b, sW, True, lengths), 1)
     # yardstick: one cuDNN call on the packed ragged batch, forward
     # direction; zero-length rows count as one step, which
@@ -248,18 +283,100 @@ def check_layer(torch, peak: dict, gen, kind: str) -> dict:
         x.clone().requires_grad_(train), lengths.clamp(min=1).cpu(), enforce_sorted=False)
     with torch.set_grad_enabled(train):
         lib_out, _ = torch.nn.utils.rnn.pad_packed_sequence(ref(packed)[0], total_length=T)
-        library_ms = cuda_ms(torch, lambda: ref(packed), 3)
+        times = alternated_ms(torch, {"kernel": lambda: fn(x, iW, b, sW, True, lengths),
+                                      "cudnn": lambda: ref(packed)}, ALTERNATED_REPS)
+    ms, library_ms = (statistics.median(times[k]) for k in ("kernel", "cudnn"))
     got = fn(x, iW, b, sW, False, lengths)
     got = got[0] if train else got
     lib_err = ((lib_out.detach() - got) * mask).abs().max().item()
     log(f"{kid} library call computes the same function: max |cuDNN - kernel| {lib_err:.2e} "
         "over the valid steps (forward)")
+    log(f"{kid} {kind}_layer at T={T}, B={B}, alternated with cuDNN: kernel "
+        f"{spread(times['kernel'])}; cuDNN {spread(times['cudnn'])}; kernel/cuDNN "
+        f"{ms / library_ms:.3f}")
     nvalid = int(lengths.sum().item())
     layer_bytes = 4 * (nvalid * IN + IN * G + G + H * G + B + T * B * H * (2 if train else 1))
     layer_ops = 2 * nvalid * (IN + H) * G
     bms, by = bound(layer_bytes, layer_ops, peak)
     return row(counter, kid, source, replaces, run, counter, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+# K1's other main-path shapes: (what, T, B)
+K1_SHAPES = (("runnie's heaviest program", 13_108, 24), ("the training batch", 512, 32))
+
+
+def time_lstm_shapes(torch, gen) -> None:
+    """K1 at runnie's heaviest program (T=13,108, B=24) and at the
+    training shape (T=512, B=32), IN=H=256, ragged lengths including T:
+    held within 1e-4 of its plain version, then timed alternated with
+    cuDNN on the same packed batch, with the recurrence alone (K12 over
+    the same affine, every step valid) for the per-step time; logged with
+    the cluster plan."""
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    dev = torch.device("cuda")
+    IN = H = 256
+    for what, T, B in K1_SHAPES:
+        lengths = torch.randint(T // 2, T, (B,), generator=gen, device=dev, dtype=torch.int32)
+        lengths[0] = T
+        mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :])[..., None]
+        x = torch.randn(T, B, IN, generator=gen, device=dev) * mask
+        iW = torch.randn(IN, 4 * H, generator=gen, device=dev) / IN ** 0.5
+        sW = torch.randn(H, 4 * H, generator=gen, device=dev) / H ** 0.5
+        b = torch.zeros(4 * H, device=dev)
+        b[H : 2 * H] = 1.0
+        err = 0.0
+        for backward in (False, True):
+            got = rnn_cuda.lstm_layer_tm(x, iW, b, sW, backward, lengths)
+            want = rnn_cuda.lstm_layer_tm_plain(x, iW, b, sW, backward, lengths)
+            torch.cuda.synchronize()
+            err = max(err, (got - want).abs().max().item())
+        if not err <= 1e-4:
+            raise AssertionError(f"K1 at {what} (T={T}, B={B}): max |kernel - plain| {err} > 1e-4")
+        ref = torch.nn.LSTM(IN, H).to(dev)
+        with torch.no_grad():
+            ref.weight_ih_l0.copy_(iW.T)
+            ref.weight_hh_l0.copy_(sW.T)
+            ref.bias_ih_l0.copy_(b)
+            ref.bias_hh_l0.zero_()
+        packed = torch.nn.utils.rnn.pack_padded_sequence(x, lengths.cpu(), enforce_sorted=False)
+        xa = (x.transpose(0, 1) @ iW + b).contiguous()  # [B, T, 4H]
+        with torch.no_grad():
+            times = alternated_ms(torch, {
+                "kernel": lambda: rnn_cuda.lstm_layer_tm(x, iW, b, sW, True, lengths),
+                "recurrence": lambda: rnn_cuda.lstm_seq_cuda(xa, sW),
+                "cudnn": lambda: ref(packed)}, ALTERNATED_REPS)
+        ms, rec_ms, lib_ms = (statistics.median(times[k]) for k in ("kernel", "recurrence",
+                                                                    "cudnn"))
+        plan = rnn_cuda.cluster_info("lstm_layer", B)
+        log(f"K1 at {what} (T={T}, B={B}, IN=H={H}): R={plan['R']} rows a cluster, "
+            f"{plan['clusters']} clusters (the card holds {plan['max_active_clusters']}); max "
+            f"|kernel - plain| {err:.2e}; kernel {spread(times['kernel'])} = "
+            f"{1e3 * ms / T:.3f} us a step with its affine; the recurrence alone (K12) "
+            f"{spread(times['recurrence'])} = {1e3 * rec_ms / T:.3f} us a step; cuDNN on the "
+            f"same packed batch {spread(times['cudnn'])}; kernel/cuDNN {ms / lib_ms:.3f}")
+
+
+def log_cluster_plans() -> None:
+    """Each instantiation of the cluster recurrence: the C side's plan
+    (rows a cluster, clusters, shared bytes) held to ops/rnn_cuda.py's
+    _cluster_plan, and cudaOccupancyMaxActiveClusters."""
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    for kind, (source, _) in rnn_cuda._INFO.items():
+        gates = 4 if source == "lstm" else 3
+        got = []
+        # one batch for each rows-a-cluster instantiation (R = 1 ... 20)
+        for B in (1, 16, 32, 100, 150, 240, 256):
+            info = rnn_cuda.cluster_info(kind, B)
+            want = rnn_cuda._cluster_plan(B, 256, gates)
+            if (info["R"], info["clusters"], info["smem"]) != want:
+                raise AssertionError(f"cluster plan of {kind} at B={B}: C side {info}, "
+                                     f"_cluster_plan {want}")
+            got.append(f"R={info['R']}: {info['smem']} B shared, at most "
+                       f"{info['max_active_clusters']} clusters at once")
+        log(f"cluster recurrence {kind} (H=256): " + "; ".join(got))
 
 
 def check_scans(torch, peak: dict, gen, nbase: int) -> list:
@@ -592,6 +709,7 @@ def check_seq(torch, peak: dict, gen, kind: str) -> dict:
 def check_kernels(torch, peak: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
+    time_lstm_shapes(torch, gen)
     rows += [check_conv12(torch, peak, gen)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
     rows += check_scans(torch, peak, gen, nbase=4) + check_scans(torch, peak, gen, nbase=5)
@@ -717,9 +835,10 @@ def time_chunk_program(torch, np, rng, card: str, cfg) -> None:
                                                  full // cfg.total_stride, scal))
     buf = buf.to("cuda")
     with torch.inference_mode():
-        ms = cuda_ms(torch, lambda: _device_basecall_chunk_packed_i16(
-            params, buf, cfg, 1.0, False, False), 2)
-    log(f"device {cfg.name}: chunk program, one batch of {CB} x {W} samples: {ms:.1f} ms = "
+        times = alternated_ms(torch, {"chunk": lambda: _device_basecall_chunk_packed_i16(
+            params, buf, cfg, 1.0, False, False)}, ALTERNATED_REPS)["chunk"]
+    ms = statistics.median(times)
+    log(f"device {cfg.name}: chunk program, one batch of {CB} x {W} samples: {spread(times)} = "
         f"{CB * W / ms / 1e3:.3f} Msamples/s device-only [{card}]")
 
 
@@ -1573,8 +1692,9 @@ def main() -> int:
     log(f"build: {built} in {time.perf_counter() - t0:.2f} s")
     for name, text in cuda_build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  {name}: {line.strip()}")
+    log_cluster_plans()
 
     rows = check_kernels(torch, peak)
     shutil.rmtree(WORK, ignore_errors=True)

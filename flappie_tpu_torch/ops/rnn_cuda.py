@@ -16,9 +16,13 @@ K12 is the counterpart of flappie_tpu/ops/rnn_pallas.py:144
 ``_grumod_kernel``): drop-ins for ops/rnn.py ``lstm_seq`` /
 ``grumod_seq``, batch-major [B, T, G*H] -> [B, T, H], forward, zero
 initial state, no length mask, inference only.  They launch the same
-recurrence kernels as K1/K7, which read and write the batch-major
-tensors in place (a template flag on their row offsets), every row
+recurrence kernel as K1/K7, which reads and writes the batch-major
+tensors in place (a template flag on its row offsets), every row
 running all T steps.
+
+Every recurrence runs csrc/cluster_rnn.cuh: clusters of 8 CTAs, each
+holding an eighth of sW in shared memory, R rows a cluster
+(``_cluster_plan``); H must be a multiple of 16 and at most 256.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor; any other device raises.  The recurrent
@@ -85,6 +89,45 @@ def grumod_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None)
     return out
 
 
+# csrc/cluster_rnn.cuh: CTAs a cluster, k slices a gate column, the
+# clusters of 8 the H100 holds at once, the rows a cluster it instantiates,
+# the largest H
+CLUSTER, KSPLIT, MAX_CLUSTERS, MAX_H = 8, 4, 15, 256
+ROWS = (1, 2, 4, 8, 12, 16, 20)
+
+
+def _cluster_plan(B: int, H: int, gates: int):
+    """(R, clusters, shared bytes a CTA) of the cluster recurrence for a
+    batch of B rows: the fewest rows R of ``ROWS`` that let every cluster
+    run at once (at most 15), else the most (cluster_rows in
+    csrc/cluster_rnn.cuh).  Raises ValueError for an H the kernel does
+    not take."""
+    if H <= 0 or H % 16 or H > MAX_H:
+        raise ValueError(f"the cluster recurrence needs H % 16 == 0 and H <= {MAX_H} (an "
+                         f"eighth of sW must fit one SM's shared memory), got H={H}")
+    R = next((r for r in ROWS if -(-B // r) <= MAX_CLUSTERS), ROWS[-1])
+    cols = gates * H // CLUSTER
+    smem = 4 * (H * cols + 2 * H * R + KSPLIT * R * cols)
+    return R, -(-B // R), smem
+
+
+# variant of each kernel in its source's <source>_cluster_info entry
+_INFO = {"lstm_layer": ("lstm", 0), "lstm_layer_train": ("lstm", 1), "lstm_seq": ("lstm", 2),
+         "grumod_layer": ("grumod", 0), "grumod_seq": ("grumod", 2)}
+
+
+def cluster_info(kind: str, B: int, H: int = 256) -> dict:
+    """The plan the C side launches for ``kind`` (a key of ``_INFO``) at
+    batch B, with cudaOccupancyMaxActiveClusters for that instantiation:
+    {"R", "clusters", "smem", "max_active_clusters"}.  Card only."""
+    source, variant = _INFO[kind]
+    lib = cuda_build.load(source)
+    fn = getattr(lib, f"flappie_{source}_cluster_info")
+    info = (ctypes.c_int * 4)()
+    cuda_build.check(lib, fn(B, H, variant, info), f"cluster_info({kind})")
+    return dict(zip(("R", "clusters", "smem", "max_active_clusters"), info))
+
+
 def _lib(name: str, entry: str, outputs: int):
     lib = cuda_build.load(name)
     fn = getattr(lib, entry)
@@ -94,7 +137,7 @@ def _lib(name: str, entry: str, outputs: int):
     return lib, fn
 
 
-def _launch_layer(what, source, entry, gates, max_h, x_tm, iW, b, sW, backward, lengths,
+def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths,
                   want_c: bool = False):
     """Checks shared by the fused-layer wrappers, then one launch of the
     C entry point ``entry`` of ``csrc/<source>.cu``; with ``want_c`` it
@@ -105,8 +148,7 @@ def _launch_layer(what, source, entry, gates, max_h, x_tm, iW, b, sW, backward, 
     if tuple(iW.shape) != (IN, G) or tuple(b.shape) != (G,) or tuple(sW.shape) != (H, G):
         raise ValueError(f"{what}: bad weight shapes {tuple(iW.shape)}, "
                          f"{tuple(b.shape)}, {tuple(sW.shape)} for IN={IN}, H={H}")
-    if H % 16 or H > max_h:
-        raise ValueError(f"{what}: kernel needs H % 16 == 0 and H <= {max_h}, got {H}")
+    _cluster_plan(B, H, gates)
     for name, t in (("x", x_tm), ("iW", iW), ("b", b), ("sW", sW)):
         if t.dtype != torch.float32 or t.device != x_tm.device:
             raise ValueError(f"{what}: {name} must be float32 on {x_tm.device}")
@@ -135,7 +177,7 @@ def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type != "cuda":
         raise ValueError(f"lstm_layer_tm: unsupported device {x_tm.device}")
-    out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4, 512,
+    out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4,
                         x_tm, iW, b, sW, backward, lengths)
     lstm_layer_tm.launches += 1
     return out
@@ -152,7 +194,7 @@ def lstm_layer_tm_train(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         return lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type != "cuda":
         raise ValueError(f"lstm_layer_tm_train: unsupported device {x_tm.device}")
-    out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4, 512,
+    out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4,
                         x_tm, iW, b, sW, backward, lengths, want_c=True)
     lstm_layer_tm_train.launches += 1
     return out
@@ -168,7 +210,7 @@ def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type != "cuda":
         raise ValueError(f"grumod_layer_tm: unsupported device {x_tm.device}")
-    out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3, 256,
+    out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3,
                         x_tm, iW, b, sW, backward, lengths)
     grumod_layer_tm.launches += 1
     return out
@@ -177,7 +219,7 @@ def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
 grumod_layer_tm.launches = 0
 
 
-def _launch_seq(what, source, entry, gates, max_h, xaffine, sW):
+def _launch_seq(what, source, entry, gates, xaffine, sW):
     """Checks shared by the K12 wrappers, then one launch of ``entry``."""
     if xaffine.dim() != 3:
         raise ValueError(f"{what}: xaffine must be [B, T, G*H], got {tuple(xaffine.shape)}")
@@ -186,8 +228,7 @@ def _launch_seq(what, source, entry, gates, max_h, xaffine, sW):
     if tuple(sW.shape) != (H, gates * H) or G != gates * H:
         raise ValueError(f"{what}: bad shapes xaffine {tuple(xaffine.shape)}, "
                          f"sW {tuple(sW.shape)} for {gates} gates")
-    if H % 16 or H > max_h:
-        raise ValueError(f"{what}: kernel needs H % 16 == 0 and H <= {max_h}, got {H}")
+    _cluster_plan(B, H, gates)
     for name, t in (("xaffine", xaffine), ("sW", sW)):
         if t.dtype != torch.float32 or t.device != xaffine.device:
             raise ValueError(f"{what}: {name} must be float32 on {xaffine.device}")
@@ -213,7 +254,7 @@ def lstm_seq_cuda(xaffine, sW):
         return lstm_seq(xaffine, sW)
     if xaffine.device.type != "cuda":
         raise ValueError(f"lstm_seq_cuda: unsupported device {xaffine.device}")
-    out = _launch_seq("lstm_seq_cuda", "lstm", "flappie_lstm_seq", 4, 512, xaffine, sW)
+    out = _launch_seq("lstm_seq_cuda", "lstm", "flappie_lstm_seq", 4, xaffine, sW)
     lstm_seq_cuda.launches += 1
     return out
 
@@ -228,7 +269,7 @@ def grumod_seq_cuda(xaffine, sW):
         return grumod_seq(xaffine, sW)
     if xaffine.device.type != "cuda":
         raise ValueError(f"grumod_seq_cuda: unsupported device {xaffine.device}")
-    out = _launch_seq("grumod_seq_cuda", "grumod", "flappie_grumod_seq", 3, 256, xaffine, sW)
+    out = _launch_seq("grumod_seq_cuda", "grumod", "flappie_grumod_seq", 3, xaffine, sW)
     grumod_seq_cuda.launches += 1
     return out
 

@@ -206,11 +206,18 @@ def _residual(cfgs):
     return [replace(c, rnns=tuple(replace(r, residual=True) for r in c.rnns)) for c in cfgs]
 
 
-@pytest.mark.parametrize("model", ["r941_native", "r941_5mC", "rle_r941_native", "residual"])
-def test_scan_transitions_match_jax(model):
+@pytest.mark.parametrize("model", ["r941_native", "r941_5mC", "rle_r941_native", "residual",
+                                   "r941_native+crf_pallas", "rle_r941_native+crf_pallas"])
+def test_scan_transitions_match_jax(model, monkeypatch):
     """transitions(rnn_impl="scan"): the layer-by-layer stack (K12's
     plain versions on the CPU) against JAX's at ragged lengths; the
-    residual graph runs only on this path."""
+    residual graph runs only on this path.  Under "+crf_pallas"
+    (FLAPPIE_TPU_CRF_IMPL=pallas) JAX's head still runs its scan
+    partition while the port's follows the knob (K11's plain version):
+    the same band."""
+    model, _, knob = model.partition("+")
+    if knob:
+        monkeypatch.setenv("FLAPPIE_TPU_CRF_IMPL", "pallas")
     if model == "residual":
         jcfg, tcfg = _residual(_small_cfgs(hid=16, model="r941_native", nrnn=2))
     else:

@@ -9,7 +9,10 @@ without JAX, skip tests/conftest.py (which sets JAX up):
 
 Tolerances: K1, K7 and K8 max |delta| <= 1e-4 (FMA contraction and
 another summation order over H products per step, compounding over T
-steps), K8's h bit-equal to K1's; sum scans (K3/K4, K9, K11's forward)
+steps), K8's h bit-equal to K1's; their shapes cover every rows-a-cluster
+instantiation of the cluster recurrence (B = 1, 3, 5: R=1; 19, 24: R=2;
+33: R=4; 100: R=8; 150: R=12; 240: R=16; 257: R=20, its last cluster
+holding 17 rows), rows of length 0 and T, both directions; sum scans (K3/K4, K9, K11's forward)
 rtol 1e-5 (reassociation), K9 bit-equal to K3/K4; Viterbi and traceback
 (K5, K6 and K11's) bit-equal.  One runnie program (rle_r941_native at
 full width) on the card against the same program on the CPU: the path
@@ -47,12 +50,28 @@ def _rnd(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen) * scale
 
 
-@pytest.mark.parametrize("B,T,IN,H", [(5, 37, 12, 16), (19, 64, 256, 256)])
+# (B, T, IN, H) of the recurrent layers: one batch for each rows-a-cluster
+# instantiation (ops/rnn_cuda.py _cluster_plan) at full width
+LAYER_SHAPES = [(5, 37, 12, 16), (19, 64, 256, 256), (1, 40, 256, 256), (3, 40, 256, 256),
+                (24, 40, 256, 256), (33, 40, 256, 256), (100, 40, 256, 256),
+                (150, 40, 256, 256), (240, 40, 256, 256), (257, 40, 256, 256)]
+
+
+def _lengths(gen, B, T):
+    """Ragged lengths with row 0 full and, when there are two rows or
+    more, the last empty."""
+    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
+    lengths[0] = T
+    if B > 1:
+        lengths[-1] = 0
+    return lengths
+
+
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
 @pytest.mark.parametrize("backward", [False, True])
 def test_lstm_kernel_matches_plain(cuda, B, T, IN, H, backward):
     gen = torch.Generator().manual_seed(B * T + H)
-    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
-    lengths[0], lengths[-1] = T, 0
+    lengths = _lengths(gen, B, T)
     x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
     args = [t.to(cuda) for t in (x, _rnd(gen, IN, 4 * H, scale=IN ** -0.5),
                                  _rnd(gen, 4 * H, scale=0.2), _rnd(gen, H, 4 * H, scale=H ** -0.5))]
@@ -65,14 +84,13 @@ def test_lstm_kernel_matches_plain(cuda, B, T, IN, H, backward):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("B,T,IN,H", [(5, 37, 12, 16), (19, 64, 256, 256)])
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
 @pytest.mark.parametrize("backward", [False, True])
 def test_grumod_kernel_matches_plain(cuda, B, T, IN, H, backward):
     """K7; the candidate third of the bias is far from zero, so summing
     xa_h into the recurrent product would show."""
     gen = torch.Generator().manual_seed(B * T + H + 1)
-    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
-    lengths[0], lengths[-1] = T, 0
+    lengths = _lengths(gen, B, T)
     x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
     b = _rnd(gen, 3 * H, scale=0.2)
     b[2 * H :] += 0.75
@@ -185,13 +203,12 @@ def test_runnie_program_matches_cpu(cuda, monkeypatch, impl, viterbi_only):
         torch.testing.assert_close(sc1[r, :n], sc0[r, :n], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("B,T,IN,H", [(5, 37, 12, 16), (19, 64, 256, 256)])
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
 @pytest.mark.parametrize("backward", [False, True])
 def test_lstm_train_kernel_matches_plain_and_k1(cuda, B, T, IN, H, backward):
     """K8: h and c against the plain version; h bit-equal to K1's."""
     gen = torch.Generator().manual_seed(B * T + H + 2)
-    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
-    lengths[0], lengths[-1] = T, 0
+    lengths = _lengths(gen, B, T)
     x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
     args = [t.to(cuda) for t in (x, _rnd(gen, IN, 4 * H, scale=IN ** -0.5),
                                  _rnd(gen, 4 * H, scale=0.2), _rnd(gen, H, 4 * H, scale=H ** -0.5))]
@@ -218,8 +235,7 @@ def test_layer_function_matches_plain_autograd(cuda, kind, backward):
     B, T, IN, H = 7, 48, 32, 32
     G = {"lstm": 4, "grumod": 3}[kind] * H
     gen = torch.Generator().manual_seed(T + G + backward)
-    lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
-    lengths[0], lengths[-1] = T, 0
+    lengths = _lengths(gen, B, T)
     x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
     args = [t.to(cuda).requires_grad_() for t in (
         x, _rnd(gen, IN, G, scale=IN ** -0.5), _rnd(gen, G, scale=0.2),
@@ -281,7 +297,9 @@ def test_conv12_kernel_matches_plain(cuda, B, T):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
-@pytest.mark.parametrize("B,T,H", [(3, 29, 16), (19, 64, 256)])
+@pytest.mark.parametrize("B,T,H", [(3, 29, 16), (19, 64, 256), (1, 40, 256), (24, 40, 256),
+                                   (33, 40, 256), (100, 40, 256), (150, 40, 256),
+                                   (240, 40, 256), (257, 40, 256)])
 @pytest.mark.parametrize("kind", ["lstm", "grumod"])
 def test_seq_kernel_matches_plain(cuda, kind, B, T, H):
     """K12: batch-major, forward, no mask, against ops/rnn.py's scan."""

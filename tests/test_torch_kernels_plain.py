@@ -335,11 +335,13 @@ def test_seq_wrappers_refuse_other_devices_and_shapes():
     for fn, G in ((rnn_cuda.lstm_seq_cuda, 64), (rnn_cuda.grumod_seq_cuda, 48)):
         with pytest.raises(ValueError):
             fn(torch.empty(2, 5, G, device="meta"), torch.empty(16, G, device="meta"))
-    # shapes are checked before any launch: gate width, then H % 16
+    # shapes are checked before any launch: gate width, then H % 16 and
+    # H <= 256 (the cluster recurrence's limit)
     for xa, sW in ((torch.empty(2, 5, 68), torch.empty(16, 64)),
-                   (torch.empty(2, 5, 80), torch.empty(20, 80))):
+                   (torch.empty(2, 5, 80), torch.empty(20, 80)),
+                   (torch.empty(2, 5, 2048), torch.empty(512, 2048))):
         with pytest.raises(ValueError):
-            rnn_cuda._launch_seq("lstm_seq_cuda", "lstm", "flappie_lstm_seq", 4, 512, xa, sW)
+            rnn_cuda._launch_seq("lstm_seq_cuda", "lstm", "flappie_lstm_seq", 4, xa, sW)
 
 
 def test_wrappers_refuse_other_devices():
