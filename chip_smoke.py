@@ -8,10 +8,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. Card and build: the card's name and power limit, the torch/CUDA
    versions, then every CUDA kernel built from flappie_tpu_torch/csrc/
    with nvcc for sm_90a (one nvcc per source, all at once), the build
-   seconds, ptxas's registers and spills of each kernel, and the cluster
+   seconds, ptxas's registers and spills of each kernel, the cluster
    recurrence's plan for each instantiation (rows a cluster, clusters,
    shared bytes, held to ops/rnn_cuda.py's _cluster_plan) with
-   cudaOccupancyMaxActiveClusters.
+   cudaOccupancyMaxActiveClusters, and the batch-minor chain scans' plan
+   (reads a warp, chain warps a CTA, CTAs, ring bytes; flappie_crf_scan_info
+   held to ops/crf_bm_cuda.py's _scan_plan).
 2. Kernels: each kernel held against its plain PyTorch version on the
    card at production shapes -- K1 fused LSTM layer, K8 its training
    variant (h and c; h bit-equal to K1's) and K7 fused GRU-mod layer
@@ -24,12 +26,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    with the per-step time and the cluster plan; the batch-minor scans (T=2560, B=256, ragged nblocks, S=8 for
    4 bases and S=10 for 5): K3/K4 CRF sum scan within rtol 1e-5, K9 (K3
    and K4 in one launch) within rtol 1e-5 and bit-equal to K3/K4, K5
-   Viterbi and K6 traceback bit-equal; the batch-major K11 (T=2560,
+   Viterbi and K6 traceback bit-equal, K3/K4, K9 and K5 timed over 10
+   runs with their time a step and CTAs, and K3 at 1, 2 and 4 chain warps
+   a CTA (crf_scan.cu built with -DSCAN_WARPS=n beside the path's build),
+   each bit-equal to the path's K3, alternated; the batch-major K11 (T=2560,
    B=256, the run-length structure at S=8 and the flip-flop at S=8 and
    S=10): forward scan within rtol 1e-5, Viterbi (alphas, int8
-   backpointers) and traceback bit-equal; and K3/K4, K5, K6 and K11 with
-   the run-length structure at the shape of runnie's heaviest program
-   (T=13,108 blocks, B=24), by the same rules; K10, the fused conv
+   backpointers) and traceback bit-equal; and K3/K4, K9, K5, K6 and K11
+   with the run-length structure at the shape of runnie's heaviest program
+   (T=13,108 blocks, B=24), by the same rules, K3, K9 and K5 timed there
+   too (with K3's chain warps a CTA); K10, the fused conv
    1->4->16 (B=256, T=12800 samples, ragged lengths including 0, 3 and
    T) within 1e-5 absolute; K12, the recurrences alone over a computed
    affine (T=2560, B=256, H=256), LSTM and GRU-mod within 1e-4 of
@@ -379,8 +385,106 @@ def log_cluster_plans() -> None:
         log(f"cluster recurrence {kind} (H=256): " + "; ".join(got))
 
 
-def check_scans(torch, peak: dict, gen, nbase: int) -> list:
-    """K3/K4, K5, K6 on one dense batch, T=2560, B=256, S=2*nbase."""
+# CUDA-event runs behind each batch-minor scan time
+SCAN_REPS = 10
+
+
+def scan_step(ms: float, T: int, S: int, B: int, chains: int = 1) -> str:
+    """A chain kernel's time, per step, and the grid it launched
+    (flappie_crf_scan_info; K9 launches one row of CTAs a chain)."""
+    from flappie_tpu_torch.ops import crf_bm_cuda
+
+    p = crf_bm_cuda.scan_info(S, B)
+    return (f"{ms:.4f} ms (median of {SCAN_REPS}) = {1e6 * ms / T:.1f} ns a step; "
+            f"{chains * p['ctas']} CTAs of {p['W']} warps x {p['R']} reads, "
+            f"{p['smem']} B of ring a CTA")
+
+
+# CTA sizes of the chain scans timed against each other: csrc/crf_scan.cu
+# built once for each with -DSCAN_WARPS=n (its kWarps), beside the path's
+# build, into build/flappie_tpu_torch/scan_w<n>/
+SCAN_WARP_SIZES = (1, 2, 4)
+
+
+def start_scan_variants(cuda_build) -> dict:
+    """Start one nvcc for each of SCAN_WARP_SIZES; {n: (library, process)}."""
+    src = os.path.join(cuda_build.CSRC_DIR, "crf_scan.cu")
+    jobs = {}
+    for w in SCAN_WARP_SIZES:
+        so = os.path.join(cuda_build.BUILD_DIR, f"scan_w{w}", "libcrf_scan.so")
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        jobs[w] = so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DSCAN_WARPS={w}", "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return jobs
+
+
+def finish_scan_variants(jobs: dict) -> dict:
+    """Wait for start_scan_variants' builds and load them: {n: library}."""
+    import ctypes
+
+    libs = {}
+    for w, (so, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -DSCAN_WARPS={w} crf_scan.cu failed:\n{err}")
+        lib = ctypes.CDLL(so)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.flappie_crf_sum.argtypes = [P, P, P, I, I, I, I, P]
+        lib.flappie_crf_sum.restype = I
+        lib.flappie_cuda_error_string.argtypes = [I]
+        lib.flappie_cuda_error_string.restype = ctypes.c_char_p
+        libs[w] = lib
+    return libs
+
+
+def time_scan_warps(torch, libs: dict, dense, tvalid, k3, what: str) -> None:
+    """K3 (forward) in the build of each CTA size (``libs``), each output
+    bit-equal to the path's K3 output ``k3`` (itself held to its plain
+    version), then timed alternated in one process: the measurement
+    behind kWarps in csrc/crf_scan.cu."""
+    from flappie_tpu_torch.ops import crf_bm_cuda, cuda_build
+
+    d, v, T, S, B = crf_bm_cuda._dense_args("sum_states", dense, tvalid)
+
+    def launch(w):
+        out = torch.empty(T + 1, S, B, dtype=torch.float32, device=d.device)
+        rc = libs[w].flappie_crf_sum(cuda_build.ptr(d), cuda_build.ptr(v), cuda_build.ptr(out),
+                                     T, S, B, 0, cuda_build.stream_of(d))
+        cuda_build.check(libs[w], rc, f"K3 at {w} chain warps a CTA")
+        return out
+
+    for w in libs:
+        if not torch.equal(launch(w), k3):
+            raise AssertionError(f"K3 at {what}, {w} chain warps a CTA: not bit-equal to the "
+                                 "path's K3")
+    times = alternated_ms(torch, {w: lambda w=w: launch(w) for w in libs}, SCAN_REPS)
+    log(f"K3 at {what} by chain warps a CTA, each bit-equal to the path's K3: " + "; ".join(
+        f"{w}: {spread(ts)} = {1e6 * statistics.median(ts) / T:.1f} ns a step"
+        for w, ts in times.items()))
+
+
+def log_scan_plans() -> None:
+    """The chain scans' plan on the C side (flappie_crf_scan_info) held to
+    ops/crf_bm_cuda.py's _scan_plan at the batches the paths run."""
+    from flappie_tpu_torch.ops import crf_bm_cuda
+
+    for S in (8, 10):
+        got = []
+        for B in (1, 2, 3, 8, 24, 32, 256, 257):
+            info = crf_bm_cuda.scan_info(S, B)
+            want = crf_bm_cuda._scan_plan(S, B)
+            if tuple(info.values()) != want:
+                raise AssertionError(f"scan plan at S={S}, B={B}: C side {info}, "
+                                     f"_scan_plan {want}")
+            R, W, ctas, smem = want
+            got.append(f"B={B}: {ctas} CTAs of {W}")
+        log(f"batch-minor scans S={S}: {R} reads a warp, up to {W} chain warps and a producer "
+            f"warp a CTA, {smem // W} B of ring a chain warp; " + ", ".join(got))
+
+
+def check_scans(torch, peak: dict, gen, nbase: int, scan_libs: dict) -> list:
+    """K3/K4, K9, K5, K6 on one dense batch, T=2560, B=256, S=2*nbase."""
     from flappie_tpu_torch.ops import crf_bm_cuda
     from flappie_tpu_torch.ops.crf import flipflop_index
     from flappie_tpu_torch.ops.crf_bm import _dense_tm
@@ -400,7 +504,7 @@ def check_scans(torch, peak: dict, gen, nbase: int) -> list:
     dense_bytes = 4 * T * S * S * B
 
     err = 0.0
-    for backward in (False, True):
+    for backward in (True, False):
         got = crf_bm_cuda.sum_states(dense, tvalid, backward)
         want = crf_bm_cuda.sum_states_plain(dense, tvalid, backward)
         torch.cuda.synchronize()
@@ -409,9 +513,11 @@ def check_scans(torch, peak: dict, gen, nbase: int) -> list:
             raise AssertionError(f"K3/K4 crf_sum_scan S={S} (backward={backward}): "
                                  "outside rtol 1e-5")
         err = max(err, delta.max().item())
-    ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states(dense, tvalid, False), 5)
+    ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states(dense, tvalid, False), SCAN_REPS)
     plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states_plain(dense, tvalid, False), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * (T + 1) * S * B, nv * (5 * S * S + 5 * S), peak)
+    log(f"K3/K4 crf_sum_scan S={S}, T={T}, B={B}: {scan_step(ms, T, S, B)}")
+    time_scan_warps(torch, scan_libs, dense, tvalid, got, f"S={S}, T={T}, B={B}")
     rows.append(row("crf_sum_scan" + sfx, "K3/K4", "crf_scan.cu", "crf_bm_pallas.py:69", run,
                     "crf_sum_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=None))
@@ -429,14 +535,14 @@ def check_scans(torch, peak: dict, gen, nbase: int) -> list:
         if not torch.equal(g, k):
             raise AssertionError(f"K9 crf_fwdbwd S={S}: not bit-equal to K3/K4")
         err = max(err, delta.max().item())
-    ms = cuda_ms(torch, lambda: crf_bm_cuda.fwdbwd_states(dense, tvalid), 5)
+    ms = cuda_ms(torch, lambda: crf_bm_cuda.fwdbwd_states(dense, tvalid), SCAN_REPS)
     split_ms = cuda_ms(torch, lambda: [crf_bm_cuda.sum_states(dense, tvalid, bw)
-                                       for bw in (False, True)], 5)
+                                       for bw in (False, True)], SCAN_REPS)
     plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.fwdbwd_states_plain(dense, tvalid), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 8 * (T + 1) * S * B,
                     2 * nv * (5 * S * S + 5 * S), peak)
-    log(f"K9 crf_fwdbwd S={S}: {ms:.3f} ms against K3 + K4 split {split_ms:.3f} ms, bit-equal "
-        f"to them; max |kernel - plain| {err:.2e}")
+    log(f"K9 crf_fwdbwd S={S}: {scan_step(ms, T, S, B, chains=2)}, against K3 + K4 split "
+        f"{split_ms:.3f} ms, bit-equal to them; max |kernel - plain| {err:.2e}")
     if nbase == 4:
         rows.append(row("crf_fwdbwd", "K9", "crf_scan.cu", "crf_bm_pallas.py:95",
                         "r941_native_fused", "crf_fwdbwd", max_abs_err=err, ms=ms,
@@ -446,10 +552,11 @@ def check_scans(torch, peak: dict, gen, nbase: int) -> list:
     alpha0, bps0 = crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank)
     if not (torch.equal(alpha, alpha0) and torch.equal(bps, bps0)):
         raise AssertionError(f"K5 crf_viterbi S={S}: not bit-equal to its plain version")
-    ms = cuda_ms(torch, lambda: crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank), 5)
+    ms = cuda_ms(torch, lambda: crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank), SCAN_REPS)
     plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * S * S + 4 * T * S * B + 4 * S * B,
                     nv * (4 * S * S + 3 * S), peak)
+    log(f"K5 crf_viterbi S={S}, T={T}, B={B}: {scan_step(ms, T, S, B)}")
     rows.append(row("crf_viterbi" + sfx, "K5", "crf_scan.cu", "crf_bm_pallas.py:135", run,
                     "crf_viterbi", max_abs_err=(alpha - alpha0).abs().max().item(), ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
@@ -541,13 +648,14 @@ def check_bt_scans(torch, peak: dict, gen, kind: str, nbase: int = 4) -> list:
 RUNNIE_SCAN_SHAPE = (13_108, 24)
 
 
-def check_runnie_scans(torch, gen) -> None:
+def check_runnie_scans(torch, gen, scan_libs: dict) -> None:
     """Every CRF kernel of runnie's main path against its plain version at
     the shape of its heaviest program (RUNNIE_SCAN_SHAPE), the run-length
-    structure, ragged nblocks including 0 and T: K3/K4, K5, K6 (default
-    impl) and K11's three (pallas), K11's forward scan also over the
-    transposed, time-reversed blocks of the backward pass.  Tolerances as
-    at T=2560; checked and logged, no row."""
+    structure, ragged nblocks including 0 and T: K3/K4, K9 (bit-equal to
+    them), K5, K6 (default impl) and K11's three (pallas), K11's forward
+    scan also over the transposed, time-reversed blocks of the backward
+    pass.  Tolerances as at T=2560; checked and logged with the times of
+    K3, K9 and K5, no row."""
     from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda
     from flappie_tpu_torch.ops.crf import dense_from_params, rle_index
     from flappie_tpu_torch.ops.crf_bm import _dense_tm
@@ -577,11 +685,20 @@ def check_runnie_scans(torch, gen) -> None:
         errs[name] = 0.0
 
     dense = _dense_tm(trans.permute(0, 2, 1), idx)  # [T, S, S, B]
+    split = [crf_bm_cuda.sum_states(dense, valid, backward) for backward in (False, True)]
     for backward in (False, True):
-        close(f"K3/K4 (backward={backward})", crf_bm_cuda.sum_states(dense, valid, backward),
+        close(f"K3/K4 (backward={backward})", split[backward],
               crf_bm_cuda.sum_states_plain(dense, valid, backward))
+    equal("K9 against K3/K4", crf_bm_cuda.fwdbwd_states(dense, valid), split)
     alpha, bps = crf_bm_cuda.viterbi_fwd(dense, valid, idx.tie_rank)
     equal("K5", (alpha, bps), crf_bm_cuda.viterbi_fwd_plain(dense, valid, idx.tie_rank))
+    S = idx.nstate
+    for name, fn, chains in (
+            ("K3", lambda: crf_bm_cuda.sum_states(dense, valid, False), 1),
+            ("K9", lambda: crf_bm_cuda.fwdbwd_states(dense, valid), 2),
+            ("K5", lambda: crf_bm_cuda.viterbi_fwd(dense, valid, idx.tie_rank), 1)):
+        log(f"{tag}: {name} {scan_step(cuda_ms(torch, fn, SCAN_REPS), T, S, B, chains)}")
+    time_scan_warps(torch, scan_libs, dense, valid, split[0], f"T={T}, B={B}, S={S}")
     last = alpha.argmax(dim=0).to(torch.int32)
     equal("K6", (crf_bm_cuda.traceback(bps, valid, last),),
           (crf_bm_cuda.traceback_plain(bps, valid, last),))
@@ -706,17 +823,18 @@ def check_seq(torch, peak: dict, gen, kind: str) -> dict:
                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
-def check_kernels(torch, peak: dict) -> list:
+def check_kernels(torch, peak: dict, scan_libs: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
     time_lstm_shapes(torch, gen)
     rows += [check_conv12(torch, peak, gen)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
-    rows += check_scans(torch, peak, gen, nbase=4) + check_scans(torch, peak, gen, nbase=5)
+    rows += (check_scans(torch, peak, gen, 4, scan_libs)
+             + check_scans(torch, peak, gen, 5, scan_libs))
     rows += check_bt_scans(torch, peak, gen, "rle")
     for nbase in (4, 5):
         check_bt_scans(torch, peak, gen, "flipflop", nbase)
-    check_runnie_scans(torch, gen)
+    check_runnie_scans(torch, gen, scan_libs)
     for r in rows:
         log("kernel " + json.dumps({
             "kernel": r["name"], "id": r["kid"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -930,7 +1048,9 @@ def log_profile(what: str, prof, wall: float, card: str) -> None:
     log(f"profile {what}: wall {wall:.3f} s, device busy {busy / 1e6:.3f} s = "
         f"{100 * busy / 1e6 / wall:.1f}% of the wall, span of device work {span / 1e6:.3f} s "
         f"[{card}]")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # the six longest, and every CRF decode kernel
+    for name, us in ranked[:6] + [kv for kv in ranked[6:] if "crf_" in kv[0]]:
         log(f"  kernel time {us / 1e3:9.1f} ms  {name[:90]}")
 
 
@@ -1688,15 +1808,19 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     peak = PEAKS["pcie" if "PCIe" in card else "sxm"]
     t0 = time.perf_counter()
+    variants = start_scan_variants(cuda_build)
     built = cuda_build.build()
-    log(f"build: {built} in {time.perf_counter() - t0:.2f} s")
+    scan_libs = finish_scan_variants(variants)
+    log(f"build: {built} and crf_scan at {len(scan_libs)} CTA sizes in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, text in cuda_build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  {name}: {line.strip()}")
     log_cluster_plans()
+    log_scan_plans()
 
-    rows = check_kernels(torch, peak)
+    rows = check_kernels(torch, peak, scan_libs)
     shutil.rmtree(WORK, ignore_errors=True)
     launches = {}
     for model in RUNS:

@@ -5,7 +5,7 @@
 //                           through fwd_states_pallas:194 (K3) and
 //                           bwd_states_pallas:218 (K4);
 //   crf_fwdbwd_kernel    <- _fwdbwd_kernel:95 via fwdbwd_states_pallas:251 (K9:
-//                           K3's and K4's chains interleaved in one launch);
+//                           K3's and K4's chains in one launch);
 //   crf_viterbi_kernel   <- _viterbi_kernel:135 via viterbi_fwd_pallas:300 (K5);
 //   crf_traceback_kernel <- _traceback_kernel:170 via traceback_pallas:333 (K6).
 //
@@ -15,206 +15,454 @@
 // What bounds them on this card: not bytes (the dense input is T.S.S.B.4 B =
 // 168 MB at T=2560, S=8, B=256: ~50 us of HBM time) and not arithmetic
 // (~50 flops per (step, state, read)), but the serial chain over T: every
-// step needs the previous step's S states of the same read.  The design keeps
-// that chain short and never waits on memory inside it:
-//  - sum / Viterbi: a block holds 32 reads x S states, one thread per
-//    (state, read); the S states of a read are exchanged through shared
-//    memory (double-buffered, one __syncthreads per step), and each thread
-//    loads the transition weights it needs for the next KT steps into
-//    registers while it computes the current KT, so no step waits on DRAM;
-//  - traceback: one thread per read walks back from last_state; the S
-//    backpointers of the next KT steps are loaded ahead (they do not depend
-//    on the walk) and the walk selects among registers.
+// step needs the previous step's S states of the same read, so a kernel
+// takes T times the time of one step of one warp.  The first design (one
+// thread per (state, read), 32 reads x S states a block, the states
+// exchanged through shared memory under a __syncthreads over S warps every
+// step, 2.KT.S floats of prefetched weights in registers) took ~570 ns a
+// step for K3 at S=8 and ~850 ns at S=10 (1.44-1.50 and 2.13-2.24 ms at
+// T=2560, B=256; K5 ~560 ns), on 8 blocks at B=256 and one at B <= 32.
+// This design takes ~225 ns (K3, S=8), ~340 ns (S=10) and 160-175 ns (K5,
+// S=8) a step (0.58, 0.86-0.88, 0.40-0.45 ms; NVIDIA H100 80GB HBM3,
+// 700.00 W, chip_smoke.py):
+//  - a chain warp holds whole reads, lane = read * S + state (R = 32 / S
+//    reads: 4 at S=8, 3 at S=10 with lanes 30-31 idle), so a step exchanges
+//    the S states of a read with S __shfl_sync and no block barrier;
+//  - chain warps are independent: a CTA holds W of them (kWarps: 1 at S=8,
+//    2 at S=10, the fastest of 1, 2, 4; scan_plan, mirrored by
+//    ops/crf_bm_cuda.py _scan_plan), so B=256 spreads over 64 warps and
+//    runnie's B=24 over 6;
+//  - the weights do not pass through the chain warp's registers or
+//    instructions: a producer warp (the CTA's last) streams each chain
+//    warp's slice dense[t, :, :, b0:b0+R] and valid flags into that warp's
+//    ring of RING tiles of KT steps in shared memory with cp.async (16-byte
+//    runs when aligned: S=8, B % 4 == 0; else 4-byte copies, zero-filled
+//    past B), and each slot's mbarrier completes when its copies land.  The
+//    chain warp waits once a tile and frees the slot with one arrive.
+//    With each chain warp issuing its own copies, K3 took ~330 ns a step
+//    at S=8.  Runs sit in the ring at swz(from, to), so that both
+//    directions read it without bank conflicts;
+//  - outputs (alpha/beta, backpointers) are staged a tile in shared memory
+//    and written out after it, 16 bytes a run where aligned (not timed
+//    against per-lane stores on this design).
+// What is left a step (K3, S=8) is the arithmetic's own dependent chain,
+// ~150 instructions issued in order by one warp: S shuffles, the max, S
+// precise expf, the sequential sum, one precise logf and the blend.
+//
 // Arithmetic follows the TPU kernels exactly: lse = max + log(sum(exp(z -
-// max))) with forbidden transitions at the finite NEG_BIG; invalid steps
-// blend a = v*nxt + (1-v)*a (crf_bm_pallas.py:88); the Viterbi backpointer is
-// the lowest tie_rank among the maxima, scanned per from-state
-// (crf_bm_pallas.py:153-157), identity on invalid steps.  The max-plus pass
-// uses only adds and compares, so it is bit-equal to its plain version.
+// max))), the sum over j in sequential order, with forbidden transitions at
+// the finite NEG_BIG; invalid steps blend a = v*nxt + (1-v)*a
+// (crf_bm_pallas.py:88); the Viterbi backpointer is the lowest tie_rank among
+// the maxima, scanned per from-state (crf_bm_pallas.py:153-157), identity on
+// invalid steps.  The max-plus pass uses only adds and compares, so it is
+// bit-equal to its plain version; K9 runs K3's and K4's chain function in
+// different CTAs of one launch, so it is bit-equal to them.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
 namespace {
 
-constexpr int RB = 32;           // reads per block (threadIdx.x)
-constexpr int FB_RB = 16;        // reads per block of the fused K9
 constexpr int RANK_BIG = 1000000;
+constexpr unsigned FULL = 0xffffffffu;
 
+// The chain kernels' plan (ops/crf_bm_cuda.py _scan_plan): steps a ring
+// tile, tiles in a warp's ring.
+constexpr int KT = 8, RING = 4;
+
+// One warp's ring: R reads' slice of KT steps a tile and their valid flags,
+// and the outputs of its last two tiles, staged for writing out.
+template <int S>
+struct Ring {
+  static constexpr int R = 32 / S;        // reads a warp
+  static constexpr int STEP = S * S * R;  // floats of one step's slice
+  static_assert(KT * R <= 32, "a tile's valid flags take one copy a lane");
+  unsigned long long full[RING], empty[RING];  // mbarriers: slot filled, slot read
+  float m[RING][KT][STEP];
+  int v[RING][KT][R];
+  unsigned o[2][KT][S][R];
+};
+
+// Chain warps a CTA: the fastest of 1, 2 and 4 on the H100 (chip_smoke.py
+// times the others in builds with -DSCAN_WARPS=n); at most 4, as
+// __launch_bounds__(160) allows with the producer warp.
+#ifdef SCAN_WARPS
+template <int S>
+constexpr int kWarps = SCAN_WARPS;
+#else
+template <int S>
+constexpr int kWarps = S == 8 ? 1 : 2;
+#endif
+static_assert(kWarps<8> >= 1 && kWarps<8> <= 4 && kWarps<10> >= 1 && kWarps<10> <= 4,
+              "1 to 4 chain warps a CTA");
+
+struct ScanPlan {
+  int R, W, ctas, smem;
+};
+
+// Reads a warp, chain warps a CTA (kWarps, never more than the batch
+// needs), CTAs, shared bytes a CTA.  Each CTA also runs one producer warp.
+template <int S>
+ScanPlan scan_plan(int B) {
+  constexpr int R = Ring<S>::R;
+  const int nw = (B + R - 1) / R;
+  int W = kWarps<S>;
+  if (W > nw) W = nw;
+  if (W < 1) W = 1;
+  return {R, W, (nw + W - 1) / W, W * static_cast<int>(sizeof(Ring<S>))};
+}
+
+// Where the run (from f, to t) of a step's slice sits in the ring: rotated
+// by f, so that lanes reading one run per state (forward: (j, st); backward:
+// (st, j)) hit distinct banks.
+template <int S>
+__device__ __forceinline__ int swz(int f, int t) {
+  return f * S + (t + f) % S;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Arrive on the barrier once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// A lane's share of the copies that fill one tile of the ring: VEC copies a
+// whole 16-byte run (R = 4 reads) at once, else one float, zero-filled for a
+// read past B; the tile's valid flags take one copy of a float a lane.
+// Offsets are computed once; bytes < 0 marks no copy.
+template <int S, bool VEC>
+struct Copier {
+  static constexpr int R = Ring<S>::R;
+  static constexpr int PER = VEC ? R : 1;     // floats a copy
+  static constexpr int N = S * S * R / PER;   // copies of one step's slice
+  static constexpr int NE = (N + 31) / 32;    // of them a lane's
+  int src[NE], dst[NE], bytes[NE];
+  int vk, vr, vbytes;  // the valid flag this lane copies: step vk, read vr
+
+  __device__ __forceinline__ Copier(int lane, int B, int b0) {
+#pragma unroll
+    for (int q = 0; q < NE; ++q) {
+      const int e = q * 32 + lane;
+      const int run = VEC ? e : e / R, r = VEC ? 0 : e % R;
+      const int f = run / S, t = run % S;
+      const bool ok = b0 + r < B;
+      src[q] = ok ? (f * S + t) * B + b0 + r : 0;
+      dst[q] = e < N ? swz<S>(f, t) * R + r : 0;
+      bytes[q] = e >= N ? -1 : ok ? 4 * PER : 0;
+    }
+    vk = lane / R;
+    vr = lane % R;
+    vbytes = vk >= KT ? -1 : b0 + vr < B ? 4 : 0;
+  }
+
+  // Start the copies of step k of a tile: time t into ``slot``.
+  __device__ __forceinline__ void step(Ring<S>& ring, int slot, int k, int t, const float* dense,
+                                       int B) const {
+    const float* src_t = dense + (long)t * S * S * B;
+#pragma unroll
+    for (int q = 0; q < NE; ++q)
+      if (bytes[q] >= 0) cp_async<4 * PER>(ring.m[slot][k] + dst[q], src_t + src[q], bytes[q]);
+  }
+
+  // Start the copies of ring tile ``tile`` (steps tile*KT ...) into ``slot``.
+  __device__ __forceinline__ void issue(Ring<S>& ring, int slot, int tile, const float* dense,
+                                        const int* valid, int T, int B, int b0,
+                                        bool backward) const {
+    const int s0 = tile * KT;
+    auto time = [&](int k) { return backward ? T - 1 - s0 - k : s0 + k; };
+    if (s0 + KT <= T) {
+#pragma unroll
+      for (int k = 0; k < KT; ++k) step(ring, slot, k, time(k), dense, B);
+    } else {
+      for (int k = 0; k < T - s0; ++k) step(ring, slot, k, time(k), dense, B);
+    }
+    if (vbytes >= 0 && s0 + vk < T)
+      cp_async<4>(&ring.v[slot][vk][vr], valid + (long)time(vk) * B + (vbytes ? b0 + vr : 0),
+                  vbytes);
+  }
+};
+
+// Write the staged outputs of one tile (n steps): step k's S x R words go to
+// row row0 + drow * k of out [rows, S, B], 16 bytes a run where VEC.
+template <int S, bool VEC>
+__device__ __forceinline__ void write_out(const Ring<S>& ring, int tile, int n, unsigned* out, int B,
+                                      int b0, int row0, int drow) {
+  constexpr int R = Ring<S>::R, PER = VEC ? R : 1, N = KT * S * R / PER;
+  const int lane = threadIdx.x & 31;
+  const unsigned(&o)[KT][S][R] = ring.o[tile & 1];
+#pragma unroll
+  for (int q = 0; q < (N + 31) / 32; ++q) {
+    const int e = q * 32 + lane;
+    const int run = VEC ? e : e / R, r = VEC ? 0 : e % R;
+    const int k = run / S, st = run % S;
+    if (k >= n || b0 + r >= B) continue;
+    unsigned* dst = out + ((long)(row0 + drow * k) * S + st) * B + b0 + r;
+    if constexpr (VEC)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&o[k][st][0]);
+    else
+      *dst = o[k][st][r];
+  }
+}
+
+// The producer warp (the last of the CTA): fill each chain warp's ring, tile
+// by tile, RING tiles ahead of it at most.  A slot's ``full`` barrier
+// completes when the 32 lanes' copies into it have landed; its ``empty``
+// barrier when the chain warp has read it.
+template <int S, bool VEC>
+__device__ __forceinline__ void produce(Ring<S>* rings, int W, const float* dense,
+                                        const int* valid, int T, int B, bool backward) {
+  const int lane = threadIdx.x & 31, w0 = blockIdx.x * W;
+  int nc = 0;  // chain warps of this CTA that hold reads
+  while (nc < W && (w0 + nc) * Ring<S>::R < B) ++nc;
+  const int ntile = (T + KT - 1) / KT;
+  for (int tile = 0; tile < ntile; ++tile) {
+    const int slot = tile % RING, fill = tile / RING;
+    for (int c = 0; c < nc; ++c) {
+      Ring<S>& ring = rings[c];
+      const int b0 = (w0 + c) * Ring<S>::R;
+      if (fill > 0) mbar_wait(&ring.empty[slot], (fill - 1) & 1);
+      Copier<S, VEC>(lane, B, b0).issue(ring, slot, tile, dense, valid, T, B, b0, backward);
+      cp_async_arrive(&ring.full[slot]);
+    }
+  }
+  cp_async_wait_all();
+}
+
+// Walk a chain warp's T steps in the order the producer fills them,
+// calling step(slice, valid flags, staging row) with each step's slice in
+// the ring, and flush(tile, steps) once a tile's outputs are staged.  Every
+// lane of the warp calls it with the same T.
+template <int S, typename Step, typename Flush>
+__device__ __forceinline__ void walk(Ring<S>& ring, int T, Step&& step, Flush&& flush) {
+  const int ntile = (T + KT - 1) / KT;
+  for (int tile = 0; tile < ntile; ++tile) {
+    const int slot = tile % RING, n = min(KT, T - tile * KT);
+    mbar_wait(&ring.full[slot], (tile / RING) & 1);
+    unsigned(&o)[KT][S][Ring<S>::R] = ring.o[tile & 1];
+    if (n == KT) {
+      // a whole tile: no exit test between steps, so the compiler may move
+      // one step's loads into the next step's chain
+#pragma unroll
+      for (int k = 0; k < KT; ++k) step(ring.m[slot][k], ring.v[slot][k], o[k]);
+    } else {
+      for (int k = 0; k < n; ++k) step(ring.m[slot][k], ring.v[slot][k], o[k]);
+    }
+    __syncwarp();  // the slot is read and the tile's outputs staged
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[slot]);
+    flush(tile, n);
+  }
+}
+
+// max over z[0 .. S-1] as a tree: exact, so any order gives the same bits.
+template <int S>
+__device__ __forceinline__ float max_of(const float (&z)[S]) {
+  float m[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) m[j] = z[j];
+#pragma unroll
+  for (int w = 1; w < S; w *= 2)
+#pragma unroll
+    for (int j = 0; j + w < S; j += 2 * w) m[j] = fmaxf(m[j], m[j + w]);
+  return m[0];
+}
+
+// A lane's place: read r of the warp (rr: r clamped into the ring for the
+// idle lanes 30-31 at S=10), state st, the lane holding state 0 of its read,
+// and the ring offsets of the S weights it sums over (forward: from-states j
+// into st; backward: to-states j out of st).
+template <int S>
+struct Lane {
+  int r, rr, st, base, rd[S];
+  __device__ __forceinline__ explicit Lane(bool backward) {
+    constexpr int R = Ring<S>::R;
+    const int lane = threadIdx.x & 31;
+    r = lane / S;
+    st = lane % S;
+    rr = r < R ? r : 0;
+    base = r * S;
+#pragma unroll
+    for (int j = 0; j < S; ++j) rd[j] = (backward ? swz<S>(st, j) : swz<S>(j, st)) * R + rr;
+  }
+};
+
+// One warp's sum-semiring chain over its reads (K3/K4, and each of K9's two
+// chains).  Forward: st is the to-state and the lane reduces over from-states
+// j of alpha_t[j] + m_t[j][st].  Backward: st is the from-state and the lane
+// reduces over to-states j of m_t[st][j] + beta_{t+1}[j], walking t from T-1
+// down.
+template <int S, bool VEC>
+__device__ __forceinline__ void sum_warp(Ring<S>& ring, float* __restrict__ out, int T, int B,
+                                         int b0, bool backward) {
+  constexpr int R = Ring<S>::R;
+  const Lane<S> L(backward);
+  const int b = b0 + L.r;
+  if (L.r < R && b < B) out[((long)(backward ? T : 0) * S + L.st) * B + b] = 0.f;
+  float a = 0.f;
+  walk<S>(
+      ring, T,
+      [&](const float* m, const int* vf, unsigned(&o)[S][R]) {
+        float z[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) z[j] = __shfl_sync(FULL, a, L.base + j) + m[L.rd[j]];
+        const float mx = max_of<S>(z);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < S; ++j) sum += expf(z[j] - mx);
+        const float nxt = mx + logf(sum);
+        const float v = (float)vf[L.rr];
+        a = v * nxt + (1.f - v) * a;
+        if (L.r < R) o[L.st][L.r] = __float_as_uint(a);
+      },
+      [&](int tile, int n) {
+        // step s = tile * KT + k writes alpha_{s+1} or beta_{T-1-s}
+        const int s0 = tile * KT;
+        write_out<S, VEC>(ring, tile, n, reinterpret_cast<unsigned*>(out), B, b0,
+                      backward ? T - 1 - s0 : s0 + 1, backward ? -1 : 1);
+      });
+}
+
+// Set up the CTA: W chain warps, each with its ring, and the producer warp
+// (the last), which fills them and returns nullptr.  A chain warp gets its
+// ring and first read b0, or nullptr past the batch.
+template <int S, bool VEC>
+__device__ __forceinline__ Ring<S>* chain_warp(const float* dense, const int* valid, int T, int B,
+                                               bool backward, int& b0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Ring<S>* rings = reinterpret_cast<Ring<S>*>(smem);
+  const int W = (blockDim.x >> 5) - 1, warp = threadIdx.x >> 5;
+  if (threadIdx.x < W * RING) {
+    mbar_init(&rings[threadIdx.x / RING].full[threadIdx.x % RING], 32);
+    mbar_init(&rings[threadIdx.x / RING].empty[threadIdx.x % RING], 1);
+  }
+  __syncthreads();  // once, before any chain starts
+  if (warp == W) {
+    produce<S, VEC>(rings, W, dense, valid, T, B, backward);
+    return nullptr;
+  }
+  b0 = (blockIdx.x * W + warp) * Ring<S>::R;
+  return b0 < B ? rings + warp : nullptr;
+}
+
+// K3/K4: one chain.
+template <int S, bool VEC>
+__global__ void __launch_bounds__(160) crf_sum_kernel(const float* __restrict__ dense,
+                                                      const int* __restrict__ valid,
+                                                      float* __restrict__ out, int T, int B,
+                                                      int backward) {
+  int b0;
+  Ring<S>* ring = chain_warp<S, VEC>(dense, valid, T, B, backward != 0, b0);
+  if (ring) sum_warp<S, VEC>(*ring, out, T, B, b0, backward != 0);
+}
+
+// K9: the alpha chain (blockIdx.y = 0) and the beta chain (blockIdx.y = 1)
+// of the same reads in one launch, each warp running K3's/K4's own chain.
+template <int S, bool VEC>
+__global__ void __launch_bounds__(160) crf_fwdbwd_kernel(const float* __restrict__ dense,
+                                                         const int* __restrict__ valid,
+                                                         float* __restrict__ alphas,  // [T+1, S, B]
+                                                         float* __restrict__ betas,   // [T+1, S, B]
+                                                         int T, int B) {
+  int b0;
+  Ring<S>* ring = chain_warp<S, VEC>(dense, valid, T, B, blockIdx.y != 0, b0);
+  if (ring) sum_warp<S, VEC>(*ring, blockIdx.y ? betas : alphas, T, B, b0, blockIdx.y != 0);
+}
+
+// K5: max-plus forward; lane (read, to-state).
+template <int S, bool VEC>
+__global__ void __launch_bounds__(160) crf_viterbi_kernel(
+    const float* __restrict__ dense,  // [T, S, S, B]
+    const int* __restrict__ valid,    // [T, B]
+    const int* __restrict__ rank,     // [S, S] (from, to)
+    float* __restrict__ alpha_out,    // [S, B]
+    int* __restrict__ bp_out,         // [T, S, B]
+    int T, int B) {
+  int b0;
+  Ring<S>* ring = chain_warp<S, VEC>(dense, valid, T, B, false, b0);
+  if (!ring) return;
+  const Lane<S> L(false);
+  const int to = L.st, b = b0 + L.r;
+  const bool live = L.r < Ring<S>::R && b < B;
+  // the backpointer is the lowest tie rank among the maxima, the first
+  // from-state among equal ranks: the least key rank * 16 + f
+  int key[S], nokey[S];
+#pragma unroll
+  for (int f = 0; f < S; ++f) {
+    key[f] = rank[f * S + to] * 16 + f;
+    nokey[f] = RANK_BIG * 16 + f;
+  }
+  float a = 0.f;
+  walk<S>(
+      *ring, T,
+      [&](const float* m, const int* vf, unsigned(&o)[S][Ring<S>::R]) {
+        float z[S];
+#pragma unroll
+        for (int f = 0; f < S; ++f) z[f] = __shfl_sync(FULL, a, L.base + f) + m[L.rd[f]];
+        const float best = max_of<S>(z);
+        int k[S];
+#pragma unroll
+        for (int f = 0; f < S; ++f) k[f] = z[f] == best ? key[f] : nokey[f];
+#pragma unroll
+        for (int w = 1; w < S; w *= 2)
+#pragma unroll
+          for (int f = 0; f + w < S; f += 2 * w) k[f] = min(k[f], k[f + w]);
+        const float v = (float)vf[L.rr];
+        a = v * best + (1.f - v) * a;
+        if (L.r < Ring<S>::R) o[to][L.r] = v != 0.f ? k[0] & 15 : to;
+      },
+      [&](int tile, int n) {
+        write_out<S, VEC>(*ring, tile, n, reinterpret_cast<unsigned*>(bp_out), B, b0, tile * KT, 1);
+      });
+  if (live) alpha_out[(long)to * B + b] = a;
+}
+
+// K6 walks one read a thread; it keeps its own look-ahead of KT steps.
 template <int S>
 struct Tile {
   static constexpr int KT = S <= 8 ? 8 : 4;  // steps loaded ahead
 };
-
-// One chain of the sum-semiring scan, run by a group of NR x S threads: one
-// thread per (state st, read b = the group's read x).  Forward: st is the
-// to-state and the thread reduces over from-states j of alpha_t[j] +
-// m_t[j][st].  Backward: st is the from-state and the thread reduces over
-// to-states j of m_t[st][j] + beta_{t+1}[j], walking t from T-1 down.  Every
-// thread of the block calls it once, with the same T, so its __syncthreads
-// match across groups.
-template <int S, int NR>
-__device__ __forceinline__ void sum_chain(const float* __restrict__ dense,  // [T, S, S, B]
-                                          const int* __restrict__ valid,    // [T, B]
-                                          float* __restrict__ out,          // [T+1, S, B]
-                                          int T, int B, int b, int x, int st, bool backward,
-                                          float (&a_s)[2][S][NR]) {
-  constexpr int KT = Tile<S>::KT;
-  const bool live = b < B;
-  float a = 0.f;
-  a_s[0][st][x] = 0.f;
-  if (live) out[((long)(backward ? T : 0) * S + st) * B + b] = 0.f;
-
-  float m[KT][S], mn[KT][S], v[KT], vn[KT];
-  auto load_tile = [&](int tile, float (&mm)[KT][S], float (&vv)[KT]) {
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int s = tile * KT + k;
-      const bool ok = live && s < T;
-      const int t = backward ? T - 1 - s : s;
-      vv[k] = ok ? (float)valid[(long)t * B + b] : 0.f;
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        const long idx = backward ? (((long)t * S + st) * S + j) * B + b
-                                  : (((long)t * S + j) * S + st) * B + b;
-        mm[k][j] = ok ? dense[idx] : 0.f;
-      }
-    }
-  };
-
-  const int ntile = (T + KT - 1) / KT;
-  if (ntile > 0) load_tile(0, m, v);
-  __syncthreads();
-  int cur = 0;
-  for (int tile = 0; tile < ntile; ++tile) {
-    if (tile + 1 < ntile) load_tile(tile + 1, mn, vn);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int s = tile * KT + k;
-      if (s >= T) break;  // uniform across the block
-      const int t = backward ? T - 1 - s : s;
-      float z[S];
-#pragma unroll
-      for (int j = 0; j < S; ++j) z[j] = a_s[cur][j][x] + m[k][j];
-      float mx = z[0];
-#pragma unroll
-      for (int j = 1; j < S; ++j) mx = fmaxf(mx, z[j]);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < S; ++j) sum += expf(z[j] - mx);
-      const float nxt = mx + logf(sum);
-      a = v[k] * nxt + (1.f - v[k]) * a;
-      if (live) out[((long)(backward ? t : t + 1) * S + st) * B + b] = a;
-      a_s[cur ^ 1][st][x] = a;
-      cur ^= 1;
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      v[k] = vn[k];
-#pragma unroll
-      for (int j = 0; j < S; ++j) m[k][j] = mn[k][j];
-    }
-  }
-}
-
-// K3/K4: one chain, 32 reads x S states a block.
-template <int S>
-__global__ void crf_sum_kernel(const float* __restrict__ dense, const int* __restrict__ valid,
-                               float* __restrict__ out, int T, int B, int backward) {
-  __shared__ float a_s[2][S][RB];
-  sum_chain<S, RB>(dense, valid, out, T, B, blockIdx.x * RB + threadIdx.x, threadIdx.x,
-                   threadIdx.y, backward != 0, a_s);
-}
-
-// K9: the alpha chain (threadIdx.z = 0) and the beta chain (threadIdx.z = 1)
-// of the same FB_RB reads in one block.  Each group runs K3's/K4's own step
-// code (sum_chain), so the outputs are bit-equal to theirs by construction;
-// the two chains share each step's barrier.  FB_RB = 16 keeps the block at
-// K3's 256 threads (S=8), within K3's register budget per thread.
-template <int S>
-__global__ void crf_fwdbwd_kernel(const float* __restrict__ dense,
-                                  const int* __restrict__ valid,
-                                  float* __restrict__ alphas,  // [T+1, S, B]
-                                  float* __restrict__ betas,   // [T+1, S, B]
-                                  int T, int B) {
-  __shared__ float a_s[2][2][S][FB_RB];
-  const int chain = threadIdx.z;
-  sum_chain<S, FB_RB>(dense, valid, chain ? betas : alphas, T, B,
-                      blockIdx.x * FB_RB + threadIdx.x, threadIdx.x, threadIdx.y, chain != 0,
-                      a_s[chain]);
-}
-
-// Max-plus forward; one thread per (to-state, read).
-template <int S>
-__global__ void crf_viterbi_kernel(const float* __restrict__ dense,  // [T, S, S, B]
-                                   const int* __restrict__ valid,    // [T, B]
-                                   const int* __restrict__ rank,     // [S, S] (from, to)
-                                   float* __restrict__ alpha_out,    // [S, B]
-                                   int* __restrict__ bp_out,         // [T, S, B]
-                                   int T, int B) {
-  constexpr int KT = Tile<S>::KT;
-  __shared__ float a_s[2][S][RB];
-  __shared__ int rk[S][S];
-  const int x = threadIdx.x, to = threadIdx.y;
-  const int b = blockIdx.x * RB + x;
-  const bool live = b < B;
-  for (int i = to * RB + x; i < S * S; i += RB * S) rk[i / S][i % S] = rank[i];
-  float a = 0.f;
-  a_s[0][to][x] = 0.f;
-
-  float m[KT][S], mn[KT][S], v[KT], vn[KT];
-  auto load_tile = [&](int tile, float (&mm)[KT][S], float (&vv)[KT]) {
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = tile * KT + k;
-      const bool ok = live && t < T;
-      vv[k] = ok ? (float)valid[(long)t * B + b] : 0.f;
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        mm[k][j] = ok ? dense[(((long)t * S + j) * S + to) * B + b] : 0.f;
-    }
-  };
-
-  const int ntile = (T + KT - 1) / KT;
-  if (ntile > 0) load_tile(0, m, v);
-  __syncthreads();
-  int cur = 0;
-  for (int tile = 0; tile < ntile; ++tile) {
-    if (tile + 1 < ntile) load_tile(tile + 1, mn, vn);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = tile * KT + k;
-      if (t >= T) break;  // uniform across the block
-      float z[S];
-#pragma unroll
-      for (int f = 0; f < S; ++f) z[f] = a_s[cur][f][x] + m[k][f];
-      float best = z[0];
-#pragma unroll
-      for (int f = 1; f < S; ++f) best = fmaxf(best, z[f]);
-      int minrank = RANK_BIG, bp = 0;
-#pragma unroll
-      for (int f = 0; f < S; ++f) {
-        const int rf = z[f] == best ? rk[f][to] : RANK_BIG;
-        if (rf < minrank) {
-          minrank = rf;
-          bp = f;
-        }
-      }
-      a = v[k] * best + (1.f - v[k]) * a;
-      if (live) bp_out[((long)t * S + to) * B + b] = v[k] != 0.f ? bp : to;
-      a_s[cur ^ 1][to][x] = a;
-      cur ^= 1;
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      v[k] = vn[k];
-#pragma unroll
-      for (int j = 0; j < S; ++j) m[k][j] = mn[k][j];
-    }
-  }
-  if (live) alpha_out[(long)to * B + b] = a;
-}
 
 // Serial backpointer walk; one thread per read.
 template <int S>
@@ -262,28 +510,53 @@ __global__ void crf_traceback_kernel(const int* __restrict__ bp,     // [T, S, B
   }
 }
 
+// Launch a chain kernel at ``plan``: the 16-byte copy and write-out path
+// when every run of the slices and outputs is 16-byte aligned (R = 4 reads a
+// warp, B % 4 == 0, each tensor on a 16-byte boundary), else the 4-byte one.
+// ``kernel(vec)`` names the instantiation; returns the launch error code.
+template <int S, typename Kernel, typename... Args>
+int launch_chain(const ScanPlan& plan, int grid_y, int B, std::initializer_list<const void*> ptrs,
+                 cudaStream_t st, Kernel&& kernel, Args... args) {
+  auto go = [&](auto fn) {
+    cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err != cudaSuccess) return (int)err;
+    fn<<<dim3(plan.ctas, grid_y), 32 * (plan.W + 1), plan.smem, st>>>(args...);
+    return (int)cudaGetLastError();
+  };
+  if constexpr (Ring<S>::R == 4) {
+    bool vec = B % 4 == 0;
+    for (const void* p : ptrs) vec = vec && reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+    if (vec) return go(kernel(std::true_type{}));
+  }
+  return go(kernel(std::false_type{}));
+}
+
 template <int S>
-int launch_sum(const float* dense, const int* valid, float* out, int T, int B,
-               int backward, cudaStream_t st) {
-  crf_sum_kernel<S><<<(B + RB - 1) / RB, dim3(RB, S), 0, st>>>(dense, valid, out, T, B,
-                                                                backward);
-  return cudaGetLastError();
+int launch_sum(const float* dense, const int* valid, float* out, int T, int B, int backward,
+               cudaStream_t st) {
+  return launch_chain<S>(
+      scan_plan<S>(B), 1, B, {dense, out}, st,
+      [](auto vec) { return crf_sum_kernel<S, decltype(vec)::value>; }, dense, valid, out, T, B,
+      backward);
 }
 
 template <int S>
 int launch_fwdbwd(const float* dense, const int* valid, float* alphas, float* betas, int T,
                   int B, cudaStream_t st) {
-  crf_fwdbwd_kernel<S><<<(B + FB_RB - 1) / FB_RB, dim3(FB_RB, S, 2), 0, st>>>(
-      dense, valid, alphas, betas, T, B);
-  return cudaGetLastError();
+  return launch_chain<S>(
+      scan_plan<S>(B), 2, B, {dense, alphas, betas}, st,
+      [](auto vec) { return crf_fwdbwd_kernel<S, decltype(vec)::value>; }, dense, valid, alphas,
+      betas, T, B);
 }
 
 template <int S>
-int launch_viterbi(const float* dense, const int* valid, const int* rank,
-                   float* alpha, int* bp, int T, int B, cudaStream_t st) {
-  crf_viterbi_kernel<S><<<(B + RB - 1) / RB, dim3(RB, S), 0, st>>>(dense, valid, rank,
-                                                                    alpha, bp, T, B);
-  return cudaGetLastError();
+int launch_viterbi(const float* dense, const int* valid, const int* rank, float* alpha, int* bp,
+                   int T, int B, cudaStream_t st) {
+  return launch_chain<S>(
+      scan_plan<S>(B), 1, B, {dense, bp}, st,
+      [](auto vec) { return crf_viterbi_kernel<S, decltype(vec)::value>; }, dense, valid, rank,
+      alpha, bp, T, B);
 }
 
 template <int S>
@@ -297,6 +570,19 @@ int launch_traceback(const int* bp, const int* valid, const int* last, int* out,
 
 extern "C" const char* flappie_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The plan of the chain kernels (K3/K4, K9, K5) for S states and B reads:
+// info = {reads a warp, chain warps a CTA, CTAs (K9 launches two rows of
+// them), shared bytes a CTA}.
+extern "C" int flappie_crf_scan_info(int S, int B, int* info) {
+  if (S != 8 && S != 10) return cudaErrorInvalidValue;
+  const ScanPlan p = S == 8 ? scan_plan<8>(B) : scan_plan<10>(B);
+  info[0] = p.R;
+  info[1] = p.W;
+  info[2] = p.ctas;
+  info[3] = p.smem;
+  return 0;
 }
 
 // S = 8 (flip-flop over 4 bases) and S = 10 (5 bases) are compiled.

@@ -15,6 +15,12 @@ plain versions repeat the kernels' arithmetic step for step: lse = max
 + log(sum(exp(z - max))), invalid steps blended as v*nxt + (1-v)*a,
 Viterbi backpointers by lowest tie_rank among the maxima and identity on
 invalid steps.  ``<wrapper>.launches`` counts kernel launches.
+
+K3/K4, K9 and K5 run a chain warp per R = 32 // S reads (lane = read *
+S + state), fed its reads' slice of the weights through a ring in shared
+memory by the CTA's producer warp.  ``scan_plan`` in the source sets
+their grid; ``_scan_plan`` mirrors it and ``scan_info`` reports it on
+the card.
 """
 
 from __future__ import annotations
@@ -95,16 +101,47 @@ def traceback_plain(backptr_tm, tvalid_tm, last_state):
 # -- kernels -----------------------------------------------------------------
 
 
+# csrc/crf_scan.cu: steps a ring tile, tiles in a warp's ring, and chain
+# warps a CTA by S (kWarps: the fastest of 1, 2 and 4 on the H100)
+SCAN_KT, SCAN_RING, SCAN_WARPS = 8, 4, {8: 1, 10: 2}
+
+
+def _scan_plan(S: int, B: int):
+    """(reads a warp, chain warps a CTA, CTAs, shared bytes a CTA) of the
+    chain kernels (K3/K4, K5; K9 launches two rows of CTAs) for S states
+    and B reads: a mirror of scan_plan in csrc/crf_scan.cu, which launches
+    them and which ``scan_info`` reports on the card.  Each chain warp
+    holds R = 32 // S reads and a ring of SCAN_RING tiles of SCAN_KT steps
+    of their [S, S, R] slices and valid flags, with a full and an empty
+    mbarrier a tile, and two tiles of [S, R] outputs staged for writing
+    out; one producer warp a CTA fills the rings."""
+    R = 32 // S
+    nwarps = -(-B // R)
+    W = max(1, min(SCAN_WARPS[S], nwarps))
+    ring = 16 * SCAN_RING + 4 * (SCAN_RING * SCAN_KT * (S * S * R + R) + 2 * SCAN_KT * S * R)
+    return R, W, -(-nwarps // W), W * ring
+
+
+def scan_info(S: int, B: int) -> dict:
+    """The plan the C side launches (``_scan_plan``'s fields by name).
+    Card only."""
+    lib = _lib()
+    info = (ctypes.c_int * 4)()
+    cuda_build.check(lib, lib.flappie_crf_scan_info(S, B, info), "scan_info")
+    return dict(zip(("R", "W", "ctas", "smem"), info))
+
+
 def _lib():
     lib = cuda_build.load("crf_scan")
     if lib.flappie_crf_sum.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
+        lib.flappie_crf_scan_info.argtypes = [I, I, P]
         lib.flappie_crf_sum.argtypes = [P, P, P, I, I, I, I, P]
         lib.flappie_crf_fwdbwd.argtypes = [P, P, P, P, I, I, I, P]
         lib.flappie_crf_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
         lib.flappie_crf_traceback.argtypes = [P, P, P, P, I, I, I, P]
-        for fn in (lib.flappie_crf_sum, lib.flappie_crf_fwdbwd, lib.flappie_crf_viterbi,
-                   lib.flappie_crf_traceback):
+        for fn in (lib.flappie_crf_scan_info, lib.flappie_crf_sum, lib.flappie_crf_fwdbwd,
+                   lib.flappie_crf_viterbi, lib.flappie_crf_traceback):
             fn.restype = ctypes.c_int
     return lib
 

@@ -105,13 +105,29 @@ def test_grumod_kernel_matches_plain(cuda, B, T, IN, H, backward):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("nbase,B,T", [(4, 40, 75), (5, 7, 33)])
+# (nbase, B, T) of the batch-minor scans: warps of R = 32 // S reads (4 at
+# S=8, 3 at S=10) partly filled (B = 1, 3, 5, 257) or full (24, 40: at S=8
+# the 16-byte copy path), T at 1, at a ring tile's edge (KT - 1, KT, KT + 1
+# = 7, 8, 9) and at the ring's length + 1 (RING * KT + 1 = 33); ops/crf_bm_cuda.py
+# _scan_plan
+SCAN_SHAPES = [(4, 40, 75), (5, 7, 33), (4, 1, 1), (4, 3, 7), (4, 5, 8), (4, 24, 9),
+               (4, 257, 33), (5, 1, 9), (5, 3, 1), (5, 5, 8), (5, 24, 7), (5, 257, 33)]
+
+
+def _nblocks(gen, B, T):
+    """Ragged block counts: the last read empty, read 0 full."""
+    nblocks = torch.randint(0, T + 1, (B,), generator=gen)
+    nblocks[-1] = 0
+    nblocks[0] = T
+    return nblocks
+
+
+@pytest.mark.parametrize("nbase,B,T", SCAN_SHAPES)
 def test_crf_kernels_match_plain(cuda, nbase, B, T):
     idx = flipflop_index(nbase)
     gen = torch.Generator().manual_seed(T)
     trans = torch.round(_rnd(gen, T, idx.nparam, B, scale=2.0) * 8.0) / 8.0  # dyadic
-    nblocks = torch.randint(0, T + 1, (B,), generator=gen)
-    nblocks[0], nblocks[-1] = T, 0
+    nblocks = _nblocks(gen, B, T)
     d = _dense_tm(trans.to(cuda), idx)
     v = (torch.arange(T)[:, None] < nblocks[None, :]).to(cuda)
     for backward in (False, True):
@@ -126,14 +142,13 @@ def test_crf_kernels_match_plain(cuda, nbase, B, T):
                        crf_bm_cuda.traceback_plain(bp, v, last))
 
 
-@pytest.mark.parametrize("nbase,B,T", [(4, 40, 75), (5, 7, 33)])
+@pytest.mark.parametrize("nbase,B,T", SCAN_SHAPES)
 def test_fused_fb_kernel_matches_plain_and_split(cuda, nbase, B, T):
     """K9 within rtol 1e-5 of its plain version, bit-equal to K3/K4."""
     idx = flipflop_index(nbase)
     gen = torch.Generator().manual_seed(T + 1)
     trans = _rnd(gen, T, idx.nparam, B, scale=2.0)
-    nblocks = torch.randint(0, T + 1, (B,), generator=gen)
-    nblocks[0], nblocks[-1] = T, 0
+    nblocks = _nblocks(gen, B, T)
     d = _dense_tm(trans.to(cuda), idx)
     v = (torch.arange(T)[:, None] < nblocks[None, :]).to(cuda)
     before = crf_bm_cuda.fwdbwd_states.launches
@@ -317,3 +332,10 @@ def test_seq_kernel_matches_plain(cuda, kind, B, T, H):
     assert got.shape == (B, T, H)
     assert (got - want).abs().max().item() <= 1e-4
 
+
+@pytest.mark.parametrize("S", [8, 10])
+def test_scan_info_matches_plan(cuda, S):
+    """The chain scans' grid on the C side is ops/crf_bm_cuda.py's
+    _scan_plan."""
+    for B in (1, 3, 5, 24, 256, 257):
+        assert tuple(crf_bm_cuda.scan_info(S, B).values()) == crf_bm_cuda._scan_plan(S, B)
