@@ -11,9 +11,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    seconds, ptxas's registers and spills of each kernel, the cluster
    recurrence's plan for each instantiation (rows a cluster, clusters,
    shared bytes, held to ops/rnn_cuda.py's _cluster_plan) with
-   cudaOccupancyMaxActiveClusters, and the batch-minor chain scans' plan
+   cudaOccupancyMaxActiveClusters, the batch-minor chain scans' plan
    (reads a warp, chain warps a CTA, CTAs, ring bytes; flappie_crf_scan_info
-   held to ops/crf_bm_cuda.py's _scan_plan).
+   held to ops/crf_bm_cuda.py's _scan_plan) and K11's forward and Viterbi
+   scans' plan (the same and the ring's read stride; flappie_crf_bt_info
+   held to ops/crf_cuda.py's _bt_plan).  Beside the path's build, and at
+   the same time, the chain scans' other builds (VARIANTS): crf_scan.cu
+   with -DSCAN_WARPS=1, 2, 4 and crf_bt.cu with -DBT_WARPS=1, 2, 4.
 2. Kernels: each kernel held against its plain PyTorch version on the
    card at production shapes -- K1 fused LSTM layer, K8 its training
    variant (h and c; h bit-equal to K1's) and K7 fused GRU-mod layer
@@ -32,10 +36,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    each bit-equal to the path's K3, alternated; the batch-major K11 (T=2560,
    B=256, the run-length structure at S=8 and the flip-flop at S=8 and
    S=10): forward scan within rtol 1e-5, Viterbi (alphas, int8
-   backpointers) and traceback bit-equal; and K3/K4, K9, K5, K6 and K11
+   backpointers) and traceback bit-equal, the forward and Viterbi scans
+   timed over 10 runs with their time a step, CTAs and registers, and in
+   K11's other builds (1, 2, 4 chain warps a CTA), each bit-equal to the
+   path's, alternated, the forward scan over the
+   backward pass's transposed, time-reversed view profiled (the copy that
+   makes it contiguous beside the kernel); and K3/K4, K9, K5, K6 and K11
    with the run-length structure at the shape of runnie's heaviest program
-   (T=13,108 blocks, B=24), by the same rules, K3, K9 and K5 timed there
-   too (with K3's chain warps a CTA); K10, the fused conv
+   (T=13,108 blocks, B=24), by the same rules, K3, K9, K5 and K11's
+   forward and Viterbi timed there too (with K3's and K11's other
+   builds); K10, the fused conv
    1->4->16 (B=256, T=12800 samples, ragged lengths including 0, 3 and
    T) within 1e-5 absolute; K12, the recurrences alone over a computed
    affine (T=2560, B=256, H=256), LSTM and GRU-mod within 1e-4 of
@@ -80,7 +90,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Viterbi over the card's posterior bit-equal, the CPU's own fb path
    other in at most 1% of the blocks, the scans' drift logged); the
    device time of one full chunk batch (10 runs); one more fb run of each
-   model under torch.profiler.
+   model under torch.profiler, and of runnie once more under
+   FLAPPIE_TPU_CRF_IMPL=pallas (K11's kernel time).
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|; K10's Function at B=32,
@@ -102,10 +113,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. The card line, one JSON line with every kernel's numbers, and the
    last line {"ok": true, "device": {...}}.
 
-Imports nothing of JAX or of the JAX package.  Writes only under
-build/chip_smoke/ in the checkout.  The whole run took 184-202 s on the
-H100 before K10 and K12 joined it; it should stay well inside its
-1200 s limit (aim: half of it).
+Imports nothing of JAX or of the JAX package.  Writes only under build/
+in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
+run takes ~215-280 s of command time on an H100 80GB HBM3 at 700 W; it
+should stay well inside its 1200 s limit (aim: half of it).
 """
 
 from __future__ import annotations
@@ -400,68 +411,192 @@ def scan_step(ms: float, T: int, S: int, B: int, chains: int = 1) -> str:
             f"{p['smem']} B of ring a CTA")
 
 
-# CTA sizes of the chain scans timed against each other: csrc/crf_scan.cu
-# built once for each with -DSCAN_WARPS=n (its kWarps), beside the path's
-# build, into build/flappie_tpu_torch/scan_w<n>/
-SCAN_WARP_SIZES = (1, 2, 4)
+# Builds of the chain scans beside the path's, timed against it: crf_scan.cu
+# at 1, 2 and 4 chain warps a CTA (-DSCAN_WARPS=n, its kWarps) and crf_bt.cu
+# at 1, 2 and 4 (-DBT_WARPS=n, its kBtWarps), each into
+# build/flappie_tpu_torch/<variant>/
+WARP_SIZES = (1, 2, 4)
+VARIANTS = {**{f"scan_w{w}": ("crf_scan", (f"-DSCAN_WARPS={w}",)) for w in WARP_SIZES},
+            **{f"bt_w{w}": ("crf_bt", (f"-DBT_WARPS={w}",)) for w in WARP_SIZES}}
+
+# argument kinds of the C entry points (P pointer, I int) that a build loaded
+# here may export: the wrappers' own (ops/crf_bm_cuda.py, ops/crf_cuda.py)
+ENTRY_ARGS = {
+    "flappie_crf_scan_info": "IIP", "flappie_crf_sum": "PPPIIIIP",
+    "flappie_crf_fwdbwd": "PPPPIIIP", "flappie_crf_viterbi": "PPPPPIIIP",
+    "flappie_crf_traceback": "PPPPIIIP", "flappie_crf_bt_info": "IIP",
+    "flappie_crf_bt_fwd": "PPPIIIP", "flappie_crf_bt_viterbi": "PPPPPIIIP",
+    "flappie_crf_bt_traceback": "PPPPIIIP",
+}
+
+# nvcc's output of each build loaded by finish_builds, by variant
+variant_log: dict = {}
 
 
-def start_scan_variants(cuda_build) -> dict:
-    """Start one nvcc for each of SCAN_WARP_SIZES; {n: (library, process)}."""
-    src = os.path.join(cuda_build.CSRC_DIR, "crf_scan.cu")
+def start_builds(cuda_build, variants: dict, csrc: str = None) -> dict:
+    """Start one nvcc for each variant {name: (source, (-D flags))} of
+    csrc/<source>.cu (``csrc``: another checkout's sources, as
+    compare_scans.py builds them): {name: (library, process)}."""
     jobs = {}
-    for w in SCAN_WARP_SIZES:
-        so = os.path.join(cuda_build.BUILD_DIR, f"scan_w{w}", "libcrf_scan.so")
+    for name, (src, flags) in variants.items():
+        so = os.path.join(cuda_build.BUILD_DIR, name, f"lib{src}.so")
         os.makedirs(os.path.dirname(so), exist_ok=True)
-        jobs[w] = so, subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DSCAN_WARPS={w}", "-o", so, src],
+        cu = os.path.join(csrc or cuda_build.CSRC_DIR, src + ".cu")
+        jobs[name] = so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return jobs
 
 
-def finish_scan_variants(jobs: dict) -> dict:
-    """Wait for start_scan_variants' builds and load them: {n: library}."""
+def finish_builds(jobs: dict) -> dict:
+    """Wait for start_builds' builds and load them, their entry points
+    typed as the wrappers type theirs: {name: library}."""
     import ctypes
 
     libs = {}
-    for w, (so, proc) in jobs.items():
-        _, err = proc.communicate()
+    for name, (so, proc) in jobs.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -DSCAN_WARPS={w} crf_scan.cu failed:\n{err}")
+            raise RuntimeError(f"nvcc for build {name} failed:\n{err}")
+        variant_log[name] = out + err
         lib = ctypes.CDLL(so)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.flappie_crf_sum.argtypes = [P, P, P, I, I, I, I, P]
-        lib.flappie_crf_sum.restype = I
-        lib.flappie_cuda_error_string.argtypes = [I]
+        for fn, kinds in ENTRY_ARGS.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = [ctypes.c_void_p if k == "P" else ctypes.c_int
+                                             for k in kinds]
+                getattr(lib, fn).restype = ctypes.c_int
+        lib.flappie_cuda_error_string.argtypes = [ctypes.c_int]
         lib.flappie_cuda_error_string.restype = ctypes.c_char_p
-        libs[w] = lib
+        libs[name] = lib
     return libs
 
 
+@contextlib.contextmanager
+def using_lib(source: str, lib):
+    """The port's wrappers of csrc/<source>.cu launch ``lib``'s kernels
+    (another build of a source with the same C interface) inside the
+    block."""
+    from flappie_tpu_torch.ops import cuda_build
+
+    own = cuda_build.load(source)
+    cuda_build._libs[source] = lib
+    try:
+        yield
+    finally:
+        cuda_build._libs[source] = own
+
+
+def same(a, b) -> bool:
+    """Bit-equal tensors, or tuples of them."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def time_builds(torch, source: str, libs: dict, fn, ref, what: str, T: int) -> dict:
+    """``fn`` (a wrapper call) through each build of csrc/<source>.cu in
+    ``libs`` ({label: library}; None: the path's own), each output
+    bit-equal to ``ref`` (the path's output, itself held to its plain
+    version), then timed alternated in one process.  Logs and returns
+    {label: median ms}."""
+    from flappie_tpu_torch.ops import cuda_build
+
+    libs = {k: lib or cuda_build.load(source) for k, lib in libs.items()}
+
+    def run(lib):
+        with using_lib(source, lib):
+            return fn()
+
+    for k, lib in libs.items():
+        if not same(run(lib), ref):
+            raise AssertionError(f"{what}, build {k}: not bit-equal to the path's output")
+    times = alternated_ms(torch, {k: lambda lib=lib: run(lib) for k, lib in libs.items()},
+                          SCAN_REPS)
+    log(f"{what}, each build bit-equal to the path's: " + "; ".join(
+        f"{k}: {spread(ts)} = {1e6 * statistics.median(ts) / T:.1f} ns a step"
+        for k, ts in times.items()))
+    return {k: statistics.median(ts) for k, ts in times.items()}
+
+
+def ptxas_usage(text: str, entry: str) -> str:
+    """Registers and spill stores of the kernels whose mangled names hold
+    ``entry``, from nvcc -Xptxas -v output."""
+    import re
+
+    got, name, spill = [], None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if entry in m.group(1) else None
+        elif name and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            got.append(f"{regs} registers, {spill} B spilled")
+    return "; ".join(got) or "not logged"
+
+
 def time_scan_warps(torch, libs: dict, dense, tvalid, k3, what: str) -> None:
-    """K3 (forward) in the build of each CTA size (``libs``), each output
-    bit-equal to the path's K3 output ``k3`` (itself held to its plain
-    version), then timed alternated in one process: the measurement
-    behind kWarps in csrc/crf_scan.cu."""
-    from flappie_tpu_torch.ops import crf_bm_cuda, cuda_build
+    """K3 (forward) in the build of each CTA size, each output bit-equal to
+    the path's K3 output ``k3`` (itself held to its plain version), timed
+    alternated: the measurement behind kWarps in csrc/crf_scan.cu."""
+    from flappie_tpu_torch.ops import crf_bm_cuda
 
-    d, v, T, S, B = crf_bm_cuda._dense_args("sum_states", dense, tvalid)
+    time_builds(torch, "crf_scan", {f"{w} chain warps": libs[f"scan_w{w}"] for w in WARP_SIZES},
+                lambda: crf_bm_cuda.sum_states(dense, tvalid, False), k3,
+                f"K3 at {what} by chain warps a CTA", dense.shape[0])
 
-    def launch(w):
-        out = torch.empty(T + 1, S, B, dtype=torch.float32, device=d.device)
-        rc = libs[w].flappie_crf_sum(cuda_build.ptr(d), cuda_build.ptr(v), cuda_build.ptr(out),
-                                     T, S, B, 0, cuda_build.stream_of(d))
-        cuda_build.check(libs[w], rc, f"K3 at {w} chain warps a CTA")
-        return out
 
-    for w in libs:
-        if not torch.equal(launch(w), k3):
-            raise AssertionError(f"K3 at {what}, {w} chain warps a CTA: not bit-equal to the "
-                                 "path's K3")
-    times = alternated_ms(torch, {w: lambda w=w: launch(w) for w in libs}, SCAN_REPS)
-    log(f"K3 at {what} by chain warps a CTA, each bit-equal to the path's K3: " + "; ".join(
-        f"{w}: {spread(ts)} = {1e6 * statistics.median(ts) / T:.1f} ns a step"
-        for w, ts in times.items()))
+def bt_step(ms: float, T: int, S: int, B: int, kernel: str) -> str:
+    """A K11 chain kernel's time, per step, the grid it launched
+    (flappie_crf_bt_info) and its registers (ptxas)."""
+    from flappie_tpu_torch.ops import crf_cuda, cuda_build
+
+    p = crf_cuda.bt_info(S, B)
+    regs = ptxas_usage(cuda_build.build_log.get("crf_bt", ""), f"{kernel}ILi{S}E")
+    return (f"{ms:.4f} ms (median of {SCAN_REPS}) = {1e6 * ms / T:.1f} ns a step; "
+            f"{p['ctas']} CTAs of {p['W']} warps x {p['R']} reads, {p['smem']} B of ring a CTA "
+            f"(read stride {p['stride']} floats); {regs}")
+
+
+def time_bt_builds(torch, libs: dict, dense, valid, rank, fwd, vit, what: str) -> None:
+    """K11's forward and Viterbi scans through K11's other builds (chain
+    warps a CTA), against the path's outputs."""
+    from flappie_tpu_torch.ops import crf_cuda
+
+    T = dense.shape[0]
+    bt = {"path": None, **{k: lib for k, lib in libs.items() if k.startswith("bt_")}}
+    time_builds(torch, "crf_bt", bt, lambda: crf_cuda.fwd_scan(dense, valid), fwd,
+                f"K11 forward at {what} by build", T)
+    time_builds(torch, "crf_bt", bt, lambda: crf_cuda.viterbi_scan(dense, valid, rank), vit,
+                f"K11 Viterbi at {what} by build", T)
+
+
+def profile_bwd_copy(torch, dense, valid, what: str) -> None:
+    """K11's forward scan over the backward pass's input (the transposed,
+    time-reversed view ops/crf.py crf_backward hands it) under
+    torch.profiler: the device time a call of each kernel it runs, the copy
+    that makes the view contiguous beside the scan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flappie_tpu_torch.ops import crf_cuda
+
+    rev, vrev = dense.flip(0).transpose(-1, -2), valid.flip(0)
+    crf_cuda.fwd_scan(rev, vrev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SCAN_REPS):
+            crf_cuda.fwd_scan(rev, vrev)
+        torch.cuda.synchronize()
+    got = device_time(prof)
+    if got is None:
+        log(f"K11 backward-pass input at {what}: no device events recorded; not measured")
+        return
+    log(f"K11 backward-pass input at {what}, device ms a call (profiler, {SCAN_REPS} calls): "
+        + "; ".join(f"{us / 1e3 / SCAN_REPS:.4f} {name[:70]}"
+                    for name, us in sorted(got[2].items(), key=lambda kv: -kv[1])))
 
 
 def log_scan_plans() -> None:
@@ -483,7 +618,26 @@ def log_scan_plans() -> None:
             f"warp a CTA, {smem // W} B of ring a chain warp; " + ", ".join(got))
 
 
-def check_scans(torch, peak: dict, gen, nbase: int, scan_libs: dict) -> list:
+def log_bt_plans() -> None:
+    """K11's chain scans' plan on the C side (flappie_crf_bt_info) held to
+    ops/crf_cuda.py's _bt_plan at the batches the paths run."""
+    from flappie_tpu_torch.ops import crf_cuda
+
+    for S in (8, 10):
+        got = []
+        for B in (1, 2, 3, 8, 24, 32, 256, 257):
+            info = crf_cuda.bt_info(S, B)
+            want = crf_cuda._bt_plan(S, B)
+            if tuple(info.values()) != want:
+                raise AssertionError(f"K11 plan at S={S}, B={B}: C side {info}, _bt_plan {want}")
+            R, W, ctas, smem, P = want
+            got.append(f"B={B}: {ctas} CTAs of {W}")
+        log(f"K11 forward and Viterbi S={S}: {R} reads a warp, up to {W} chain warps and a "
+            f"producer warp a CTA, {smem // W} B of ring a chain warp, reads {P} floats apart; "
+            + ", ".join(got))
+
+
+def check_scans(torch, peak: dict, gen, nbase: int, libs: dict) -> list:
     """K3/K4, K9, K5, K6 on one dense batch, T=2560, B=256, S=2*nbase."""
     from flappie_tpu_torch.ops import crf_bm_cuda
     from flappie_tpu_torch.ops.crf import flipflop_index
@@ -517,7 +671,7 @@ def check_scans(torch, peak: dict, gen, nbase: int, scan_libs: dict) -> list:
     plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.sum_states_plain(dense, tvalid, False), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * (T + 1) * S * B, nv * (5 * S * S + 5 * S), peak)
     log(f"K3/K4 crf_sum_scan S={S}, T={T}, B={B}: {scan_step(ms, T, S, B)}")
-    time_scan_warps(torch, scan_libs, dense, tvalid, got, f"S={S}, T={T}, B={B}")
+    time_scan_warps(torch, libs, dense, tvalid, got, f"S={S}, T={T}, B={B}")
     rows.append(row("crf_sum_scan" + sfx, "K3/K4", "crf_scan.cu", "crf_bm_pallas.py:69", run,
                     "crf_sum_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=None))
@@ -575,11 +729,14 @@ def check_scans(torch, peak: dict, gen, nbase: int, scan_libs: dict) -> list:
     return rows
 
 
-def check_bt_scans(torch, peak: dict, gen, kind: str, nbase: int = 4) -> list:
+def check_bt_scans(torch, peak: dict, gen, libs: dict, kind: str, nbase: int = 4) -> list:
     """K11 on one batch-major dense batch, T=2560, B=256, ragged nblocks:
     the run-length structure (S=8, runnie's main path; rows) or the
     flip-flop one of ``nbase`` bases (S=8, r941_native's path under
-    pallas; S=10; checked and logged, no row)."""
+    pallas; S=10; checked and logged, no row).  The forward and Viterbi
+    scans timed over SCAN_REPS runs with their time a step, grid and
+    registers; at S=8 (run-length) and S=10 also in K11's other builds; at
+    S=8 the backward pass's input profiled."""
     from flappie_tpu_torch.ops import crf_cuda
     from flappie_tpu_torch.ops.crf import dense_from_params, flipflop_index, rle_index
 
@@ -603,7 +760,8 @@ def check_bt_scans(torch, peak: dict, gen, kind: str, nbase: int = 4) -> list:
     delta = (got - want).abs()
     if not bool((delta <= 1e-5 * want.abs() + 1e-5).all()):
         raise AssertionError(f"{tag} crf_bt_fwd: outside rtol 1e-5 of its plain version")
-    ms = cuda_ms(torch, lambda: crf_cuda.fwd_scan(dense, valid), 5)
+    ms = cuda_ms(torch, lambda: crf_cuda.fwd_scan(dense, valid), SCAN_REPS)
+    log(f"{tag} crf_bt_fwd, T={T}, B={B}: {bt_step(ms, T, S, B, 'crf_bt_fwd_kernel')}")
     plain_ms = cuda_ms(torch, lambda: crf_cuda.fwd_scan_plain(dense, valid), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * T * B * S, nv * (5 * S * S + 5 * S), peak)
     rows.append(row("crf_bt_fwd", "K11", "crf_bt.cu", "crf_pallas.py:45", run, "crf_bt_fwd",
@@ -614,13 +772,20 @@ def check_bt_scans(torch, peak: dict, gen, kind: str, nbase: int = 4) -> list:
     alphas0, bps0 = crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank)
     if not (torch.equal(alphas, alphas0) and torch.equal(bps, bps0)):
         raise AssertionError(f"{tag} crf_bt_viterbi: not bit-equal to its plain version")
-    ms = cuda_ms(torch, lambda: crf_cuda.viterbi_scan(dense, valid, idx.tie_rank), 5)
+    ms = cuda_ms(torch, lambda: crf_cuda.viterbi_scan(dense, valid, idx.tie_rank), SCAN_REPS)
+    log(f"{tag} crf_bt_viterbi, T={T}, B={B}: {bt_step(ms, T, S, B, 'crf_bt_viterbi_kernel')}")
     plain_ms = cuda_ms(torch, lambda: crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * S * S + 5 * T * B * S, nv * (4 * S * S + 3 * S),
                     peak)
     rows.append(row("crf_bt_viterbi", "K11", "crf_bt.cu", "crf_pallas.py:73", run,
                     "crf_bt_viterbi", max_abs_err=(alphas - alphas0).abs().max().item(), ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+
+    if kind == "rle" or S == 10:
+        time_bt_builds(torch, libs, dense, valid, idx.tie_rank, got, (alphas, bps),
+                       f"S={S}, T={T}, B={B}")
+    if kind == "rle":
+        profile_bwd_copy(torch, dense, valid, f"S={S}, T={T}, B={B}")
 
     last = alphas[-1].argmax(dim=-1).to(torch.int32)
     bp_rev, valid_rev = bps.flip(0), valid.flip(0)
@@ -648,14 +813,15 @@ def check_bt_scans(torch, peak: dict, gen, kind: str, nbase: int = 4) -> list:
 RUNNIE_SCAN_SHAPE = (13_108, 24)
 
 
-def check_runnie_scans(torch, gen, scan_libs: dict) -> None:
+def check_runnie_scans(torch, peak: dict, gen, libs: dict) -> None:
     """Every CRF kernel of runnie's main path against its plain version at
     the shape of its heaviest program (RUNNIE_SCAN_SHAPE), the run-length
     structure, ragged nblocks including 0 and T: K3/K4, K9 (bit-equal to
     them), K5, K6 (default impl) and K11's three (pallas), K11's forward
     scan also over the transposed, time-reversed blocks of the backward
     pass.  Tolerances as at T=2560; checked and logged with the times of
-    K3, K9 and K5, no row."""
+    K3, K9, K5 and K11's forward and Viterbi scans (and K3's, K11's other
+    builds), and K11's backward-pass input profiled; no row."""
     from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda
     from flappie_tpu_torch.ops.crf import dense_from_params, rle_index
     from flappie_tpu_torch.ops.crf_bm import _dense_tm
@@ -698,18 +864,32 @@ def check_runnie_scans(torch, gen, scan_libs: dict) -> None:
             ("K9", lambda: crf_bm_cuda.fwdbwd_states(dense, valid), 2),
             ("K5", lambda: crf_bm_cuda.viterbi_fwd(dense, valid, idx.tie_rank), 1)):
         log(f"{tag}: {name} {scan_step(cuda_ms(torch, fn, SCAN_REPS), T, S, B, chains)}")
-    time_scan_warps(torch, scan_libs, dense, valid, split[0], f"T={T}, B={B}, S={S}")
+    time_scan_warps(torch, libs, dense, valid, split[0], f"T={T}, B={B}, S={S}")
     last = alpha.argmax(dim=0).to(torch.int32)
     equal("K6", (crf_bm_cuda.traceback(bps, valid, last),),
           (crf_bm_cuda.traceback_plain(bps, valid, last),))
 
     dense = dense_from_params(trans, idx)  # [T, B, S, S]
-    close("K11 forward", crf_cuda.fwd_scan(dense, valid), crf_cuda.fwd_scan_plain(dense, valid))
+    fwd = crf_cuda.fwd_scan(dense, valid)
+    close("K11 forward", fwd, crf_cuda.fwd_scan_plain(dense, valid))
     rev = dense.flip(0).transpose(-1, -2)
     close("K11 forward (backward pass)", crf_cuda.fwd_scan(rev, valid.flip(0)),
           crf_cuda.fwd_scan_plain(rev, valid.flip(0)))
     alphas, bps = crf_cuda.viterbi_scan(dense, valid, idx.tie_rank)
     equal("K11 Viterbi", (alphas, bps), crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank))
+    nv = int(valid.sum().item())
+    for name, kernel, fn, bytes_, ops in (
+            ("K11 forward", "crf_bt_fwd_kernel", lambda: crf_cuda.fwd_scan(dense, valid),
+             4 * T * B * (S * S + 1 + S), nv * (5 * S * S + 5 * S)),
+            ("K11 Viterbi", "crf_bt_viterbi_kernel",
+             lambda: crf_cuda.viterbi_scan(dense, valid, idx.tie_rank),
+             4 * T * B * (S * S + 1) + 4 * S * S + 5 * T * B * S, nv * (4 * S * S + 3 * S))):
+        bms, by = bound(bytes_, ops, peak)
+        log(f"{tag}: {name} {bt_step(cuda_ms(torch, fn, SCAN_REPS), T, S, B, kernel)}; bound "
+            f"{bms:.4f} ms ({by})")
+    time_bt_builds(torch, libs, dense, valid, idx.tie_rank, fwd, (alphas, bps),
+                   f"T={T}, B={B}, S={S}")
+    profile_bwd_copy(torch, dense, valid, f"T={T}, B={B}, S={S}")
     last = alphas[-1].argmax(dim=-1).to(torch.int32)
     bp_rev, valid_rev = bps.flip(0), valid.flip(0)
     equal("K11 traceback", (crf_cuda.traceback_bt(bp_rev, valid_rev, last),),
@@ -823,18 +1003,18 @@ def check_seq(torch, peak: dict, gen, kind: str) -> dict:
                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
-def check_kernels(torch, peak: dict, scan_libs: dict) -> list:
+def check_kernels(torch, peak: dict, libs: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
     time_lstm_shapes(torch, gen)
     rows += [check_conv12(torch, peak, gen)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
-    rows += (check_scans(torch, peak, gen, 4, scan_libs)
-             + check_scans(torch, peak, gen, 5, scan_libs))
-    rows += check_bt_scans(torch, peak, gen, "rle")
+    rows += (check_scans(torch, peak, gen, 4, libs)
+             + check_scans(torch, peak, gen, 5, libs))
+    rows += check_bt_scans(torch, peak, gen, libs, "rle")
     for nbase in (4, 5):
-        check_bt_scans(torch, peak, gen, "flipflop", nbase)
-    check_runnie_scans(torch, gen, scan_libs)
+        check_bt_scans(torch, peak, gen, libs, "flipflop", nbase)
+    check_runnie_scans(torch, peak, gen, libs)
     for r in rows:
         log("kernel " + json.dumps({
             "kernel": r["name"], "id": r["kid"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1404,9 +1584,7 @@ def runnie_path(torch, np, card: str) -> dict:
     from flappie_tpu_torch.models.config import get_model_config
 
     cfg = get_model_config("rle_r941_native")
-    wdir = os.path.join(WORK, "rle_r941_native")
-    reads_dir = os.path.join(wdir, "reads")
-    names = write_reads(np, np.random.default_rng(20261017), reads_dir, *RUNNIE_READS)
+    wdir, reads_dir, names = write_runnie_reads(np)
     nsample = sum(n for _, n in names)
     uuids = sorted(f"00000000-0000-4000-8000-{k:012d}" for k in range(len(names)))
     P, bucket_of = runnie_buckets(reads_dir, names)
@@ -1464,13 +1642,40 @@ def runnie_path(torch, np, card: str) -> dict:
     compare_runs(f"runnie gpu vs cpu, fb ({len(subset)} reads, cpu wall {cpu_wall:.1f} s)",
                  {u: outputs["fb", "scanb"][u] for u in cpu}, cpu)
 
+    profiled_runnie(torch, reads_dir, card)
+    profiled_runnie(torch, reads_dir, card, {"FLAPPIE_TPU_CRF_IMPL": "pallas"})
+    return launches["fb", "pallas"]
+
+
+def write_runnie_reads(np) -> tuple:
+    """runnie's reads (RUNNIE_READS, seeded) under WORK: (work directory,
+    reads directory, [(file, samples)])."""
+    wdir = os.path.join(WORK, "rle_r941_native")
+    reads_dir = os.path.join(wdir, "reads")
+    return wdir, reads_dir, write_reads(np, np.random.default_rng(20261017), reads_dir,
+                                        *RUNNIE_READS)
+
+
+def profiled_runnie(torch, reads_dir: str, card: str, env=None, what: str = "") -> float:
+    """runnie's fb run once more under torch.profiler (``env``: knobs for
+    this run): the device busy share of the wall and kernel time by name;
+    returns the device ms of K11's forward and Viterbi kernels (0 when
+    the run took the default impl)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from flappie_tpu_torch.cli.runnie import main as runnie_main
+
+    out = os.path.join(os.path.dirname(reads_dir), "gpu_fb_profiled.run")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = run_cli(torch, [reads_dir, "-o", os.path.join(wdir, "gpu_fb_profiled.run")],
-                       runnie_main)
-    log_profile("rle_r941_native (runnie fb run, profiler on)", prof, wall, card)
-    return launches["fb", "pallas"]
+        wall = run_cli(torch, [reads_dir, "-o", out], runnie_main, env)
+    knob = "".join(f" {k}={v}" for k, v in (env or {}).items())
+    log_profile(f"rle_r941_native (runnie fb run{knob}{what}, profiler on)", prof, wall, card)
+    got = device_time(prof)
+    k11 = 0.0 if got is None else sum(us for name, us in got[2].items()
+                                      if "crf_bt_fwd" in name or "crf_bt_viterbi" in name) / 1e3
+    if k11:
+        log(f"  K11 forward + Viterbi kernel time {k11:.1f} ms")
+    return k11
 
 
 # -- phase 4: training ---------------------------------------------------------
@@ -1808,19 +2013,22 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     peak = PEAKS["pcie" if "PCIe" in card else "sxm"]
     t0 = time.perf_counter()
-    variants = start_scan_variants(cuda_build)
+    variants = start_builds(cuda_build, VARIANTS)
     built = cuda_build.build()
-    scan_libs = finish_scan_variants(variants)
-    log(f"build: {built} and crf_scan at {len(scan_libs)} CTA sizes in "
-        f"{time.perf_counter() - t0:.2f} s")
+    libs = finish_builds(variants)
+    log(f"build: {built} and the variants {list(libs)} in {time.perf_counter() - t0:.2f} s")
     for name, text in cuda_build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  {name}: {line.strip()}")
+    for name in (n for n in libs if n.startswith("bt_")):
+        log(f"  build {name}: " + "; ".join(
+            f"{k} {ptxas_usage(variant_log[name], k)}"
+            for k in ("crf_bt_fwd_kernel", "crf_bt_viterbi_kernel")))
     log_cluster_plans()
     log_scan_plans()
-
-    rows = check_kernels(torch, peak, scan_libs)
+    log_bt_plans()
+    rows = check_kernels(torch, peak, libs)
     shutil.rmtree(WORK, ignore_errors=True)
     launches = {}
     for model in RUNS:

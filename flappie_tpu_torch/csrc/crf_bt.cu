@@ -13,185 +13,308 @@
 // alpha_0 row.  The kernels read it as it is; nothing is transposed to the
 // batch-minor layout of csrc/crf_scan.cu.
 //
-// What bounds them on this card: as for K3/K5/K6 (crf_scan.cu), not bytes
-// (T.B.S.S.4 B = 168 MB at T=2560, B=256, S=8: ~50 us of HBM time) and not
-// arithmetic, but the serial chain over T.  The frame is K3's:
-//  - sum / Viterbi: a block holds 32 reads x S states, one thread per (state,
-//    read); the S states of a read are exchanged through shared memory
-//    (double-buffered, one __syncthreads per step), and each thread loads the
-//    weights of the next KT steps into registers while it computes the
-//    current KT, so no step waits on DRAM.  Thread (to, x) reads the
-//    from-column m[b][0..S-1][to] of its read's contiguous S*S block.  The
-//    state is the fastest thread index: a warp's load of one from-row then
-//    covers whole rows of consecutive reads (4 sectors at S=8), where a warp
-//    of 32 reads at one state touched 32 sectors a load and ran 2.4x slower
-//    (3.5 against K3's 1.5 ms at T=2560, B=256 on an H100 SXM at 700 W, timed
-//    by chip_smoke.py); the shared state is laid out
-//    [read][state] for the same reason, so neither its reads nor its writes
-//    conflict on a bank;
-//  - traceback: one thread per read walks the time-reversed backpointers
-//    from last; the S int8 backpointers of the next KT steps are loaded ahead
-//    (they do not depend on the walk) and the walk selects among registers.
-// Arithmetic follows crf_pallas.py exactly: from-states are taken in order
-// 0..S-1 for the max and for the sum of exps, lse = max + log(sum(exp(z -
-// max))) with forbidden transitions at the finite NEG_BIG; invalid steps blend
-// a = v*nxt + (1-v)*a (v is 0 or 1, so the blend is exact however it is
-// contracted); the Viterbi backpointer is the lowest tie_rank among the
-// maxima, scanned per from-state with a strict <, the identity on invalid
+// What bounds them on this card: not bytes (T.B.S.S.4 B = 168 MB at T=2560,
+// B=256, S=8: ~50 us of HBM time) and not arithmetic, but the serial chain
+// over T: a kernel takes T times one step of one warp.  The first design
+// (one thread per (state, read), 32 reads x S states a block, the states
+// exchanged through shared memory under a __syncthreads over S warps every
+// step, each thread loading its next KT steps of weights into registers)
+// took ~470 ns a step at S=8, on one block at runnie's B=24.  The forward
+// and Viterbi scans now run K3/K5's frame (crf_chain.cuh, crf_scan.cu):
+//  - a chain warp holds R = 32 / S whole reads, lane = read * S + to-state (4
+//    reads at S=8, 3 at S=10 with lanes 30-31 idle); a step gathers the S
+//    states of a read with S __shfl_sync, and no block barrier sits on the
+//    chain;
+//  - chain warps are independent, one a CTA (kBtWarps; bt_plan, mirrored by
+//    ops/crf_cuda.py _bt_plan), so B=256 spreads over 64 CTAs (86 at S=10)
+//    and runnie's B=24 over 6.  Two or four a CTA, sharing an SM, were
+//    slower at both S: Viterbi at S=10 0.61 against 0.37 ms with two;
+//  - the weights never pass through the chain warp's registers: the CTA's
+//    last warp, the producer, fills each chain warp's ring of RING tiles of
+//    KT steps.  One read's S*S block of one step is contiguous in the
+//    batch-major layout, S*S*4 = 256 or 400 bytes at a 16-byte aligned
+//    offset, so each is one bulk copy (cp.async.bulk, no tensor map) that
+//    completes the slot's full mbarrier by its bytes; producer lane
+//    (step k, read r) issues one a tile, after arrive.expect_tx of its
+//    bytes.  The valid flags go by 4-byte cp.async (12 bytes a step at
+//    S=10 are not a bulk copy's multiple of 16), zero-filled past B or T.
+//    A read past B gets no copy: its lanes compute on whatever the ring
+//    holds, never store, and shuffle only among themselves;
+//  - bank layout: lane (r, to) reads from-row f of its read at r*P + f*S +
+//    to.  With the blocks packed (P = S*S) the 4 reads of S=8 fall on one
+//    bank (64 = 0 mod 32): a 4-way conflict on every load of the chain.
+//    Each read's block lands at a padded stride P (72 floats at S=8: reads
+//    on banks 0, 8, 16, 24, no conflict; 104 at S=10, where no stride that
+//    keeps the blocks 16-byte aligned separates three runs of 10 banks: at
+//    most 2-way, against 3-way packed), hence R bulk copies a step and not
+//    one;
+//  - outputs of a step are R*S contiguous floats (and int8 backpointers),
+//    one coalesced store a warp.  The forward scan holds a tile of them in
+//    registers and stores them after the tile (S=10: 0.58 against 0.71 ms
+//    when stored at every step; S=8 equal or 2-4% faster), the Viterbi
+//    scan stores them at every step (holding them: 2-17% slower, and
+//    spills).
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): at T=2560,
+// B=256 the forward scan takes ~0.57 ms at S=8 (~223 ns a step; the first
+// design 1.20 ms in the same call) and ~0.58 at S=10 (1.76), the Viterbi
+// scan ~0.39-0.45 (1.08) and ~0.37 (1.66); at runnie's T=13,108, B=24,
+// 2.66-2.76 (5.69) and 1.77-1.84 (4.89).  ptxas: forward 48 registers
+// at S=8, 56 at S=10; Viterbi 72 and 72; no spills.
+// Arithmetic (crf_chain.cuh) follows crf_pallas.py exactly: from-states are
+// taken in order 0..S-1 for the sum of exps, the max is exact in any order,
+// lse = max + log(sum(exp(z - max))) with forbidden transitions at the
+// finite NEG_BIG; invalid steps blend a = v*nxt + (1-v)*a (v is 0 or 1, so
+// the blend is exact however it is contracted); the Viterbi backpointer is
+// the lowest tie_rank among the maxima, the first from-state among equal
+// ranks (what crf_pallas.py's strict-< scan keeps), the identity on invalid
 // steps, written as int8.  The max-plus pass uses only adds and compares, so
 // it is bit-equal to its plain version.
+// The traceback keeps its first design: one thread per read walks the
+// time-reversed backpointers from last; the S int8 backpointers of the next
+// KT steps are loaded ahead (they do not depend on the walk) and the walk
+// selects among registers.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include <cstdint>
+
+#include "crf_chain.cuh"
 
 namespace {
 
-constexpr int RB = 32;  // reads per block (threadIdx.y; the state is threadIdx.x)
-constexpr int RANK_BIG = 1000000;
+using namespace flappie;
 
+// Chain warps a CTA (besides the producer warp): 1, the fastest of 1, 2
+// and 4 at both S (chip_smoke.py times the others in builds with
+// -DBT_WARPS=n); at most 4, as __launch_bounds__(160) allows.
+#ifdef BT_WARPS
+template <int S>
+constexpr int kBtWarps = BT_WARPS;
+#else
+template <int S>
+constexpr int kBtWarps = 1;
+#endif
+static_assert(kBtWarps<8> >= 1 && kBtWarps<8> <= 4 && kBtWarps<10> >= 1 && kBtWarps<10> <= 4,
+              "1 to 4 chain warps a CTA");
+
+// One chain warp's ring: R reads' S*S blocks of KT steps a tile, each read's
+// block at stride P, and their valid flags.
+template <int S>
+struct alignas(16) BtRing {
+  static constexpr int R = 32 / S;             // reads a warp
+  static constexpr int P = S == 8 ? 72 : 104;  // floats from one read's block to the next
+  static constexpr unsigned BYTES = S * S * 4;  // one read's block of one step: one bulk copy
+  static_assert(KT * R <= 32, "a tile's copies take one producer lane each");
+  static_assert(P >= S * S && P % 4 == 0 && BYTES % 16 == 0, "16-byte aligned blocks");
+  unsigned long long full[RING], empty[RING];  // mbarriers: slot filled, slot read
+  float m[RING][KT][R * P];
+  int v[RING][KT][R];
+};
+
+struct BtPlan {
+  int R, W, ctas, smem, P;
+};
+
+// Reads a warp, chain warps a CTA (kBtWarps, never more than the batch
+// needs), CTAs, shared bytes a CTA, the ring's read stride in floats.
+template <int S>
+BtPlan bt_plan(int B) {
+  constexpr int R = BtRing<S>::R;
+  const int nw = (B + R - 1) / R;
+  int W = kBtWarps<S>;
+  if (W > nw) W = nw;
+  if (W < 1) W = 1;
+  return {R, W, (nw + W - 1) / W, W * static_cast<int>(sizeof(BtRing<S>)), BtRing<S>::P};
+}
+
+// The producer warp (the last of the CTA): fill each chain warp's ring, tile
+// by tile, RING tiles ahead of it at most.  Lane (k, r) = (lane / R, lane %
+// R) copies step k of the tile for read r.  A slot's full barrier takes 64
+// arrivals (each lane's cp.async arrival and its arrive.expect_tx) and the
+// bytes of the bulk copies; its empty barrier the chain warp's one arrive.
+template <int S>
+__device__ __forceinline__ void bt_produce(BtRing<S>* rings, int W, const float* __restrict__ dense,
+                                           const int* __restrict__ valid, int T, int B) {
+  constexpr int R = BtRing<S>::R, P = BtRing<S>::P;
+  const int lane = threadIdx.x & 31, w0 = blockIdx.x * W;
+  const int k = lane / R, r = lane % R;
+  const bool mine = lane < KT * R;
+  int nc = 0;  // chain warps of this CTA that hold reads
+  while (nc < W && (w0 + nc) * R < B) ++nc;
+  const int ntile = (T + KT - 1) / KT;
+  for (int tile = 0; tile < ntile; ++tile) {
+    const int slot = tile % RING, fill = tile / RING, t = tile * KT + k;
+    for (int c = 0; c < nc; ++c) {
+      BtRing<S>& ring = rings[c];
+      const int b = (w0 + c) * R + r;
+      const bool live = mine && t < T && b < B;
+      if (fill > 0) mbar_wait(&ring.empty[slot], (fill - 1) & 1);
+      if (mine)
+        cp_async<4>(&ring.v[slot][k][r], live ? valid + (long)t * B + b : valid, live ? 4 : 0);
+      cp_async_arrive(&ring.full[slot]);
+      mbar_arrive_expect_tx(&ring.full[slot], live ? BtRing<S>::BYTES : 0);
+      if (live)
+        bulk_copy(&ring.m[slot][k][r * P], dense + ((long)t * B + b) * S * S, BtRing<S>::BYTES,
+                  &ring.full[slot]);
+    }
+  }
+  cp_async_wait_all();
+}
+
+// Set up the CTA: W chain warps, each with its ring, and the producer warp
+// (the last), which fills them and returns nullptr.  A chain warp gets its
+// ring and first read b0, or nullptr past the batch.
+template <int S>
+__device__ __forceinline__ BtRing<S>* bt_chain_warp(const float* dense, const int* valid, int T,
+                                                    int B, int& b0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  BtRing<S>* rings = reinterpret_cast<BtRing<S>*>(smem);
+  const int W = (blockDim.x >> 5) - 1, warp = threadIdx.x >> 5;
+  if (threadIdx.x < W * RING) {
+    mbar_init(&rings[threadIdx.x / RING].full[threadIdx.x % RING], 64);
+    mbar_init(&rings[threadIdx.x / RING].empty[threadIdx.x % RING], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();  // once, before any chain starts
+  if (warp == W) {
+    bt_produce<S>(rings, W, dense, valid, T, B);
+    return nullptr;
+  }
+  b0 = (blockIdx.x * W + warp) * BtRing<S>::R;
+  return b0 < B ? rings + warp : nullptr;
+}
+
+// Walk a chain warp's T steps, calling step(t, k, slice, valid flags) with
+// step t = tile * KT + k's blocks in the ring, and flush(t0, n) after each
+// tile of n steps from t0.  Every lane of the warp calls it with the same T.
+template <int S, typename Step, typename Flush>
+__device__ __forceinline__ void bt_walk(BtRing<S>& ring, int T, Step&& step, Flush&& flush) {
+  const int ntile = (T + KT - 1) / KT;
+  for (int tile = 0; tile < ntile; ++tile) {
+    const int slot = tile % RING, t0 = tile * KT, n = min(KT, T - t0);
+    mbar_wait(&ring.full[slot], (tile / RING) & 1);
+    if (n == KT) {
+      // a whole tile: no exit test between steps, so the compiler may move
+      // one step's loads into the previous step's chain
+#pragma unroll
+      for (int k = 0; k < KT; ++k) step(t0 + k, k, ring.m[slot][k], ring.v[slot][k]);
+    } else {
+      for (int k = 0; k < n; ++k) step(t0 + k, k, ring.m[slot][k], ring.v[slot][k]);
+    }
+    __syncwarp();  // the slot is read
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[slot]);
+    flush(t0, n);
+  }
+}
+
+// A lane's place: read r of the warp (rr: r clamped into the ring for the
+// idle lanes 30-31 at S=10), to-state st, the lane holding state 0 of its
+// read, the ring offset of its column in from-row 0, and whether it stores.
+template <int S>
+struct BtLane {
+  int rr, st, base, off;
+  bool live;
+  __device__ __forceinline__ BtLane(int B, int b0) {
+    constexpr int R = BtRing<S>::R;
+    const int lane = threadIdx.x & 31, r = lane / S;
+    st = lane % S;
+    rr = r < R ? r : 0;
+    base = r * S;
+    off = rr * BtRing<S>::P + st;
+    live = r < R && b0 + r < B;
+  }
+};
+
+// A lane's output [T, B, S] at (t, read, state): element (t * B + b0) * S +
+// lane.  put() stores it at once, or (HOLD) holds a tile of them in
+// registers for flush() to store after the tile: the forward scan holds its
+// outputs, the Viterbi scan stores them, the faster choice for each (header).
+template <typename T, bool HOLD>
+struct LaneOut {
+  T* p;
+  long stride;
+  bool live;
+  T held[KT];
+  __device__ __forceinline__ LaneOut(T* out, int B, int S, int b0, bool live_)
+      : p(out + (long)b0 * S + (threadIdx.x & 31)), stride((long)B * S), live(live_) {}
+  __device__ __forceinline__ void put(int t, int k, T x) {
+    if constexpr (HOLD)
+      held[k] = x;
+    else if (live)
+      p[t * stride] = x;
+  }
+  __device__ __forceinline__ void flush(int t0, int n) {
+    if constexpr (HOLD) {
+      if (live)
+        for (int k = 0; k < n; ++k) p[(t0 + k) * stride] = held[k];
+    }
+  }
+};
+
+// Sum-semiring forward scan (K11 forward): out[t] = the state after block t.
+template <int S>
+__global__ void __launch_bounds__(160) crf_bt_fwd_kernel(const float* __restrict__ dense,  // [T, B, S, S]
+                                                         const int* __restrict__ valid,    // [T, B]
+                                                         float* __restrict__ out,          // [T, B, S]
+                                                         int T, int B) {
+  int b0;
+  BtRing<S>* ring = bt_chain_warp<S>(dense, valid, T, B, b0);
+  if (!ring) return;
+  const BtLane<S> L(B, b0);
+  LaneOut<float, true> o(out, B, S, b0, L.live);
+  float a = 0.f;
+  bt_walk<S>(
+      *ring, T,
+      [&](int t, int k, const float* m, const int* vf) {
+        const float nxt = lse_step<S>(a, L.base, [&](int f) { return m[L.off + f * S]; });
+        const float v = (float)vf[L.rr];
+        a = v * nxt + (1.f - v) * a;
+        o.put(t, k, a);
+      },
+      [&](int t0, int n) { o.flush(t0, n); });
+}
+
+// Max-plus forward (K11 Viterbi): the state after every block (crf_pallas.py's
+// alphas output) and int8 backpointers.
+template <int S>
+__global__ void __launch_bounds__(160) crf_bt_viterbi_kernel(
+    const float* __restrict__ dense,  // [T, B, S, S]
+    const int* __restrict__ valid,    // [T, B]
+    const int* __restrict__ rank,     // [S, S] (from, to)
+    float* __restrict__ alphas,       // [T, B, S]
+    int8_t* __restrict__ bp_out,      // [T, B, S]
+    int T, int B) {
+  int b0;
+  BtRing<S>* ring = bt_chain_warp<S>(dense, valid, T, B, b0);
+  if (!ring) return;
+  const BtLane<S> L(B, b0);
+  const MaxKeys<S> mk(rank, L.st);
+  LaneOut<float, false> oa(alphas, B, S, b0, L.live);
+  LaneOut<int8_t, false> ob(bp_out, B, S, b0, L.live);
+  float a = 0.f;
+  bt_walk<S>(
+      *ring, T,
+      [&](int t, int k, const float* m, const int* vf) {
+        int bp;
+        const float best = maxplus_step<S>(a, L.base, [&](int f) { return m[L.off + f * S]; }, mk, bp);
+        const float v = (float)vf[L.rr];
+        a = v * best + (1.f - v) * a;
+        oa.put(t, k, a);
+        ob.put(t, k, (int8_t)(v != 0.f ? bp : L.st));
+      },
+      [&](int t0, int n) {
+        oa.flush(t0, n);
+        ob.flush(t0, n);
+      });
+}
+
+// K11's traceback walks one read a thread; it keeps its own look-ahead of KT
+// steps.
 template <int S>
 struct Tile {
   static constexpr int KT = S <= 8 ? 8 : 4;  // steps loaded ahead
 };
 
-// mm[k][f] = dense[t0 + k, b, f, to] and vv[k] = valid[t0 + k, b] for the KT
-// steps from t0 (zeros past T or for a dead lane).
-template <int S, int KT>
-__device__ __forceinline__ void load_cols(const float* __restrict__ dense,
-                                          const int* __restrict__ valid, int t0, int T,
-                                          int B, int b, bool live, int to,
-                                          float (&mm)[KT][S], float (&vv)[KT]) {
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    const int t = t0 + k;
-    const bool ok = live && t < T;
-    const long base = (((long)t * B + b) * S) * S + to;
-    vv[k] = ok ? (float)valid[(long)t * B + b] : 0.f;
-#pragma unroll
-    for (int f = 0; f < S; ++f) mm[k][f] = ok ? dense[base + f * S] : 0.f;
-  }
-}
-
-template <int S, int KT>
-__device__ __forceinline__ void shift_tile(float (&m)[KT][S], float (&v)[KT],
-                                           const float (&mn)[KT][S], const float (&vn)[KT]) {
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    v[k] = vn[k];
-#pragma unroll
-    for (int f = 0; f < S; ++f) m[k][f] = mn[k][f];
-  }
-}
-
-// Sum-semiring forward scan; one thread per (to-state, read), the state fastest.
-template <int S>
-__global__ void crf_bt_fwd_kernel(const float* __restrict__ dense,  // [T, B, S, S]
-                                  const int* __restrict__ valid,    // [T, B]
-                                  float* __restrict__ out,          // [T, B, S]
-                                  int T, int B) {
-  constexpr int KT = Tile<S>::KT;
-  __shared__ float a_s[2][RB][S];
-  const int to = threadIdx.x, x = threadIdx.y;
-  const int b = blockIdx.x * RB + x;
-  const bool live = b < B;
-  float a = 0.f;
-  a_s[0][x][to] = 0.f;
-
-  float m[KT][S], mn[KT][S], v[KT], vn[KT];
-  const int ntile = (T + KT - 1) / KT;
-  if (ntile > 0) load_cols<S, KT>(dense, valid, 0, T, B, b, live, to, m, v);
-  __syncthreads();
-  int cur = 0;
-  for (int tile = 0; tile < ntile; ++tile) {
-    if (tile + 1 < ntile)
-      load_cols<S, KT>(dense, valid, (tile + 1) * KT, T, B, b, live, to, mn, vn);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = tile * KT + k;
-      if (t >= T) break;  // uniform across the block
-      float z[S];
-#pragma unroll
-      for (int f = 0; f < S; ++f) z[f] = a_s[cur][x][f] + m[k][f];
-      float mx = z[0];
-#pragma unroll
-      for (int f = 1; f < S; ++f) mx = fmaxf(mx, z[f]);
-      float sum = 0.f;
-#pragma unroll
-      for (int f = 0; f < S; ++f) sum += expf(z[f] - mx);
-      const float nxt = mx + logf(sum);
-      a = v[k] * nxt + (1.f - v[k]) * a;
-      if (live) out[((long)t * B + b) * S + to] = a;
-      a_s[cur ^ 1][x][to] = a;
-      cur ^= 1;
-      __syncthreads();
-    }
-    shift_tile<S, KT>(m, v, mn, vn);
-  }
-}
-
-// Max-plus forward; one thread per (to-state, read), the state fastest.  Writes
-// the state after every block (crf_pallas.py's alphas output) and int8
-// backpointers.
-template <int S>
-__global__ void crf_bt_viterbi_kernel(const float* __restrict__ dense,  // [T, B, S, S]
-                                      const int* __restrict__ valid,    // [T, B]
-                                      const int* __restrict__ rank,     // [S, S] (from, to)
-                                      float* __restrict__ alphas,       // [T, B, S]
-                                      int8_t* __restrict__ bp_out,      // [T, B, S]
-                                      int T, int B) {
-  constexpr int KT = Tile<S>::KT;
-  __shared__ float a_s[2][RB][S];
-  __shared__ int rk[S][S];
-  const int to = threadIdx.x, x = threadIdx.y;
-  const int b = blockIdx.x * RB + x;
-  const bool live = b < B;
-  for (int i = x * S + to; i < S * S; i += RB * S) rk[i / S][i % S] = rank[i];
-  float a = 0.f;
-  a_s[0][x][to] = 0.f;
-
-  float m[KT][S], mn[KT][S], v[KT], vn[KT];
-  const int ntile = (T + KT - 1) / KT;
-  if (ntile > 0) load_cols<S, KT>(dense, valid, 0, T, B, b, live, to, m, v);
-  __syncthreads();
-  int cur = 0;
-  for (int tile = 0; tile < ntile; ++tile) {
-    if (tile + 1 < ntile)
-      load_cols<S, KT>(dense, valid, (tile + 1) * KT, T, B, b, live, to, mn, vn);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = tile * KT + k;
-      if (t >= T) break;  // uniform across the block
-      float z[S];
-#pragma unroll
-      for (int f = 0; f < S; ++f) z[f] = a_s[cur][x][f] + m[k][f];
-      float best = z[0];
-#pragma unroll
-      for (int f = 1; f < S; ++f) best = fmaxf(best, z[f]);
-      int minrank = RANK_BIG, bp = 0;
-#pragma unroll
-      for (int f = 0; f < S; ++f) {
-        const int rf = z[f] == best ? rk[f][to] : RANK_BIG;
-        if (rf < minrank) {
-          minrank = rf;
-          bp = f;
-        }
-      }
-      a = v[k] * best + (1.f - v[k]) * a;
-      if (live) {
-        const long o = ((long)t * B + b) * S + to;
-        alphas[o] = a;
-        bp_out[o] = (int8_t)(v[k] != 0.f ? bp : to);
-      }
-      a_s[cur ^ 1][x][to] = a;
-      cur ^= 1;
-      __syncthreads();
-    }
-    shift_tile<S, KT>(m, v, mn, vn);
-  }
-}
-
-// Serial walk over time-reversed backpointers; one thread per read.
-// out[k] is the state before block T-1-k.
 template <int S>
 __global__ void crf_bt_traceback_kernel(const int8_t* __restrict__ bp,  // [T, B, S], reversed
                                         const int* __restrict__ valid,  // [T, B], reversed
@@ -236,19 +359,31 @@ __global__ void crf_bt_traceback_kernel(const int8_t* __restrict__ bp,  // [T, B
   }
 }
 
+// Launch a chain kernel (K11 forward or Viterbi) at bt_plan<S>(B); the
+// bulk copies need ``dense`` on a 16-byte boundary.  Returns the launch
+// error code.
+template <int S, typename Kernel, typename... Args>
+int launch_chain(int B, const float* dense, cudaStream_t st, Kernel kernel, Args... args) {
+  if (reinterpret_cast<std::uintptr_t>(dense) % 16 != 0) return cudaErrorMisalignedAddress;
+  const BtPlan plan = bt_plan<S>(B);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<plan.ctas, 32 * (plan.W + 1), plan.smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
 template <int S>
 int launch_fwd(const float* dense, const int* valid, float* out, int T, int B,
                cudaStream_t st) {
-  crf_bt_fwd_kernel<S><<<(B + RB - 1) / RB, dim3(S, RB), 0, st>>>(dense, valid, out, T, B);
-  return cudaGetLastError();
+  return launch_chain<S>(B, dense, st, crf_bt_fwd_kernel<S>, dense, valid, out, T, B);
 }
 
 template <int S>
 int launch_viterbi(const float* dense, const int* valid, const int* rank, float* alphas,
                    int8_t* bp, int T, int B, cudaStream_t st) {
-  crf_bt_viterbi_kernel<S><<<(B + RB - 1) / RB, dim3(S, RB), 0, st>>>(dense, valid, rank,
-                                                                       alphas, bp, T, B);
-  return cudaGetLastError();
+  return launch_chain<S>(B, dense, st, crf_bt_viterbi_kernel<S>, dense, valid, rank, alphas, bp,
+                         T, B);
 }
 
 template <int S>
@@ -262,6 +397,20 @@ int launch_traceback(const int8_t* bp, const int* valid, const int* last, int* o
 
 extern "C" const char* flappie_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The plan of the forward and Viterbi chain kernels for S states and B
+// reads: info = {reads a warp, chain warps a CTA, CTAs, shared bytes a CTA,
+// floats from one read's block to the next in the ring}.
+extern "C" int flappie_crf_bt_info(int S, int B, int* info) {
+  if (S != 8 && S != 10) return cudaErrorInvalidValue;
+  const BtPlan p = S == 8 ? bt_plan<8>(B) : bt_plan<10>(B);
+  info[0] = p.R;
+  info[1] = p.W;
+  info[2] = p.ctas;
+  info[3] = p.smem;
+  info[4] = p.P;
+  return 0;
 }
 
 // S = 8 (flip-flop and run-length over 4 bases) and S = 10 (5 bases) are compiled.

@@ -56,7 +56,9 @@
 // the maxima, scanned per from-state (crf_bm_pallas.py:153-157), identity on
 // invalid steps.  The max-plus pass uses only adds and compares, so it is
 // bit-equal to its plain version; K9 runs K3's and K4's chain function in
-// different CTAs of one launch, so it is bit-equal to them.
+// different CTAs of one launch, so it is bit-equal to them.  The ring's
+// constants, the mbarrier and copy instructions and the step arithmetic are
+// crf_chain.cuh's, shared with K11's forward and Viterbi scans (crf_bt.cu).
 
 #include <cuda_runtime.h>
 
@@ -64,14 +66,11 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "crf_chain.cuh"
+
 namespace {
 
-constexpr int RANK_BIG = 1000000;
-constexpr unsigned FULL = 0xffffffffu;
-
-// The chain kernels' plan (ops/crf_bm_cuda.py _scan_plan): steps a ring
-// tile, tiles in a warp's ring.
-constexpr int KT = 8, RING = 4;
+using namespace flappie;
 
 // One warp's ring: R reads' slice of KT steps a tile and their valid flags,
 // and the outputs of its last two tiles, staged for writing out.
@@ -121,52 +120,6 @@ ScanPlan scan_plan(int B) {
 template <int S>
 __device__ __forceinline__ int swz(int f, int t) {
   return f * S + (t + f) % S;
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                 "r"(src_bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-                 "r"(src_bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared.b64 P1, [%0], %1;\n"
-      "@!P1 bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Arrive on the barrier once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
 }
 
 // A lane's share of the copies that fill one tile of the ring: VEC copies a
@@ -296,19 +249,6 @@ __device__ __forceinline__ void walk(Ring<S>& ring, int T, Step&& step, Flush&& 
   }
 }
 
-// max over z[0 .. S-1] as a tree: exact, so any order gives the same bits.
-template <int S>
-__device__ __forceinline__ float max_of(const float (&z)[S]) {
-  float m[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) m[j] = z[j];
-#pragma unroll
-  for (int w = 1; w < S; w *= 2)
-#pragma unroll
-    for (int j = 0; j + w < S; j += 2 * w) m[j] = fmaxf(m[j], m[j + w]);
-  return m[0];
-}
-
 // A lane's place: read r of the warp (rr: r clamped into the ring for the
 // idle lanes 30-31 at S=10), state st, the lane holding state 0 of its read,
 // and the ring offsets of the S weights it sums over (forward: from-states j
@@ -344,14 +284,7 @@ __device__ __forceinline__ void sum_warp(Ring<S>& ring, float* __restrict__ out,
   walk<S>(
       ring, T,
       [&](const float* m, const int* vf, unsigned(&o)[S][R]) {
-        float z[S];
-#pragma unroll
-        for (int j = 0; j < S; ++j) z[j] = __shfl_sync(FULL, a, L.base + j) + m[L.rd[j]];
-        const float mx = max_of<S>(z);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < S; ++j) sum += expf(z[j] - mx);
-        const float nxt = mx + logf(sum);
+        const float nxt = lse_step<S>(a, L.base, [&](int j) { return m[L.rd[j]]; });
         const float v = (float)vf[L.rr];
         a = v * nxt + (1.f - v) * a;
         if (L.r < R) o[L.st][L.r] = __float_as_uint(a);
@@ -427,30 +360,16 @@ __global__ void __launch_bounds__(160) crf_viterbi_kernel(
   const bool live = L.r < Ring<S>::R && b < B;
   // the backpointer is the lowest tie rank among the maxima, the first
   // from-state among equal ranks: the least key rank * 16 + f
-  int key[S], nokey[S];
-#pragma unroll
-  for (int f = 0; f < S; ++f) {
-    key[f] = rank[f * S + to] * 16 + f;
-    nokey[f] = RANK_BIG * 16 + f;
-  }
+  const MaxKeys<S> mk(rank, to);
   float a = 0.f;
   walk<S>(
       *ring, T,
       [&](const float* m, const int* vf, unsigned(&o)[S][Ring<S>::R]) {
-        float z[S];
-#pragma unroll
-        for (int f = 0; f < S; ++f) z[f] = __shfl_sync(FULL, a, L.base + f) + m[L.rd[f]];
-        const float best = max_of<S>(z);
-        int k[S];
-#pragma unroll
-        for (int f = 0; f < S; ++f) k[f] = z[f] == best ? key[f] : nokey[f];
-#pragma unroll
-        for (int w = 1; w < S; w *= 2)
-#pragma unroll
-          for (int f = 0; f + w < S; f += 2 * w) k[f] = min(k[f], k[f + w]);
+        int bp;
+        const float best = maxplus_step<S>(a, L.base, [&](int f) { return m[L.rd[f]]; }, mk, bp);
         const float v = (float)vf[L.rr];
         a = v * best + (1.f - v) * a;
-        if (L.r < Ring<S>::R) o[to][L.r] = v != 0.f ? k[0] & 15 : to;
+        if (L.r < Ring<S>::R) o[to][L.r] = v != 0.f ? bp : to;
       },
       [&](int tile, int n) {
         write_out<S, VEC>(*ring, tile, n, reinterpret_cast<unsigned*>(bp_out), B, b0, tile * KT, 1);

@@ -16,6 +16,12 @@ in order 0..S-1, lse = max + log(sum(exp(z - max))), invalid steps
 blended as v*nxt + (1-v)*a, Viterbi backpointers by lowest tie_rank
 among the maxima and identity on invalid steps, written as int8.
 ``<wrapper>.launches`` counts kernel launches.
+
+The forward and Viterbi scans run a chain warp per R = 32 // S reads
+(lane = read * S + state), fed one bulk copy a read a step by the CTA's
+producer warp through a ring in shared memory.  ``bt_plan`` in the
+source sets their grid; ``_bt_plan`` mirrors it and ``bt_info`` reports
+it on the card.
 """
 
 from __future__ import annotations
@@ -86,26 +92,65 @@ def traceback_bt_plain(bp_rev_tm, valid_rev_tm, last_state):
 # -- kernels -----------------------------------------------------------------
 
 
+# csrc/crf_bt.cu (with csrc/crf_chain.cuh): steps a ring tile, tiles in a
+# warp's ring, chain warps a CTA by S (kBtWarps), and the floats from one
+# read's S*S block to the next in the ring by S (a padded stride that keeps
+# each block 16-byte aligned and spreads the reads over the banks)
+BT_KT, BT_RING, BT_WARPS, BT_STRIDE = 8, 4, {8: 1, 10: 1}, {8: 72, 10: 104}
+
+
+def _bt_plan(S: int, B: int):
+    """(reads a warp, chain warps a CTA, CTAs, shared bytes a CTA, ring
+    stride) of K11's forward and Viterbi scans for S states and B reads: a
+    mirror of bt_plan in csrc/crf_bt.cu, which launches them and which
+    ``bt_info`` reports on the card.  Each chain warp holds R = 32 // S
+    reads and a ring of BT_RING tiles of BT_KT steps of their S*S blocks,
+    each at BT_STRIDE[S] floats from the last, and their valid flags, with
+    a full and an empty mbarrier a tile; one producer warp a CTA fills the
+    rings with one bulk copy a read a step."""
+    R = 32 // S
+    nwarps = -(-B // R)
+    W = max(1, min(BT_WARPS[S], nwarps))
+    ring = 16 * BT_RING + 4 * BT_RING * BT_KT * (R * BT_STRIDE[S] + R)
+    ring = -(-ring // 16) * 16
+    return R, W, -(-nwarps // W), W * ring, BT_STRIDE[S]
+
+
+def bt_info(S: int, B: int) -> dict:
+    """The plan the C side launches (``_bt_plan``'s fields by name). Card
+    only."""
+    lib = _lib()
+    info = (ctypes.c_int * 5)()
+    cuda_build.check(lib, lib.flappie_crf_bt_info(S, B, info), "bt_info")
+    return dict(zip(("R", "W", "ctas", "smem", "stride"), info))
+
+
 def _lib():
     lib = cuda_build.load("crf_bt")
     if lib.flappie_crf_bt_fwd.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
+        lib.flappie_crf_bt_info.argtypes = [I, I, P]
         lib.flappie_crf_bt_fwd.argtypes = [P, P, P, I, I, I, P]
         lib.flappie_crf_bt_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
         lib.flappie_crf_bt_traceback.argtypes = [P, P, P, P, I, I, I, P]
-        for fn in (lib.flappie_crf_bt_fwd, lib.flappie_crf_bt_viterbi,
+        for fn in (lib.flappie_crf_bt_info, lib.flappie_crf_bt_fwd, lib.flappie_crf_bt_viterbi,
                    lib.flappie_crf_bt_traceback):
             fn.restype = ctypes.c_int
     return lib
 
 
 def _dense_args(name, dense_tm, valid_tm):
+    """The kernels' inputs: dense contiguous on a 16-byte boundary (the
+    bulk copies' alignment; a view that starts elsewhere is copied), valid
+    as int32."""
     T, B, S, S2 = dense_tm.shape
     _check_cuda(name, dense_tm, S)
     if S2 != S or tuple(valid_tm.shape) != (T, B) or dense_tm.dtype != torch.float32:
         raise ValueError(f"{name}: dense must be float32 [T, B, S, S] with valid [T, B]")
-    return (dense_tm.contiguous(),
-            valid_tm.to(device=dense_tm.device, dtype=torch.int32).contiguous(), T, S, B)
+    dense = dense_tm.contiguous()
+    if dense.data_ptr() % 16:
+        dense = dense.clone()
+    return dense, valid_tm.to(device=dense_tm.device, dtype=torch.int32).contiguous(), T, S, B
 
 
 def fwd_scan(dense_tm, valid_tm):

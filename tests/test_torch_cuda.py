@@ -160,22 +160,37 @@ def test_fused_fb_kernel_matches_plain_and_split(cuda, nbase, B, T):
         assert torch.equal(g, crf_bm_cuda.sum_states(d, v, backward))
 
 
-@pytest.mark.parametrize("kind,nbase,B,T", [("flipflop", 4, 40, 75), ("rle", 4, 37, 70),
-                                            ("flipflop", 5, 7, 33)])
+# (kind, nbase, B, T) of K11: chain warps of R = 32 // S reads (4 at S=8, 3
+# at S=10) partly filled (B = 1, 3, 5, 31, 33, 257) or full (24), T at 1 and
+# at a ring tile's edge (KT - 1, KT + 1 = 7, 9), and the production length
+# 2560; ops/crf_cuda.py _bt_plan
+BT_SHAPES = ([("flipflop", 4, 40, 75), ("rle", 4, 37, 70), ("flipflop", 5, 7, 33)]
+             + [(kind, nbase, B, T) for kind, nbase in (("rle", 4), ("flipflop", 5))
+                for B in (1, 3, 5, 24, 31, 33, 257) for T in (1, 7, 9)]
+             + [("rle", 4, 24, 2560), ("rle", 4, 257, 2560), ("flipflop", 4, 31, 2560),
+                ("flipflop", 5, 33, 2560)])
+
+
+@pytest.mark.parametrize("kind,nbase,B,T", BT_SHAPES)
 def test_bt_kernels_match_plain(cuda, kind, nbase, B, T):
-    """K11: forward scan rtol 1e-5, Viterbi (alphas and int8
+    """K11: forward scan rtol 1e-5 (also over the backward pass's input,
+    the transposed, time-reversed blocks), Viterbi (alphas and int8
     backpointers) and traceback bit-equal, on dyadic weights."""
     idx = {"flipflop": flipflop_index, "rle": rle_index}[kind](nbase)
     gen = torch.Generator().manual_seed(T + 2)
     trans = torch.round(_rnd(gen, T, B, idx.nparam, scale=2.0) * 8.0) / 8.0
     nblocks = torch.randint(0, T + 1, (B,), generator=gen)
-    nblocks[0], nblocks[-1] = T, 0
+    nblocks[-1] = 0
+    nblocks[0] = T  # so that B=1 holds a full read
     d = dense_from_params(trans.to(cuda), idx)  # [T, B, S, S]
     v = (torch.arange(T)[:, None] < nblocks[None, :]).to(cuda)
-    before = [f.launches for f in (crf_cuda.fwd_scan, crf_cuda.viterbi_scan,
-                                   crf_cuda.traceback_bt)]
+    n, n1, n2 = [f.launches for f in (crf_cuda.fwd_scan, crf_cuda.viterbi_scan,
+                                      crf_cuda.traceback_bt)]
     torch.testing.assert_close(crf_cuda.fwd_scan(d, v), crf_cuda.fwd_scan_plain(d, v),
                                rtol=1e-5, atol=1e-5)
+    rev = d.flip(0).transpose(-1, -2)
+    torch.testing.assert_close(crf_cuda.fwd_scan(rev, v.flip(0)),
+                               crf_cuda.fwd_scan_plain(rev, v.flip(0)), rtol=1e-5, atol=1e-5)
     a, bp = crf_cuda.viterbi_scan(d, v, idx.tie_rank)
     a0, bp0 = crf_cuda.viterbi_scan_plain(d, v, idx.tie_rank)
     assert bp.dtype == torch.int8 and torch.equal(a, a0) and torch.equal(bp, bp0)
@@ -184,7 +199,7 @@ def test_bt_kernels_match_plain(cuda, kind, nbase, B, T):
     assert torch.equal(crf_cuda.traceback_bt(bp_rev, v_rev, last),
                        crf_cuda.traceback_bt_plain(bp_rev, v_rev, last))
     assert [f.launches for f in (crf_cuda.fwd_scan, crf_cuda.viterbi_scan,
-                                 crf_cuda.traceback_bt)] == [n + 1 for n in before]
+                                 crf_cuda.traceback_bt)] == [n + 2, n1 + 1, n2 + 1]
 
 
 @pytest.mark.parametrize("impl", ["scanb", "pallas"])
@@ -339,3 +354,29 @@ def test_scan_info_matches_plan(cuda, S):
     _scan_plan."""
     for B in (1, 3, 5, 24, 256, 257):
         assert tuple(crf_bm_cuda.scan_info(S, B).values()) == crf_bm_cuda._scan_plan(S, B)
+
+
+def test_bt_kernels_take_a_view_off_the_16_byte_grid(cuda):
+    """K11's bulk copies need the dense input on a 16-byte boundary: a
+    contiguous view that starts 4 bytes off it gives the same outputs."""
+    idx = rle_index(4)
+    gen = torch.Generator().manual_seed(11)
+    T, B = 19, 5
+    d = dense_from_params(_rnd(gen, T, B, idx.nparam, scale=2.0).to(cuda), idx)
+    v = (torch.arange(T)[:, None] < torch.tensor([T, 3, 0, 19, 7])[None, :]).to(cuda)
+    buf = torch.empty(d.numel() + 1, device=cuda)
+    off = buf[1:].view_as(d)
+    off.copy_(d)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(crf_cuda.fwd_scan(off, v), crf_cuda.fwd_scan(d, v))
+    for got, want in zip(crf_cuda.viterbi_scan(off, v, idx.tie_rank),
+                         crf_cuda.viterbi_scan(d, v, idx.tie_rank)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [8, 10])
+def test_bt_info_matches_plan(cuda, S):
+    """K11's chain scans' grid on the C side is ops/crf_cuda.py's
+    _bt_plan."""
+    for B in (1, 3, 5, 24, 256, 257):
+        assert tuple(crf_cuda.bt_info(S, B).values()) == crf_cuda._bt_plan(S, B)

@@ -1,20 +1,36 @@
-"""The batch-minor chain scans' plan (flappie_tpu_torch/ops/crf_bm_cuda.py
-``_scan_plan``, mirrored by ``scan_plan`` in csrc/crf_scan.cu): every read
-in exactly one chain warp, at most 32 lanes a warp, one CTA's rings within
-an SM's 227 KB, for the batches the paths run and their ragged edges.
-Pure arithmetic: runs on the CPU; the card holds the C side to it
+"""The chain scans' plans: the batch-minor K3/K4, K9 and K5
+(flappie_tpu_torch/ops/crf_bm_cuda.py ``_scan_plan``, mirrored by
+``scan_plan`` in csrc/crf_scan.cu) and K11's batch-major forward and
+Viterbi scans (ops/crf_cuda.py ``_bt_plan``, mirrored by ``bt_plan`` in
+csrc/crf_bt.cu): every read in exactly one chain warp, at most 32 lanes a
+warp, one CTA's rings within an SM's 227 KB, for the batches the paths run
+and their ragged edges; K11's ring slots and bulk copies 16-byte aligned
+and its read stride spreading a warp's loads over the banks.  Pure
+arithmetic: runs on the CPU; the card holds the C sides to them
 (chip_smoke.py, tests/test_torch_cuda.py).
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import pytest
 import torch
 
 from flappie_tpu_torch.ops.crf_bm_cuda import SCAN_KT, SCAN_RING, _scan_plan
+from flappie_tpu_torch.ops.crf_cuda import BT_KT, BT_RING, _bt_plan
 
 SMEM_PER_CTA = 232_448  # 227 KB: the most shared memory one block may use
 BATCHES = [1, 2, 3, 4, 5, 24, 31, 32, 33, 255, 256, 257]
+# (source, S, B): crf_scan.cu's cases keep their ids
+GRID = [pytest.param(src, S, B, id=f"{S}-{B}" if src == "crf_scan" else f"{src}-{S}-{B}")
+        for src in ("crf_scan", "crf_bt") for S in (8, 10) for B in BATCHES]
+
+
+def _plan(src: str, S: int, B: int):
+    """(reads a warp, chain warps a CTA, CTAs, shared bytes a CTA) of a
+    source's chain scans."""
+    return _scan_plan(S, B) if src == "crf_scan" else _bt_plan(S, B)[:4]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -27,29 +43,43 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("B", BATCHES)
-@pytest.mark.parametrize("S", [8, 10])
-def test_covers_every_read_once(S, B):
+@pytest.mark.parametrize("src, S, B", GRID)
+def test_covers_every_read_once(src, S, B):
     """Chain warp g of the grid holds reads g*R ... g*R + R - 1: over
     ``ctas`` CTAs of W warps each read is held once, and no CTA is
     empty."""
-    R, W, ctas, _ = _scan_plan(S, B)
+    R, W, ctas, _ = _plan(src, S, B)
     held = [g * R + r for g in range(ctas * W) for r in range(R) if g * R + r < B]
     assert held == list(range(B))
     assert (ctas - 1) * W * R < B  # the last CTA holds a read
 
 
-@pytest.mark.parametrize("B", BATCHES)
-@pytest.mark.parametrize("S", [8, 10])
-def test_lanes_and_shared_memory(S, B):
+@pytest.mark.parametrize("src, S, B", GRID)
+def test_lanes_and_shared_memory(src, S, B):
     """R reads of S states fill at most the warp's 32 lanes; a CTA's W
     chain warps (at most 4 besides the producer warp: 160 threads) keep
-    their rings within one SM."""
-    R, W, _, smem = _scan_plan(S, B)
+    their rings within one SM.  K11's ring (barriers, then the blocks
+    [RING][KT][R * P] floats, then the valid flags): every slot, step and
+    read's block starts on a 16-byte boundary, where a bulk copy lands one
+    read's S*S block of a step (S*S*4 bytes, from a 16-byte aligned
+    source: (t*B + b)*S*S floats of the dense input)."""
+    R, W, _, smem = _plan(src, S, B)
     assert R * S <= 32 and 32 - R * S < S  # no room for one more read
     assert 1 <= W <= 4
     assert smem <= SMEM_PER_CTA
     assert smem % 16 == 0  # each ring stays 16-byte aligned
+    if src == "crf_bt":
+        P = _bt_plan(S, B)[4]
+        ring = smem // W
+        assert ring * W == smem and ring % 16 == 0  # each chain warp's ring is aligned
+        m0 = 16 * BT_RING  # full[RING], empty[RING]
+        for slot in range(BT_RING):
+            for k in range(BT_KT):
+                for r in range(R):
+                    assert (m0 + 4 * ((slot * BT_KT + k) * R * P + r * P)) % 16 == 0
+        assert P >= S * S  # a block does not run into the next read's
+        assert m0 + 4 * BT_RING * BT_KT * (R * P + R) <= ring  # blocks and valid flags fit
+        assert (4 * S * S) % 16 == 0  # a copy's size, and every source offset
 
 
 def test_ring_size_and_defaults():
@@ -61,3 +91,38 @@ def test_ring_size_and_defaults():
     assert _scan_plan(8, 256) == (4, 1, 64, 16 * 4 + 4 * (4 * 8 * (256 + 4) + 2 * 8 * 8 * 4))
     assert _scan_plan(10, 256)[:3] == (3, 2, 43)
     assert _scan_plan(8, 24)[:3] == (4, 1, 6)
+
+
+def _worst_conflict(S: int, P: int) -> int:
+    """The most distinct words one bank serves in one of a K11 chain warp's
+    loads: lane (r, to) reads word r*P + f*S + to of a step's blocks for
+    from-state f; the idle lanes 30-31 at S=10 read read 0's words."""
+    R = 32 // S
+    worst = 0
+    for f in range(S):
+        words = {(lane // S if lane // S < R else 0) * P + f * S + lane % S for lane in range(32)}
+        worst = max(worst, max(Counter(w % 32 for w in words).values()))
+    return worst
+
+
+@pytest.mark.parametrize("S", [8, 10])
+def test_bt_ring_stride_spreads_the_banks(S):
+    """K11's padded stride serves each load in one pass at S=8 (the packed
+    blocks, P = S*S, put the 4 reads on one bank: 4 passes) and in two at
+    S=10, where no 16-byte aligned stride separates three runs of 10 banks
+    (packed: 3)."""
+    P = _bt_plan(S, 1)[4]
+    assert _worst_conflict(S, P) == {8: 1, 10: 2}[S]
+    assert _worst_conflict(S, S * S) == {8: 4, 10: 3}[S]
+    if S == 10:  # no 16-byte aligned stride does better
+        assert min(_worst_conflict(S, q) for q in range(S * S, S * S + 64, 4)) == 2
+
+
+def test_bt_ring_size_and_defaults():
+    """K11's ring at S=8: 4 tiles of 8 steps of 4 reads' blocks at a stride
+    of 72 floats and their valid flags, 8 barriers; one chain warp a CTA at
+    both S, and runnie's 24-read batch on 6 warps."""
+    assert (BT_KT, BT_RING) == (8, 4)
+    assert _bt_plan(8, 256) == (4, 1, 64, 16 * 4 + 4 * 4 * 8 * (4 * 72 + 4), 72)
+    assert _bt_plan(10, 256)[:3] == (3, 1, 86)
+    assert _bt_plan(8, 24)[:3] == (4, 1, 6)
