@@ -15,7 +15,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (reads a warp, chain warps a CTA, CTAs, ring bytes; flappie_crf_scan_info
    held to ops/crf_bm_cuda.py's _scan_plan) and K11's forward and Viterbi
    scans' plan (the same and the ring's read stride; flappie_crf_bt_info
-   held to ops/crf_cuda.py's _bt_plan).  Beside the path's build, and at
+   held to ops/crf_cuda.py's _bt_plan), and the tracebacks' plan (K6 and
+   K11's: steps a segment, rounds, clusters of CTAs, shared bytes;
+   flappie_crf_traceback_info and flappie_crf_bt_traceback_info held to
+   _tb_plan and _tb_bt_plan) with cudaOccupancyMaxActiveClusters, every
+   cluster resident at T=2560, B=256 and T=13,108, B=24.  Beside the path's build, and at
    the same time, the chain scans' other builds (VARIANTS): crf_scan.cu
    with -DSCAN_WARPS=1, 2, 4 and crf_bt.cu with -DBT_WARPS=1, 2, 4.
 2. Kernels: each kernel held against its plain PyTorch version on the
@@ -30,7 +34,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    with the per-step time and the cluster plan; the batch-minor scans (T=2560, B=256, ragged nblocks, S=8 for
    4 bases and S=10 for 5): K3/K4 CRF sum scan within rtol 1e-5, K9 (K3
    and K4 in one launch) within rtol 1e-5 and bit-equal to K3/K4, K5
-   Viterbi and K6 traceback bit-equal, K3/K4, K9 and K5 timed over 10
+   Viterbi and K6 traceback bit-equal (K6 also to its segmented twin;
+   the tracebacks, microseconds long, timed behind a device sleep so that
+   the wrapper's host work is not), K3/K4, K9 and K5 timed over 10
    runs with their time a step and CTAs, and K3 at 1, 2 and 4 chain warps
    a CTA (crf_scan.cu built with -DSCAN_WARPS=n beside the path's build),
    each bit-equal to the path's K3, alternated; the batch-major K11 (T=2560,
@@ -43,9 +49,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    backward pass's transposed, time-reversed view profiled (the copy that
    makes it contiguous beside the kernel); and K3/K4, K9, K5, K6 and K11
    with the run-length structure at the shape of runnie's heaviest program
-   (T=13,108 blocks, B=24), by the same rules, K3, K9, K5 and K11's
-   forward and Viterbi timed there too (with K3's and K11's other
-   builds); K10, the fused conv
+   (T=13,108 blocks, B=24), by the same rules, K3, K9, K5, K6 and K11's
+   three timed there too (with K3's and K11's other builds), and both
+   tracebacks at one step (their floor); K10, the fused conv
    1->4->16 (B=256, T=12800 samples, ragged lengths including 0, 3 and
    T) within 1e-5 absolute; K12, the recurrences alone over a computed
    affine (T=2560, B=256, H=256), LSTM and GRU-mod within 1e-4 of
@@ -91,7 +97,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    other in at most 1% of the blocks, the scans' drift logged); the
    device time of one full chunk batch (10 runs); one more fb run of each
    model under torch.profiler, and of runnie once more under
-   FLAPPIE_TPU_CRF_IMPL=pallas (K11's kernel time).
+   FLAPPIE_TPU_CRF_IMPL=pallas (K11's kernel time), runnie's runs with
+   their tracebacks replayed under the profiler: the traceback kernel's
+   device time beside the glue around it (layout copies, casts, flips).
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|; K10's Function at B=32,
@@ -154,13 +162,23 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after one warm-up."""
+# cycles of the device sleep queued ahead of a timed call that takes
+# microseconds (~1 ms of the H100's clock): the host's own work for the call
+# (the wrapper, the launch) then runs while the device sleeps, and the events
+# time the device's work alone
+LEAD_CYCLES = 2_000_000
+
+
+def cuda_ms(torch, fn, reps: int, lead: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after one
+    warm-up; ``lead``: each run behind a device sleep (LEAD_CYCLES)."""
     fn()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -169,10 +187,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def alternated_ms(torch, fns: dict, reps: int) -> dict:
+def alternated_ms(torch, fns: dict, reps: int, lead: bool = False) -> dict:
     """CUDA-event times of each function of ``fns`` over ``reps`` rounds
     after one warm-up each; within a round the functions take turns, in
-    reverse order every other round: {name: [ms, ...]}."""
+    reverse order every other round (``lead``: each run behind a device
+    sleep, as in cuda_ms): {name: [ms, ...]}."""
     for fn in fns.values():
         fn()
     names = list(fns)
@@ -181,6 +200,8 @@ def alternated_ms(torch, fns: dict, reps: int) -> dict:
         for k in names if i % 2 == 0 else names[::-1]:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            if lead:
+                torch.cuda._sleep(LEAD_CYCLES)
             e0.record()
             fns[k]()
             e1.record()
@@ -426,7 +447,8 @@ ENTRY_ARGS = {
     "flappie_crf_fwdbwd": "PPPPIIIP", "flappie_crf_viterbi": "PPPPPIIIP",
     "flappie_crf_traceback": "PPPPIIIP", "flappie_crf_bt_info": "IIP",
     "flappie_crf_bt_fwd": "PPPIIIP", "flappie_crf_bt_viterbi": "PPPPPIIIP",
-    "flappie_crf_bt_traceback": "PPPPIIIP",
+    "flappie_crf_bt_traceback": "PPPPIIIP", "flappie_crf_traceback_info": "IIIP",
+    "flappie_crf_bt_traceback_info": "IIIP",
 }
 
 # nvcc's output of each build loaded by finish_builds, by variant
@@ -495,12 +517,13 @@ def same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def time_builds(torch, source: str, libs: dict, fn, ref, what: str, T: int) -> dict:
+def time_builds(torch, source: str, libs: dict, fn, ref, what: str, T: int,
+                lead: bool = False) -> dict:
     """``fn`` (a wrapper call) through each build of csrc/<source>.cu in
     ``libs`` ({label: library}; None: the path's own), each output
     bit-equal to ``ref`` (the path's output, itself held to its plain
-    version), then timed alternated in one process.  Logs and returns
-    {label: median ms}."""
+    version), then timed alternated in one process (``lead``: behind a
+    device sleep).  Logs and returns {label: median ms}."""
     from flappie_tpu_torch.ops import cuda_build
 
     libs = {k: lib or cuda_build.load(source) for k, lib in libs.items()}
@@ -513,7 +536,7 @@ def time_builds(torch, source: str, libs: dict, fn, ref, what: str, T: int) -> d
         if not same(run(lib), ref):
             raise AssertionError(f"{what}, build {k}: not bit-equal to the path's output")
     times = alternated_ms(torch, {k: lambda lib=lib: run(lib) for k, lib in libs.items()},
-                          SCAN_REPS)
+                          SCAN_REPS, lead)
     log(f"{what}, each build bit-equal to the path's: " + "; ".join(
         f"{k}: {spread(ts)} = {1e6 * statistics.median(ts) / T:.1f} ns a step"
         for k, ts in times.items()))
@@ -637,6 +660,80 @@ def log_bt_plans() -> None:
             + ", ".join(got))
 
 
+# (T, B) of the tracebacks' plans logged and held: the chunk programs, runnie's
+# heaviest and a short bucket, and a batch past one read group a CTA slot
+TB_PLAN_SHAPES = ((2560, 256), (13_108, 24), (2000, 8), (75, 40), (2560, 1100))
+
+
+def log_tb_plans() -> None:
+    """The tracebacks' plans on the C side (flappie_crf_traceback_info,
+    flappie_crf_bt_traceback_info) held to ops/crf_bm_cuda.py's _tb_plan
+    and ops/crf_cuda.py's _tb_bt_plan, with the clusters the card holds at
+    once; at the main path's shapes (T=2560, B=256; T=13,108, B=24) every
+    cluster must be resident."""
+    from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda, cuda_build
+
+    for name, info_fn, plan_fn, src, kernel in (
+            ("K6", crf_bm_cuda.traceback_info, crf_bm_cuda._tb_plan, "crf_scan", "BmTrace"),
+            ("K11 traceback", crf_cuda.traceback_bt_info, crf_cuda._tb_bt_plan, "crf_bt",
+             "BtTrace")):
+        for S in (8, 10):
+            got = []
+            for T, B in TB_PLAN_SHAPES:
+                info = info_fn(T, S, B)
+                want = plan_fn(T, S, B)
+                if tuple(info.values())[:6] != want:
+                    raise AssertionError(f"{name} plan at T={T}, S={S}, B={B}: C side {info}, "
+                                         f"Python {want}")
+                clusters = info["ctas"] // info["C"]
+                if (T, B) in ((2560, 256), (13_108, 24)) and info["max_active_clusters"] < clusters:
+                    raise AssertionError(f"{name} at T={T}, S={S}, B={B}: {clusters} clusters, "
+                                         f"the card holds {info['max_active_clusters']} at once")
+                got.append(f"T={T}, B={B}: L={info['L']} x {info['rounds']} rounds, "
+                           f"{clusters} clusters of {info['C']} CTAs of {info['W']} warps, "
+                           f"{info['smem']} B a CTA, {info['max_active_clusters']} clusters "
+                           f"resident at most")
+            log(f"{name} S={S}: " + "; ".join(got))
+        log(f"  {name} ptxas: " + ptxas_usage(cuda_build.build_log.get(src, ""), kernel))
+
+
+def time_traceback(torch, fn, plain, ref, what: str, T: int) -> tuple:
+    """A traceback wrapper's output bit-equal to its plain walk's (``ref``
+    when given), then timed: the kernel behind a device sleep (its time is
+    microseconds, the wrapper's host work tens of them), SCAN_REPS runs;
+    the plain walk once.  Returns (ms, plain ms)."""
+    got = fn()
+    if not torch.equal(got, plain() if ref is None else ref):
+        raise AssertionError(f"{what}: not bit-equal to its plain walk")
+    ms = cuda_ms(torch, fn, SCAN_REPS, lead=True)
+    plain_ms = cuda_ms(torch, plain, 1)
+    log(f"{what}: {ms:.4f} ms (median of {SCAN_REPS}, behind a device sleep) = "
+        f"{1e6 * ms / T:.2f} ns a step; plain walk {plain_ms:.1f} ms; bit-equal")
+    return ms, plain_ms
+
+
+def time_traceback_floor(torch) -> None:
+    """Both tracebacks at one step on the grid of T=2560, B=256, S=8 (256
+    CTAs in clusters of 4): the floor under their times (the launch, the
+    cluster barriers, the exchange), beside one torch elementwise kernel
+    timed the same way."""
+    from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda
+
+    dev = torch.device("cuda")
+    B, S = 256, 8
+    bp = torch.zeros(1, S, B, dtype=torch.int32, device=dev)
+    valid = torch.ones(1, B, dtype=torch.int32, device=dev)
+    last = torch.zeros(B, dtype=torch.int32, device=dev)
+    bp_rev = bp.permute(0, 2, 1).to(torch.int8).contiguous()
+    x = torch.zeros(B, device=dev)
+    got = {name: cuda_ms(torch, fn, SCAN_REPS, lead=True) for name, fn in (
+        ("K6", lambda: crf_bm_cuda.traceback(bp, valid, last)),
+        ("K11 traceback", lambda: crf_cuda.traceback_bt(bp_rev, valid, last)),
+        ("torch add_", lambda: x.add_(1)))}
+    log(f"tracebacks at T=1, B={B}, S={S}, behind a device sleep (median of {SCAN_REPS}): "
+        + "; ".join(f"{k} {ms:.4f} ms" for k, ms in got.items()))
+
+
 def check_scans(torch, peak: dict, gen, nbase: int, libs: dict) -> list:
     """K3/K4, K9, K5, K6 on one dense batch, T=2560, B=256, S=2*nbase."""
     from flappie_tpu_torch.ops import crf_bm_cuda
@@ -718,10 +815,14 @@ def check_scans(torch, peak: dict, gen, nbase: int, libs: dict) -> list:
     last = alpha.argmax(dim=0).to(torch.int32)
     path = crf_bm_cuda.traceback(bps, tvalid, last)
     path0 = crf_bm_cuda.traceback_plain(bps, tvalid, last)
-    if not torch.equal(path, path0):
-        raise AssertionError(f"K6 crf_traceback S={S}: not equal to its plain version")
-    ms = cuda_ms(torch, lambda: crf_bm_cuda.traceback(bps, tvalid, last), 5)
-    plain_ms = cuda_ms(torch, lambda: crf_bm_cuda.traceback_plain(bps, tvalid, last), 1)
+    if not (torch.equal(path, path0)
+            and torch.equal(path, crf_bm_cuda.traceback_segmented_plain(bps, tvalid, last))):
+        raise AssertionError(f"K6 crf_traceback S={S}: not equal to its plain walk and twin")
+    vi = tvalid.to(torch.int32)  # the kernel's valid type: no conversion in the timed call
+    ms, plain_ms = time_traceback(
+        torch, lambda: crf_bm_cuda.traceback(bps, vi, last),
+        lambda: crf_bm_cuda.traceback_plain(bps, tvalid, last), path0,
+        f"K6 crf_traceback S={S}, T={T}, B={B}", T)
     bms, by = bound(4 * T * S * B + 4 * T * B + 4 * B + 4 * (T + 1) * B, nv * S, peak)
     rows.append(row("crf_traceback" + sfx, "K6", "crf_scan.cu", "crf_bm_pallas.py:170", run,
                     "crf_traceback", max_abs_err=float((path - path0).abs().max().item()),
@@ -788,13 +889,17 @@ def check_bt_scans(torch, peak: dict, gen, libs: dict, kind: str, nbase: int = 4
         profile_bwd_copy(torch, dense, valid, f"S={S}, T={T}, B={B}")
 
     last = alphas[-1].argmax(dim=-1).to(torch.int32)
-    bp_rev, valid_rev = bps.flip(0), valid.flip(0)
+    bp_rev, valid_rev = bps.flip(0).contiguous(), valid.flip(0)
     states = crf_cuda.traceback_bt(bp_rev, valid_rev, last)
     states0 = crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last)
-    if not torch.equal(states, states0):
-        raise AssertionError(f"{tag} crf_bt_traceback: not equal to its plain version")
-    ms = cuda_ms(torch, lambda: crf_cuda.traceback_bt(bp_rev, valid_rev, last), 5)
-    plain_ms = cuda_ms(torch, lambda: crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last), 1)
+    if not (torch.equal(states, states0) and torch.equal(
+            states, crf_cuda.traceback_bt_segmented_plain(bp_rev, valid_rev, last))):
+        raise AssertionError(f"{tag} crf_bt_traceback: not equal to its plain walk and twin")
+    vri = valid_rev.to(torch.int32).contiguous()
+    ms, plain_ms = time_traceback(
+        torch, lambda: crf_cuda.traceback_bt(bp_rev, vri, last),
+        lambda: crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last), states0,
+        f"{tag} crf_bt_traceback, T={T}, B={B}", T)
     bms, by = bound(T * B * S + 4 * T * B + 4 * B + 4 * T * B, nv * S, peak)
     rows.append(row("crf_bt_traceback", "K11", "crf_bt.cu", "crf_pallas.py:115", run,
                     "crf_bt_traceback", max_abs_err=float((states - states0).abs().max().item()),
@@ -820,8 +925,8 @@ def check_runnie_scans(torch, peak: dict, gen, libs: dict) -> None:
     them), K5, K6 (default impl) and K11's three (pallas), K11's forward
     scan also over the transposed, time-reversed blocks of the backward
     pass.  Tolerances as at T=2560; checked and logged with the times of
-    K3, K9, K5 and K11's forward and Viterbi scans (and K3's, K11's other
-    builds), and K11's backward-pass input profiled; no row."""
+    K3, K9, K5, K6 and K11's three (and K3's, K11's other builds), and
+    K11's backward-pass input profiled; no row."""
     from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda
     from flappie_tpu_torch.ops.crf import dense_from_params, rle_index
     from flappie_tpu_torch.ops.crf_bm import _dense_tm
@@ -868,6 +973,13 @@ def check_runnie_scans(torch, peak: dict, gen, libs: dict) -> None:
     last = alpha.argmax(dim=0).to(torch.int32)
     equal("K6", (crf_bm_cuda.traceback(bps, valid, last),),
           (crf_bm_cuda.traceback_plain(bps, valid, last),))
+    nv = int(valid.sum().item())
+    vi = valid.to(torch.int32)
+    ms, _ = time_traceback(torch, lambda: crf_bm_cuda.traceback(bps, vi, last),
+                           lambda: crf_bm_cuda.traceback_plain(bps, valid, last), None,
+                           f"{tag}: K6", T)
+    bms, by = bound(4 * T * B * (S + 2) + 8 * B, nv * S, peak)
+    log(f"{tag}: K6 bound {bms:.4f} ms ({by}), {ms / bms:.1f}x it")
 
     dense = dense_from_params(trans, idx)  # [T, B, S, S]
     fwd = crf_cuda.fwd_scan(dense, valid)
@@ -877,7 +989,6 @@ def check_runnie_scans(torch, peak: dict, gen, libs: dict) -> None:
           crf_cuda.fwd_scan_plain(rev, valid.flip(0)))
     alphas, bps = crf_cuda.viterbi_scan(dense, valid, idx.tie_rank)
     equal("K11 Viterbi", (alphas, bps), crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank))
-    nv = int(valid.sum().item())
     for name, kernel, fn, bytes_, ops in (
             ("K11 forward", "crf_bt_fwd_kernel", lambda: crf_cuda.fwd_scan(dense, valid),
              4 * T * B * (S * S + 1 + S), nv * (5 * S * S + 5 * S)),
@@ -891,9 +1002,15 @@ def check_runnie_scans(torch, peak: dict, gen, libs: dict) -> None:
                    f"T={T}, B={B}, S={S}")
     profile_bwd_copy(torch, dense, valid, f"T={T}, B={B}, S={S}")
     last = alphas[-1].argmax(dim=-1).to(torch.int32)
-    bp_rev, valid_rev = bps.flip(0), valid.flip(0)
+    bp_rev, valid_rev = bps.flip(0).contiguous(), valid.flip(0)
     equal("K11 traceback", (crf_cuda.traceback_bt(bp_rev, valid_rev, last),),
           (crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last),))
+    vri = valid_rev.to(torch.int32).contiguous()
+    ms, _ = time_traceback(torch, lambda: crf_cuda.traceback_bt(bp_rev, vri, last),
+                           lambda: crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last), None,
+                           f"{tag}: K11 traceback", T)
+    bms, by = bound(T * B * S + 8 * T * B + 4 * B, nv * S, peak)
+    log(f"{tag}: K11 traceback bound {bms:.4f} ms ({by}), {ms / bms:.1f}x it")
     log(f"{tag}: every kernel within its tolerance of its plain version; max |kernel - plain| "
         + json.dumps(errs))
 
@@ -1015,6 +1132,7 @@ def check_kernels(torch, peak: dict, libs: dict) -> list:
     for nbase in (4, 5):
         check_bt_scans(torch, peak, gen, libs, "flipflop", nbase)
     check_runnie_scans(torch, peak, gen, libs)
+    time_traceback_floor(torch)
     for r in rows:
         log("kernel " + json.dumps({
             "kernel": r["name"], "id": r["kid"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1230,8 +1348,11 @@ def log_profile(what: str, prof, wall: float, card: str) -> None:
         f"[{card}]")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     # the six longest, and every CRF decode kernel
-    for name, us in ranked[:6] + [kv for kv in ranked[6:] if "crf_" in kv[0]]:
+    for name, us in ranked[:6] + [kv for kv in ranked[6:] if "crf_" in kv[0] or "Trace" in kv[0]]:
         log(f"  kernel time {us / 1e3:9.1f} ms  {name[:90]}")
+    groups = "; ".join(f"{g} {ms:.3f} ms" for g, ms in group_ms(by_name).items() if ms)
+    if groups:
+        log(f"  kernel time by group: {groups}")
 
 
 def profiled_run(torch, reads_dir: str, card: str, model: str) -> None:
@@ -1656,26 +1777,98 @@ def write_runnie_reads(np) -> tuple:
                                         *RUNNIE_READS)
 
 
-def profiled_runnie(torch, reads_dir: str, card: str, env=None, what: str = "") -> float:
+# kernel names of a profile by group (this checkout's and an earlier one's)
+KERNEL_GROUPS = {
+    "K11 forward + Viterbi": ("crf_bt_fwd", "crf_bt_viterbi"),
+    "K6": ("BmTrace", "crf_traceback_kernel"),
+    "K11 traceback": ("BtTrace", "crf_bt_traceback_kernel"),
+}
+# replays of a run's tracebacks under the profiler (traceback_glue)
+GLUE_REPS = 5
+
+
+def group_ms(by_name: dict) -> dict:
+    """Device ms of each KERNEL_GROUPS group in a profile's {name: us}."""
+    return {g: sum(us for name, us in by_name.items() if any(p in name for p in parts)) / 1e3
+            for g, parts in KERNEL_GROUPS.items()}
+
+
+@contextlib.contextmanager
+def captured_tracebacks():
+    """Inside the block every ops/crf.py viterbi_traceback call (runnie's
+    decode, either CRF impl) runs as it is and its inputs are kept in the
+    list the block receives."""
+    from flappie_tpu_torch.ops import crf
+
+    own, calls = crf.viterbi_traceback, []
+
+    def keep(backptr, last_state, nblocks):
+        calls.append((backptr, last_state, nblocks))
+        return own(backptr, last_state, nblocks)
+
+    crf.viterbi_traceback = keep
+    try:
+        yield calls
+    finally:
+        crf.viterbi_traceback = own
+
+
+def traceback_glue(torch, calls: list, env=None):
+    """A run's tracebacks (captured_tracebacks' calls) replayed GLUE_REPS
+    times under torch.profiler with the run's knobs: device ms a run of
+    the traceback kernel and of the rest viterbi_traceback launches (the
+    glue: layout copies, casts, flips, the concatenation), and the glue's
+    kernels by ms; None when no device events were recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flappie_tpu_torch.ops import crf
+
+    with knobs(env), torch.inference_mode():
+        for c in calls:
+            crf.viterbi_traceback(*c)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(GLUE_REPS):
+                for c in calls:
+                    crf.viterbi_traceback(*c)
+            torch.cuda.synchronize()
+    got = device_time(prof)
+    if got is None:
+        return None
+    kernel = {n: us for n, us in got[2].items() if "Trace" in n or "traceback_kernel" in n}
+    glue = {n: us / 1e3 / GLUE_REPS for n, us in got[2].items() if n not in kernel}
+    return sum(kernel.values()) / 1e3 / GLUE_REPS, sum(glue.values()), glue
+
+
+def profiled_runnie(torch, reads_dir: str, card: str, env=None, what: str = "") -> dict:
     """runnie's fb run once more under torch.profiler (``env``: knobs for
-    this run): the device busy share of the wall and kernel time by name;
-    returns the device ms of K11's forward and Viterbi kernels (0 when
-    the run took the default impl)."""
+    this run): the device busy share of the wall and kernel time by name,
+    then the run's tracebacks replayed (traceback_glue): the kernel's time
+    beside its glue's.  Returns the device ms of each KERNEL_GROUPS group
+    in the run (0 for the impl the run did not take) and "glue": the
+    glue's ms a run (None if not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     from flappie_tpu_torch.cli.runnie import main as runnie_main
 
     out = os.path.join(os.path.dirname(reads_dir), "gpu_fb_profiled.run")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with captured_tracebacks() as calls, profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = run_cli(torch, [reads_dir, "-o", out], runnie_main, env)
     knob = "".join(f" {k}={v}" for k, v in (env or {}).items())
     log_profile(f"rle_r941_native (runnie fb run{knob}{what}, profiler on)", prof, wall, card)
     got = device_time(prof)
-    k11 = 0.0 if got is None else sum(us for name, us in got[2].items()
-                                      if "crf_bt_fwd" in name or "crf_bt_viterbi" in name) / 1e3
-    if k11:
-        log(f"  K11 forward + Viterbi kernel time {k11:.1f} ms")
-    return k11
+    groups = group_ms({} if got is None else got[2])
+    glue = traceback_glue(torch, calls, env) if calls else None
+    if not calls:
+        log("  traceback glue: none (the default impl's decode hands K5's backpointers to K6)")
+    elif glue is None:
+        log("  traceback glue: no device events recorded; not measured")
+    else:
+        log(f"  the run's {len(calls)} tracebacks replayed {GLUE_REPS}x under the profiler: "
+            f"kernel {glue[0]:.4f} ms a run, glue {glue[1]:.4f} ms a run ("
+            + ", ".join(f"{ms:.4f} {n[:60]}" for n, ms in
+                        sorted(glue[2].items(), key=lambda kv: -kv[1])[:5]) + ")")
+    return {**groups, "glue": None if glue is None else glue[1]}
 
 
 # -- phase 4: training ---------------------------------------------------------
@@ -2028,6 +2221,7 @@ def main() -> int:
     log_cluster_plans()
     log_scan_plans()
     log_bt_plans()
+    log_tb_plans()
     rows = check_kernels(torch, peak, libs)
     shutil.rmtree(WORK, ignore_errors=True)
     launches = {}

@@ -8,15 +8,17 @@ flappie_tpu_torch/csrc/crf_scan.cu and crf_bt.cu have this checkout's C
 interfaces.  Both sources are built from DIR beside this checkout's own
 (all nvcc at once), then:
 
-1. the SASS of crf_scan.cu's kernels (cuobjdump) compared, kernel by kernel;
-2. K3, K4, K9, K5 and K11's forward and Viterbi scans, through the port's
-   wrappers on each checkout's build, each output bit-equal to the other's
-   and timed alternated over 10 runs (chip_smoke.py's time_builds) at
+1. the SASS of crf_scan.cu's kernels (cuobjdump) compared, kernel by kernel
+   ("new": a kernel the other checkout does not have);
+2. K3, K4, K9, K5, K6 and K11's forward and Viterbi scans and traceback,
+   through the port's wrappers on each checkout's build, each output
+   bit-equal to the other's and timed alternated over 10 runs (chip_smoke.py's
+   time_builds; the tracebacks, microseconds long, behind a device sleep) at
    T=2560, B=256 (the run-length structure at S=8 and the 5-base flip-flop
    at S=10) and at runnie's heaviest program's shape (T=13,108, B=24);
-3. runnie's fb run under FLAPPIE_TPU_CRF_IMPL=pallas profiled on each
-   checkout's K11 in turns (other, this, this, other): K11's forward and
-   Viterbi kernel time a run.
+3. runnie's fb run under each CRF impl profiled on each checkout's kernels
+   in turns (other, this, this, other): K11's forward and Viterbi, K6 and
+   K11's traceback kernel time a run, and the traceback's glue.
 
 Prints the card's name and power limit last.  Imports nothing of JAX or of
 the JAX package; writes only under build/ in this checkout.  Exits 1 when
@@ -69,7 +71,7 @@ def compare(torch, np, card: str, parent: str) -> None:
     theirs = sass_by_kernel(os.path.join(cuda_build.BUILD_DIR, "parent_crf_scan",
                                          "libcrf_scan.so"))
     cs.log(f"SASS of crf_scan.cu's kernels, this checkout against {parent}: " + "; ".join(
-        f"{k}: " + ("identical" if theirs.get(k) == v else "differs")
+        f"{k}: " + ("new" if k not in theirs else "identical" if theirs[k] == v else "differs")
         + f" ({len(v)} instructions)" for k, v in sorted(mine.items())))
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -84,6 +86,18 @@ def compare(torch, np, card: str, parent: str) -> None:
             bt = dense_from_params(trans, idx)
             bm = _dense_tm(trans.permute(0, 2, 1), idx)
             rank = idx.tie_rank
+            # the tracebacks' inputs: Viterbi's backpointers in each layout,
+            # valid flags already int32 (no conversion in the timed call)
+            alpha, bps = crf_bm_cuda.viterbi_fwd(bm, valid, rank)
+            last, vi = alpha.argmax(dim=0).to(torch.int32), valid.to(torch.int32)
+            bp_rev = crf_cuda.viterbi_scan(bt, valid, rank)[1].flip(0).contiguous()
+            vri = vi.flip(0).contiguous()
+            for name, src, fn in (
+                    ("K6", "crf_scan", lambda: crf_bm_cuda.traceback(bps, vi, last)),
+                    ("K11 traceback", "crf_bt", lambda: crf_cuda.traceback_bt(bp_rev, vri, last))):
+                cs.time_builds(torch, src, {"other": other[f"parent_{src}"], "this": None}, fn,
+                               fn(), f"{name} at S={idx.nstate}, T={T}, B={B}, this checkout "
+                               f"against {parent} (behind a device sleep)", T, lead=True)
             for name, src, fn in (
                     ("K3", "crf_scan", lambda: crf_bm_cuda.sum_states(bm, valid, False)),
                     ("K4", "crf_scan", lambda: crf_bm_cuda.sum_states(bm, valid, True)),
@@ -96,16 +110,21 @@ def compare(torch, np, card: str, parent: str) -> None:
                                f"against {parent}", T)
     shutil.rmtree(cs.WORK, ignore_errors=True)
     _, reads_dir, _ = cs.write_runnie_reads(np)
-    pallas = {"FLAPPIE_TPU_CRF_IMPL": "pallas"}
-    cs.run_cli(torch, [reads_dir, "-o", os.path.join(cs.WORK, "warm.run")], runnie_main, pallas)
-    k11 = {"other": [], "this": []}
-    for who in ("other", "this", "this", "other"):
-        lib = other["parent_crf_bt"] if who == "other" else cuda_build.load("crf_bt")
-        with cs.using_lib("crf_bt", lib):
-            k11[who].append(cs.profiled_runnie(torch, reads_dir, card, pallas,
-                                               f", {who} checkout's K11"))
-    cs.log(f"K11 forward + Viterbi kernel time a profiled runnie fb run under pallas: this "
-           f"checkout {k11['this']} ms, {parent} {k11['other']} ms [{card}]")
+    for impl, groups in (("pallas", ("K11 forward + Viterbi", "K11 traceback")),
+                         ("scanb", ("K6",))):
+        env = {"FLAPPIE_TPU_CRF_IMPL": impl}
+        cs.run_cli(torch, [reads_dir, "-o", os.path.join(cs.WORK, "warm.run")], runnie_main, env)
+        got = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            libs = {src: other[f"parent_{src}"] if who == "other" else cuda_build.load(src)
+                    for src in ("crf_scan", "crf_bt")}
+            with cs.using_lib("crf_scan", libs["crf_scan"]), cs.using_lib("crf_bt", libs["crf_bt"]):
+                got[who].append(cs.profiled_runnie(torch, reads_dir, card, env,
+                                                   f", {who} checkout's kernels"))
+        for g in groups + ("glue",):
+            cs.log(f"{g} ms a profiled runnie fb run under {impl}: this checkout "
+                   f"{[r[g] for r in got['this']]}, {parent} {[r[g] for r in got['other']]} "
+                   f"[{card}]")
 
 
 def main() -> int:

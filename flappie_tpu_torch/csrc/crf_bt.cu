@@ -5,7 +5,8 @@
 //                              scan; the backward pass runs it on transposed,
 //                              time-reversed blocks, ops/crf.py crf_backward);
 //   crf_bt_viterbi_kernel   <- _viterbi_kernel:73 via viterbi_scan_pallas:178;
-//   crf_bt_traceback_kernel <- _traceback_kernel:115 via traceback_pallas:217.
+//   traceback_kernel<BtTrace<S>> (traceback.cuh)
+//                           <- _traceback_kernel:115 via traceback_pallas:217.
 //
 // Layout is crf_pallas.py's batch-major one: transition blocks [T, B, S, S]
 // (step, read, from, to: one read's S*S weights of a step are contiguous),
@@ -69,16 +70,21 @@
 // ranks (what crf_pallas.py's strict-< scan keeps), the identity on invalid
 // steps, written as int8.  The max-plus pass uses only adds and compares, so
 // it is bit-equal to its plain version.
-// The traceback keeps its first design: one thread per read walks the
-// time-reversed backpointers from last; the S int8 backpointers of the next
-// KT steps are loaded ahead (they do not depend on the walk) and the walk
-// selects among registers.
+// The traceback's first design walked one read a thread over the
+// time-reversed backpointers from last, the S int8 backpointers of the next
+// 8 steps loaded ahead: ~145 ns a step (0.37 ms at T=2560, B=256 on 2 CTAs;
+// one warp at runnie's B=24), each tile waiting one memory round trip with
+// little else in flight, against a bytes' bound of 0.003 ms.  It now runs
+// traceback.cuh's time-parallel walk (segments walked from every start state
+// at once, their maps composed through a cluster's shared memory) with K6;
+// bounded by the bytes and one segment's L dependent shared-memory look-ups.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "crf_chain.cuh"
+#include "traceback.cuh"
 
 namespace {
 
@@ -308,56 +314,33 @@ __global__ void __launch_bounds__(160) crf_bt_viterbi_kernel(
       });
 }
 
-// K11's traceback walks one read a thread; it keeps its own look-ahead of KT
-// steps.
-template <int S>
-struct Tile {
-  static constexpr int KT = S <= 8 ? 8 : 4;  // steps loaded ahead
-};
-
-template <int S>
-__global__ void crf_bt_traceback_kernel(const int8_t* __restrict__ bp,  // [T, B, S], reversed
-                                        const int* __restrict__ valid,  // [T, B], reversed
-                                        const int* __restrict__ last,   // [B]
-                                        int* __restrict__ out,          // [T, B]
-                                        int T, int B) {
-  constexpr int KT = Tile<S>::KT;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int s = last[b];
-  int p[KT][S], pn[KT][S], v[KT], vn[KT];
-  auto load_tile = [&](int tile, int (&pp)[KT][S], int (&vv)[KT]) {
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = tile * KT + k;
-      const bool ok = t < T;
-      vv[k] = ok ? valid[(long)t * B + b] : 0;
-#pragma unroll
-      for (int q = 0; q < S; ++q) pp[k][q] = ok ? (int)bp[((long)t * B + b) * S + q] : 0;
-    }
-  };
-  const int ntile = (T + KT - 1) / KT;
-  if (ntile > 0) load_tile(0, p, v);
-  for (int tile = 0; tile < ntile; ++tile) {
-    if (tile + 1 < ntile) load_tile(tile + 1, pn, vn);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = tile * KT + k;
-      if (t >= T) break;
-      int prev = p[k][0];
-#pragma unroll
-      for (int q = 1; q < S; ++q) prev = s == q ? p[k][q] : prev;
-      s = v[k] ? prev : s;
-      out[(long)t * B + b] = s;
-    }
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      v[k] = vn[k];
-#pragma unroll
-      for (int q = 0; q < S; ++q) p[k][q] = pn[k][q];
+// K11's traceback layout for traceback.cuh: backpointers [T, B, S] int8,
+// already time-reversed, so walk step k is time k.  A step's R reads' R*S
+// bytes are contiguous at (t*B + b0)*S, at any offset mod 4 (30 bytes at
+// S=10 are no multiple of a copy's 4 or 16): WORDS aligned 4-byte words hold
+// them at any offset, one cp.async each, the last word cut at the tensor's
+// end (bp is 4-byte aligned).  pick() finds the step's offset again.
+template <int S_>
+struct BtTrace {
+  static constexpr int S = S_, R = 32 / S, WORDS = (R * S + 3) / 4 + 1;
+  const int8_t* bp;
+  int T, B;
+  __device__ __forceinline__ int time(int k) const { return k; }
+  __device__ __forceinline__ void stage(unsigned* words, int k0, int n, int b0, int lane) const {
+    const long long total = (long long)T * B * S;
+    for (int i = lane; i < n * WORDS; i += 32) {
+      const int k = i / WORDS, j = i - k * WORDS;
+      const long long w = ((((long long)(k0 + k) * B + b0) * S) & ~3LL) + 4 * j;
+      const long long left = total - w;
+      const int bytes = left >= 4 ? 4 : left > 0 ? (int)left : 0;
+      cp_async<4>(words + i, bytes ? bp + w : bp, bytes);
     }
   }
-}
+  __device__ __forceinline__ int pick(const unsigned* w, int k, int b0, int rr, int s) const {
+    const unsigned off = (((unsigned)k * (unsigned)B + (unsigned)b0) * (unsigned)S) & 3u;
+    return reinterpret_cast<const unsigned char*>(w)[off + rr * S + s];
+  }
+};
 
 // Launch a chain kernel (K11 forward or Viterbi) at bt_plan<S>(B); the
 // bulk copies need ``dense`` on a 16-byte boundary.  Returns the launch
@@ -387,10 +370,12 @@ int launch_viterbi(const float* dense, const int* valid, const int* rank, float*
 }
 
 template <int S>
-int launch_traceback(const int8_t* bp, const int* valid, const int* last, int* out, int T,
-                     int B, cudaStream_t st) {
-  crf_bt_traceback_kernel<S><<<(B + 127) / 128, 128, 0, st>>>(bp, valid, last, out, T, B);
-  return cudaGetLastError();
+int launch_traceback(const int8_t* bp, const int* valid, const int* last, int* out, int T, int B,
+                     cudaStream_t st) {
+  if (reinterpret_cast<std::uintptr_t>(bp) % 4 != 0) return cudaErrorMisalignedAddress;
+  if (T == 0) return 0;
+  return tb_launch(tb_plan(T, S, B, BtTrace<S>::WORDS), BtTrace<S>{bp, T, B}, valid, last, out, T,
+                   B, 0, st);
 }
 
 }  // namespace
@@ -430,6 +415,15 @@ extern "C" int flappie_crf_bt_viterbi(const float* dense, const int* valid, cons
   if (B == 0) return 0;
   if (S == 8) return launch_viterbi<8>(dense, valid, rank, alphas, bp, T, B, st);
   if (S == 10) return launch_viterbi<10>(dense, valid, rank, alphas, bp, T, B, st);
+  return cudaErrorInvalidValue;
+}
+
+// The plan of K11's traceback (traceback.cuh) over T steps, S states and B
+// reads: info as flappie_crf_traceback_info's.
+extern "C" int flappie_crf_bt_traceback_info(int T, int S, int B, int* info) {
+  if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  if (S == 8) return tb_info<BtTrace<8>>(T, B, info);
+  if (S == 10) return tb_info<BtTrace<10>>(T, B, info);
   return cudaErrorInvalidValue;
 }
 

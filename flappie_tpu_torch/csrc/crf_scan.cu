@@ -7,7 +7,8 @@
 //   crf_fwdbwd_kernel    <- _fwdbwd_kernel:95 via fwdbwd_states_pallas:251 (K9:
 //                           K3's and K4's chains in one launch);
 //   crf_viterbi_kernel   <- _viterbi_kernel:135 via viterbi_fwd_pallas:300 (K5);
-//   crf_traceback_kernel <- _traceback_kernel:170 via traceback_pallas:333 (K6).
+//   traceback_kernel<BmTrace<S>> (traceback.cuh)
+//                        <- _traceback_kernel:170 via traceback_pallas:333 (K6).
 //
 // Layout is the JAX package's batch-minor one: dense transition blocks
 // [T, S, S, B] (from, to, read), validity [T, B], states [T+1, S, B].
@@ -59,6 +60,18 @@
 // different CTAs of one launch, so it is bit-equal to them.  The ring's
 // constants, the mbarrier and copy instructions and the step arithmetic are
 // crf_chain.cuh's, shared with K11's forward and Viterbi scans (crf_bt.cu).
+//
+// K6, the traceback, is not a chain of arithmetic but of look-ups: path[t] =
+// bp[t][path[t+1]] on valid steps.  Its first design walked one read a
+// thread over T, loading the S backpointers of the next 8 steps a tile
+// ahead: ~160 ns a step, one memory round trip a tile with almost nothing
+// else in flight (0.41 ms at T=2560, B=256, S=8 on 2 CTAs; the bytes' bound
+// 0.008 ms).  It now runs traceback.cuh's time-parallel walk: segments of
+// the walk taken from every start state at once, their maps composed
+// through a cluster's shared memory, each output the candidate of the lane
+// that started at its segment's entry state.  What bounds it is the bytes
+// (T*S*B*4 of backpointers, read once) and the walk of one segment, L
+// dependent shared-memory look-ups.
 
 #include <cuda_runtime.h>
 
@@ -67,6 +80,7 @@
 #include <type_traits>
 
 #include "crf_chain.cuh"
+#include "traceback.cuh"
 
 namespace {
 
@@ -377,57 +391,38 @@ __global__ void __launch_bounds__(160) crf_viterbi_kernel(
   if (live) alpha_out[(long)to * B + b] = a;
 }
 
-// K6 walks one read a thread; it keeps its own look-ahead of KT steps.
-template <int S>
-struct Tile {
-  static constexpr int KT = S <= 8 ? 8 : 4;  // steps loaded ahead
-};
-
-// Serial backpointer walk; one thread per read.
-template <int S>
-__global__ void crf_traceback_kernel(const int* __restrict__ bp,     // [T, S, B]
-                                     const int* __restrict__ valid,  // [T, B]
-                                     const int* __restrict__ last,   // [B]
-                                     int* __restrict__ out,          // [T+1, B]
-                                     int T, int B) {
-  constexpr int KT = Tile<S>::KT;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int s = last[b];
-  out[(long)T * B + b] = s;
-  int p[KT][S], pn[KT][S], v[KT], vn[KT];
-  auto load_tile = [&](int tile, int (&pp)[KT][S], int (&vv)[KT]) {
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = T - 1 - (tile * KT + k);
-      const bool ok = t >= 0;
-      vv[k] = ok ? valid[(long)t * B + b] : 0;
-#pragma unroll
-      for (int q = 0; q < S; ++q) pp[k][q] = ok ? bp[((long)t * S + q) * B + b] : 0;
+// K6's layout for traceback.cuh: backpointers [T, S, B] int32 (from-state
+// of each to-state, read), walked from t = T-1 down, so walk step k is time
+// T-1-k.  A step's R * S staged words are bp[t][s][b0 + r] at s * R + r: with
+// ``vec`` (R = 4 reads, B % 4 == 0, bp on a 16-byte boundary) one 16-byte
+// copy a state, else one 4-byte copy a lane (no copy for a read past B: its
+// valid flags are zero-filled, so its lanes never move).
+template <int S_>
+struct BmTrace {
+  static constexpr int S = S_, R = 32 / S, WORDS = R * S;
+  const int* bp;
+  int T, B;
+  bool vec;
+  __device__ __forceinline__ int time(int k) const { return T - 1 - k; }
+  __device__ __forceinline__ void stage(unsigned* words, int k0, int n, int b0, int lane) const {
+    if (vec) {
+      for (int i = lane; i < n * S; i += 32) {
+        const int k = i / S, s = i - k * S;
+        const int* src = bp + ((long long)time(k0 + k) * S + s) * B + b0;
+        cp_async<16>(words + k * WORDS + s * R, src, 16);
+      }
+      return;
     }
-  };
-  const int ntile = (T + KT - 1) / KT;
-  if (ntile > 0) load_tile(0, p, v);
-  for (int tile = 0; tile < ntile; ++tile) {
-    if (tile + 1 < ntile) load_tile(tile + 1, pn, vn);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = T - 1 - (tile * KT + k);
-      if (t < 0) break;
-      int prev = p[k][0];
-#pragma unroll
-      for (int q = 1; q < S; ++q) prev = s == q ? p[k][q] : prev;
-      s = v[k] ? prev : s;
-      out[(long)t * B + b] = s;
-    }
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      v[k] = vn[k];
-#pragma unroll
-      for (int q = 0; q < S; ++q) p[k][q] = pn[k][q];
-    }
+    const int r = lane / S, s = lane - r * S;
+    if (r >= R || b0 + r >= B) return;
+    const int* src = bp + ((long long)time(k0) * S + s) * B + b0 + r;
+    for (int k = 0; k < n; ++k)
+      cp_async<4>(words + k * WORDS + s * R + r, src - (long long)k * S * B, 4);
   }
-}
+  __device__ __forceinline__ int pick(const unsigned* w, int, int, int rr, int s) const {
+    return (int)w[s * R + rr];
+  }
+};
 
 // Launch a chain kernel at ``plan``: the 16-byte copy and write-out path
 // when every run of the slices and outputs is 16-byte aligned (R = 4 reads a
@@ -479,10 +474,12 @@ int launch_viterbi(const float* dense, const int* valid, const int* rank, float*
 }
 
 template <int S>
-int launch_traceback(const int* bp, const int* valid, const int* last, int* out,
-                     int T, int B, cudaStream_t st) {
-  crf_traceback_kernel<S><<<(B + 127) / 128, 128, 0, st>>>(bp, valid, last, out, T, B);
-  return cudaGetLastError();
+int launch_traceback(const int* bp, const int* valid, const int* last, int* out, int T, int B,
+                     cudaStream_t st) {
+  const bool vec =
+      BmTrace<S>::R == 4 && B % 4 == 0 && reinterpret_cast<std::uintptr_t>(bp) % 16 == 0;
+  return tb_launch(tb_plan(T, S, B, BmTrace<S>::WORDS), BmTrace<S>{bp, T, B, vec}, valid, last, out,
+                   T, B, 1, st);
 }
 
 }  // namespace
@@ -530,6 +527,16 @@ extern "C" int flappie_crf_viterbi(const float* dense, const int* valid, const i
   if (B == 0) return 0;
   if (S == 8) return launch_viterbi<8>(dense, valid, rank, alpha, bp, T, B, st);
   if (S == 10) return launch_viterbi<10>(dense, valid, rank, alpha, bp, T, B, st);
+  return cudaErrorInvalidValue;
+}
+
+// The plan of K6 (traceback.cuh) over T steps, S states and B reads: info =
+// {steps a segment, warps a CTA, CTAs a cluster, CTAs, rounds, shared bytes a
+// CTA, clusters the card holds at once}.
+extern "C" int flappie_crf_traceback_info(int T, int S, int B, int* info) {
+  if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  if (S == 8) return tb_info<BmTrace<8>>(T, B, info);
+  if (S == 10) return tb_info<BmTrace<10>>(T, B, info);
   return cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,15 @@ S + state), fed its reads' slice of the weights through a ring in shared
 memory by the CTA's producer warp.  ``scan_plan`` in the source sets
 their grid; ``_scan_plan`` mirrors it and ``scan_info`` reports it on
 the card.
+
+K6 is csrc/traceback.cuh's time-parallel walk, shared with K11's
+traceback (ops/crf_cuda.py): segments of L steps walked from every start
+state at once, their maps composed across a cluster, each output the
+candidate of the lane that started at its segment's entry state.
+``tb_plan`` there sets its grid; ``_tb_plan`` mirrors it,
+``traceback_info`` reports it on the card, and
+``traceback_segmented_plain`` repeats the algorithm on the CPU (bit-equal
+to ``traceback_plain``; nothing on the main path uses it).
 """
 
 from __future__ import annotations
@@ -98,6 +107,114 @@ def traceback_plain(backptr_tm, tvalid_tm, last_state):
     return out
 
 
+# csrc/traceback.cuh: segments (warps) a CTA, CTAs a cluster at most, the
+# CTAs the grid aims at (two on each of the H100's 132 SMs), bytes of staged
+# steps a CTA at most, reads a warp at most
+TB_WARPS, TB_CLUSTER, TB_CTAS, TB_BUDGET, TB_MAX_R = 8, 8, 264, 72 * 1024, 4
+
+
+def _tb_words(S: int) -> int:
+    """4-byte words K6 stages a step: one backpointer a (read, state)
+    (csrc/crf_scan.cu BmTrace)."""
+    return 32 // S * S
+
+
+def _tb_plan(T: int, S: int, B: int, words: int | None = None):
+    """(L steps a segment, W warps a CTA, C CTAs a cluster, CTAs, rounds,
+    shared bytes a CTA) of a traceback over T steps, S states and B reads
+    whose source stages ``words`` 4-byte words a step: a mirror of tb_plan
+    in csrc/traceback.cuh, which launches K6 (``_tb_words``: R * S words)
+    and K11's traceback (ops/crf_cuda.py ``_tb_bt_plan``) and which
+    ``traceback_info`` reports on the card.  A cluster holds one group of
+    R = 32 // S reads; its C CTAs of W warps, a segment a warp, cover C *
+    W * L steps a round; C is as many as two CTAs an SM over the card
+    allow (at most TB_CLUSTER), L as long as TB_BUDGET bytes of staged
+    steps a CTA allow, spread evenly over the rounds the walk needs."""
+    R = 32 // S
+    words = _tb_words(S) if words is None else words
+    groups = -(-B // R)
+    C = max(1, min(TB_CLUSTER, TB_CTAS // groups)) if groups else 1
+    W = TB_WARPS
+    step = 4 * words + 4 * TB_MAX_R + 32
+    span = C * W * (TB_BUDGET // (W * step))
+    rounds = -(-T // span) if T > 0 else 0
+    L = -(-T // (rounds * C * W)) if rounds else 1
+    fixed = 2 * 4 * TB_MAX_R + W * 4 * TB_MAX_R + 2 * 32 + TB_CLUSTER * 32 + 2 * W * 32
+    return L, W, C, groups * C, rounds, W * L * step + fixed
+
+
+TB_INFO = ("L", "W", "C", "ctas", "rounds", "smem", "max_active_clusters")
+
+
+def traceback_info(T: int, S: int, B: int) -> dict:
+    """The plan K6 launches (``_tb_plan``'s fields by name) and how many
+    of its clusters the card holds at once. Card only."""
+    lib = _lib()
+    info = (ctypes.c_int * 7)()
+    cuda_build.check(lib, lib.flappie_crf_traceback_info(T, S, B, info), "traceback_info")
+    return dict(zip(TB_INFO, info))
+
+
+def segmented_walk_plain(bp_w, valid_w, last_state, plan):
+    """csrc/traceback.cuh's algorithm on the CPU, in walk order: bp_w [T,
+    S, B] (step k's backpointer of each state), valid_w [T, B], last_state
+    [B] -> the state after each step [T, B] int32, bit-equal to the serial
+    walk.  ``plan``: a ``_tb_plan`` tuple (L, W, C and rounds are read).
+
+    1. Segment g (steps g*L ...) of every read walked from every start
+       state at once: cand[g, l, s0] is where start s0 is after step l,
+       and the segment's map where it ends.
+    2. For each round and each of its C CTAs of W segments, the prefix
+       tables (the segments before each, composed) and the CTA's map; the
+       round's entry state through the C CTA maps in order gives each
+       CTA's entry, its prefix table each segment's.
+    3. Each step's state: the candidate of the start state that is its
+       segment's entry."""
+    T, S, B = bp_w.shape
+    L, W, C, _, rounds, _ = plan
+    G = rounds * C * W
+    if G * L < T:
+        raise ValueError(f"plan {plan} covers {G * L} of {T} steps")
+    dev = bp_w.device
+    ident = torch.arange(S, device=dev)[:, None].expand(S, B)
+    step = torch.where(valid_w.to(torch.bool)[:, None, :], bp_w.to(torch.int64), ident)
+    step = torch.cat([step, ident.expand(G * L - T, S, B)]).view(G, L, S, B)
+    s = ident.expand(G, S, B)
+    cand = torch.empty(G, L, S, B, dtype=torch.int64, device=dev)
+    for k in range(L):
+        s = step[:, k].gather(1, s)
+        cand[:, k] = s
+    maps = s.view(rounds, C, W, S, B)
+    went = torch.empty(rounds, C, W, B, dtype=torch.int64, device=dev)
+    entry = last_state.to(device=dev, dtype=torch.int64)
+    for j in range(rounds):
+        tab = ident.expand(C, S, B)
+        pre = []
+        for w in range(W):
+            pre.append(tab)
+            tab = maps[j, :, w].gather(1, tab)
+        for c in range(C):
+            for w in range(W):
+                went[j, c, w] = pre[w][c].gather(0, entry[None])[0]
+            entry = tab[c].gather(0, entry[None])[0]
+    out = cand.gather(2, went.view(G, 1, 1, B).expand(G, L, 1, B))[:, :, 0]
+    return out.reshape(G * L, B)[:T].to(torch.int32)
+
+
+def traceback_segmented_plain(backptr_tm, tvalid_tm, last_state, plan=None):
+    """K6's algorithm (csrc/traceback.cuh) on the CPU, at ``plan`` (a
+    ``_tb_plan`` tuple; K6's own by default): path [T+1, B] int32,
+    bit-equal to ``traceback_plain``.  Walk step k is time T-1-k."""
+    T, S, B = backptr_tm.shape
+    plan = plan or _tb_plan(T, S, B)
+    out = torch.empty(T + 1, B, dtype=torch.int32, device=backptr_tm.device)
+    out[T] = last_state.to(torch.int32)
+    if T:
+        out[:T] = segmented_walk_plain(backptr_tm.flip(0), tvalid_tm.flip(0), last_state,
+                                       plan).flip(0)
+    return out
+
+
 # -- kernels -----------------------------------------------------------------
 
 
@@ -140,8 +257,10 @@ def _lib():
         lib.flappie_crf_fwdbwd.argtypes = [P, P, P, P, I, I, I, P]
         lib.flappie_crf_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
         lib.flappie_crf_traceback.argtypes = [P, P, P, P, I, I, I, P]
+        lib.flappie_crf_traceback_info.argtypes = [I, I, I, P]
         for fn in (lib.flappie_crf_scan_info, lib.flappie_crf_sum, lib.flappie_crf_fwdbwd,
-                   lib.flappie_crf_viterbi, lib.flappie_crf_traceback):
+                   lib.flappie_crf_viterbi, lib.flappie_crf_traceback,
+                   lib.flappie_crf_traceback_info):
             fn.restype = ctypes.c_int
     return lib
 
@@ -236,7 +355,8 @@ viterbi_fwd.launches = 0
 
 
 def traceback(backptr_tm, tvalid_tm, last_state):
-    """[T, S, B] backptr, [T, B] valid, [B] last -> path [T+1, B] int32 (K6)."""
+    """[T, S, B] backptr, [T, B] valid, [B] last -> path [T+1, B] int32 (K6,
+    at ``_tb_plan(T, S, B)``)."""
     if backptr_tm.device.type == "cpu":
         return traceback_plain(backptr_tm, tvalid_tm, last_state)
     T, S, B = backptr_tm.shape

@@ -22,6 +22,11 @@ The forward and Viterbi scans run a chain warp per R = 32 // S reads
 producer warp through a ring in shared memory.  ``bt_plan`` in the
 source sets their grid; ``_bt_plan`` mirrors it and ``bt_info`` reports
 it on the card.
+
+The traceback is csrc/traceback.cuh's time-parallel walk, shared with K6
+(ops/crf_bm_cuda.py): its grid is ``_tb_bt_plan``, reported by
+``traceback_bt_info``, and ``traceback_bt_segmented_plain`` repeats the
+algorithm on the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .crf_bm_cuda import RANK_BIG, _check_cuda
+from .crf_bm_cuda import RANK_BIG, TB_INFO, _check_cuda, _tb_plan, segmented_walk_plain
 
 # -- plain versions ----------------------------------------------------------
 
@@ -89,6 +94,28 @@ def traceback_bt_plain(bp_rev_tm, valid_rev_tm, last_state):
     return out
 
 
+def _tb_bt_words(S: int) -> int:
+    """4-byte words K11's traceback stages a step: they hold a step's R *
+    S int8 backpointers at any offset (csrc/crf_bt.cu BtTrace)."""
+    return (32 // S * S + 3) // 4 + 1
+
+
+def _tb_bt_plan(T: int, S: int, B: int):
+    """K11's traceback plan: ``_tb_plan`` at its staged words a step."""
+    return _tb_plan(T, S, B, _tb_bt_words(S))
+
+
+def traceback_bt_segmented_plain(bp_rev_tm, valid_rev_tm, last_state, plan=None):
+    """K11's traceback's algorithm (csrc/traceback.cuh) on the CPU, at
+    ``plan`` (its own by default): bit-equal to ``traceback_bt_plain``.
+    The reversed arrays are in walk order already."""
+    T, B, S = bp_rev_tm.shape
+    if T == 0:
+        return torch.empty(0, B, dtype=torch.int32, device=bp_rev_tm.device)
+    return segmented_walk_plain(bp_rev_tm.permute(0, 2, 1), valid_rev_tm, last_state,
+                                plan or _tb_bt_plan(T, S, B))
+
+
 # -- kernels -----------------------------------------------------------------
 
 
@@ -125,6 +152,17 @@ def bt_info(S: int, B: int) -> dict:
     return dict(zip(("R", "W", "ctas", "smem", "stride"), info))
 
 
+def traceback_bt_info(T: int, S: int, B: int) -> dict:
+    """The plan K11's traceback launches (``_tb_bt_plan``'s fields by
+    name) and how many of its clusters the card holds at once. Card
+    only."""
+    lib = _lib()
+    info = (ctypes.c_int * 7)()
+    cuda_build.check(lib, lib.flappie_crf_bt_traceback_info(T, S, B, info),
+                     "traceback_bt_info")
+    return dict(zip(TB_INFO, info))
+
+
 def _lib():
     lib = cuda_build.load("crf_bt")
     if lib.flappie_crf_bt_fwd.argtypes is None:
@@ -133,8 +171,9 @@ def _lib():
         lib.flappie_crf_bt_fwd.argtypes = [P, P, P, I, I, I, P]
         lib.flappie_crf_bt_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
         lib.flappie_crf_bt_traceback.argtypes = [P, P, P, P, I, I, I, P]
+        lib.flappie_crf_bt_traceback_info.argtypes = [I, I, I, P]
         for fn in (lib.flappie_crf_bt_info, lib.flappie_crf_bt_fwd, lib.flappie_crf_bt_viterbi,
-                   lib.flappie_crf_bt_traceback):
+                   lib.flappie_crf_bt_traceback, lib.flappie_crf_bt_traceback_info):
             fn.restype = ctypes.c_int
     return lib
 
@@ -205,6 +244,8 @@ def traceback_bt(bp_rev_tm, valid_rev_tm, last_state):
     if tuple(valid_rev_tm.shape) != (T, B) or tuple(last_state.shape) != (B,):
         raise ValueError("traceback_bt: expected valid_rev [T, B] and last_state [B]")
     bp = bp_rev_tm.to(torch.int8).contiguous()
+    if bp.data_ptr() % 4:  # the kernel copies aligned 4-byte words
+        bp = bp.clone()
     valid = valid_rev_tm.to(device=bp.device, dtype=torch.int32).contiguous()
     last = last_state.to(device=bp.device, dtype=torch.int32).contiguous()
     out = torch.empty(T, B, dtype=torch.int32, device=bp.device)

@@ -14,7 +14,10 @@ instantiation of the cluster recurrence (B = 1, 3, 5: R=1; 19, 24: R=2;
 33: R=4; 100: R=8; 150: R=12; 240: R=16; 257: R=20, its last cluster
 holding 17 rows), rows of length 0 and T, both directions; sum scans (K3/K4, K9, K11's forward)
 rtol 1e-5 (reassociation), K9 bit-equal to K3/K4; Viterbi and traceback
-(K5, K6 and K11's) bit-equal.  One runnie program (rle_r941_native at
+(K5, K6 and K11's) bit-equal, the tracebacks also at the edges of their
+plan (one step a segment, a round's span and one more), at T=2560, B=256
+and at runnie's T=13,108, B=24, on uniformly random backpointers and on
+Viterbi's.  One runnie program (rle_r941_native at
 full width) on the card against the same program on the CPU: the path
 equal, the selected shape and scale within 1e-4.  The training path's autograd
 Functions (ops/rnn_vjp.py, ``crf_partition_ad``) against autograd
@@ -35,6 +38,8 @@ from flappie_tpu_torch.ops import rnn as t_rnn
 from flappie_tpu_torch.ops.crf import (crf_partition_ad, dense_from_params, flipflop_index, lse,
                                        rle_index)
 from flappie_tpu_torch.ops.crf_bm import _dense_tm
+from flappie_tpu_torch.ops.crf_bm_cuda import TB_BUDGET, TB_MAX_R, _tb_plan, _tb_words
+from flappie_tpu_torch.ops.crf_cuda import _tb_bt_plan, _tb_bt_words
 
 pytestmark = pytest.mark.cuda
 
@@ -380,3 +385,79 @@ def test_bt_info_matches_plan(cuda, S):
     _bt_plan."""
     for B in (1, 3, 5, 24, 256, 257):
         assert tuple(crf_cuda.bt_info(S, B).values()) == crf_cuda._bt_plan(S, B)
+
+
+def _tb_lengths(S, B, words):
+    """Walk lengths at the edges of a traceback's plan (ops/crf_bm_cuda.py
+    _tb_plan) for B reads: 1 step, one step a segment (C * W steps) less
+    one and plus one, a round's most steps and one more (two rounds)."""
+    _, W, C, *_ = _tb_plan(1, S, B, words)
+    span = C * W * (TB_BUDGET // (W * (4 * words + 4 * TB_MAX_R + 32)))
+    return [1, C * W - 1, C * W + 1, span, span + 1]
+
+
+# (S, B, T) of the tracebacks: each kernel's plan edges at B = 1, 3, 257
+# (partly filled warps; 257 also a cluster of fewer CTAs), the production
+# length 2560 at B=256 and runnie's heaviest program (T=13,108, B=24)
+TB_SHAPES = sorted({(S, B, T) for S in (8, 10) for B in (1, 3, 257)
+                    for words in (_tb_words(S), _tb_bt_words(S)) for T in _tb_lengths(S, B, words)}
+                   | {(8, 256, 2560), (10, 256, 2560), (8, 24, 13108)})
+
+
+@pytest.mark.parametrize("S,B,T", TB_SHAPES)
+def test_tracebacks_match_plain(cuda, S, B, T):
+    """K6 and K11's traceback bit-equal to their plain walks on uniformly
+    random backpointers (paths that rarely merge) and on K5's Viterbi
+    backpointers, ragged nblocks with 0 and T; K11's states are K6's path
+    reversed."""
+    gen = torch.Generator().manual_seed(S * T + B)
+    nblocks = torch.randint(0, T + 1, (B,), generator=gen)
+    nblocks[0] = T
+    if B > 1:
+        nblocks[-1] = 0
+    v = (torch.arange(T)[:, None] < nblocks[None, :]).to(cuda)
+    idx = flipflop_index(S // 2)
+    d = _dense_tm(_rnd(gen, T, idx.nparam, B, scale=2.0).to(cuda), idx)
+    alpha, vit = crf_bm_cuda.viterbi_fwd(d, v, idx.tie_rank)
+    cases = [(torch.randint(0, S, (T, S, B), generator=gen, dtype=torch.int32).to(cuda),
+              torch.randint(0, S, (B,), generator=gen, dtype=torch.int32).to(cuda)),
+             (vit, alpha.argmax(dim=0).to(torch.int32))]
+    for bp, last in cases:
+        n6, n11 = crf_bm_cuda.traceback.launches, crf_cuda.traceback_bt.launches
+        path = crf_bm_cuda.traceback(bp, v, last)
+        assert torch.equal(path, crf_bm_cuda.traceback_plain(bp, v, last))
+        bp_rev, v_rev = bp.permute(0, 2, 1).flip(0).to(torch.int8), v.flip(0)
+        states = crf_cuda.traceback_bt(bp_rev, v_rev, last)
+        assert torch.equal(states, crf_cuda.traceback_bt_plain(bp_rev, v_rev, last))
+        assert torch.equal(states, path[:T].flip(0))
+        assert (crf_bm_cuda.traceback.launches, crf_cuda.traceback_bt.launches) == (n6 + 1, n11 + 1)
+
+
+def test_traceback_takes_a_view_off_the_4_byte_grid(cuda):
+    """K11's traceback copies aligned 4-byte words: int8 backpointers that
+    start 1 byte off the grid give the same states."""
+    gen = torch.Generator().manual_seed(12)
+    T, B, S = 37, 5, 10
+    bp = torch.randint(0, S, (T, B, S), generator=gen, dtype=torch.int8).to(cuda)
+    v = (torch.arange(T)[:, None] < torch.tensor([T, 3, 0, 19, 7])[None, :]).to(cuda)
+    last = torch.randint(0, S, (B,), generator=gen, dtype=torch.int32).to(cuda)
+    buf = torch.empty(bp.numel() + 1, dtype=torch.int8, device=cuda)
+    off = buf[1:].view_as(bp)
+    off.copy_(bp)
+    assert off.data_ptr() % 4 != 0
+    assert torch.equal(crf_cuda.traceback_bt(off, v, last), crf_cuda.traceback_bt(bp, v, last))
+
+
+@pytest.mark.parametrize("S", [8, 10])
+def test_traceback_info_matches_plan(cuda, S):
+    """The tracebacks' grids on the C side are ops/crf_bm_cuda.py's
+    _tb_plan (K6) and ops/crf_cuda.py's _tb_bt_plan (K11), and at the
+    main path's shapes every cluster is resident at once."""
+    for T, B in ((1, 1), (75, 40), (2560, 256), (13108, 24), (4609, 257), (0, 3)):
+        k6 = crf_bm_cuda.traceback_info(T, S, B)
+        k11 = crf_cuda.traceback_bt_info(T, S, B)
+        assert tuple(k6.values())[:6] == _tb_plan(T, S, B)
+        assert tuple(k11.values())[:6] == _tb_bt_plan(T, S, B)
+        if (T, B) in ((2560, 256), (13108, 24)):
+            for info in (k6, k11):
+                assert info["max_active_clusters"] >= info["ctas"] // info["C"]
