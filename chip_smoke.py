@@ -20,8 +20,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    flappie_crf_traceback_info and flappie_crf_bt_traceback_info held to
    _tb_plan and _tb_bt_plan) with cudaOccupancyMaxActiveClusters, every
    cluster resident at T=2560, B=256 and T=13,108, B=24.  Beside the path's build, and at
-   the same time, the chain scans' other builds (VARIANTS): crf_scan.cu
-   with -DSCAN_WARPS=1, 2, 4 and crf_bt.cu with -DBT_WARPS=1, 2, 4.
+   the same time, the other builds (VARIANTS): crf_scan.cu with
+   -DSCAN_WARPS=1, 2, 4, crf_bt.cu with -DBT_WARPS=1, 2, 4 and conv12.cu
+   with -DCONV12_PERSIST=0, -DCONV12_BULK=0 and -DCONV12_FAST_SWISH=0.
 2. Kernels: each kernel held against its plain PyTorch version on the
    card at production shapes -- K1 fused LSTM layer, K8 its training
    variant (h and c; h bit-equal to K1's) and K7 fused GRU-mod layer
@@ -52,8 +53,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (T=13,108 blocks, B=24), by the same rules, K3, K9, K5, K6 and K11's
    three timed there too (with K3's and K11's other builds), and both
    tracebacks at one step (their floor); K10, the fused conv
-   1->4->16 (B=256, T=12800 samples, ragged lengths including 0, 3 and
-   T) within 1e-5 absolute; K12, the recurrences alone over a computed
+   1->4->16 (B=256, T=12800 samples; B=24, T=65,536; B=32, T=2560; ragged
+   lengths including 0, 3 and T, then every read full) within 1e-5
+   absolute and zero past every length, with its plan (held to
+   _conv12_plan), registers and bound fraction, timed behind a device
+   sleep, and its other builds at B=256, T=12800, each bit-equal to the
+   path's, alternated; K12, the recurrences alone over a computed
    affine (T=2560, B=256, H=256), LSTM and GRU-mod within 1e-4 of
    ops/rnn.py's lstm_seq / grumod_seq.  Times are CUDA-event medians
    after a warm-up; the bound is the larger of bytes over the card's
@@ -75,7 +80,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    for each, transitions(rnn_impl="scan") on one full chunk batch with
    ragged lengths (one K12 a layer, within 1e-4 of the fused path, the
    Viterbi paths equal) and for r941_native the conv stack alone timed
-   under each conv impl.  Through
+   under each conv impl, the pallas stack split into K10 and the strided
+   conv.  Through
    flappie_tpu_torch.cli.runnie.main: rle_r941_native on 32 reads of
    20k-60k samples and 8 of 3k-12k (bucketed batches of up to 32 reads,
    up to ~13.1k blocks a read), fb and --viterbi, each under the
@@ -438,7 +444,10 @@ def scan_step(ms: float, T: int, S: int, B: int, chains: int = 1) -> str:
 # build/flappie_tpu_torch/<variant>/
 WARP_SIZES = (1, 2, 4)
 VARIANTS = {**{f"scan_w{w}": ("crf_scan", (f"-DSCAN_WARPS={w}",)) for w in WARP_SIZES},
-            **{f"bt_w{w}": ("crf_bt", (f"-DBT_WARPS={w}",)) for w in WARP_SIZES}}
+            **{f"bt_w{w}": ("crf_bt", (f"-DBT_WARPS={w}",)) for w in WARP_SIZES},
+            "conv12_flat": ("conv12", ("-DCONV12_PERSIST=0",)),
+            "conv12_direct": ("conv12", ("-DCONV12_BULK=0",)),
+            "conv12_precise": ("conv12", ("-DCONV12_FAST_SWISH=0",))}
 
 # argument kinds of the C entry points (P pointer, I int) that a build loaded
 # here may export: the wrappers' own (ops/crf_bm_cuda.py, ops/crf_cuda.py)
@@ -448,7 +457,8 @@ ENTRY_ARGS = {
     "flappie_crf_traceback": "PPPPIIIP", "flappie_crf_bt_info": "IIP",
     "flappie_crf_bt_fwd": "PPPIIIP", "flappie_crf_bt_viterbi": "PPPPPIIIP",
     "flappie_crf_bt_traceback": "PPPPIIIP", "flappie_crf_traceback_info": "IIIP",
-    "flappie_crf_bt_traceback_info": "IIIP",
+    "flappie_crf_bt_traceback_info": "IIIP", "flappie_conv12": "PPPPPPPIIP",
+    "flappie_conv12_info": "IIP",
 }
 
 # nvcc's output of each build loaded by finish_builds, by variant
@@ -518,12 +528,13 @@ def same(a, b) -> bool:
 
 
 def time_builds(torch, source: str, libs: dict, fn, ref, what: str, T: int,
-                lead: bool = False) -> dict:
+                lead: bool = False, unit: str = "step") -> dict:
     """``fn`` (a wrapper call) through each build of csrc/<source>.cu in
     ``libs`` ({label: library}; None: the path's own), each output
     bit-equal to ``ref`` (the path's output, itself held to its plain
     version), then timed alternated in one process (``lead``: behind a
-    device sleep).  Logs and returns {label: median ms}."""
+    device sleep).  Logs each median over T ``unit``s and returns {label:
+    median ms}."""
     from flappie_tpu_torch.ops import cuda_build
 
     libs = {k: lib or cuda_build.load(source) for k, lib in libs.items()}
@@ -538,7 +549,8 @@ def time_builds(torch, source: str, libs: dict, fn, ref, what: str, T: int,
     times = alternated_ms(torch, {k: lambda lib=lib: run(lib) for k, lib in libs.items()},
                           SCAN_REPS, lead)
     log(f"{what}, each build bit-equal to the path's: " + "; ".join(
-        f"{k}: {spread(ts)} = {1e6 * statistics.median(ts) / T:.1f} ns a step"
+        f"{k}: {spread(ts)} = {1e6 * statistics.median(ts) / T:.{4 if unit == 'sample' else 1}f} "
+        f"ns a {unit}"
         for k, ts in times.items()))
     return {k: statistics.median(ts) for k, ts in times.items()}
 
@@ -1015,52 +1027,113 @@ def check_runnie_scans(torch, peak: dict, gen, libs: dict) -> None:
         + json.dumps(errs))
 
 
-def check_conv12(torch, peak: dict, gen) -> dict:
-    """K10 at one r941_native chunk batch (B=256, T=12800 samples), ragged
-    lengths including 0, 3 and T, within 1e-5 of its plain version.  The
-    library call is the same two layers as two cuDNN F.conv1d calls on
-    [B, C, T] with swish and the masks between them (TF32 off, as the
-    port sets it)."""
-    import torch.nn.functional as F
+# K10's shapes (B reads, T samples) on its main paths: r941_native's chunk
+# batch (5 launches a fb run under conv pallas), runnie's heaviest bucket
+# and the training batch (one launch a step)
+CONV12_SHAPES = ((256, 12800), (24, 65_536), (32, 2560))
 
-    from flappie_tpu_torch.ops import conv_cuda
 
+def conv12_inputs(torch, gen, B: int, T: int, full: bool = False):
+    """K10's arguments: x zero past each read's length, lengths ragged in
+    [1, T) with 0, 3 and T among them (``full``: every read T long)."""
     dev = torch.device("cuda")
-    B, T = 256, 12800
     lengths = torch.randint(1, T, (B,), generator=gen, device=dev, dtype=torch.int32)
     lengths[0], lengths[1], lengths[2] = T, 0, 3
+    if full:
+        lengths.fill_(T)
     m = torch.arange(T, device=dev)[None, :] < lengths[:, None]
     x = torch.randn(B, T, generator=gen, device=dev) * m
     W1 = torch.randn(5, 1, 4, generator=gen, device=dev) * 0.5
     b1 = torch.randn(4, generator=gen, device=dev) * 0.1
     W2 = torch.randn(5, 4, 16, generator=gen, device=dev) * 0.3
     b2 = torch.randn(16, generator=gen, device=dev) * 0.1
-    args = (x, W1, b1, W2, b2, lengths)
-    got = conv_cuda.conv12_fused(*args)
-    want = conv_cuda.conv12_fused_plain(*args)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if not err <= 1e-5:
-        raise AssertionError(f"K10 conv12: max |kernel - plain| {err} > 1e-5")
-    if got[1].any() or got[2, :, 3:].any():
-        raise AssertionError("K10 conv12: output not zero past a read's length")
-    ms = cuda_ms(torch, lambda: conv_cuda.conv12_fused(*args), 10)
-    plain_ms = cuda_ms(torch, lambda: conv_cuda.conv12_fused_plain(*args), 3)
-    m3, w1c, w2c = m[:, None, :], W1.permute(2, 1, 0), W2.permute(2, 1, 0)
+    return x, W1, b1, W2, b2, lengths
 
-    def library():
-        y1 = torch.where(m3, F.silu(F.conv1d(x[:, None, :], w1c, b1, padding=2)), 0.0)
-        return torch.where(m3, F.silu(F.conv1d(y1, w2c, b2, padding=2)), 0.0)
 
-    lib_err = (library() - got).abs().max().item()
-    library_ms = cuda_ms(torch, library, 10)
-    log(f"K10 library call computes the same function: max |cuDNN - kernel| {lib_err:.2e}")
-    # x read and y2 written once; 2 x (5 x 4 + 5 x 4 x 16) f32 operations a
-    # sample (the FMAs of both convs)
-    bms, by = bound(4 * (B * T * 17 + 360 + B), 680 * B * T, peak)
+def check_conv12(torch, peak: dict, gen, libs: dict) -> dict:
+    """K10 at each of CONV12_SHAPES (ragged lengths including 0, 3 and T,
+    and once more with every read full: a tile wholly past a read's end
+    writes zeros without computing), within 1e-5 of its plain version and
+    zero past every length, timed behind a device sleep with its bound
+    fraction, the plan (flappie_conv12_info held to ops/conv_cuda.py's
+    _conv12_plan) and ptxas's registers; at the chunk batch, under both
+    lengths, also the builds of VARIANTS' conv12_* (one CTA an item,
+    direct stores instead of the bulk copies, every swish through the
+    precise division's branch), each bit-equal to the path's, alternated,
+    and the path's once more with every length 0 (the stores alone).
+    The library call (at the chunk batch, ragged) is the same two layers as
+    two cuDNN F.conv1d calls on [B, C, T] with swish and the masks between
+    them (TF32 off, as the port sets it).  Returns the chunk batch's row,
+    timed on ragged lengths."""
+    import torch.nn.functional as F
+
+    from flappie_tpu_torch.ops import conv_cuda, cuda_build
+
+    log("K10 ptxas (G = 4, 1 channel groups): "
+        f"{ptxas_usage(cuda_build.build_log.get('conv12', ''), 'conv12_kernel')}; " + "; ".join(
+            f"build {k}: {ptxas_usage(variant_log[k], 'conv12_kernel')}"
+            for k in libs if k.startswith("conv12_")))
+    variants = {"path": None, **{k[len("conv12_"):]: lib for k, lib in libs.items()
+                                 if k.startswith("conv12_")}}
+    numbers = {}
+    for B, T in CONV12_SHAPES:
+        info = conv_cuda.conv12_info(B, T)
+        per_sm = {1: info["per_sm_g1"], 4: info["per_sm_g4"]}
+        want_plan = conv_cuda._conv12_plan(B, T, per_sm, info["sms"])
+        if tuple(info[k] for k in conv_cuda.INFO[:6]) + (info["smem"],) != want_plan:
+            raise AssertionError(f"K10 plan at B={B}, T={T}: C {info}, Python {want_plan}")
+        what = f"K10 at B={B}, T={T}"
+        # x read and y2 written once; 2 x (5 x 4 + 5 x 4 x 16) f32 operations
+        # a sample (the FMAs of both convs)
+        bms, by = bound(4 * (B * T * 17 + 360 + B), 680 * B * T, peak)
+        times = {}
+        for full in (False, True):
+            lens = "every read full" if full else "ragged lengths"
+            args = conv12_inputs(torch, gen, B, T, full)
+            got = conv_cuda.conv12_fused(*args)
+            want = conv_cuda.conv12_fused_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not err <= 1e-5:
+                raise AssertionError(f"{what}, {lens}: max |kernel - plain| {err} > 1e-5")
+            past = torch.arange(T, device=got.device)[None, None, :] >= args[5][:, None, None]
+            if torch.where(past, got, 0.0).any():
+                raise AssertionError(f"{what}, {lens}: output not zero past a read's length")
+            del want, past
+            times[lens] = cuda_ms(torch, lambda: conv_cuda.conv12_fused(*args), 10, lead=True)
+            if (B, T) != CONV12_SHAPES[0]:
+                continue
+            time_builds(torch, "conv12", variants, lambda: conv_cuda.conv12_fused(*args), got,
+                        f"{what}, {lens}, by build (behind a device sleep)", B * T, lead=True,
+                        unit="sample")
+            if not full:
+                numbers = dict(max_abs_err=err, ms=times[lens], bound_ms=bms, bound_by=by,
+                               plain_ms=cuda_ms(torch, lambda: conv_cuda.conv12_fused_plain(
+                                   *args), 3))
+                x, b1, b2 = args[0], args[2], args[4]
+                m3 = (torch.arange(T, device=x.device)[None, :] < args[5][:, None])[:, None, :]
+                w1c, w2c = args[1].permute(2, 1, 0), args[3].permute(2, 1, 0)
+
+                def library():
+                    y1 = torch.where(m3, F.silu(F.conv1d(x[:, None, :], w1c, b1, padding=2)), 0.0)
+                    return torch.where(m3, F.silu(F.conv1d(y1, w2c, b2, padding=2)), 0.0)
+
+                lib_err = (library() - got).abs().max().item()
+                numbers["library_ms"] = cuda_ms(torch, library, 10)
+                log(f"K10 library call computes the same function: max |cuDNN - kernel| "
+                    f"{lib_err:.2e}")
+                # every length 0: no arithmetic, only the zero rows' bulk copies
+                zargs = (*args[:5], torch.zeros_like(args[5]))
+                if conv_cuda.conv12_fused(*zargs).any():
+                    raise AssertionError(f"{what}, every length 0: output not zero")
+                times["every length 0 (stores only)"] = cuda_ms(
+                    torch, lambda: conv_cuda.conv12_fused(*zargs), 10, lead=True)
+        log(f"{what}: within 1e-5 of its plain version, zero past every length; " + "; ".join(
+            f"{k} {ms:.4f} ms = {bms / ms:.1%} of the bound" for k, ms in times.items())
+            + f" (medians of 10 behind a device sleep); bound {bms:.4f} ms ({by}); "
+            f"plan {json.dumps(info)}")
     return row("conv12", "K10", "conv12.cu", "conv_pallas.py:51", "r941_native_conv_pallas",
-               "conv12", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               library_ms=library_ms)
+               "conv12", **numbers)
 
 
 # kind -> (wrapper name in ops/rnn_cuda.py less "_cuda" = plain name in
@@ -1124,7 +1197,7 @@ def check_kernels(torch, peak: dict, libs: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
     time_lstm_shapes(torch, gen)
-    rows += [check_conv12(torch, peak, gen)] + [check_seq(torch, peak, gen, k)
+    rows += [check_conv12(torch, peak, gen, libs)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
     rows += (check_scans(torch, peak, gen, 4, libs)
              + check_scans(torch, peak, gen, 5, libs))
@@ -1260,7 +1333,8 @@ def time_chunk_program(torch, np, rng, card: str, cfg) -> None:
 
 def time_conv_stacks(torch, card: str, cfg) -> None:
     """Device time of the conv stack alone on one full chunk batch (256 x
-    12800 samples, every read full) under each FLAPPIE_TPU_CONV_IMPL."""
+    12800 samples, every read full) under each FLAPPIE_TPU_CONV_IMPL, and
+    the pallas stack's two parts (pallas_stack_split)."""
     from flappie_tpu_torch.models.network import conv_stack
     from flappie_tpu_torch.models.params import init_synthetic, params_to_torch
 
@@ -1273,8 +1347,39 @@ def time_conv_stacks(torch, card: str, cfg) -> None:
         for impl in ("xla", "fast", "pallas"):
             with knobs({"FLAPPIE_TPU_CONV_IMPL": impl}):
                 times[impl] = cuda_ms(torch, lambda: conv_stack(params, cfg, x, lengths), 5)
+        split = pallas_stack_split(torch, params, cfg, x, lengths)
     log(f"device {cfg.name}: conv stack alone on one batch of {B} x {W} samples, ms by "
-        f"FLAPPIE_TPU_CONV_IMPL: {json.dumps(times)} [{card}]")
+        f"FLAPPIE_TPU_CONV_IMPL: {json.dumps(times)}; pallas split: {json.dumps(split)} "
+        f"[{card}]")
+
+
+def pallas_stack_split(torch, params, cfg, x, lengths) -> dict:
+    """The conv stack under FLAPPIE_TPU_CONV_IMPL=pallas in its two parts
+    (models/network.py _conv_stack_fast), each timed alone over 5 runs: K10
+    (the 1->4->16 pair) and the rest, the strided conv (ops/conv.py
+    conv1d_strided_ct, its im2col einsum and right-edge fix) with its
+    activation and tail mask, on K10's output; each behind a device
+    sleep."""
+    from flappie_tpu_torch.models.network import ceil_div
+    from flappie_tpu_torch.ops.activations import ACTIVATIONS
+    from flappie_tpu_torch.ops.conv import conv1d_strided_ct
+    from flappie_tpu_torch.ops.conv_cuda import conv12_fused
+    from flappie_tpu_torch.ops.masking import mask_tail
+
+    p0, p1, p2, c3 = params["conv0"], params["conv1"], params["conv2"], cfg.convs[2]
+
+    def k10():
+        return conv12_fused(x[..., 0], p0["W"], p0["b"], p1["W"], p1["b"], lengths)
+
+    y2 = k10()
+
+    def strided():
+        y = ACTIVATIONS[c3.activation](conv1d_strided_ct(y2, p2["W"], p2["b"], c3.stride,
+                                                         lengths))
+        return mask_tail(y, ceil_div(lengths, c3.stride))
+
+    return {"K10": cuda_ms(torch, k10, 5, lead=True),
+            "strided conv": cuda_ms(torch, strided, 5, lead=True)}
 
 
 def scan_path(torch, card: str, cfg) -> dict:

@@ -13,6 +13,13 @@ for a CPU tensor; any other device raises.  The backward recomputes the
 chain through the plain version under autograd, as the JAX custom VJP
 does (the JAX package has no backward kernel here).
 ``conv12_fused.launches`` counts kernel launches.
+
+K10 runs a persistent grid over items of (read, tile of samples), each
+thread a register tile of 4 samples x 16 / G channels (G channel groups:
+1, or 4 when the items would not fill the card), each item's y2 staged in
+shared memory and sent by bulk copies: ``conv12_plan`` in the source
+sets the grid, ``_conv12_plan`` mirrors it and ``conv12_info`` reports
+it on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +33,55 @@ from .activations import swish
 from .conv import conv1d_same_ct
 
 SHAPES = {"W1": (5, 1, 4), "b1": (4,), "W2": (5, 4, 16), "b2": (16,)}
+
+# csrc/conv12.cu: threads a CTA (kThreads), output samples a thread (N), the
+# channel groups a plan may take and the shared bytes a CTA holds besides
+# the staging tile, the zero row and y1 (the weights and biases)
+CONV12_THREADS, CONV12_N, CONV12_GROUPS, CONV12_WBYTES = 128, 4, (1, 4), 4 * 360
+INFO = ("groups", "tile", "threads", "ntiles", "items", "ctas", "sms", "smem",
+        "per_sm_g1", "per_sm_g4")
+
+
+def _conv12_plan(B: int, T: int, per_sm: dict, sms: int):
+    """(channel groups G, tile, threads, tiles a read, items, CTAs, shared
+    bytes a CTA) of K10 over B reads of T samples on a card holding
+    ``per_sm[G]`` CTAs of the G-group kernel on each of ``sms`` SMs: a
+    mirror of conv12_plan in csrc/conv12.cu, which ``conv12_info``
+    reports.  G is 1 if its items fill the resident CTAs, else 4; a thread
+    holds 4 samples x 16 / G channels, so a tile is 4 * threads / G
+    samples.  Item i is read i // ntiles, samples
+    [(i % ntiles) * tile, + tile); CTA k walks items k, k + ctas, ...  A
+    CTA holds the tile's y2 ([16][tile] floats, the bulk copies' source), a
+    row of tile zeros, y1 on the tile +- 2 and the weights."""
+    for G in CONV12_GROUPS:
+        tile = CONV12_N * CONV12_THREADS // G
+        ntiles = -(-T // tile)
+        items = B * ntiles
+        resident = per_sm[G] * sms
+        if items >= resident:
+            break
+    smem = 4 * (17 * tile + 4 * (tile + 4)) + CONV12_WBYTES
+    return G, tile, CONV12_THREADS, ntiles, items, min(items, resident), smem
+
+
+def conv12_info(B: int, T: int) -> dict:
+    """The plan the C side launches (``INFO``'s fields by name; ``per_sm``
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Card only."""
+    lib = _lib()
+    info = (ctypes.c_int * len(INFO))()
+    cuda_build.check(lib, lib.flappie_conv12_info(B, T, info), "conv12_info")
+    return dict(zip(INFO, info))
+
+
+def _lib():
+    lib = cuda_build.load("conv12")
+    if lib.flappie_conv12.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.flappie_conv12_info.argtypes = [I, I, P]
+        lib.flappie_conv12.argtypes = [P] * 7 + [I, I, P]
+        for fn in (lib.flappie_conv12_info, lib.flappie_conv12):
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def conv12_fused_plain(x, W1, b1, W2, b2, lengths):
@@ -56,13 +112,9 @@ def _launch(x, W1, b1, W2, b2, lengths):
     x, W1, b1, W2, b2 = (t.contiguous() for t in (x, W1, b1, W2, b2))
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     y2 = torch.empty(B, 16, T, dtype=torch.float32, device=x.device)
-    lib = cuda_build.load("conv12")
-    fn = lib.flappie_conv12
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    rc = fn(*(cuda_build.ptr(t) for t in (x, W1, b1, W2, b2, lengths, y2)), B, T,
-            cuda_build.stream_of(x))
+    lib = _lib()
+    rc = lib.flappie_conv12(*(cuda_build.ptr(t) for t in (x, W1, b1, W2, b2, lengths, y2)),
+                            B, T, cuda_build.stream_of(x))
     cuda_build.check(lib, rc, "conv12_fused")
     conv12_fused.launches += 1
     return y2

@@ -23,7 +23,9 @@ equal, the selected shape and scale within 1e-4.  The training path's autograd
 Functions (ops/rnn_vjp.py, ``crf_partition_ad``) against autograd
 through the plain versions on the card: every gradient within 1e-3 of
 its max |value|.  K10 (fused conv 1->4->16) within 1e-5 of its plain
-version, its autograd Function's gradients within 1e-5 of max |grad|;
+version and zero past every length at the edges of each channel-group
+plan's tile, below the halo and with T % 4 != 0, its autograd Function's
+gradients within 1e-5 of max |grad|, its grid held to ``_conv12_plan``;
 K12 (the recurrences alone, batch-major) within 1e-4.
 """
 
@@ -304,13 +306,33 @@ def test_partition_function_matches_plain_autograd(cuda, nbase):
     _grads_close([got], [want])
 
 
-@pytest.mark.parametrize("B,T", [(3, 300), (8, 2049)])
-def test_conv12_kernel_matches_plain(cuda, B, T):
-    """K10 with lengths 0, 3 and T among them; a tile wholly past a
-    read's end and the ragged last tile write zeros."""
-    gen = torch.Generator().manual_seed(B + T)
+# (B, T) of K10 (ops/conv_cuda.py _conv12_plan on an H100's 132 SMs): T
+# below the halo (1, 3, 7); one short of, at and one past a tile of the
+# 4-group plan (128 samples: the small batches, and B=200 at T=511, 513,
+# more items than CTAs) and of the 1-group plan (512: B=300 at T=1023,
+# 1024, B=256 at 1025, and T=2560, more items than CTAs); T % 4 != 0
+# (direct stores); B=1
+CONV12_SHAPES = [(3, 300), (8, 2049), (2, 1), (3, 3), (4, 7), (1, 128), (1, 129), (5, 127),
+                 (1, 4097), (6, 2047), (200, 511), (200, 513), (300, 1023), (300, 1024),
+                 (256, 1025), (300, 2560)]
+
+
+def _conv12_lengths(gen, B: int, T: int):
+    """Ragged lengths in [0, T] with, in order as B allows, T, 0, 3 and one
+    that ends inside a thread's 4-sample register tile (4k + 2)."""
     lengths = torch.randint(0, T + 1, (B,), generator=gen, dtype=torch.int32)
-    lengths[0], lengths[1], lengths[-1] = T, 0, 3
+    for i, v in enumerate((T, 0, 3, 4 * (T // 8) + 2)[:B]):
+        lengths[i] = min(v, T)
+    return lengths
+
+
+@pytest.mark.parametrize("B,T", CONV12_SHAPES)
+def test_conv12_kernel_matches_plain(cuda, B, T):
+    """K10 with lengths 0, 3, T and one inside a register tile among them;
+    tiles wholly past a read's end and the ragged last tile write zeros;
+    the gradients of its autograd Function match the plain chain's."""
+    gen = torch.Generator().manual_seed(B + T)
+    lengths = _conv12_lengths(gen, B, T)
     x = _rnd(gen, B, T) * (torch.arange(T)[None, :] < lengths[:, None])
     args = [t.to(cuda) for t in (x, _rnd(gen, 5, 1, 4, scale=0.5), _rnd(gen, 4, scale=0.1),
                                  _rnd(gen, 5, 4, 16, scale=0.3), _rnd(gen, 16, scale=0.1),
@@ -321,7 +343,8 @@ def test_conv12_kernel_matches_plain(cuda, B, T):
     want = conv_cuda.conv12_fused_plain(*args)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5
-    assert not got[1].any() and not got[-1, :, 3:].any()
+    past = torch.arange(T, device=cuda)[None, None, :] >= args[5][:, None, None]
+    assert not torch.where(past, got, 0.0).any()
 
     ins = [a.clone().requires_grad_() for a in args[:5]]
     cot = torch.randn(got.shape, generator=torch.Generator(device=cuda).manual_seed(1),
@@ -330,6 +353,19 @@ def test_conv12_kernel_matches_plain(cuda, B, T):
     g_p = torch.autograd.grad((conv_cuda.conv12_fused_plain(*ins, args[5]) * cot).sum(), ins)
     for a, b in zip(g_k, g_p):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_conv12_info_matches_plan(cuda):
+    """K10's grid on the C side is ops/conv_cuda.py's _conv12_plan, and the
+    edge shapes above reach each channel-group plan."""
+    groups = set()
+    for B, T in CONV12_SHAPES + [(256, 12800), (24, 65_536), (32, 2560)]:
+        info = conv_cuda.conv12_info(B, T)
+        per_sm = {1: info["per_sm_g1"], 4: info["per_sm_g4"]}
+        plan = conv_cuda._conv12_plan(B, T, per_sm, info["sms"])
+        assert tuple(info[k] for k in conv_cuda.INFO[:6]) + (info["smem"],) == plan
+        groups.add(info["groups"])
+    assert groups == {1, 4}
 
 
 @pytest.mark.parametrize("B,T,H", [(3, 29, 16), (19, 64, 256), (1, 40, 256), (24, 40, 256),
