@@ -106,6 +106,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    FLAPPIE_TPU_CRF_IMPL=pallas (K11's kernel time), runnie's runs with
    their tracebacks replayed under the profiler: the traceback kernel's
    device time beside the glue around it (layout copies, casts, flips).
+   Then flappie-serve (flappie_tpu_torch.cli.serve), in this process:
+   a Server for r941_native at full width with --warmup (the warmup's
+   wall logged), fed through serve_stdin a directory of 10 seeded reads
+   (6 chunked, 4 bucketed), a missing path, the same directory again and
+   a second directory; each request's ack (reads, called, wall=) checked
+   and its wall logged, request 1 beside requests 2-4; each FASTQ
+   byte-equal to the flappie CLI's on the same files in this process
+   (and request 1's to a fresh CLI process's, whose wall is logged), the
+   repeat to the first, the missing path acked with reads=0; the launch
+   counts of the four requests equal to what their programs imply (5 K1,
+   3 K3/K4, 1 K5, 1 K6 a program).  Then serve_watch with --multi --qcal
+   1.1:-0.5 --output-dir: a multi-read file of 6 reads (written by
+   hdf5_min) dropped into the watched directory is published once, its
+   records the CLI's --multi records with the calibrated qualities, a
+   STOP file ends the server, and its launch counts are checked too.
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|; K10's Function at B=32,
@@ -129,13 +144,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Imports nothing of JAX or of the JAX package.  Writes only under build/
 in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
-run takes ~215-280 s of command time on an H100 80GB HBM3 at 700 W; it
+run takes ~250-310 s of command time on an H100 80GB HBM3 at 700 W; it
 should stay well inside its 1200 s limit (aim: half of it).
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -1246,16 +1262,23 @@ def expected_programs(reads_dir: str, names: list, cfg) -> int:
     chunk batches of 256 chunks of 2560 blocks (2560 x the model's
     stride samples) across the long reads, plus bucket batches of at
     most 32 same-bucket short reads."""
-    from flappie_tpu_torch.basecall import bucket_length, preprocess_batch
-    from flappie_tpu_torch.parallel.chunking import plan_chunks
+    from flappie_tpu_torch.basecall import preprocess_batch
     from flappie_tpu_torch.signal.fast5 import read_raw
 
-    stride = cfg.total_stride
-    chunk = 2560 * stride
     t0 = time.perf_counter()
     pre = preprocess_batch([read_raw(os.path.join(reads_dir, n)) for n, _ in names])
     log(f"host: fast5 read + preprocessing of {len(names)} reads on one thread: "
         f"{time.perf_counter() - t0:.3f} s")
+    return count_programs(pre, cfg)
+
+
+def count_programs(pre: list, cfg) -> int:
+    """expected_programs for preprocessed reads (RawTables)."""
+    from flappie_tpu_torch.basecall import bucket_length
+    from flappie_tpu_torch.parallel.chunking import plan_chunks
+
+    stride = cfg.total_stride
+    chunk = 2560 * stride
     nchunk, buckets = 0, {}
     for rt in pre:
         L = rt.end - rt.start
@@ -1648,6 +1671,242 @@ def main_path(torch, np, card: str, model: str) -> dict:
     launches[f"{model}_scan"] = scan_path(torch, card, cfg)
     profiled_run(torch, reads_dir, card, model)
     return launches
+
+
+# -- phase 3, the server -------------------------------------------------------
+
+# each request directory: 6 reads that are chunked and 4 for the buckets
+SERVE_READS = ((6, 30_000, 60_000), (4, 3_000, 12_000))
+# the multi-read file of the watch run: reads of the same two kinds
+# (at most 8: hdf5_min's writer keeps a group to one symbol-table node)
+SERVE_MULTI = ((3, 30_000, 60_000), (3, 3_000, 12_000))
+SERVE_QCAL = "1.1:-0.5"
+
+
+class _Tee:
+    """sys.stderr's stand-in: writes through and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.buf = stream, []
+
+    def write(self, text):
+        self.buf.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.buf)
+
+
+class _Requests:
+    """sys.stdin's stand-in for serve_stdin: yields the request lines and
+    notes, as each is taken (so after the one before it has been served),
+    where stdout and the acks stood and the host clock."""
+
+    def __init__(self, requests, out, err):
+        self.requests, self.out, self.err = requests, out, err
+        self.marks = []
+
+    def __iter__(self):
+        for request in self.requests:
+            self.marks.append((self.out.tell(), len(self.err.text()), time.perf_counter()))
+            yield request + "\n"
+        self.marks.append((self.out.tell(), len(self.err.text()), time.perf_counter()))
+
+
+@contextlib.contextmanager
+def captured_stderr():
+    tee = _Tee(sys.stderr)
+    sys.stderr = tee
+    try:
+        yield tee
+    finally:
+        sys.stderr = tee.stream
+
+
+def write_multi_read(np, rng, path: str) -> list:
+    """A multi-read fast5 of SERVE_MULTI's reads, written as an hdf5_min
+    tree (the card's machine has no h5py); returns the read ids."""
+    from flappie_tpu_torch.signal import hdf5_min
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    channel = {"digitisation": 8192.0, "offset": 16.0, "range": 1373.41, "sampling_rate": 4000.0}
+    sizes = [int(n) for count, lo, hi in SERVE_MULTI for n in rng.integers(lo, hi, count)]
+    groups = {}
+    for k, n in enumerate(sizes):
+        uuid = f"00000000-0000-4000-9000-{k:012d}"
+        groups[f"read_{uuid}"] = hdf5_min.Node(children={
+            "Raw": hdf5_min.Node(attrs={"read_id": np.bytes_(uuid)}, children={
+                "Signal": hdf5_min.Node(data=synthetic_adc(n, rng))}),
+            "channel_id": hdf5_min.Node(attrs={k: np.float64(v) for k, v in channel.items()}),
+        })
+    hdf5_min.write(path, hdf5_min.Node(attrs={"file_version": np.bytes_("2.0")},
+                                       children=groups))
+    return sorted(g[len("read_"):] for g in groups)
+
+
+def serve_args(extra: list):
+    from flappie_tpu_torch.cli import serve
+
+    return serve.build_parser().parse_args(["--model", "r941_native"] + extra)
+
+
+def serve_counts(programs: int) -> dict:
+    return {"lstm_layer": 5 * programs, **{k: n * programs for k, n in FB_CRF.items()}}
+
+
+def serve_stdin_run(torch, np, card: str) -> None:
+    """flappie-serve's stdin mode at full width: a warm server answers a
+    directory, a missing path, the same directory again and a second
+    directory; each request's FASTQ bytes equal the flappie CLI's on the
+    same files (in this process, and in a fresh process for the first);
+    the four requests' launch counts equal what their programs imply."""
+    from flappie_tpu_torch.cli import serve
+    from flappie_tpu_torch.models.config import get_model_config
+
+    cfg = get_model_config("r941_native")
+    wdir = os.path.join(WORK, "serve")
+    rng = np.random.default_rng(20261017)
+    dirs = [os.path.join(wdir, f"run{k}") for k in (1, 2)]
+    names = [write_reads(np, rng, d, *SERVE_READS) for d in dirs]
+    programs = [expected_programs(d, n, cfg) for d, n in zip(dirs, names)]
+    missing = os.path.join(wdir, "missing")
+    requests = [dirs[0], missing, dirs[0], dirs[1]]
+    nsample = [sum(n for _, n in names[k]) for k in (0, 0, 0, 1)]
+
+    t0 = time.perf_counter()
+    server = serve.Server(serve_args(["--warmup"]))
+    t1 = time.perf_counter()
+    server.warmup()
+    t2 = time.perf_counter()
+    log(f"serve: Server() {t1 - t0:.3f} s (weights uploaded), warmup {t2 - t1:.3f} s (one "
+        f"synthetic read of {server.caller.chunk + 211} samples through the chunk program; "
+        f"the kernels were built and loaded by the phases before) [{card}]")
+
+    out = io.StringIO()
+    saved_in = sys.stdin
+    with captured_stderr() as err, contextlib.redirect_stdout(out):
+        sys.stdin = feed = _Requests(requests, out, err)
+        try:
+            zero_counts()
+            rc = serve.serve_stdin(server)
+            torch.cuda.synchronize()
+            counts = check_counts("serve stdin", serve_counts(2 * programs[0] + programs[1]))
+        finally:
+            sys.stdin = saved_in
+    if rc != 0:
+        raise AssertionError(f"serve_stdin returned {rc}")
+    text, acks = out.getvalue(), err.text()
+    got, walls, clock = [], [], []
+    for k, request in enumerate(requests):
+        (o0, e0, t0), (o1, e1, t1) = feed.marks[k], feed.marks[k + 1]
+        got.append(text[o0:o1])
+        clock.append(t1 - t0)
+        ack = [a for a in acks[e0:e1].splitlines() if a.startswith("flappie-serve: ")]
+        n = len(names[1 if k == 3 else 0]) if k != 1 else 0
+        want = f"flappie-serve: done {request} reads={n} called={n} wall="
+        if len(ack) != 1 or not ack[0].startswith(want):
+            raise AssertionError(f"serve request {k + 1}: acks {ack}, expected '{want}...'")
+        walls.append(float(ack[0].split("wall=")[1].rstrip("s")))
+    if got[1] != "" or got[2] != got[0]:
+        raise AssertionError("serve: the missing path gave records, or the repeat request's "
+                             "FASTQ differs from the first's")
+    for k in (0, 3):
+        parse_fastq(got[k], "ACGT")
+        cli_out = os.path.join(wdir, f"cli_run{1 + k // 3}.fastq")
+        run_cli(torch, [requests[k], "-o", cli_out])
+        with open(cli_out) as fh:
+            if fh.read() != got[k]:
+                raise AssertionError(f"serve request {k + 1}: FASTQ differs from the CLI's")
+    fresh = os.path.join(wdir, "cli_fresh.fastq")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "flappie_tpu_torch.cli.flappie", dirs[0], "-o", fresh],
+                   cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), check=True, timeout=600)
+    cold = time.perf_counter() - t0
+    with open(fresh) as fh:
+        if fh.read() != got[0]:
+            raise AssertionError("serve request 1: FASTQ differs from a fresh CLI process's")
+    log(f"serve stdin: 4 requests; request 1 ({nsample[0]} samples, {programs[0]} programs) "
+        f"{clock[0]:.4f} s (ack wall={walls[0]:.2f}s), requests 2-4 {clock[1]:.4f} / "
+        f"{clock[2]:.4f} / {clock[3]:.4f} s (ack {walls[1]:.2f} / {walls[2]:.2f} / "
+        f"{walls[3]:.2f}; the missing path; the repeat; the second directory, {nsample[3]} "
+        f"samples, {programs[1]} programs), {nsample[0] / clock[0] / 1e6:.3f} and "
+        f"{nsample[3] / clock[3] / 1e6:.3f} Msamples/s for requests 1 and 4; a fresh CLI "
+        f"process on request 1's files {cold:.3f} s; every FASTQ byte-equal to the CLI's, the "
+        f"repeat to the first, the missing path acked with reads=0 [{card}]")
+    log(f"serve stdin launches: {json.dumps(counts)} ({programs[0]} + {programs[0]} + "
+        f"{programs[1]} programs)")
+
+
+def serve_watch_run(torch, np, card: str) -> None:
+    """flappie-serve's watch mode (--multi --qcal --output-dir): a
+    multi-read file dropped into the watched directory is published once,
+    its records the CLI's --multi records with calibrated qualities; a
+    STOP file ends the server; its launch counts are checked."""
+    import threading
+
+    from flappie_tpu_torch.basecall import preprocess_batch
+    from flappie_tpu_torch.cli import serve
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.qcal import apply_calibration, parse_qcal
+    from flappie_tpu_torch.signal.fast5 import iter_reads
+
+    cfg = get_model_config("r941_native")
+    wdir = os.path.join(WORK, "serve_watch")
+    watch, outdir = os.path.join(wdir, "in"), os.path.join(wdir, "out")
+    os.makedirs(watch)
+    multi = os.path.join(wdir, "multi.fast5")
+    ids = write_multi_read(np, np.random.default_rng(20261018), multi)
+    programs = count_programs(preprocess_batch(list(iter_reads(multi))), cfg)
+    server = serve.Server(serve_args(["--watch", watch, "--multi", "--qcal", SERVE_QCAL,
+                                      "--output-dir", outdir, "--poll", "0.2"]))
+    rc = []
+    with captured_stderr() as err:
+        zero_counts()
+        th = threading.Thread(target=lambda: rc.append(serve.serve_watch(server)))
+        th.start()
+        try:
+            t0 = time.perf_counter()
+            shutil.copy(multi, os.path.join(watch, ".multi.fast5.part"))
+            os.replace(os.path.join(watch, ".multi.fast5.part"),
+                       os.path.join(watch, "multi.fast5"))
+            while " done " not in err.text() and time.perf_counter() - t0 < 300 and th.is_alive():
+                time.sleep(0.05)
+            landed = time.perf_counter() - t0
+        finally:
+            with open(os.path.join(watch, "STOP"), "w"):
+                pass
+            th.join(timeout=60)
+        torch.cuda.synchronize()
+        counts = check_counts("serve watch", serve_counts(programs))
+    acks = [a for a in err.text().splitlines() if a.startswith("flappie-serve: ")]
+    dest = os.path.join(outdir, "multi.fastq")
+    want_ack = f"flappie-serve: done {os.path.join(watch, 'multi.fast5')} reads={len(ids)} " \
+               f"called={len(ids)} wall="
+    if th.is_alive() or rc != [0] or len(acks) != 2 or not acks[0].startswith(want_ack) \
+            or acks[1] != "flappie-serve: stopping (stop file present)" \
+            or sorted(os.listdir(outdir)) != ["multi.fastq"]:
+        raise AssertionError(f"serve watch: rc {rc}, acks {acks}, published "
+                             f"{sorted(os.listdir(outdir)) if os.path.isdir(outdir) else None}")
+    cli_out = os.path.join(wdir, "cli_multi.fastq")
+    run_cli(torch, [multi, "--multi", "-o", cli_out])
+    with open(cli_out) as fh:
+        plain = fh.read().splitlines()
+    with open(dest) as fh:
+        got = fh.read().splitlines()
+    a, b = parse_qcal(SERVE_QCAL)
+    want = [apply_calibration(line, a, b) if i % 4 == 3 else line for i, line in enumerate(plain)]
+    if got != want or [h.split()[0][1:] for h in got[::4]] != ids:
+        raise AssertionError("serve watch: the published records are not the CLI's --multi "
+                             "records with calibrated qualities")
+    moved = sum(x != y for q, p in zip(got[3::4], plain[3::4]) for x, y in zip(q, p))
+    log(f"serve watch: {len(ids)} reads of a multi-read file published once in {landed:.2f} s "
+        f"from the drop ({acks[0].split('wall=')[1].split()[0]} of basecalling), equal to the "
+        f"CLI's --multi records with --qcal {SERVE_QCAL} applied ({moved} of "
+        f"{sum(map(len, plain[3::4]))} quality bytes moved); launches {json.dumps(counts)} "
+        f"({programs} programs) [{card}]")
 
 
 # runnie's reads: 32 of 20k-60k samples (buckets 32768 and 65536, up to
@@ -2332,6 +2591,8 @@ def main() -> int:
     launches = {}
     for model in RUNS:
         launches.update(main_path(torch, np, card, model))
+    serve_stdin_run(torch, np, card)
+    serve_watch_run(torch, np, card)
     launches["rle_r941_native_pallas"] = runnie_path(torch, np, card)
     check_gradients(torch, card)
     launches["r941_native_train"] = training(torch, np, card)

@@ -9,7 +9,7 @@ JAX_PLATFORMS handling); without a GPU the default raises.
 Run as ``python -m flappie_tpu_torch.cli.flappie reads/ > calls.fastq``.
 
 Not ported yet, and refused with an error when given: ``--trace``,
-``--qcal``, ``--fast``, ``--mesh N`` (N > 1) and ``--multi``.
+``--fast`` and ``--mesh N`` (N > 1).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ import sys
 from .. import __version__
 from ..io.fastx import OUTFORMATS, format_read
 from ..models.config import FLAPPIE_MODELS, MODELS
-from ..signal.fast5 import read_raw
+from ..qcal import apply_qcal, parse_qcal
+from ..signal.fast5 import iter_reads, read_raw
 
 DEFAULT_MODEL = "r941_native"
 
@@ -122,11 +123,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="Shard batches over N devices (not ported yet)")
     p.add_argument("--multi", action="store_true", default=False,
-                   help="Basecall every read in multi-read fast5 files (not ported yet)")
+                   help="Basecall every read in multi-read fast5 files "
+                        "(the reference only reads the first)")
     p.add_argument("--fast", action="store_true", default=False,
                    help="Low-precision speed mode (not ported yet)")
     p.add_argument("--qcal", default=None, metavar="slope:offset|file",
-                   help="Calibrate quality scores post-hoc (not ported yet)")
+                   help="Calibrate quality scores post-hoc: either "
+                        "q' = slope*q + offset per base, or the path of "
+                        "a QCAL JSON artifact with per-model isotonic "
+                        "tables (the entry matching --model applies); "
+                        "omit for raw model qualities (the byte-parity "
+                        "default)")
     # port extension
     p.add_argument("--device", default="cuda", metavar="name",
                    help="Torch device to run on (default cuda; 'cpu' runs the "
@@ -148,6 +155,31 @@ def expand_files(args_files):
             continue
         out.extend(matches)
     return out
+
+
+def expand_reads(files, multi: bool):
+    """(reads, names, fnames), one entry per read to basecall.
+
+    With ``multi`` each file is read now and expanded to its reads
+    (iter_reads; a file that yields none falls back to read_raw, whose
+    invalid read reports the file).  Otherwise each file is one lazy
+    read, materialised on the preprocessing thread so that fast5 IO
+    overlaps dispatch (read_raw returns an invalid RawTable on failure,
+    so fault isolation is unchanged)."""
+    reads, names, fnames = [], [], []
+    for fn in files:
+        if multi:
+            try:
+                rts = list(iter_reads(fn, scale_to_pA=True))
+            except Exception:  # noqa: BLE001 - not a readable fast5: read_raw reports it
+                rts = []
+            rts = rts or [read_raw(fn, scale_to_pA=True)]
+        else:
+            rts = [lambda fn=fn: read_raw(fn, scale_to_pA=True)]
+        reads.extend(rts)
+        names.extend([os.path.basename(fn)] * len(rts))
+        fnames.extend([fn] * len(rts))
+    return reads, names, fnames
 
 
 def main(argv=None) -> int:
@@ -174,11 +206,18 @@ def main(argv=None) -> int:
         print(f"Invalid temperature {args.temperature} -- must be > 0.", file=sys.stderr)
         return 1
     unported = [flag for flag, on in (
-        ("--trace", args.trace is not None), ("--qcal", args.qcal is not None),
-        ("--fast", args.fast), ("--mesh", args.mesh > 1), ("--multi", args.multi),
+        ("--trace", args.trace is not None), ("--fast", args.fast), ("--mesh", args.mesh > 1),
     ) if on]
     if unported:
         parser.error(f"{', '.join(unported)}: not ported to flappie_tpu_torch yet")
+    qcal = None
+    if args.qcal:
+        # validate up front: a malformed pair/file must fail BEFORE the
+        # expensive basecalling run, not after it
+        try:
+            qcal = parse_qcal(args.qcal, model=args.model)
+        except ValueError as exc:
+            parser.error(str(exc))
     if not args.files:
         parser.error("the following arguments are required: fast5")
 
@@ -200,11 +239,9 @@ def main(argv=None) -> int:
         device=args.device,
     )
 
-    # lazy reads: one per file, materialised on the preprocessing
-    # thread so fast5 IO overlaps dispatch (read_raw returns an invalid
-    # RawTable on failure, so fault isolation is unchanged)
-    reads = [lambda fn=fn: read_raw(fn, scale_to_pA=True) for fn in files]
-    names = [os.path.basename(fn) for fn in files]
+    reads, names, fnames = expand_reads(files, args.multi)
+    if args.limit > 0:
+        reads, names, fnames = reads[: args.limit], names[: args.limit], fnames[: args.limit]
 
     trim_start, trim_end = args.trim
     varseg_chunk, varseg_thresh = args.segmentation
@@ -221,10 +258,11 @@ def main(argv=None) -> int:
 
     out = open(args.output, "w") if args.output else sys.stdout
     try:
-        for fn, name, res in zip(files, names, results):
+        for fn, name, res in zip(fnames, names, results):
             if res is None:
                 print(f"No basecall returned for {fn}", file=sys.stderr)
                 continue
+            res = apply_qcal(res, qcal)
             out.write(format_read(args.format, res.uuid, name, args.uuid, args.prefix, res))
             out.flush()
     finally:

@@ -6,13 +6,21 @@ attribute is the uuid, and the int16 ``Signal`` dataset is converted to
 float32 and scaled to pA as ``(raw + offset) * range / digitisation``
 using the ``/UniqueGlobalKey/channel_id`` attributes.
 
-A copy of the single-read part of the JAX package's fast5 module
-(multi-read files, ``--multi``, are not ported yet).  Where h5py is not
-installed, files are written and read through the minimal HDF5 codec in
-hdf5_min.py.
+Additionally supports multi-read fast5 files (top-level ``read_*``
+groups), which the reference does not handle (RUNNIE.md:109) - each read
+carries its own ``channel_id`` group (``iter_reads``, CLI ``--multi``).
+
+A copy of the JAX package's fast5 module.  Where h5py is not installed,
+files are written and read through the minimal HDF5 codec in
+hdf5_min.py, which reads contiguous datasets only: a chunked or
+compressed dataset anywhere in a file makes the whole file unreadable
+(read_raw returns an invalid read, iter_reads raises, and the CLIs
+report the file as "No basecall returned").
 """
 
 from __future__ import annotations
+
+from typing import Iterator, List
 
 import numpy as np
 
@@ -95,6 +103,63 @@ def _read_raw_min(filename: str, scale_to_pA: bool) -> RawTable:
         return RawTable(uuid, raw.size, 0, raw.size, raw, adc=adc, cal=cal)
     except Exception:
         return RawTable(None, 0, 0, 0, None)
+
+
+def iter_reads(filename: str, scale_to_pA: bool = True) -> Iterator[RawTable]:
+    """Iterate all reads in a fast5 file (single- or multi-read layout).
+
+    A single-read file yields read_raw's read when it is valid; a
+    multi-read file yields each ``read_*`` group in sorted order, and a
+    group that fails to read is skipped.  A file that is not HDF5 raises."""
+    if h5py is None:
+        yield from _iter_reads_min(filename, scale_to_pA)
+        return
+    with h5py.File(filename, "r") as f:
+        if "Raw" in f:  # single-read layout
+            rt = read_raw(filename, scale_to_pA)
+            if rt.valid:
+                yield rt
+            return
+        for name in sorted(f.keys()):
+            if not name.startswith("read_"):
+                continue
+            grp = f[name]
+            try:
+                raw_grp = grp["Raw"]
+                uuid = _decode_attr(raw_grp.attrs.get("read_id", name[len("read_") :]))
+                sig = raw_grp["Signal"][()]
+                raw, adc, cal = _scale_signal(sig, grp["channel_id"].attrs, scale_to_pA)
+            except Exception:
+                continue
+            yield RawTable(uuid, raw.size, 0, raw.size, raw, adc=adc, cal=cal)
+
+
+def _iter_reads_min(filename: str, scale_to_pA: bool) -> Iterator[RawTable]:
+    """iter_reads through the minimal HDF5 codec (no h5py)."""
+    from . import hdf5_min
+
+    root = hdf5_min.read(filename)
+    if "Raw" in root.children:  # single-read layout
+        rt = _read_raw_min(filename, scale_to_pA)
+        if rt.valid:
+            yield rt
+        return
+    for name in sorted(root.children):
+        if not name.startswith("read_"):
+            continue
+        grp = root.children[name]
+        try:
+            raw_grp = grp.children["Raw"]
+            uuid = _decode_attr(raw_grp.attrs.get("read_id", name[len("read_") :]))
+            raw, adc, cal = _scale_signal(raw_grp.children["Signal"].data,
+                                          grp.children["channel_id"].attrs, scale_to_pA)
+        except Exception:
+            continue
+        yield RawTable(uuid, raw.size, 0, raw.size, raw, adc=adc, cal=cal)
+
+
+def list_read_ids(filename: str) -> List[str]:
+    return [rt.uuid for rt in iter_reads(filename, scale_to_pA=False)]
 
 
 def write_single_read_fast5(

@@ -1,6 +1,10 @@
-"""A minimal HDF5 reader and writer for the single-read fast5 layout.
+"""A minimal HDF5 reader and writer for the fast5 layouts.
 
-Used by signal/fast5.py only where h5py is not installed.  The writer
+Used by signal/fast5.py only where h5py is not installed.  It writes
+the single-read layout (and any tree of at most 8 entries a group) and
+reads the single- and multi-read layouts: the reader walks a group's
+B-tree to any depth, so a multi-read file that libhdf5 wrote with
+hundreds of ``read_*`` groups reads as well.  The writer
 emits the classic HDF5 structures (superblock version 0, version-1
 object headers, symbol-table groups with a version-1 B-tree, a local
 heap and one symbol-table node, contiguous datasets, compact attributes)

@@ -118,7 +118,7 @@ def test_cli_fault_isolation_and_refusals(reads, tmp_path, capsys):
                 tmp_path / "o.fq")
     assert text.startswith("@read-0") and text.count("@read-") == 1
     assert f"No basecall returned for {bad}" in capsys.readouterr().err
-    for flag in (["--trace", "t.h5"], ["--fast"], ["--qcal", "1:0"], ["--mesh", "2"], ["--multi"]):
+    for flag in (["--trace", "t.h5"], ["--fast"], ["--mesh", "2"]):
         with pytest.raises(SystemExit):
             port_main([str(reads), "--device", "cpu"] + flag)
 
