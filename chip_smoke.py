@@ -100,23 +100,41 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    24 reads) decoded on the card and on the CPU from the same
    transitions under each impl (--viterbi paths bit-equal; fb: the
    Viterbi over the card's posterior bit-equal, the CPU's own fb path
-   other in at most 1% of the blocks, the scans' drift logged); the
-   device time of one full chunk batch (10 runs); one more fb run of each
-   model under torch.profiler, and of runnie once more under
+   other in at most 1% of the blocks, the scans' drift logged).
+   r941_native's fb run sets FLAPPIE_TPU_PHASES (timing.py's accounting
+   reset just before): each host phase's wall and calls are logged
+   beside the run's wall and, after its profiled run, beside the device
+   busy share.  The same reads once more with --trace (and its phase
+   dump): the FASTQ byte-equal to the run without it, the file read back
+   through hdf5_min and trace_view.iter_traces (the card's host has no
+   h5py) with one group a record, a float32 signal of the read's trimmed
+   length and a uint8 trace of [nblock + 1, 8], each row after the first
+   summing to 255 +- 4, both walls and the file's size logged; the CPU
+   subset run writes its own trace file, whose signals must equal the
+   card's and traces lie within one count.  Then --chunk 0: the 80 reads
+   whole through the bucket programs (launch counts as those imply), and
+   4 reads (two of 20k-32k samples, two short) on the card and on the
+   CPU path, held by the band.  The device time of one full chunk batch
+   (10 runs); one more fb run of each
+   model under torch.profiler (its device busy share; r941_native's once
+   more with host activity: the host calls of the longest self time),
+   and of runnie once more under
    FLAPPIE_TPU_CRF_IMPL=pallas (K11's kernel time), runnie's runs with
    their tracebacks replayed under the profiler: the traceback kernel's
    device time beside the glue around it (layout copies, casts, flips).
    Then flappie-serve (flappie_tpu_torch.cli.serve), in this process:
-   a Server for r941_native at full width with --warmup (the warmup's
-   wall logged), fed through serve_stdin a directory of 10 seeded reads
+   serve.main for r941_native at full width with --warmup and
+   FLAPPIE_TPU_PHASES (the time to its first request logged), fed on
+   stdin a directory of 10 seeded reads
    (6 chunked, 4 bucketed), a missing path, the same directory again and
-   a second directory; each request's ack (reads, called, wall=) checked
+   a second directory, its phase dump logged at server exit; each
+   request's ack (reads, called, wall=) checked
    and its wall logged, request 1 beside requests 2-4; each FASTQ
    byte-equal to the flappie CLI's on the same files in this process
    (and request 1's to a fresh CLI process's, whose wall is logged), the
    repeat to the first, the missing path acked with reads=0; the launch
-   counts of the four requests equal to what their programs imply (5 K1,
-   3 K3/K4, 1 K5, 1 K6 a program).  Then serve_watch with --multi --qcal
+   counts of the warmup and the four requests equal to what their
+   programs imply (5 K1, 3 K3/K4, 1 K5, 1 K6 a program).  Then serve_watch with --multi --qcal
    1.1:-0.5 --output-dir: a multi-read file of 6 reads (written by
    hdf5_min) dropped into the watched directory is published once, its
    records the CLI's --multi records with the calibrated qualities, a
@@ -1272,17 +1290,18 @@ def expected_programs(reads_dir: str, names: list, cfg) -> int:
     return count_programs(pre, cfg)
 
 
-def count_programs(pre: list, cfg) -> int:
-    """expected_programs for preprocessed reads (RawTables)."""
+def count_programs(pre: list, cfg, chunk: int = None) -> int:
+    """expected_programs for preprocessed reads (RawTables); ``chunk``
+    0 sends every read through the bucket programs (--chunk 0)."""
     from flappie_tpu_torch.basecall import bucket_length
     from flappie_tpu_torch.parallel.chunking import plan_chunks
 
     stride = cfg.total_stride
-    chunk = 2560 * stride
+    chunk = 2560 * stride if chunk is None else chunk
     nchunk, buckets = 0, {}
     for rt in pre:
         L = rt.end - rt.start
-        if L > chunk:
+        if chunk and L > chunk:
             nchunk += plan_chunks(L, stride, chunk, 1600).nchunk
         else:
             buckets[bucket_length(L)] = buckets.get(bucket_length(L), 0) + 1
@@ -1301,7 +1320,8 @@ def parse_fastq(text: str, alphabet: str) -> dict:
         if set(seq) - set(alphabet) or any(not 33 <= ord(c) <= 126 for c in qual):
             raise AssertionError(f"bad sequence or quality characters at line {i + 1}")
         meta = json.loads(head.split("  ", 1)[1])
-        recs[meta["filename"]] = (seq, meta["normalised_score"], "\n".join(lines[i : i + 4]))
+        recs[meta["filename"]] = (seq, meta["normalised_score"], "\n".join(lines[i : i + 4]),
+                                  meta)
     return recs
 
 
@@ -1465,11 +1485,13 @@ def device_time(prof):
     return busy, end - spans[0][0], by_name
 
 
-def log_profile(what: str, prof, wall: float, card: str) -> None:
+def log_profile(what: str, prof, wall: float, card: str):
+    """Logs the device busy share of ``wall`` and kernel time by name;
+    returns the busy share, or None where no device event was recorded."""
     got = device_time(prof)
     if got is None:
         log(f"profile {what}: no device events recorded; device busy share not measured")
-        return
+        return None
     busy, span, by_name = got
     log(f"profile {what}: wall {wall:.3f} s, device busy {busy / 1e6:.3f} s = "
         f"{100 * busy / 1e6 / wall:.1f}% of the wall, span of device work {span / 1e6:.3f} s "
@@ -1481,17 +1503,39 @@ def log_profile(what: str, prof, wall: float, card: str) -> None:
     groups = "; ".join(f"{g} {ms:.3f} ms" for g, ms in group_ms(by_name).items() if ms)
     if groups:
         log(f"  kernel time by group: {groups}")
+    return busy / 1e6 / wall
 
 
-def profiled_run(torch, reads_dir: str, card: str, model: str) -> None:
+def profiled_run(torch, reads_dir: str, card: str, model: str):
     """The default run once more under torch.profiler (device activity
-    only): the device busy share of the wall, and kernel time by name."""
+    only): the device busy share of the wall (returned; None where not
+    measured), and kernel time by name."""
     from torch.profiler import ProfilerActivity, profile
 
     out = os.path.join(os.path.dirname(reads_dir), "gpu_fb_profiled.fastq")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = run_cli(torch, [reads_dir, "-o", out, "--model", model])
-    log_profile(f"{model} (fb run, profiler on)", prof, wall, card)
+    return log_profile(f"{model} (fb run, profiler on)", prof, wall, card)
+
+
+HOST_CALLS = 12
+
+
+def profiled_host_calls(torch, reads_dir: str, card: str, model: str) -> None:
+    """The default fb run once more under torch.profiler with host activity
+    too: the operators and CUDA runtime calls that hold the host longest
+    (self time), which name the call inside a phase where the host waits
+    on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = os.path.join(os.path.dirname(reads_dir), "gpu_fb_profiled_host.fastq")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run_cli(torch, [reads_dir, "-o", out, "--model", model])
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    log(f"profile {model} (fb run, host and device activity): wall {wall:.3f} s; the "
+        f"{HOST_CALLS} host calls of the longest self time [{card}]")
+    for e in rows[:HOST_CALLS]:
+        log(f"  host self {e.self_cpu_time_total / 1e3:9.1f} ms  {e.count:7d} calls  {e.key[:80]}")
 
 
 # the kernel knobs at their defaults; every CLI run sets all three
@@ -1604,6 +1648,191 @@ def compare_fastq(what: str, got: dict, want: dict) -> None:
         f"{worst_id:.6f}, max |score delta| {worst_ds:.2e}")
 
 
+# -- phase 3, the trace file, the phase dump and the unchunked run -----------
+
+# the model whose main path also runs --trace, FLAPPIE_TPU_PHASES and --chunk 0
+TRACE_MODEL = "r941_native"
+# the reads held to the CPU path under --chunk 0: two longer than the
+# default chunk (12800 samples), whole through bucket 32768, and two short
+UNCHUNKED_READS = ((2, 20_000, 32_000), (2, 3_000, 12_000))
+
+
+@contextlib.contextmanager
+def phases_to(path):
+    """FLAPPIE_TPU_PHASES=path inside the block, the accounting reset as
+    it starts (``path`` None: neither)."""
+    from flappie_tpu_torch import timing
+
+    if path is None:
+        yield
+        return
+    timing.reset()
+    os.environ["FLAPPIE_TPU_PHASES"] = path
+    try:
+        yield
+    finally:
+        os.environ.pop("FLAPPIE_TPU_PHASES", None)
+
+
+def log_phases(what: str, path: str, wall: float, card: str) -> dict:
+    """Logs the phase dump at ``path`` (each phase's wall and calls, the
+    longest first) beside the run's wall; returns it."""
+    with open(path) as fh:
+        rep = json.load(fh)
+    if not rep["phases"]:
+        raise AssertionError(f"phases {what}: the dump at {path} names no phase")
+    log(f"phases {what}: run wall {wall:.3f} s, process wall {rep['process_wall_s']:.3f} s since "
+        f"the reset, accounted {rep['accounted_s']:.3f} s (phases nest and overlap) [{card}]")
+    for k, v in rep["phases"].items():
+        log(f"  phase {k:16s} {v['wall_s']:8.3f} s  {v['calls']:5d} calls")
+    return rep
+
+
+def trace_groups(path: str) -> dict:
+    """The trace file read back as the card's host reads it: hdf5_min and
+    trace_view.iter_traces -> {group: (signal, trace bytes)}."""
+    import numpy as np
+
+    from flappie_tpu_torch.cli import trace_view
+    from flappie_tpu_torch.signal import hdf5_min
+
+    root = hdf5_min.read(path)
+    out = {}
+    for read, sig, trace in trace_view.iter_traces(trace_view.MinFile(root), path, 0):
+        raw = root.children[read].children["trace"].data
+        if trace.shape != raw.shape or not np.array_equal(np.rint(trace * 255.0), raw):
+            raise AssertionError(f"trace {read}: iter_traces does not give the stored bytes")
+        out[read] = (sig, raw)
+    if sorted(out) != sorted(root.children):
+        raise AssertionError("trace: iter_traces skipped a group")
+    return out
+
+
+def trace_run(torch, card: str, cfg, reads_dir: str, names: list, fb_wall: float,
+              want: dict) -> str:
+    """The fb main path once more with --trace (and its phase dump): the
+    FASTQ byte-equal to the run without it, one group a record in the file
+    (read back through hdf5_min, as the card's host has no h5py), each
+    with a float32 signal of the read's trimmed length and a uint8 trace
+    of nblock + 1 rows of the model's states, each row after the first
+    summing to 255 +- 4.  Returns the file's path."""
+    from flappie_tpu_torch.basecall import preprocess_batch
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    wdir = os.path.dirname(reads_dir)
+    path = os.path.join(wdir, "gpu_trace.h5")
+    out = os.path.join(wdir, "gpu_fb_trace.fastq")
+    dump = os.path.join(wdir, "phases_trace.json")
+    with phases_to(dump):
+        wall, got = counted_run(torch, f"{cfg.name} fb --trace",
+                                [reads_dir, "-o", out, "--model", cfg.name, "--trace", path], want)
+    with open(out) as fh, open(os.path.join(wdir, "gpu_fb.fastq")) as fh2:
+        text = fh.read()
+        if text != fh2.read():
+            raise AssertionError("--trace: the FASTQ differs from the run without --trace")
+    recs = parse_fastq(text, "ACGTZ"[: cfg.nbase])
+    t0 = time.perf_counter()
+    groups = trace_groups(path)
+    read_s = time.perf_counter() - t0
+    pre = preprocess_batch([read_raw(os.path.join(reads_dir, n)) for n, _ in names])
+    trimmed = {n: rt.end - rt.start for (n, _), rt in zip(names, pre)}
+    if sorted(groups) != sorted(r[3]["uuid"] for r in recs.values()):
+        raise AssertionError(f"--trace: {len(groups)} groups for {len(recs)} FASTQ records")
+    worst = 0
+    for fname, rec in recs.items():
+        sig, trace = groups[rec[3]["uuid"]]
+        nblock = rec[3]["nblock"]
+        if sig.dtype != "float32" or sig.shape != (trimmed[fname],):
+            raise AssertionError(f"--trace {fname}: signal {sig.dtype} {sig.shape}, expected "
+                                 f"float32 ({trimmed[fname]},)")
+        if trace.dtype != "uint8" or trace.shape != (nblock + 1, cfg.nstate):
+            raise AssertionError(f"--trace {fname}: trace {trace.dtype} {trace.shape}, expected "
+                                 f"uint8 ({nblock + 1}, {cfg.nstate})")
+        dev = abs(trace[1:].astype(int).sum(axis=1) - 255).max()
+        worst = max(worst, int(dev))
+        if dev > 4:
+            raise AssertionError(f"--trace {fname}: a trace row sums {dev} away from 255")
+    nsample = sum(n for _, n in names)
+    log(f"main path {cfg.name} fb --trace: {len(groups)} groups, file {os.path.getsize(path)} "
+        f"bytes; wall {wall:.3f} s with --trace against {fb_wall:.3f} s without "
+        f"({nsample / wall / 1e6:.3f} against {nsample / fb_wall / 1e6:.3f} Msamples/s); "
+        f"FASTQ byte-equal to the run without --trace; every signal float32 of the trimmed "
+        f"length, every trace uint8 [nblock + 1, {cfg.nstate}], rows after the first within "
+        f"{worst} of 255; the file read back (hdf5_min, iter_traces) in {read_s:.3f} s; "
+        f"launches {json.dumps(got)} [{card}]")
+    log_phases(f"{cfg.name} fb --trace", dump, wall, card)
+    return path
+
+
+def compare_traces(gpu: str, cpu: str, reads: set) -> None:
+    """The card's trace file against the CPU path's on the reads both ran:
+    signals equal, traces within one count."""
+    import numpy as np
+
+    g, c = trace_groups(gpu), trace_groups(cpu)
+    if set(c) != reads:
+        raise AssertionError(f"cpu --trace: groups {sorted(c)}, expected {sorted(reads)}")
+    ndiff, nbytes = 0, 0
+    for read in sorted(reads):
+        (gs, gt), (cs, ct) = g[read], c[read]
+        if not np.array_equal(gs, cs):
+            raise AssertionError(f"trace {read}: the signal differs between card and CPU")
+        if gt.shape != ct.shape:
+            raise AssertionError(f"trace {read}: shape {gt.shape} on the card, {ct.shape} on the CPU")
+        d = np.abs(gt.astype(int) - ct.astype(int))
+        if d.max() > 1:
+            raise AssertionError(f"trace {read}: card and CPU differ by more than one count")
+        ndiff += int((d > 0).sum())
+        nbytes += d.size
+    log(f"trace gpu vs cpu ({len(reads)} reads): signals equal, traces within one count, "
+        f"{ndiff} of {nbytes} bytes differ by one")
+
+
+def unchunked_run(torch, np, card: str, cfg, reads_dir: str, names: list, fb_wall: float):
+    """--chunk 0: the main path's reads whole through the bucket programs
+    (launch counts as those programs imply), then UNCHUNKED_READS on the
+    card and on the port's CPU path, held to the GPU-vs-CPU band.
+    Returns the main-path run's launch counts."""
+    from flappie_tpu_torch.basecall import preprocess_batch
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    layer = "lstm_layer"
+    wdir = os.path.join(WORK, "unchunked")
+    os.makedirs(wdir)
+
+    def want(reads, dir_):
+        P = count_programs(preprocess_batch([read_raw(os.path.join(dir_, n)) for n, _ in reads]),
+                           cfg, chunk=0)
+        return P, {layer: len(cfg.rnns) * P, **{k: n * P for k, n in FB_CRF.items()}}
+
+    P, counts = want(names, reads_dir)
+    out = os.path.join(wdir, "gpu_main.fastq")
+    wall, got = counted_run(torch, f"{cfg.name} --chunk 0",
+                            [reads_dir, "-o", out, "--chunk", "0"], counts)
+    with open(out) as fh:
+        recs = parse_fastq(fh.read(), "ACGT")
+    if sorted(recs) != sorted(n for n, _ in names):
+        raise AssertionError(f"--chunk 0: {len(recs)} FASTQ records for {len(names)} reads")
+    nsample = sum(n for _, n in names)
+    log(f"main path {cfg.name} fb --chunk 0: {len(recs)} reads, {P} bucket programs, wall "
+        f"{wall:.3f} s ({nsample / wall / 1e6:.3f} Msamples/s; chunked {fb_wall:.3f} s), "
+        f"launches {json.dumps(got)} [{card}]")
+
+    small_dir = os.path.join(wdir, "small")
+    small = write_reads(np, np.random.default_rng(20261019), small_dir, *UNCHUNKED_READS)
+    Ps, counts = want(small, small_dir)
+    gpu_out, cpu_out = os.path.join(wdir, "gpu_small.fastq"), os.path.join(wdir, "cpu_small.fastq")
+    gpu_wall, got_small = counted_run(torch, f"{cfg.name} --chunk 0 (held to the CPU)",
+                                      [small_dir, "-o", gpu_out, "--chunk", "0"], counts)
+    cpu_wall = run_cli(torch, [small_dir, "-o", cpu_out, "--chunk", "0", "--device", "cpu"])
+    with open(gpu_out) as fh, open(cpu_out) as fh2:
+        compare_fastq(f"gpu vs cpu {cfg.name} --chunk 0 ({[n for _, n in small]} samples, {Ps} "
+                      f"programs; gpu wall {gpu_wall:.3f} s, cpu wall {cpu_wall:.1f} s)",
+                      parse_fastq(fh.read(), "ACGT"), parse_fastq(fh2.read(), "ACGT"))
+    log(f"--chunk 0 (held to the CPU) launches {json.dumps(got_small)}")
+    return got
+
+
 def main_path(torch, np, card: str, model: str) -> dict:
     """One model's main path in fb and --viterbi (for r941_native also fb
     under each knob of KNOB_RUNS, held to the default fb run); returns
@@ -1623,13 +1852,18 @@ def main_path(torch, np, card: str, model: str) -> dict:
 
     launches = {}
     outputs = {}
+    walls = {}
+    traced = model == TRACE_MODEL  # the trace file, the phase dump, --chunk 0
     for mode, extra in (("fb", []), ("viterbi", ["--viterbi"])):
         out = os.path.join(wdir, f"gpu_{mode}.fastq")
         want = {layer: len(cfg.rnns) * P, **{k: n * P for k, n in FB_CRF.items()}}
         if mode == "viterbi":
             want["crf_sum_scan"] = P
-        wall, got = counted_run(torch, f"{model} {mode}",
-                                [reads_dir, "-o", out, "--model", model] + extra, want)
+        dump = os.path.join(wdir, "phases_fb.json") if traced and mode == "fb" else None
+        with phases_to(dump):
+            wall, got = counted_run(torch, f"{model} {mode}",
+                                    [reads_dir, "-o", out, "--model", model] + extra, want)
+        walls[mode] = wall
         with open(out) as fh:
             recs = parse_fastq(fh.read(), alphabet)
         if sorted(recs) != sorted(n for n, _ in names):
@@ -1640,6 +1874,9 @@ def main_path(torch, np, card: str, model: str) -> dict:
             launches[model] = got
         log(f"main path {model} {mode}: {len(recs)} reads, wall {wall:.3f} s, "
             f"{nsample / wall / 1e6:.3f} Msamples/s, launches {json.dumps(got)} [{card}]")
+        if dump:
+            fb_phases = log_phases(f"{model} fb", dump, wall, card)
+            gpu_trace = trace_run(torch, card, cfg, reads_dir, names, walls["fb"], want)
 
     for run, (env, per_program) in KNOB_RUNS[model].items():
         out = os.path.join(wdir, f"gpu_{run}.fastq")
@@ -1660,16 +1897,29 @@ def main_path(torch, np, card: str, model: str) -> dict:
     for n in subset:
         shutil.copy(os.path.join(reads_dir, n), sub_dir)
     cpu_out = os.path.join(wdir, "cpu_fb.fastq")
-    cpu_wall = run_cli(torch, [sub_dir, "-o", cpu_out, "--model", model, "--device", "cpu"])
+    cpu_trace = os.path.join(wdir, "cpu_trace.h5")
+    cpu_wall = run_cli(torch, [sub_dir, "-o", cpu_out, "--model", model, "--device", "cpu"]
+                       + (["--trace", cpu_trace] if traced else []))
     with open(cpu_out) as fh:
         cpu = parse_fastq(fh.read(), alphabet)
     compare_fastq(f"gpu vs cpu {model} (cpu wall {cpu_wall:.1f} s)",
                   {n: outputs["fb"][n] for n in subset}, cpu)
+    if traced:
+        compare_traces(gpu_trace, cpu_trace, {outputs["fb"][n][3]["uuid"] for n in subset})
+        launches[f"{model}_unchunked"] = unchunked_run(torch, np, card, cfg, reads_dir, names,
+                                                       walls["fb"])
     time_chunk_program(torch, np, rng, card, cfg)
     if len(cfg.convs) == 3:
         time_conv_stacks(torch, card, cfg)
     launches[f"{model}_scan"] = scan_path(torch, card, cfg)
-    profiled_run(torch, reads_dir, card, model)
+    busy = profiled_run(torch, reads_dir, card, model)
+    if traced:
+        profiled_host_calls(torch, reads_dir, card, model)
+        share = "not measured" if busy is None else f"{100 * busy:.1f}%"
+        log(f"host phases of the {model} fb run (wall {walls['fb']:.3f} s) beside the device "
+            f"busy share of its profiled run ({share}): " + "; ".join(
+                f"{k} {v['wall_s']:.3f} s = {100 * v['wall_s'] / walls['fb']:.1f}%"
+                for k, v in fb_phases["phases"].items()) + f" [{card}]")
     return launches
 
 
@@ -1758,11 +2008,13 @@ def serve_counts(programs: int) -> dict:
 
 
 def serve_stdin_run(torch, np, card: str) -> None:
-    """flappie-serve's stdin mode at full width: a warm server answers a
-    directory, a missing path, the same directory again and a second
-    directory; each request's FASTQ bytes equal the flappie CLI's on the
-    same files (in this process, and in a fresh process for the first);
-    the four requests' launch counts equal what their programs imply."""
+    """flappie-serve's stdin mode at full width, through serve.main with
+    --warmup and FLAPPIE_TPU_PHASES: a warm server answers a directory, a
+    missing path, the same directory again and a second directory; each
+    request's FASTQ bytes equal the flappie CLI's on the same files (in
+    this process, and in a fresh process for the first); the launch
+    counts of the warmup and the four requests equal what their programs
+    imply; the server dumps its phases at exit."""
     from flappie_tpu_torch.cli import serve
     from flappie_tpu_torch.models.config import get_model_config
 
@@ -1776,29 +2028,31 @@ def serve_stdin_run(torch, np, card: str) -> None:
     requests = [dirs[0], missing, dirs[0], dirs[1]]
     nsample = [sum(n for _, n in names[k]) for k in (0, 0, 0, 1)]
 
-    t0 = time.perf_counter()
-    server = serve.Server(serve_args(["--warmup"]))
-    t1 = time.perf_counter()
-    server.warmup()
-    t2 = time.perf_counter()
-    log(f"serve: Server() {t1 - t0:.3f} s (weights uploaded), warmup {t2 - t1:.3f} s (one "
-        f"synthetic read of {server.caller.chunk + 211} samples through the chunk program; "
-        f"the kernels were built and loaded by the phases before) [{card}]")
-
     out = io.StringIO()
     saved_in = sys.stdin
-    with captured_stderr() as err, contextlib.redirect_stdout(out):
+    dump = os.path.join(wdir, "phases_serve.json")
+    with captured_stderr() as err, contextlib.redirect_stdout(out), phases_to(dump):
         sys.stdin = feed = _Requests(requests, out, err)
         try:
             zero_counts()
-            rc = serve.serve_stdin(server)
+            t0 = time.perf_counter()
+            rc = serve.main(["--model", "r941_native", "--warmup"])
             torch.cuda.synchronize()
-            counts = check_counts("serve stdin", serve_counts(2 * programs[0] + programs[1]))
+            wall = time.perf_counter() - t0
+            # the warmup: one read one sample past the chunk, one chunk program
+            counts = check_counts("serve stdin",
+                                  serve_counts(1 + 2 * programs[0] + programs[1]))
         finally:
             sys.stdin = saved_in
     if rc != 0:
-        raise AssertionError(f"serve_stdin returned {rc}")
+        raise AssertionError(f"serve.main returned {rc}")
+    ready = feed.marks[0][2] - t0
+    log(f"serve: Server() and --warmup {ready:.3f} s to the first request (weights uploaded, "
+        f"one synthetic read of {2560 * cfg.total_stride + 211} samples through the chunk "
+        f"program; the kernels were built and loaded by the phases before) [{card}]")
     text, acks = out.getvalue(), err.text()
+    if acks.count("flappie-serve: ready") != 1:
+        raise AssertionError("serve: no single ready ack")
     got, walls, clock = [], [], []
     for k, request in enumerate(requests):
         (o0, e0, t0), (o1, e1, t1) = feed.marks[k], feed.marks[k + 1]
@@ -1836,8 +2090,10 @@ def serve_stdin_run(torch, np, card: str) -> None:
         f"{nsample[3] / clock[3] / 1e6:.3f} Msamples/s for requests 1 and 4; a fresh CLI "
         f"process on request 1's files {cold:.3f} s; every FASTQ byte-equal to the CLI's, the "
         f"repeat to the first, the missing path acked with reads=0 [{card}]")
-    log(f"serve stdin launches: {json.dumps(counts)} ({programs[0]} + {programs[0]} + "
-        f"{programs[1]} programs)")
+    log(f"serve stdin launches: {json.dumps(counts)} (the warmup's 1 + {programs[0]} + "
+        f"{programs[0]} + {programs[1]} programs)")
+    log_phases("flappie-serve (the warmup and 4 requests, dumped at server exit)", dump, wall,
+               card)
 
 
 def serve_watch_run(torch, np, card: str) -> None:

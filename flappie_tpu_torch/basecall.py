@@ -18,7 +18,10 @@ Each program takes ONE packed input buffer and returns ONE byte matrix
 On the GPU a batch is uploaded from pinned host memory and its output
 copied back into pinned memory asynchronously on the current stream; a
 short queue of batches in flight lets the host pack the next batch while
-the device computes.
+the device computes.  The host's phases are bracketed with timing.phase
+under the JAX package's names (fast5_read, preprocess, pack, dispatch,
+dispatch_upload, dispatch_launch, collect_wait, collect_host), which
+FLAPPIE_TPU_PHASES dumps.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import resolve_device, timing
 from .decode.seq import path_to_basecall
 from .io.fastx import BasecallResult
 from .models.config import ModelConfig, get_model_config
@@ -329,9 +332,10 @@ class _InFlight:
         self.host, self.event, self.keep = host, event, keep
 
     def result(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+        with timing.phase("collect_wait"):  # device wait (the D2H copy ends with it)
+            if self.event is not None:
+                self.event.synchronize()
+            return self.host.numpy()
 
 
 class _DeviceQueue:
@@ -352,21 +356,25 @@ class _DeviceQueue:
 
     def run(self, program, buf: np.ndarray) -> _InFlight:
         """Enqueue ``program(device_buffer) -> output tensor`` on ``buf``."""
-        host = torch.from_numpy(np.ascontiguousarray(buf))
-        if self.device.type != "cuda":
-            with torch.inference_mode():
-                return _InFlight(program(host))
-        stream = self._streams[self._next % len(self._streams)]
-        self._next += 1
-        host = host.pin_memory()
-        with torch.cuda.stream(stream), torch.inference_mode():
-            dev = host.to(self.device, non_blocking=True)
-            out = program(dev)
-            pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            pinned.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return _InFlight(pinned, event, keep=host)
+        with timing.phase("dispatch"):
+            if self.device.type != "cuda":
+                with timing.phase("dispatch_upload"):
+                    host = torch.from_numpy(np.ascontiguousarray(buf))
+                with timing.phase("dispatch_launch"), torch.inference_mode():
+                    return _InFlight(program(host))
+            stream = self._streams[self._next % len(self._streams)]
+            self._next += 1
+            with torch.cuda.stream(stream), torch.inference_mode():
+                with timing.phase("dispatch_upload"):  # a host copy into pinned memory
+                    host = torch.from_numpy(np.ascontiguousarray(buf)).pin_memory()
+                    dev = host.to(self.device, non_blocking=True)
+                with timing.phase("dispatch_launch"):  # Python issuing the kernels
+                    out = program(dev)
+                    pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    pinned.copy_(out, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            return _InFlight(pinned, event, keep=host)
 
 
 class _Pipeline:
@@ -384,7 +392,9 @@ class _Pipeline:
 
     def _run(self, tag, pending) -> None:
         try:
-            self._collect(tag, pending.result())
+            out = pending.result()
+            with timing.phase("collect_host"):  # unpack + assemble
+                self._collect(tag, out)
         except Exception as exc:  # noqa: BLE001 - per-batch isolation
             if self._on_error is None:
                 raise
@@ -480,9 +490,15 @@ class Basecaller:
         """
 
         def _pre(batch):
-            batch = [r() if callable(r) else r for r in batch]
-            return preprocess_batch(batch, trim_start, trim_end, varseg_chunk,
-                                    varseg_thresh, delta)
+            loaded = []
+            for r in batch:
+                if callable(r):
+                    with timing.phase("fast5_read"):
+                        r = r()
+                loaded.append(r)
+            with timing.phase("preprocess"):
+                return preprocess_batch(loaded, trim_start, trim_end, varseg_chunk,
+                                        varseg_thresh, delta)
 
         results: List[Optional[BasecallResult]] = [None] * len(reads)
         chunked = self._chunked_run(results, reverse) if self.chunk else None
@@ -525,7 +541,8 @@ class Basecaller:
             by_bucket.setdefault(bucket_length(rt.end - rt.start), []).append((i, rt))
 
         def _dispatch(part, bucket):
-            i16, buf = pack_bucket(part, bucket)
+            with timing.phase("pack"):
+                i16, buf = pack_bucket(part, bucket)
             return self._dispatch(
                 _device_basecall_packed_i16 if i16 else _device_basecall_packed, buf)
 
@@ -594,7 +611,8 @@ class Basecaller:
                 }
                 jobs.extend((i, r) for r in recs)
 
-        def _pack_dispatch(job_slice, CB):
+        def _pack(job_slice, CB):
+            """-> (program, packed buffer) of one chunk batch."""
             # dummy rows: a few valid samples, empty score range
             lengths = np.full(CB, stride, np.int32)
             qlo = np.zeros(CB, np.int32)
@@ -609,16 +627,15 @@ class Basecaller:
                     qlo[j] = r.qlo
                     qhi[j] = r.qhi
                     scal[j] = state[i]["scal"]
-                buf = pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal)
-                return self._dispatch(_device_basecall_chunk_packed_i16, buf)
+                return (_device_basecall_chunk_packed_i16,
+                        pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal))
             sig = np.zeros((CB, chunk_T), F32)
             for j, (i, r) in enumerate(job_slice):
                 sig[j, : r.length] = state[i]["seg"][r.start : r.start + r.length]
                 lengths[j] = r.length
                 qlo[j] = r.qlo
                 qhi[j] = r.qhi
-            return self._dispatch(_device_basecall_chunk_packed,
-                                  pack_chunk_inputs(sig, lengths, qlo, qhi))
+            return _device_basecall_chunk_packed, pack_chunk_inputs(sig, lengths, qlo, qhi)
 
         def _finish(i):
             st = state[i]
@@ -663,7 +680,9 @@ class Basecaller:
 
         def _route(part, CB):
             try:
-                pipe.push(part, _pack_dispatch(part, CB))
+                with timing.phase("pack"):
+                    program, buf = _pack(part, CB)
+                pipe.push(part, self._dispatch(program, buf))
             except Exception as exc:  # noqa: BLE001 - batch isolation
                 _on_error(part, exc)
 

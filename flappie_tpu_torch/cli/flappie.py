@@ -8,8 +8,13 @@ JAX_PLATFORMS handling); without a GPU the default raises.
 
 Run as ``python -m flappie_tpu_torch.cli.flappie reads/ > calls.fastq``.
 
-Not ported yet, and refused with an error when given: ``--trace``,
-``--fast`` and ``--mesh N`` (N > 1).
+``--trace FILE`` writes each read's trimmed signal and state-occupancy
+trace to an HDF5 file (io/trace_h5.py: h5py where it is installed, else
+signal/hdf5_min.py); FLAPPIE_TPU_PHASES=path|stderr dumps the per-phase
+wall-clock accounting (timing.py) at exit.
+
+Not ported yet, and refused with an error when given: ``--fast`` and
+``--mesh N`` (N > 1).
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import glob as globmod
 import os
 import sys
 
-from .. import __version__
+from .. import __version__, timing
 from ..io.fastx import OUTFORMATS, format_read
+from ..io.trace_h5 import TraceWriter
 from ..models.config import FLAPPIE_MODELS, MODELS
 from ..qcal import apply_qcal, parse_qcal
 from ..signal.fast5 import iter_reads, read_raw
@@ -86,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trim", "-t", type=trim_pair, default=(200, 10), metavar="start:end",
                    help="Number of samples to trim, as start:end")
     p.add_argument("--trace", "-T", default=None, metavar="filename",
-                   help="Dump trace to HDF5 file (not ported yet)")
+                   help="Dump trace to HDF5 file")
     p.add_argument("--licence", "--license", action="store_true", default=False,
                    help="Print licensing information")
     p.add_argument("--segmentation", type=segmentation_pair, default=(100, 0.0),
@@ -169,11 +175,12 @@ def expand_reads(files, multi: bool):
     reads, names, fnames = [], [], []
     for fn in files:
         if multi:
-            try:
-                rts = list(iter_reads(fn, scale_to_pA=True))
-            except Exception:  # noqa: BLE001 - not a readable fast5: read_raw reports it
-                rts = []
-            rts = rts or [read_raw(fn, scale_to_pA=True)]
+            with timing.phase("fast5_read"):
+                try:
+                    rts = list(iter_reads(fn, scale_to_pA=True))
+                except Exception:  # noqa: BLE001 - not a readable fast5: read_raw reports it
+                    rts = []
+                rts = rts or [read_raw(fn, scale_to_pA=True)]
         else:
             rts = [lambda fn=fn: read_raw(fn, scale_to_pA=True)]
         reads.extend(rts)
@@ -205,9 +212,7 @@ def main(argv=None) -> int:
     if not args.temperature > 0.0:
         print(f"Invalid temperature {args.temperature} -- must be > 0.", file=sys.stderr)
         return 1
-    unported = [flag for flag, on in (
-        ("--trace", args.trace is not None), ("--fast", args.fast), ("--mesh", args.mesh > 1),
-    ) if on]
+    unported = [flag for flag, on in (("--fast", args.fast), ("--mesh", args.mesh > 1)) if on]
     if unported:
         parser.error(f"{', '.join(unported)}: not ported to flappie_tpu_torch yet")
     qcal = None
@@ -232,7 +237,7 @@ def main(argv=None) -> int:
         checkpoint=args.checkpoint,
         temperature=args.temperature,
         viterbi_only=args.viterbi,
-        compute_trace=False,
+        compute_trace=args.trace is not None,
         chunk=args.chunk,
         overlap=args.overlap,
         chunk_batch=args.chunk_batch,
@@ -258,16 +263,23 @@ def main(argv=None) -> int:
 
     out = open(args.output, "w") if args.output else sys.stdout
     try:
-        for fn, name, res in zip(fnames, names, results):
-            if res is None:
-                print(f"No basecall returned for {fn}", file=sys.stderr)
-                continue
-            res = apply_qcal(res, qcal)
-            out.write(format_read(args.format, res.uuid, name, args.uuid, args.prefix, res))
-            out.flush()
+        with timing.phase("format_write"), TraceWriter(
+                args.trace, args.hdf5_chunk, args.hdf5_compression) as tracer:
+            for fn, name, res in zip(fnames, names, results):
+                if res is None:
+                    print(f"No basecall returned for {fn}", file=sys.stderr)
+                    continue
+                res = apply_qcal(res, qcal)
+                out.write(format_read(args.format, res.uuid, name, args.uuid, args.prefix, res))
+                out.flush()
+                # under --multi --no-uuid the reads of one file share a
+                # name, and the last one's group wins, as in the JAX CLI
+                tracer.write(res.uuid if args.uuid else name, res)
     finally:
         if out is not sys.stdout:
             out.close()
+    # FLAPPIE_TPU_PHASES=path|stderr: the per-phase wall-clock accounting
+    timing.maybe_dump()
     return 0
 
 

@@ -34,7 +34,8 @@ at startup, then acks ``flappie-serve: ready``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU the
 default raises.  ``--fast`` is not ported (the flappie CLI refuses it
-too), and there is no per-phase timing dump yet.
+too).  FLAPPIE_TPU_PHASES=path|stderr dumps the per-phase wall-clock
+accounting of every request (timing.py) at server exit.
 
 Run as ``python -m flappie_tpu_torch.cli.serve < requests.txt``.
 """
@@ -46,6 +47,7 @@ import os
 import sys
 import time
 
+from .. import timing
 from ..io.fastx import OUTFORMATS, format_read
 from ..models.config import MODELS
 from ..qcal import apply_qcal, parse_qcal
@@ -398,9 +400,14 @@ def main(argv=None) -> int:
     if args.warmup:
         server.warmup()
     _ack("ready")
-    if args.watch:
-        return serve_watch(server)
-    return serve_stdin(server)
+    try:
+        if args.watch:
+            return serve_watch(server)
+        return serve_stdin(server)
+    finally:
+        # FLAPPIE_TPU_PHASES=path|stderr: cumulative per-phase wall
+        # accounting across all requests, as the flappie CLI dumps it
+        timing.maybe_dump()
 
 
 if __name__ == "__main__":

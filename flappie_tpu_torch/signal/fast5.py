@@ -12,10 +12,11 @@ carries its own ``channel_id`` group (``iter_reads``, CLI ``--multi``).
 
 A copy of the JAX package's fast5 module.  Where h5py is not installed,
 files are written and read through the minimal HDF5 codec in
-hdf5_min.py, which reads contiguous datasets only: a chunked or
-compressed dataset anywhere in a file makes the whole file unreadable
-(read_raw returns an invalid read, iter_reads raises, and the CLIs
-report the file as "No basecall returned").
+hdf5_min.py, which reads contiguous datasets and chunked ones under the
+shuffle and deflate filters only: a dataset under any other filter (lzf,
+VBZ) anywhere in a file makes the whole file unreadable (read_raw
+returns an invalid read, iter_reads raises, and the CLIs report the file
+as "No basecall returned").
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from flappie_tpu.cli.flappie import main as jax_main
 from flappie_tpu.models import config as j_config
@@ -30,6 +31,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCORE_RE = re.compile(r'"normalised_score" : (-?[\d.]+|nan)')
 # one read longer than --chunk goes through the chunked program
 CHUNK_ARGS = ["--chunk", "4000", "--overlap", "800"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """As in test_torch_models.py: the CPU path's thousands of tiny
+    recurrence steps run faster on one intra-op thread when the test
+    runner's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +130,7 @@ def test_cli_fault_isolation_and_refusals(reads, tmp_path, capsys):
                 tmp_path / "o.fq")
     assert text.startswith("@read-0") and text.count("@read-") == 1
     assert f"No basecall returned for {bad}" in capsys.readouterr().err
-    for flag in (["--trace", "t.h5"], ["--fast"], ["--mesh", "2"]):
+    for flag in (["--fast"], ["--mesh", "2"]):  # --trace: test_torch_trace.py
         with pytest.raises(SystemExit):
             port_main([str(reads), "--device", "cpu"] + flag)
 

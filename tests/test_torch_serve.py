@@ -177,25 +177,33 @@ def test_iter_reads_failures_match_jax(tmp_path, monkeypatch, reader):
 
 
 def test_without_h5py_a_chunked_signal_fails_the_file(tmp_path, monkeypatch):
-    """The minimal reader's documented limit: a gzip-chunked Signal (which
-    h5py, and so JAX, reads) makes the whole file unreadable, and the CLI
-    reports it instead of basecalling part of it."""
+    """The minimal reader's documented limit: it reads a gzip-chunked
+    Signal (h5py's deflate filter) as h5py does, but a Signal chunked
+    under a filter it does not have (lzf, which h5py and so JAX read)
+    makes the whole file unreadable, and the CLI reports it instead of
+    basecalling part of it."""
     rng = np.random.default_rng(9)
-    path = tmp_path / "chunked.fast5"
-    write_multi_h5py(path, [("r0", synthetic_adc(400, rng))])
-    with h5py.File(path, "a") as f:
-        rg = f.create_group("read_r1/Raw")
-        rg.attrs["read_id"] = np.bytes_("r1")
-        rg.create_dataset("Signal", data=synthetic_adc(400, rng), chunks=(100,),
-                          compression="gzip")
-        ch = f.create_group("read_r1/channel_id")
-        for k, v in CHANNEL.items():
-            ch.attrs[k] = np.float64(v)
-    assert p_fast5.list_read_ids(str(path)) == j_fast5.list_read_ids(str(path)) == ["r0", "r1"]
-    monkeypatch.setattr(p_fast5, "h5py", None)
-    with pytest.raises(ValueError, match="contiguous"):
-        list(p_fast5.iter_reads(str(path)))
-    assert p_flappie.expand_reads([str(path)], multi=True)[0][0].raw is None
+    for filt in ("gzip", "lzf"):
+        path = tmp_path / f"chunked_{filt}.fast5"
+        write_multi_h5py(path, [("r0", synthetic_adc(400, rng))])
+        with h5py.File(path, "a") as f:
+            rg = f.create_group("read_r1/Raw")
+            rg.attrs["read_id"] = np.bytes_("r1")
+            rg.create_dataset("Signal", data=synthetic_adc(400, rng), chunks=(100,),
+                              compression=filt)
+            ch = f.create_group("read_r1/channel_id")
+            for k, v in CHANNEL.items():
+                ch.attrs[k] = np.float64(v)
+        want = list(j_fast5.iter_reads(str(path)))
+        assert p_fast5.list_read_ids(str(path)) == [r.uuid for r in want] == ["r0", "r1"]
+        with monkeypatch.context() as m:
+            m.setattr(p_fast5, "h5py", None)
+            if filt == "gzip":
+                _assert_same_reads(list(p_fast5.iter_reads(str(path))), want)
+                continue
+            with pytest.raises(ValueError, match="unsupported filter 32000"):
+                list(p_fast5.iter_reads(str(path)))
+            assert p_flappie.expand_reads([str(path)], multi=True)[0][0].raw is None
 
 
 # -- the flappie CLI: --multi, --qcal --------------------------------------------
@@ -246,9 +254,10 @@ def test_cli_multi_and_qcal_match_jax(data, tmp_path, monkeypatch, case):
 
 
 def test_cli_refusals_and_malformed_qcal(data, capsys):
-    """--trace, --fast and --mesh still refuse; a malformed --qcal is a
-    usage error before any file is read, as in the JAX CLI."""
-    for flag in (["--trace", "t.h5"], ["--fast"], ["--mesh", "2"]):
+    """--fast and --mesh still refuse (--trace is ported:
+    test_torch_trace.py); a malformed --qcal is a usage error before any
+    file is read, as in the JAX CLI."""
+    for flag in (["--fast"], ["--mesh", "2"]):
         with pytest.raises(SystemExit):
             p_flappie.main([data.run1, "--device", "cpu"] + flag)
     capsys.readouterr()
