@@ -21,7 +21,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    _tb_plan and _tb_bt_plan) with cudaOccupancyMaxActiveClusters, every
    cluster resident at T=2560, B=256 and T=13,108, B=24.  Beside the path's build, and at
    the same time, the other builds (VARIANTS): crf_scan.cu with
-   -DSCAN_WARPS=1, 2, 4, crf_bt.cu with -DBT_WARPS=1, 2, 4 and conv12.cu
+   -DSCAN_WARPS=1, 2, 4, crf_bt.cu with -DBT_WARPS=1, 2, 4, and conv12.cu
    with -DCONV12_PERSIST=0, -DCONV12_BULK=0 and -DCONV12_FAST_SWISH=0.
 2. Kernels: each kernel held against its plain PyTorch version on the
    card at production shapes -- K1 fused LSTM layer, K8 its training
@@ -139,6 +139,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    hdf5_min) dropped into the watched directory is published once, its
    records the CLI's --multi records with the calibrated qualities, a
    STOP file ends the server, and its launch counts are checked too.
+   Then the sloika-era graphs at full width (conv winlen 19, 1 -> 256,
+   stride 2; five recurrent layers of 256): for each flavour a seeded
+   sloika pickle whose classes cannot be imported when it is loaded,
+   converted in process by flappie-torch-convert sloika2npz and read by
+   load_sloika_npz.  flipflop_gru (five residual 2-matrix GRUs, a plain
+   time loop) and flipflop_grumod (five GRU-mods, K7) each basecall 32
+   reads through Basecaller(model=cfg, params=params) on the card (fb,
+   2560-block chunks, one 256-chunk batch) with exact launch counts and
+   their wall, then 4 short reads held to the port's CPU path by the
+   band.  runlength: transitions over one full batch (256 x 5120
+   samples, 2560 blocks; 5 K7), then rle_v1_viterbi and rle_v1_posterior
+   under the default CRF impl (K3/K4, K5, K6 at S=4) and under pallas
+   (K11 at S=4), exact counts, the path and score equal under both and 2
+   reads held to the CPU path; each S=4 kernel held to its plain version
+   on that batch's V1 chain (K3/K4 and K11's forward within rtol 1e-5,
+   K5's and K11's Viterbi and both tracebacks bit-equal), timed with its
+   bound, K3 and K11's scans also in the builds of 1, 2 and 4 chain
+   warps.  Beside these runs, in the background, npz2header ->
+   header2npz -> npz2header for r941_native and r941_5mC at full width
+   (the headers byte-equal), and torch2npz of a taiyaki state dict.
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|; K10's Function at B=32,
@@ -162,7 +182,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Imports nothing of JAX or of the JAX package.  Writes only under build/
 in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
-run takes ~250-310 s of command time on an H100 80GB HBM3 at 700 W; it
+run takes ~300-330 s of command time on an H100 80GB HBM3 at 700 W; it
 should stay well inside its 1200 s limit (aim: half of it).
 """
 
@@ -172,6 +192,7 @@ import contextlib
 import io
 import json
 import os
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -673,7 +694,7 @@ def log_scan_plans() -> None:
     ops/crf_bm_cuda.py's _scan_plan at the batches the paths run."""
     from flappie_tpu_torch.ops import crf_bm_cuda
 
-    for S in (8, 10):
+    for S in (8, 10, 4):
         got = []
         for B in (1, 2, 3, 8, 24, 32, 256, 257):
             info = crf_bm_cuda.scan_info(S, B)
@@ -692,7 +713,7 @@ def log_bt_plans() -> None:
     ops/crf_cuda.py's _bt_plan at the batches the paths run."""
     from flappie_tpu_torch.ops import crf_cuda
 
-    for S in (8, 10):
+    for S in (8, 10, 4):
         got = []
         for B in (1, 2, 3, 8, 24, 32, 256, 257):
             info = crf_cuda.bt_info(S, B)
@@ -723,7 +744,7 @@ def log_tb_plans() -> None:
             ("K6", crf_bm_cuda.traceback_info, crf_bm_cuda._tb_plan, "crf_scan", "BmTrace"),
             ("K11 traceback", crf_cuda.traceback_bt_info, crf_cuda._tb_bt_plan, "crf_bt",
              "BtTrace")):
-        for S in (8, 10):
+        for S in (8, 10, 4):
             got = []
             for T, B in TB_PLAN_SHAPES:
                 info = info_fn(T, S, B)
@@ -782,7 +803,6 @@ def time_traceback_floor(torch) -> None:
 
 def check_scans(torch, peak: dict, gen, nbase: int, libs: dict) -> list:
     """K3/K4, K9, K5, K6 on one dense batch, T=2560, B=256, S=2*nbase."""
-    from flappie_tpu_torch.ops import crf_bm_cuda
     from flappie_tpu_torch.ops.crf import flipflop_index
     from flappie_tpu_torch.ops.crf_bm import _dense_tm
 
@@ -790,13 +810,26 @@ def check_scans(torch, peak: dict, gen, nbase: int, libs: dict) -> list:
     T, B = 2560, 256
     S = 2 * nbase
     run, sfx = ("r941_native", "") if nbase == 4 else ("r941_5mC", f"_s{S}")
-    rows = []
     idx = flipflop_index(nbase)
     trans = torch.randn(T, idx.nparam, B, generator=gen, device=dev) * 2.0
     nblocks = torch.randint(1, T, (B,), generator=gen, device=dev)
     nblocks[0], nblocks[1] = T, 0
     tvalid = torch.arange(T, device=dev)[:, None] < nblocks[None, :]
-    dense = _dense_tm(trans, idx)
+    return check_chain_scans(torch, peak, libs, _dense_tm(trans, idx), tvalid, idx, run, sfx,
+                             "r941_native_fused" if nbase == 4 else None)
+
+
+def check_chain_scans(torch, peak: dict, libs: dict, dense, tvalid, idx, run: str, sfx: str,
+                      fused_run: str = None) -> list:
+    """K3/K4, K9 (where compiled: S = 8 and 10), K5 and K6 on batch-minor
+    dense blocks [T, S, S, B] of the chain ``idx``: each held to its plain
+    version and timed, K3 also in the builds of 1, 2 and 4 chain warps a
+    CTA.  Rows named with ``sfx``, their launches read from ``run``'s
+    counts (K9's from ``fused_run``'s, when given)."""
+    from flappie_tpu_torch.ops import crf_bm_cuda
+
+    T, S, _, B = dense.shape
+    rows = []
     nv = int(tvalid.sum().item())
     dense_bytes = 4 * T * S * S * B
 
@@ -819,7 +852,21 @@ def check_scans(torch, peak: dict, gen, nbase: int, libs: dict) -> list:
                     "crf_sum_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=None))
 
-    # K9: both chains in one launch, bit-equal to K3's and K4's outputs
+    if S in crf_bm_cuda.FWDBWD_STATES:
+        rows += check_fwdbwd(torch, peak, dense, tvalid, fused_run)
+    rows += check_viterbi_traceback(torch, peak, dense, tvalid, idx, run, sfx)
+    return rows
+
+
+def check_fwdbwd(torch, peak: dict, dense, tvalid, fused_run: str = None) -> list:
+    """K9: both chains in one launch, within rtol 1e-5 of its plain
+    version and bit-equal to K3's and K4's outputs; a row when
+    ``fused_run`` names the run whose counts give its launches."""
+    from flappie_tpu_torch.ops import crf_bm_cuda
+
+    T, S, _, B = dense.shape
+    nv = int(tvalid.sum().item())
+    dense_bytes = 4 * T * S * S * B
     got = crf_bm_cuda.fwdbwd_states(dense, tvalid)
     want = crf_bm_cuda.fwdbwd_states_plain(dense, tvalid)
     split = [crf_bm_cuda.sum_states(dense, tvalid, backward) for backward in (False, True)]
@@ -840,11 +887,23 @@ def check_scans(torch, peak: dict, gen, nbase: int, libs: dict) -> list:
                     2 * nv * (5 * S * S + 5 * S), peak)
     log(f"K9 crf_fwdbwd S={S}: {scan_step(ms, T, S, B, chains=2)}, against K3 + K4 split "
         f"{split_ms:.3f} ms, bit-equal to them; max |kernel - plain| {err:.2e}")
-    if nbase == 4:
-        rows.append(row("crf_fwdbwd", "K9", "crf_scan.cu", "crf_bm_pallas.py:95",
-                        "r941_native_fused", "crf_fwdbwd", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    if fused_run is None:
+        return []
+    return [row("crf_fwdbwd", "K9", "crf_scan.cu", "crf_bm_pallas.py:95", fused_run,
+                "crf_fwdbwd", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)]
 
+
+def check_viterbi_traceback(torch, peak: dict, dense, tvalid, idx, run: str, sfx: str) -> list:
+    """K5 and K6 on batch-minor dense blocks: bit-equal to their plain
+    versions (K6 also to its segmented twin), timed (K6 behind a device
+    sleep)."""
+    from flappie_tpu_torch.ops import crf_bm_cuda
+
+    T, S, _, B = dense.shape
+    nv = int(tvalid.sum().item())
+    dense_bytes = 4 * T * S * S * B
+    rows = []
     alpha, bps = crf_bm_cuda.viterbi_fwd(dense, tvalid, idx.tie_rank)
     alpha0, bps0 = crf_bm_cuda.viterbi_fwd_plain(dense, tvalid, idx.tie_rank)
     if not (torch.equal(alpha, alpha0) and torch.equal(bps, bps0)):
@@ -884,7 +943,6 @@ def check_bt_scans(torch, peak: dict, gen, libs: dict, kind: str, nbase: int = 4
     scans timed over SCAN_REPS runs with their time a step, grid and
     registers; at S=8 (run-length) and S=10 also in K11's other builds; at
     S=8 the backward pass's input profiled."""
-    from flappie_tpu_torch.ops import crf_cuda
     from flappie_tpu_torch.ops.crf import dense_from_params, flipflop_index, rle_index
 
     dev = torch.device("cuda")
@@ -895,11 +953,32 @@ def check_bt_scans(torch, peak: dict, gen, libs: dict, kind: str, nbase: int = 4
     nblocks = torch.randint(1, T, (B,), generator=gen, device=dev)
     nblocks[0], nblocks[1] = T, 0
     valid = torch.arange(T, device=dev)[:, None] < nblocks[None, :]
-    dense = dense_from_params(trans, idx)  # [T, B, S, S]
+    tag = f"K11 {kind} S={S}"
+    rows = check_bt_chain(torch, peak, libs, dense_from_params(trans, idx), valid, idx, tag,
+                          "rle_r941_native_pallas", "", builds=kind == "rle" or S == 10,
+                          profile=kind == "rle")
+    if kind == "rle":
+        return rows
+    for r in rows:
+        log(f"{tag} {r['name']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |kernel - plain| "
+            f"{r['max_abs_err']:.2e}")
+    return []
+
+
+def check_bt_chain(torch, peak: dict, libs: dict, dense, valid, idx, tag: str, run: str,
+                   sfx: str, builds: bool, profile: bool) -> list:
+    """K11's forward scan (within rtol 1e-5), Viterbi scan and traceback
+    (bit-equal) on batch-major dense blocks [T, B, S, S] of the chain
+    ``idx``, each timed; ``builds``: the scans also in K11's other builds,
+    ``profile``: the backward pass's input profiled.  Rows named with
+    ``sfx``, their launches read from ``run``'s counts."""
+    from flappie_tpu_torch.ops import crf_cuda
+
+    T, B, S, _ = dense.shape
     nv = int(valid.sum().item())
     dense_bytes = 4 * T * B * S * S
-    run, rows = "rle_r941_native_pallas", []
-    tag = f"K11 {kind} S={S}"
+    rows = []
 
     got = crf_cuda.fwd_scan(dense, valid)
     want = crf_cuda.fwd_scan_plain(dense, valid)
@@ -911,7 +990,7 @@ def check_bt_scans(torch, peak: dict, gen, libs: dict, kind: str, nbase: int = 4
     log(f"{tag} crf_bt_fwd, T={T}, B={B}: {bt_step(ms, T, S, B, 'crf_bt_fwd_kernel')}")
     plain_ms = cuda_ms(torch, lambda: crf_cuda.fwd_scan_plain(dense, valid), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * T * B * S, nv * (5 * S * S + 5 * S), peak)
-    rows.append(row("crf_bt_fwd", "K11", "crf_bt.cu", "crf_pallas.py:45", run, "crf_bt_fwd",
+    rows.append(row("crf_bt_fwd" + sfx, "K11", "crf_bt.cu", "crf_pallas.py:45", run, "crf_bt_fwd",
                     max_abs_err=delta.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=None))
 
@@ -924,14 +1003,14 @@ def check_bt_scans(torch, peak: dict, gen, libs: dict, kind: str, nbase: int = 4
     plain_ms = cuda_ms(torch, lambda: crf_cuda.viterbi_scan_plain(dense, valid, idx.tie_rank), 1)
     bms, by = bound(dense_bytes + 4 * T * B + 4 * S * S + 5 * T * B * S, nv * (4 * S * S + 3 * S),
                     peak)
-    rows.append(row("crf_bt_viterbi", "K11", "crf_bt.cu", "crf_pallas.py:73", run,
+    rows.append(row("crf_bt_viterbi" + sfx, "K11", "crf_bt.cu", "crf_pallas.py:73", run,
                     "crf_bt_viterbi", max_abs_err=(alphas - alphas0).abs().max().item(), ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
 
-    if kind == "rle" or S == 10:
+    if builds:
         time_bt_builds(torch, libs, dense, valid, idx.tie_rank, got, (alphas, bps),
                        f"S={S}, T={T}, B={B}")
-    if kind == "rle":
+    if profile:
         profile_bwd_copy(torch, dense, valid, f"S={S}, T={T}, B={B}")
 
     last = alphas[-1].argmax(dim=-1).to(torch.int32)
@@ -947,16 +1026,10 @@ def check_bt_scans(torch, peak: dict, gen, libs: dict, kind: str, nbase: int = 4
         lambda: crf_cuda.traceback_bt_plain(bp_rev, valid_rev, last), states0,
         f"{tag} crf_bt_traceback, T={T}, B={B}", T)
     bms, by = bound(T * B * S + 4 * T * B + 4 * B + 4 * T * B, nv * S, peak)
-    rows.append(row("crf_bt_traceback", "K11", "crf_bt.cu", "crf_pallas.py:115", run,
+    rows.append(row("crf_bt_traceback" + sfx, "K11", "crf_bt.cu", "crf_pallas.py:115", run,
                     "crf_bt_traceback", max_abs_err=float((states - states0).abs().max().item()),
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
-    if kind == "rle":
-        return rows
-    for r in rows:
-        log(f"{tag} {r['name']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |kernel - plain| "
-            f"{r['max_abs_err']:.2e}")
-    return []
+    return rows
 
 
 # runnie's heaviest program: bucket 65536 samples = 13,108 blocks, its 24
@@ -2491,6 +2564,388 @@ def profiled_runnie(torch, reads_dir: str, card: str, env=None, what: str = "") 
     return {**groups, "glue": None if glue is None else glue[1]}
 
 
+# -- phase 3, the sloika-era graphs and the converters -----------------------
+
+# the sloika/guppy model's conv (winlen 19, 1 -> 256 filters, stride 2) and
+# the recurrent width of every model of flappie_tpu_torch/models/config.py
+SLOIKA_H, SLOIKA_WINLEN, SLOIKA_STRIDE = 256, 19, 2
+SLOIKA_FLAVOURS = ("flipflop_gru", "flipflop_grumod", "runlength")
+# the flip-flop flavours' reads: 32 chunked (2560-block chunks of 5120
+# samples, one 256-chunk batch), then 4 short ones (the bucket programs)
+# held to the CPU path
+SLOIKA_READS = ((32, 12_000, 30_000), (4, 2_000, 4_000))
+# the registry models whose synthetic weights round-trip through
+# npz2header and header2npz
+HEADER_MODELS = (("r941_native", "r941native"), ("r941_5mC", "r941native5mC"))
+
+
+def write_sloika_pickle(np, path: str, flavour: str, seed: int) -> None:
+    """A sloika network pickle of ``flavour`` at full width (the layout
+    flappie_tpu_torch/weights/sloika.py reads: sublayers[0] the conv,
+    [1..5] the GRUs, backward ones wrapped in Reverse (and Residual)
+    containers, [6] the output layer; matrices [out, in]; each value
+    buried in a theano-shared-like container), seeded.  Its classes are a
+    throwaway module's, removed once pickled, so that loading meets what
+    real sloika pickles meet: classes that cannot be imported (the
+    converter's stubs)."""
+    import pickle
+    import types
+
+    mod = types.ModuleType("chip_smoke_sloika_layers")
+
+    class Shared:
+        def __init__(self, v):
+            self.container = {"storage": [np.asarray(v, np.float32)]}
+
+    class Layer:
+        pass
+
+    for cls in (Shared, Layer):
+        cls.__module__, cls.__qualname__ = mod.__name__, cls.__name__
+        setattr(mod, cls.__name__, cls)
+
+    def layer(**attrs):
+        obj = Layer()
+        obj.__dict__.update(attrs)
+        return obj
+
+    def wrap(inner, levels):
+        for _ in range(levels):
+            inner = layer(sublayers=[inner])
+        return inner
+
+    rng = np.random.default_rng(seed)
+    H = SLOIKA_H
+
+    def w(*shape):
+        return Shared(rng.normal(0.0, shape[-1] ** -0.5, shape))
+
+    layers = [layer(W=w(H, 1, SLOIKA_WINLEN), b=Shared(rng.normal(0.0, 0.1, H)),
+                    stride=SLOIKA_STRIDE)]
+    for i in range(5):
+        if flavour == "flipflop_gru":  # Reverse(Residual(gru)) or Residual(gru)
+            gru = layer(iW=w(3 * H, H), sW=w(2 * H, H), sW2=w(H, H),
+                        b=Shared(rng.normal(0.0, 0.1, 3 * H)))
+            layers.append(wrap(gru, 2 if i % 2 == 0 else 1))
+        else:  # Reverse(gru) or gru
+            gru = layer(iW=w(3 * H, H), sW=w(3 * H, H), b=Shared(rng.normal(0.0, 0.1, 3 * H)))
+            layers.append(wrap(gru, 1 if i % 2 == 0 else 0))
+    out = 16 if flavour == "runlength" else 40
+    layers.append(layer(W=w(out, H), b=Shared(rng.normal(0.0, 0.1, out))))
+    sys.modules[mod.__name__] = mod
+    try:
+        with open(path, "wb") as fh:
+            pickle.dump(layer(version=(2, 0), sublayers=layers), fh, protocol=2)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def convert_cli(args: list) -> str:
+    """flappie-torch-convert in this process: its printed line."""
+    from flappie_tpu_torch.cli.convert import main
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = main(args)
+    if rc != 0:
+        raise AssertionError(f"flappie-torch-convert exited {rc} for {args}")
+    return out.getvalue().strip()
+
+
+def sloika_checkpoint(np, flavour: str):
+    """(cfg, params) of a seeded sloika pickle of ``flavour``, converted
+    by flappie-torch-convert sloika2npz and read by load_sloika_npz, its
+    graph checked against the flavour's."""
+    from flappie_tpu_torch.weights.sloika import load_sloika_npz
+
+    d = os.path.join(WORK, "sloika")
+    os.makedirs(d, exist_ok=True)
+    pkl, npz = os.path.join(d, f"{flavour}.pkl"), os.path.join(d, f"{flavour}.npz")
+    write_sloika_pickle(np, pkl, flavour, seed=SLOIKA_FLAVOURS.index(flavour) + 13)
+    line = convert_cli(["sloika2npz", pkl, npz, "--flavour", flavour, "--name", flavour])
+    cfg, params = load_sloika_npz(npz)
+    kind = "gru" if flavour == "flipflop_gru" else "grumod"
+    (conv,) = cfg.convs
+    if ((conv.winlen, conv.in_ch, conv.out_ch, conv.stride) != (SLOIKA_WINLEN, 1, SLOIKA_H,
+                                                                 SLOIKA_STRIDE)
+            or [(r.kind, r.size, r.backward, r.residual) for r in cfg.rnns]
+            != [(kind, SLOIKA_H, i % 2 == 0, flavour == "flipflop_gru") for i in range(5)]
+            or cfg.head != ("runlength" if flavour == "runlength" else "flipflop")
+            or cfg.nbase != 4):
+        raise AssertionError(f"sloika {flavour}: converted to {cfg}")
+    log(f"sloika {flavour}: pickle -> flappie-torch-convert sloika2npz ({line}) -> "
+        f"load_sloika_npz")
+    return cfg, params
+
+
+def sloika_flipflop(torch, np, card: str, flavour: str) -> dict:
+    """A flip-flop sloika flavour through Basecaller(model=cfg,
+    params=params) on the card: 32 chunked reads with exact launch
+    counts, then 4 short reads held to the port's CPU path by the band
+    (identity >= 99.5%, |normalised score delta| <= 1e-4).  Returns the
+    chunked run's launch counts."""
+    from flappie_tpu_torch.basecall import Basecaller, preprocess_batch
+    from flappie_tpu_torch.models.network import fused
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    cfg, params = sloika_checkpoint(np, flavour)
+    reads_dir = os.path.join(WORK, "sloika", flavour)
+    names = write_reads(np, np.random.default_rng(20261017), reads_dir, *SLOIKA_READS)
+    nlong = SLOIKA_READS[0][0]
+
+    def raws(part):
+        return [read_raw(os.path.join(reads_dir, n)) for n, _ in part]
+
+    P = count_programs(preprocess_batch(raws(names[:nlong])), cfg)
+    want = {k: n * P for k, n in FB_CRF.items()}
+    if fused(cfg):  # GRU-mod: K7 a layer; the sloika GRU's time loop has no kernel
+        want["grumod_layer"] = len(cfg.rnns) * P
+    caller = Basecaller(model=cfg, params=params)
+    nsample = sum(n for _, n in names[:nlong])
+    with knobs():
+        reads = raws(names[:nlong])
+        zero_counts()
+        t0 = time.perf_counter()
+        got = caller.basecall_raw_tables(reads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = check_counts(f"sloika {flavour}", want)
+    if any(r is None or not r.basecall or set(r.basecall) - set("ACGT") for r in got):
+        raise AssertionError(f"sloika {flavour}: a read without a call")
+    log(f"sloika {flavour} on the card: {nlong} reads, {nsample} samples, {P} chunk "
+        f"program(s), wall {wall:.3f} s = {nsample / wall / 1e6:.3f} Msamples/s, "
+        f"{sum(len(r.basecall) for r in got)} bases, launches {json.dumps(counts)} [{card}]")
+
+    short = names[nlong:]
+    with knobs():
+        gpu = caller.basecall_raw_tables(raws(short))
+        t0 = time.perf_counter()
+        cpu = Basecaller(model=cfg, params=params, device="cpu").basecall_raw_tables(raws(short))
+        cpu_wall = time.perf_counter() - t0
+    worst_id, worst_ds = 1.0, 0.0
+    for (n, _), g, c in zip(short, gpu, cpu):
+        ident = identity(g.basecall, c.basecall)
+        ds = abs(g.score / g.nblock - c.score / c.nblock)
+        worst_id, worst_ds = min(worst_id, ident), max(worst_ds, ds)
+        if not (ident >= 0.995 and ds <= 1e-4 and g.nblock == c.nblock):
+            raise AssertionError(f"sloika {flavour} {n}: outside the band against the CPU "
+                                 f"(identity {ident}, score delta {ds})")
+    log(f"sloika {flavour}: {len(short)} short reads held to the CPU path (cpu wall "
+        f"{cpu_wall:.1f} s): min identity {worst_id:.6f}, max |score delta| {worst_ds:.2e}, "
+        f"{sum(g.basecall == c.basecall and g.quality == c.quality for g, c in zip(gpu, cpu))} "
+        "calls byte-equal")
+    return counts
+
+
+# the V1 decode's kernel launches under each CRF impl: the Viterbi (K5 and
+# K6, or K11's Viterbi and traceback) and the posterior's two scans (K3 and
+# K4, or K11's forward scan twice)
+V1_RUNS = {
+    "runlength_v1": ({}, {"crf_viterbi": 1, "crf_traceback": 1, "crf_sum_scan": 2}),
+    "runlength_v1_pallas": ({"FLAPPIE_TPU_CRF_IMPL": "pallas"},
+                            {"crf_bt_viterbi": 1, "crf_bt_traceback": 1, "crf_bt_fwd": 2}),
+}
+# reads of the V1 batch held to the CPU path
+V1_CPU_READS = 2
+
+
+def sloika_runlength(torch, np, card: str, peak: dict, libs: dict) -> tuple:
+    """The V1 run-length flavour on the card: transitions over one full
+    batch (B=256 reads of 5120 samples, 2560 blocks; the last 8 ragged,
+    one empty), decoded by rle_v1_viterbi and rle_v1_posterior under each
+    CRF impl (V1_RUNS) with exact launch counts, path and score equal
+    across the impls; 2 reads' transitions and Viterbi held to the CPU
+    path; then each S=4 kernel held to its plain version on this batch's
+    own V1 chain, timed, with its bound.  Returns (rows, launches by
+    run)."""
+    from flappie_tpu_torch.decode.runlength import rle_v1_index, rle_v1_posterior, rle_v1_viterbi
+    from flappie_tpu_torch.models.network import transitions
+    from flappie_tpu_torch.models.params import params_to_torch
+    from flappie_tpu_torch.ops.crf import dense_from_params
+    from flappie_tpu_torch.ops.crf_bm import _dense_tm
+
+    cfg, params = sloika_checkpoint(np, "runlength")
+    tp = params_to_torch(params, "cuda")
+    B, W = 256, 2560 * cfg.total_stride
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    sig = torch.randn(B, W, generator=gen, device="cuda")
+    lengths = torch.full((B,), W, dtype=torch.int32, device="cuda")
+    lengths[-8:] = torch.randint(0, W, (8,), generator=gen, device="cuda", dtype=torch.int32)
+    lengths[-1] = 0
+    with knobs(), torch.inference_mode():
+        zero_counts()
+        t0 = time.perf_counter()
+        trans, nblocks = transitions(tp, cfg, sig, lengths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_counts("runlength transitions", {"grumod_layer": len(cfg.rnns)})
+    T = trans.shape[1]
+    if trans.shape != (B, T, 16) or T != 2560 or not bool(torch.isfinite(trans).all()):
+        raise AssertionError(f"runlength transitions: shape {tuple(trans.shape)} or not finite")
+    log(f"sloika runlength transitions on the card: B={B} x {W} samples, {T} blocks, "
+        f"wall {wall:.3f} s (5 K7, the V1 head's partition a time loop) [{card}]")
+
+    launches, decoded = {}, {}
+    for run, (env, want) in V1_RUNS.items():
+        with knobs(env), torch.inference_mode():
+            zero_counts()
+            t0 = time.perf_counter()
+            score, path = rle_v1_viterbi(trans, nblocks, cfg.nbase)
+            post = rle_v1_posterior(trans, nblocks, cfg.nbase)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[run] = check_counts(f"{run} decode", want)
+        decoded[run] = score, path, post
+        log(f"{run}: rle_v1_viterbi + rle_v1_posterior over {B} x {T} blocks, wall {wall:.3f} s, "
+            f"launches {json.dumps(launches[run])} [{card}]")
+    (s0, p0, q0), (s1, p1, q1) = decoded.values()
+    t = torch.arange(T, device="cuda")[None, :]
+    moves = (p0 >= 0) & (t < nblocks[:, None])
+    if not (torch.equal(s0, s1) and torch.equal(p0, p1)):
+        raise AssertionError("runlength V1: the path or score differs between the CRF impls")
+    if bool(((p0 < -1) | (p0 > 3) | ((t >= nblocks[:, None]) & (p0 != -1))).any()):
+        raise AssertionError("runlength V1: a path entry outside the V1 convention")
+    if not (bool(torch.isfinite(q0).all())
+            and bool(((q1 - q0).abs() <= 1e-5 * q0.abs() + 1e-4).all())):
+        raise AssertionError("runlength V1: the posteriors differ between the CRF impls")
+    log(f"runlength V1: path and score equal under both impls, posteriors within rtol 1e-5 "
+        f"(max |delta| {(q1 - q0).abs().max().item():.2e}); {int(moves.sum())} moves in "
+        f"{int(nblocks.sum())} blocks")
+
+    n = V1_CPU_READS
+    cpu = params_to_torch(params, "cpu")
+    with knobs(), torch.inference_mode():
+        t0 = time.perf_counter()
+        tc, nc = transitions(cpu, cfg, sig[:n].cpu(), lengths[:n].cpu())
+        sc, pc = rle_v1_viterbi(trans[:n].cpu(), nblocks[:n].cpu(), cfg.nbase)
+        cpu_wall = time.perf_counter() - t0
+    dt = (tc - trans[:n].cpu()).abs().max().item()
+    if not (torch.equal(nc, nblocks[:n].cpu()) and dt <= 1e-4 and torch.equal(pc, p0[:n].cpu())
+            and torch.equal(sc, s0[:n].cpu())):
+        raise AssertionError(f"runlength V1: {n} reads against the CPU path (transitions "
+                             f"max |delta| {dt:.2e}, the Viterbi over the card's transitions)")
+    log(f"runlength V1: {n} reads' transitions within {dt:.2e} of the CPU path's, the "
+        f"Viterbi over the card's transitions bit-equal on the CPU (cpu wall {cpu_wall:.1f} s)")
+
+    idx = rle_v1_index(cfg.nbase)
+    tvalid = torch.arange(T, device="cuda")[:, None] < nblocks[None, :]
+    with torch.inference_mode():
+        dense_bm = _dense_tm(trans.permute(1, 2, 0).contiguous(), idx)  # [T, 4, 4, B]
+        dense_bt = dense_from_params(trans.transpose(0, 1), idx)  # [T, B, 4, 4]
+    rows = check_chain_scans(torch, peak, libs, dense_bm, tvalid, idx, "runlength_v1", "_s4")
+    rows += check_bt_chain(torch, peak, libs, dense_bt, tvalid, idx, "K11 V1 S=4",
+                           "runlength_v1_pallas", "_s4", builds=True, profile=False)
+    for r in rows:
+        log(f"S=4 {r['kid']} {r['name']} at T={T}, B={B}: {r['ms']:.4f} ms = "
+            f"{1e6 * r['ms'] / T:.1f} ns a step, plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |kernel - plain| "
+            f"{r['max_abs_err']:.2e}, launches a V1 decode {launches[r['run']][r['counter']]} "
+            f"[{card}]")
+    return rows, launches
+
+
+def header_paths(model: str) -> tuple:
+    d = os.path.join(WORK, "convert")
+    return tuple(os.path.join(d, f"{model}{x}") for x in (".npz", ".h", "_2.npz", "_2.h"))
+
+
+def start_header_roundtrips() -> list:
+    """flappie-torch-convert's header subcommands at full width, as a user
+    runs them (one process a command), for each of HEADER_MODELS: synth ->
+    npz2header -> header2npz -> npz2header, one chain a model in the
+    background (host work of tens of seconds, while the card works):
+    [(model, process)]."""
+    os.makedirs(os.path.join(WORK, "convert"), exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = []
+    for model, mid in HEADER_MODELS:
+        npz, h1, npz2, h2 = header_paths(model)
+        cli = [sys.executable, "-m", "flappie_tpu_torch.cli.convert"]
+        chain = [["synth", npz, "--model", model, "--seed", "5"],
+                 ["npz2header", npz, h1, "--model", model, "--id", mid],
+                 ["header2npz", h1, npz2],
+                 ["npz2header", npz2, h2, "--model", model, "--id", mid]]
+        script = " && ".join(" ".join(shlex.quote(a) for a in cli + c) for c in chain)
+        procs.append((model, subprocess.Popen(["sh", "-c", script], cwd=HERE, env=env,
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True)))
+    return procs
+
+
+def finish_header_roundtrips(np, procs: list, t0: float) -> None:
+    """Wait for start_header_roundtrips' chains: the two headers of each
+    model byte-equal, header2npz's arrays the synthetic ones; then
+    torch2npz, in this process, on a synthetic taiyaki state dict of
+    r941_5mC (cudnn GRU gates reordered; the MAD scale on the first
+    conv)."""
+    import torch
+
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.models.params import flatten, load_npz
+
+    d = os.path.join(WORK, "convert")
+    for model, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"flappie-torch-convert chain for {model} exited "
+                                 f"{proc.returncode}:\n{out}{err}")
+        npz, h1, npz2, h2 = header_paths(model)
+        with open(h1, "rb") as a, open(h2, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{model}: npz2header after header2npz is not byte-equal")
+        p1, p2 = flatten(load_npz(npz)), flatten(load_npz(npz2))
+        if sorted(p1) != sorted(p2) or any(not np.array_equal(p1[k], p2[k]) for k in p1):
+            raise AssertionError(f"{model}: header2npz arrays differ from the synthetic ones")
+    cfg = get_model_config("r941_5mC")
+    (conv,) = cfg.convs
+    H = cfg.rnns[0].size
+    rng = np.random.default_rng(6)
+    state = {"sublayers.1.conv.weight": rng.normal(size=(conv.out_ch, 1, conv.winlen)),
+             "sublayers.1.conv.bias": rng.normal(size=conv.out_ch)}
+    for i, r in enumerate(cfg.rnns):
+        pre = f"sublayers.{i + 2}.cudnn_gru."
+        state.update({pre + "weight_ih_l0": rng.normal(size=(3 * H, conv.out_ch if i == 0 else H)),
+                      pre + "weight_hh_l0": rng.normal(size=(3 * H, H)),
+                      pre + "bias_ih_l0": rng.normal(size=3 * H)})
+    state["sublayers.7.linear.weight"] = rng.normal(size=(cfg.out_dim, H))
+    state["sublayers.7.linear.bias"] = rng.normal(size=cfg.out_dim)
+    ckpt, out = os.path.join(d, "taiyaki.pt"), os.path.join(d, "taiyaki.npz")
+    torch.save({"model_state_dict": {k: torch.tensor(v, dtype=torch.float32)
+                                     for k, v in state.items()}}, ckpt)
+    convert_cli(["torch2npz", ckpt, out, "--model", "r941_5mC", "--scale"])
+    got = load_npz(out)
+    iW = state["sublayers.2.cudnn_gru.weight_ih_l0"].astype(np.float32)
+    want_iW = np.concatenate([iW[H : 2 * H], iW[:H], iW[2 * H :]]).T
+    want_conv = (state["sublayers.1.conv.weight"].astype(np.float32).transpose(2, 1, 0)
+                 * np.float32(1.4826))
+    if not (np.array_equal(got["rnn0"]["iW"], want_iW)
+            and np.allclose(got["conv0"]["W"], want_conv, rtol=1e-6, atol=0)):
+        raise AssertionError("torch2npz: the GRU gates or the conv's MAD scale are wrong")
+    log(f"flappie-torch-convert: synth -> npz2header -> header2npz -> npz2header byte-equal "
+        f"for {', '.join(m for m, _ in HEADER_MODELS)} at full width ({time.perf_counter() - t0:.1f} "
+        "s after the chains started, beside the sloika runs), torch2npz of a taiyaki state dict "
+        "(r941_5mC, --scale) checked")
+
+
+def sloika_phase(torch, np, card: str, peak: dict, libs: dict) -> tuple:
+    """The three sloika flavours at full width and the converters: (rows
+    of the S=4 kernels, launches by run)."""
+    launches = {}
+    t0 = time.perf_counter()
+    procs = start_header_roundtrips()
+    try:
+        for flavour in ("flipflop_gru", "flipflop_grumod"):
+            launches[f"sloika_{flavour}"] = sloika_flipflop(torch, np, card, flavour)
+        rows, v1 = sloika_runlength(torch, np, card, peak, libs)
+        launches.update(v1)
+        finish_header_roundtrips(np, procs, t0)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rows, launches
+
+
 # -- phase 4: training ---------------------------------------------------------
 
 # tools/train_r5.py's recipe: batch 32, chunks of 2560 samples, Adam at lr
@@ -2850,6 +3305,9 @@ def main() -> int:
     serve_stdin_run(torch, np, card)
     serve_watch_run(torch, np, card)
     launches["rle_r941_native_pallas"] = runnie_path(torch, np, card)
+    sloika_rows, sloika_launches = sloika_phase(torch, np, card, peak, libs)
+    rows += sloika_rows
+    launches.update(sloika_launches)
     check_gradients(torch, card)
     launches["r941_native_train"] = training(torch, np, card)
 

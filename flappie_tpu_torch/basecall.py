@@ -132,17 +132,18 @@ def _i16_capable(rt) -> bool:
 
 
 def _device_basecall(params, signal, lengths, cfg: ModelConfig, temperature: float,
-                     viterbi_only: bool, compute_trace: bool):
+                     viterbi_only: bool, compute_trace: bool, rnn_impl: str = "auto"):
     """Full-read program: (score, path int8 [B, T+1], qchar uint8,
     nblocks, trace)."""
-    trans, nblocks = transitions(params, cfg, signal, lengths, temperature)
+    trans, nblocks = transitions(params, cfg, signal, lengths, temperature, rnn_impl=rnn_impl)
     score, path, qpath, trace = crf_decode_fused(trans, nblocks, cfg.nbase, viterbi_only,
                                                  compute_trace)
     return score, path.to(torch.int8), phred_from_qpath(qpath), nblocks, trace
 
 
 def _device_basecall_chunk(params, signal, lengths, qlo, qhi, cfg: ModelConfig,
-                           temperature: float, viterbi_only: bool, compute_trace: bool):
+                           temperature: float, viterbi_only: bool, compute_trace: bool,
+                           rnn_impl: str = "auto"):
     """Chunk program: as _device_basecall, but the score is the masked
     sum of qpath over each chunk's OWNED local range [qlo, qhi), so chunk
     scores sum to the read's score."""
@@ -152,9 +153,10 @@ def _device_basecall_chunk(params, signal, lengths, qlo, qhi, cfg: ModelConfig,
         # stitch the full-read logZ; the alpha0 log(nstate) constant
         # lands on the first chunk (qlo == 1).
         trans, nblocks, shift, incs = transitions(
-            params, cfg, signal, lengths, temperature, return_norm=True)
+            params, cfg, signal, lengths, temperature, return_norm=True, rnn_impl=rnn_impl)
     else:
-        trans, nblocks = transitions(params, cfg, signal, lengths, temperature)
+        trans, nblocks = transitions(params, cfg, signal, lengths, temperature,
+                                     rnn_impl=rnn_impl)
     _, path, qpath, trace = crf_decode_fused(trans, nblocks, cfg.nbase, viterbi_only,
                                              compute_trace)
     t = torch.arange(qpath.shape[1], device=qpath.device)[None, :]
@@ -218,39 +220,43 @@ def _unpack_i16(buf):
     return sig, lengths, qlo, qhi
 
 
-def _device_basecall_packed(params, buf, cfg, temperature, viterbi_only, compute_trace):
+def _device_basecall_packed(params, buf, cfg, temperature, viterbi_only, compute_trace,
+                            rnn_impl="auto"):
     """f32 bucket program: [B, bucket+4] (signal + float-encoded length)."""
     sig = buf[:, :-4]
     lengths = buf[:, -4].to(torch.int32)
     score, path, qchar, nblocks, trace = _device_basecall(
-        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace)
+        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace, rnn_impl)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
-def _device_basecall_chunk_packed(params, buf, cfg, temperature, viterbi_only, compute_trace):
+def _device_basecall_chunk_packed(params, buf, cfg, temperature, viterbi_only, compute_trace,
+                                  rnn_impl="auto"):
     """f32 chunk program: [CB, chunk+4] (signal + length, qlo, qhi, pad)."""
     sig = buf[:, :-4]
     meta = buf[:, -4:].to(torch.int32)
     score, path, qchar, nblocks, trace = _device_basecall_chunk(
         params, sig, meta[:, 0], meta[:, 1], meta[:, 2], cfg, temperature,
-        viterbi_only, compute_trace)
+        viterbi_only, compute_trace, rnn_impl)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
-def _device_basecall_packed_i16(params, buf, cfg, temperature, viterbi_only, compute_trace):
+def _device_basecall_packed_i16(params, buf, cfg, temperature, viterbi_only, compute_trace,
+                                rnn_impl="auto"):
     """int16-wire bucket program (the short-read path)."""
     sig, lengths, _qlo, _qhi = _unpack_i16(buf)
     score, path, qchar, nblocks, trace = _device_basecall(
-        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace)
+        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace, rnn_impl)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
 def _device_basecall_chunk_packed_i16(params, buf, cfg, temperature, viterbi_only,
-                                      compute_trace):
+                                      compute_trace, rnn_impl="auto"):
     """int16-wire chunk program (the production long-read path)."""
     sig, lengths, qlo, qhi = _unpack_i16(buf)
     score, path, qchar, nblocks, trace = _device_basecall_chunk(
-        params, sig, lengths, qlo, qhi, cfg, temperature, viterbi_only, compute_trace)
+        params, sig, lengths, qlo, qhi, cfg, temperature, viterbi_only, compute_trace,
+        rnn_impl)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
@@ -424,6 +430,7 @@ class Basecaller:
         viterbi_only: bool = False,
         compute_trace: bool = True,
         seed: int = 0,
+        rnn_impl: str = "auto",
         chunk: Optional[int] = None,
         overlap: int = 1600,
         chunk_batch: int = 256,
@@ -431,11 +438,14 @@ class Basecaller:
     ):
         self.device = resolve_device(device)
         self.cfg = get_model_config(model) if isinstance(model, str) else model
-        check_supported(self.cfg)
+        check_supported(self.cfg, rnn_impl)
         if self.cfg.head != "flipflop":
             raise NotImplementedError(
-                f"model {self.cfg.name!r}: the basecaller decodes flip-flop heads; the "
-                "run-length model runs through flappie_tpu_torch.cli.runnie")
+                f"model {self.cfg.name!r}: the basecaller decodes flip-flop heads, as the "
+                "JAX package's does; the run-length V2 model runs through "
+                "flappie_tpu_torch.cli.runnie, a V1 run-length model through "
+                "models.network.transitions and decode.runlength's rle_v1_viterbi and "
+                "rle_v1_posterior")
         if params is None:
             params = load_npz(checkpoint) if checkpoint is not None else init_synthetic(
                 self.cfg, seed=seed)
@@ -444,6 +454,7 @@ class Basecaller:
         self.temperature = float(temperature)
         self.viterbi_only = bool(viterbi_only)
         self.compute_trace = bool(compute_trace)
+        self.rnn_impl = rnn_impl
         # Chunked fast path (0 disables): reads longer than `chunk`
         # samples are split into overlapping chunks batched through ONE
         # fixed-shape program and stitched at overlap midpoints
@@ -466,7 +477,7 @@ class Basecaller:
         _chaos_maybe_fail_dispatch()
         return self._queue.run(
             lambda dev: program(self.params, dev, self.cfg, self.temperature,
-                                self.viterbi_only, self.compute_trace), buf)
+                                self.viterbi_only, self.compute_trace, self.rnn_impl), buf)
 
     # -- full pipeline ----------------------------------------------------
 

@@ -7,6 +7,7 @@
 //   crf_bt_viterbi_kernel   <- _viterbi_kernel:73 via viterbi_scan_pallas:178;
 //   traceback_kernel<BtTrace<S>> (traceback.cuh)
 //                           <- _traceback_kernel:115 via traceback_pallas:217.
+// All three are compiled for S = 4 (the V1 run-length chain), 8 and 10.
 //
 // Layout is crf_pallas.py's batch-major one: transition blocks [T, B, S, S]
 // (step, read, from, to: one read's S*S weights of a step are contiguous),
@@ -22,8 +23,8 @@
 // step, each thread loading its next KT steps of weights into registers)
 // took ~470 ns a step at S=8, on one block at runnie's B=24.  The forward
 // and Viterbi scans now run K3/K5's frame (crf_chain.cuh, crf_scan.cu):
-//  - a chain warp holds R = 32 / S whole reads, lane = read * S + to-state (4
-//    reads at S=8, 3 at S=10 with lanes 30-31 idle); a step gathers the S
+//  - a chain warp holds R = 32 / S whole reads, lane = read * S + to-state (8
+//    reads at S=4, 4 at S=8, 3 at S=10 with lanes 30-31 idle); a step gathers the S
 //    states of a read with S __shfl_sync, and no block barrier sits on the
 //    chain;
 //  - chain warps are independent, one a CTA (kBtWarps; bt_plan, mirrored by
@@ -32,35 +33,41 @@
 //    slower at both S: Viterbi at S=10 0.61 against 0.37 ms with two;
 //  - the weights never pass through the chain warp's registers: the CTA's
 //    last warp, the producer, fills each chain warp's ring of RING tiles of
-//    KT steps.  One read's S*S block of one step is contiguous in the
-//    batch-major layout, S*S*4 = 256 or 400 bytes at a 16-byte aligned
-//    offset, so each is one bulk copy (cp.async.bulk, no tensor map) that
-//    completes the slot's full mbarrier by its bytes; producer lane
-//    (step k, read r) issues one a tile, after arrive.expect_tx of its
-//    bytes.  The valid flags go by 4-byte cp.async (12 bytes a step at
-//    S=10 are not a bulk copy's multiple of 16), zero-filled past B or T.
-//    A read past B gets no copy: its lanes compute on whatever the ring
-//    holds, never store, and shuffle only among themselves;
+//    KT steps.  One step's R reads' S*S blocks are contiguous in the
+//    batch-major layout (512, 1024 or 1200 bytes at S = 4, 8, 10, at a
+//    16-byte aligned offset), and the producer lanes bring them by one
+//    16-byte cp.async each, each read's block to its padded place in the
+//    ring; the valid flags go by 4-byte cp.async, both zero-filled past B
+//    or T, and each lane's cp.async arrival completes the slot's full
+//    mbarrier.  A bulk copy a read (cp.async.bulk), the earlier design, held the
+//    S=4 chain at ~265 ns a step, 8 copies of 64 bytes a step, where these
+//    copies take ~150-180 ns;
 //  - bank layout: lane (r, to) reads from-row f of its read at r*P + f*S +
 //    to.  With the blocks packed (P = S*S) the 4 reads of S=8 fall on one
 //    bank (64 = 0 mod 32): a 4-way conflict on every load of the chain.
-//    Each read's block lands at a padded stride P (72 floats at S=8: reads
-//    on banks 0, 8, 16, 24, no conflict; 104 at S=10, where no stride that
-//    keeps the blocks 16-byte aligned separates three runs of 10 banks: at
-//    most 2-way, against 3-way packed), hence R bulk copies a step and not
-//    one;
+//    Each read's block lands at a padded stride P (20 floats at S=4: the 8
+//    reads' rows on banks 0, 20, 8, 28, 16, 4, 24, 12, no conflict; 72 at
+//    S=8: reads on banks 0, 8, 16, 24, no conflict; 104 at S=10, where no
+//    stride that keeps the blocks 16-byte aligned separates three runs of
+//    10 banks: at most 2-way, against 3-way packed);
 //  - outputs of a step are R*S contiguous floats (and int8 backpointers),
 //    one coalesced store a warp.  The forward scan holds a tile of them in
 //    registers and stores them after the tile (S=10: 0.58 against 0.71 ms
 //    when stored at every step; S=8 equal or 2-4% faster), the Viterbi
 //    scan stores them at every step (holding them: 2-17% slower, and
 //    spills).
-// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): at T=2560,
-// B=256 the forward scan takes ~0.57 ms at S=8 (~223 ns a step; the first
-// design 1.20 ms in the same call) and ~0.58 at S=10 (1.76), the Viterbi
-// scan ~0.39-0.45 (1.08) and ~0.37 (1.66); at runnie's T=13,108, B=24,
-// 2.66-2.76 (5.69) and 1.77-1.84 (4.89).  ptxas: forward 48 registers
-// at S=8, 56 at S=10; Viterbi 72 and 72; no spills.
+// Measured (chip_smoke.py, compare_scans.py; NVIDIA H100 80GB HBM3, 700.00
+// W): at T=2560, B=256 the forward scan takes ~0.55-0.57 ms at S=8 (~213-223
+// ns a step; the first design 1.20 ms in the same call) and ~0.58-0.65 at
+// S=10 (1.76), the Viterbi scan ~0.39-0.45 (1.08) and ~0.36-0.37 (1.66); at
+// runnie's T=13,108, B=24, 2.49-2.76 (5.69) and 1.60-1.84 (4.89).  Against
+// a bulk copy a read, in the same call, the 16-byte copies took the forward
+// scan 0.545 against 0.569 ms at S=8 and 0.653 against 0.633 at S=10, the
+// Viterbi 0.392 against 0.430 and 0.362 against 0.399, runnie's shape 2.49
+// against 2.62 and 1.60 against 1.81, and at S=4 ~0.39-0.46 against
+// 0.67-0.73.  ptxas: forward 48 registers at S=4 and 8, 128 at S=10 (56 on
+// bulk copies: the producer's 19 unrolled copies a lane a tile); Viterbi 44,
+// 64 and 128 (72 at S=8 and 10 on bulk copies); no spills.
 // Arithmetic (crf_chain.cuh) follows crf_pallas.py exactly: from-states are
 // taken in order 0..S-1 for the sum of exps, the max is exact in any order,
 // lse = max + log(sum(exp(z - max))) with forbidden transitions at the
@@ -91,7 +98,7 @@ namespace {
 using namespace flappie;
 
 // Chain warps a CTA (besides the producer warp): 1, the fastest of 1, 2
-// and 4 at both S (chip_smoke.py times the others in builds with
+// and 4 at S = 8 and 10 (chip_smoke.py times the others in builds with
 // -DBT_WARPS=n); at most 4, as __launch_bounds__(160) allows.
 #ifdef BT_WARPS
 template <int S>
@@ -100,18 +107,22 @@ constexpr int kBtWarps = BT_WARPS;
 template <int S>
 constexpr int kBtWarps = 1;
 #endif
-static_assert(kBtWarps<8> >= 1 && kBtWarps<8> <= 4 && kBtWarps<10> >= 1 && kBtWarps<10> <= 4,
+static_assert(kBtWarps<4> >= 1 && kBtWarps<4> <= 4 && kBtWarps<8> >= 1 && kBtWarps<8> <= 4 &&
+                  kBtWarps<10> >= 1 && kBtWarps<10> <= 4,
               "1 to 4 chain warps a CTA");
 
 // One chain warp's ring: R reads' S*S blocks of KT steps a tile, each read's
 // block at stride P, and their valid flags.
 template <int S>
 struct alignas(16) BtRing {
-  static constexpr int R = 32 / S;             // reads a warp
-  static constexpr int P = S == 8 ? 72 : 104;  // floats from one read's block to the next
-  static constexpr unsigned BYTES = S * S * 4;  // one read's block of one step: one bulk copy
-  static_assert(KT * R <= 32, "a tile's copies take one producer lane each");
-  static_assert(P >= S * S && P % 4 == 0 && BYTES % 16 == 0, "16-byte aligned blocks");
+  static constexpr int R = 32 / S;  // reads a warp
+  // floats from one read's block to the next
+  static constexpr int P = S == 4 ? 20 : S == 8 ? 72 : 104;
+  static constexpr int CH = S * S / 4;           // 16-byte chunks of one read's block of a step
+  static constexpr int NQ = (KT * R + 31) / 32;  // a tile's valid flags a producer lane
+  static constexpr int NC = (KT * R * CH + 31) / 32;  // a tile's 16-byte chunks a producer lane
+  static_assert(NQ <= 2, "a tile's flags take at most two producer lanes' turns");
+  static_assert(P >= S * S && P % 4 == 0 && S * S % 4 == 0, "16-byte aligned blocks");
   unsigned long long full[RING], empty[RING];  // mbarriers: slot filled, slot read
   float m[RING][KT][R * P];
   int v[RING][KT][R];
@@ -134,34 +145,43 @@ BtPlan bt_plan(int B) {
 }
 
 // The producer warp (the last of the CTA): fill each chain warp's ring, tile
-// by tile, RING tiles ahead of it at most.  Lane (k, r) = (lane / R, lane %
-// R) copies step k of the tile for read r.  A slot's full barrier takes 64
-// arrivals (each lane's cp.async arrival and its arrive.expect_tx) and the
-// bytes of the bulk copies; its empty barrier the chain warp's one arrive.
+// by tile, RING tiles ahead of it at most.  Flag e = q * 32 + lane (q < NQ)
+// of a tile is step e / R's flag of read e % R; chunk e = i * 32 + lane (i
+// < NC) is step k = e / (R * CH)'s chunk j = e % (R * CH) of the warp's
+// contiguous R blocks, chunk j % CH of read j / CH, which lands at that
+// read's stride P in the ring.  A slot's full barrier takes the 32 lanes'
+// cp.async arrivals, its empty barrier the chain warp's one arrive.
 template <int S>
 __device__ __forceinline__ void bt_produce(BtRing<S>* rings, int W, const float* __restrict__ dense,
                                            const int* __restrict__ valid, int T, int B) {
-  constexpr int R = BtRing<S>::R, P = BtRing<S>::P;
+  constexpr int R = BtRing<S>::R, P = BtRing<S>::P, CH = BtRing<S>::CH;
   const int lane = threadIdx.x & 31, w0 = blockIdx.x * W;
-  const int k = lane / R, r = lane % R;
-  const bool mine = lane < KT * R;
   int nc = 0;  // chain warps of this CTA that hold reads
   while (nc < W && (w0 + nc) * R < B) ++nc;
   const int ntile = (T + KT - 1) / KT;
   for (int tile = 0; tile < ntile; ++tile) {
-    const int slot = tile % RING, fill = tile / RING, t = tile * KT + k;
+    const int slot = tile % RING, fill = tile / RING;
     for (int c = 0; c < nc; ++c) {
       BtRing<S>& ring = rings[c];
-      const int b = (w0 + c) * R + r;
-      const bool live = mine && t < T && b < B;
+      const int b0 = (w0 + c) * R;
       if (fill > 0) mbar_wait(&ring.empty[slot], (fill - 1) & 1);
-      if (mine)
-        cp_async<4>(&ring.v[slot][k][r], live ? valid + (long)t * B + b : valid, live ? 4 : 0);
+#pragma unroll
+      for (int q = 0; q < BtRing<S>::NQ; ++q) {
+        const int e = q * 32 + lane, k = e / R, r = e % R, t = tile * KT + k;
+        const bool ok = t < T && b0 + r < B;
+        if (e < KT * R)
+          cp_async<4>(&ring.v[slot][k][r], ok ? valid + (long)t * B + b0 + r : valid, ok ? 4 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < BtRing<S>::NC; ++i) {
+        const int e = i * 32 + lane, k = e / (R * CH), j = e % (R * CH), r = j / CH;
+        const int t = tile * KT + k;
+        const bool ok = t < T && b0 + r < B;
+        if (e < KT * R * CH)
+          cp_async<16>(&ring.m[slot][k][r * P + 4 * (j % CH)],
+                       ok ? dense + ((long)t * B + b0) * S * S + 4 * j : dense, ok ? 16 : 0);
+      }
       cp_async_arrive(&ring.full[slot]);
-      mbar_arrive_expect_tx(&ring.full[slot], live ? BtRing<S>::BYTES : 0);
-      if (live)
-        bulk_copy(&ring.m[slot][k][r * P], dense + ((long)t * B + b) * S * S, BtRing<S>::BYTES,
-                  &ring.full[slot]);
     }
   }
   cp_async_wait_all();
@@ -177,9 +197,8 @@ __device__ __forceinline__ BtRing<S>* bt_chain_warp(const float* dense, const in
   BtRing<S>* rings = reinterpret_cast<BtRing<S>*>(smem);
   const int W = (blockDim.x >> 5) - 1, warp = threadIdx.x >> 5;
   if (threadIdx.x < W * RING) {
-    mbar_init(&rings[threadIdx.x / RING].full[threadIdx.x % RING], 64);
+    mbar_init(&rings[threadIdx.x / RING].full[threadIdx.x % RING], 32);
     mbar_init(&rings[threadIdx.x / RING].empty[threadIdx.x % RING], 1);
-    mbar_fence_init();
   }
   __syncthreads();  // once, before any chain starts
   if (warp == W) {
@@ -343,7 +362,7 @@ struct BtTrace {
 };
 
 // Launch a chain kernel (K11 forward or Viterbi) at bt_plan<S>(B); the
-// bulk copies need ``dense`` on a 16-byte boundary.  Returns the launch
+// 16-byte copies need ``dense`` on a 16-byte boundary.  Returns the launch
 // error code.
 template <int S, typename Kernel, typename... Args>
 int launch_chain(int B, const float* dense, cudaStream_t st, Kernel kernel, Args... args) {
@@ -388,8 +407,8 @@ extern "C" const char* flappie_cuda_error_string(int err) {
 // reads: info = {reads a warp, chain warps a CTA, CTAs, shared bytes a CTA,
 // floats from one read's block to the next in the ring}.
 extern "C" int flappie_crf_bt_info(int S, int B, int* info) {
-  if (S != 8 && S != 10) return cudaErrorInvalidValue;
-  const BtPlan p = S == 8 ? bt_plan<8>(B) : bt_plan<10>(B);
+  if (S != 4 && S != 8 && S != 10) return cudaErrorInvalidValue;
+  const BtPlan p = S == 4 ? bt_plan<4>(B) : S == 8 ? bt_plan<8>(B) : bt_plan<10>(B);
   info[0] = p.R;
   info[1] = p.W;
   info[2] = p.ctas;
@@ -398,11 +417,13 @@ extern "C" int flappie_crf_bt_info(int S, int B, int* info) {
   return 0;
 }
 
-// S = 8 (flip-flop and run-length over 4 bases) and S = 10 (5 bases) are compiled.
+// S = 4 (the V1 run-length chain), 8 (flip-flop and run-length V2 over 4
+// bases) and S = 10 (5 bases) are compiled.
 extern "C" int flappie_crf_bt_fwd(const float* dense, const int* valid, float* out, int T,
                                   int S, int B, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
+  if (S == 4) return launch_fwd<4>(dense, valid, out, T, B, st);
   if (S == 8) return launch_fwd<8>(dense, valid, out, T, B, st);
   if (S == 10) return launch_fwd<10>(dense, valid, out, T, B, st);
   return cudaErrorInvalidValue;
@@ -413,6 +434,7 @@ extern "C" int flappie_crf_bt_viterbi(const float* dense, const int* valid, cons
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
+  if (S == 4) return launch_viterbi<4>(dense, valid, rank, alphas, bp, T, B, st);
   if (S == 8) return launch_viterbi<8>(dense, valid, rank, alphas, bp, T, B, st);
   if (S == 10) return launch_viterbi<10>(dense, valid, rank, alphas, bp, T, B, st);
   return cudaErrorInvalidValue;
@@ -422,6 +444,7 @@ extern "C" int flappie_crf_bt_viterbi(const float* dense, const int* valid, cons
 // reads: info as flappie_crf_traceback_info's.
 extern "C" int flappie_crf_bt_traceback_info(int T, int S, int B, int* info) {
   if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  if (S == 4) return tb_info<BtTrace<4>>(T, B, info);
   if (S == 8) return tb_info<BtTrace<8>>(T, B, info);
   if (S == 10) return tb_info<BtTrace<10>>(T, B, info);
   return cudaErrorInvalidValue;
@@ -431,6 +454,7 @@ extern "C" int flappie_crf_bt_traceback(const int8_t* bp, const int* valid, cons
                                         int* out, int T, int S, int B, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
+  if (S == 4) return launch_traceback<4>(bp, valid, last, out, T, B, st);
   if (S == 8) return launch_traceback<8>(bp, valid, last, out, T, B, st);
   if (S == 10) return launch_traceback<10>(bp, valid, last, out, T, B, st);
   return cudaErrorInvalidValue;

@@ -64,11 +64,6 @@ __device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
                : "memory");
 }
 
-// Make initialised barriers visible to the async proxy (bulk copies).
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
 // Wait until the barrier's phase of the given parity has completed.
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
   asm volatile(
@@ -83,29 +78,10 @@ __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
   asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
-// One arrival that also expects ``bytes`` of bulk copies in this phase.
-__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
 // Arrive on the barrier once this thread's earlier cp.async copies have landed.
 __device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
-}
-
-// One bulk copy (TMA, no tensor map) of ``bytes`` (a multiple of 16, both
-// addresses 16-byte aligned) into this CTA's shared memory; its bytes
-// complete the transaction count of ``bar``.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // max over z[0 .. S-1] as a tree: exact, so any order gives the same bits.

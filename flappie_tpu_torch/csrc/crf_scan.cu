@@ -9,6 +9,9 @@
 //   crf_viterbi_kernel   <- _viterbi_kernel:135 via viterbi_fwd_pallas:300 (K5);
 //   traceback_kernel<BmTrace<S>> (traceback.cuh)
 //                        <- _traceback_kernel:170 via traceback_pallas:333 (K6).
+// K3/K4, K5 and K6 are compiled for S = 4 (the V1 run-length chain), 8
+// (flip-flop over 4 bases) and 10 (5 bases); K9 for S = 8 and 10, the only
+// S whose paths reach it.
 //
 // Layout is the JAX package's batch-minor one: dense transition blocks
 // [T, S, S, B] (from, to, read), validity [T, B], states [T+1, S, B].
@@ -25,20 +28,24 @@
 // T=2560, B=256; K5 ~560 ns), on 8 blocks at B=256 and one at B <= 32.
 // This design takes ~225 ns (K3, S=8), ~340 ns (S=10) and 160-175 ns (K5,
 // S=8) a step (0.58, 0.86-0.88, 0.40-0.45 ms; NVIDIA H100 80GB HBM3,
-// 700.00 W, chip_smoke.py):
+// 700.00 W, chip_smoke.py), and at S=4 ~164 ns (K3) and 105-115 ns (K5) a
+// step (0.419, 0.27-0.29 ms):
 //  - a chain warp holds whole reads, lane = read * S + state (R = 32 / S
-//    reads: 4 at S=8, 3 at S=10 with lanes 30-31 idle), so a step exchanges
-//    the S states of a read with S __shfl_sync and no block barrier;
-//  - chain warps are independent: a CTA holds W of them (kWarps: 1 at S=8,
-//    2 at S=10, the fastest of 1, 2, 4; scan_plan, mirrored by
-//    ops/crf_bm_cuda.py _scan_plan), so B=256 spreads over 64 warps and
-//    runnie's B=24 over 6;
+//    reads: 8 at S=4, 4 at S=8, 3 at S=10 with lanes 30-31 idle), so a
+//    step exchanges the S states of a read with S __shfl_sync and no block
+//    barrier;
+//  - chain warps are independent: a CTA holds W of them (kWarps: 1 at S=4
+//    and S=8, 2 at S=10, the fastest of 1, 2, 4; scan_plan, mirrored by
+//    ops/crf_bm_cuda.py _scan_plan), so B=256 spreads over 64 warps (32 at
+//    S=4) and runnie's B=24 over 6;
 //  - the weights do not pass through the chain warp's registers or
 //    instructions: a producer warp (the CTA's last) streams each chain
 //    warp's slice dense[t, :, :, b0:b0+R] and valid flags into that warp's
 //    ring of RING tiles of KT steps in shared memory with cp.async (16-byte
-//    runs when aligned: S=8, B % 4 == 0; else 4-byte copies, zero-filled
-//    past B), and each slot's mbarrier completes when its copies land.  The
+//    copies of 4 reads when aligned: R a multiple of 4, i.e. S=4 or 8, and B
+//    % 4 == 0; else 4-byte copies, zero-filled past B; a tile's KT * R valid
+//    flags take one or two copies a lane), and each slot's mbarrier
+//    completes when its copies land.  The
 //    chain warp waits once a tile and frees the slot with one arrive.
 //    With each chain warp issuing its own copies, K3 took ~330 ns a step
 //    at S=8.  Runs sit in the ring at swz(from, to), so that both
@@ -92,7 +99,8 @@ template <int S>
 struct Ring {
   static constexpr int R = 32 / S;        // reads a warp
   static constexpr int STEP = S * S * R;  // floats of one step's slice
-  static_assert(KT * R <= 32, "a tile's valid flags take one copy a lane");
+  static constexpr int NV = (KT * R + 31) / 32;  // valid-flag copies a lane a tile
+  static_assert(NV <= 2, "a tile's valid flags take at most two copies a lane");
   unsigned long long full[RING], empty[RING];  // mbarriers: slot filled, slot read
   float m[RING][KT][STEP];
   int v[RING][KT][R];
@@ -100,16 +108,18 @@ struct Ring {
 };
 
 // Chain warps a CTA: the fastest of 1, 2 and 4 on the H100 (chip_smoke.py
-// times the others in builds with -DSCAN_WARPS=n); at most 4, as
+// times the others in builds with -DSCAN_WARPS=n; at S=4 one and two tie
+// within the runs' spread, four is 10-14% slower); at most 4, as
 // __launch_bounds__(160) allows with the producer warp.
 #ifdef SCAN_WARPS
 template <int S>
 constexpr int kWarps = SCAN_WARPS;
 #else
 template <int S>
-constexpr int kWarps = S == 8 ? 1 : 2;
+constexpr int kWarps = S == 10 ? 2 : 1;
 #endif
-static_assert(kWarps<8> >= 1 && kWarps<8> <= 4 && kWarps<10> >= 1 && kWarps<10> <= 4,
+static_assert(kWarps<4> >= 1 && kWarps<4> <= 4 && kWarps<8> >= 1 && kWarps<8> <= 4 &&
+                  kWarps<10> >= 1 && kWarps<10> <= 4,
               "1 to 4 chain warps a CTA");
 
 struct ScanPlan {
@@ -136,33 +146,40 @@ __device__ __forceinline__ int swz(int f, int t) {
   return f * S + (t + f) % S;
 }
 
-// A lane's share of the copies that fill one tile of the ring: VEC copies a
-// whole 16-byte run (R = 4 reads) at once, else one float, zero-filled for a
-// read past B; the tile's valid flags take one copy of a float a lane.
-// Offsets are computed once; bytes < 0 marks no copy.
+// A lane's share of the copies that fill one tile of the ring: VEC copies 4
+// reads' floats of a run (from f, to t) at once, 16 bytes (one copy a run
+// at R = 4, two at R = 8), else one float, zero-filled for reads past B;
+// the tile's KT * R valid flags take NV copies of an int a lane (two at R =
+// 8).  Offsets are computed once; bytes < 0 marks no copy.
 template <int S, bool VEC>
 struct Copier {
-  static constexpr int R = Ring<S>::R;
-  static constexpr int PER = VEC ? R : 1;     // floats a copy
-  static constexpr int N = S * S * R / PER;   // copies of one step's slice
+  static constexpr int R = Ring<S>::R, NV = Ring<S>::NV;
+  static constexpr int PER = VEC ? 4 : 1;     // floats a copy
+  static constexpr int CPR = R / PER;         // copies a run
+  static constexpr int N = S * S * CPR;       // copies of one step's slice
   static constexpr int NE = (N + 31) / 32;    // of them a lane's
+  static_assert(R % PER == 0, "a 16-byte copy holds 4 reads of a run");
   int src[NE], dst[NE], bytes[NE];
-  int vk, vr, vbytes;  // the valid flag this lane copies: step vk, read vr
+  int vk[NV], vr[NV], vbytes[NV];  // the valid flags this lane copies: step vk, read vr
 
   __device__ __forceinline__ Copier(int lane, int B, int b0) {
 #pragma unroll
     for (int q = 0; q < NE; ++q) {
       const int e = q * 32 + lane;
-      const int run = VEC ? e : e / R, r = VEC ? 0 : e % R;
+      const int run = e / CPR, r = (e % CPR) * PER;
       const int f = run / S, t = run % S;
       const bool ok = b0 + r < B;
       src[q] = ok ? (f * S + t) * B + b0 + r : 0;
       dst[q] = e < N ? swz<S>(f, t) * R + r : 0;
       bytes[q] = e >= N ? -1 : ok ? 4 * PER : 0;
     }
-    vk = lane / R;
-    vr = lane % R;
-    vbytes = vk >= KT ? -1 : b0 + vr < B ? 4 : 0;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int e = q * 32 + lane;
+      vk[q] = e / R;
+      vr[q] = e % R;
+      vbytes[q] = vk[q] >= KT ? -1 : b0 + vr[q] < B ? 4 : 0;
+    }
   }
 
   // Start the copies of step k of a tile: time t into ``slot``.
@@ -186,29 +203,32 @@ struct Copier {
     } else {
       for (int k = 0; k < T - s0; ++k) step(ring, slot, k, time(k), dense, B);
     }
-    if (vbytes >= 0 && s0 + vk < T)
-      cp_async<4>(&ring.v[slot][vk][vr], valid + (long)time(vk) * B + (vbytes ? b0 + vr : 0),
-                  vbytes);
+#pragma unroll
+    for (int q = 0; q < NV; ++q)
+      if (vbytes[q] >= 0 && s0 + vk[q] < T)
+        cp_async<4>(&ring.v[slot][vk[q]][vr[q]],
+                    valid + (long)time(vk[q]) * B + (vbytes[q] ? b0 + vr[q] : 0), vbytes[q]);
   }
 };
 
 // Write the staged outputs of one tile (n steps): step k's S x R words go to
-// row row0 + drow * k of out [rows, S, B], 16 bytes a run where VEC.
+// row row0 + drow * k of out [rows, S, B], 16 bytes (4 reads) a store where
+// VEC.
 template <int S, bool VEC>
 __device__ __forceinline__ void write_out(const Ring<S>& ring, int tile, int n, unsigned* out, int B,
                                       int b0, int row0, int drow) {
-  constexpr int R = Ring<S>::R, PER = VEC ? R : 1, N = KT * S * R / PER;
+  constexpr int R = Ring<S>::R, PER = VEC ? 4 : 1, CPR = R / PER, N = KT * S * CPR;
   const int lane = threadIdx.x & 31;
   const unsigned(&o)[KT][S][R] = ring.o[tile & 1];
 #pragma unroll
   for (int q = 0; q < (N + 31) / 32; ++q) {
     const int e = q * 32 + lane;
-    const int run = VEC ? e : e / R, r = VEC ? 0 : e % R;
+    const int run = e / CPR, r = (e % CPR) * PER;
     const int k = run / S, st = run % S;
     if (k >= n || b0 + r >= B) continue;
     unsigned* dst = out + ((long)(row0 + drow * k) * S + st) * B + b0 + r;
     if constexpr (VEC)
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&o[k][st][0]);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&o[k][st][r]);
     else
       *dst = o[k][st][r];
   }
@@ -394,24 +414,28 @@ __global__ void __launch_bounds__(160) crf_viterbi_kernel(
 // K6's layout for traceback.cuh: backpointers [T, S, B] int32 (from-state
 // of each to-state, read), walked from t = T-1 down, so walk step k is time
 // T-1-k.  A step's R * S staged words are bp[t][s][b0 + r] at s * R + r: with
-// ``vec`` (R = 4 reads, B % 4 == 0, bp on a 16-byte boundary) one 16-byte
-// copy a state, else one 4-byte copy a lane (no copy for a read past B: its
-// valid flags are zero-filled, so its lanes never move).
+// ``vec`` (R a multiple of 4, B % 4 == 0, bp on a 16-byte boundary) one
+// 16-byte copy of 4 reads a state (two at R = 8; reads past B zero-filled),
+// else one 4-byte copy a lane (no copy for a read past B: its valid flags
+// are zero-filled, so its lanes never move).
 template <int S_>
 struct BmTrace {
-  static constexpr int S = S_, R = 32 / S, WORDS = R * S;
+  static constexpr int S = S_, R = 32 / S, WORDS = R * S, Q = R / 4;  // Q: 16-byte copies a state
   const int* bp;
   int T, B;
   bool vec;
   __device__ __forceinline__ int time(int k) const { return T - 1 - k; }
   __device__ __forceinline__ void stage(unsigned* words, int k0, int n, int b0, int lane) const {
-    if (vec) {
-      for (int i = lane; i < n * S; i += 32) {
-        const int k = i / S, s = i - k * S;
-        const int* src = bp + ((long long)time(k0 + k) * S + s) * B + b0;
-        cp_async<16>(words + k * WORDS + s * R, src, 16);
+    if constexpr (Q > 0) {
+      if (vec) {
+        for (int i = lane; i < n * S * Q; i += 32) {
+          const int k = i / (S * Q), sq = i - k * S * Q, s = sq / Q, r = (sq - s * Q) * 4;
+          const bool ok = b0 + r < B;
+          const int* src = ok ? bp + ((long long)time(k0 + k) * S + s) * B + b0 + r : bp;
+          cp_async<16>(words + k * WORDS + s * R + r, src, ok ? 16 : 0);
+        }
+        return;
       }
-      return;
     }
     const int r = lane / S, s = lane - r * S;
     if (r >= R || b0 + r >= B) return;
@@ -425,8 +449,9 @@ struct BmTrace {
 };
 
 // Launch a chain kernel at ``plan``: the 16-byte copy and write-out path
-// when every run of the slices and outputs is 16-byte aligned (R = 4 reads a
-// warp, B % 4 == 0, each tensor on a 16-byte boundary), else the 4-byte one.
+// when every 4 reads of a run of the slices and outputs are 16-byte aligned
+// (R = 4 or 8 reads a warp, B % 4 == 0, each tensor on a 16-byte boundary),
+// else the 4-byte one.
 // ``kernel(vec)`` names the instantiation; returns the launch error code.
 template <int S, typename Kernel, typename... Args>
 int launch_chain(const ScanPlan& plan, int grid_y, int B, std::initializer_list<const void*> ptrs,
@@ -438,7 +463,7 @@ int launch_chain(const ScanPlan& plan, int grid_y, int B, std::initializer_list<
     fn<<<dim3(plan.ctas, grid_y), 32 * (plan.W + 1), plan.smem, st>>>(args...);
     return (int)cudaGetLastError();
   };
-  if constexpr (Ring<S>::R == 4) {
+  if constexpr (Ring<S>::R % 4 == 0) {
     bool vec = B % 4 == 0;
     for (const void* p : ptrs) vec = vec && reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
     if (vec) return go(kernel(std::true_type{}));
@@ -477,7 +502,7 @@ template <int S>
 int launch_traceback(const int* bp, const int* valid, const int* last, int* out, int T, int B,
                      cudaStream_t st) {
   const bool vec =
-      BmTrace<S>::R == 4 && B % 4 == 0 && reinterpret_cast<std::uintptr_t>(bp) % 16 == 0;
+      BmTrace<S>::R % 4 == 0 && B % 4 == 0 && reinterpret_cast<std::uintptr_t>(bp) % 16 == 0;
   return tb_launch(tb_plan(T, S, B, BmTrace<S>::WORDS), BmTrace<S>{bp, T, B, vec}, valid, last, out,
                    T, B, 1, st);
 }
@@ -492,8 +517,8 @@ extern "C" const char* flappie_cuda_error_string(int err) {
 // info = {reads a warp, chain warps a CTA, CTAs (K9 launches two rows of
 // them), shared bytes a CTA}.
 extern "C" int flappie_crf_scan_info(int S, int B, int* info) {
-  if (S != 8 && S != 10) return cudaErrorInvalidValue;
-  const ScanPlan p = S == 8 ? scan_plan<8>(B) : scan_plan<10>(B);
+  if (S != 4 && S != 8 && S != 10) return cudaErrorInvalidValue;
+  const ScanPlan p = S == 4 ? scan_plan<4>(B) : S == 8 ? scan_plan<8>(B) : scan_plan<10>(B);
   info[0] = p.R;
   info[1] = p.W;
   info[2] = p.ctas;
@@ -501,11 +526,13 @@ extern "C" int flappie_crf_scan_info(int S, int B, int* info) {
   return 0;
 }
 
-// S = 8 (flip-flop over 4 bases) and S = 10 (5 bases) are compiled.
+// S = 4 (the V1 run-length chain), 8 (flip-flop over 4 bases) and 10 (5
+// bases) are compiled; K9 at S = 8 and 10 only.
 extern "C" int flappie_crf_sum(const float* dense, const int* valid, float* out, int T,
                                int S, int B, int backward, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
+  if (S == 4) return launch_sum<4>(dense, valid, out, T, B, backward, st);
   if (S == 8) return launch_sum<8>(dense, valid, out, T, B, backward, st);
   if (S == 10) return launch_sum<10>(dense, valid, out, T, B, backward, st);
   return cudaErrorInvalidValue;
@@ -525,6 +552,7 @@ extern "C" int flappie_crf_viterbi(const float* dense, const int* valid, const i
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
+  if (S == 4) return launch_viterbi<4>(dense, valid, rank, alpha, bp, T, B, st);
   if (S == 8) return launch_viterbi<8>(dense, valid, rank, alpha, bp, T, B, st);
   if (S == 10) return launch_viterbi<10>(dense, valid, rank, alpha, bp, T, B, st);
   return cudaErrorInvalidValue;
@@ -535,6 +563,7 @@ extern "C" int flappie_crf_viterbi(const float* dense, const int* valid, const i
 // CTA, clusters the card holds at once}.
 extern "C" int flappie_crf_traceback_info(int T, int S, int B, int* info) {
   if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  if (S == 4) return tb_info<BmTrace<4>>(T, B, info);
   if (S == 8) return tb_info<BmTrace<8>>(T, B, info);
   if (S == 10) return tb_info<BmTrace<10>>(T, B, info);
   return cudaErrorInvalidValue;
@@ -544,6 +573,7 @@ extern "C" int flappie_crf_traceback(const int* bp, const int* valid, const int*
                                      int* out, int T, int S, int B, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
+  if (S == 4) return launch_traceback<4>(bp, valid, last, out, T, B, st);
   if (S == 8) return launch_traceback<8>(bp, valid, last, out, T, B, st);
   if (S == 10) return launch_traceback<10>(bp, valid, last, out, T, B, st);
   return cudaErrorInvalidValue;

@@ -12,7 +12,8 @@
 // again an S-entry table: exact integer work, so the walk splits in time:
 //  1. the walk is cut into segments of L steps; a warp walks one segment for
 //     R = 32 / S reads from every start state at once (lane = read * S +
-//     start state: 4 reads at S=8, 3 at S=10 with lanes 30-31 idle),
+//     start state: 8 reads at S=4, 4 at S=8, 3 at S=10 with lanes 30-31
+//     idle),
 //     recording the state after each step as an int8 candidate in shared
 //     memory; where a lane ends is its segment's map;
 //  2. one warp composes the CTA's W segment maps in order (the table of the
@@ -57,18 +58,25 @@ namespace tb_cg = cooperative_groups;
 
 // Segments (warps) a CTA, CTAs a cluster at most (the portable size), CTAs
 // the grid aims at (two on each of the H100's 132 SMs), bytes of staged
-// steps a CTA at most (two CTAs an SM), reads a warp at most.
-constexpr int TB_WARPS = 8, TB_CLUSTER = 8, TB_CTAS = 264, TB_BUDGET = 72 * 1024, TB_MAX_R = 4;
+// steps a CTA at most (two CTAs an SM), reads a warp at most (S = 4).
+constexpr int TB_WARPS = 8, TB_CLUSTER = 8, TB_CTAS = 264, TB_BUDGET = 72 * 1024, TB_MAX_R = 8;
 
-// Shared bytes of one staged step: a source's words, R valid flags, 32
-// candidates.
-__host__ __device__ constexpr int tb_step_bytes(int words) { return 4 * words + 4 * TB_MAX_R + 32; }
+// Slots for a warp's reads in a staged step's valid flags and in the entry
+// states: R = 32 / S, but at least 4, the layout of S = 8 and 10 before S = 4
+// (R = 8) was compiled, so that their plans did not move.
+__host__ __device__ constexpr int tb_slots(int S) { return 32 / S > 4 ? 32 / S : 4; }
+
+// Shared bytes of one staged step: a source's words, the valid flags of
+// ``slots`` reads, 32 candidates.
+__host__ __device__ constexpr int tb_step_bytes(int words, int slots) {
+  return 4 * words + 4 * slots + 32;
+}
 
 // Shared bytes of a CTA besides its staged steps: the entry states (round,
 // CTA, each warp's), the CTA's map by round parity, the cluster's maps
 // copied, and each segment's map and prefix table.
-__host__ __device__ constexpr int tb_fixed_bytes(int W) {
-  return 2 * 4 * TB_MAX_R + W * 4 * TB_MAX_R + 2 * 32 + TB_CLUSTER * 32 + 2 * W * 32;
+__host__ __device__ constexpr int tb_fixed_bytes(int W, int slots) {
+  return 2 * 4 * slots + W * 4 * slots + 2 * 32 + TB_CLUSTER * 32 + 2 * W * 32;
 }
 
 struct TbPlan {
@@ -82,12 +90,13 @@ inline TbPlan tb_plan(int T, int S, int B, int words) {
   const int R = 32 / S, groups = (B + R - 1) / R;
   int C = groups > 0 ? TB_CTAS / groups : 1;
   C = C < 1 ? 1 : C > TB_CLUSTER ? TB_CLUSTER : C;
-  const int W = TB_WARPS, lmax = TB_BUDGET / (W * tb_step_bytes(words));
+  const int slots = tb_slots(S), step = tb_step_bytes(words, slots);
+  const int W = TB_WARPS, lmax = TB_BUDGET / (W * step);
   const long long span = (long long)C * W * lmax;
   const int rounds = T > 0 ? (int)((T + span - 1) / span) : 0;
   const int segments = rounds * C * W;
   const int L = rounds > 0 ? (T + segments - 1) / segments : 1;
-  return {L, W, C, groups * C, rounds, W * L * tb_step_bytes(words) + tb_fixed_bytes(W)};
+  return {L, W, C, groups * C, rounds, W * L * step + tb_fixed_bytes(W, slots)};
 }
 
 // One cluster a read group.  Src: the source's layout (above); valid [T, B]
@@ -97,14 +106,15 @@ template <class Src>
 __global__ void __launch_bounds__(32 * TB_WARPS)
     traceback_kernel(const Src src, const int* __restrict__ valid, const int* __restrict__ last,
                      int* __restrict__ out, int T, int B, int L, int rounds, int write_last) {
-  constexpr int S = Src::S, R = 32 / S, WORDS = Src::WORDS, MR = TB_MAX_R;
-  static_assert(R <= TB_MAX_R, "a warp's reads' flags fit a step's slot");
+  constexpr int S = Src::S, R = 32 / S, WORDS = Src::WORDS, MR = tb_slots(S);
+  static_assert(R <= MR && MR <= TB_MAX_R, "a warp's reads' flags fit a step's slots");
   tb_cg::cluster_group cluster = tb_cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int W = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = (blockIdx.x / C) * R;
   // a lane's read (rr: idle lanes 30-31 at S=10 shadow read 0 and never
-  // store), the lane of its read's state 0, and its start state
+  // store), the lane of its read's state 0, and its start state; the 32
+  // lanes' candidates and maps are bytes at any S
   const int r = lane / S, rr = r < R ? r : 0, base = rr * S, st = lane - r * S;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -115,7 +125,8 @@ __global__ void __launch_bounds__(32 * TB_WARPS)
   unsigned char* peer = ctam + 2 * 32;           // [TB_CLUSTER][32] the cluster's CTA maps
   unsigned char* maps = peer + TB_CLUSTER * 32;  // [W][32] each segment's map
   unsigned char* pre = maps + W * 32;            // [W][32] the segments before it, composed
-  unsigned* words = reinterpret_cast<unsigned*>(pre + W * 32 + warp * L * tb_step_bytes(WORDS));
+  unsigned* words =
+      reinterpret_cast<unsigned*>(pre + W * 32 + warp * L * tb_step_bytes(WORDS, MR));
   int* flags = reinterpret_cast<int*>(words + L * WORDS);                    // [L][MR]
   unsigned char* cand = reinterpret_cast<unsigned char*>(flags + L * MR);  // [L][32]
 

@@ -1,5 +1,5 @@
 """Run-length (runnie) decoding (counterpart of
-flappie_tpu/decode/runlength.py, V2 model).
+flappie_tpu/decode/runlength.py).
 
 Reference semantics:
 - decode_crf_runlength (src/decode.c:927-1011): Viterbi over the V2 RLE
@@ -11,24 +11,108 @@ Reference semantics:
 - the .run emitter (src/runnie.c:277-311): per move block, emit base,
   shape, scale and dwell (1 + following stay blocks);
 - dwmean / runlengths_mean (src/decode.c:552-601): discrete-Weibull
-  mean estimate, kept for API completeness.
+  mean estimate, kept for API completeness;
+- the V1 model (decode_runlength / posterior_runlength,
+  src/decode.c:692-892): ``rle_v1_viterbi`` and ``rle_v1_posterior``
+  over the nbase-state chain of ``rle_v1_index``.
 
 The scans run on the kernels that ops/crf.py's FLAPPIE_TPU_CRF_IMPL
-selects.  The V1 run-length functions (``rle_v1_*``) wait with the V1
-head (ROADMAP item 11): their 4-state chain is not compiled in the scan
-kernels.
+selects: the V1 chain's S = 4 on K3/K4, K5 and K6 (``scanb``) or K11
+(``pallas``).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops.crf import crf_backward, crf_forward, crf_viterbi, rle_index
+from ..ops.crf import TransIndex, crf_backward, crf_forward, crf_viterbi, lse, rle_index
 
 BASES = "ACGT"
+
+
+# ---------------------------------------------------------------------------
+# V1 run-length model (reference decode_runlength / posterior_runlength,
+# src/decode.c:692-892).  The V1 chain has nbase states (one per base); a
+# block either MOVES to a different base (weight depends only on the
+# destination) or STAYS in the same base.  Parameter layout per block
+# (src/decode.c:688-691): [shape x nbase, scale x nbase, move x nbase,
+# stay x nbase].
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def rle_v1_index(nbase: int) -> TransIndex:
+    """TransIndex of the V1 chain, so that the batched CRF scans apply:
+    dense[from=b2, to=b1] = move[b1] if b2 != b1 else stay[b1].
+
+    Viterbi tie order (src/decode.c:720-747): the move winner is the
+    first argmax over origins (lowest b2 wins ties) and the stay
+    replaces it only on a strictly greater score -- rank = b2 for moves,
+    nbase for the stay.  from_state/to_state are left empty (a V1 param
+    serves several origins, so per-param gathers are undefined; the V1
+    posterior has its own formulation below).  Cached, so that the CRF
+    functions' device tables of it (ops/crf.py ``index_tables``) are
+    built once a device."""
+    nparam = 4 * nbase
+    param_idx = np.full((nbase, nbase), -1, dtype=np.int32)
+    tie_rank = np.full((nbase, nbase), 10**6, dtype=np.int32)
+    for b2 in range(nbase):
+        for b1 in range(nbase):
+            param_idx[b2, b1] = (3 * nbase + b1) if b2 == b1 else (2 * nbase + b1)
+            tie_rank[b2, b1] = nbase if b2 == b1 else b2
+    allowed = np.ones((nbase, nbase), dtype=bool)
+    empty = np.zeros(0, dtype=np.int32)
+    return TransIndex(nbase, nbase, nparam, empty, empty, param_idx, allowed, tie_rank)
+
+
+def rle_v1_viterbi(params, nblocks, nbase: int = 4):
+    """Batched decode_runlength (src/decode.c:692-770).
+
+    params: [B, T, 4*nbase]; returns (score [B], path [B, T] int32) with
+    the reference convention: path[t] = the base moved into at block t,
+    or -1 when block t is a stay (and past the read's end)."""
+    score, states, _ = crf_viterbi(params, nblocks, nbase, idx=rle_v1_index(nbase))
+    # states [B, T+1]: a V1 transition is a stay iff the state repeats (a
+    # move to the same base is not in the chain)
+    prev, curr = states[:, :-1], states[:, 1:]
+    minus = torch.full_like(curr, -1)
+    T = params.shape[1]
+    valid = torch.arange(T, device=params.device)[None, :] < nblocks.to(params.device)[:, None]
+    return score, torch.where(valid & (curr != prev), curr, minus)
+
+
+def rle_v1_posterior(params, nblocks, nbase: int = 4):
+    """Batched posterior_runlength (src/decode.c:795-892).
+
+    Returns [B, T, 4*nbase], the move and stay slots holding the
+    UNNORMALISED log posterior (the reference's alpha/beta products) and
+    the shape and scale slots zero (the reference leaves those rows of
+    its output untouched):
+
+    post[move b1, t] = lse_{b2 != b1}(alpha_t[b2]) + move_t[b1] + beta_{t+1}[b1]
+    post[stay b,  t] = alpha_t[b] + stay_t[b] + beta_{t+1}[b]
+    """
+    idx = rle_v1_index(nbase)
+    move = params[..., 2 * nbase : 3 * nbase]
+    stay = params[..., 3 * nbase :]
+    alphas, _ = crf_forward(params, nblocks, nbase, idx=idx)  # [B, T+1, nbase]
+    betas = crf_backward(params, nblocks, nbase, idx=idx)
+    a, b = alphas[:, :-1], betas[:, 1:]
+    # lse over origins b2 != b1: the total less the own term, stably
+    total = lse(a, -1)[..., None]
+    excl = total + torch.log1p(-torch.clamp(torch.exp(a - total), max=1.0 - 1e-7))
+    zeros = torch.zeros_like(params[..., : 2 * nbase])
+    return torch.cat([zeros, excl + move + b, a + stay + b], dim=-1)
+
+
+def runlengths_unit(path: np.ndarray, nbase: int = 4) -> np.ndarray:
+    """Unit run length per move block; 0 for stays (src/decode.c:610-632)."""
+    s = np.asarray(path)
+    return ((s >= 0) & (s < nbase)).astype(np.int64)
 
 
 def rle_split(params, nbase: int):

@@ -1,12 +1,15 @@
 """Batched forward graph: raw signal -> CRF transition weights.
 
-Counterpart of flappie_tpu/models/network.py:207 ``transitions`` for the
-non-residual LSTM and GRU-mod graphs: the stride-5 LSTM graph of
-r941_native, r941_rna002 and r103_native (reference
-flipflop5_guppy_transitions, src/networks.c:539-586) and of the
-run-length model rle_r941_native (runlength5_guppy, :675-722, head
-runlengthV2), and the stride-2 GRU-mod graph of r941_5mC
-(flipflop_guppy_transitions, :450-489).
+Counterpart of flappie_tpu/models/network.py:207 ``transitions``: the
+stride-5 LSTM graph of r941_native, r941_rna002 and r103_native
+(reference flipflop5_guppy_transitions, src/networks.c:539-586) and of
+the run-length model rle_r941_native (runlength5_guppy, :675-722, head
+runlengthV2), the stride-2 GRU-mod graph of r941_5mC
+(flipflop_guppy_transitions, :450-489), and the sloika-era graphs that
+weights/sloika.py converts: five residual 2-matrix GRUs under the
+flip-flop head (flipflop_gru_transitions, :403-448), five GRU-mods under
+the flip-flop head (:450-489) or the V1 run-length head
+(runlength_guppy_transitions, :589-630).
 
 The conv stack follows ``FLAPPIE_TPU_CONV_IMPL``, read at call time as
 in the JAX package: ``xla`` (``auto``; batch-major [B, T, C] through
@@ -14,14 +17,16 @@ in the JAX package: ``xla`` (``auto``; batch-major [B, T, C] through
 one strided im2col product) or ``pallas`` (``fast`` with the two leading
 stride-1 swish convs as one kernel, K10 in ops/conv_cuda.py).
 
-By default (``rnn_impl="auto"``) the recurrent stack runs time-major
-[T, B, H] through the fused layer kernels (ops/rnn_cuda.py: K1 for LSTM,
-K7 for GRU-mod), as the JAX package's ``_rnn_stack_fused_tm`` does:
-direction and per-read tail masking live inside the kernel.
-``rnn_impl="scan"`` is the JAX package's layer-by-layer ``rnn_stack``:
-affine, per-read reversal for backward layers, the recurrence alone
-(K12: ``lstm_seq_cuda`` / ``grumod_seq_cuda``), reversal back, the
-residual add, tail mask.
+By default (``rnn_impl="auto"``) a stack of LSTM and GRU-mod layers
+none of which is residual runs time-major [T, B, H] through the fused
+layer kernels (ops/rnn_cuda.py: K1 for LSTM, K7 for GRU-mod), as the
+JAX package's ``_rnn_stack_fused_tm`` does: direction and per-read tail
+masking live inside the kernel.  Any other stack (sloika GRUs, residual
+layers), and every stack under ``rnn_impl="scan"``, takes the JAX
+package's layer-by-layer ``rnn_stack``: affine, per-read reversal for
+backward layers, the recurrence alone (K12: ``lstm_seq_cuda`` /
+``grumod_seq_cuda``; ``gru_seq`` / ``gru_relu_seq``, plain time loops
+as JAX's are scans), reversal back, the residual add, tail mask.
 
 ``train=True`` is the differentiable path (the JAX package's
 ``rnn_impl="train"``): the layers go through ops/rnn_vjp.py (K8 for
@@ -39,9 +44,9 @@ import torch
 from ..ops.activations import ACTIVATIONS
 from ..ops.conv import conv1d_same, conv1d_same_ct, conv1d_strided_ct
 from ..ops.conv_cuda import conv12_fused
-from ..ops.heads import globalnorm_flipflop, globalnorm_runlengthV2
+from ..ops.heads import globalnorm_flipflop, globalnorm_runlength, globalnorm_runlengthV2
 from ..ops.masking import mask_tail, reverse_sequence
-from ..ops.rnn import affine
+from ..ops.rnn import affine, gru_relu_seq, gru_seq
 from ..ops.rnn_cuda import grumod_layer_tm, grumod_seq_cuda, lstm_layer_tm, lstm_seq_cuda
 from ..ops.rnn_vjp import grumod_layer_tm_ad, lstm_layer_tm_ad
 from .config import ModelConfig
@@ -55,27 +60,33 @@ def ceil_div(a, b):
 LAYERS = {"lstm": lstm_layer_tm, "grumod": grumod_layer_tm}
 # ... and its differentiable wrapper, for training
 LAYERS_AD = {"lstm": lstm_layer_tm_ad, "grumod": grumod_layer_tm_ad}
-# the recurrence alone over a computed affine (K12), for rnn_impl="scan"
-SEQS = {"lstm": lstm_seq_cuda, "grumod": grumod_seq_cuda}
+# the recurrence alone over a computed affine, for the layer-by-layer stack:
+# K12 for LSTM and GRU-mod, plain time loops for the sloika GRUs (which take
+# sW2 as well)
+SEQS = {"lstm": lstm_seq_cuda, "grumod": grumod_seq_cuda, "gru": gru_seq,
+        "gru_relu": gru_relu_seq}
 
-HEADS = ("flipflop", "runlengthV2")
+HEADS = ("flipflop", "runlengthV2", "runlength")
 RNN_IMPLS = ("auto", "scan")
 
 
 def check_supported(cfg: ModelConfig, rnn_impl: str = "auto") -> None:
-    """Raise for a graph the port does not run yet (the V1 run-length
-    head and the GRU graphs: ROADMAP item 11; residual layers run on
-    the ``scan`` path only)."""
+    """Raise for an ``rnn_impl``, a recurrent kind or a head the port
+    does not know."""
     if rnn_impl not in RNN_IMPLS:
         raise ValueError(f"rnn_impl must be one of {RNN_IMPLS}, got {rnn_impl!r}")
-    if cfg.head not in HEADS or any(r.kind not in LAYERS for r in cfg.rnns):
-        raise NotImplementedError(
-            f"model {cfg.name!r}: the port runs the LSTM and GRU-mod graphs with the "
-            "flip-flop or run-length V2 head only so far (ROADMAP item 11)"
-        )
-    if rnn_impl == "auto" and any(r.residual for r in cfg.rnns):
-        raise NotImplementedError(
-            f"model {cfg.name!r}: residual layers run with rnn_impl='scan' only")
+    for r in cfg.rnns:
+        if r.kind not in SEQS:
+            raise ValueError(f"model {cfg.name!r}: unknown rnn kind {r.kind!r}")
+    if cfg.head not in HEADS:
+        raise ValueError(f"model {cfg.name!r}: unknown head {cfg.head!r}")
+
+
+def fused(cfg: ModelConfig) -> bool:
+    """Whether ``rnn_impl="auto"`` runs the fused time-major stack: every
+    layer an LSTM or a GRU-mod and none residual
+    (flappie_tpu/models/network.py:177-180)."""
+    return all(r.kind in LAYERS and not r.residual for r in cfg.rnns)
 
 
 def _conv_impl() -> str:
@@ -175,11 +186,16 @@ def rnn_stack(params, cfg: ModelConfig, x, lengths):
         xa = affine(x, p["iW"], p["b"])
         if r.backward:
             xa = reverse_sequence(xa, lengths)
-        y = SEQS[r.kind](xa, p["sW"])
+        if r.kind in ("gru", "gru_relu"):
+            y = SEQS[r.kind](xa, p["sW"], p["sW2"])
+        else:
+            y = SEQS[r.kind](xa, p["sW"])
         if r.backward:
             y = reverse_sequence(y, lengths)
         if r.residual:
-            # residual_inplace (src/layers.c:338-354)
+            # residual_inplace (src/layers.c:338-354): the layer's input
+            # added onto the recurrence output, as in the sloika graphs
+            # (src/networks.c:415,421,427,433,439)
             y = y + x
         x = mask_tail(y, lengths)
     return x
@@ -196,14 +212,16 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     per-block partition increments [B, T'] used to stitch exact viterbi
     scores across chunks.  ``train`` (flip-flop head only) selects the
     differentiable layers and partition (module docstring); ``rnn_impl``
-    ``"auto"`` the fused layer kernels, ``"scan"`` the layer-by-layer
-    stack (inference only: K12 has no adjoint).
+    ``"auto"`` the fused layer kernels where the stack allows them
+    (``fused``) and the layer-by-layer stack elsewhere, ``"scan"`` the
+    layer-by-layer stack always (inference only: K12 has no adjoint).
     """
     check_supported(cfg, rnn_impl)
     if cfg.head != "flipflop" and (return_norm or train):
         raise ValueError("transitions: return_norm and train need the flip-flop head")
-    if train and rnn_impl != "auto":
-        raise ValueError("transitions: train runs the fused layers (rnn_impl='auto')")
+    if train and not (rnn_impl == "auto" and fused(cfg)):
+        raise ValueError("transitions: train runs the fused layers (rnn_impl='auto', "
+                         "LSTM or GRU-mod layers, none residual)")
     if signal.dim() == 2:
         signal = signal[..., None]
     signal = signal.to(torch.float32)
@@ -211,13 +229,15 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     # whatever the caller left in the padded tail
     signal = mask_tail(signal, lengths)
     x, nblocks = conv_stack(params, cfg, signal, lengths)
-    if rnn_impl == "scan":
-        x = rnn_stack(params, cfg, x, nblocks)
-    else:
+    if rnn_impl == "auto" and fused(cfg):
         x = rnn_stack_tm(params, cfg, x, nblocks, train)
+    else:
+        x = rnn_stack(params, cfg, x, nblocks)
     W, b = params["ff"]["W"], params["ff"]["b"]
     if cfg.head == "runlengthV2":
         return globalnorm_runlengthV2(x, W, b, temperature, nblocks, cfg.nbase), nblocks
+    if cfg.head == "runlength":
+        return globalnorm_runlength(x, W, b, temperature, nblocks, cfg.nbase), nblocks
     if return_norm:
         out, shift, incs = globalnorm_flipflop(
             x, W, b, temperature, nblocks, cfg.nbase, return_norm=True, train=train)

@@ -135,13 +135,44 @@ def rle_index(nbase: int) -> TransIndex:
     )
 
 
+class IndexTables(NamedTuple):
+    """A TransIndex's tables as tensors on one device."""
+
+    pidx: torch.Tensor  # [nstate, nstate] int64: param_idx, forbidden at 0
+    allowed: torch.Tensor  # [nstate, nstate] bool
+    tie_rank: torch.Tensor  # [nstate, nstate] int32
+
+
+_TABLES: dict = {}
+
+
+def index_tables(idx: TransIndex, device) -> IndexTables:
+    """``idx``'s tables on ``device``, built at the first call and kept
+    for the TransIndex's lifetime (the index builders are cached, so for
+    the process): a table built at every call is a host-to-device copy
+    from pageable memory in the middle of a program.  They are built
+    outside inference mode whatever the caller's (a basecall's programs
+    run under it), so that a later differentiable gather may save them
+    for backward."""
+    device = torch.device(device)
+    key = (id(idx), str(device))
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not idx:
+        with torch.inference_mode(False):
+            tables = IndexTables(
+                torch.as_tensor(np.maximum(idx.param_idx, 0), dtype=torch.int64, device=device),
+                torch.as_tensor(idx.allowed, device=device),
+                torch.as_tensor(idx.tie_rank, dtype=torch.int32, device=device))
+        hit = _TABLES[key] = (idx, tables)
+    return hit[1]
+
+
 def dense_from_params(p, idx: TransIndex):
     """[..., nparam] -> [..., nstate, nstate] (from, to); forbidden = NEG_BIG."""
     S = idx.nstate
-    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0).reshape(-1), device=p.device)
-    gathered = p.index_select(-1, pidx).reshape(*p.shape[:-1], S, S)
-    allowed = torch.as_tensor(idx.allowed, device=p.device)
-    return torch.where(allowed, gathered, torch.full_like(gathered, NEG_BIG))
+    tab = index_tables(idx, p.device)
+    gathered = p.index_select(-1, tab.pidx.reshape(-1)).reshape(*p.shape[:-1], S, S)
+    return torch.where(tab.allowed, gathered, torch.full_like(gathered, NEG_BIG))
 
 
 def _impl() -> str:
@@ -261,7 +292,7 @@ def crf_viterbi_forward(trans, nblocks, nbase: int, idx: TransIndex | None = Non
         from .crf_cuda import viterbi_scan
 
         alphas, bps = viterbi_scan(dense_from_params(trans.transpose(0, 1), idx), tvalid,
-                                   idx.tie_rank)
+                                   index_tables(idx, trans.device).tie_rank)
         # the state freezes on padded steps, so the last row is every
         # read's final alpha
         alpha = alphas[-1]
@@ -296,7 +327,7 @@ def qpath_from_path(trans, path, nbase: int, idx: TransIndex | None = None):
     qpath[b, t+1] = trans[b, t, param_idx[path[t], path[t+1]]], qpath[b, 0]
     = NaN (reference quirk)."""
     idx = idx if idx is not None else flipflop_index(nbase)
-    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0), dtype=torch.int64, device=trans.device)
+    pidx = index_tables(idx, trans.device).pidx
     path = path.to(device=trans.device, dtype=torch.int64)
     sel = pidx[path[:, :-1], path[:, 1:]]  # [B, T]
     q = torch.gather(trans, 2, sel[..., None])[..., 0]
@@ -360,7 +391,7 @@ def path_score(trans, path, nblocks, nbase: int, idx: TransIndex | None = None):
     flappie_tpu/ops/crf.py:513 ``path_score``).  With globally-normalised
     weights it is the path log-probability."""
     idx = idx if idx is not None else flipflop_index(nbase)
-    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0), dtype=torch.int64, device=trans.device)
+    pidx = index_tables(idx, trans.device).pidx
     path = path.to(device=trans.device, dtype=torch.int64)
     sel = pidx[path[:, :-1], path[:, 1:]]  # [B, T]
     q = torch.gather(trans, 2, sel[..., None])[..., 0]

@@ -19,16 +19,16 @@ import numpy as np
 import torch
 
 from . import crf_bm_cuda
-from .crf import NEG_BIG, TransIndex, flipflop_index, lse
+from .crf import NEG_BIG, TransIndex, flipflop_index, index_tables, lse
 
 
 def _dense_tm(trans_tm, idx: TransIndex):
     """[T, P, B] -> [T, S, S, B] (from, to); forbidden = NEG_BIG."""
     T, P, B = trans_tm.shape
     S = idx.nstate
-    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0).reshape(-1), device=trans_tm.device)
-    gathered = trans_tm.index_select(1, pidx).reshape(T, S, S, B)
-    allowed = torch.as_tensor(idx.allowed, device=trans_tm.device)[None, :, :, None]
+    tab = index_tables(idx, trans_tm.device)
+    gathered = trans_tm.index_select(1, tab.pidx.reshape(-1)).reshape(T, S, S, B)
+    allowed = tab.allowed[None, :, :, None]
     return torch.where(allowed, gathered, torch.full_like(gathered, NEG_BIG))
 
 
@@ -122,7 +122,8 @@ class PartitionScan(torch.autograd.Function):
 
 def _viterbi_fwd_tm(dense_tm, tvalid_tm, idx: TransIndex):
     """Max-plus forward (K5): (score [B], last_state [B], backptr [T,S,B])."""
-    alpha, bps = crf_bm_cuda.viterbi_fwd(dense_tm, tvalid_tm, idx.tie_rank)
+    alpha, bps = crf_bm_cuda.viterbi_fwd(dense_tm, tvalid_tm,
+                                         index_tables(idx, dense_tm.device).tie_rank)
     score = alpha.amax(dim=0)
     last_state = alpha.argmax(dim=0).to(torch.int32)
     return score, last_state, bps
@@ -158,7 +159,7 @@ def decode_bm(trans, nblocks, nbase: int, viterbi_only: bool, compute_trace: boo
     path_tm = _traceback_tm(backptr, last_state, tvalid_tm).to(torch.int64)  # [T+1, B]
 
     # qpath[t] = mat[t-1, pidx[path[t-1], path[t]]]; qpath[0] = NaN
-    pidx = torch.as_tensor(np.maximum(idx.param_idx, 0), dtype=torch.int64, device=dev)
+    pidx = index_tables(idx, dev).pidx
     sel = pidx[path_tm[:-1], path_tm[1:]]  # [T, B]
     q = torch.gather(mat_tm, 1, sel[:, None, :])[:, 0]  # [T, B]
     nan = torch.full((1, B), float("nan"), dtype=trans.dtype, device=dev)

@@ -16,8 +16,10 @@ plain versions repeat the kernels' arithmetic step for step: lse = max
 Viterbi backpointers by lowest tie_rank among the maxima and identity on
 invalid steps.  ``<wrapper>.launches`` counts kernel launches.
 
-K3/K4, K9 and K5 run a chain warp per R = 32 // S reads (lane = read *
-S + state), fed its reads' slice of the weights through a ring in shared
+K3/K4, K5 and K6 are compiled for S in (4, 8, 10): the V1 run-length
+chain, flip-flop over 4 bases and over 5; K9 for S in (8, 10).  K3/K4,
+K9 and K5 run a chain warp per R = 32 // S reads (lane = read * S +
+state), fed its reads' slice of the weights through a ring in shared
 memory by the CTA's producer warp.  ``scan_plan`` in the source sets
 their grid; ``_scan_plan`` mirrors it and ``scan_info`` reports it on
 the card.
@@ -109,8 +111,15 @@ def traceback_plain(backptr_tm, tvalid_tm, last_state):
 
 # csrc/traceback.cuh: segments (warps) a CTA, CTAs a cluster at most, the
 # CTAs the grid aims at (two on each of the H100's 132 SMs), bytes of staged
-# steps a CTA at most, reads a warp at most
-TB_WARPS, TB_CLUSTER, TB_CTAS, TB_BUDGET, TB_MAX_R = 8, 8, 264, 72 * 1024, 4
+# steps a CTA at most, reads a warp at most (S = 4)
+TB_WARPS, TB_CLUSTER, TB_CTAS, TB_BUDGET, TB_MAX_R = 8, 8, 264, 72 * 1024, 8
+
+
+def _tb_slots(S: int) -> int:
+    """Slots for a warp's reads in a staged step's valid flags and the
+    entry states (tb_slots in csrc/traceback.cuh): R = 32 // S, at least 4,
+    so that S = 8 and 10 keep the layout they had before S = 4."""
+    return max(4, 32 // S)
 
 
 def _tb_words(S: int) -> int:
@@ -134,12 +143,12 @@ def _tb_plan(T: int, S: int, B: int, words: int | None = None):
     words = _tb_words(S) if words is None else words
     groups = -(-B // R)
     C = max(1, min(TB_CLUSTER, TB_CTAS // groups)) if groups else 1
-    W = TB_WARPS
-    step = 4 * words + 4 * TB_MAX_R + 32
+    W, slots = TB_WARPS, _tb_slots(S)
+    step = 4 * words + 4 * slots + 32
     span = C * W * (TB_BUDGET // (W * step))
     rounds = -(-T // span) if T > 0 else 0
     L = -(-T // (rounds * C * W)) if rounds else 1
-    fixed = 2 * 4 * TB_MAX_R + W * 4 * TB_MAX_R + 2 * 32 + TB_CLUSTER * 32 + 2 * W * 32
+    fixed = 2 * 4 * slots + W * 4 * slots + 2 * 32 + TB_CLUSTER * 32 + 2 * W * 32
     return L, W, C, groups * C, rounds, W * L * step + fixed
 
 
@@ -220,7 +229,9 @@ def traceback_segmented_plain(backptr_tm, tvalid_tm, last_state, plan=None):
 
 # csrc/crf_scan.cu: steps a ring tile, tiles in a warp's ring, and chain
 # warps a CTA by S (kWarps: the fastest of 1, 2 and 4 on the H100)
-SCAN_KT, SCAN_RING, SCAN_WARPS = 8, 4, {8: 1, 10: 2}
+SCAN_KT, SCAN_RING, SCAN_WARPS = 8, 4, {4: 1, 8: 1, 10: 2}
+# the state counts each kernel is compiled for: K3/K4, K5 and K6; K9
+SCAN_STATES, FWDBWD_STATES = (4, 8, 10), (8, 10)
 
 
 def _scan_plan(S: int, B: int):
@@ -265,16 +276,16 @@ def _lib():
     return lib
 
 
-def _check_cuda(name, t, S=None):
+def _check_cuda(name, t, S=None, states=SCAN_STATES):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
-    if S is not None and S not in (8, 10):
-        raise ValueError(f"{name}: the kernel is compiled for S in (8, 10), got {S}")
+    if S is not None and S not in states:
+        raise ValueError(f"{name}: the kernel is compiled for S in {states}, got {S}")
 
 
-def _dense_args(name, dense_tm, tvalid_tm):
+def _dense_args(name, dense_tm, tvalid_tm, states=SCAN_STATES):
     T, S, S2, B = dense_tm.shape
-    _check_cuda(name, dense_tm, S)
+    _check_cuda(name, dense_tm, S, states)
     if S2 != S or tuple(tvalid_tm.shape) != (T, B) or dense_tm.dtype != torch.float32:
         raise ValueError(f"{name}: dense must be float32 [T, S, S, B] with tvalid [T, B]")
     return (dense_tm.contiguous(), tvalid_tm.to(device=dense_tm.device, dtype=torch.int32).contiguous(),
@@ -316,7 +327,7 @@ def fwdbwd_states(dense_tm, tvalid_tm):
     launch (K9), bit-equal to ``fwd_states`` and ``bwd_states``."""
     if dense_tm.device.type == "cpu":
         return fwdbwd_states_plain(dense_tm, tvalid_tm)
-    dense, valid, T, S, B = _dense_args("fwdbwd_states", dense_tm, tvalid_tm)
+    dense, valid, T, S, B = _dense_args("fwdbwd_states", dense_tm, tvalid_tm, FWDBWD_STATES)
     alphas = torch.empty(T + 1, S, B, dtype=torch.float32, device=dense.device)
     betas = torch.empty_like(alphas)
     lib = _lib()

@@ -17,9 +17,10 @@ blended as v*nxt + (1-v)*a, Viterbi backpointers by lowest tie_rank
 among the maxima and identity on invalid steps, written as int8.
 ``<wrapper>.launches`` counts kernel launches.
 
-The forward and Viterbi scans run a chain warp per R = 32 // S reads
-(lane = read * S + state), fed one bulk copy a read a step by the CTA's
-producer warp through a ring in shared memory.  ``bt_plan`` in the
+All three are compiled for S in (4, 8, 10).  The forward and Viterbi
+scans run a chain warp per R = 32 // S reads
+(lane = read * S + state), fed by the CTA's producer warp through a ring
+in shared memory, a step's R contiguous blocks by 16-byte copies.  ``bt_plan`` in the
 source sets their grid; ``_bt_plan`` mirrors it and ``bt_info`` reports
 it on the card.
 
@@ -33,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import cuda_build
@@ -65,7 +65,7 @@ def viterbi_scan_plain(dense_tm, valid_tm, tie_rank):
     T, B, S, _ = dense_tm.shape
     dev = dense_tm.device
     v = valid_tm.to(dense_tm.dtype)[..., None]
-    rank = torch.as_tensor(np.asarray(tie_rank), dtype=torch.int64, device=dev)[None]  # [1, f, to]
+    rank = torch.as_tensor(tie_rank, dtype=torch.int64, device=dev)[None]  # [1, f, to]
     ident = torch.arange(S, device=dev)[None, :].expand(B, S)
     big = torch.full((), RANK_BIG, dtype=torch.int64, device=dev)
     a = dense_tm.new_zeros(B, S)
@@ -123,7 +123,7 @@ def traceback_bt_segmented_plain(bp_rev_tm, valid_rev_tm, last_state, plan=None)
 # warp's ring, chain warps a CTA by S (kBtWarps), and the floats from one
 # read's S*S block to the next in the ring by S (a padded stride that keeps
 # each block 16-byte aligned and spreads the reads over the banks)
-BT_KT, BT_RING, BT_WARPS, BT_STRIDE = 8, 4, {8: 1, 10: 1}, {8: 72, 10: 104}
+BT_KT, BT_RING, BT_WARPS, BT_STRIDE = 8, 4, {4: 1, 8: 1, 10: 1}, {4: 20, 8: 72, 10: 104}
 
 
 def _bt_plan(S: int, B: int):
@@ -134,7 +134,7 @@ def _bt_plan(S: int, B: int):
     reads and a ring of BT_RING tiles of BT_KT steps of their S*S blocks,
     each at BT_STRIDE[S] floats from the last, and their valid flags, with
     a full and an empty mbarrier a tile; one producer warp a CTA fills the
-    rings with one bulk copy a read a step."""
+    rings by 16-byte copies."""
     R = 32 // S
     nwarps = -(-B // R)
     W = max(1, min(BT_WARPS[S], nwarps))
@@ -180,7 +180,7 @@ def _lib():
 
 def _dense_args(name, dense_tm, valid_tm):
     """The kernels' inputs: dense contiguous on a 16-byte boundary (the
-    bulk copies' alignment; a view that starts elsewhere is copied), valid
+    16-byte copies' alignment; a view that starts elsewhere is copied), valid
     as int32."""
     T, B, S, S2 = dense_tm.shape
     _check_cuda(name, dense_tm, S)
@@ -216,7 +216,7 @@ def viterbi_scan(dense_tm, valid_tm, tie_rank):
     if dense_tm.device.type == "cpu":
         return viterbi_scan_plain(dense_tm, valid_tm, tie_rank)
     dense, valid, T, S, B = _dense_args("viterbi_scan", dense_tm, valid_tm)
-    rank = torch.as_tensor(np.asarray(tie_rank), dtype=torch.int32).to(dense.device).contiguous()
+    rank = torch.as_tensor(tie_rank, dtype=torch.int32, device=dense.device).contiguous()
     if tuple(rank.shape) != (S, S):
         raise ValueError(f"viterbi_scan: tie_rank must be [{S}, {S}]")
     alphas = torch.empty(T, B, S, dtype=torch.float32, device=dense.device)

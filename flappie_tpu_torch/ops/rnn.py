@@ -12,9 +12,20 @@ v[H:2H])``, ``hbar = tanh(r * v[2H:] + x_t[2H:])``, ``h' = z*h +
 (1-z)*hbar``.  The candidate's input term is added after the multiply
 by r, never summed into v.
 
-These scan forward over batch-major [B, T, ...] tensors; the network
-itself runs the fused time-major layer in rnn_cuda.py, which handles
-direction and lengths inside the kernel.
+sloika GRU (src/layers.c:513-568) and its ReLU variant (:718-874): the
+2-matrix GRU of the sloika-era flip-flop graph.  ``zr = sigma(x_t[:2H]
++ h sW)`` (sW [H, 2H], gate order [z, r]), ``hbar = tanh(x_t[2H:] + (r
+* h) sW2)`` (ReLU for ``gru_relu``), ``h' = z*h + (1-z)*hbar``: r
+multiplies h before the candidate's product, not after it as in
+GRU-mod.
+
+These scan forward over batch-major [B, T, ...] tensors.  The network
+runs LSTM and GRU-mod layers through the fused time-major kernels in
+rnn_cuda.py, which handle direction and lengths inside the kernel.
+``gru_seq`` and ``gru_relu_seq`` are plain PyTorch on every device: the
+JAX package has no Pallas kernel for them (its ``gru_seq`` is a
+``lax.scan``), so this time loop is their formulation, as the scan is
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -72,3 +83,38 @@ def grumod_seq(xaffine, sW):
         h = grumod_step(xaffine[:, t], h, sW)
         ys.append(h)
     return torch.stack(ys, dim=1)
+
+
+
+def gru_step(xa_t, h, sW, sW2, candidate=torch.tanh):
+    """One sloika GRU step (``candidate=torch.relu``: the ReLU variant):
+    returns h'."""
+    H = h.shape[-1]
+    zr = torch.sigmoid(xa_t[:, : 2 * H] + h @ sW)
+    z, r = zr[:, :H], zr[:, H:]
+    hbar = candidate(xa_t[:, 2 * H :] + (r * h) @ sW2)
+    return z * h + (1 - z) * hbar
+
+
+def _gru2_seq(xaffine, sW, sW2, candidate):
+    B, T, H3 = xaffine.shape
+    h = xaffine.new_zeros(B, H3 // 3)
+    ys = []
+    for t in range(T):
+        h = gru_step(xaffine[:, t], h, sW, sW2, candidate)
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
+def gru_seq(xaffine, sW, sW2):
+    """sloika 2-matrix GRU (src/layers.c:513-568).
+
+    xaffine: [B, T, 3H], sW: [H, 2H] (z,r gates), sW2: [H, H]
+    (candidate, applied to r*h) -> [B, T, H].
+    """
+    return _gru2_seq(xaffine, sW, sW2, torch.tanh)
+
+
+def gru_relu_seq(xaffine, sW, sW2):
+    """sloika GRU with ReLU candidate (src/layers.c:718-874)."""
+    return _gru2_seq(xaffine, sW, sW2, torch.relu)

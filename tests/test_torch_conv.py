@@ -211,7 +211,8 @@ def _residual(cfgs):
 def test_scan_transitions_match_jax(model, monkeypatch):
     """transitions(rnn_impl="scan"): the layer-by-layer stack (K12's
     plain versions on the CPU) against JAX's at ragged lengths; the
-    residual graph runs only on this path.  Under "+crf_pallas"
+    residual graph takes this path under rnn_impl="auto" too, the others
+    the fused stack, within the same band.  Under "+crf_pallas"
     (FLAPPIE_TPU_CRF_IMPL=pallas) JAX's head still runs its scan
     partition while the port's follows the knob (K11's plain version):
     the same band."""
@@ -233,12 +234,12 @@ def test_scan_transitions_match_jax(model, monkeypatch):
     got, nb_t = t_net.transitions(tp, tcfg, ts, tl, rnn_impl="scan")
     np.testing.assert_array_equal(nb_t.numpy(), np.asarray(nb_j))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=5e-6)
-    if model == "residual":
-        with pytest.raises(NotImplementedError):
-            t_net.transitions(tp, tcfg, ts, tl)
+    assert t_net.fused(tcfg) == (model != "residual")
+    auto = t_net.transitions(tp, tcfg, ts, tl)[0]
+    if model == "residual":  # the same layer-by-layer stack
+        assert torch.equal(auto, got)
     else:
-        np.testing.assert_allclose(got.numpy(), t_net.transitions(tp, tcfg, ts, tl)[0].numpy(),
-                                   rtol=0, atol=5e-6)
+        np.testing.assert_allclose(got.numpy(), auto.numpy(), rtol=0, atol=5e-6)
 
 
 def test_transitions_refuses_other_rnn_impls():
@@ -250,9 +251,9 @@ def test_transitions_refuses_other_rnn_impls():
             t_net.transitions(tp, tcfg, sig, lengths, rnn_impl=impl)
     with pytest.raises(ValueError):
         t_net.transitions(tp, tcfg, sig, lengths, train=True, rnn_impl="scan")
-    gru = replace(tcfg, rnns=(replace(tcfg.rnns[0], kind="gru"),))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_net.transitions(tp, gru, sig, lengths, rnn_impl="scan")
+    unknown = replace(tcfg, rnns=(replace(tcfg.rnns[0], kind="rnn"),))
+    with pytest.raises(ValueError, match="unknown rnn kind"):
+        t_net.transitions(tp, unknown, sig, lengths, rnn_impl="scan")
 
 
 def test_train_step_under_pallas_matches_default_conv(monkeypatch):

@@ -17,7 +17,10 @@ rtol 1e-5 (reassociation), K9 bit-equal to K3/K4; Viterbi and traceback
 (K5, K6 and K11's) bit-equal, the tracebacks also at the edges of their
 plan (one step a segment, a round's span and one more), at T=2560, B=256
 and at runnie's T=13,108, B=24, on uniformly random backpointers and on
-Viterbi's.  One runnie program (rle_r941_native at
+Viterbi's; K3/K4, K5, K6 and K11 also on the V1 run-length chain (S = 4,
+8 reads a warp: the 16-byte copy path at B % 4 == 0, the 4-byte one
+elsewhere), and every wrapper refuses a state count it is not compiled
+for (K9: S = 4).  One runnie program (rle_r941_native at
 full width) on the card against the same program on the CPU: the path
 equal, the selected shape and scale within 1e-4.  The training path's autograd
 Functions (ops/rnn_vjp.py, ``crf_partition_ad``) against autograd
@@ -40,7 +43,8 @@ from flappie_tpu_torch.ops import rnn as t_rnn
 from flappie_tpu_torch.ops.crf import (crf_partition_ad, dense_from_params, flipflop_index, lse,
                                        rle_index)
 from flappie_tpu_torch.ops.crf_bm import _dense_tm
-from flappie_tpu_torch.ops.crf_bm_cuda import TB_BUDGET, TB_MAX_R, _tb_plan, _tb_words
+from flappie_tpu_torch.decode.runlength import rle_v1_index
+from flappie_tpu_torch.ops.crf_bm_cuda import TB_BUDGET, _tb_plan, _tb_slots, _tb_words
 from flappie_tpu_torch.ops.crf_cuda import _tb_bt_plan, _tb_bt_words
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +123,18 @@ def test_grumod_kernel_matches_plain(cuda, B, T, IN, H, backward):
 # _scan_plan
 SCAN_SHAPES = [(4, 40, 75), (5, 7, 33), (4, 1, 1), (4, 3, 7), (4, 5, 8), (4, 24, 9),
                (4, 257, 33), (5, 1, 9), (5, 3, 1), (5, 5, 8), (5, 24, 7), (5, 257, 33)]
+# ... and of the V1 chain (S = 4, R = 8 reads a warp): a partly filled warp
+# with B % 4 == 0 (4, 12: the 16-byte path's zero-filled second copy of a
+# run) and B % 4 != 0 (1, 5, 257: the 4-byte path), full warps (24, 256)
+V1_SCAN_SHAPES = [pytest.param("v1", B, T, id=f"v1-{B}-{T}")
+                  for B, T in ((1, 1), (4, 7), (5, 8), (12, 9), (24, 33), (257, 33),
+                               (256, 75))]
+
+
+def _chain_index(nbase):
+    """The chain of a scan case: flip-flop over nbase bases, or the V1
+    run-length chain."""
+    return rle_v1_index(4) if nbase == "v1" else flipflop_index(nbase)
 
 
 def _nblocks(gen, B, T):
@@ -129,9 +145,9 @@ def _nblocks(gen, B, T):
     return nblocks
 
 
-@pytest.mark.parametrize("nbase,B,T", SCAN_SHAPES)
+@pytest.mark.parametrize("nbase,B,T", SCAN_SHAPES + V1_SCAN_SHAPES)
 def test_crf_kernels_match_plain(cuda, nbase, B, T):
-    idx = flipflop_index(nbase)
+    idx = _chain_index(nbase)
     gen = torch.Generator().manual_seed(T)
     trans = torch.round(_rnd(gen, T, idx.nparam, B, scale=2.0) * 8.0) / 8.0  # dyadic
     nblocks = _nblocks(gen, B, T)
@@ -175,7 +191,11 @@ BT_SHAPES = ([("flipflop", 4, 40, 75), ("rle", 4, 37, 70), ("flipflop", 5, 7, 33
              + [(kind, nbase, B, T) for kind, nbase in (("rle", 4), ("flipflop", 5))
                 for B in (1, 3, 5, 24, 31, 33, 257) for T in (1, 7, 9)]
              + [("rle", 4, 24, 2560), ("rle", 4, 257, 2560), ("flipflop", 4, 31, 2560),
-                ("flipflop", 5, 33, 2560)])
+                ("flipflop", 5, 33, 2560)]
+             # the V1 chain: R = 8 reads a warp, one 16-byte copy a producer lane
+             # a step, zero-filled past B
+             + [("v1", 4, B, T) for B in (1, 5, 8, 9, 33) for T in (1, 7, 9)]
+             + [("v1", 4, 256, 2560), ("v1", 4, 257, 75)])
 
 
 @pytest.mark.parametrize("kind,nbase,B,T", BT_SHAPES)
@@ -183,7 +203,7 @@ def test_bt_kernels_match_plain(cuda, kind, nbase, B, T):
     """K11: forward scan rtol 1e-5 (also over the backward pass's input,
     the transposed, time-reversed blocks), Viterbi (alphas and int8
     backpointers) and traceback bit-equal, on dyadic weights."""
-    idx = {"flipflop": flipflop_index, "rle": rle_index}[kind](nbase)
+    idx = {"flipflop": flipflop_index, "rle": rle_index, "v1": rle_v1_index}[kind](nbase)
     gen = torch.Generator().manual_seed(T + 2)
     trans = torch.round(_rnd(gen, T, B, idx.nparam, scale=2.0) * 8.0) / 8.0
     nblocks = torch.randint(0, T + 1, (B,), generator=gen)
@@ -389,7 +409,7 @@ def test_seq_kernel_matches_plain(cuda, kind, B, T, H):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("S", [8, 10])
+@pytest.mark.parametrize("S", [8, 10, 4])
 def test_scan_info_matches_plan(cuda, S):
     """The chain scans' grid on the C side is ops/crf_bm_cuda.py's
     _scan_plan."""
@@ -398,7 +418,7 @@ def test_scan_info_matches_plan(cuda, S):
 
 
 def test_bt_kernels_take_a_view_off_the_16_byte_grid(cuda):
-    """K11's bulk copies need the dense input on a 16-byte boundary: a
+    """K11's 16-byte copies need the dense input on a 16-byte boundary: a
     contiguous view that starts 4 bytes off it gives the same outputs."""
     idx = rle_index(4)
     gen = torch.Generator().manual_seed(11)
@@ -415,7 +435,7 @@ def test_bt_kernels_take_a_view_off_the_16_byte_grid(cuda):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("S", [8, 10])
+@pytest.mark.parametrize("S", [8, 10, 4])
 def test_bt_info_matches_plan(cuda, S):
     """K11's chain scans' grid on the C side is ops/crf_cuda.py's
     _bt_plan."""
@@ -428,16 +448,16 @@ def _tb_lengths(S, B, words):
     _tb_plan) for B reads: 1 step, one step a segment (C * W steps) less
     one and plus one, a round's most steps and one more (two rounds)."""
     _, W, C, *_ = _tb_plan(1, S, B, words)
-    span = C * W * (TB_BUDGET // (W * (4 * words + 4 * TB_MAX_R + 32)))
+    span = C * W * (TB_BUDGET // (W * (4 * words + 4 * _tb_slots(S) + 32)))
     return [1, C * W - 1, C * W + 1, span, span + 1]
 
 
 # (S, B, T) of the tracebacks: each kernel's plan edges at B = 1, 3, 257
 # (partly filled warps; 257 also a cluster of fewer CTAs), the production
 # length 2560 at B=256 and runnie's heaviest program (T=13,108, B=24)
-TB_SHAPES = sorted({(S, B, T) for S in (8, 10) for B in (1, 3, 257)
+TB_SHAPES = sorted({(S, B, T) for S in (8, 10, 4) for B in (1, 3, 257)
                     for words in (_tb_words(S), _tb_bt_words(S)) for T in _tb_lengths(S, B, words)}
-                   | {(8, 256, 2560), (10, 256, 2560), (8, 24, 13108)})
+                   | {(8, 256, 2560), (10, 256, 2560), (8, 24, 13108), (4, 256, 2560)})
 
 
 @pytest.mark.parametrize("S,B,T", TB_SHAPES)
@@ -452,7 +472,7 @@ def test_tracebacks_match_plain(cuda, S, B, T):
     if B > 1:
         nblocks[-1] = 0
     v = (torch.arange(T)[:, None] < nblocks[None, :]).to(cuda)
-    idx = flipflop_index(S // 2)
+    idx = rle_v1_index(4) if S == 4 else flipflop_index(S // 2)
     d = _dense_tm(_rnd(gen, T, idx.nparam, B, scale=2.0).to(cuda), idx)
     alpha, vit = crf_bm_cuda.viterbi_fwd(d, v, idx.tie_rank)
     cases = [(torch.randint(0, S, (T, S, B), generator=gen, dtype=torch.int32).to(cuda),
@@ -484,7 +504,7 @@ def test_traceback_takes_a_view_off_the_4_byte_grid(cuda):
     assert torch.equal(crf_cuda.traceback_bt(off, v, last), crf_cuda.traceback_bt(bp, v, last))
 
 
-@pytest.mark.parametrize("S", [8, 10])
+@pytest.mark.parametrize("S", [8, 10, 4])
 def test_traceback_info_matches_plan(cuda, S):
     """The tracebacks' grids on the C side are ops/crf_bm_cuda.py's
     _tb_plan (K6) and ops/crf_cuda.py's _tb_bt_plan (K11), and at the
@@ -497,3 +517,30 @@ def test_traceback_info_matches_plan(cuda, S):
         if (T, B) in ((2560, 256), (13108, 24)):
             for info in (k6, k11):
                 assert info["max_active_clusters"] >= info["ctas"] // info["C"]
+
+
+def test_kernels_refuse_other_state_counts(cuda):
+    """Each wrapper raises for a state count its kernel is not compiled
+    for (S = 6 everywhere, S = 4 for K9): nothing runs the plain version
+    in its place."""
+    T, B = 5, 3
+    v = torch.ones(T, B, dtype=torch.bool, device=cuda)
+    for S in (6, 4):
+        d = torch.zeros(T, S, S, B, device=cuda)
+        with pytest.raises(ValueError, match="compiled for S"):
+            crf_bm_cuda.fwdbwd_states(d, v)
+        if S == 4:
+            continue
+        rank = torch.zeros(S, S, dtype=torch.int32)
+        with pytest.raises(ValueError, match="compiled for S"):
+            crf_bm_cuda.sum_states(d, v)
+        with pytest.raises(ValueError, match="compiled for S"):
+            crf_bm_cuda.viterbi_fwd(d, v, rank)
+        with pytest.raises(ValueError, match="compiled for S"):
+            crf_bm_cuda.traceback(torch.zeros(T, S, B, dtype=torch.int32, device=cuda), v,
+                                  torch.zeros(B, dtype=torch.int32, device=cuda))
+        bt = d.permute(0, 3, 1, 2).contiguous()
+        with pytest.raises(ValueError, match="compiled for S"):
+            crf_cuda.fwd_scan(bt, v)
+        with pytest.raises(ValueError, match="compiled for S"):
+            crf_cuda.viterbi_scan(bt, v, rank)

@@ -12,7 +12,8 @@ CPU as the JAX package's own tests run them, and to its scan paths:
 - sum scans (K3/K4, K9, K11's forward) within rtol 1e-5 (reassociation
   of an 8-term sum);
 - Viterbi bit-equal on dyadic inputs (adds and compares only);
-- traceback exact;
+- traceback exact (K11's Viterbi and traceback also on the V1
+  run-length chain, S = 4; K3-K6 at S = 4 in tests/test_torch_sloika.py);
 - K12 (the recurrences alone over a computed affine) within 1e-6.
 
 The kernels themselves only run on a GPU: tests/test_torch_cuda.py
@@ -33,6 +34,7 @@ from flappie_tpu.ops import crf_bm_pallas as j_pal
 from flappie_tpu.ops import crf_pallas as j_bt_pal
 from flappie_tpu.ops import rnn as j_rnn
 from flappie_tpu.ops import rnn_pallas as j_rnn_pal
+from flappie_tpu.decode.runlength import rle_v1_index
 from flappie_tpu.ops.crf import flipflop_index, rle_index
 from flappie_tpu.ops.masking import reverse_sequence
 
@@ -311,9 +313,9 @@ def test_bt_fwd_scan_plain_matches_pallas(nbase, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("kind", ["flipflop", "rle"])
+@pytest.mark.parametrize("kind", ["flipflop", "rle", "v1"])
 def test_bt_viterbi_plain_bit_equal_to_pallas_on_dyadic(kind, monkeypatch):
-    idx = {"flipflop": flipflop_index, "rle": rle_index}[kind](4)
+    idx = {"flipflop": flipflop_index, "rle": rle_index, "v1": rle_v1_index}[kind](4)
     dense, valid = _bt_inputs(idx, 75, 8, seed=44, dyadic=True)
     monkeypatch.setattr(j_bt_pal, "TIME_BLOCK", 8)
     a_want, bp_want = (np.array(v) for v in j_bt_pal.viterbi_scan_pallas(
@@ -325,9 +327,9 @@ def test_bt_viterbi_plain_bit_equal_to_pallas_on_dyadic(kind, monkeypatch):
     np.testing.assert_array_equal(bp_got.numpy(), bp_want)
 
 
-@pytest.mark.parametrize("kind", ["flipflop", "rle"])
+@pytest.mark.parametrize("kind", ["flipflop", "rle", "v1"])
 def test_bt_traceback_plain_exact(kind, monkeypatch):
-    idx = {"flipflop": flipflop_index, "rle": rle_index}[kind](4)
+    idx = {"flipflop": flipflop_index, "rle": rle_index, "v1": rle_v1_index}[kind](4)
     dense, valid = _bt_inputs(idx, 75, 8, seed=45, dyadic=True)
     monkeypatch.setattr(j_bt_pal, "TIME_BLOCK", 8)
     alphas, bps = (np.array(v) for v in j_bt_pal.viterbi_scan_pallas(

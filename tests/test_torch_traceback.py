@@ -9,7 +9,8 @@ its segment's entry.  ``traceback_segmented_plain`` (both modules) repeats
 that plan step by step; here it is held bit-equal to the serial plain walk
 and to the JAX package's ``traceback_pallas`` in interpret mode (both
 layouts), on uniformly random backpointers (paths that rarely merge, where
-a composition error would show) and on Viterbi's, at S = 8 and 10, walk
+a composition error would show) and on Viterbi's, at S = 4 (the V1
+run-length chain, 8 reads a warp), 8 and 10, walk
 lengths around a segment's and a round's edges, batches that fill a warp's
 reads partly, and reads with no valid step and with every step valid.  The
 plan mirror (``_tb_plan``) is held to what the kernel needs.  Integer
@@ -29,8 +30,9 @@ from flappie_tpu.ops import crf_pallas as j_bt_pal
 from flappie_tpu.ops.crf import flipflop_index
 
 from flappie_tpu_torch.ops import crf_bm_cuda, crf_cuda
+from flappie_tpu_torch.decode.runlength import rle_v1_index
 from flappie_tpu_torch.ops.crf_bm_cuda import (TB_BUDGET, TB_CLUSTER, TB_CTAS, TB_MAX_R,
-                                               TB_WARPS, _tb_plan, _tb_words)
+                                               TB_WARPS, _tb_plan, _tb_slots, _tb_words)
 from flappie_tpu_torch.ops.crf_cuda import _tb_bt_plan, _tb_bt_words
 
 
@@ -61,7 +63,7 @@ def _inputs(T, S, B, seed, viterbi=False):
         nblocks[-1] = 0
     valid = np.arange(T)[:, None] < nblocks[None, :]
     if viterbi:
-        idx = flipflop_index(S // 2)
+        idx = rle_v1_index(4) if S == 4 else flipflop_index(S // 2)
         trans = rng.normal(0, 2, (T, idx.nparam, B)).astype(np.float32)
         from flappie_tpu_torch.ops.crf_bm import _dense_tm
 
@@ -91,7 +93,7 @@ LENGTHS = [1, L - 1, L, L + 1, 5 * L + 3, 2 * L * W * C + 7]
 
 @pytest.mark.parametrize("viterbi", [False, True], ids=["random", "viterbi"])
 @pytest.mark.parametrize("T", LENGTHS)
-@pytest.mark.parametrize("S,B", [(8, 5), (10, 5), (10, 7)])
+@pytest.mark.parametrize("S,B", [(8, 5), (10, 5), (10, 7), (4, 5), (4, 11)])
 def test_segmented_bit_equal_to_serial_walk(S, B, T, viterbi):
     """At a small plan whose segments, CTAs, cluster and rounds all show
     at these lengths; B leaves the last warp's reads partly filled."""
@@ -105,7 +107,7 @@ def test_segmented_bit_equal_to_serial_walk(S, B, T, viterbi):
 
 
 @pytest.mark.parametrize("T,B", [(1, 1), (300, 5), (2560, 3), (13_108, 24)])
-@pytest.mark.parametrize("S", [8, 10])
+@pytest.mark.parametrize("S", [8, 10, 4])
 def test_segmented_at_the_kernels_plans(S, T, B):
     """At the plans the kernels launch (``_tb_plan``, ``_tb_bt_plan``):
     one step a segment, the real segment lengths at T=2560, and runnie's
@@ -129,7 +131,7 @@ def test_no_valid_step_stays_at_last():
 
 
 @pytest.mark.parametrize("T", [1, 75, 2 * L * W * C + 7])
-@pytest.mark.parametrize("S", [8, 10])
+@pytest.mark.parametrize("S", [8, 10, 4])
 def test_segmented_matches_pallas_batch_minor(S, T, monkeypatch):
     """K6's twin against crf_bm_pallas.traceback_pallas in interpret mode
     (random backpointers, time blocks of 8 and its padded tail)."""
@@ -145,7 +147,7 @@ def test_segmented_matches_pallas_batch_minor(S, T, monkeypatch):
 
 
 @pytest.mark.parametrize("T", [1, 75, 2 * L * W * C + 7])
-@pytest.mark.parametrize("S", [8, 10])
+@pytest.mark.parametrize("S", [8, 10, 4])
 def test_segmented_matches_pallas_batch_major(S, T, monkeypatch):
     """K11's traceback's twin against crf_pallas.traceback_pallas in
     interpret mode (time-reversed int8 backpointers, time blocks of 8)."""
@@ -169,7 +171,7 @@ def test_twin_refuses_a_plan_short_of_the_walk():
             *(torch.from_numpy(a) for a in (bp, valid, last)), (4, 2, 2, 0, 1, 0))
 
 
-PLAN_SHAPES = [(T, S, B) for S in (8, 10) for B in (1, 3, 24, 256, 257, 1100)
+PLAN_SHAPES = [(T, S, B) for S in (8, 10, 4) for B in (1, 3, 24, 256, 257, 1100)
                for T in (0, 1, 65, 2560, 4609, 13_108, 100_000)]
 
 
@@ -186,7 +188,8 @@ def test_plan_covers_the_walk(kernel, T, S, B):
     groups = -(-B // (32 // S))
     assert Wp == TB_WARPS and 1 <= Cp <= TB_CLUSTER and ctas == groups * Cp
     assert ctas <= max(TB_CTAS, groups)
-    step = 4 * words + 4 * TB_MAX_R + 32
+    assert 32 // S <= _tb_slots(S) <= TB_MAX_R  # a warp's reads' flags fit a step's slots
+    step = 4 * words + 4 * _tb_slots(S) + 32
     assert Wp * Lp * step <= TB_BUDGET and 2 * (smem + 1024) <= 233_472
     if T == 0:
         assert rounds == 0
@@ -204,3 +207,8 @@ def test_plans_at_the_main_shapes():
     assert _tb_plan(13_108, 8, 24) == (52, 8, 8, 48, 4, 74_208)
     assert _tb_bt_plan(2560, 8, 256) == (80, 8, 4, 256, 1, 54_752)
     assert _tb_bt_plan(13_108, 8, 24) == (103, 8, 8, 48, 2, 70_208)
+    # the V1 chain (S = 4, 8 reads a warp and 8 flag slots a step): one
+    # round of a cluster of 8 CTAs for each of the 32 read groups
+    assert (_tb_words(4), _tb_bt_words(4)) == (32, 9)
+    assert _tb_plan(2560, 4, 256) == (40, 8, 8, 256, 1, 62_592)
+    assert _tb_bt_plan(2560, 4, 256) == (40, 8, 8, 256, 1, 33_152)
