@@ -67,6 +67,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    call on the packed ragged batch (for K8 its training-mode forward);
    for K10 two cuDNN F.conv1d calls with swish and the masks between
    them; for K12 one nn.LSTM / nn.GRU with weight_ih the identity.
+   The bf16 stream (--fast): the tensor-core bf16 affine alone at M =
+   655,360 (T=2560 x B=256), IN=256, G=1024 and G=768, every element
+   within one bf16 ulp of its plain version (f32 product, TF32 off, one
+   rounding) except where the f32 sum cancels below the error of its K
+   products summed in another order, the elements that differ counted,
+   timed over 10 runs alternated with torch.addmm in bf16 (its library
+   time), its bound (bytes: ~0.50 ms at G=1024) and ptxas's registers and
+   spills; K1-bf16 and K7-bf16 (T=2560, B=256, IN=H=256, both directions,
+   ragged lengths including 0 and T; K1-bf16 also at T=13,108, B=24)
+   within 1e-2 of their plain bf16 versions (the bit-equal share logged)
+   and inside the JAX package's band for the stream against the f32
+   kernels on the same inputs (max |delta| <= 0.05, mean < 0.01), each
+   timed over 10 runs alternated with its f32 kernel, the bf16 affine
+   alone and the f32 recurrence alone (K12): its time a step and the split
+   between affine and recurrence; its bound the bf16 affine's operations
+   at the tensor rate plus the recurrence's at the f32 rate.
 3. Main paths, full width, synthetic weights.  Through
    flappie_tpu_torch.cli.flappie.main, default flags and then --viterbi:
    r941_native on 64 seeded synthetic fast5 reads of ~100k samples
@@ -139,6 +155,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    hdf5_min) dropped into the watched directory is published once, its
    records the CLI's --multi records with the calibrated qualities, a
    STOP file ends the server, and its launch counts are checked too.
+   Then --fast (the bf16 stream): r941_native fb on its 80 reads,
+   r941_5mC and runnie fb on theirs, each --fast run alternated with the
+   exact run 3 times (walls side by side), exact launch counts (5
+   K1-bf16 or K7-bf16 and the bf16 affine a program, no f32 K1 or K7),
+   the exact runs byte-equal to the main path's, each mode's output equal
+   across rounds, FLAPPIE_TPU_RNN_STREAM never set, the --fast records'
+   identity to the exact ones logged; one flappie-serve request on a warm
+   --fast server beside a warm exact one (alternated, counted), its
+   records byte-equal to the CLI's --fast records; the device-only time
+   of one 256-chunk batch under bf16 beside f32 (in each main path's
+   chunk-program timing); and the accuracy band: 64 seeded reads of
+   16k-28k samples basecalled exact and --fast through the CLIs for
+   r941_native, r941_5mC and rle_r941_native (runnie's run-length calls
+   expanded), each read's identity by flappie_tpu_torch.accuracy: p5,
+   p50, min, identical reads, reads missing from --fast, the largest
+   phred shift where the lengths align; a missing read or a median under
+   90% fails the run (a broken kernel; the weights are synthetic).
    Then the sloika-era graphs at full width (conv winlen 19, 1 -> 256,
    stride 2; five recurrent layers of 256): for each flavour a seeded
    sloika pickle whose classes cannot be imported when it is loaded,
@@ -182,7 +215,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Imports nothing of JAX or of the JAX package.  Writes only under build/
 in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
-run takes ~300-330 s of command time on an H100 80GB HBM3 at 700 W; it
+run takes ~400 s of command time on an H100 80GB HBM3 at 700 W; it
 should stay well inside its 1200 s limit (aim: half of it).
 """
 
@@ -206,8 +239,8 @@ WORK = os.path.join(HERE, "build", "chip_smoke")
 # cores and HBM bandwidth, for the SXM part (at its 700 W limit) and the
 # PCIe part, so a PCIe card is not held to SXM numbers.
 PEAKS = {
-    "sxm": {"f32_ops": 67e12, "bytes": 3.35e12},
-    "pcie": {"f32_ops": 51e12, "bytes": 2.0e12},
+    "sxm": {"f32_ops": 67e12, "bf16_ops": 989e12, "bytes": 3.35e12},
+    "pcie": {"f32_ops": 51e12, "bf16_ops": 756e12, "bytes": 2.0e12},
 }
 
 
@@ -280,9 +313,12 @@ def spread(ts: list) -> str:
 ALTERNATED_REPS = 10
 
 
-def bound(bytes_: float, ops: float, peak: dict):
+def bound(bytes_: float, ops: float, peak: dict, bf16_ops: float = 0.0):
+    """The larger of the bytes' time at the memory rate and the
+    operations' (``ops`` f32 outside the tensor cores, ``bf16_ops`` on
+    them), in ms, and which it is."""
     t_bytes = bytes_ / peak["bytes"] * 1e3
-    t_ops = ops / peak["f32_ops"] * 1e3
+    t_ops = (ops / peak["f32_ops"] + bf16_ops / peak["bf16_ops"]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1300,9 +1336,201 @@ def check_seq(torch, peak: dict, gen, kind: str) -> dict:
                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
+def bf16_ulps(torch, got, want):
+    """Elementwise distance of two bf16 tensors in bf16 ulps: the bit
+    patterns on an ordered integer line (+0 and -0 both 0)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def affine_agreement(torch, got, want, x, iW, what: str) -> dict:
+    """The bf16 affine ``got`` against its plain version ``want`` (f32
+    product, one rounding): every element within one bf16 ulp, except
+    where the f32 sum cancels to below what summing its K products in
+    another order can move it (K 2^-23 sum_k |x_k w_k|), where one bf16
+    ulp of the near-zero result is finer than that; raises outside.
+    Returns the counts."""
+    ulps = bf16_ulps(torch, got, want)
+    delta = (got.float() - want.float()).abs()
+    noise = (x.float().abs() @ iW.float().abs()) * (x.shape[1] * 2.0 ** -23)
+    over = ulps > 1
+    bad = int((over & (delta > noise)).sum().item())
+    stats = {"elements": ulps.numel(), "differ": int((ulps > 0).sum().item()),
+             "over_one_ulp": int(over.sum().item()),
+             "max_abs_err": delta.max().item(),
+             "largest_over_one_ulp": (want.float().abs()[over].max().item()
+                                      if over.any() else 0.0),
+             "max_noise": noise.max().item()}
+    if bad:
+        raise AssertionError(f"{what}: {bad} elements more than one bf16 ulp from the plain "
+                             f"version and outside the f32 reassociation error ({stats})")
+    return stats
+
+
+# M = T x B of a chunk batch's layer, IN
+AFFINE_SHAPE = (2560 * 256, 256)
+
+
+def check_affine_bf16(torch, peak: dict, gen) -> dict:
+    """The bf16 affine alone (csrc/affine.cuh) at M = 655,360, IN=256,
+    G=1024 (LSTM) and G=768 (GRU-mod): held to its plain version
+    (affine_agreement, TF32 off), timed over 10 runs alternated with one
+    library call, torch.addmm in bf16 (cuBLAS; its bias rounded to bf16
+    first); logged with its bound and ptxas's registers and spills.
+    Returns the G=1024 row."""
+    from flappie_tpu_torch.ops import cuda_build, rnn_cuda
+
+    dev = torch.device("cuda")
+    M, K = AFFINE_SHAPE
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    out = None
+    for G in (1024, 768):
+        iW = (torch.randn(K, G, generator=gen, device=dev) / K ** 0.5).to(torch.bfloat16)
+        b = torch.randn(G, generator=gen, device=dev) * 0.2
+        b16 = b.to(torch.bfloat16)
+        got = rnn_cuda.affine_bf16(x, iW, b)
+        want = rnn_cuda.affine_bf16_plain(x, iW, b)
+        stats = affine_agreement(torch, got, want, x, iW, f"affine_bf16 at G={G}")
+        lib_err = (torch.addmm(b16, x, iW).float() - want.float()).abs().max().item()
+        del got, want
+        times = alternated_ms(torch, {"kernel": lambda: rnn_cuda.affine_bf16(x, iW, b),
+                                      "addmm": lambda: torch.addmm(b16, x, iW)}, ALTERNATED_REPS)
+        ms, library_ms = (statistics.median(times[k]) for k in ("kernel", "addmm"))
+        plain_ms = cuda_ms(torch, lambda: rnn_cuda.affine_bf16_plain(x, iW, b), 1)
+        bms, by = bound(2 * (M * K + K * G + M * G) + 4 * G, 0, peak, 2 * M * K * G)
+        log(f"affine_bf16 at M={M}, IN={K}, G={G}: {stats['differ']} of {stats['elements']} "
+            f"elements differ from the plain version, {stats['over_one_ulp']} by more than one "
+            f"bf16 ulp (each inside the f32 reassociation error, at most "
+            f"{stats['max_noise']:.2e}; the largest such |value| "
+            f"{stats['largest_over_one_ulp']:.2e}), max |delta| {stats['max_abs_err']:.2e}; "
+            f"kernel {spread(times['kernel'])}; torch.addmm bf16 {spread(times['addmm'])} "
+            f"(max |addmm - plain| {lib_err:.2e}); kernel/addmm {ms / library_ms:.3f}; plain "
+            f"{plain_ms:.3f} ms; bound {bms:.3f} ms ({by}) = {100 * bms / ms:.1f}% of the "
+            f"kernel's time")
+        if G == 1024:
+            out = row("affine_bf16", "affine-bf16", "affine.cuh", "rnn_pallas.py:243",
+                      "r941_native_fast", "affine_bf16", max_abs_err=stats["max_abs_err"],
+                      ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=library_ms)
+    log("affine_bf16 ptxas: " + ptxas_usage(cuda_build.build_log.get("lstm", ""), "affine_bf16"))
+    return out
+
+
+# kind -> (id, gates, wrapper, source, TPU kernel, run and counter that
+# supply the launch count)
+BF16_LAYERS = {
+    "lstm": ("K1-bf16", 4, "lstm_layer_tm", "lstm.cu", "rnn_pallas.py:273", "r941_native_fast",
+             "lstm_layer_bf16"),
+    "grumod": ("K7-bf16", 3, "grumod_layer_tm", "grumod.cu", "rnn_pallas.py:290",
+               "r941_5mC_fast", "grumod_layer_bf16"),
+}
+
+
+def layer_inputs(torch, gen, gates: int, T: int, B: int, IN: int, H: int):
+    """(x [T, B, IN] f32 masked past ragged lengths that include 0 and T,
+    iW, b, sW, lengths) of check_layer's kind (K7's candidate bias far
+    from zero)."""
+    dev = torch.device("cuda")
+    G = gates * H
+    lengths = torch.randint(1, T, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = T, 0
+    mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :])[..., None]
+    x = torch.randn(T, B, IN, generator=gen, device=dev) * mask
+    iW = torch.randn(IN, G, generator=gen, device=dev) / IN ** 0.5
+    sW = torch.randn(H, G, generator=gen, device=dev) / H ** 0.5
+    b = torch.randn(G, generator=gen, device=dev) * 0.2
+    if gates == 4:
+        b[H : 2 * H] += 1.0
+    else:
+        b[2 * H :] += 0.75
+    return x, iW, b, sW, lengths
+
+
+def hold_layer_bf16(torch, kid: str, fn, plain, x, iW, b, sW, lengths) -> float:
+    """The bf16 layer ``fn`` on x rounded to bf16, both directions: within
+    1e-2 of its plain version (the share of bit-equal elements logged) and,
+    against the f32 kernel on the same inputs, inside the JAX package's
+    band for the stream (max |delta| <= 0.05, mean < 0.01;
+    tests/test_ops.py:436-437).  Returns the max |delta| to the plain
+    version."""
+    xb = x.to(torch.bfloat16)
+    err, same, n, bmax, bsum = 0.0, 0, 0, 0.0, 0.0
+    for backward in (False, True):
+        got = fn(xb, iW, b, sW, backward, lengths)
+        want = plain(xb, iW, b, sW, backward, lengths)
+        exact = fn(x, iW, b, sW, backward, lengths)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or exact.dtype != torch.float32:
+            raise AssertionError(f"{kid}: output {got.dtype}, the f32 kernel's {exact.dtype}")
+        d = (got.float() - want.float()).abs()
+        e = (got.float() - exact).abs()
+        err, bmax = max(err, d.max().item()), max(bmax, e.max().item())
+        same += int((d == 0).sum().item())
+        n += d.numel()
+        bsum += e.mean().item() / 2
+    log(f"{kid} at T={x.shape[0]}, B={x.shape[1]}: max |kernel - plain| {err:.3e}, "
+        f"{100 * same / n:.3f}% of elements bit-equal; against the f32 kernel max {bmax:.3e}, "
+        f"mean {bsum:.3e} (the JAX band: 0.05, 0.01)")
+    if not (err <= 1e-2 and bmax <= 0.05 and bsum < 0.01):
+        raise AssertionError(f"{kid}: outside its bands (plain {err}, f32 max {bmax}, mean {bsum})")
+    return err
+
+
+# K1-bf16's other shape: runnie's heaviest program
+BF16_SHAPES = {"lstm": ((2560, 256), (13_108, 24)), "grumod": ((2560, 256),)}
+
+
+def check_layer_bf16(torch, peak: dict, gen, kind: str) -> dict:
+    """K1-bf16 (kind "lstm") or K7-bf16 ("grumod") at T=2560, B=256,
+    IN=H=256 (K1-bf16 also at T=13,108, B=24): held by hold_layer_bf16,
+    then timed over 10 runs alternated with the f32 kernel on the same
+    inputs, with the bf16 affine alone and the f32 recurrence alone (K12
+    over the f32 affine) for the split between affine and recurrence."""
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    kid, gates, wrapper, source, replaces, run, counter = BF16_LAYERS[kind]
+    fn, plain = getattr(rnn_cuda, wrapper), getattr(rnn_cuda, wrapper + "_plain")
+    seq = getattr(rnn_cuda, f"{kind}_seq_cuda")
+    IN = H = 256
+    G = gates * H
+    out = None
+    for T, B in BF16_SHAPES[kind]:
+        x, iW, b, sW, lengths = layer_inputs(torch, gen, gates, T, B, IN, H)
+        err = hold_layer_bf16(torch, kid, fn, plain, x, iW, b, sW, lengths)
+        xb, iW16 = x.to(torch.bfloat16), iW.to(torch.bfloat16)
+        xa = (x.transpose(0, 1) @ iW + b).contiguous()  # [B, T, G]
+        with torch.no_grad():
+            times = alternated_ms(torch, {
+                "bf16": lambda: fn(xb, iW16, b, sW, True, lengths),
+                "f32": lambda: fn(x, iW, b, sW, True, lengths),
+                "affine_bf16": lambda: rnn_cuda.affine_bf16(xb.view(T * B, IN), iW16, b),
+                "recurrence_f32": lambda: seq(xa, sW)}, ALTERNATED_REPS)
+        ms, f32_ms, aff_ms, rec_ms = (statistics.median(times[k]) for k in (
+            "bf16", "f32", "affine_bf16", "recurrence_f32"))
+        log(f"{kid} at T={T}, B={B}, IN=H={H}, alternated with the f32 kernel: bf16 "
+            f"{spread(times['bf16'])} = {1e3 * ms / T:.3f} us a step; f32 "
+            f"{spread(times['f32'])} = {1e3 * f32_ms / T:.3f} us a step; bf16/f32 "
+            f"{ms / f32_ms:.3f}.  Split: the bf16 affine alone {aff_ms:.3f} ms, so its "
+            f"recurrence {ms - aff_ms:.3f} ms; the f32 recurrence alone (K12) {rec_ms:.3f} ms, "
+            f"so the f32 affine {f32_ms - rec_ms:.3f} ms")
+        if (T, B) == (2560, 256):
+            plain_ms = cuda_ms(torch, lambda: plain(xb, iW16, b, sW, True, lengths), 1)
+            nvalid = int(lengths.sum().item())
+            bms, by = bound(2 * (nvalid * IN + IN * G + T * B * H) + 4 * (G + H * G + B),
+                            2 * nvalid * H * G, peak, 2 * nvalid * IN * G)
+            out = row(kid, kid, source, replaces, run, counter, max_abs_err=err, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+    return out
+
+
 def check_kernels(torch, peak: dict, libs: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
+    rows += [check_affine_bf16(torch, peak, gen)] + [check_layer_bf16(torch, peak, gen, kind)
+                                                     for kind in BF16_LAYERS]
     time_lstm_shapes(torch, gen)
     rows += [check_conv12(torch, peak, gen, libs)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
@@ -1422,13 +1650,16 @@ def identity(a: str, b: str, band: int = 256) -> float:
 
 def time_chunk_program(torch, np, rng, card: str, cfg) -> None:
     """Device time of one full 256-chunk batch of the chunk program
-    (the int16 wire, fb decode, 2560 blocks a chunk), outside the CLI."""
+    (the int16 wire, fb decode, 2560 blocks a chunk), outside the CLI,
+    under the f32 stream and the bf16 stream (--fast) alternated."""
     from flappie_tpu_torch.basecall import (
         _device_basecall_chunk_packed_i16, pack_chunk_inputs_i16)
+    from flappie_tpu_torch.models.network import stream_params
     from flappie_tpu_torch.models.params import init_synthetic, params_to_torch
     from flappie_tpu_torch.signal.synthetic import synthetic_adc
 
     params = params_to_torch(init_synthetic(cfg, seed=0), "cuda")
+    params16 = stream_params(params, cfg, torch.bfloat16)
     CB, W = 256, 2560 * cfg.total_stride
     adc = np.stack([synthetic_adc(W, rng) for _ in range(CB)])
     pa = (adc.astype(np.float32) + np.float32(16.0)) * np.float32(1373.41 / 8192.0)
@@ -1440,11 +1671,15 @@ def time_chunk_program(torch, np, rng, card: str, cfg) -> None:
                                                  full // cfg.total_stride, scal))
     buf = buf.to("cuda")
     with torch.inference_mode():
-        times = alternated_ms(torch, {"chunk": lambda: _device_basecall_chunk_packed_i16(
-            params, buf, cfg, 1.0, False, False)}, ALTERNATED_REPS)["chunk"]
-    ms = statistics.median(times)
-    log(f"device {cfg.name}: chunk program, one batch of {CB} x {W} samples: {spread(times)} = "
-        f"{CB * W / ms / 1e3:.3f} Msamples/s device-only [{card}]")
+        runs = alternated_ms(torch, {
+            "f32": lambda: _device_basecall_chunk_packed_i16(params, buf, cfg, 1.0, False, False),
+            "bf16": lambda: _device_basecall_chunk_packed_i16(
+                params16, buf, cfg, 1.0, False, False, "auto", torch.bfloat16)},
+            ALTERNATED_REPS)
+    for stream, times in runs.items():
+        ms = statistics.median(times)
+        log(f"device {cfg.name}: chunk program, one batch of {CB} x {W} samples, {stream} "
+            f"stream: {spread(times)} = {CB * W / ms / 1e3:.3f} Msamples/s device-only [{card}]")
 
 
 def time_conv_stacks(torch, card: str, cfg) -> None:
@@ -1659,6 +1894,9 @@ def launch_counters() -> dict:
         "lstm_layer": rnn_cuda.lstm_layer_tm,
         "lstm_layer_train": rnn_cuda.lstm_layer_tm_train,
         "grumod_layer": rnn_cuda.grumod_layer_tm,
+        "lstm_layer_bf16": rnn_cuda.lstm_layer_tm_bf16,
+        "grumod_layer_bf16": rnn_cuda.grumod_layer_tm_bf16,
+        "affine_bf16": rnn_cuda.affine_bf16,
         "crf_sum_scan": crf_bm_cuda.sum_states,
         "crf_fwdbwd": crf_bm_cuda.fwdbwd_states,
         "crf_viterbi": crf_bm_cuda.viterbi_fwd,
@@ -2946,6 +3184,251 @@ def sloika_phase(torch, np, card: str, peak: dict, libs: dict) -> tuple:
     return rows, launches
 
 
+# -- phase 3, --fast: the bf16 stream --------------------------------------------
+
+# rounds of exact and --fast runs, alternated, on each main path
+FAST_ROUNDS = 3
+# the accuracy band's corpus: 64 seeded reads of 16k-28k samples, above the
+# chunk size and inside one runnie bucket
+ACCURACY_READS = (64, 16_000, 28_000)
+ACCURACY_MODELS = ("r941_native", "r941_5mC", "rle_r941_native")
+
+
+def fast_counts(counts: dict, layer: str) -> dict:
+    """An exact run's launch counts with the f32 layer's launches moved
+    to its bf16 twin (and the bf16 affine it launches)."""
+    out = dict(counts)
+    n = out.pop(layer)
+    out[f"{layer}_bf16"] = n
+    out["affine_bf16"] = n
+    return out
+
+
+def fast_vs_exact(torch, card: str, what: str, args: list, want: dict, layer: str,
+                  outdir: str, main=None, suffix: str = ".fastq") -> tuple:
+    """FAST_ROUNDS rounds of the exact run and the --fast run of ``args``,
+    alternated (exact first in even rounds), each with exact launch counts
+    (``want``: the exact run's; --fast moves ``layer`` to its bf16 twin);
+    each mode's outputs equal across rounds, FLAPPIE_TPU_RNN_STREAM never
+    set.  Logs the walls; returns (exact text, fast text, the --fast
+    run's counts)."""
+    walls, texts, counts = {"exact": [], "fast": []}, {"exact": set(), "fast": set()}, None
+    for i in range(FAST_ROUNDS):
+        for mode in ("exact", "fast") if i % 2 == 0 else ("fast", "exact"):
+            out = os.path.join(outdir, f"{mode}_{i}{suffix}")
+            extra = ["--fast"] if mode == "fast" else []
+            wall, got = counted_run(torch, f"{what} {mode}", args + ["-o", out] + extra,
+                                    want if mode == "exact" else fast_counts(want, layer), main)
+            if "FLAPPIE_TPU_RNN_STREAM" in os.environ:
+                raise AssertionError(f"{what} {mode}: the CLI set FLAPPIE_TPU_RNN_STREAM")
+            walls[mode].append(wall)
+            with open(out) as fh:
+                texts[mode].add(fh.read())
+            counts = got if mode == "fast" else counts
+    if len(texts["exact"]) != 1 or len(texts["fast"]) != 1:
+        raise AssertionError(f"{what}: a mode's output differs between rounds")
+    log(f"--fast {what}: walls exact {[round(w, 3) for w in walls['exact']]} s, --fast "
+        f"{[round(w, 3) for w in walls['fast']]} s (alternated; medians "
+        f"{statistics.median(walls['exact']):.3f} and {statistics.median(walls['fast']):.3f}, "
+        f"--fast/exact {statistics.median(walls['fast']) / statistics.median(walls['exact']):.3f});"
+        f" --fast launches {json.dumps(counts)} [{card}]")
+    return texts["exact"].pop(), texts["fast"].pop(), counts
+
+
+def fast_main_paths(torch, np, card: str) -> dict:
+    """--fast on the main paths, each beside its exact run (fast_vs_exact):
+    r941_native fb on its 80 reads (5 K1-bf16 and no K1 a program), r941_5mC
+    (K7-bf16) and runnie fb on their reads; the exact runs byte-equal to
+    the main path's; the --fast records' identity to the exact ones
+    logged.  Returns the launch counts of the --fast runs by run name."""
+    from flappie_tpu_torch.basecall import preprocess_batch
+    from flappie_tpu_torch.cli.runnie import main as runnie_main
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    launches = {}
+    for model in RUNS:
+        cfg = get_model_config(model)
+        layer = {"lstm": "lstm_layer", "grumod": "grumod_layer"}[cfg.rnns[0].kind]
+        wdir = os.path.join(WORK, model)
+        reads_dir = os.path.join(wdir, "reads")
+        outdir = os.path.join(wdir, "fast")
+        os.makedirs(outdir)
+        pre = preprocess_batch([read_raw(os.path.join(reads_dir, n))
+                                for n in sorted(os.listdir(reads_dir))])
+        P = count_programs(pre, cfg)
+        want = {layer: len(cfg.rnns) * P, **{k: n * P for k, n in FB_CRF.items()}}
+        exact, fast, launches[f"{model}_fast"] = fast_vs_exact(
+            torch, card, f"{model} fb ({len(pre)} reads, {P} programs)",
+            [reads_dir, "--model", model], want, layer, outdir)
+        with open(os.path.join(wdir, "gpu_fb.fastq")) as fh:
+            if fh.read() != exact:
+                raise AssertionError(f"{model}: the exact run differs from the main path's")
+        alphabet = "ACGTZ"[: cfg.nbase]
+        log_band(f"--fast {model} main path", band(fastq_calls(exact, alphabet),
+                                                   fastq_calls(fast, alphabet)))
+
+    cfg = get_model_config("rle_r941_native")
+    wdir = os.path.join(WORK, "rle_r941_native")
+    reads_dir = os.path.join(wdir, "reads")
+    outdir = os.path.join(wdir, "fast")
+    os.makedirs(outdir)
+    names = [(n, 0) for n in sorted(os.listdir(reads_dir))]
+    P, _ = runnie_buckets(reads_dir, names)
+    want = {"lstm_layer": len(cfg.rnns) * P, "crf_sum_scan": 3 * P, "crf_viterbi": P,
+            "crf_traceback": P}
+    exact, fast, launches["rle_r941_native_fast"] = fast_vs_exact(
+        torch, card, f"runnie fb ({len(names)} reads, {P} programs)", [reads_dir], want,
+        "lstm_layer", outdir, runnie_main, ".run")
+    with open(os.path.join(wdir, "gpu_fb_scanb.run")) as fh:
+        if fh.read() != exact:
+            raise AssertionError("runnie: the exact run differs from the main path's")
+    log_band("--fast runnie main path", band(run_calls(exact), run_calls(fast)))
+    return launches
+
+
+def serve_fast_request(torch, card: str) -> dict:
+    """One flappie-serve request (serve stdin's first directory) on a warm
+    --fast server beside the same request on a warm exact server,
+    alternated FAST_ROUNDS times, each with exact launch counts; the --fast
+    records byte-equal to the flappie CLI's --fast records on the same
+    files.  Returns the --fast request's counts."""
+    from flappie_tpu_torch.cli import serve
+    from flappie_tpu_torch.models.config import get_model_config
+
+    cfg = get_model_config("r941_native")
+    request = os.path.join(WORK, "serve", "run1")
+    names = [(n, 0) for n in sorted(os.listdir(request))]
+    P = expected_programs(request, names, cfg)
+    want = serve_counts(P)
+    servers = {"exact": serve.Server(serve_args([])), "fast": serve.Server(serve_args(["--fast"]))}
+    walls, texts, counts = {"exact": [], "fast": []}, {"exact": set(), "fast": set()}, None
+    for i in range(FAST_ROUNDS):
+        for mode in ("exact", "fast") if i % 2 == 0 else ("fast", "exact"):
+            out = io.StringIO()
+            zero_counts()
+            t0 = time.perf_counter()
+            with captured_stderr():
+                seen, called = servers[mode].handle(request, out)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            got = check_counts(f"serve request {mode}",
+                               want if mode == "exact" else fast_counts(want, "lstm_layer"))
+            counts = got if mode == "fast" else counts
+            if (seen, called) != (len(names), len(names)):
+                raise AssertionError(f"serve {mode}: {called} of {seen} reads called")
+            texts[mode].add(out.getvalue())
+    if len(texts["exact"]) != 1 or len(texts["fast"]) != 1:
+        raise AssertionError("serve: a mode's records differ between requests")
+    cli_out = os.path.join(WORK, "serve", "cli_fast.fastq")
+    run_cli(torch, [request, "-o", cli_out, "--fast"])
+    with open(cli_out) as fh:
+        if fh.read() != next(iter(texts["fast"])):
+            raise AssertionError("serve --fast: the request's records differ from the CLI's "
+                                 "--fast records")
+    log(f"--fast flappie-serve, one request of {len(names)} reads ({P} programs) on warm "
+        f"servers: exact {[round(w, 3) for w in walls['exact']]} s, --fast "
+        f"{[round(w, 3) for w in walls['fast']]} s (alternated); the --fast records "
+        f"byte-equal to the CLI's --fast records; launches {json.dumps(counts)} [{card}]")
+    return counts
+
+
+def fastq_calls(text: str, alphabet: str) -> dict:
+    """FASTQ text -> {read file: (sequence, quality)}."""
+    return {n: (r[0], r[2].split("\n")[3]) for n, r in parse_fastq(text, alphabet).items()}
+
+
+def run_calls(text: str) -> dict:
+    """.run text -> {uuid: (the run-length calls expanded, None)}."""
+    from flappie_tpu_torch.io.run_format import read_run_records, runlength_basecall
+
+    return {u: (runlength_basecall(rows) or "", None)
+            for u, rows in read_run_records(io.StringIO(text))}
+
+
+def identity_of(pair) -> float:
+    """align_identity's identity of (fast call, exact call); a worker's job."""
+    from flappie_tpu_torch.accuracy import align_identity
+
+    fast, exact = pair
+    return 1.0 if fast == exact else align_identity(fast, exact).identity
+
+
+def band(exact: dict, fast: dict) -> dict:
+    """The accuracy band of ``fast`` against ``exact`` ({read: (sequence,
+    quality or None)}): per-read identity (flappie_tpu_torch.accuracy,
+    in 4 worker processes), reads missing from fast, and the largest phred
+    shift over the reads whose calls have equal lengths."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    keys = sorted(k for k in exact if k in fast)
+    pairs = [(fast[k][0], exact[k][0]) for k in keys]
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as ex:
+        ids = 100 * np.asarray(list(ex.map(identity_of, pairs, chunksize=4)))
+    shifts = [max(abs(ord(a) - ord(b)) for a, b in zip(fast[k][1], exact[k][1]))
+              for k in keys if exact[k][1] and len(fast[k][1]) == len(exact[k][1])]
+    return {"reads": len(keys), "missing_in_fast": len(exact) - len(keys),
+            "p5": float(np.percentile(ids, 5)), "p50": float(np.percentile(ids, 50)),
+            "min": float(ids.min()), "identical": int((ids == 100.0).sum()),
+            "aligned": len(shifts), "max_phred_shift": max(shifts) if shifts else None}
+
+
+def log_band(what: str, res: dict) -> None:
+    log(f"{what}: accuracy band of --fast against the exact stream: {json.dumps(res)}")
+
+
+def accuracy_band(torch, np, card: str) -> dict:
+    """The accuracy band: ACCURACY_READS' corpus basecalled exact and
+    --fast through the port's CLIs for each of ACCURACY_MODELS (runnie's
+    run-length calls expanded); fails if a read is missing from the --fast
+    output or the median identity is under 90% (a broken kernel, not the
+    band: the weights are synthetic).  Returns {model: band}."""
+    from flappie_tpu_torch.cli.runnie import main as runnie_main
+    from flappie_tpu_torch.models.config import get_model_config
+
+    wdir = os.path.join(WORK, "accuracy")
+    reads_dir = os.path.join(wdir, "reads")
+    names = write_reads(np, np.random.default_rng(20261020), reads_dir, ACCURACY_READS,
+                        (0, 0, 1))
+    nsample = sum(n for _, n in names)
+    out = {}
+    for model in ACCURACY_MODELS:
+        calls, walls = {}, {}
+        for mode in ("exact", "fast"):
+            runnie = model.startswith("rle")
+            path = os.path.join(wdir, f"{model}_{mode}" + (".run" if runnie else ".fastq"))
+            args = [reads_dir, "-o", path] + ([] if runnie else ["--model", model])
+            walls[mode] = run_cli(torch, args + (["--fast"] if mode == "fast" else []),
+                                  runnie_main if runnie else None)
+            with open(path) as fh:
+                text = fh.read()
+            calls[mode] = (run_calls(text) if runnie else
+                           fastq_calls(text, "ACGTZ"[: get_model_config(model).nbase]))
+        res = band(calls["exact"], calls["fast"])
+        out[model] = res
+        log(f"accuracy band {model}: {len(names)} reads, {nsample} samples; wall exact "
+            f"{walls['exact']:.3f} s, --fast {walls['fast']:.3f} s; identity of --fast to the "
+            f"exact stream p5 {res['p5']:.3f}%, p50 {res['p50']:.3f}%, min {res['min']:.3f}%, "
+            f"{res['identical']} of {res['reads']} reads identical, {res['missing_in_fast']} "
+            f"missing from --fast, largest phred shift {res['max_phred_shift']} over "
+            f"{res['aligned']} reads of equal length [{card}]")
+        if res["missing_in_fast"] or res["reads"] != len(names) or res["p50"] < 90.0:
+            raise AssertionError(f"accuracy band {model}: {res}")
+    return out
+
+
+def fast_phase(torch, np, card: str) -> dict:
+    """The --fast main paths, one flappie-serve request and the accuracy
+    band; returns the --fast runs' launch counts by run name."""
+    launches = fast_main_paths(torch, np, card)
+    launches["r941_native_fast_serve"] = serve_fast_request(torch, card)
+    log("accuracy band (JSON): " + json.dumps(accuracy_band(torch, np, card)))
+    return launches
+
+
 # -- phase 4: training ---------------------------------------------------------
 
 # tools/train_r5.py's recipe: batch 32, chunks of 2560 samples, Adam at lr
@@ -3305,6 +3788,7 @@ def main() -> int:
     serve_stdin_run(torch, np, card)
     serve_watch_run(torch, np, card)
     launches["rle_r941_native_pallas"] = runnie_path(torch, np, card)
+    launches.update(fast_phase(torch, np, card))
     sloika_rows, sloika_launches = sloika_phase(torch, np, card, peak, libs)
     rows += sloika_rows
     launches.update(sloika_launches)

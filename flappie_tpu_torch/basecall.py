@@ -40,8 +40,9 @@ from . import resolve_device, timing
 from .decode.seq import path_to_basecall
 from .io.fastx import BasecallResult
 from .models.config import ModelConfig, get_model_config
-from .models.network import check_supported, transitions
+from .models.network import check_supported, stream_params, transitions
 from .models.params import init_synthetic, load_npz, params_to_torch, validate
+from .ops import precision
 from .ops.crf import crf_decode_fused, phred_from_qpath
 from .parallel.chunking import chunk_records, plan_chunks
 from .signal.preprocess import RawTable, normalise_signal, trim_and_segment
@@ -132,10 +133,12 @@ def _i16_capable(rt) -> bool:
 
 
 def _device_basecall(params, signal, lengths, cfg: ModelConfig, temperature: float,
-                     viterbi_only: bool, compute_trace: bool, rnn_impl: str = "auto"):
+                     viterbi_only: bool, compute_trace: bool, rnn_impl: str = "auto",
+                     stream=torch.float32):
     """Full-read program: (score, path int8 [B, T+1], qchar uint8,
-    nblocks, trace)."""
-    trans, nblocks = transitions(params, cfg, signal, lengths, temperature, rnn_impl=rnn_impl)
+    nblocks, trace).  ``stream``: the recurrent stack's stream dtype."""
+    trans, nblocks = transitions(params, cfg, signal, lengths, temperature, rnn_impl=rnn_impl,
+                                 stream=stream)
     score, path, qpath, trace = crf_decode_fused(trans, nblocks, cfg.nbase, viterbi_only,
                                                  compute_trace)
     return score, path.to(torch.int8), phred_from_qpath(qpath), nblocks, trace
@@ -143,7 +146,7 @@ def _device_basecall(params, signal, lengths, cfg: ModelConfig, temperature: flo
 
 def _device_basecall_chunk(params, signal, lengths, qlo, qhi, cfg: ModelConfig,
                            temperature: float, viterbi_only: bool, compute_trace: bool,
-                           rnn_impl: str = "auto"):
+                           rnn_impl: str = "auto", stream=torch.float32):
     """Chunk program: as _device_basecall, but the score is the masked
     sum of qpath over each chunk's OWNED local range [qlo, qhi), so chunk
     scores sum to the read's score."""
@@ -153,10 +156,11 @@ def _device_basecall_chunk(params, signal, lengths, qlo, qhi, cfg: ModelConfig,
         # stitch the full-read logZ; the alpha0 log(nstate) constant
         # lands on the first chunk (qlo == 1).
         trans, nblocks, shift, incs = transitions(
-            params, cfg, signal, lengths, temperature, return_norm=True, rnn_impl=rnn_impl)
+            params, cfg, signal, lengths, temperature, return_norm=True, rnn_impl=rnn_impl,
+            stream=stream)
     else:
         trans, nblocks = transitions(params, cfg, signal, lengths, temperature,
-                                     rnn_impl=rnn_impl)
+                                     rnn_impl=rnn_impl, stream=stream)
     _, path, qpath, trace = crf_decode_fused(trans, nblocks, cfg.nbase, viterbi_only,
                                              compute_trace)
     t = torch.arange(qpath.shape[1], device=qpath.device)[None, :]
@@ -221,42 +225,42 @@ def _unpack_i16(buf):
 
 
 def _device_basecall_packed(params, buf, cfg, temperature, viterbi_only, compute_trace,
-                            rnn_impl="auto"):
+                            rnn_impl="auto", stream=torch.float32):
     """f32 bucket program: [B, bucket+4] (signal + float-encoded length)."""
     sig = buf[:, :-4]
     lengths = buf[:, -4].to(torch.int32)
     score, path, qchar, nblocks, trace = _device_basecall(
-        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace, rnn_impl)
+        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace, rnn_impl, stream)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
 def _device_basecall_chunk_packed(params, buf, cfg, temperature, viterbi_only, compute_trace,
-                                  rnn_impl="auto"):
+                                  rnn_impl="auto", stream=torch.float32):
     """f32 chunk program: [CB, chunk+4] (signal + length, qlo, qhi, pad)."""
     sig = buf[:, :-4]
     meta = buf[:, -4:].to(torch.int32)
     score, path, qchar, nblocks, trace = _device_basecall_chunk(
         params, sig, meta[:, 0], meta[:, 1], meta[:, 2], cfg, temperature,
-        viterbi_only, compute_trace, rnn_impl)
+        viterbi_only, compute_trace, rnn_impl, stream)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
 def _device_basecall_packed_i16(params, buf, cfg, temperature, viterbi_only, compute_trace,
-                                rnn_impl="auto"):
+                                rnn_impl="auto", stream=torch.float32):
     """int16-wire bucket program (the short-read path)."""
     sig, lengths, _qlo, _qhi = _unpack_i16(buf)
     score, path, qchar, nblocks, trace = _device_basecall(
-        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace, rnn_impl)
+        params, sig, lengths, cfg, temperature, viterbi_only, compute_trace, rnn_impl, stream)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
 def _device_basecall_chunk_packed_i16(params, buf, cfg, temperature, viterbi_only,
-                                      compute_trace, rnn_impl="auto"):
+                                      compute_trace, rnn_impl="auto", stream=torch.float32):
     """int16-wire chunk program (the production long-read path)."""
     sig, lengths, qlo, qhi = _unpack_i16(buf)
     score, path, qchar, nblocks, trace = _device_basecall_chunk(
         params, sig, lengths, qlo, qhi, cfg, temperature, viterbi_only, compute_trace,
-        rnn_impl)
+        rnn_impl, stream)
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
@@ -419,7 +423,10 @@ class _Pipeline:
 
 class Basecaller:
     """Batched basecaller for one model on one device (``cuda`` unless
-    ``device`` says otherwise)."""
+    ``device`` says otherwise).  ``stream``: the recurrent stack's stream
+    dtype, torch.float32 or torch.bfloat16 (``--fast``); None reads
+    FLAPPIE_TPU_RNN_STREAM once, here (ops/precision.py).  A stack that
+    is not fused runs f32 under either."""
 
     def __init__(
         self,
@@ -435,8 +442,10 @@ class Basecaller:
         overlap: int = 1600,
         chunk_batch: int = 256,
         device=None,
+        stream=None,
     ):
         self.device = resolve_device(device)
+        self.stream = precision.check_stream(stream)
         self.cfg = get_model_config(model) if isinstance(model, str) else model
         check_supported(self.cfg, rnn_impl)
         if self.cfg.head != "flipflop":
@@ -450,7 +459,9 @@ class Basecaller:
             params = load_npz(checkpoint) if checkpoint is not None else init_synthetic(
                 self.cfg, seed=seed)
         validate(params, self.cfg)
-        self.params = params_to_torch(params, self.device)
+        # under the bf16 stream each fused layer's iW is rounded once, here
+        self.params = stream_params(params_to_torch(params, self.device), self.cfg,
+                                    self.stream, rnn_impl)
         self.temperature = float(temperature)
         self.viterbi_only = bool(viterbi_only)
         self.compute_trace = bool(compute_trace)
@@ -477,7 +488,8 @@ class Basecaller:
         _chaos_maybe_fail_dispatch()
         return self._queue.run(
             lambda dev: program(self.params, dev, self.cfg, self.temperature,
-                                self.viterbi_only, self.compute_trace, self.rnn_impl), buf)
+                                self.viterbi_only, self.compute_trace, self.rnn_impl,
+                                self.stream), buf)
 
     # -- full pipeline ----------------------------------------------------
 

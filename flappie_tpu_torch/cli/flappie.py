@@ -13,8 +13,12 @@ trace to an HDF5 file (io/trace_h5.py: h5py where it is installed, else
 signal/hdf5_min.py); FLAPPIE_TPU_PHASES=path|stderr dumps the per-phase
 wall-clock accounting (timing.py) at exit.
 
-Not ported yet, and refused with an error when given: ``--fast`` and
-``--mesh N`` (N > 1).
+``--fast`` runs the recurrent stack on the bf16 stream
+(``Basecaller(stream=torch.bfloat16)``, ops/precision.py); it sets no
+environment variable.
+
+Not ported yet, and refused with an error when given: ``--mesh N``
+(N > 1).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import argparse
 import glob as globmod
 import os
 import sys
+
+import torch
 
 from .. import __version__, timing
 from ..io.fastx import OUTFORMATS, format_read
@@ -132,7 +138,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Basecall every read in multi-read fast5 files "
                         "(the reference only reads the first)")
     p.add_argument("--fast", action="store_true", default=False,
-                   help="Low-precision speed mode (not ported yet)")
+                   help="Speed mode: stream the recurrent layers' tensors in "
+                        "bfloat16 (the bf16 stream: x, the block affine and "
+                        "each layer's output in bf16; the state and the step "
+                        "product stay f32).  Outputs shift within an accuracy "
+                        "band instead of being byte-equal to the exact stream "
+                        "(the band measured on the card: PERF.md); a model "
+                        "whose recurrent stack is not fused runs f32")
     p.add_argument("--qcal", default=None, metavar="slope:offset|file",
                    help="Calibrate quality scores post-hoc: either "
                         "q' = slope*q + offset per base, or the path of "
@@ -145,6 +157,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Torch device to run on (default cuda; 'cpu' runs the "
                         "kernels' plain PyTorch versions)")
     return p
+
+
+def fast_stream(fast: bool):
+    """``--fast``: the bf16 stream, passed explicitly; else None, which
+    reads FLAPPIE_TPU_RNN_STREAM (f32 unless set)."""
+    return torch.bfloat16 if fast else None
 
 
 def expand_files(args_files):
@@ -212,9 +230,8 @@ def main(argv=None) -> int:
     if not args.temperature > 0.0:
         print(f"Invalid temperature {args.temperature} -- must be > 0.", file=sys.stderr)
         return 1
-    unported = [flag for flag, on in (("--fast", args.fast), ("--mesh", args.mesh > 1)) if on]
-    if unported:
-        parser.error(f"{', '.join(unported)}: not ported to flappie_tpu_torch yet")
+    if args.mesh > 1:
+        parser.error("--mesh: not ported to flappie_tpu_torch yet")
     qcal = None
     if args.qcal:
         # validate up front: a malformed pair/file must fail BEFORE the
@@ -242,6 +259,7 @@ def main(argv=None) -> int:
         overlap=args.overlap,
         chunk_batch=args.chunk_batch,
         device=args.device,
+        stream=fast_stream(args.fast),
     )
 
     reads, names, fnames = expand_reads(files, args.multi)

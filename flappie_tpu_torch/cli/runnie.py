@@ -13,8 +13,8 @@ Reads are preprocessed on the host, bucketed by padded length and
 batched, at most ``--batch`` to a program; each program runs the
 network, the run-length posterior (unless ``--viterbi``) and the Viterbi
 decode on the device, and returns only the path and the path-selected
-shape and scale weights.  ``--fast`` (a low-precision tier) is not
-ported and is refused.
+shape and scale weights.  ``--fast`` runs the recurrent stack on the
+bf16 stream (ops/precision.py), passed to the programs explicitly.
 """
 
 from __future__ import annotations
@@ -30,21 +30,24 @@ from ..basecall import _DeviceQueue, _Pipeline, _unpack_i16, bucket_length, pack
 from ..decode.runlength import rle_transpost, rle_viterbi, runs_from_selected
 from ..io.run_format import write_run_record
 from ..models.config import get_model_config
-from ..models.network import transitions
+from ..models.network import stream_params, transitions
+from ..ops import precision
 from ..models.params import init_synthetic, load_npz, params_to_torch, validate
 from ..signal.fast5 import read_raw
 from ..signal.preprocess import normalise_signal, trim_and_segment
-from .flappie import expand_files, segmentation_pair, trim_pair
+from .flappie import expand_files, fast_stream, segmentation_pair, trim_pair
 
 MODEL = "rle_r941_native"
 
 
-def _device_runnie(params, signal, lengths, cfg, temperature, viterbi_only):
+def _device_runnie(params, signal, lengths, cfg, temperature, viterbi_only,
+                   stream=torch.float32):
     """Batched forward + run-length decode: (nblocks, score, path int8
     [B, T], shape_sel [B, T], scale_sel [B, T]), the shape and scale
     weights of each block's path base -- all runs_from_selected needs to
-    rebuild the .run records bit for bit (~9 bytes a block)."""
-    out, nblocks = transitions(params, cfg, signal, lengths, temperature)
+    rebuild the .run records bit for bit (~9 bytes a block).  ``stream``:
+    the recurrent stack's stream dtype."""
+    out, nblocks = transitions(params, cfg, signal, lengths, temperature, stream=stream)
     if not viterbi_only:
         out = rle_transpost(out, nblocks, cfg.nbase)
     score, path = rle_viterbi(out, nblocks, cfg.nbase)
@@ -65,21 +68,23 @@ def _pack_runnie_out(nblocks, path, shape_sel, scale_sel):
                       as_bytes(nblocks.to(torch.int32)[:, None])], dim=1)
 
 
-def _device_runnie_packed(params, buf, cfg, temperature, viterbi_only):
+def _device_runnie_packed(params, buf, cfg, temperature, viterbi_only, stream=torch.float32):
     """f32 wire: [B, bucket+4] (host-normalised signal + float-encoded
     length, basecall.pack_chunk_inputs) in, the byte matrix out."""
     nblocks, _, path, shape_sel, scale_sel = _device_runnie(
-        params, buf[:, :-4], buf[:, -4].to(torch.int32), cfg, temperature, viterbi_only)
+        params, buf[:, :-4], buf[:, -4].to(torch.int32), cfg, temperature, viterbi_only,
+        stream)
     return _pack_runnie_out(nblocks, path, shape_sel, scale_sel)
 
 
-def _device_runnie_packed_i16(params, buf, cfg, temperature, viterbi_only):
+def _device_runnie_packed_i16(params, buf, cfg, temperature, viterbi_only,
+                              stream=torch.float32):
     """int16 wire: [B, bucket+16] ADC counts with their calibration and
     normalisation scalars, normalised on the device as the flappie
     programs do (basecall._unpack_i16); the same byte matrix out."""
     sig, lengths, _qlo, _qhi = _unpack_i16(buf)
     nblocks, _, path, shape_sel, scale_sel = _device_runnie(
-        params, sig, lengths, cfg, temperature, viterbi_only)
+        params, sig, lengths, cfg, temperature, viterbi_only, stream)
     return _pack_runnie_out(nblocks, path, shape_sel, scale_sel)
 
 
@@ -116,7 +121,13 @@ def build_parser():
                    help="Maximum device batch size (reads bucket by padded length "
                         "and batch within a bucket)")
     p.add_argument("--fast", action="store_true", default=False,
-                   help="Low-precision speed mode (not ported yet)")
+                   help="Speed mode: stream the recurrent layers' tensors in "
+                        "bfloat16 (the bf16 stream: x, the block affine and "
+                        "each layer's output in bf16; the state and the step "
+                        "product stay f32).  Outputs shift within an accuracy "
+                        "band instead of being byte-equal to the exact stream "
+                        "(the band measured on the card: PERF.md); a model "
+                        "whose recurrent stack is not fused runs f32")
     # port extension
     p.add_argument("--device", default="cuda", metavar="name",
                    help="Torch device to run on (default cuda; 'cpu' runs the "
@@ -132,8 +143,6 @@ def main(argv=None) -> int:
               "of the Runnie basecaller.")
         print("Original Runnie is (c) Oxford Nanopore Technologies, Ltd (ONT Public Licence).")
         return 0
-    if args.fast:
-        parser.error("--fast: not ported to flappie_tpu_torch yet")
     if not args.files:
         parser.error("the following arguments are required: fast5")
 
@@ -141,7 +150,9 @@ def main(argv=None) -> int:
     cfg = get_model_config(MODEL)
     params = load_npz(args.checkpoint) if args.checkpoint else init_synthetic(cfg, seed=0)
     validate(params, cfg)
-    params = params_to_torch(params, device)
+    stream = precision.check_stream(fast_stream(args.fast))
+    # under the bf16 stream each layer's iW is rounded once, here
+    params = stream_params(params_to_torch(params, device), cfg, stream)
     queue = _DeviceQueue(device)
 
     files = expand_files(args.files)
@@ -172,7 +183,7 @@ def main(argv=None) -> int:
         i16, buf = pack_bucket(items, bucket)
         program = _device_runnie_packed_i16 if i16 else _device_runnie_packed
         return (items, bucket), queue.run(
-            lambda dev: program(params, dev, cfg, args.temperature, args.viterbi), buf)
+            lambda dev: program(params, dev, cfg, args.temperature, args.viterbi, stream), buf)
 
     results = {}  # input position -> list[RunRecord]
 

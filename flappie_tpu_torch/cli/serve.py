@@ -33,9 +33,10 @@ another device.  ``--warmup`` basecalls one synthetic chunk-length read
 at startup, then acks ``flappie-serve: ready``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU the
-default raises.  ``--fast`` is not ported (the flappie CLI refuses it
-too).  FLAPPIE_TPU_PHASES=path|stderr dumps the per-phase wall-clock
-accounting of every request (timing.py) at server exit.
+default raises.  ``--fast`` runs the recurrent stack on the bf16 stream,
+as the flappie CLI's does.  FLAPPIE_TPU_PHASES=path|stderr dumps the
+per-phase wall-clock accounting of every request (timing.py) at server
+exit.
 
 Run as ``python -m flappie_tpu_torch.cli.serve < requests.txt``.
 """
@@ -55,6 +56,7 @@ from .flappie import (
     DEFAULT_MODEL,
     expand_files,
     expand_reads,
+    fast_stream,
     model_help_text,
     segmentation_pair,
     trim_pair,
@@ -90,6 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-batch", type=int, default=256, metavar="N")
     p.add_argument("--multi", action="store_true", default=False,
                    help="Basecall every read in multi-read fast5 files")
+    p.add_argument("--fast", action="store_true", default=False,
+                   help="bf16 stream mode (see flappie --fast)")
     p.add_argument("--qcal", default=None, metavar="slope:offset",
                    help="Calibrate quality scores post-hoc (see flappie "
                         "--qcal; fit the pair with tools/qscore_calibrate.py)")
@@ -140,6 +144,7 @@ class Server:
             overlap=args.overlap,
             chunk_batch=args.chunk_batch,
             device=args.device,
+            stream=fast_stream(args.fast),
         )
 
     def warmup(self) -> None:

@@ -50,6 +50,16 @@
 // summed into v).  So K8's h is K1's h bit for bit, and K12 over a caller's
 // affine is K1 over the same affine bit for bit, whatever the batch.
 //
+// Stream type XT (float, or __nv_bfloat16 under the bf16 stream, --fast;
+// instantiated for K1 and K7 only): the type of xa and out alone.  A bf16
+// xa is loaded a step ahead as it is and widened to f32 where the step
+// takes it, and the output is rounded to bf16 (nearest even) where it is
+// stored; h, the DSMEM exchange, the partial sums, c and the summation
+// order stay f32 and unchanged, as in the TPU kernels (rnn_pallas.py:255,
+// :263: xa.astype(f32) + h.sW, the carry f32, the stored output cast).
+// The float instantiations' code does not depend on XT (compare_rnn.py
+// matches their SASS with an earlier build's).
+//
 // Semantics (flappie_tpu/ops/rnn_pallas.py:236-266, :307-317): backward
 // walks t from T-1 down; a step at or past a row's length freezes (h, c)
 // and writes 0 to out and c_out; padding rows >= B neither read nor write.
@@ -59,6 +69,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -172,6 +183,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       :: "r"(bar), "r"(parity) : "memory");
 }
 
+// a stream value to f32 and back (XT = float: nothing)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename XT>
+__device__ __forceinline__ XT from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 template <int N>
 __device__ __forceinline__ void store_vec(float* p, const float (&s)[N]) {
   if constexpr (N % 4 == 0) {
@@ -190,12 +213,12 @@ __device__ __forceinline__ void store_vec(float* p, const float (&s)[N]) {
 // GN = 4: LSTM, gates (u, f, g, o), c = f*c + u*g, h = o*tanh(c).
 // GN = 3: GRU-mod, gates (z, r, hbar), hbar = tanh(r*v_h + xa_h),
 //         h = z*h + (1-z)*hbar.
-template <int GN, int R, bool WANT_C, bool BATCH_MAJOR>
+template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_H / 2)
-cluster_rnn_kernel(const float* __restrict__ xa,     // [T, B, GN.H] or [B, T, GN.H]
+cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, GN.H]
                    const float* __restrict__ sW,     // [H, GN.H]
                    const int* __restrict__ lengths,  // [B]
-                   float* __restrict__ out,          // [T, B, H] or [B, T, H]
+                   XT* __restrict__ out,             // [T, B, H] or [B, T, H]
                    float* __restrict__ c_out,        // [T, B, H] if WANT_C
                    int T, int B, int H, int backward) {
   constexpr bool LSTM = GN == 4;
@@ -241,7 +264,7 @@ cluster_rnn_kernel(const float* __restrict__ xa,     // [T, B, GN.H] or [B, T, G
   const bool updater = r0 < R;
   int len[RP];
   float c[RP];
-  float nx[RP][GN];  // the next step's xa
+  XT nx[RP][GN];  // the next step's xa, as loaded (widened when the step takes it)
 #pragma unroll
   for (int i = 0; i < RP; ++i) {
     const int row = row0 + r0 + i;
@@ -254,7 +277,7 @@ cluster_rnn_kernel(const float* __restrict__ xa,     // [T, B, GN.H] or [B, T, G
       const int row = row0 + r0 + i;
       const bool live = updater && row < B;
 #pragma unroll
-      for (int g = 0; g < GN; ++g) nx[i][g] = live ? xa[at(t, row) * G + g * H + j] : 0.f;
+      for (int g = 0; g < GN; ++g) nx[i][g] = live ? xa[at(t, row) * G + g * H + j] : from_f32<XT>(0.f);
     }
   };
   load_xa(backward ? T - 1 : 0);
@@ -277,7 +300,7 @@ cluster_rnn_kernel(const float* __restrict__ xa,     // [T, B, GN.H] or [B, T, G
 #pragma unroll
     for (int i = 0; i < RP; ++i)
 #pragma unroll
-      for (int g = 0; g < GN; ++g) xcur[i][g] = nx[i][g];
+      for (int g = 0; g < GN; ++g) xcur[i][g] = to_f32(nx[i][g]);
     if (s + 1 < T) load_xa(backward ? t - 1 : t + 1);
 
     float acc[R][GN];
@@ -350,7 +373,7 @@ cluster_rnn_kernel(const float* __restrict__ xa,     // [T, B, GN.H] or [B, T, G
       for (int i = 0; i < RP; ++i) {
         const int row = row0 + r0 + i;
         if (row < B) {
-          out[at(t, row) * H + j] = ho[i];
+          out[at(t, row) * H + j] = from_f32<XT>(ho[i]);
           if (WANT_C) c_out[at(t, row) * H + j] = co[i];
         }
       }
@@ -363,11 +386,12 @@ cluster_rnn_kernel(const float* __restrict__ xa,     // [T, B, GN.H] or [B, T, G
   cluster.sync();
 }
 
+template <typename XT = float>
 struct RnnArgs {
-  const float* xa;
+  const XT* xa;
   const float* sW;
   const int* lengths;
-  float* out;
+  XT* out;
   float* c_out;
   int T, B, H, backward;
   cudaStream_t st;
@@ -375,10 +399,10 @@ struct RnnArgs {
 
 // Launch one instantiation, or, with max_active, only ask how many of its
 // clusters the card holds at once (cudaOccupancyMaxActiveClusters).
-template <int GN, int R, bool WANT_C, bool BATCH_MAJOR>
-cudaError_t cluster_rnn_r(const RnnArgs& a, int* max_active) {
+template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT>
+cudaError_t cluster_rnn_r(const RnnArgs<XT>& a, int* max_active) {
   const size_t smem = cluster_smem(a.H, GN, R);
-  cudaError_t err = cudaFuncSetAttribute(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR>,
+  cudaError_t err = cudaFuncSetAttribute(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -396,41 +420,42 @@ cudaError_t cluster_rnn_r(const RnnArgs& a, int* max_active) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cudaOccupancyMaxActiveClusters(
-        max_active, reinterpret_cast<const void*>(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR>),
+        max_active,
+        reinterpret_cast<const void*>(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT>),
         &cfg);
   }
-  cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR><<<clusters * CLUSTER, a.H / 2, smem, a.st>>>(
+  cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT><<<clusters * CLUSTER, a.H / 2, smem, a.st>>>(
       a.xa, a.sW, a.lengths, a.out, a.c_out, a.T, a.B, a.H, a.backward);
   return cudaGetLastError();
 }
 
 // The recurrence over xa at the rows cluster_rows(B) picks; returns the
 // launch error code (a refused launch, e.g. cudaErrorClusterOutOfResources,
-// included).
-template <int GN, bool WANT_C, bool BATCH_MAJOR>
-cudaError_t cluster_rnn(const RnnArgs& a, int* max_active = nullptr) {
+// included).  XT: the stream type of xa and out.
+template <int GN, bool WANT_C, bool BATCH_MAJOR, typename XT = float>
+cudaError_t cluster_rnn(const RnnArgs<XT>& a, int* max_active = nullptr) {
   if (!cluster_h_ok(a.H) || a.B <= 0) return cudaErrorInvalidValue;
   switch (cluster_rows(a.B)) {
-    case 1: return cluster_rnn_r<GN, 1, WANT_C, BATCH_MAJOR>(a, max_active);
-    case 2: return cluster_rnn_r<GN, 2, WANT_C, BATCH_MAJOR>(a, max_active);
-    case 4: return cluster_rnn_r<GN, 4, WANT_C, BATCH_MAJOR>(a, max_active);
-    case 8: return cluster_rnn_r<GN, 8, WANT_C, BATCH_MAJOR>(a, max_active);
-    case 12: return cluster_rnn_r<GN, 12, WANT_C, BATCH_MAJOR>(a, max_active);
-    case 16: return cluster_rnn_r<GN, 16, WANT_C, BATCH_MAJOR>(a, max_active);
-    default: return cluster_rnn_r<GN, 20, WANT_C, BATCH_MAJOR>(a, max_active);
+    case 1: return cluster_rnn_r<GN, 1, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 2: return cluster_rnn_r<GN, 2, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 4: return cluster_rnn_r<GN, 4, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 8: return cluster_rnn_r<GN, 8, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 12: return cluster_rnn_r<GN, 12, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 16: return cluster_rnn_r<GN, 16, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    default: return cluster_rnn_r<GN, 20, WANT_C, BATCH_MAJOR, XT>(a, max_active);
   }
 }
 
 // info = {rows a cluster, clusters, shared bytes a CTA, clusters the card
 // holds at once} for a batch of B; returns the error code.
-template <int GN, bool WANT_C, bool BATCH_MAJOR>
+template <int GN, bool WANT_C, bool BATCH_MAJOR, typename XT = float>
 int cluster_info(int B, int H, int* info) {
-  RnnArgs a = {};
+  RnnArgs<XT> a = {};
   a.T = 1;
   a.B = B;
   a.H = H;
   int n = 0;
-  const cudaError_t err = cluster_rnn<GN, WANT_C, BATCH_MAJOR>(a, &n);
+  const cudaError_t err = cluster_rnn<GN, WANT_C, BATCH_MAJOR, XT>(a, &n);
   if (err != cudaSuccess) return err;
   const int R = cluster_rows(B);
   info[0] = R;

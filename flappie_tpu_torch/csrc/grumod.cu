@@ -36,7 +36,14 @@
 // no length mask.  As in lstm.cu, the same recurrence kernel under a
 // BATCH_MAJOR template flag, with lengths all equal to T.  Bound:
 // operations, 2.T.B.H.3H of f32 FMA (257.7 GFLOP at T=2560, B=256, H=256).
+//
+// K7-bf16 (flappie_grumod_layer_bf16) is K7 under the bf16 stream (--fast;
+// rnn_pallas.py:515-519, _grumod_fused_kernel:303-305, :316): x and iW in
+// bf16, the block affine on the tensor cores (affine_bf16_kernel,
+// affine.cuh) into a bf16 xa, then the same recurrence with xa widened to
+// f32 at its load and the output rounded to bf16 at its store.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "affine.cuh"
@@ -73,10 +80,29 @@ extern "C" int flappie_grumod_seq(const float* xa, const float* sW, const int* l
       {xa, sW, lengths, out, nullptr, T, B, H, 0, static_cast<cudaStream_t>(stream)});
 }
 
-// The cluster plan of K7 (variant 0) or K12 (2) for a batch of B: info =
-// {rows a cluster, clusters, shared bytes a CTA, clusters the card holds at
-// once}.  Returns the error code.
+// K7-bf16: K7 under the bf16 stream.  x [T*B, IN], iW [IN, 3H], the xa
+// scratch [T*B, 3H] and out [T, B, H] in bf16; b, sW f32.  One affine
+// launch, then one recurrence launch.  Returns the launch error code.
+extern "C" int flappie_grumod_layer_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
+                                         const float* b, const float* sW, const int* lengths,
+                                         __nv_bfloat16* xa, __nv_bfloat16* out, int T, int B,
+                                         int IN, int H, int backward, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)T * B;
+  if (M == 0) return 0;
+  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
+  const cudaError_t err = flappie::launch_affine_bf16(x, iW, b, xa, M, 3 * H, IN, st);
+  if (err != cudaSuccess) return err;
+  return flappie::cluster_rnn<3, false, false, __nv_bfloat16>(
+      {xa, sW, lengths, out, nullptr, T, B, H, backward, st});
+}
+
+// The cluster plan of K7 (variant 0), K12 (2) or K7-bf16 (3, K7's: xa never
+// enters shared memory) for a batch of B: info = {rows a cluster, clusters,
+// shared bytes a CTA, clusters the card holds at once}.  Returns the error
+// code.
 extern "C" int flappie_grumod_cluster_info(int B, int H, int variant, int* info) {
   if (variant == 2) return flappie::cluster_info<3, false, true>(B, H, info);
+  if (variant == 3) return flappie::cluster_info<3, false, false, __nv_bfloat16>(B, H, info);
   return flappie::cluster_info<3, false, false>(B, H, info);
 }

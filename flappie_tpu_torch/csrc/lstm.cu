@@ -45,7 +45,18 @@
 // are read and written in place with no transpose; lengths all equal to T
 // drop the mask.  Bound: operations, 2.T.B.H.4H of f32 FMA (343.6 GFLOP at
 // T=2560, B=256, H=256).
+//
+// K1-bf16 (flappie_lstm_layer_bf16) is K1 under the bf16 stream (--fast,
+// FLAPPIE_TPU_RNN_STREAM=bf16 in the JAX package: rnn_pallas.py:515-519
+// and _lstm_fused_body:243-245, :263): x and iW in bf16, the block affine
+// on the tensor cores (affine_bf16_kernel, affine.cuh) into a bf16 xa, then
+// the same recurrence with xa widened to f32 at its load and the output
+// rounded to bf16 at its store; state, step product and order stay f32.
+// Bound: the affine by its bytes (~0.50 ms at T=2560, B=256, IN=256)
+// plus the recurrence's f32 FMA (5.13 ms).  flappie_affine_bf16 launches
+// the affine alone, for its measurement.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "affine.cuh"
@@ -103,11 +114,38 @@ extern "C" int flappie_lstm_seq(const float* xa, const float* sW, const int* len
       {xa, sW, lengths, out, nullptr, T, B, H, 0, static_cast<cudaStream_t>(stream)});
 }
 
-// The cluster plan of K1 (variant 0), K8 (1) or K12 (2) for a batch of B:
-// info = {rows a cluster, clusters, shared bytes a CTA, clusters the card
-// holds at once}.  Returns the error code.
+// K1-bf16: K1 under the bf16 stream.  x [T*B, IN], iW [IN, 4H], the xa
+// scratch [T*B, 4H] and out [T, B, H] in bf16; b, sW f32.  One affine
+// launch, then one recurrence launch.  Returns the launch error code.
+extern "C" int flappie_lstm_layer_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
+                                       const float* b, const float* sW, const int* lengths,
+                                       __nv_bfloat16* xa, __nv_bfloat16* out, int T, int B,
+                                       int IN, int H, int backward, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)T * B;
+  if (M == 0) return 0;
+  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
+  const cudaError_t err = flappie::launch_affine_bf16(x, iW, b, xa, M, 4 * H, IN, st);
+  if (err != cudaSuccess) return err;
+  return flappie::cluster_rnn<4, false, false, __nv_bfloat16>(
+      {xa, sW, lengths, out, nullptr, T, B, H, backward, st});
+}
+
+// The bf16 affine alone: xa [M, N] = bf16(x [M, K] . iW [K, N] + b [N]).
+// Returns the launch error code.
+extern "C" int flappie_affine_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
+                                   const float* b, __nv_bfloat16* xa, long M, int N, int K,
+                                   void* stream) {
+  return flappie::launch_affine_bf16(x, iW, b, xa, M, N, K, static_cast<cudaStream_t>(stream));
+}
+
+// The cluster plan of K1 (variant 0), K8 (1), K12 (2) or K1-bf16 (3) for a
+// batch of B: info = {rows a cluster, clusters, shared bytes a CTA,
+// clusters the card holds at once}; K1-bf16's is K1's, as xa never enters
+// shared memory.  Returns the error code.
 extern "C" int flappie_lstm_cluster_info(int B, int H, int variant, int* info) {
   if (variant == 1) return flappie::cluster_info<4, true, false>(B, H, info);
   if (variant == 2) return flappie::cluster_info<4, false, true>(B, H, info);
+  if (variant == 3) return flappie::cluster_info<4, false, false, __nv_bfloat16>(B, H, info);
   return flappie::cluster_info<4, false, false>(B, H, info);
 }

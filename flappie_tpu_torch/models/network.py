@@ -28,6 +28,14 @@ backward layers, the recurrence alone (K12: ``lstm_seq_cuda`` /
 ``grumod_seq_cuda``; ``gru_seq`` / ``gru_relu_seq``, plain time loops
 as JAX's are scans), reversal back, the residual add, tail mask.
 
+The bf16 stream (``stream=torch.bfloat16``, the CLIs' ``--fast``;
+``None`` reads FLAPPIE_TPU_RNN_STREAM, ops/precision.py): the fused stack
+casts its input to bf16 before layer 1, each layer (K1-bf16, K7-bf16)
+hands the next its bf16 output, and the result is cast back to f32 for
+the head (flappie_tpu/models/network.py:171-172).  The layer-by-layer
+stack ignores the stream, as the JAX package's does; training under it
+raises.
+
 ``train=True`` is the differentiable path (the JAX package's
 ``rnn_impl="train"``): the layers go through ops/rnn_vjp.py (K8 for
 LSTM, K7 for GRU-mod, each with its adjoint) and the head's logZ through
@@ -45,6 +53,7 @@ from ..ops.activations import ACTIVATIONS
 from ..ops.conv import conv1d_same, conv1d_same_ct, conv1d_strided_ct
 from ..ops.conv_cuda import conv12_fused
 from ..ops.heads import globalnorm_flipflop, globalnorm_runlength, globalnorm_runlengthV2
+from ..ops import precision
 from ..ops.masking import mask_tail, reverse_sequence
 from ..ops.rnn import affine, gru_relu_seq, gru_seq
 from ..ops.rnn_cuda import grumod_layer_tm, grumod_seq_cuda, lstm_layer_tm, lstm_seq_cuda
@@ -163,16 +172,38 @@ def conv_stack(params, cfg: ModelConfig, x, lengths):
     return x, lengths
 
 
-def rnn_stack_tm(params, cfg: ModelConfig, x, lengths, train: bool = False):
+def rnn_stack_tm(params, cfg: ModelConfig, x, lengths, train: bool = False,
+                 stream=torch.float32):
     """[B, T, C] -> [B, T, H]: one fused kernel per layer, time-major
-    in between (one transpose in, one out)."""
+    in between (one transpose in, one out).  ``stream`` bf16: the input
+    cast to bf16 before layer 1, the layers' bf16 outputs passed on, the
+    result cast back to f32."""
+    if train and stream == torch.bfloat16:
+        raise ValueError("rnn_stack_tm: training under the bf16 stream is not ported "
+                         "(ROADMAP item 17's remainder)")
     layers = LAYERS_AD if train else LAYERS
     x_tm = x.transpose(0, 1).contiguous()
+    if stream == torch.bfloat16:
+        x_tm = x_tm.to(stream)
     for i, r in enumerate(cfg.rnns):
         p = params[f"rnn{i}"]
         x_tm = layers[r.kind](x_tm, p["iW"], p["b"], p["sW"],
                               backward=r.backward, lengths=lengths)
-    return x_tm.transpose(0, 1)
+    return x_tm.transpose(0, 1).to(torch.float32)
+
+
+def stream_params(params, cfg: ModelConfig, stream, rnn_impl: str = "auto"):
+    """``params`` with each fused layer's iW rounded to bf16 once, when
+    the bf16 stream runs the fused stack (else ``params`` itself), so
+    that no call rounds it again."""
+    if precision.check_stream(stream) != torch.bfloat16 or not (
+            rnn_impl == "auto" and fused(cfg)):
+        return params
+    out = dict(params)
+    for i in range(len(cfg.rnns)):
+        out[f"rnn{i}"] = {**params[f"rnn{i}"],
+                          "iW": params[f"rnn{i}"]["iW"].to(torch.bfloat16)}
+    return out
 
 
 def rnn_stack(params, cfg: ModelConfig, x, lengths):
@@ -202,7 +233,8 @@ def rnn_stack(params, cfg: ModelConfig, x, lengths):
 
 
 def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
-                return_norm: bool = False, train: bool = False, rnn_impl: str = "auto"):
+                return_norm: bool = False, train: bool = False, rnn_impl: str = "auto",
+                stream=None):
     """signal: [B, T] or [B, T, 1] normalised signal (zero-padded),
     lengths: [B] int32 valid sample counts.
 
@@ -215,8 +247,16 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     ``"auto"`` the fused layer kernels where the stack allows them
     (``fused``) and the layer-by-layer stack elsewhere, ``"scan"`` the
     layer-by-layer stack always (inference only: K12 has no adjoint).
+    ``stream``: the fused stack's stream dtype, torch.float32 or
+    torch.bfloat16 (None: FLAPPIE_TPU_RNN_STREAM); the layer-by-layer
+    stack ignores it; ``train`` under bf16 raises.  The precision levels
+    (ops/precision.py) are resolved for the signal's device, which raises
+    for ``default`` on the card.
     """
     check_supported(cfg, rnn_impl)
+    stream = precision.check_stream(stream)
+    precision.ff_precision(signal.device)
+    precision.rnn_precision(signal.device)
     if cfg.head != "flipflop" and (return_norm or train):
         raise ValueError("transitions: return_norm and train need the flip-flop head")
     if train and not (rnn_impl == "auto" and fused(cfg)):
@@ -230,7 +270,7 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     signal = mask_tail(signal, lengths)
     x, nblocks = conv_stack(params, cfg, signal, lengths)
     if rnn_impl == "auto" and fused(cfg):
-        x = rnn_stack_tm(params, cfg, x, nblocks, train)
+        x = rnn_stack_tm(params, cfg, x, nblocks, train, stream)
     else:
         x = rnn_stack(params, cfg, x, nblocks)
     W, b = params["ff"]["W"], params["ff"]["b"]

@@ -24,10 +24,22 @@ Every recurrence runs csrc/cluster_rnn.cuh: clusters of 8 CTAs, each
 holding an eighth of sW in shared memory, R rows a cluster
 (``_cluster_plan``); H must be a multiple of 16 and at most 256.
 
+The bf16 stream (``--fast``; ops/precision.py): an ``x_tm`` in bf16
+selects K1-bf16 / K7-bf16 (``lstm_layer_tm_bf16``,
+``grumod_layer_tm_bf16``), the counterpart of rnn_pallas.py's fused
+kernels under FLAPPIE_TPU_RNN_STREAM=bf16 (:515-519): x and iW in bf16,
+the block affine as a bf16 product with f32 accumulation plus the f32
+bias, rounded to a bf16 xa (``affine_bf16``, a tensor-core kernel in
+csrc/affine.cuh); the steps in f32 on xa widened to f32, the state and
+the step product f32; only the stored output rounded to bf16, which the
+next layer takes as it is.  K8 and K12 keep f32 and raise on bf16
+(training under the stream is ROADMAP item 17's remainder).
+
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor; any other device raises.  The recurrent
 product is true f32 (the TPU's bf16x3 split is not the parity tier).
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches; a bf16 layer's C entry
+launches the affine too, which its wrapper counts on ``affine_bf16``.
 """
 
 from __future__ import annotations
@@ -40,16 +52,36 @@ from . import cuda_build
 from .rnn import grumod_seq, grumod_step, lstm_seq, lstm_step
 
 
+_NO_TRAIN = ("training under the bf16 stream is not ported (ROADMAP item 17's remainder): "
+             "{} takes float32")
+
+
+def affine_bf16_plain(x, iW, b):
+    """bf16(x . iW + b): x [..., K] and iW [K, N] rounded to bf16, the
+    product and the bias in f32, one round to bf16 -> [..., N] bf16."""
+    bf = torch.bfloat16
+    return (torch.matmul(x.to(bf).float(), iW.to(bf).float()) + b).to(bf)
+
+
+def _xa_plain(x_tm, iW, b):
+    """(the block affine [T, B, G], the dtype of the steps): x's dtype,
+    or under the bf16 stream the bf16 xa (affine_bf16_plain) widened to
+    f32 and f32 steps."""
+    if x_tm.dtype == torch.bfloat16:
+        return affine_bf16_plain(x_tm, iW, b).float(), torch.float32
+    return torch.matmul(x_tm, iW) + b, x_tm.dtype
+
+
 def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool):
     T, B, _ = x_tm.shape
     H = sW.shape[0]
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
-    xa = torch.matmul(x_tm, iW) + b  # [T, B, 4H]
-    h = x_tm.new_zeros(B, H)
-    c = x_tm.new_zeros(B, H)
-    out = x_tm.new_empty(T, B, H)
-    cout = x_tm.new_empty(T, B, H) if want_c else None
+    xa, dt = _xa_plain(x_tm, iW, b)  # [T, B, 4H]
+    h = x_tm.new_zeros(B, H, dtype=dt)
+    c = x_tm.new_zeros(B, H, dtype=dt)
+    out = x_tm.new_empty(T, B, H, dtype=dt)
+    cout = x_tm.new_empty(T, B, H, dtype=dt) if want_c else None
     for t in (range(T - 1, -1, -1) if backward else range(T)):
         h2, c2 = lstm_step(xa[t], h, c, sW)
         valid = (t < lengths)[:, None]
@@ -58,11 +90,12 @@ def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool):
             cout[t] = torch.where(valid, c2, torch.zeros_like(c2))
         h = torch.where(valid, h2, h)
         c = torch.where(valid, c2, c)
-    return (out, cout) if want_c else out
+    return (out, cout) if want_c else out.to(x_tm.dtype)
 
 
 def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
-    """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math)."""
+    """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math); an
+    x_tm in bf16 runs the bf16 stream and returns bf16."""
     return _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c=False)
 
 
@@ -73,20 +106,21 @@ def lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward: bool = False, lengths=N
 
 
 def grumod_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
-    """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math)."""
+    """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math); an
+    x_tm in bf16 runs the bf16 stream and returns bf16."""
     T, B, _ = x_tm.shape
     H = sW.shape[0]
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
-    xa = torch.matmul(x_tm, iW) + b  # [T, B, 3H]
-    h = x_tm.new_zeros(B, H)
-    out = x_tm.new_empty(T, B, H)
+    xa, dt = _xa_plain(x_tm, iW, b)  # [T, B, 3H]
+    h = x_tm.new_zeros(B, H, dtype=dt)
+    out = x_tm.new_empty(T, B, H, dtype=dt)
     for t in (range(T - 1, -1, -1) if backward else range(T)):
         h2 = grumod_step(xa[t], h, sW)
         valid = (t < lengths)[:, None]
         out[t] = torch.where(valid, h2, torch.zeros_like(h2))
         h = torch.where(valid, h2, h)
-    return out
+    return out.to(x_tm.dtype)
 
 
 # csrc/cluster_rnn.cuh: CTAs a cluster, k slices a gate column, the
@@ -113,7 +147,8 @@ def _cluster_plan(B: int, H: int, gates: int):
 
 # variant of each kernel in its source's <source>_cluster_info entry
 _INFO = {"lstm_layer": ("lstm", 0), "lstm_layer_train": ("lstm", 1), "lstm_seq": ("lstm", 2),
-         "grumod_layer": ("grumod", 0), "grumod_seq": ("grumod", 2)}
+         "lstm_layer_bf16": ("lstm", 3), "grumod_layer": ("grumod", 0),
+         "grumod_seq": ("grumod", 2), "grumod_layer_bf16": ("grumod", 3)}
 
 
 def cluster_info(kind: str, B: int, H: int = 256) -> dict:
@@ -141,7 +176,11 @@ def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths
                   want_c: bool = False):
     """Checks shared by the fused-layer wrappers, then one launch of the
     C entry point ``entry`` of ``csrc/<source>.cu``; with ``want_c`` it
-    also passes (and returns) the cell-state output."""
+    also passes (and returns) the cell-state output.  The stream is x's
+    dtype: float32, or bfloat16 (the bf16 entries), where iW may arrive
+    in f32 and is cast (plain torch, as the JAX package casts it outside
+    its kernel) and the xa scratch and the output are bf16; b and sW are
+    float32 either way."""
     T, B, IN = x_tm.shape
     H = sW.shape[0]
     G = gates * H
@@ -149,17 +188,23 @@ def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths
         raise ValueError(f"{what}: bad weight shapes {tuple(iW.shape)}, "
                          f"{tuple(b.shape)}, {tuple(sW.shape)} for IN={IN}, H={H}")
     _cluster_plan(B, H, gates)
-    for name, t in (("x", x_tm), ("iW", iW), ("b", b), ("sW", sW)):
-        if t.dtype != torch.float32 or t.device != x_tm.device:
-            raise ValueError(f"{what}: {name} must be float32 on {x_tm.device}")
+    xdt = x_tm.dtype
+    if xdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: x must be float32 or bfloat16, got {xdt}")
+    if xdt == torch.bfloat16 and iW.dtype == torch.float32:
+        iW = iW.to(xdt)
+    for name, t, dt in (("x", x_tm, xdt), ("iW", iW, xdt), ("b", b, torch.float32),
+                        ("sW", sW, torch.float32)):
+        if t.dtype != dt or t.device != x_tm.device:
+            raise ValueError(f"{what}: {name} must be {dt} on {x_tm.device}")
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
     x_tm, iW, b, sW = (t.contiguous() for t in (x_tm, iW, b, sW))
     lengths = lengths.to(device=x_tm.device, dtype=torch.int32).contiguous()
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"{what}: lengths must be [{B}]")
-    xa = torch.empty(T * B, G, dtype=torch.float32, device=x_tm.device)
-    outs = [torch.empty(T, B, H, dtype=torch.float32, device=x_tm.device)
+    xa = torch.empty(T * B, G, dtype=xdt, device=x_tm.device)
+    outs = [torch.empty(T, B, H, dtype=xdt, device=x_tm.device)
             for _ in range(2 if want_c else 1)]
     lib, fn = _lib(source, entry, len(outs))
     rc = fn(cuda_build.ptr(x_tm), cuda_build.ptr(iW), cuda_build.ptr(b),
@@ -172,7 +217,10 @@ def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths
 
 def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """Fused input affine + LSTM recurrence, time-major [T, B, IN] ->
-    [T, B, H]; ``lengths`` [B] int32 (default: all T)."""
+    [T, B, H]; ``lengths`` [B] int32 (default: all T).  An x_tm in bf16
+    runs the bf16 stream (``lstm_layer_tm_bf16``) and returns bf16."""
+    if x_tm.dtype == torch.bfloat16:
+        return lstm_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type == "cpu":
         return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type != "cuda":
@@ -186,10 +234,36 @@ def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
 lstm_layer_tm.launches = 0
 
 
+def _need_bf16(what, x):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: x must be bfloat16 (the bf16 stream), got {x.dtype}")
+
+
+def lstm_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K1-bf16: ``lstm_layer_tm`` under the bf16 stream.  x_tm [T, B, IN]
+    bf16, iW bf16 or f32, b and sW f32 -> [T, B, H] bf16."""
+    _need_bf16("lstm_layer_tm_bf16", x_tm)
+    if x_tm.device.type == "cpu":
+        return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.device.type != "cuda":
+        raise ValueError(f"lstm_layer_tm_bf16: unsupported device {x_tm.device}")
+    out = _launch_layer("lstm_layer_tm_bf16", "lstm", "flappie_lstm_layer_bf16", 4,
+                        x_tm, iW, b, sW, backward, lengths)
+    lstm_layer_tm_bf16.launches += 1
+    affine_bf16.launches += 1
+    return out
+
+
+lstm_layer_tm_bf16.launches = 0
+
+
 def lstm_layer_tm_train(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K8: ``lstm_layer_tm`` that also returns the carried cell state,
     (h [T, B, H], c [T, B, H]), both 0 at invalid steps; h is K1's h bit
-    for bit.  The forward of the training path (ops/rnn_vjp.py)."""
+    for bit.  The forward of the training path (ops/rnn_vjp.py); float32
+    only."""
+    if x_tm.dtype == torch.bfloat16:
+        raise ValueError(_NO_TRAIN.format("lstm_layer_tm_train (K8)"))
     if x_tm.device.type == "cpu":
         return lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type != "cuda":
@@ -205,7 +279,10 @@ lstm_layer_tm_train.launches = 0
 
 def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """Fused input affine + GRU-mod recurrence, time-major [T, B, IN] ->
-    [T, B, H]; ``lengths`` [B] int32 (default: all T)."""
+    [T, B, H]; ``lengths`` [B] int32 (default: all T).  An x_tm in bf16
+    runs the bf16 stream (``grumod_layer_tm_bf16``) and returns bf16."""
+    if x_tm.dtype == torch.bfloat16:
+        return grumod_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type == "cpu":
         return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
     if x_tm.device.type != "cuda":
@@ -217,6 +294,61 @@ def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
 
 
 grumod_layer_tm.launches = 0
+
+
+def grumod_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K7-bf16: ``grumod_layer_tm`` under the bf16 stream.  x_tm
+    [T, B, IN] bf16, iW bf16 or f32, b and sW f32 -> [T, B, H] bf16."""
+    _need_bf16("grumod_layer_tm_bf16", x_tm)
+    if x_tm.device.type == "cpu":
+        return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.device.type != "cuda":
+        raise ValueError(f"grumod_layer_tm_bf16: unsupported device {x_tm.device}")
+    out = _launch_layer("grumod_layer_tm_bf16", "grumod", "flappie_grumod_layer_bf16", 3,
+                        x_tm, iW, b, sW, backward, lengths)
+    grumod_layer_tm_bf16.launches += 1
+    affine_bf16.launches += 1
+    return out
+
+
+grumod_layer_tm_bf16.launches = 0
+
+
+def affine_bf16(x, iW, b):
+    """The bf16 affine of K1-bf16 and K7-bf16 alone (csrc/affine.cuh, on
+    the tensor cores): x [M, K] and iW [K, N] bf16, b [N] f32 ->
+    bf16(x . iW + b) [M, N].  ``affine_bf16.launches`` also counts the
+    affines the bf16 layers launch."""
+    if x.device.type == "cpu":
+        return affine_bf16_plain(x, iW, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"affine_bf16: unsupported device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"affine_bf16: x must be [M, K], got {tuple(x.shape)}")
+    M, K = x.shape
+    N = iW.shape[-1]
+    if tuple(iW.shape) != (K, N) or tuple(b.shape) != (N,):
+        raise ValueError(f"affine_bf16: bad shapes iW {tuple(iW.shape)}, b {tuple(b.shape)} "
+                         f"for K={K}")
+    for name, t, dt in (("x", x, torch.bfloat16), ("iW", iW, torch.bfloat16),
+                        ("b", b, torch.float32)):
+        if t.dtype != dt or t.device != x.device:
+            raise ValueError(f"affine_bf16: {name} must be {dt} on {x.device}")
+    x, iW, b = x.contiguous(), iW.contiguous(), b.contiguous()
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    lib = cuda_build.load("lstm")
+    fn = lib.flappie_affine_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(*(cuda_build.ptr(t) for t in (x, iW, b, out)), M, N, K, cuda_build.stream_of(x))
+    cuda_build.check(lib, rc, "affine_bf16")
+    affine_bf16.launches += 1
+    return out
+
+
+affine_bf16.launches = 0
 
 
 def _launch_seq(what, source, entry, gates, xaffine, sW):
@@ -249,7 +381,10 @@ def _launch_seq(what, source, entry, gates, xaffine, sW):
 
 def lstm_seq_cuda(xaffine, sW):
     """K12: LSTM recurrence over xaffine [B, T, 4H] (= x iW + b), sW
-    [H, 4H] -> [B, T, H]; ops/rnn.py ``lstm_seq`` for a CPU tensor."""
+    [H, 4H] -> [B, T, H]; ops/rnn.py ``lstm_seq`` for a CPU tensor.
+    float32 only."""
+    if xaffine.dtype == torch.bfloat16:
+        raise ValueError(_NO_TRAIN.format("lstm_seq_cuda (K12)"))
     if xaffine.device.type == "cpu":
         return lstm_seq(xaffine, sW)
     if xaffine.device.type != "cuda":
@@ -264,7 +399,9 @@ lstm_seq_cuda.launches = 0
 
 def grumod_seq_cuda(xaffine, sW):
     """K12: GRU-mod recurrence over xaffine [B, T, 3H], sW [H, 3H] ->
-    [B, T, H]; ops/rnn.py ``grumod_seq`` for a CPU tensor."""
+    [B, T, H]; ops/rnn.py ``grumod_seq`` for a CPU tensor.  float32 only."""
+    if xaffine.dtype == torch.bfloat16:
+        raise ValueError(_NO_TRAIN.format("grumod_seq_cuda (K12)"))
     if xaffine.device.type == "cpu":
         return grumod_seq(xaffine, sW)
     if xaffine.device.type != "cuda":

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import pytest
 
-from flappie_tpu_torch.ops.rnn_cuda import _cluster_plan
+from flappie_tpu_torch.ops.rnn_cuda import _INFO, _cluster_plan
 
 SMEM_PER_CTA = 232_448  # 227 KB: the most shared memory one block may use
 
@@ -57,3 +57,14 @@ def test_sw_slice_sizes_at_full_width():
 def test_refuses_unsupported_h(H):
     with pytest.raises(ValueError, match="H % 16 == 0 and H <= 256"):
         _cluster_plan(8, H, 4)
+
+
+@pytest.mark.parametrize("kind,twin", [("lstm_layer_bf16", "lstm_layer"),
+                                       ("grumod_layer_bf16", "grumod_layer")])
+def test_bf16_layers_are_variant_3_of_their_sources(kind, twin):
+    """K1-bf16 and K7-bf16 ask their source's cluster_info for variant 3,
+    whose plan is the f32 layer's (the stream type changes neither the
+    rows nor the shared memory: xa and out never enter it); the card
+    holds the two equal (test_torch_cuda.py)."""
+    assert _INFO[kind] == (_INFO[twin][0], 3)
+    assert len({v for v in _INFO.values()}) == len(_INFO)

@@ -29,7 +29,18 @@ its max |value|.  K10 (fused conv 1->4->16) within 1e-5 of its plain
 version and zero past every length at the edges of each channel-group
 plan's tile, below the halo and with T % 4 != 0, its autograd Function's
 gradients within 1e-5 of max |grad|, its grid held to ``_conv12_plan``;
-K12 (the recurrences alone, batch-major) within 1e-4.
+K12 (the recurrences alone, batch-major) within 1e-4.  The bf16 stream
+(--fast): the tensor-core bf16 affine within one bf16 ulp of its plain
+version (f32 product, one rounding; the sums differ in order only),
+except where the f32 sum cancels to below the error of summing its K
+products in another order (K 2^-23 sum_k |x_k w_k|), which one bf16 ulp
+of the near-zero result cannot hold; at K and N off the 8-element grid
+and rows off the 128-row tile too;
+K1-bf16 and K7-bf16 within 1e-2 of their plain versions (one bf16 ulp of
+an output of |h| <= 1 is 2^-8; an ulp of xa moves a step's gates by
+about as much, and the state carries it) at every rows-a-cluster
+instantiation, bf16 out, and their cluster plan (variant 3) the f32
+layers'.
 """
 
 from __future__ import annotations
@@ -544,3 +555,80 @@ def test_kernels_refuse_other_state_counts(cuda):
             crf_cuda.fwd_scan(bt, v)
         with pytest.raises(ValueError, match="compiled for S"):
             crf_cuda.viterbi_scan(bt, v, rank)
+
+
+def bf16_ulps(got, want):
+    """Elementwise distance in bf16 ulps: the bit patterns mapped onto
+    an ordered integer line (+0 and -0 both 0)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+# (M, K, N) of the bf16 affine: the CPU-test widths (K = 8-32), K and N
+# off the 8-element grid, rows off the 128-row tile, and a layer's shape
+AFFINE_SHAPES = [(37, 8, 64), (300, 12, 40), (129, 32, 48), (1000, 96, 1024),
+                 (4096, 256, 768), (5000, 256, 1024)]
+
+
+@pytest.mark.parametrize("M,K,N", AFFINE_SHAPES)
+def test_affine_bf16_kernel_matches_plain(cuda, M, K, N):
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = _rnd(gen, M, K).to(torch.bfloat16).to(cuda)
+    iW = _rnd(gen, K, N, scale=K ** -0.5).to(torch.bfloat16).to(cuda)
+    b = _rnd(gen, N, scale=0.2).to(cuda)
+    before = rnn_cuda.affine_bf16.launches
+    got = rnn_cuda.affine_bf16(x, iW, b)
+    assert rnn_cuda.affine_bf16.launches == before + 1
+    want = rnn_cuda.affine_bf16_plain(x, iW, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    noise = (x.float().abs() @ iW.float().abs()) * (K * 2.0 ** -23)
+    delta = (got.float() - want.float()).abs()
+    assert ((bf16_ulps(got, want) <= 1) | (delta <= noise)).all()
+
+
+def _bf16_layer_args(cuda, gen, kind, B, T, IN, H):
+    gates = 4 if kind == "lstm" else 3
+    lengths = _lengths(gen, B, T)
+    x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
+    b = _rnd(gen, gates * H, scale=0.2)
+    if kind == "grumod":
+        b[2 * H :] += 0.75
+    args = [x.to(torch.bfloat16), _rnd(gen, IN, gates * H, scale=IN ** -0.5), b,
+            _rnd(gen, H, gates * H, scale=H ** -0.5)]
+    return [t.to(cuda) for t in args], lengths.to(cuda)
+
+
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("kind", ["lstm", "grumod"])
+def test_bf16_layer_kernel_matches_plain(cuda, kind, B, T, IN, H, backward):
+    """K1-bf16 / K7-bf16 through lstm_layer_tm / grumod_layer_tm on a bf16
+    x: its own counter (and the affine's), none of the f32 layer's."""
+    gen = torch.Generator().manual_seed(B * T + H + 7)
+    args, lengths = _bf16_layer_args(cuda, gen, kind, B, T, IN, H)
+    fn = {"lstm": rnn_cuda.lstm_layer_tm, "grumod": rnn_cuda.grumod_layer_tm}[kind]
+    counter = {"lstm": rnn_cuda.lstm_layer_tm_bf16, "grumod": rnn_cuda.grumod_layer_tm_bf16}[kind]
+    before = (fn.launches, counter.launches, rnn_cuda.affine_bf16.launches)
+    got = fn(*args, backward=backward, lengths=lengths)
+    assert (fn.launches, counter.launches, rnn_cuda.affine_bf16.launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    plain = {"lstm": rnn_cuda.lstm_layer_tm_plain, "grumod": rnn_cuda.grumod_layer_tm_plain}
+    want = plain[kind](*args, backward=backward, lengths=lengths)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2
+    dead = (torch.arange(T, device=cuda)[:, None] >= lengths[None, :])
+    assert not got.float()[dead].any()
+
+
+@pytest.mark.parametrize("kind,twin", [("lstm_layer_bf16", "lstm_layer"),
+                                       ("grumod_layer_bf16", "grumod_layer")])
+def test_bf16_layer_cluster_info_is_the_f32_layers(cuda, kind, twin):
+    """Variant 3 of the C side's cluster_info: xa never enters shared
+    memory, so the plan (and the clusters the card holds) is K1's / K7's."""
+    for B in (1, 16, 32, 100, 150, 240, 256):
+        assert rnn_cuda.cluster_info(kind, B) == rnn_cuda.cluster_info(twin, B)

@@ -130,9 +130,10 @@ def test_cli_fault_isolation_and_refusals(reads, tmp_path, capsys):
                 tmp_path / "o.fq")
     assert text.startswith("@read-0") and text.count("@read-") == 1
     assert f"No basecall returned for {bad}" in capsys.readouterr().err
-    for flag in (["--fast"], ["--mesh", "2"]):  # --trace: test_torch_trace.py
-        with pytest.raises(SystemExit):
-            port_main([str(reads), "--device", "cpu"] + flag)
+    # --mesh is not ported (--trace: test_torch_trace.py; --fast:
+    # test_torch_fast.py)
+    with pytest.raises(SystemExit):
+        port_main([str(reads), "--device", "cpu", "--mesh", "2"])
 
 
 ISOLATION = r"""

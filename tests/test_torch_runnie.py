@@ -186,6 +186,13 @@ def test_decode_runnie_matches_jax(tmp_path, args, capsys):
     assert ours.err == theirs.err == "No basecall returned for empty-read\n"
 
 
-def test_runnie_cli_refuses_fast(reads):
-    with pytest.raises(SystemExit):
-        t_runnie_main([str(reads), "--fast", "--device", "cpu"])
+def test_runnie_cli_refuses_fast(reads, tmp_path, capsys):
+    """--fast was refused until the bf16 stream was ported; it now runs
+    (its records are held in test_torch_fast.py): one record a called
+    read, the read that trims away reported as without a basecall, as
+    in the exact run."""
+    out = tmp_path / "fast.run"
+    assert t_runnie_main([str(reads), "--fast", "--device", "cpu", "-o", str(out)]) == 0
+    text = out.read_text()
+    assert text.count("# rread-") == 2 and "rread-2" not in text
+    assert "No basecall returned" in capsys.readouterr().err

@@ -254,14 +254,15 @@ def test_cli_multi_and_qcal_match_jax(data, tmp_path, monkeypatch, case):
 
 
 def test_cli_refusals_and_malformed_qcal(data, capsys):
-    """--fast and --mesh still refuse (--trace is ported:
-    test_torch_trace.py); a malformed --qcal is a usage error before any
-    file is read, as in the JAX CLI."""
-    for flag in (["--fast"], ["--mesh", "2"]):
-        with pytest.raises(SystemExit):
-            p_flappie.main([data.run1, "--device", "cpu"] + flag)
+    """--mesh still refuses (--trace and --fast are ported:
+    test_torch_trace.py, test_torch_fast.py); a malformed --qcal is a
+    usage error before any file is read, as in the JAX CLI, --fast or
+    not."""
+    with pytest.raises(SystemExit):
+        p_flappie.main([data.run1, "--device", "cpu", "--mesh", "2"])
     capsys.readouterr()
-    for main, extra in ((j_flappie.main, []), (p_flappie.main, ["--device", "cpu"])):
+    for main, extra in ((j_flappie.main, []), (p_flappie.main, ["--device", "cpu"]),
+                        (p_flappie.main, ["--device", "cpu", "--fast"])):
         with pytest.raises(SystemExit) as exc:
             main(["--qcal", "1.5", "/does/not/exist.fast5"] + extra)
         assert exc.value.code == 2
