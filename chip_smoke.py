@@ -19,7 +19,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    K11's: steps a segment, rounds, clusters of CTAs, shared bytes;
    flappie_crf_traceback_info and flappie_crf_bt_traceback_info held to
    _tb_plan and _tb_bt_plan) with cudaOccupancyMaxActiveClusters, every
-   cluster resident at T=2560, B=256 and T=13,108, B=24.  Beside the path's build, and at
+   cluster resident at T=2560, B=256 and T=13,108, B=24, and both
+   affines' plans (path, tile, k step, stages, shared bytes, CTAs, tiles;
+   flappie_affine_info held to ops/rnn_cuda.py's _affine_plan at the
+   model shapes and the edges).  Beside the path's build, and at
    the same time, the other builds (VARIANTS): crf_scan.cu with
    -DSCAN_WARPS=1, 2, 4, crf_bt.cu with -DBT_WARPS=1, 2, 4, and conv12.cu
    with -DCONV12_PERSIST=0, -DCONV12_BULK=0 and -DCONV12_FAST_SWISH=0.
@@ -67,14 +70,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    call on the packed ragged batch (for K8 its training-mode forward);
    for K10 two cuDNN F.conv1d calls with swish and the masks between
    them; for K12 one nn.LSTM / nn.GRU with weight_ih the identity.
-   The bf16 stream (--fast): the tensor-core bf16 affine alone at M =
-   655,360 (T=2560 x B=256), IN=256, G=1024 and G=768, every element
+   The f32 affine alone (csrc/affine.cuh affine_kernel, the one inside
+   K1, K7 and K8) at M = 655,360, IN=256, G=1024 and G=768, TF32 off,
+   every element within f32 reassociation of torch.matmul + b (K 2^-23
+   sum |x w| and one rounding), timed over 10 runs alternated with
+   torch.addmm in f32 (its library time), with its bound (operations:
+   5.13 ms at G=1024) and ptxas's registers and spills.
+   The bf16 stream (--fast): the tensor-core bf16 affine alone (wgmma on
+   TMA tiles) at M = 655,360 (T=2560 x B=256), IN=256, G=1024 and G=768,
+   and at runnie's M (13,108 x 24), G=1024, every element
    within one bf16 ulp of its plain version (f32 product, TF32 off, one
    rounding) except where the f32 sum cancels below the error of its K
    products summed in another order, the elements that differ counted,
    timed over 10 runs alternated with torch.addmm in bf16 (its library
    time), its bound (bytes: ~0.50 ms at G=1024) and ptxas's registers and
-   spills; K1-bf16 and K7-bf16 (T=2560, B=256, IN=H=256, both directions,
+   spills; its wmma path (shapes off the TMA grid) at (300, 12, 40) by the
+   same rule, each on its own launch counter; K1-bf16 and K7-bf16 (T=2560, B=256, IN=H=256, both directions,
    ragged lengths including 0 and T; K1-bf16 also at T=13,108, B=24)
    within 1e-2 of their plain bf16 versions (the bit-equal share logged)
    and inside the JAX package's band for the stream against the f32
@@ -109,7 +120,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the fb decode's near ties) and the heaviest program's transitions
    under both convs within 1e-4.  Every CLI run sets the three knobs
    (their defaults unless the run is a knob's); every launch counter is zeroed just before each
-   run and read just after and must equal the count the reads imply; one
+   run and read just after and must equal the count the reads imply (an
+   f32 layer's affine counts on affine_f32 beside its layer; no run takes
+   the bf16 affine's wmma path); one
    FASTQ or .run record per read; 4 reads of each model held against
    the port's own CPU path (FASTQ: identity >= 99.5%, |score delta| <=
    1e-4; .run: the rule above); runnie's heaviest program (bucket 65536,
@@ -215,7 +228,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Imports nothing of JAX or of the JAX package.  Writes only under build/
 in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
-run takes ~400 s of command time on an H100 80GB HBM3 at 700 W; it
+run takes ~450 s of command time on an H100 80GB HBM3 at 700 W; it
 should stay well inside its 1200 s limit (aim: half of it).
 """
 
@@ -1374,26 +1387,36 @@ def affine_agreement(torch, got, want, x, iW, what: str) -> dict:
 AFFINE_SHAPE = (2560 * 256, 256)
 
 
+def path_launches(rnn_cuda) -> tuple:
+    """(wgmma, wmma) launch counts of the bf16 affine."""
+    return rnn_cuda.affine_bf16.launches, rnn_cuda.affine_bf16_wmma.launches
+
+
 def check_affine_bf16(torch, peak: dict, gen) -> dict:
     """The bf16 affine alone (csrc/affine.cuh) at M = 655,360, IN=256,
-    G=1024 (LSTM) and G=768 (GRU-mod): held to its plain version
-    (affine_agreement, TF32 off), timed over 10 runs alternated with one
-    library call, torch.addmm in bf16 (cuBLAS; its bias rounded to bf16
-    first); logged with its bound and ptxas's registers and spills.
-    Returns the G=1024 row."""
+    G=1024 (LSTM) and G=768 (GRU-mod), and at runnie's M (13,108 x 24),
+    G=1024, on the wgmma path: held to its plain version (affine_agreement,
+    TF32 off), timed over 10 runs alternated with one library call,
+    torch.addmm in bf16 (cuBLAS; its bias rounded to bf16 first); logged
+    with its bound and ptxas's registers and spills of both paths; the
+    wmma path at (300, 12, 40) held by the same rule.  Each
+    launch lands on its path's counter.  Returns the G=1024 row."""
     from flappie_tpu_torch.ops import cuda_build, rnn_cuda
 
     dev = torch.device("cuda")
-    M, K = AFFINE_SHAPE
-    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    K = AFFINE_SHAPE[1]
     out = None
-    for G in (1024, 768):
+    for M, G in ((AFFINE_SHAPE[0], 1024), (AFFINE_SHAPE[0], 768), (13_108 * 24, 1024)):
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
         iW = (torch.randn(K, G, generator=gen, device=dev) / K ** 0.5).to(torch.bfloat16)
         b = torch.randn(G, generator=gen, device=dev) * 0.2
         b16 = b.to(torch.bfloat16)
+        before = path_launches(rnn_cuda)
         got = rnn_cuda.affine_bf16(x, iW, b)
+        if path_launches(rnn_cuda) != (before[0] + 1, before[1]):
+            raise AssertionError(f"affine_bf16 at M={M}, G={G} did not take the wgmma path")
         want = rnn_cuda.affine_bf16_plain(x, iW, b)
-        stats = affine_agreement(torch, got, want, x, iW, f"affine_bf16 at G={G}")
+        stats = affine_agreement(torch, got, want, x, iW, f"affine_bf16 at M={M}, G={G}")
         lib_err = (torch.addmm(b16, x, iW).float() - want.float()).abs().max().item()
         del got, want
         times = alternated_ms(torch, {"kernel": lambda: rnn_cuda.affine_bf16(x, iW, b),
@@ -1410,13 +1433,116 @@ def check_affine_bf16(torch, peak: dict, gen) -> dict:
             f"(max |addmm - plain| {lib_err:.2e}); kernel/addmm {ms / library_ms:.3f}; plain "
             f"{plain_ms:.3f} ms; bound {bms:.3f} ms ({by}) = {100 * bms / ms:.1f}% of the "
             f"kernel's time")
-        if G == 1024:
+        if out is None:
             out = row("affine_bf16", "affine-bf16", "affine.cuh", "rnn_pallas.py:243",
                       "r941_native_fast", "affine_bf16", max_abs_err=stats["max_abs_err"],
                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                       library_ms=library_ms)
-    log("affine_bf16 ptxas: " + ptxas_usage(cuda_build.build_log.get("lstm", ""), "affine_bf16"))
+    M, K, G = WMMA_SHAPE
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    iW = (torch.randn(K, G, generator=gen, device=dev) / K ** 0.5).to(torch.bfloat16)
+    b = torch.randn(G, generator=gen, device=dev) * 0.2
+    before = path_launches(rnn_cuda)
+    got = rnn_cuda.affine_bf16(x, iW, b)
+    if path_launches(rnn_cuda) != (before[0], before[1] + 1):
+        raise AssertionError(f"affine_bf16 at (M, K, N) = {WMMA_SHAPE} did not take the wmma path")
+    stats = affine_agreement(torch, got, rnn_cuda.affine_bf16_plain(x, iW, b), x, iW,
+                             f"affine_bf16 (wmma) at {WMMA_SHAPE}")
+    log(f"affine_bf16's wmma path at (M, K, N) = {WMMA_SHAPE}: {stats['differ']} of "
+        f"{stats['elements']} elements differ from the plain version, max |delta| "
+        f"{stats['max_abs_err']:.2e}")
+    text = cuda_build.build_log.get("lstm", "")
+    log("affine_bf16 ptxas: wgmma " + ptxas_usage(text, "affine_bf16_kernel") + "; wmma "
+        + ptxas_usage(text, "affine_bf16_wmma_kernel"))
     return out
+
+
+# (M, K, N) of the bf16 affine off the TMA grid: the wmma path
+WMMA_SHAPE = (300, 12, 40)
+
+
+def check_affine_f32(torch, peak: dict, gen) -> dict:
+    """The f32 affine alone (csrc/affine.cuh affine_kernel, the one inside
+    K1, K7 and K8) at M = 655,360, IN=256, G=1024 and G=768, TF32 off:
+    each element within f32 reassociation of its plain version,
+    torch.matmul + b (K 2^-23 sum_k |x_k w_k| for the K products summed in
+    another order, plus 2^-23 |value| for the bias added to another sum),
+    timed over 10 runs alternated with torch.addmm in f32 (its library
+    time); logged with its bound and ptxas's registers and spills.
+    Returns the G=1024 row."""
+    from flappie_tpu_torch.ops import cuda_build, rnn_cuda
+
+    dev = torch.device("cuda")
+    M, K = AFFINE_SHAPE
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = None
+    try:
+        x = torch.randn(M, K, generator=gen, device=dev)
+        for G in (1024, 768):
+            iW = torch.randn(K, G, generator=gen, device=dev) / K ** 0.5
+            b = torch.randn(G, generator=gen, device=dev) * 0.2
+            got = rnn_cuda.affine_f32(x, iW, b)
+            want = rnn_cuda.affine_f32_plain(x, iW, b)
+            delta = (got - want).abs()
+            noise = (x.abs() @ iW.abs()) * (K * 2.0 ** -23) + want.abs() * 2.0 ** -23
+            bad = int((delta > noise).sum().item())
+            err, equal = delta.max().item(), int((delta == 0).sum().item())
+            lib_err = (torch.addmm(b, x, iW) - want).abs().max().item()
+            if bad:
+                raise AssertionError(f"affine_f32 at G={G}: {bad} elements outside the f32 "
+                                     f"reassociation error (max |delta| {err})")
+            del got, want, delta, noise
+            times = alternated_ms(torch, {"kernel": lambda: rnn_cuda.affine_f32(x, iW, b),
+                                          "addmm": lambda: torch.addmm(b, x, iW)},
+                                  ALTERNATED_REPS)
+            ms, library_ms = (statistics.median(times[k]) for k in ("kernel", "addmm"))
+            plain_ms = cuda_ms(torch, lambda: rnn_cuda.affine_f32_plain(x, iW, b), 1)
+            bms, by = bound(4 * (M * K + K * G + G + M * G), 2 * M * K * G, peak)
+            log(f"affine_f32 at M={M}, IN={K}, G={G} (TF32 off): {equal} of {M * G} elements "
+                f"equal to the plain version's, max |delta| {err:.2e}, every one inside the f32 "
+                f"reassociation error; kernel {spread(times['kernel'])}; torch.addmm f32 "
+                f"{spread(times['addmm'])} (max |addmm - plain| {lib_err:.2e}); kernel/addmm "
+                f"{ms / library_ms:.3f}; plain {plain_ms:.3f} ms; bound {bms:.3f} ms ({by}) = "
+                f"{100 * bms / ms:.1f}% of the kernel's time")
+            if out is None:
+                out = row("affine_f32", "affine-f32", "affine.cuh", "rnn_pallas.py:244",
+                          "r941_native", "affine_f32", max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log("affine_f32 ptxas: " + ptxas_usage(cuda_build.build_log.get("lstm", ""), "affine_kernel"))
+    return out
+
+
+# (M, K, N) at which both affines' plans are held to the Python mirror:
+# the model shapes (chunk batch, runnie's heaviest program), the edges of
+# the persistent grid and shapes off the TMA grid
+AFFINE_PLAN_SHAPES = ((655_360, 256, 1024), (655_360, 256, 768), (314_592, 256, 1024),
+                      (1, 256, 1024), (129, 32, 48), (37, 8, 64), (300, 12, 40),
+                      (4096, 512, 1024), (128 * 40, 256, 8 * 256), (1000, 96, 1024))
+
+
+def log_affine_plans() -> None:
+    """Both affines' plans from the C side (flappie_affine_info) held to
+    ops/rnn_cuda.py's _affine_plan for this card's SMs."""
+    import torch
+
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, N in AFFINE_PLAN_SHAPES:
+        for bf16 in (False, True):
+            got = rnn_cuda.affine_info(M, N, K, bf16)
+            want = rnn_cuda._affine_plan(M, N, K, bf16, sms)
+            if got != want:
+                raise AssertionError(f"affine plan at (M, K, N) = ({M}, {K}, {N}), bf16={bf16}: "
+                                     f"C side {got}, _affine_plan {want}")
+    names = ("path", "BM", "BN", "BK", "stages", "smem", "CTAs", "tiles")
+    for M, K, N in AFFINE_PLAN_SHAPES[:3]:
+        for bf16 in (False, True):
+            log(f"affine plan ({'bf16' if bf16 else 'f32'}, M={M}, K={K}, N={N}, {sms} SMs): "
+                + ", ".join(f"{k} {v}" for k, v in zip(names, rnn_cuda.affine_info(M, N, K, bf16))))
 
 
 # kind -> (id, gates, wrapper, source, TPU kernel, run and counter that
@@ -1529,8 +1655,8 @@ def check_layer_bf16(torch, peak: dict, gen, kind: str) -> dict:
 def check_kernels(torch, peak: dict, libs: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
-    rows += [check_affine_bf16(torch, peak, gen)] + [check_layer_bf16(torch, peak, gen, kind)
-                                                     for kind in BF16_LAYERS]
+    rows += [check_affine_f32(torch, peak, gen), check_affine_bf16(torch, peak, gen)]
+    rows += [check_layer_bf16(torch, peak, gen, kind) for kind in BF16_LAYERS]
     time_lstm_shapes(torch, gen)
     rows += [check_conv12(torch, peak, gen, libs)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
@@ -1896,7 +2022,9 @@ def launch_counters() -> dict:
         "grumod_layer": rnn_cuda.grumod_layer_tm,
         "lstm_layer_bf16": rnn_cuda.lstm_layer_tm_bf16,
         "grumod_layer_bf16": rnn_cuda.grumod_layer_tm_bf16,
+        "affine_f32": rnn_cuda.affine_f32,
         "affine_bf16": rnn_cuda.affine_bf16,
+        "affine_bf16_wmma": rnn_cuda.affine_bf16_wmma,
         "crf_sum_scan": crf_bm_cuda.sum_states,
         "crf_fwdbwd": crf_bm_cuda.fwdbwd_states,
         "crf_viterbi": crf_bm_cuda.viterbi_fwd,
@@ -3551,10 +3679,18 @@ def supervised_chunks(np, cfg, segs, paths, chunk: int):
     return np.stack(xs), np.stack(ys)
 
 
+# the f32 layers: each launch also counts its affine on affine_f32
+F32_LAYERS = ("lstm_layer", "lstm_layer_train", "grumod_layer")
+
+
 def check_counts(what: str, want: dict) -> dict:
+    """Every counter equal to ``want`` (0 where it is silent; affine_f32,
+    unless named, the f32 layers' launches)."""
     got = {k: fn.launches for k, fn in launch_counters().items()}
     full = dict.fromkeys(got, 0)
     full.update(want)
+    if "affine_f32" not in want:
+        full["affine_f32"] = sum(full[k] for k in F32_LAYERS)
     if got != full:
         raise AssertionError(f"{what}: kernel launches {got}, expected {full}")
     return got
@@ -3780,6 +3916,7 @@ def main() -> int:
     log_scan_plans()
     log_bt_plans()
     log_tb_plans()
+    log_affine_plans()
     rows = check_kernels(torch, peak, libs)
     shutil.rmtree(WORK, ignore_errors=True)
     launches = {}

@@ -19,7 +19,8 @@
 // 768 KiB, more than one block's 227 KB of shared memory).
 //
 // Design (K1's frame):
-//  1. affine_kernel (affine.cuh, shared with K1) writes xa [T, B, 3H].
+//  1. affine_kernel (affine.cuh, shared with K1, the pipelined f32 SGEMM)
+//     writes xa [T, B, 3H].
 //  2. cluster_rnn_kernel (cluster_rnn.cuh, shared with K1) with three gates
 //     a unit: a cluster of 8 CTAs keeps sW split by hidden unit in shared
 //     memory (96 KiB a CTA) for the whole walk and exchanges h through

@@ -15,10 +15,10 @@
 // 1 MiB, more than one block's 227 KB of shared memory).
 //
 // Design:
-//  1. affine_kernel (affine.cuh, shared with K7), a tiled f32 SGEMM
-//     (128x128 tiles, 8x8 outputs per thread, bias added after the dot as
-//     in the TPU kernel) writes xa [T, B, 4H] to device memory.  It is
-//     fully parallel.
+//  1. affine_kernel (affine.cuh, shared with K7), a pipelined f32 SGEMM
+//     (128x128 tiles, 8x8 outputs per thread, K through a 3-stage cp.async
+//     ring, bias added after the dot as in the TPU kernel) writes xa
+//     [T, B, 4H] to device memory.  It is fully parallel.
 //  2. cluster_rnn_kernel (cluster_rnn.cuh, shared with K7): a cluster of 8
 //     CTAs keeps sW split by hidden unit in its shared memory (128 KiB a
 //     CTA) for the whole walk and exchanges h through distributed shared
@@ -53,8 +53,9 @@
 // the same recurrence with xa widened to f32 at its load and the output
 // rounded to bf16 at its store; state, step product and order stay f32.
 // Bound: the affine by its bytes (~0.50 ms at T=2560, B=256, IN=256)
-// plus the recurrence's f32 FMA (5.13 ms).  flappie_affine_bf16 launches
-// the affine alone, for its measurement.
+// plus the recurrence's f32 FMA (5.13 ms).  flappie_affine_f32 and
+// flappie_affine_bf16 launch the affines alone, for their measurement;
+// flappie_affine_info reports their plans.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,6 +138,21 @@ extern "C" int flappie_affine_bf16(const __nv_bfloat16* x, const __nv_bfloat16* 
                                    const float* b, __nv_bfloat16* xa, long M, int N, int K,
                                    void* stream) {
   return flappie::launch_affine_bf16(x, iW, b, xa, M, N, K, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 affine alone (K1's, K7's and K8's): xa [M, N] = x [M, K] .
+// iW [K, N] + b [N].  Returns the launch error code.
+extern "C" int flappie_affine_f32(const float* x, const float* iW, const float* b, float* xa,
+                                  long M, int N, int K, void* stream) {
+  return flappie::launch_affine(x, iW, b, xa, M, N, K, static_cast<cudaStream_t>(stream));
+}
+
+// The plan of the f32 (bf16 = 0) or the bf16 (1) affine at [M, K] x [K, N]
+// on this card: info = {path (0 f32, 1 bf16 wmma, 2 bf16 wgmma), tile rows,
+// tile columns, k step, stages, shared bytes, CTAs, output tiles}.
+// Returns the error code.
+extern "C" int flappie_affine_info(long M, int N, int K, int bf16, int* info) {
+  return flappie::affine_info(M, N, K, bf16, info);
 }
 
 // The cluster plan of K1 (variant 0), K8 (1), K12 (2) or K1-bf16 (3) for a

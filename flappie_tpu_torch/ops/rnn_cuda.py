@@ -35,16 +35,24 @@ the step product f32; only the stored output rounded to bf16, which the
 next layer takes as it is.  K8 and K12 keep f32 and raise on bf16
 (training under the stream is ROADMAP item 17's remainder).
 
+Both block affines live in csrc/affine.cuh and run alone through
+``affine_f32`` (a pipelined CUDA-core SGEMM, true f32) and
+``affine_bf16`` (wgmma on TMA tiles where K and N are multiples of 8 and
+K <= 256, every model shape; a wmma kernel elsewhere);
+``_affine_plan`` mirrors the C side's choice of path and grid.
+
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor; any other device raises.  The recurrent
 product is true f32 (the TPU's bf16x3 split is not the parity tier).
-``<wrapper>.launches`` counts kernel launches; a bf16 layer's C entry
-launches the affine too, which its wrapper counts on ``affine_bf16``.
+``<wrapper>.launches`` counts kernel launches; a layer's C entry launches
+its affine too, which its wrapper counts on ``affine_f32``, or on
+``affine_bf16`` (the wgmma path) or ``affine_bf16_wmma`` (the wmma path).
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -54,6 +62,11 @@ from .rnn import grumod_seq, grumod_step, lstm_seq, lstm_step
 
 _NO_TRAIN = ("training under the bf16 stream is not ported (ROADMAP item 17's remainder): "
              "{} takes float32")
+
+
+def affine_f32_plain(x, iW, b):
+    """x . iW + b in f32: x [..., K], iW [K, N], b [N] -> [..., N]."""
+    return torch.matmul(x, iW) + b
 
 
 def affine_bf16_plain(x, iW, b):
@@ -163,6 +176,76 @@ def cluster_info(kind: str, B: int, H: int = 256) -> dict:
     return dict(zip(("R", "clusters", "smem", "max_active_clusters"), info))
 
 
+# csrc/affine.cuh: (tile rows, tile columns, k step, stages) of the f32
+# SGEMM, the bf16 wmma kernel and the bf16 wgmma kernel; the largest K whose
+# slice of W the wgmma kernel keeps resident; the H100's SMs
+AFFINE_F32, AFFINE_WMMA, AFFINE_WGMMA = (128, 128, 16, 3), (128, 128, 32, 2), (128, 256, 64, 4)
+WGMMA_KMAX, H100_SMS = 256, 132
+PATH_F32, PATH_WMMA, PATH_WGMMA = 0, 1, 2
+
+
+def _affine_smem(path: int) -> int:
+    """Shared bytes a CTA of each affine path (affine.cuh's F_SMEM, H_SMEM,
+    G_SMEM): the f32 ring of A (rows padded by 4 floats) and W tiles; the
+    wmma kernel's two buffers (rows padded by 8 bf16) and 8 warps' 16x16
+    f32 scratch; the wgmma kernel's resident W (4 slabs of WGMMA_KMAX rows
+    x 128 bytes), two warpgroups' A rings of 64-row slots, 2 x 2 staged
+    64 x 64 output boxes, the bias, the rings' full and empty mbarriers
+    and W's, and 1024 bytes to align the base."""
+    if path == PATH_F32:
+        bm, bn, bk, stages = AFFINE_F32
+        return stages * (bm * (bk + 4) + bk * bn) * 4
+    if path == PATH_WMMA:
+        bm, bn, bk, _ = AFFINE_WMMA
+        return (2 * bm * (bk + 8) + 2 * bk * (bn + 8)) * 2 + 8 * 16 * 16 * 4
+    bm, bn, bk, stages = AFFINE_WGMMA
+    return (4 * WGMMA_KMAX * 128 + stages * bm * bk * 2 + 4 * 64 * 64 * 2 + bn * 4
+            + (4 * stages + 1) * 8 + 1024)
+
+
+def _affine_plan(M: int, N: int, K: int, bf16: bool, sms: int = H100_SMS) -> tuple:
+    """(path, tile rows, tile columns, k step, stages, shared bytes, CTAs,
+    output tiles) of the affine [M, K] x [K, N] (affine_plan in
+    csrc/affine.cuh).  f32: one CTA a 128x128 tile.  bf16: the wgmma path
+    where K % 8 == 0, N % 8 == 0 and 0 < K <= WGMMA_KMAX (TMA's 16-byte
+    strides, W's resident slice), a persistent grid of ``groups`` CTAs for
+    each of the nN column tiles (at most one an SM, at most the M
+    blocks); the wmma path elsewhere, one CTA a 128x128 tile."""
+    def grid(bm, bn):
+        return -(-M // bm) * -(-N // bn)
+
+    if not bf16:
+        t = grid(*AFFINE_F32[:2])
+        return (PATH_F32, *AFFINE_F32, _affine_smem(PATH_F32), t, t)
+    if not (M > 0 and N > 0 and 0 < K <= WGMMA_KMAX and K % 8 == 0 and N % 8 == 0):
+        t = grid(*AFFINE_WMMA[:2])
+        return (PATH_WMMA, *AFFINE_WMMA, _affine_smem(PATH_WMMA), t, t)
+    bm, bn = AFFINE_WGMMA[:2]
+    mblocks, nN = -(-M // bm), -(-N // bn)
+    groups = min(max(sms // nN, 1), mblocks)
+    return (PATH_WGMMA, *AFFINE_WGMMA, _affine_smem(PATH_WGMMA), groups * nN, mblocks * nN)
+
+
+def affine_info(M: int, N: int, K: int, bf16: bool) -> tuple:
+    """The plan the C side launches (flappie_affine_info in csrc/lstm.cu),
+    as ``_affine_plan`` orders it, for this card's SMs.  Card only."""
+    lib = cuda_build.load("lstm")
+    fn = lib.flappie_affine_info
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 8)()
+    cuda_build.check(lib, fn(M, N, K, int(bf16), info), "affine_info")
+    return tuple(info)
+
+
+def _aligned(t):
+    """t, or a copy of it that starts on a 16-byte boundary (the kernels
+    copy 16 bytes at a time and TMA needs it); torch's own allocations
+    are aligned, so only a view at an offset is copied."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _lib(name: str, entry: str, outputs: int):
     lib = cuda_build.load(name)
     fn = getattr(lib, entry)
@@ -199,7 +282,7 @@ def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths
             raise ValueError(f"{what}: {name} must be {dt} on {x_tm.device}")
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
-    x_tm, iW, b, sW = (t.contiguous() for t in (x_tm, iW, b, sW))
+    x_tm, iW, b, sW = (_aligned(t.contiguous()) for t in (x_tm, iW, b, sW))
     lengths = lengths.to(device=x_tm.device, dtype=torch.int32).contiguous()
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"{what}: lengths must be [{B}]")
@@ -228,6 +311,7 @@ def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4,
                         x_tm, iW, b, sW, backward, lengths)
     lstm_layer_tm.launches += 1
+    affine_f32.launches += 1
     return out
 
 
@@ -250,7 +334,7 @@ def lstm_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     out = _launch_layer("lstm_layer_tm_bf16", "lstm", "flappie_lstm_layer_bf16", 4,
                         x_tm, iW, b, sW, backward, lengths)
     lstm_layer_tm_bf16.launches += 1
-    affine_bf16.launches += 1
+    _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
     return out
 
 
@@ -271,6 +355,7 @@ def lstm_layer_tm_train(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4,
                         x_tm, iW, b, sW, backward, lengths, want_c=True)
     lstm_layer_tm_train.launches += 1
+    affine_f32.launches += 1
     return out
 
 
@@ -290,6 +375,7 @@ def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3,
                         x_tm, iW, b, sW, backward, lengths)
     grumod_layer_tm.launches += 1
+    affine_f32.launches += 1
     return out
 
 
@@ -307,48 +393,81 @@ def grumod_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     out = _launch_layer("grumod_layer_tm_bf16", "grumod", "flappie_grumod_layer_bf16", 3,
                         x_tm, iW, b, sW, backward, lengths)
     grumod_layer_tm_bf16.launches += 1
-    affine_bf16.launches += 1
+    _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
     return out
 
 
 grumod_layer_tm_bf16.launches = 0
 
 
-def affine_bf16(x, iW, b):
-    """The bf16 affine of K1-bf16 and K7-bf16 alone (csrc/affine.cuh, on
-    the tensor cores): x [M, K] and iW [K, N] bf16, b [N] f32 ->
-    bf16(x . iW + b) [M, N].  ``affine_bf16.launches`` also counts the
-    affines the bf16 layers launch."""
-    if x.device.type == "cpu":
-        return affine_bf16_plain(x, iW, b)
+def _launch_affine(what: str, entry: str, dt, x, iW, b):
+    """Checks shared by the affine wrappers, then one launch of the C
+    entry ``entry`` of csrc/lstm.cu: x [M, K] and iW [K, N] of dtype
+    ``dt``, b [N] f32 -> [M, N] of dtype ``dt``."""
     if x.device.type != "cuda":
-        raise ValueError(f"affine_bf16: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 2:
-        raise ValueError(f"affine_bf16: x must be [M, K], got {tuple(x.shape)}")
+        raise ValueError(f"{what}: x must be [M, K], got {tuple(x.shape)}")
     M, K = x.shape
     N = iW.shape[-1]
     if tuple(iW.shape) != (K, N) or tuple(b.shape) != (N,):
-        raise ValueError(f"affine_bf16: bad shapes iW {tuple(iW.shape)}, b {tuple(b.shape)} "
+        raise ValueError(f"{what}: bad shapes iW {tuple(iW.shape)}, b {tuple(b.shape)} "
                          f"for K={K}")
-    for name, t, dt in (("x", x, torch.bfloat16), ("iW", iW, torch.bfloat16),
-                        ("b", b, torch.float32)):
-        if t.dtype != dt or t.device != x.device:
-            raise ValueError(f"affine_bf16: {name} must be {dt} on {x.device}")
-    x, iW, b = x.contiguous(), iW.contiguous(), b.contiguous()
-    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    for name, t, want in (("x", x, dt), ("iW", iW, dt), ("b", b, torch.float32)):
+        if t.dtype != want or t.device != x.device:
+            raise ValueError(f"{what}: {name} must be {want} on {x.device}")
+    x, iW, b = (_aligned(t.contiguous()) for t in (x, iW, b))
+    out = torch.empty(M, N, dtype=dt, device=x.device)
     lib = cuda_build.load("lstm")
-    fn = lib.flappie_affine_bf16
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
     rc = fn(*(cuda_build.ptr(t) for t in (x, iW, b, out)), M, N, K, cuda_build.stream_of(x))
-    cuda_build.check(lib, rc, "affine_bf16")
-    affine_bf16.launches += 1
+    cuda_build.check(lib, rc, what)
+    return out
+
+
+def affine_f32(x, iW, b):
+    """The f32 affine of K1, K7 and K8 alone (csrc/affine.cuh, true f32
+    FMA on the CUDA cores): x [M, K], iW [K, N], b [N] f32 -> x . iW + b
+    [M, N].  ``affine_f32.launches`` also counts the affines the f32
+    layers launch."""
+    if x.device.type == "cpu":
+        return affine_f32_plain(x, iW, b)
+    out = _launch_affine("affine_f32", "flappie_affine_f32", torch.float32, x, iW, b)
+    affine_f32.launches += 1
+    return out
+
+
+affine_f32.launches = 0
+
+
+def affine_bf16(x, iW, b):
+    """The bf16 affine of K1-bf16 and K7-bf16 alone (csrc/affine.cuh, on
+    the tensor cores): x [M, K] and iW [K, N] bf16, b [N] f32 ->
+    bf16(x . iW + b) [M, N].  ``affine_bf16.launches`` counts the wgmma
+    path's launches, ``affine_bf16_wmma.launches`` the wmma path's
+    (``_affine_plan``), the bf16 layers' included."""
+    if x.device.type == "cpu":
+        return affine_bf16_plain(x, iW, b)
+    out = _launch_affine("affine_bf16", "flappie_affine_bf16", torch.bfloat16, x, iW, b)
+    _count_affine_bf16(x.shape[0], iW.shape[-1], x.shape[1])
     return out
 
 
 affine_bf16.launches = 0
+# the launch count of the bf16 affine's wmma path (shapes off the TMA grid)
+affine_bf16_wmma = types.SimpleNamespace(launches=0)
+
+
+def _count_affine_bf16(M: int, N: int, K: int) -> None:
+    """One bf16 affine launch at [M, K] x [K, N], on its path's counter."""
+    if _affine_plan(M, N, K, True)[0] == PATH_WGMMA:
+        affine_bf16.launches += 1
+    else:
+        affine_bf16_wmma.launches += 1
 
 
 def _launch_seq(what, source, entry, gates, xaffine, sW):

@@ -35,7 +35,11 @@ version (f32 product, one rounding; the sums differ in order only),
 except where the f32 sum cancels to below the error of summing its K
 products in another order (K 2^-23 sum_k |x_k w_k|), which one bf16 ulp
 of the near-zero result cannot hold; at K and N off the 8-element grid
-and rows off the 128-row tile too;
+(its wmma path), rows off the 128-row tile, M = 1 and runnie's M too, each
+launch on its path's counter; the f32 affine within f32 reassociation of
+torch.matmul + b with TF32 off (K 2^-23 sum_k |x_k w_k| + 2^-23 |value|)
+at the same shapes, counted once a f32 layer; both plans held to
+``_affine_plan``;
 K1-bf16 and K7-bf16 within 1e-2 of their plain versions (one bf16 ulp of
 an output of |h| <= 1 is 2^-8; an ulp of xa moves a step's gates by
 about as much, and the state carries it) at every rows-a-cluster
@@ -567,27 +571,88 @@ def bf16_ulps(got, want):
     return (ordered(got) - ordered(want)).abs()
 
 
-# (M, K, N) of the bf16 affine: the CPU-test widths (K = 8-32), K and N
-# off the 8-element grid, rows off the 128-row tile, and a layer's shape
+# (M, K, N) of both affines: the CPU-test widths (K = 8-32), K and N off
+# the 8-element grid (the bf16 affine's wmma path), rows off the 128-row
+# tile, M = 1, a layer's shape at N = 4H and 3H, and runnie's heaviest
+# program (13,108 x 24 rows)
 AFFINE_SHAPES = [(37, 8, 64), (300, 12, 40), (129, 32, 48), (1000, 96, 1024),
-                 (4096, 256, 768), (5000, 256, 1024)]
+                 (4096, 256, 768), (5000, 256, 1024), (1, 256, 1024), (13_108 * 24, 256, 1024),
+                 (2000, 256, 768)]
+
+
+def _path_launches():
+    return rnn_cuda.affine_bf16.launches, rnn_cuda.affine_bf16_wmma.launches
 
 
 @pytest.mark.parametrize("M,K,N", AFFINE_SHAPES)
 def test_affine_bf16_kernel_matches_plain(cuda, M, K, N):
+    """The bf16 affine on its path's counter: wgmma where K and N are
+    multiples of 8 (every model shape), wmma off that grid."""
     gen = torch.Generator().manual_seed(M + K + N)
     x = _rnd(gen, M, K).to(torch.bfloat16).to(cuda)
     iW = _rnd(gen, K, N, scale=K ** -0.5).to(torch.bfloat16).to(cuda)
     b = _rnd(gen, N, scale=0.2).to(cuda)
-    before = rnn_cuda.affine_bf16.launches
+    before = _path_launches()
     got = rnn_cuda.affine_bf16(x, iW, b)
-    assert rnn_cuda.affine_bf16.launches == before + 1
+    wgmma = K % 8 == 0 and N % 8 == 0
+    assert _path_launches() == (before[0] + wgmma, before[1] + (not wgmma))
     want = rnn_cuda.affine_bf16_plain(x, iW, b)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     noise = (x.float().abs() @ iW.float().abs()) * (K * 2.0 ** -23)
     delta = (got.float() - want.float()).abs()
     assert ((bf16_ulps(got, want) <= 1) | (delta <= noise)).all()
+
+
+@pytest.mark.parametrize("M,K,N", AFFINE_SHAPES)
+def test_affine_f32_kernel_matches_plain(cuda, M, K, N):
+    """The f32 affine within f32 reassociation of torch.matmul + b, TF32
+    off: K 2^-23 sum_k |x_k w_k| for the K products summed in another
+    order, plus 2^-23 |value| for the bias added to another sum."""
+    gen = torch.Generator().manual_seed(M + K + N + 1)
+    x, iW, b = (t.to(cuda) for t in (_rnd(gen, M, K), _rnd(gen, K, N, scale=K ** -0.5),
+                                      _rnd(gen, N, scale=0.2)))
+    before = rnn_cuda.affine_f32.launches
+    got = rnn_cuda.affine_f32(x, iW, b)
+    assert rnn_cuda.affine_f32.launches == before + 1
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = rnn_cuda.affine_f32_plain(x, iW, b)
+        noise = (x.abs() @ iW.abs()) * (K * 2.0 ** -23) + want.abs() * 2.0 ** -23
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert ((got - want).abs() <= noise).all()
+
+
+@pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
+def test_f32_layers_count_their_affine(cuda, kind):
+    """Each f32 layer launch counts one f32 affine, and no bf16 one."""
+    gates = 3 if kind == "grumod" else 4
+    gen = torch.Generator().manual_seed(11)
+    T, B, IN, H = 9, 3, 256, 256
+    args = [t.to(cuda) for t in (_rnd(gen, T, B, IN), _rnd(gen, IN, gates * H, scale=IN ** -0.5),
+                                 _rnd(gen, gates * H, scale=0.2),
+                                 _rnd(gen, H, gates * H, scale=H ** -0.5))]
+    fn = {"lstm": rnn_cuda.lstm_layer_tm, "lstm_train": rnn_cuda.lstm_layer_tm_train,
+          "grumod": rnn_cuda.grumod_layer_tm}[kind]
+    before = (rnn_cuda.affine_f32.launches, *_path_launches())
+    fn(*args)
+    assert (rnn_cuda.affine_f32.launches, *_path_launches()) == (before[0] + 1, *before[1:])
+
+
+# (M, K, N) at which the C side's affine plans are held to _affine_plan
+AFFINE_INFO_SHAPES = AFFINE_SHAPES + [(655_360, 256, 1024), (655_360, 256, 768),
+                                      (64, 512, 256), (640, 64, 256 * 140)]
+
+
+@pytest.mark.parametrize("M,K,N", AFFINE_INFO_SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_affine_info_matches_plan(cuda, M, K, N, bf16):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert rnn_cuda.affine_info(M, N, K, bf16) == rnn_cuda._affine_plan(M, N, K, bf16, sms)
 
 
 def _bf16_layer_args(cuda, gen, kind, B, T, IN, H):
@@ -607,15 +672,17 @@ def _bf16_layer_args(cuda, gen, kind, B, T, IN, H):
 @pytest.mark.parametrize("kind", ["lstm", "grumod"])
 def test_bf16_layer_kernel_matches_plain(cuda, kind, B, T, IN, H, backward):
     """K1-bf16 / K7-bf16 through lstm_layer_tm / grumod_layer_tm on a bf16
-    x: its own counter (and the affine's), none of the f32 layer's."""
+    x: its own counter (and its affine's path's: wgmma at IN = 256, wmma
+    at IN = 12), none of the f32 layer's or the f32 affine's."""
     gen = torch.Generator().manual_seed(B * T + H + 7)
     args, lengths = _bf16_layer_args(cuda, gen, kind, B, T, IN, H)
     fn = {"lstm": rnn_cuda.lstm_layer_tm, "grumod": rnn_cuda.grumod_layer_tm}[kind]
     counter = {"lstm": rnn_cuda.lstm_layer_tm_bf16, "grumod": rnn_cuda.grumod_layer_tm_bf16}[kind]
-    before = (fn.launches, counter.launches, rnn_cuda.affine_bf16.launches)
+    before = (fn.launches, counter.launches, rnn_cuda.affine_f32.launches, *_path_launches())
     got = fn(*args, backward=backward, lengths=lengths)
-    assert (fn.launches, counter.launches, rnn_cuda.affine_bf16.launches) == (
-        before[0], before[1] + 1, before[2] + 1)
+    wgmma = IN % 8 == 0
+    assert (fn.launches, counter.launches, rnn_cuda.affine_f32.launches, *_path_launches()) == (
+        before[0], before[1] + 1, before[2], before[3] + wgmma, before[4] + (not wgmma))
     plain = {"lstm": rnn_cuda.lstm_layer_tm_plain, "grumod": rnn_cuda.grumod_layer_tm_plain}
     want = plain[kind](*args, backward=backward, lengths=lengths)
     torch.cuda.synchronize()

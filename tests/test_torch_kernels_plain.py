@@ -413,3 +413,49 @@ def test_crf_wrappers_of_this_slice_refuse_other_devices():
     with pytest.raises(ValueError):
         crf_cuda.traceback_bt(torch.empty(3, 2, 8, dtype=torch.int8, device="meta"), valid,
                               torch.empty(2, dtype=torch.int32, device="meta"))
+
+
+# (M, K, N) of the block affines: the CPU widths, K and N off the 8- and
+# 4-element grids, one row
+AFFINE_CASES = [(37, 12, 64), (5, 8, 48), (1, 16, 40), (29, 7, 13)]
+
+
+@pytest.mark.parametrize("M, K, N", AFFINE_CASES)
+def test_affine_f32_plain_matches_ff_dot(M, K, N):
+    """The f32 affine's wrapper on CPU tensors (its plain version, x . iW +
+    b) against the TPU kernels' _ff_dot(x, iW, highest) + b
+    (rnn_pallas.py:244) within 1e-6; no launch counted."""
+    x, iW, b = rnd(M, K, seed=60), rnd(K, N, scale=0.3, seed=61), rnd(N, scale=0.2, seed=62)
+    want = np.asarray(j_rnn_pal._ff_dot(jnp.asarray(x), jnp.asarray(iW), "highest")
+                      + jnp.asarray(b))
+    before = rnn_cuda.affine_f32.launches
+    got = rnn_cuda.affine_f32(*(torch.from_numpy(a) for a in (x, iW, b)))
+    assert rnn_cuda.affine_f32.launches == before
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("M, K, N", AFFINE_CASES)
+def test_affine_bf16_plain_matches_ff_dot(M, K, N):
+    """The bf16 affine's wrapper on CPU tensors against the stream's
+    affine in the TPU kernels (bf16 x and iW, _ff_dot with f32
+    accumulation, + b, one cast to bf16; rnn_pallas.py:243-245): within
+    one bf16 ulp (the f32 sums' order); no launch counted on either path."""
+    x, iW, b = rnd(M, K, seed=63), rnd(K, N, scale=0.3, seed=64), rnd(N, scale=0.2, seed=65)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(iW, jnp.bfloat16)
+    want = np.asarray((j_rnn_pal._ff_dot(xb, wb, "highest") + jnp.asarray(b))
+                      .astype(jnp.bfloat16).astype(jnp.float32))
+    before = (rnn_cuda.affine_bf16.launches, rnn_cuda.affine_bf16_wmma.launches)
+    got = rnn_cuda.affine_bf16(torch.from_numpy(x).bfloat16(), torch.from_numpy(iW).bfloat16(),
+                               torch.from_numpy(b))
+    assert (rnn_cuda.affine_bf16.launches, rnn_cuda.affine_bf16_wmma.launches) == before
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7, atol=1e-6)
+
+
+def test_affine_wrappers_refuse_other_devices():
+    meta = torch.empty(4, 8, device="meta")
+    for fn, dt in ((rnn_cuda.affine_f32, torch.float32), (rnn_cuda.affine_bf16, torch.bfloat16)):
+        with pytest.raises(ValueError):
+            fn(meta.to(dt), torch.empty(8, 16, device="meta", dtype=dt),
+               torch.empty(16, device="meta"))
