@@ -205,6 +205,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    warps.  Beside these runs, in the background, npz2header ->
    header2npz -> npz2header for r941_native and r941_5mC at full width
    (the headers byte-equal), and torch2npz of a taiyaki state dict.
+   Then the multi-device and multi-process runs, on 16 of r941_native's
+   reads (its first 8 long ones and 8 short ones, at least two a bucket):
+   mesh -- DistributedBasecaller over [cuda:0, cuda:0] (two weight
+   replicas, two dispatch threads on the one card: the sharding path,
+   not a speed-up) against the plain Basecaller, fb and --viterbi, each
+   warmed up once, by the band, in input order, every dispatch in two
+   shards, every launch counter twice the plain run's, both walls
+   logged; the CLI's --mesh 2 refused with rc 1 and the JAX CLI's
+   message; launch -- python -m flappie_tpu_torch.parallel.launch
+   --nproc 2 with --trace (both workers on cuda:0) against the CLI in
+   this process: the merged FASTQ in input order and in the band, the
+   merged trace's groups the plain run's (signals equal, traces within
+   one count), no part file left, both walls; dp-train --
+   flappie_tpu_torch.train.distributed with 2 ranks over gloo on cuda:0
+   at r941_native's training shape (batch 32, 16 a rank, 512 blocks), 3
+   steps, against one process taking the same steps on the whole batch:
+   every loss within 1e-5 relative, the ranks' parameters equal after
+   every step, 5 K8 and 2 K3/K4 a step in each rank and in the one
+   process, the step walls; profile -- the CLI with --jax-profile DIR:
+   a Chrome trace naming cluster_rnn_kernel, affine_kernel,
+   crf_sum_kernel, crf_viterbi_kernel and traceback_kernel, the FASTQ
+   byte-equal to the run without it.
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|; K10's Function at B=32,
@@ -2203,27 +2225,30 @@ def trace_run(torch, card: str, cfg, reads_dir: str, names: list, fb_wall: float
     return path
 
 
-def compare_traces(gpu: str, cpu: str, reads: set) -> None:
-    """The card's trace file against the CPU path's on the reads both ran:
-    signals equal, traces within one count."""
+def compare_traces(gpu: str, cpu: str, reads: set, what: str = "gpu vs cpu",
+                   same_groups: bool = False) -> None:
+    """The card's trace file against the CPU path's (``what``: another
+    pair) on the reads both ran (``cpu``'s groups; ``same_groups``: the
+    first file's too): signals equal, traces within one count."""
     import numpy as np
 
     g, c = trace_groups(gpu), trace_groups(cpu)
-    if set(c) != reads:
-        raise AssertionError(f"cpu --trace: groups {sorted(c)}, expected {sorted(reads)}")
+    if set(c) != reads or not reads <= set(g) or (same_groups and set(g) != reads):
+        raise AssertionError(f"{what} --trace: groups {sorted(g)} and {sorted(c)}, expected "
+                             f"{sorted(reads)}")
     ndiff, nbytes = 0, 0
     for read in sorted(reads):
         (gs, gt), (cs, ct) = g[read], c[read]
         if not np.array_equal(gs, cs):
-            raise AssertionError(f"trace {read}: the signal differs between card and CPU")
+            raise AssertionError(f"trace {read}: the signal differs ({what})")
         if gt.shape != ct.shape:
-            raise AssertionError(f"trace {read}: shape {gt.shape} on the card, {ct.shape} on the CPU")
+            raise AssertionError(f"trace {read}: shapes {gt.shape} and {ct.shape} ({what})")
         d = np.abs(gt.astype(int) - ct.astype(int))
         if d.max() > 1:
-            raise AssertionError(f"trace {read}: card and CPU differ by more than one count")
+            raise AssertionError(f"trace {read}: differs by more than one count ({what})")
         ndiff += int((d > 0).sum())
         nbytes += d.size
-    log(f"trace gpu vs cpu ({len(reads)} reads): signals equal, traces within one count, "
+    log(f"trace {what} ({len(reads)} reads): signals equal, traces within one count, "
         f"{ndiff} of {nbytes} bytes differ by one")
 
 
@@ -3557,6 +3582,251 @@ def fast_phase(torch, np, card: str) -> dict:
     return launches
 
 
+# -- phase 3, multi-device and multi-process runs -------------------------------
+
+# the mesh of the one-card host: two replicas of the weights on cuda:0, each
+# with its own dispatch thread and streams -- the sharding path, not a
+# speed-up
+MESH_DEVICES = ("cuda:0", "cuda:0")
+# phase 3's r941_native reads that the mesh, launcher and profile runs take:
+# its first 8 long reads (one chunk batch of 128 rows) and 8 short ones whose
+# buckets hold at least two of them, so that every batch splits in two
+MESH_LONG, MESH_SHORT = 8, 8
+# the data-parallel training run: r941_native's training shape, two ranks
+DP = dict(nproc=2, batch=32, blocks=512, steps=3, seed=0, lr=2e-4)
+# kernels the --jax-profile trace must name (K1's recurrence and affine,
+# K3/K4, K5, K6)
+PROFILE_KERNELS = ("cluster_rnn_kernel", "affine_kernel", "crf_sum_kernel", "crf_viterbi_kernel",
+                   "traceback_kernel")
+
+
+def mesh_reads() -> tuple:
+    """Copies MESH_LONG + MESH_SHORT of phase 3's r941_native reads to
+    build/chip_smoke/mesh/reads: (directory, names)."""
+    from flappie_tpu_torch.basecall import bucket_length, preprocess_batch
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    src = os.path.join(WORK, "r941_native", "reads")
+    names = sorted(os.listdir(src))
+    nlong = RUNS["r941_native"][0][0]
+    short = names[nlong:]
+    pre = preprocess_batch([read_raw(os.path.join(src, n)) for n in short])
+    by_bucket: dict = {}
+    for n, rt in zip(short, pre):
+        by_bucket.setdefault(bucket_length(rt.end - rt.start), []).append(n)
+    picked = []
+    for group in by_bucket.values():
+        k = min(len(group), MESH_SHORT - len(picked))
+        if k >= 2:
+            picked += group[:k]
+    chosen = sorted(names[:MESH_LONG] + picked)
+    dst = os.path.join(WORK, "mesh", "reads")
+    os.makedirs(dst)
+    for n in chosen:
+        shutil.copy(os.path.join(src, n), dst)
+    return dst, chosen
+
+
+def library_fastq(torch, caller, reads_dir: str, names: list) -> tuple:
+    """(the FASTQ the flappie CLI writes for ``names`` at its defaults,
+    basecalled through ``caller``; the wall, the device synchronised)."""
+    from flappie_tpu_torch.io.fastx import format_read
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    raws = [read_raw(os.path.join(reads_dir, n), scale_to_pA=True) for n in names]
+    t0 = time.perf_counter()
+    results = caller.basecall_raw_tables(raws)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return "".join(format_read("fastq", r.uuid, n, True, "", r)
+                   for n, r in zip(names, results) if r is not None), wall
+
+
+def mesh_phase(torch, card: str, reads_dir: str, names: list) -> dict:
+    """DistributedBasecaller over MESH_DEVICES against the plain Basecaller
+    on the same reads, fb and --viterbi: the band, two shards a dispatch,
+    twice the plain run's launches; then the CLI's --mesh refusal on a
+    one-card host.  Returns the mesh runs' launch counts."""
+    from flappie_tpu_torch.basecall import Basecaller
+    from flappie_tpu_torch.cli.flappie import main as flappie_main
+    from flappie_tpu_torch.parallel.mesh import make_mesh
+    from flappie_tpu_torch.parallel.pipeline import DistributedBasecaller
+
+    launches = {}
+    for mode in ("fb", "viterbi"):
+        kw = dict(viterbi_only=mode == "viterbi", compute_trace=False)
+        plain = Basecaller(**kw)
+        library_fastq(torch, plain, reads_dir, names)  # the programs' first calls
+        zero_counts()
+        want, plain_wall = library_fastq(torch, plain, reads_dir, names)
+        plain_counts = {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
+        mesh = DistributedBasecaller(mesh=make_mesh(2, devices=list(MESH_DEVICES)), **kw)
+        try:
+            library_fastq(torch, mesh, reads_dir, names)
+            mesh.wire_log.clear()
+            zero_counts()
+            got, mesh_wall = library_fastq(torch, mesh, reads_dir, names)
+            counts = check_counts(f"mesh {mode} (twice the one-device run's {plain_counts})",
+                                  {k: 2 * v for k, v in plain_counts.items()})
+            summary = mesh.wire_summary()
+            shards = [rec["shard_rows"] for rec in mesh.wire_log]
+        finally:
+            mesh.close()
+        if not summary or any(ent["devices"] != [2] for ent in summary.values()):
+            raise AssertionError(f"mesh {mode}: a dispatch did not span two shards: {summary}")
+        got_recs, want_recs = parse_fastq(got, "ACGT"), parse_fastq(want, "ACGT")
+        if list(got_recs) != list(want_recs):
+            raise AssertionError(f"mesh {mode}: the records are not in the one-device order")
+        compare_fastq(f"mesh {mode} over {list(MESH_DEVICES)} vs one device", got_recs,
+                      want_recs)
+        launches[f"r941_native_mesh_{mode}"] = counts
+        log(f"mesh {mode}: {len(names)} reads, one device {plain_wall:.3f} s, two replicas on "
+            f"one card {mesh_wall:.3f} s (the sharding path, not a speed-up); dispatches "
+            f"{json.dumps(summary)}, shard rows {shards}; launches {json.dumps(counts)} [{card}]")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        with captured_stderr() as err:
+            rc = flappie_main([reads_dir, "-o", os.devnull, "--mesh", "2"])
+        msg = f"--mesh 2 exceeds the {cards} visible devices"
+        if rc != 1 or msg not in err.text():
+            raise AssertionError(f"flappie --mesh 2 on {cards} card(s): rc {rc}, stderr "
+                                 f"{err.text()[-300:]!r}")
+        log(f"mesh: the CLI refuses --mesh 2 on this host with rc 1 and {msg!r}")
+    return launches
+
+
+def launch_phase(torch, card: str, reads_dir: str, names: list) -> None:
+    """python -m flappie_tpu_torch.parallel.launch --nproc 2 with --trace,
+    both workers on cuda:0, against the CLI in this process."""
+    wdir = os.path.join(WORK, "launch")
+    os.makedirs(wdir)
+    merged, trace = os.path.join(wdir, "merged.fastq"), os.path.join(wdir, "merged.h5")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)}
+    cmd = [sys.executable, "-m", "flappie_tpu_torch.parallel.launch", "--nproc", "2",
+           "--partdir", wdir, "--", reads_dir, "-o", merged, "--trace", trace]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launch --nproc 2 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    plain, plain_trace = os.path.join(wdir, "plain.fastq"), os.path.join(wdir, "plain.h5")
+    plain_wall = run_cli(torch, [reads_dir, "-o", plain, "--trace", plain_trace])
+    with open(merged) as fh:
+        got = parse_fastq(fh.read(), "ACGT")
+    with open(plain) as fh:
+        want = parse_fastq(fh.read(), "ACGT")
+    if list(got) != list(want):
+        raise AssertionError("launch --nproc 2: the merged records are not in input order")
+    compare_fastq("launch --nproc 2 (both workers on cuda:0) vs one process", got, want)
+    compare_traces(trace, plain_trace, {rec[3]["uuid"] for rec in want.values()},
+                   "launch --nproc 2 vs one process", same_groups=True)
+    if os.path.exists(trace + ".part0") or any(f.startswith("flappie_part")
+                                               for f in os.listdir(wdir)):
+        raise AssertionError("launch --nproc 2: part files left behind")
+    log(f"launch --nproc 2: {len(names)} reads, wall {wall:.3f} s (two worker processes, each "
+        f"starting torch and its weights on the card, and the merge) vs one process in this "
+        f"process {plain_wall:.3f} s; worker launches not counted (processes of their own) "
+        f"[{card}]")
+
+
+def dp_train_phase(torch, np, card: str) -> dict:
+    """Two training ranks over gloo on the one card
+    (flappie_tpu_torch.train.distributed), each with half of r941_native's
+    training batch, against one process taking the same steps on the
+    whole batch; returns the one-process run's launch counts."""
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.models.params import init_synthetic
+    from flappie_tpu_torch.train import trainer
+
+    out = os.path.join(WORK, "dp")
+    args = ["--nproc", str(DP["nproc"]), "--steps", str(DP["steps"]), "--batch",
+            str(DP["batch"]), "--blocks", str(DP["blocks"]), "--seed", str(DP["seed"]),
+            "--lr", str(DP["lr"]), "--device", "cuda:0", "--backend", "gloo", "--out", out]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "flappie_tpu_torch.train.distributed"] + args,
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dp-train exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    cfg = get_model_config("r941_native")
+    dev = torch.device("cuda")
+    batch = [torch.from_numpy(a).to(dev) for a in trainer.synthetic_batch(
+        cfg, DP["batch"], DP["blocks"] * cfg.total_stride, DP["seed"])]
+    step, init = trainer.make_train_step(cfg, lr=DP["lr"])
+    params, opt = init(init_synthetic(cfg, seed=DP["seed"]), dev)
+    zero_counts()
+    losses, secs = [], []
+    for _ in range(DP["steps"]):
+        t1 = time.perf_counter()
+        losses.append(float(step(params, opt, *batch)))
+        secs.append(time.perf_counter() - t1)
+    counts = check_counts(f"dp-train one process, {DP['steps']} steps",
+                          {"lstm_layer_train": 5 * DP["steps"], "crf_sum_scan": 2 * DP["steps"]})
+    rel = [abs(a - b) / abs(b) for a, b in zip(summary["losses"], losses)]
+    want_rank = {"lstm_layer_train": 5 * DP["steps"], "grumod_layer": 0,
+                 "crf_sum_scan": 2 * DP["steps"]}
+    log(f"dp-train: 2 ranks over gloo on cuda:0, rows {summary['rows']}, {DP['blocks']} blocks, "
+        f"losses {summary['losses']} vs one process {losses} (relative {max(rel):.2e}); ranks' "
+        f"parameters equal after every step: {summary['ranks_equal']}; step walls "
+        f"{[[round(x, 3) for x in r] for r in summary['step_s']]} s by rank vs one process "
+        f"{[round(x, 3) for x in secs]} s; process wall {wall:.1f} s; launches a rank "
+        f"{summary['launches']}, one process {json.dumps(counts)} [{card}]")
+    if not summary["ranks_equal"]:
+        raise AssertionError("dp-train: the ranks' parameters differ")
+    if summary["rows"] != [DP["batch"] // 2] * 2 or max(rel) > 1e-5:
+        raise AssertionError(f"dp-train: rows {summary['rows']}, losses relative {rel}")
+    if any(r != want_rank for r in summary["launches"]):
+        raise AssertionError(f"dp-train: rank launches {summary['launches']}, expected "
+                             f"{want_rank} each")
+    return counts
+
+
+def profile_phase(torch, card: str, reads_dir: str) -> None:
+    """The CLI with --jax-profile DIR: a Chrome trace naming the path's
+    kernels, and the FASTQ of the run without the flag."""
+    import glob
+
+    pdir = os.path.join(WORK, "profile")
+    plain, profiled = os.path.join(pdir, "plain.fastq"), os.path.join(pdir, "profiled.fastq")
+    os.makedirs(pdir)
+    plain_wall = run_cli(torch, [reads_dir, "-o", plain])
+    wall = run_cli(torch, [reads_dir, "-o", profiled, "--jax-profile", pdir])
+    with open(plain, "rb") as a, open(profiled, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("--jax-profile changed the FASTQ bytes")
+    traces = glob.glob(os.path.join(pdir, "flappie.*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--jax-profile: trace files {traces}")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    missing = [k for k in PROFILE_KERNELS if not any(k in name for name in kernels)]
+    if missing:
+        raise AssertionError(f"--jax-profile: the trace names no {missing} among "
+                             f"{sorted(kernels)[:20]}")
+    log(f"profile: --jax-profile wrote {os.path.basename(traces[0])} "
+        f"({os.path.getsize(traces[0])} bytes, {len(events)} events, {len(kernels)} kernel "
+        f"names, {list(PROFILE_KERNELS)} among them), FASTQ byte-equal to the run without it; "
+        f"wall {wall:.3f} s with the profiler vs {plain_wall:.3f} s [{card}]")
+
+
+def multi_phase(torch, np, card: str) -> dict:
+    """The mesh, launcher, data-parallel training and --jax-profile runs;
+    returns their in-process launch counts by run name."""
+    reads_dir, names = mesh_reads()
+    log(f"multi-device phases: {len(names)} of phase 3's r941_native reads ({names})")
+    launches = mesh_phase(torch, card, reads_dir, names)
+    launch_phase(torch, card, reads_dir, names)
+    launches["r941_native_dp_train"] = dp_train_phase(torch, np, card)
+    profile_phase(torch, card, reads_dir)
+    return launches
+
+
 # -- phase 4: training ---------------------------------------------------------
 
 # tools/train_r5.py's recipe: batch 32, chunks of 2560 samples, Adam at lr
@@ -3929,6 +4199,7 @@ def main() -> int:
     sloika_rows, sloika_launches = sloika_phase(torch, np, card, peak, libs)
     rows += sloika_rows
     launches.update(sloika_launches)
+    launches.update(multi_phase(torch, np, card))
     check_gradients(torch, card)
     launches["r941_native_train"] = training(torch, np, card)
 

@@ -17,14 +17,22 @@ wall-clock accounting (timing.py) at exit.
 (``Basecaller(stream=torch.bfloat16)``, ops/precision.py); it sets no
 environment variable.
 
-Not ported yet, and refused with an error when given: ``--mesh N``
-(N > 1).
+``--mesh N`` shards every device batch over N devices
+(parallel/pipeline.py): the first N cards, or N replicas on the CPU under
+``--device cpu``; it prints the dispatches' ``flappie-mesh: {json}``
+summary on stderr at exit.  Multi-process runs go through
+``python -m flappie_tpu_torch.parallel.launch``.  ``--jax-profile DIR``
+(the JAX CLI's flag name, so that both parsers take the same flags)
+records the basecalling loop with ``torch.profiler`` and writes a
+Chrome trace under DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob as globmod
+import json
 import os
 import sys
 
@@ -133,7 +141,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-batch", type=int, default=256, metavar="N",
                    help="Maximum chunks per device batch on the chunked path")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="Shard batches over N devices (not ported yet)")
+                   help="Shard each device batch over N devices (data "
+                        "parallelism): the first N CUDA devices, or N "
+                        "replicas on the CPU under --device cpu.  The "
+                        "counterpart of the reference's `parallel -P N -X "
+                        "flappie` fan-out; for multi-process runs use python "
+                        "-m flappie_tpu_torch.parallel.launch")
     p.add_argument("--multi", action="store_true", default=False,
                    help="Basecall every read in multi-read fast5 files "
                         "(the reference only reads the first)")
@@ -152,6 +165,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "tables (the entry matching --model applies); "
                         "omit for raw model qualities (the byte-parity "
                         "default)")
+    p.add_argument("--jax-profile", default=None, metavar="dir",
+                   help="Profile the basecalling loop with torch.profiler "
+                        "(host activity, and the card's kernels on CUDA) and "
+                        "write it as the Chrome trace "
+                        "dir/flappie.<pid>.pt.trace.json (chrome://tracing, "
+                        "Perfetto or TensorBoard's profiler plugin); the "
+                        "JAX CLI's flag name")
     # port extension
     p.add_argument("--device", default="cuda", metavar="name",
                    help="Torch device to run on (default cuda; 'cpu' runs the "
@@ -163,6 +183,77 @@ def fast_stream(fast: bool):
     """``--fast``: the bf16 stream, passed explicitly; else None, which
     reads FLAPPIE_TPU_RNN_STREAM (f32 unless set)."""
     return torch.bfloat16 if fast else None
+
+
+def make_caller(args):
+    """The basecaller the flags ask for: a DistributedBasecaller over
+    ``--mesh`` N > 1 devices, else a Basecaller on ``--device``.  Returns
+    None, after saying why on stderr, when N exceeds the visible cards."""
+    from ..basecall import Basecaller
+
+    kw = dict(
+        model=args.model,
+        checkpoint=args.checkpoint,
+        temperature=args.temperature,
+        viterbi_only=args.viterbi,
+        compute_trace=args.trace is not None,
+        chunk=args.chunk,
+        overlap=args.overlap,
+        chunk_batch=args.chunk_batch,
+        stream=fast_stream(args.fast),
+    )
+    if args.mesh <= 1:
+        return Basecaller(device=args.device, **kw)
+    from ..parallel.mesh import make_mesh
+    from ..parallel.pipeline import DistributedBasecaller
+
+    device = torch.device(args.device)
+    devices = None  # the first N cards
+    if device.type == "cuda":
+        visible = torch.cuda.device_count()
+        if args.mesh > visible:
+            print(f"--mesh {args.mesh} exceeds the {visible} visible devices", file=sys.stderr)
+            return None
+    else:
+        devices = [device] * args.mesh
+    return DistributedBasecaller(mesh=make_mesh(args.mesh, devices=devices), **kw)
+
+
+@contextlib.contextmanager
+def torch_profile(logdir: str, cuda: bool):
+    """``--jax-profile``: torch.profiler over the block (host activity,
+    and the card's under ``cuda``), written as a Chrome trace to
+    ``logdir/flappie.<pid>.pt.trace.json`` when the block ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(logdir, f"flappie.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"flappie: profile written to {path}", file=sys.stderr)
+
+
+def basecall(caller, args, reads):
+    """``caller.basecall_raw_tables`` on ``reads`` with the flags'
+    trimming, segmentation, delta, reversal and batch, under
+    ``--jax-profile`` when it is given."""
+    trim_start, trim_end = args.trim
+    varseg_chunk, varseg_thresh = args.segmentation
+    profile = (torch_profile(args.jax_profile, caller.device.type == "cuda")
+               if args.jax_profile else contextlib.nullcontext())
+    with profile:
+        return caller.basecall_raw_tables(
+            reads,
+            trim_start=trim_start,
+            trim_end=trim_end,
+            varseg_chunk=varseg_chunk,
+            varseg_thresh=varseg_thresh,
+            delta=args.delta,
+            reverse=args.reverse,
+            max_batch=args.batch,
+        )
 
 
 def expand_files(args_files):
@@ -230,8 +321,6 @@ def main(argv=None) -> int:
     if not args.temperature > 0.0:
         print(f"Invalid temperature {args.temperature} -- must be > 0.", file=sys.stderr)
         return 1
-    if args.mesh > 1:
-        parser.error("--mesh: not ported to flappie_tpu_torch yet")
     qcal = None
     if args.qcal:
         # validate up front: a malformed pair/file must fail BEFORE the
@@ -243,41 +332,19 @@ def main(argv=None) -> int:
     if not args.files:
         parser.error("the following arguments are required: fast5")
 
-    from ..basecall import Basecaller
-
     files = expand_files(args.files)
     if args.limit > 0:
         files = files[: args.limit]
 
-    caller = Basecaller(
-        model=args.model,
-        checkpoint=args.checkpoint,
-        temperature=args.temperature,
-        viterbi_only=args.viterbi,
-        compute_trace=args.trace is not None,
-        chunk=args.chunk,
-        overlap=args.overlap,
-        chunk_batch=args.chunk_batch,
-        device=args.device,
-        stream=fast_stream(args.fast),
-    )
+    caller = make_caller(args)
+    if caller is None:
+        return 1
 
     reads, names, fnames = expand_reads(files, args.multi)
     if args.limit > 0:
         reads, names, fnames = reads[: args.limit], names[: args.limit], fnames[: args.limit]
 
-    trim_start, trim_end = args.trim
-    varseg_chunk, varseg_thresh = args.segmentation
-    results = caller.basecall_raw_tables(
-        reads,
-        trim_start=trim_start,
-        trim_end=trim_end,
-        varseg_chunk=varseg_chunk,
-        varseg_thresh=varseg_thresh,
-        delta=args.delta,
-        reverse=args.reverse,
-        max_batch=args.batch,
-    )
+    results = basecall(caller, args, reads)
 
     out = open(args.output, "w") if args.output else sys.stdout
     try:
@@ -298,6 +365,10 @@ def main(argv=None) -> int:
             out.close()
     # FLAPPIE_TPU_PHASES=path|stderr: the per-phase wall-clock accounting
     timing.maybe_dump()
+    if args.mesh > 1:
+        # which programs ran and over how many devices each dispatch spanned
+        print(f"flappie-mesh: {json.dumps(caller.wire_summary())}", file=sys.stderr)
+        caller.close()
     return 0
 
 

@@ -75,12 +75,13 @@ def conv12_info(B: int, T: int) -> dict:
 
 def _lib():
     lib = cuda_build.load("conv12")
-    if lib.flappie_conv12.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.flappie_conv12_info.argtypes = [I, I, P]
-        lib.flappie_conv12.argtypes = [P] * 7 + [I, I, P]
-        for fn in (lib.flappie_conv12_info, lib.flappie_conv12):
-            fn.restype = ctypes.c_int
+    with cuda_build.lock:  # a mesh's dispatch threads may type it at once
+        if lib.flappie_conv12.argtypes is None:
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.flappie_conv12_info.argtypes = [I, I, P]
+            lib.flappie_conv12.argtypes = [P] * 7 + [I, I, P]
+            for fn in (lib.flappie_conv12_info, lib.flappie_conv12):
+                fn.restype = ctypes.c_int
     return lib
 
 
@@ -116,7 +117,7 @@ def _launch(x, W1, b1, W2, b2, lengths):
     rc = lib.flappie_conv12(*(cuda_build.ptr(t) for t in (x, W1, b1, W2, b2, lengths, y2)),
                             B, T, cuda_build.stream_of(x))
     cuda_build.check(lib, rc, "conv12_fused")
-    conv12_fused.launches += 1
+    cuda_build.count(conv12_fused)
     return y2
 
 

@@ -153,7 +153,9 @@ def index_tables(idx: TransIndex, device) -> IndexTables:
     from pageable memory in the middle of a program.  They are built
     outside inference mode whatever the caller's (a basecall's programs
     run under it), so that a later differentiable gather may save them
-    for backward."""
+    for backward.  Keyed by device, so a mesh's dispatch threads each
+    find their own device's tables; two threads that miss at once build
+    a table twice, and the last one stays, which is harmless."""
     device = torch.device(device)
     key = (id(idx), str(device))
     hit = _TABLES.get(key)
@@ -198,9 +200,13 @@ def _time_valid(nblocks, T: int, device):
 
 
 def lse(x, dim: int):
-    """max + log(sum(exp(x - max))) along ``dim`` (finite inputs)."""
+    """max + log(sum(exp(x - max))) along ``dim`` (finite inputs), the
+    sum in index order (a cumulative sum's last entry): torch.sum adds in
+    an order that follows the tensor's strides and the vectorised and
+    remaining columns, so a read's bits would depend on its batch's size."""
     mx = x.amax(dim=dim, keepdim=True)
-    return (mx + torch.log(torch.sum(torch.exp(x - mx), dim=dim, keepdim=True))).squeeze(dim)
+    e = torch.exp(x - mx)
+    return (mx + torch.log(torch.cumsum(e, dim=dim).narrow(dim, -1, 1))).squeeze(dim)
 
 
 def crf_forward(trans, nblocks, nbase: int, idx: TransIndex | None = None):

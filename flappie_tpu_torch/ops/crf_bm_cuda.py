@@ -41,13 +41,9 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .crf import lse
 
 RANK_BIG = 10**6
-
-
-def _lse_over(z, dim: int):
-    mx = z.amax(dim=dim)
-    return mx + torch.log(torch.sum(torch.exp(z - mx.unsqueeze(dim)), dim=dim))
 
 
 # -- plain versions ----------------------------------------------------------
@@ -61,13 +57,13 @@ def sum_states_plain(dense_tm, tvalid_tm, backward: bool):
     if backward:
         out[T] = a
         for t in range(T - 1, -1, -1):
-            nxt = _lse_over(dense_tm[t] + a[None, :, :], 1)
+            nxt = lse(dense_tm[t] + a[None, :, :], 1)
             a = v[t] * nxt + (1.0 - v[t]) * a
             out[t] = a
     else:
         out[0] = a
         for t in range(T):
-            nxt = _lse_over(a[:, None, :] + dense_tm[t], 0)
+            nxt = lse(a[:, None, :] + dense_tm[t], 0)
             a = v[t] * nxt + (1.0 - v[t]) * a
             out[t + 1] = a
     return out
@@ -261,18 +257,19 @@ def scan_info(S: int, B: int) -> dict:
 
 def _lib():
     lib = cuda_build.load("crf_scan")
-    if lib.flappie_crf_sum.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.flappie_crf_scan_info.argtypes = [I, I, P]
-        lib.flappie_crf_sum.argtypes = [P, P, P, I, I, I, I, P]
-        lib.flappie_crf_fwdbwd.argtypes = [P, P, P, P, I, I, I, P]
-        lib.flappie_crf_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
-        lib.flappie_crf_traceback.argtypes = [P, P, P, P, I, I, I, P]
-        lib.flappie_crf_traceback_info.argtypes = [I, I, I, P]
-        for fn in (lib.flappie_crf_scan_info, lib.flappie_crf_sum, lib.flappie_crf_fwdbwd,
-                   lib.flappie_crf_viterbi, lib.flappie_crf_traceback,
-                   lib.flappie_crf_traceback_info):
-            fn.restype = ctypes.c_int
+    with cuda_build.lock:  # a mesh's dispatch threads may type it at once
+        if lib.flappie_crf_sum.argtypes is None:
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.flappie_crf_scan_info.argtypes = [I, I, P]
+            lib.flappie_crf_sum.argtypes = [P, P, P, I, I, I, I, P]
+            lib.flappie_crf_fwdbwd.argtypes = [P, P, P, P, I, I, I, P]
+            lib.flappie_crf_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
+            lib.flappie_crf_traceback.argtypes = [P, P, P, P, I, I, I, P]
+            lib.flappie_crf_traceback_info.argtypes = [I, I, I, P]
+            for fn in (lib.flappie_crf_scan_info, lib.flappie_crf_sum, lib.flappie_crf_fwdbwd,
+                       lib.flappie_crf_viterbi, lib.flappie_crf_traceback,
+                       lib.flappie_crf_traceback_info):
+                fn.restype = ctypes.c_int
     return lib
 
 
@@ -303,7 +300,7 @@ def sum_states(dense_tm, tvalid_tm, backward: bool = False):
                              cuda_build.ptr(out), T, S, B, int(backward),
                              cuda_build.stream_of(dense))
     cuda_build.check(lib, rc, "sum_states")
-    sum_states.launches += 1
+    cuda_build.count(sum_states)
     return out
 
 
@@ -335,7 +332,7 @@ def fwdbwd_states(dense_tm, tvalid_tm):
                                 cuda_build.ptr(alphas), cuda_build.ptr(betas), T, S, B,
                                 cuda_build.stream_of(dense))
     cuda_build.check(lib, rc, "fwdbwd_states")
-    fwdbwd_states.launches += 1
+    cuda_build.count(fwdbwd_states)
     return alphas, betas
 
 
@@ -358,7 +355,7 @@ def viterbi_fwd(dense_tm, tvalid_tm, tie_rank):
                                  cuda_build.ptr(bps), T, S, B,
                                  cuda_build.stream_of(dense))
     cuda_build.check(lib, rc, "viterbi_fwd")
-    viterbi_fwd.launches += 1
+    cuda_build.count(viterbi_fwd)
     return alpha, bps
 
 
@@ -383,7 +380,7 @@ def traceback(backptr_tm, tvalid_tm, last_state):
                                    cuda_build.ptr(last), cuda_build.ptr(out),
                                    T, S, B, cuda_build.stream_of(bp))
     cuda_build.check(lib, rc, "traceback")
-    traceback.launches += 1
+    cuda_build.count(traceback)
     return out
 
 

@@ -165,16 +165,17 @@ def traceback_bt_info(T: int, S: int, B: int) -> dict:
 
 def _lib():
     lib = cuda_build.load("crf_bt")
-    if lib.flappie_crf_bt_fwd.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.flappie_crf_bt_info.argtypes = [I, I, P]
-        lib.flappie_crf_bt_fwd.argtypes = [P, P, P, I, I, I, P]
-        lib.flappie_crf_bt_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
-        lib.flappie_crf_bt_traceback.argtypes = [P, P, P, P, I, I, I, P]
-        lib.flappie_crf_bt_traceback_info.argtypes = [I, I, I, P]
-        for fn in (lib.flappie_crf_bt_info, lib.flappie_crf_bt_fwd, lib.flappie_crf_bt_viterbi,
-                   lib.flappie_crf_bt_traceback, lib.flappie_crf_bt_traceback_info):
-            fn.restype = ctypes.c_int
+    with cuda_build.lock:  # a mesh's dispatch threads may type it at once
+        if lib.flappie_crf_bt_fwd.argtypes is None:
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.flappie_crf_bt_info.argtypes = [I, I, P]
+            lib.flappie_crf_bt_fwd.argtypes = [P, P, P, I, I, I, P]
+            lib.flappie_crf_bt_viterbi.argtypes = [P, P, P, P, P, I, I, I, P]
+            lib.flappie_crf_bt_traceback.argtypes = [P, P, P, P, I, I, I, P]
+            lib.flappie_crf_bt_traceback_info.argtypes = [I, I, I, P]
+            for fn in (lib.flappie_crf_bt_info, lib.flappie_crf_bt_fwd, lib.flappie_crf_bt_viterbi,
+                       lib.flappie_crf_bt_traceback, lib.flappie_crf_bt_traceback_info):
+                fn.restype = ctypes.c_int
     return lib
 
 
@@ -203,7 +204,7 @@ def fwd_scan(dense_tm, valid_tm):
     rc = lib.flappie_crf_bt_fwd(cuda_build.ptr(dense), cuda_build.ptr(valid),
                                 cuda_build.ptr(out), T, S, B, cuda_build.stream_of(dense))
     cuda_build.check(lib, rc, "fwd_scan")
-    fwd_scan.launches += 1
+    cuda_build.count(fwd_scan)
     return out
 
 
@@ -226,7 +227,7 @@ def viterbi_scan(dense_tm, valid_tm, tie_rank):
                                     cuda_build.ptr(rank), cuda_build.ptr(alphas),
                                     cuda_build.ptr(bps), T, S, B, cuda_build.stream_of(dense))
     cuda_build.check(lib, rc, "viterbi_scan")
-    viterbi_scan.launches += 1
+    cuda_build.count(viterbi_scan)
     return alphas, bps
 
 
@@ -254,7 +255,7 @@ def traceback_bt(bp_rev_tm, valid_rev_tm, last_state):
                                       cuda_build.ptr(last), cuda_build.ptr(out), T, S, B,
                                       cuda_build.stream_of(bp))
     cuda_build.check(lib, rc, "traceback_bt")
-    traceback_bt.launches += 1
+    cuda_build.count(traceback_bt)
     return out
 
 

@@ -28,7 +28,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.RLock()
+lock = threading.RLock()  # the builds, the loads and the typing of entry points
+_count_lock = threading.Lock()
 _libs: dict = {}
 # nvcc's output per source from the last build in this process: ptxas
 # prints each kernel's registers, shared memory and spills there
@@ -58,7 +59,7 @@ def _stale(name: str) -> bool:
 def build(names=SOURCES) -> list:
     """Compile every stale source in ``names`` (one nvcc per source, all
     started together); returns the names that were compiled."""
-    with _lock:
+    with lock:
         todo = [n for n in names if _stale(n)]
         if not todo:
             return []
@@ -90,7 +91,7 @@ def build(names=SOURCES) -> list:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    with _lock:
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
@@ -110,6 +111,14 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def count(wrapper) -> None:
+    """One launch on ``wrapper.launches``.  A mesh's dispatch threads
+    launch at once, and ``+=`` on an attribute is a read-modify-write
+    that can drop a count across threads, so it takes a lock."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def stream_of(t) -> ctypes.c_void_p:

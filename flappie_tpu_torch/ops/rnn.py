@@ -33,15 +33,27 @@ from __future__ import annotations
 import torch
 
 
+def rows_matmul(x, W):
+    """x [..., K] @ W [K, N] as one [rows, K] x [K, N] product, with one
+    row computed as two equal rows.  torch.matmul takes other BLAS paths,
+    whose sums run in another order, for one row (the vector product) and
+    for a 3-D x whose size-1 batch dimension has an odd stride, so a
+    read's bits would depend on how many reads share its batch."""
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] == 1:
+        return (torch.cat([rows, rows]) @ W)[:1].reshape(*x.shape[:-1], W.shape[-1])
+    return (rows @ W).reshape(*x.shape[:-1], W.shape[-1])
+
+
 def affine(x, W, b):
     """[..., in] x [in, K] + [K] -> [..., K] in float32."""
-    return torch.matmul(x, W) + b
+    return rows_matmul(x, W) + b
 
 
 def lstm_step(xa_t, h, c, sW):
     """One LSTM step: returns (h', c')."""
     H = h.shape[-1]
-    xF = xa_t + h @ sW
+    xF = xa_t + rows_matmul(h, sW)
     u = torch.sigmoid(xF[:, :H])
     f = torch.sigmoid(xF[:, H : 2 * H])
     g = torch.tanh(xF[:, 2 * H : 3 * H])
@@ -67,7 +79,7 @@ def lstm_seq(xaffine, sW):
 def grumod_step(xa_t, h, sW):
     """One GRU-mod step: returns h'."""
     H = h.shape[-1]
-    v = h @ sW
+    v = rows_matmul(h, sW)
     z = torch.sigmoid(xa_t[:, :H] + v[:, :H])
     r = torch.sigmoid(xa_t[:, H : 2 * H] + v[:, H : 2 * H])
     hbar = torch.tanh(r * v[:, 2 * H :] + xa_t[:, 2 * H :])
@@ -90,9 +102,9 @@ def gru_step(xa_t, h, sW, sW2, candidate=torch.tanh):
     """One sloika GRU step (``candidate=torch.relu``: the ReLU variant):
     returns h'."""
     H = h.shape[-1]
-    zr = torch.sigmoid(xa_t[:, : 2 * H] + h @ sW)
+    zr = torch.sigmoid(xa_t[:, : 2 * H] + rows_matmul(h, sW))
     z, r = zr[:, :H], zr[:, H:]
-    hbar = candidate(xa_t[:, 2 * H :] + (r * h) @ sW2)
+    hbar = candidate(xa_t[:, 2 * H :] + rows_matmul(r * h, sW2))
     return z * h + (1 - z) * hbar
 
 

@@ -57,7 +57,7 @@ import types
 import torch
 
 from . import cuda_build
-from .rnn import grumod_seq, grumod_step, lstm_seq, lstm_step
+from .rnn import grumod_seq, grumod_step, lstm_seq, lstm_step, rows_matmul
 
 
 _NO_TRAIN = ("training under the bf16 stream is not ported (ROADMAP item 17's remainder): "
@@ -66,14 +66,14 @@ _NO_TRAIN = ("training under the bf16 stream is not ported (ROADMAP item 17's re
 
 def affine_f32_plain(x, iW, b):
     """x . iW + b in f32: x [..., K], iW [K, N], b [N] -> [..., N]."""
-    return torch.matmul(x, iW) + b
+    return rows_matmul(x, iW) + b
 
 
 def affine_bf16_plain(x, iW, b):
     """bf16(x . iW + b): x [..., K] and iW [K, N] rounded to bf16, the
     product and the bias in f32, one round to bf16 -> [..., N] bf16."""
     bf = torch.bfloat16
-    return (torch.matmul(x.to(bf).float(), iW.to(bf).float()) + b).to(bf)
+    return (rows_matmul(x.to(bf).float(), iW.to(bf).float()) + b).to(bf)
 
 
 def _xa_plain(x_tm, iW, b):
@@ -82,7 +82,7 @@ def _xa_plain(x_tm, iW, b):
     f32 and f32 steps."""
     if x_tm.dtype == torch.bfloat16:
         return affine_bf16_plain(x_tm, iW, b).float(), torch.float32
-    return torch.matmul(x_tm, iW) + b, x_tm.dtype
+    return rows_matmul(x_tm, iW) + b, x_tm.dtype
 
 
 def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool):
@@ -310,8 +310,8 @@ def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         raise ValueError(f"lstm_layer_tm: unsupported device {x_tm.device}")
     out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4,
                         x_tm, iW, b, sW, backward, lengths)
-    lstm_layer_tm.launches += 1
-    affine_f32.launches += 1
+    cuda_build.count(lstm_layer_tm)
+    cuda_build.count(affine_f32)
     return out
 
 
@@ -333,7 +333,7 @@ def lstm_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         raise ValueError(f"lstm_layer_tm_bf16: unsupported device {x_tm.device}")
     out = _launch_layer("lstm_layer_tm_bf16", "lstm", "flappie_lstm_layer_bf16", 4,
                         x_tm, iW, b, sW, backward, lengths)
-    lstm_layer_tm_bf16.launches += 1
+    cuda_build.count(lstm_layer_tm_bf16)
     _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
     return out
 
@@ -354,8 +354,8 @@ def lstm_layer_tm_train(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         raise ValueError(f"lstm_layer_tm_train: unsupported device {x_tm.device}")
     out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4,
                         x_tm, iW, b, sW, backward, lengths, want_c=True)
-    lstm_layer_tm_train.launches += 1
-    affine_f32.launches += 1
+    cuda_build.count(lstm_layer_tm_train)
+    cuda_build.count(affine_f32)
     return out
 
 
@@ -374,8 +374,8 @@ def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         raise ValueError(f"grumod_layer_tm: unsupported device {x_tm.device}")
     out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3,
                         x_tm, iW, b, sW, backward, lengths)
-    grumod_layer_tm.launches += 1
-    affine_f32.launches += 1
+    cuda_build.count(grumod_layer_tm)
+    cuda_build.count(affine_f32)
     return out
 
 
@@ -392,7 +392,7 @@ def grumod_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
         raise ValueError(f"grumod_layer_tm_bf16: unsupported device {x_tm.device}")
     out = _launch_layer("grumod_layer_tm_bf16", "grumod", "flappie_grumod_layer_bf16", 3,
                         x_tm, iW, b, sW, backward, lengths)
-    grumod_layer_tm_bf16.launches += 1
+    cuda_build.count(grumod_layer_tm_bf16)
     _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
     return out
 
@@ -437,7 +437,7 @@ def affine_f32(x, iW, b):
     if x.device.type == "cpu":
         return affine_f32_plain(x, iW, b)
     out = _launch_affine("affine_f32", "flappie_affine_f32", torch.float32, x, iW, b)
-    affine_f32.launches += 1
+    cuda_build.count(affine_f32)
     return out
 
 
@@ -465,9 +465,9 @@ affine_bf16_wmma = types.SimpleNamespace(launches=0)
 def _count_affine_bf16(M: int, N: int, K: int) -> None:
     """One bf16 affine launch at [M, K] x [K, N], on its path's counter."""
     if _affine_plan(M, N, K, True)[0] == PATH_WGMMA:
-        affine_bf16.launches += 1
+        cuda_build.count(affine_bf16)
     else:
-        affine_bf16_wmma.launches += 1
+        cuda_build.count(affine_bf16_wmma)
 
 
 def _launch_seq(what, source, entry, gates, xaffine, sW):
@@ -509,7 +509,7 @@ def lstm_seq_cuda(xaffine, sW):
     if xaffine.device.type != "cuda":
         raise ValueError(f"lstm_seq_cuda: unsupported device {xaffine.device}")
     out = _launch_seq("lstm_seq_cuda", "lstm", "flappie_lstm_seq", 4, xaffine, sW)
-    lstm_seq_cuda.launches += 1
+    cuda_build.count(lstm_seq_cuda)
     return out
 
 
@@ -526,7 +526,7 @@ def grumod_seq_cuda(xaffine, sW):
     if xaffine.device.type != "cuda":
         raise ValueError(f"grumod_seq_cuda: unsupported device {xaffine.device}")
     out = _launch_seq("grumod_seq_cuda", "grumod", "flappie_grumod_seq", 3, xaffine, sW)
-    grumod_seq_cuda.launches += 1
+    cuda_build.count(grumod_seq_cuda)
     return out
 
 

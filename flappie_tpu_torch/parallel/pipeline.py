@@ -1,0 +1,154 @@
+"""Data-parallel basecalling over a device mesh.
+
+Counterpart of flappie_tpu/parallel/pipeline.py, the replacement for the
+reference's process-level fan-out (``find ... | parallel -P $(nproc) -X
+flappie``, its README.md:81-83): each packed batch's rows shard over the
+mesh's devices, each holding a replica of the weights, and the shards'
+output bytes are concatenated back in input order.
+
+The JAX version pads every batch to a multiple of the data axis with
+filler rows (its ``_filler_rows``), because an SPMD program needs equal
+shards.  Here each shard is a program call of its own on its own device,
+and the programs take any batch size, so shards may be unequal (the
+first ``rows % n`` one row longer, ``mesh.batch_sharding``) and need no
+fillers; a batch of fewer rows than devices runs on fewer devices.  Rows
+are independent reads or chunks, and a row's bytes do not depend on the
+batch it shares (ops/rnn.py ``rows_matmul``, ops/conv.py ``_conv_math``
+and ops/crf.py ``lse`` keep the CPU path's sums in one order at every
+batch size), so the output bytes equal the one-device run's, on the CPU
+exactly (on the card see ROADMAP.md section 3).
+
+Each mesh device has one persistent dispatch thread, which makes its
+device current (``torch.cuda.device``) around every shard: the C entries
+size their grids and set kernel attributes on the current device, and a
+shard's streams and tensors belong to its device.  A launch returns only
+when the host has issued it, so one thread dispatching N shards in turn
+would serialise the devices; ctypes releases the interpreter lock in the
+C calls, so the threads overlap.
+
+Multi-process runs (one process per host, or per device group) call
+``init_distributed`` first; inference needs no collective, so the
+launcher (parallel/launch.py) shards reads by file instead, and the
+process group serves data-parallel training (train/trainer.py).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import timing
+from ..basecall import Basecaller, _chaos_maybe_fail_dispatch, _DeviceQueue
+from .mesh import Mesh, batch_sharding, make_mesh, shard_params
+
+
+def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None, backend: Optional[str] = None):
+    """Join a process group of ``num_processes`` ranks (``process_id`` is
+    this one's) that meet at ``coordinator`` (host:port); returns the
+    default group, or None for one process (a no-op).  ``backend``:
+    ``nccl`` where CUDA is available, else ``gloo``, unless given (two
+    ranks on one card need ``gloo``: NCCL refuses them)."""
+    if num_processes is None or num_processes <= 1:
+        return None
+    if coordinator is None or process_id is None:
+        raise ValueError("init_distributed: a multi-process run needs the coordinator's "
+                         "host:port and this process's id")
+    import torch.distributed as dist
+
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id)
+    return dist.group.WORLD
+
+
+def _on_device(device: torch.device):
+    """The context that makes ``device`` current on the calling thread."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class _Sharded:
+    """One dispatched batch: a future a shard, in row order; each gives
+    that shard's in-flight batch (basecall._InFlight)."""
+
+    def __init__(self, futures):
+        self._futures = futures
+
+    def result(self) -> np.ndarray:
+        with timing.phase("shard_wait"):  # the dispatch threads issuing the shards
+            pending = [f.result() for f in self._futures]
+        parts = [p.result() for p in pending]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+
+class DistributedBasecaller(Basecaller):
+    """A Basecaller whose packed batches shard over a Mesh's devices.
+
+    ``mesh`` defaults to every visible card (``make_mesh()``); the
+    devices come from it, so ``device`` is not an argument here.  Every
+    other argument is Basecaller's.  The weights (after ``stream_params``,
+    so ``stream=torch.bfloat16`` holds under the mesh too) are replicated
+    onto each device, which gets a dispatch queue and thread of its own.
+    """
+
+    def __init__(self, *args, mesh: Optional[Mesh] = None, **kw):
+        if "device" in kw:
+            raise TypeError("DistributedBasecaller: the devices come from the mesh")
+        self.mesh = mesh if mesh is not None else make_mesh()
+        super().__init__(*args, device=self.mesh.devices[0], **kw)
+        self.replicas = shard_params(self.params, self.mesh)
+        self._queues = [_DeviceQueue(d) for d in self.mesh.devices]
+        self._threads = [ThreadPoolExecutor(1, thread_name_prefix=f"flappie-shard{i}")
+                         for i in range(len(self.mesh))]
+        # one record a dispatch, bounded: a long-lived server must not grow
+        # without bound, and the summary covers the recent past
+        self.wire_log: deque = deque(maxlen=4096)
+
+    def _run_shard(self, i: int, program, shard: np.ndarray):
+        with _on_device(self.mesh.devices[i]):
+            return self._queues[i].run(
+                lambda dev: program(self.replicas[i], dev, self.cfg, self.temperature,
+                                    self.viterbi_only, self.compute_trace, self.rnn_impl,
+                                    self.stream), shard)
+
+    def _dispatch(self, program, buf: np.ndarray) -> _Sharded:
+        """Split one packed batch's rows over the mesh and hand each
+        shard to its device's thread; returns at once."""
+        _chaos_maybe_fail_dispatch()
+        buf = np.ascontiguousarray(buf)
+        bounds = batch_sharding(self.mesh, buf.shape[0])
+        futures = [self._threads[i].submit(self._run_shard, i, program, buf[lo:hi])
+                   for i, (lo, hi) in enumerate(bounds)]
+        self.wire_log.append({
+            "program": getattr(program, "__name__", str(program)),
+            "dtype": str(buf.dtype),
+            "rows": int(buf.shape[0]),
+            "devices": len(futures),
+            "shard_rows": [hi - lo for lo, hi in bounds],
+        })
+        return _Sharded(futures)
+
+    def wire_summary(self) -> dict:
+        """Per program and wire dtype: the dispatches, the shard counts
+        they spanned and their rows (the JAX summary's keys)."""
+        summary: dict = {}
+        for rec in self.wire_log:
+            ent = summary.setdefault(f"{rec['program']}[{rec['dtype']}]",
+                                     {"dispatches": 0, "devices": set(), "rows": 0})
+            ent["dispatches"] += 1
+            ent["devices"].add(rec["devices"])
+            ent["rows"] += rec["rows"]
+        return {k: {**v, "devices": sorted(v["devices"])} for k, v in summary.items()}
+
+    def close(self) -> None:
+        """Stop the dispatch threads (after the shards in flight)."""
+        for t in self._threads:
+            t.shutdown(wait=True)

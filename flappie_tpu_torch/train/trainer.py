@@ -16,6 +16,16 @@ The optimiser is ``torch.optim.Adam`` with optax.adam's defaults (b1
 parameter tensors in place (the JAX step returns new trees): one copy of
 the weights and moments lives on the device.
 
+Data parallelism across processes (the JAX package shards the step over
+a mesh and XLA inserts the gradient all-reduce): ``make_train_step(...,
+group=...)`` with a ``torch.distributed`` group of ranks, each holding
+its own rows of the global batch.  Each rank scales its loss by
+local_B / global_B and, after backward, sums the gradients across the
+ranks with one ``all_reduce`` over a flat buffer before Adam, so every
+rank takes the global batch mean's step, also with unequal shards, and
+keeps the same parameters.  The parameters are a tree of tensors, not an
+``nn.Module``, so ``DistributedDataParallel`` does not apply.
+
 The train-state npz uses the JAX package's key layout, so a checkpoint
 written by either package resumes in the other: ``p/['rnn0']['iW']``
 for a parameter, ``o/[0].count``, ``o/[0].mu[...]``, ``o/[0].nu[...]``
@@ -67,11 +77,35 @@ def to_device(params, device=None):
     return params_to_torch(params, resolve_device(device))
 
 
-def make_train_step(cfg: ModelConfig, lr: float = 1e-4, loss_fn=nll_loss):
+def all_reduce_grads(params, group) -> None:
+    """Sum every leaf's gradient across ``group``'s ranks in place: one
+    all_reduce over the leaves flattened into one buffer (a leaf without
+    a gradient counts as zeros)."""
+    import torch.distributed as dist
+
+    leaves = [t for _, t in tree_leaves(params)]
+    grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    ofs = 0
+    for t, g in zip(leaves, grads):
+        t.grad = flat[ofs : ofs + g.numel()].view_as(g)
+        ofs += g.numel()
+
+
+def make_train_step(cfg: ModelConfig, lr: float = 1e-4, loss_fn=nll_loss, group=None):
     """(train_step, init).  ``init(params, device=None)`` -> (params as
     tensors on the device, their optimiser); ``train_step(params,
     optimizer, *batch)`` runs one loss, gradient and Adam update in place
-    and returns the loss (a detached scalar)."""
+    and returns the loss (a detached scalar).
+
+    ``group``: a torch.distributed process group of data-parallel ranks,
+    each passing its own rows of the batch (module docstring).  Every rank
+    must start from the same parameters; the loss returned is the global
+    batch's."""
+    import torch.distributed as dist
+
+    ranks = 1 if group is None else dist.get_world_size(group)
 
     def init(params, device=None):
         params = to_device(params, device)
@@ -80,7 +114,16 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4, loss_fn=nll_loss):
     def train_step(params, optimizer, *batch):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, cfg, *batch)
+        if ranks > 1:
+            rows = torch.tensor([float(batch[0].shape[0])], device=loss.device)
+            dist.all_reduce(rows, group=group)
+            loss = loss * (batch[0].shape[0] / rows.item())
         loss.backward()
+        if ranks > 1:
+            all_reduce_grads(params, group)
+            total = loss.detach().reshape(1).clone()
+            dist.all_reduce(total, group=group)
+            loss = total[0]
         optimizer.step()
         return loss.detach()
 

@@ -130,10 +130,16 @@ def test_cli_fault_isolation_and_refusals(reads, tmp_path, capsys):
                 tmp_path / "o.fq")
     assert text.startswith("@read-0") and text.count("@read-") == 1
     assert f"No basecall returned for {bad}" in capsys.readouterr().err
-    # --mesh is not ported (--trace: test_torch_trace.py; --fast:
-    # test_torch_fast.py)
-    with pytest.raises(SystemExit):
-        port_main([str(reads), "--device", "cpu", "--mesh", "2"])
+    # --mesh 2 runs on the CPU; beyond the visible cards it returns 1
+    # with the JAX CLI's message (the rest: test_torch_mesh.py)
+    assert _run(port_main, [str(reads), "--device", "cpu", "--mesh", "2"] + CHUNK_ARGS,
+                tmp_path / "mesh.fq") == _run(port_main, [str(reads), "--device", "cpu"]
+                                              + CHUNK_ARGS, tmp_path / "one.fq")
+    cards = torch.cuda.device_count()
+    n = max(2, cards + 1)
+    capsys.readouterr()
+    assert port_main([str(reads), "--mesh", str(n)]) == 1
+    assert f"--mesh {n} exceeds the {cards} visible devices" in capsys.readouterr().err
 
 
 ISOLATION = r"""

@@ -253,14 +253,21 @@ def test_cli_multi_and_qcal_match_jax(data, tmp_path, monkeypatch, case):
             assert want != plain[3::4]
 
 
-def test_cli_refusals_and_malformed_qcal(data, capsys):
-    """--mesh still refuses (--trace and --fast are ported:
-    test_torch_trace.py, test_torch_fast.py); a malformed --qcal is a
+def test_cli_refusals_and_malformed_qcal(data, tmp_path, capsys):
+    """--mesh 2 runs on the CPU (two replicas) and gives the one-device
+    records; --mesh beyond the visible cards returns 1 with the JAX CLI's
+    message (test_torch_mesh.py holds the rest); a malformed --qcal is a
     usage error before any file is read, as in the JAX CLI, --fast or
     not."""
-    with pytest.raises(SystemExit):
-        p_flappie.main([data.run1, "--device", "cpu", "--mesh", "2"])
-    capsys.readouterr()
+    args = [data.run1, "--device", "cpu"] + CHUNK_ARGS
+    assert (_cli(p_flappie.main, args + ["--mesh", "2"], tmp_path / "mesh.out")
+            == _cli(p_flappie.main, args, tmp_path / "one.out"))
+    assert "flappie-mesh: " in capsys.readouterr().err
+    cards = torch.cuda.device_count()
+    n = max(2, cards + 1)
+    assert p_flappie.main([data.run1, "--mesh", str(n)]) == 1
+    assert (f"--mesh {n} exceeds the {cards} visible devices"
+            in capsys.readouterr().err)
     for main, extra in ((j_flappie.main, []), (p_flappie.main, ["--device", "cpu"]),
                         (p_flappie.main, ["--device", "cpu", "--fast"])):
         with pytest.raises(SystemExit) as exc:
