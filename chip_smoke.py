@@ -93,7 +93,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    timed over 10 runs alternated with its f32 kernel, the bf16 affine
    alone and the f32 recurrence alone (K12): its time a step and the split
    between affine and recurrence; its bound the bf16 affine's operations
-   at the tensor rate plus the recurrence's at the f32 rate.
+   at the tensor rate plus the recurrence's at the f32 rate.  K8-bf16
+   (T=2560, B=256, both directions, ragged lengths): h within 1e-2 and c
+   within 1e-2 max(1, |c|) of the plain version, h bit-equal to K1-bf16's,
+   timed alternated with K1-bf16 and cuDNN's training-mode forward (its
+   library time).  The one-pass affine with an f32 output (precision
+   default on the f32 stream) at M = 655,360, G=1024 and 768 within f32
+   reassociation of its plain version, timed beside the bf16-output kernel
+   and torch.addmm in bf16 (its library time).  The rnn-default variants of
+   K1, K8 and K7 (csrc/lstm_p1.cu, grumod_p1.cu: the one-pass step product)
+   on the f32 stream (f32 and one-pass affine) and the bf16 stream, both
+   directions, each within 1e-2 max(1, |value|) of its plain twin (on f32 a
+   mean within 1e-4), beside the f32 kernel's distance to that twin, timed
+   alternated with the f32 kernel and the bf16 twin (no library call:
+   null).
 3. Main paths, full width, synthetic weights.  Through
    flappie_tpu_torch.cli.flappie.main, default flags and then --viterbi:
    r941_native on 64 seeded synthetic fast5 reads of ~100k samples
@@ -184,7 +197,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    expanded), each read's identity by flappie_tpu_torch.accuracy: p5,
    p50, min, identical reads, reads missing from --fast, the largest
    phred shift where the lengths align; a missing read or a median under
-   90% fails the run (a broken kernel; the weights are synthetic).
+   90% fails the run (a broken kernel; the weights are synthetic).  The
+   default band: the same 64 reads with FLAPPIE_TPU_MATMUL_PRECISION and
+   FLAPPIE_TPU_RNN_PRECISION at default (r941_native on the f32 stream and
+   under --fast, r941_5mC), exact launch counts (5 one-pass recurrences a
+   program with their affines), each against the exact run by the same
+   band and gate.
    Then the sloika-era graphs at full width (conv winlen 19, 1 -> 256,
    stride 2; five recurrent layers of 256): for each flavour a seeded
    sloika pickle whose classes cannot be imported when it is loaded,
@@ -241,6 +259,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    relative, gradients within 1e-3); 3 steps under
    FLAPPIE_TPU_CONV_IMPL=pallas (one K10 a step, the first loss within
    1e-5 relative of the default conv's on the same batch and weights);
+   the same 40 batches under the bf16 stream (make_train_step(...,
+   stream=torch.bfloat16)): the same loss gate, exact counts (5 K8-bf16,
+   5 bf16 affines, 2 K3/K4 a step, no f32 K8), one step of 8 rows against
+   the CPU path (loss within 1e-3 relative, gradients within 1e-2), one
+   step at FLAPPIE_TPU_GRAD_PRECISION=default (the same loss, gradients
+   within 5e-2 of the f32 adjoint's), and 3 steps of K8 at
+   FLAPPIE_TPU_RNN_PRECISION=default on each stream, counted;
    3 CTC steps on r941_native and 3
    steps on r941_5mC (K7 under autograd) with exact counts; the train
    state saved and restored bit for bit, and the trained student
@@ -250,8 +275,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Imports nothing of JAX or of the JAX package.  Writes only under build/
 in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
-run takes ~450 s of command time on an H100 80GB HBM3 at 700 W; it
-should stay well inside its 1200 s limit (aim: half of it).
+run with every phase above took 568-636 s of command time on an H100 80GB
+HBM3 at 700 W; it should stay well inside its 1200 s limit (at most ~60%
+of it).
 """
 
 from __future__ import annotations
@@ -534,13 +560,12 @@ def log_cluster_plans() -> None:
     _cluster_plan, and cudaOccupancyMaxActiveClusters."""
     from flappie_tpu_torch.ops import rnn_cuda
 
-    for kind, (source, _) in rnn_cuda._INFO.items():
-        gates = 4 if source == "lstm" else 3
+    for kind in rnn_cuda._INFO:
         got = []
         # one batch for each rows-a-cluster instantiation (R = 1 ... 20)
         for B in (1, 16, 32, 100, 150, 240, 256):
             info = rnn_cuda.cluster_info(kind, B)
-            want = rnn_cuda._cluster_plan(B, 256, gates)
+            want = rnn_cuda.info_plan(kind, B)
             if (info["R"], info["clusters"], info["smem"]) != want:
                 raise AssertionError(f"cluster plan of {kind} at B={B}: C side {info}, "
                                      f"_cluster_plan {want}")
@@ -1674,11 +1699,238 @@ def check_layer_bf16(torch, peak: dict, gen, kind: str) -> dict:
     return out
 
 
+def cudnn_lstm(torch, iW, b, sW):
+    """A cuDNN nn.LSTM holding K1's weights (gate order i, f, g, o is
+    K1's u, f, g, o; bias_hh zero)."""
+    IN, G = iW.shape
+    ref = torch.nn.LSTM(IN, G // 4).to(iW.device)
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(iW.T)
+        ref.weight_hh_l0.copy_(sW.T)
+        ref.bias_ih_l0.copy_(b)
+        ref.bias_hh_l0.zero_()
+    return ref
+
+
+def check_layer_train_bf16(torch, peak: dict, gen) -> dict:
+    """K8-bf16 (K8 under the bf16 stream, the training forward under
+    --fast's stream) at T=2560, B=256, IN=H=256, both directions, ragged
+    lengths including 0 and T: h within 1e-2 and c within 1e-2 max(1, |c|)
+    of the plain version (one bf16 ulp of an output, carried by the
+    state, as K1-bf16's band), h bit-equal to K1-bf16's on the same
+    inputs; timed over 10 runs alternated with K1-bf16 and with cuDNN's
+    training-mode forward (inputs that require gradients), its library
+    call."""
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    IN = H = 256
+    T, B = 2560, 256
+    G = 4 * H
+    x, iW, b, sW, lengths = layer_inputs(torch, gen, 4, T, B, IN, H)
+    xb, iW16 = x.to(torch.bfloat16), iW.to(torch.bfloat16)
+    fn, plain = rnn_cuda.lstm_layer_tm_train_bf16, rnn_cuda.lstm_layer_tm_train_plain
+    errs = {"h": 0.0, "c": 0.0}
+    for backward in (False, True):
+        h, c = fn(xb, iW, b, sW, backward, lengths)
+        wh, wc = plain(xb, iW, b, sW, backward, lengths)
+        h1 = rnn_cuda.lstm_layer_tm_bf16(xb, iW, b, sW, backward, lengths)
+        torch.cuda.synchronize()
+        if h.dtype != torch.bfloat16 or c.dtype != torch.bfloat16:
+            raise AssertionError(f"K8-bf16: outputs {h.dtype}, {c.dtype}")
+        if not torch.equal(h, h1):
+            raise AssertionError(f"K8-bf16 (backward={backward}): h is not K1-bf16's h bit for bit")
+        errs["h"] = max(errs["h"], (h.float() - wh.float()).abs().max().item())
+        errs["c"] = max(errs["c"], ((c.float() - wc.float()).abs()
+                                    / wc.float().abs().clamp(min=1.0)).max().item())
+        del h, c, wh, wc, h1
+    log(f"K8-bf16 at T={T}, B={B}: max |kernel - plain| h {errs['h']:.3e}, c relative to "
+        f"max(1, |c|) {errs['c']:.3e} (band 1e-2); h bit-equal to K1-bf16's, both directions")
+    if not (errs["h"] <= 1e-2 and errs["c"] <= 1e-2):
+        raise AssertionError(f"K8-bf16: outside its band {errs}")
+    ref = cudnn_lstm(torch, iW, b, sW)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x.clone().requires_grad_(), lengths.clamp(min=1).cpu(), enforce_sorted=False)
+    times = alternated_ms(torch, {
+        "k8_bf16": lambda: fn(xb, iW16, b, sW, True, lengths),
+        "k1_bf16": lambda: rnn_cuda.lstm_layer_tm_bf16(xb, iW16, b, sW, True, lengths),
+        "cudnn": lambda: ref(packed)}, ALTERNATED_REPS)
+    ms, k1_ms, library_ms = (statistics.median(times[k]) for k in ("k8_bf16", "k1_bf16", "cudnn"))
+    plain_ms = cuda_ms(torch, lambda: plain(xb, iW16, b, sW, True, lengths), 1)
+    nvalid = int(lengths.sum().item())
+    bms, by = bound(2 * (nvalid * IN + IN * G + 2 * T * B * H) + 4 * (G + H * G + B),
+                    2 * nvalid * H * G, peak, 2 * nvalid * IN * G)
+    log(f"K8-bf16 at T={T}, B={B}, IN=H={H}, alternated: K8-bf16 {spread(times['k8_bf16'])} = "
+        f"{1e3 * ms / T:.3f} us a step; K1-bf16 {spread(times['k1_bf16'])}; K8-bf16/K1-bf16 "
+        f"{ms / k1_ms:.3f}; cuDNN training-mode forward (f32) {spread(times['cudnn'])}; "
+        f"kernel/cuDNN {ms / library_ms:.3f}; plain {plain_ms:.1f} ms; bound {bms:.3f} ms ({by})")
+    from flappie_tpu_torch.ops import cuda_build
+
+    log("K8-bf16 ptxas: " + "; ".join(
+        f"R={r} " + ptxas_usage(cuda_build.build_log.get("lstm", ""),
+                                f"cluster_rnn_kernelILi4ELi{r}ELb1ELb0E13__nv_bfloat16Lb0E")
+        for r in (1, 2, 4, 8, 12, 16, 20)))
+    return row("lstm_layer_train_bf16", "K8-bf16", "lstm.cu", "rnn_pallas.py:278",
+               "r941_native_train_bf16", "lstm_layer_train_bf16", max_abs_err=errs["h"], ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+# kind -> (id, gates, p1 wrapper, its f32 twin, source, TPU kernel, run and
+# counter that supply the launch count) of the rnn-``default`` recurrences
+P1_LAYERS = {
+    "lstm": ("K1-default", 4, "lstm_layer_tm_p1", "lstm_layer_tm", "lstm_p1.cu",
+             "rnn_pallas.py:172", "r941_native_default", "lstm_layer_p1"),
+    "lstm_train": ("K8-default", 4, "lstm_layer_tm_train_p1", "lstm_layer_tm_train", "lstm_p1.cu",
+                   "rnn_pallas.py:172", "r941_native_train_default", "lstm_layer_train_p1"),
+    "grumod": ("K7-default", 3, "grumod_layer_tm_p1", "grumod_layer_tm", "grumod_p1.cu",
+               "rnn_pallas.py:172", "r941_5mC_default", "grumod_layer_p1"),
+}
+# the one-pass recurrences' band against their plain twins: both sum exact
+# products in f32 in other orders; where an h's two sums straddle a bf16
+# rounding boundary the next product reads it one bf16 ulp apart, and the
+# state carries it (tests/test_torch_cuda.py)
+P1_MAX, P1_MEAN = 1e-2, 1e-4
+
+
+def check_layer_p1(torch, peak: dict, gen, kind: str) -> dict:
+    """The rnn-``default`` variant of K1, K8 or K7 (the cluster recurrence
+    with the one-pass step product, csrc/lstm_p1.cu / grumod_p1.cu) at
+    T=2560, B=256, IN=H=256, ragged lengths: on the f32 stream (affine f32
+    and the one-pass affine) and on the bf16 stream, both directions,
+    against its plain twin (rdot one pass, the same ff): max |delta| <=
+    1e-2 max(1, |value|), and on the f32 stream a mean <= 1e-4; beside it
+    the f32 kernel's distance to the same twin (what one pass costs);
+    timed over 10 runs alternated with the f32 kernel and, on the bf16
+    stream, with its bf16 twin.  No library call computes the one-pass
+    step over an f32 state: library_ms is null."""
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    kid, gates, wrapper, twin, source, replaces, run, counter = P1_LAYERS[kind]
+    fn, f32 = getattr(rnn_cuda, wrapper), getattr(rnn_cuda, twin)
+    plain = getattr(rnn_cuda, twin + "_plain")
+    IN = H = 256
+    T, B = 2560, 256
+    G = gates * H
+    x, iW, b, sW, lengths = layer_inputs(torch, gen, gates, T, B, IN, H)
+    xb = x.to(torch.bfloat16)
+    first = (lambda o: o[0]) if kind == "lstm_train" else (lambda o: o)
+    err, logs = 0.0, []
+    for xs, ff in ((x, "highest"), (x, "bf16"), (xb, None)):
+        for backward in (False, True):
+            got = fn(xs, iW, b, sW, backward, lengths, ff=ff)
+            want = plain(xs, iW, b, sW, backward, lengths, rdot="bf16", ff=ff or "highest")
+            pairs = list(zip(got, want)) if kind == "lstm_train" else [(got, want)]
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(pairs):
+                d = (g.float() - w.float()).abs()
+                scale = max(1.0, w.float().abs().max().item())
+                dmax, dmean = d.max().item() / scale, d.mean().item()
+                ok = dmax <= P1_MAX and (xs.dtype == torch.bfloat16 or dmean <= P1_MEAN)
+                if not ok:
+                    raise AssertionError(f"{kid} ({'hc'[i]}, {xs.dtype}, ff={ff}, backward="
+                                         f"{backward}): max {dmax}, mean {dmean} outside "
+                                         f"{P1_MAX}, {P1_MEAN}")
+                err = max(err, dmax)
+                logs.append(f"{'hc'[i]} {str(xs.dtype)[6:]} ff={ff} bw={int(backward)}: "
+                            f"max {dmax:.2e} mean {dmean:.2e}")
+            if xs.dtype == torch.float32 and ff == "highest":
+                exact = first(f32(x, iW, b, sW, backward, lengths))
+                torch.cuda.synchronize()
+                logs.append(f"f32 kernel to the one-pass twin: max "
+                            f"{(exact - first(want)).abs().max().item():.2e}")
+            del got, want, pairs
+    log(f"{kid} at T={T}, B={B} against its plain twin (band {P1_MAX} x max(1, |value|), mean "
+        f"{P1_MEAN} on f32): " + "; ".join(logs))
+    iW16 = iW.to(torch.bfloat16)
+    fns = {"one_pass": lambda: fn(x, iW, b, sW, True, lengths, ff="highest"),
+           "one_pass_ff": lambda: fn(x, iW, b, sW, True, lengths, ff="bf16"),
+           "f32": lambda: f32(x, iW, b, sW, True, lengths),
+           "one_pass_bf16": lambda: fn(xb, iW16, b, sW, True, lengths),
+           "bf16": lambda: f32(xb, iW16, b, sW, True, lengths)}
+    times = alternated_ms(torch, fns, ALTERNATED_REPS)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    plain_ms = cuda_ms(torch, lambda: plain(x, iW, b, sW, True, lengths, rdot="bf16"), 1)
+    nvalid = int(lengths.sum().item())
+    bms, by = bound(4 * (nvalid * IN + IN * G + G + H * G + B + T * B * H
+                         * (2 if kind == "lstm_train" else 1)), 2 * nvalid * (IN + H) * G, peak)
+    log(f"{kid} at T={T}, B={B}, IN=H={H}, alternated: the one-pass step, f32 affine "
+        f"{spread(times['one_pass'])} = {1e3 * med['one_pass'] / T:.3f} us a step; with the "
+        f"one-pass affine {spread(times['one_pass_ff'])}; the f32 kernel {spread(times['f32'])}, "
+        f"one-pass/f32 {med['one_pass'] / med['f32']:.3f}; bf16 stream: one-pass "
+        f"{spread(times['one_pass_bf16'])}, its bf16 twin {spread(times['bf16'])}, ratio "
+        f"{med['one_pass_bf16'] / med['bf16']:.3f}; plain {plain_ms:.1f} ms; bound {bms:.3f} ms "
+        f"({by}); library: none computes the one-pass step over an f32 state")
+    from flappie_tpu_torch.ops import cuda_build
+
+    log(f"{kid} ptxas ({source}, every instantiation, R = 20 ... 1, f32 then bf16 stream): "
+        + ptxas_usage(cuda_build.build_log.get(source[:-3], ""),
+                      f"cluster_rnn_kernelILi{gates}ELi"))
+    return row(counter, kid, source, replaces, run, counter, max_abs_err=err,
+               ms=med["one_pass"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=None)
+
+
+def check_affine_bf16_f32(torch, peak: dict, gen) -> dict:
+    """The one-pass affine with an f32 output (csrc/affine.cuh, the bf16
+    kernels' f32 epilogue; FLAPPIE_TPU_MATMUL_PRECISION=default on the f32
+    stream) at M = 655,360, IN=256, G=1024 and G=768, x and iW rounded to
+    bf16: each element within f32 reassociation of its plain version
+    (the same exact products summed in another order: K 2^-23 sum |x w|
+    plus 2^-23 |value|), on its wgmma path, timed over 10 runs alternated
+    with torch.addmm in bf16 (its library time: the same products,
+    rounded to bf16) and with the bf16-output kernel.  Returns the G=1024
+    row."""
+    from flappie_tpu_torch.ops import cuda_build, rnn_cuda
+
+    dev = torch.device("cuda")
+    M, K = AFFINE_SHAPE
+    out = None
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    for G in (1024, 768):
+        iW = (torch.randn(K, G, generator=gen, device=dev) / K ** 0.5).to(torch.bfloat16)
+        b = torch.randn(G, generator=gen, device=dev) * 0.2
+        b16 = b.to(torch.bfloat16)
+        before = path_launches(rnn_cuda)
+        got = rnn_cuda.affine_bf16_f32(x, iW, b)
+        if path_launches(rnn_cuda) != before:
+            raise AssertionError("affine_bf16_f32 counted on the bf16-output affine's counters")
+        want = rnn_cuda.affine_bf16_f32_plain(x, iW, b)
+        delta = (got - want).abs()
+        noise = (x.float().abs() @ iW.float().abs()) * (K * 2.0 ** -23) + want.abs() * 2.0 ** -23
+        bad = int((delta > noise).sum().item())
+        err, equal = delta.max().item(), int((delta == 0).sum().item())
+        if got.dtype != torch.float32 or bad:
+            raise AssertionError(f"affine_bf16_f32 at G={G}: {bad} elements outside the f32 "
+                                 f"reassociation error (max |delta| {err}), dtype {got.dtype}")
+        del got, want, delta, noise
+        times = alternated_ms(torch, {"kernel": lambda: rnn_cuda.affine_bf16_f32(x, iW, b),
+                                      "bf16_out": lambda: rnn_cuda.affine_bf16(x, iW, b),
+                                      "addmm": lambda: torch.addmm(b16, x, iW)}, ALTERNATED_REPS)
+        ms, bf_ms, library_ms = (statistics.median(times[k]) for k in ("kernel", "bf16_out",
+                                                                        "addmm"))
+        plain_ms = cuda_ms(torch, lambda: rnn_cuda.affine_bf16_f32_plain(x, iW, b), 1)
+        bms, by = bound(2 * (M * K + K * G) + 4 * (M * G + G), 0, peak, 2 * M * K * G)
+        log(f"affine_bf16_f32 at M={M}, IN={K}, G={G}: {equal} of {M * G} elements equal to the "
+            f"plain version's, max |delta| {err:.2e}, every one inside the f32 reassociation "
+            f"error; kernel {spread(times['kernel'])}; the bf16-output kernel "
+            f"{spread(times['bf16_out'])}; torch.addmm bf16 {spread(times['addmm'])}; "
+            f"kernel/addmm {ms / library_ms:.3f}; plain {plain_ms:.3f} ms; bound {bms:.3f} ms "
+            f"({by}) = {100 * bms / ms:.1f}% of the kernel's time")
+        if out is None:
+            out = row("affine_bf16_f32", "affine-bf16-f32", "affine.cuh", "rnn_pallas.py:183",
+                      "r941_native_default", "affine_bf16_f32", max_abs_err=err, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+    log("affine_bf16_f32 ptxas: " + ptxas_usage(cuda_build.build_log.get("lstm", ""),
+                                                "affine_bf16_kernelIf"))
+    return out
+
+
 def check_kernels(torch, peak: dict, libs: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
     rows += [check_affine_f32(torch, peak, gen), check_affine_bf16(torch, peak, gen)]
     rows += [check_layer_bf16(torch, peak, gen, kind) for kind in BF16_LAYERS]
+    rows += [check_layer_train_bf16(torch, peak, gen), check_affine_bf16_f32(torch, peak, gen)]
+    rows += [check_layer_p1(torch, peak, gen, kind) for kind in P1_LAYERS]
     time_lstm_shapes(torch, gen)
     rows += [check_conv12(torch, peak, gen, libs)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
@@ -2044,9 +2296,14 @@ def launch_counters() -> dict:
         "grumod_layer": rnn_cuda.grumod_layer_tm,
         "lstm_layer_bf16": rnn_cuda.lstm_layer_tm_bf16,
         "grumod_layer_bf16": rnn_cuda.grumod_layer_tm_bf16,
+        "lstm_layer_train_bf16": rnn_cuda.lstm_layer_tm_train_bf16,
+        "lstm_layer_p1": rnn_cuda.lstm_layer_tm_p1,
+        "lstm_layer_train_p1": rnn_cuda.lstm_layer_tm_train_p1,
+        "grumod_layer_p1": rnn_cuda.grumod_layer_tm_p1,
         "affine_f32": rnn_cuda.affine_f32,
         "affine_bf16": rnn_cuda.affine_bf16,
         "affine_bf16_wmma": rnn_cuda.affine_bf16_wmma,
+        "affine_bf16_f32": rnn_cuda.affine_bf16_f32,
         "crf_sum_scan": crf_bm_cuda.sum_states,
         "crf_fwdbwd": crf_bm_cuda.fwdbwd_states,
         "crf_viterbi": crf_bm_cuda.viterbi_fwd,
@@ -3573,12 +3830,87 @@ def accuracy_band(torch, np, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def precision_levels(ff: str = None, rnn: str = None):
+    """FLAPPIE_TPU_MATMUL_PRECISION / FLAPPIE_TPU_RNN_PRECISION's levels
+    (ops/precision.py, read at import) set for the block, restored
+    after it."""
+    from flappie_tpu_torch.ops import precision
+
+    saved = precision._ff_level, precision._rnn_level
+    try:
+        if ff:
+            precision.set_ff_precision(ff)
+        if rnn:
+            precision.set_rnn_precision(rnn)
+        yield
+    finally:
+        precision._ff_level, precision._rnn_level = saved
+
+
+# the default band's runs: (run name, model, --fast, the recurrent layer's
+# counter): both knobs at default on the f32 stream (the one-pass step and
+# the one-pass affine) and under --fast (the one-pass step, the bf16 affine)
+DEFAULT_RUNS = (("r941_native_default", "r941_native", False, "lstm_layer_p1"),
+                ("r941_native_fast_default", "r941_native", True, "lstm_layer_p1"),
+                ("r941_5mC_default", "r941_5mC", False, "grumod_layer_p1"))
+
+
+def default_band(torch, np, card: str) -> dict:
+    """Precision ``default`` on the main path: the accuracy band's 64
+    reads basecalled (fb) with FLAPPIE_TPU_MATMUL_PRECISION and
+    FLAPPIE_TPU_RNN_PRECISION at default, for r941_native on the f32
+    stream and under --fast and for r941_5mC, each with exact launch
+    counts (5 one-pass recurrences a program, each with its affine: the
+    one-pass f32-output affine on the f32 stream, the bf16 one under
+    --fast; no f32 or bf16 layer), against the exact run of the accuracy
+    band: p5, p50, min, the largest phred shift; a missing read or a
+    median under 90% fails the run.  Returns (launch counts by run name,
+    bands)."""
+    from flappie_tpu_torch.models.config import get_model_config
+
+    wdir = os.path.join(WORK, "accuracy")
+    reads_dir = os.path.join(wdir, "reads")
+    names = [(n, 0) for n in sorted(os.listdir(reads_dir))]
+    launches, bands = {}, {}
+    for run, model, fast, layer in DEFAULT_RUNS:
+        cfg = get_model_config(model)
+        P = expected_programs(reads_dir, names, cfg)
+        want = {layer: len(cfg.rnns) * P, **{k: n * P for k, n in FB_CRF.items()},
+                ("affine_bf16" if fast else "affine_bf16_f32"): len(cfg.rnns) * P,
+                "affine_f32": 0}
+        path = os.path.join(wdir, f"{run}.fastq")
+        with precision_levels("default", "default"):
+            wall, launches[run] = counted_run(
+                torch, run, [reads_dir, "-o", path, "--model", model] + (["--fast"] if fast else []),
+                want)
+        alphabet = "ACGTZ"[: cfg.nbase]
+        with open(path) as fh:
+            got = fastq_calls(fh.read(), alphabet)
+        with open(os.path.join(wdir, f"{model}_exact.fastq")) as fh:
+            exact = fastq_calls(fh.read(), alphabet)
+        res = band(exact, got)
+        bands[run] = res
+        log(f"default band {run}: {len(names)} reads, {P} programs, wall {wall:.3f} s; identity "
+            f"to the exact run p5 {res['p5']:.3f}%, p50 {res['p50']:.3f}%, min {res['min']:.3f}%, "
+            f"{res['identical']} of {res['reads']} reads identical, {res['missing_in_fast']} "
+            f"missing, largest phred shift {res['max_phred_shift']} over {res['aligned']} reads "
+            f"of equal length; launches {json.dumps(launches[run])} [{card}]")
+        if res["missing_in_fast"] or res["reads"] != len(names) or res["p50"] < 90.0:
+            raise AssertionError(f"default band {run}: {res}")
+    return launches, bands
+
+
 def fast_phase(torch, np, card: str) -> dict:
-    """The --fast main paths, one flappie-serve request and the accuracy
-    band; returns the --fast runs' launch counts by run name."""
+    """The --fast main paths, one flappie-serve request, the accuracy
+    band and the default band; returns the --fast and default runs'
+    launch counts by run name."""
     launches = fast_main_paths(torch, np, card)
     launches["r941_native_fast_serve"] = serve_fast_request(torch, card)
     log("accuracy band (JSON): " + json.dumps(accuracy_band(torch, np, card)))
+    default_launches, bands = default_band(torch, np, card)
+    launches.update(default_launches)
+    log("default band (JSON): " + json.dumps(bands))
     return launches
 
 
@@ -3768,8 +4100,8 @@ def dp_train_phase(torch, np, card: str) -> dict:
     counts = check_counts(f"dp-train one process, {DP['steps']} steps",
                           {"lstm_layer_train": 5 * DP["steps"], "crf_sum_scan": 2 * DP["steps"]})
     rel = [abs(a - b) / abs(b) for a, b in zip(summary["losses"], losses)]
-    want_rank = {"lstm_layer_train": 5 * DP["steps"], "grumod_layer": 0,
-                 "crf_sum_scan": 2 * DP["steps"]}
+    want_rank = {"lstm_layer_train": 5 * DP["steps"], "lstm_layer_train_bf16": 0,
+                 "grumod_layer": 0, "crf_sum_scan": 2 * DP["steps"]}
     log(f"dp-train: 2 ranks over gloo on cuda:0, rows {summary['rows']}, {DP['blocks']} blocks, "
         f"losses {summary['losses']} vs one process {losses} (relative {max(rel):.2e}); ranks' "
         f"parameters equal after every step: {summary['ranks_equal']}; step walls "
@@ -4007,13 +4339,14 @@ def training(torch, np, card: str) -> dict:
     train_step, init = trainer.make_train_step(cfg, lr=TRAIN["lr"])
     params, opt = init(init_synthetic(cfg, seed=7), dev)
     order = rng.permutation(X.shape[0])
-    losses, fwd, bwd = [], [], []
+    losses, fwd, bwd, sels = [], [], [], []
     zero_counts()
     for step in range(steps):
         sel = order[(step * B) % X.shape[0] :][:B]
         if sel.size < B:
             order = rng.permutation(X.shape[0])
             sel = order[:B]
+        sels.append(sel)
         batch = batch_of(sel)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4040,6 +4373,8 @@ def training(torch, np, card: str) -> dict:
         raise AssertionError("r941_native training: a loss is not finite")
     if not last < 0.6 * first:
         raise AssertionError(f"r941_native training did not converge: {first} -> {last}")
+    runs = {"r941_native_train": launches}
+    runs.update(stream_training(torch, np, card, cfg, init, batch_of, sels, losses))
     # 3 more steps under torch.profiler: how much of a step the device is busy
     from torch.profiler import ProfilerActivity, profile
 
@@ -4144,7 +4479,112 @@ def training(torch, np, card: str) -> dict:
     log(f"train checkpoint: {len(trainer.tree_leaves(q))} parameters and their Adam state "
         f"restored bit for bit; the trained student basecalled {len(recs)} reads through the "
         f"CLI --checkpoint in {wall:.2f} s")
-    return launches
+    return runs
+
+
+def grads_of(torch, loss, leaves):
+    return torch.autograd.grad(loss, [t for _, t in leaves])
+
+
+def stream_training(torch, np, card: str, cfg, init, batch_of, sels: list,
+                    f32_losses: list) -> dict:
+    """r941_native trained under the bf16 stream (make_train_step(...,
+    stream=torch.bfloat16): K8-bf16 forward, the adjoint on f32 x and iW)
+    from the student's init on the f32 run's batches, 40 steps: every loss
+    finite, the last 3 below 0.6x the first 3, exact launch counts (5
+    K8-bf16 and 5 bf16 affines and 2 K3/K4 a step; no f32 K8), the median
+    step time beside the f32 run's; one step on 8 rows held against the port's CPU
+    path (loss within 1e-3 relative, every gradient within 1e-2 of its max
+    |value|: the bf16 outputs of kernel and plain version may lie one bf16
+    ulp, 2^-8 = 3.9e-3 relative, apart, as the bf16 layers' band allows,
+    and the loss averages such differences over 8 x 512 blocks); one step under
+    FLAPPIE_TPU_GRAD_PRECISION=default (the one-pass adjoint): the same
+    loss (within 1e-6 relative; bit-equality logged) and every gradient
+    within 5e-2 of the f32 adjoint's max |value|.  Then 3 steps of K8 at
+    FLAPPIE_TPU_RNN_PRECISION=default on each stream, counted.  Returns
+    the launch counts by run name."""
+    from flappie_tpu_torch.models.params import init_synthetic
+    from flappie_tpu_torch.train import trainer
+
+    bf16 = torch.bfloat16
+    steps = len(sels)
+    step_fn, _ = trainer.make_train_step(cfg, lr=TRAIN["lr"], stream=bf16)
+    params, opt = init(init_synthetic(cfg, seed=7), "cuda")
+    losses, walls = [], []
+    zero_counts()
+    for sel in sels:
+        batch = batch_of(sel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step_fn(params, opt, *batch).item())
+        walls.append(time.perf_counter() - t0)
+    runs = {"r941_native_train_bf16": check_counts(
+        f"r941_native training under the bf16 stream, {steps} steps",
+        {"lstm_layer_train_bf16": 5 * steps, "affine_bf16": 5 * steps,
+         "crf_sum_scan": 2 * steps})}
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    log(f"train r941_native under the bf16 stream: {steps} steps on the f32 run's batches, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 3 {first:.4f}, last 3 {last:.4f}; "
+        f"the f32 run {np.mean(f32_losses[:3]):.4f} -> {np.mean(f32_losses[-3:]):.4f}); step "
+        f"median {1e3 * statistics.median(walls):.1f} ms; launches "
+        f"{json.dumps(runs['r941_native_train_bf16'])} [{card}]")
+    log("train r941_native bf16 stream losses: " + json.dumps([round(v, 4) for v in losses]))
+    if not np.isfinite(losses).all() or not last < 0.6 * first:
+        raise AssertionError(f"training under the bf16 stream: {first} -> {last}, {losses}")
+
+    # 8 rows of the first batch: the CPU path's recurrences are 512 tiny
+    # steps a layer, and the f32 check above already runs a whole batch
+    batch = batch_of(sels[0][:8])
+    leaves = trainer.tree_leaves(params)
+    loss = trainer.nll_loss(params, cfg, *batch, stream=bf16)
+    grads = grads_of(torch, loss, leaves)
+    cpu_params = {layer: {k: t.detach().cpu().requires_grad_() for k, t in d.items()}
+                  for layer, d in params.items()}
+    t0 = time.perf_counter()
+    cpu_loss = trainer.nll_loss(cpu_params, cfg, *(t.cpu() for t in batch), stream=bf16)
+    cpu_grads = grads_of(torch, cpu_loss, trainer.tree_leaves(cpu_params))
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_err = max(rel_err(g.cpu(), w) for g, w in zip(grads, cpu_grads))
+    log(f"train step under the bf16 stream, gpu vs cpu: loss {loss.item():.6f} vs "
+        f"{cpu_loss.item():.6f} (relative {loss_rel:.2e}), max over the {len(leaves)} gradients "
+        f"of max |delta| / max |grad| {grad_err:.2e}; cpu step {cpu_s:.1f} s")
+    if not (loss_rel <= 1e-3 and grad_err <= 1e-2):
+        raise AssertionError(f"bf16 train step: GPU vs CPU outside the band ({loss_rel}, "
+                             f"{grad_err})")
+    os.environ["FLAPPIE_TPU_GRAD_PRECISION"] = "default"
+    try:
+        one_loss = trainer.nll_loss(params, cfg, *batch, stream=bf16)
+        one = grads_of(torch, one_loss, leaves)
+    finally:
+        del os.environ["FLAPPIE_TPU_GRAD_PRECISION"]
+    d_loss = abs(one_loss.item() - loss.item()) / abs(loss.item())
+    g_err = max(rel_err(g, w) for g, w in zip(one, grads))
+    log(f"train step under the bf16 stream at FLAPPIE_TPU_GRAD_PRECISION=default: loss "
+        f"{one_loss.item():.6f} ({'bit-equal to' if one_loss.item() == loss.item() else 'beside'} "
+        f"the f32 adjoint's run's {loss.item():.6f}, relative {d_loss:.2e}); the one-pass "
+        f"adjoint's gradients against the f32 adjoint's: max over the {len(leaves)} of max "
+        f"|delta| / max |grad| {g_err:.3e} (band 5e-2)")
+    if not (d_loss <= 1e-6 and g_err <= 5e-2):
+        raise AssertionError(f"grad default: loss {d_loss}, gradients {g_err}")
+
+    # K8 at rnn default, 3 steps on each stream from the student's init
+    for run, stream, affine in (("r941_native_train_default", torch.float32, "affine_f32"),
+                                ("r941_native_train_bf16_default", bf16, "affine_bf16")):
+        step_p1, _ = trainer.make_train_step(cfg, lr=TRAIN["lr"], stream=stream)
+        p1, o1 = init(init_synthetic(cfg, seed=7), "cuda")
+        zero_counts()
+        with precision_levels(rnn="default"):
+            got = [step_p1(p1, o1, *batch_of(sel)).item() for sel in sels[:3]]
+        runs[run] = check_counts(f"{run}, 3 steps", {"lstm_layer_train_p1": 15, affine: 15,
+                                                     "crf_sum_scan": 6})
+        log(f"train r941_native at FLAPPIE_TPU_RNN_PRECISION=default, stream {stream}: losses "
+            f"{got} (the stream's first loss at the f32 step: "
+            f"{(f32_losses if stream == torch.float32 else losses)[0]:.4f}); launches "
+            f"{json.dumps(runs[run])}")
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{run}: a loss is not finite: {got}")
+    return runs
 
 
 def main() -> int:
@@ -4201,7 +4641,7 @@ def main() -> int:
     launches.update(sloika_launches)
     launches.update(multi_phase(torch, np, card))
     check_gradients(torch, card)
-    launches["r941_native_train"] = training(torch, np, card)
+    launches.update(training(torch, np, card))
 
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],

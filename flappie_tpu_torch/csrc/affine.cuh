@@ -1,5 +1,6 @@
 // The block input affine of the fused recurrent layers (lstm.cu: K1, K8,
-// K1-bf16; grumod.cu: K7, K7-bf16): C = A.W + bias over [M, K] x [K, N],
+// K1-bf16, K8-bf16; grumod.cu: K7, K7-bf16; launched alone before the
+// recurrences of precision default): C = A.W + bias over [M, K] x [K, N],
 // the bias added after the dot, as in the TPU kernels' _ff_dot(x, iW) + b
 // (flappie_tpu/ops/rnn_pallas.py:244, :304, :349, :403).  A library call
 // cannot stand in: the affine sits inside each fused layer's one launch.
@@ -53,6 +54,19 @@
 // 32 a step in two cp.async buffers, the epilogue through a warp's f32
 // scratch.
 //
+// Both bf16 kernels take their output type OT as a template argument:
+// __nv_bfloat16 (the bf16 stream's xa) or float, the f32-output epilogue of
+// the one-pass affine at precision ``default`` on the f32 stream
+// (FLAPPIE_TPU_MATMUL_PRECISION=default: rnn_pallas.py:183 _ff_dot at
+// lax.Precision.DEFAULT, one bf16 MXU pass with f32 sums, plus the f32 bias,
+// into an f32 xa, :243-245 with xa_dtype f32).  The caller rounds x and iW
+// to bf16 once before it; the products and sums are the bf16 kernel's, and
+// the sum plus the bias is stored as it is: the wgmma path stages 32-column
+// f32 boxes (128 bytes a row, 128B swizzle) and stores them by TMA, the wmma
+// path writes float4 rows.  What bounds it: bytes (335 MB read, 2.68 GB
+// written at M = 655,360, N = 1024: 0.90 ms at 3.35 TB/s).  The bf16-output
+// instantiations' code does not depend on OT.
+//
 // affine_plan picks the path by shape (never on failure) and is mirrored by
 // ops/rnn_cuda.py _affine_plan; lstm.cu's flappie_affine_info reports it.
 
@@ -64,6 +78,7 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace flappie {
 
@@ -398,6 +413,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
 
 }  // namespace aff
 
+template <typename OT>
 __global__ void __launch_bounds__(G_THREADS, 1)
 affine_bf16_kernel(const __grid_constant__ CUtensorMap amap,
                    const __grid_constant__ CUtensorMap bmap,
@@ -531,6 +547,32 @@ affine_bf16_kernel(const __grid_constant__ CUtensorMap amap,
     else if (m + groups < mblocks) asm volatile("bar.arrive 5, 256;" ::: "memory");
     if (!live) continue;
 
+    if constexpr (std::is_same_v<OT, float>) {
+      // f32 epilogue: 8 boxes of 32 columns (128 bytes a row), the bias
+      // after the dot, staged 128B-swizzled as below and stored by TMA
+#pragma unroll
+      for (int c = 0; c < G_BN / 32; ++c) {
+        if (col0 + c * 32 >= N) break;
+        if (t == 0) aff::store_wait_read<1>();  // this buffer's last box has left
+        aff::named_sync(2 + wg, 128);
+        uint8_t* box = Cs + (wg * 2 + (boxes++ & 1)) * G_BOX;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = c * 4 + jj;
+          const float2 bb = *reinterpret_cast<const float2*>(bias_s + c * 32 + jj * 8 + cq);
+          // columns jj*8 + cq, +1 of the box: bytes (jj*8 + cq)*4 of the row
+          const int chunk = jj * 2 + (cq >> 2), within = (cq & 3) * 4;
+          *reinterpret_cast<float2*>(box + r0 * 128 + ((chunk ^ (r0 & 7)) << 4) + within) =
+              make_float2(d[4 * j] + bb.x, d[4 * j + 1] + bb.y);
+          *reinterpret_cast<float2*>(box + (r0 + 8) * 128 + ((chunk ^ (r0 & 7)) << 4) + within) =
+              make_float2(d[4 * j + 2] + bb.x, d[4 * j + 3] + bb.y);
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        aff::named_sync(2 + wg, 128);
+        if (t == 0) aff::tma_store(&cmap, box, col0 + c * 32, grow);
+      }
+      continue;
+    }
     // epilogue: 4 boxes of 64 columns, the bias after the dot, one round
     // to nearest even, staged 128B-swizzled (16-byte chunk jj of row r at
     // chunk jj ^ (r % 8), as TMA reads it) and stored by TMA
@@ -578,9 +620,10 @@ __device__ __forceinline__ uint4 load8_bf16(const uint16_t* __restrict__ p, long
   return v;
 }
 
+template <typename OT>
 __global__ void __launch_bounds__(H_THREADS)
 affine_bf16_wmma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-                        const float* __restrict__ bias, __nv_bfloat16* __restrict__ C,
+                        const float* __restrict__ bias, OT* __restrict__ C,
                         long M, int N, int K) {
   namespace wmma = nvcuda::wmma;
   __shared__ __align__(32) __nv_bfloat16 As[2][HM][H_ALD];  // by step parity
@@ -664,10 +707,38 @@ affine_bf16_wmma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16
   }
 
   // epilogue: lane (r, half) of a 16x16 accumulator takes row r, columns
-  // 8*half .. 8*half + 7; bias after the dot, round to nearest even
+  // 8*half .. 8*half + 7; bias after the dot, round to nearest even (f32
+  // output: stored as it is)
   float* cs = &Cs[warp][0][0];
-  uint16_t* C16 = reinterpret_cast<uint16_t*>(C);
+  [[maybe_unused]] uint16_t* C16 = reinterpret_cast<uint16_t*>(C);
   const int r = lane / 2, c8 = (lane % 2) * 8;
+  if constexpr (std::is_same_v<OT, float>) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+        __syncwarp();
+        const long gr = row0 + wm * 32 + i * 16 + r;
+        const int gc = col0 + wn * 64 + j * 16 + c8;
+        if (gr < M) {
+          float o[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[e] = cs[r * 16 + c8 + e] + (gc + e < N ? bias[gc + e] : 0.f);
+          float* dst = C + gr * N + gc;
+          if (N % 4 == 0 && gc + 8 <= N) {
+            reinterpret_cast<float4*>(dst)[0] = make_float4(o[0], o[1], o[2], o[3]);
+            reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (gc + e < N) dst[e] = o[e];
+          }
+        }
+        __syncwarp();
+      }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -743,46 +814,51 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 [outer, inner] matrix at base, read or written in
-// boxes of [box_outer, box_inner], 128B swizzle, zeros past the edges
-inline bool bf16_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
-                     uint32_t box_inner, uint32_t box_outer) {
+// a row-major [outer, inner] matrix of bf16 (or, with f32, float) at base,
+// read or written in boxes of [box_outer, box_inner], 128B swizzle, zeros
+// past the edges
+inline bool tile_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+                     uint32_t box_inner, uint32_t box_outer, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint64_t strides[1] = {inner * (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// xa [M, N] = bf16(A [M, K] . W [K, N] + bias [N]), A and W bf16, on
-// stream st, by the path affine_plan picks; returns the launch error code
-// (0 = ok; cudaErrorMisalignedAddress for a TMA operand off 16 bytes).
+// xa [M, N] = A [M, K] . W [K, N] + bias [N], A and W bf16, f32 sums, the
+// result rounded to bf16 (OT = __nv_bfloat16) or stored as f32 (OT =
+// float), on stream st, by the path affine_plan picks; returns the launch
+// error code (0 = ok; cudaErrorMisalignedAddress for a TMA operand off 16
+// bytes).
+template <typename OT = __nv_bfloat16>
 inline cudaError_t launch_affine_bf16(const __nv_bfloat16* A, const __nv_bfloat16* W,
-                                      const float* bias, __nv_bfloat16* C, long M, int N,
-                                      int K, cudaStream_t st) {
+                                      const float* bias, OT* C, long M, int N, int K,
+                                      cudaStream_t st) {
+  constexpr bool F32 = std::is_same_v<OT, float>;
   if (M == 0 || N == 0) return cudaSuccess;
   const AffinePlan p = affine_plan(M, N, K, true, sm_count());
   if (p.path == kBf16Wmma) {
     dim3 grid((unsigned)((M + HM - 1) / HM), (unsigned)((N + HN - 1) / HN));
-    affine_bf16_wmma_kernel<<<grid, H_THREADS, 0, st>>>(A, W, bias, C, M, N, K);
+    affine_bf16_wmma_kernel<OT><<<grid, H_THREADS, 0, st>>>(A, W, bias, C, M, N, K);
     return cudaGetLastError();
   }
   if (!aligned16(A) || !aligned16(W) || !aligned16(C)) return cudaErrorMisalignedAddress;
   const uint32_t krows = (uint32_t)((K + G_BK - 1) / G_BK * G_BK);
   CUtensorMap amap, bmap, cmap;
-  if (!bf16_map(&amap, A, K, M, G_BK, 64) || !bf16_map(&bmap, W, N, K, 64, krows) ||
-      !bf16_map(&cmap, C, N, M, 64, 64))
+  if (!tile_map(&amap, A, K, M, G_BK, 64) || !tile_map(&bmap, W, N, K, 64, krows) ||
+      !tile_map(&cmap, C, N, M, F32 ? 32 : 64, 64, F32))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(affine_bf16_kernel,
+  cudaError_t err = cudaFuncSetAttribute(affine_bf16_kernel<OT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
   if (err != cudaSuccess) return err;
-  affine_bf16_kernel<<<(unsigned)p.ctas, G_THREADS, G_SMEM, st>>>(amap, bmap, cmap, bias, M, N,
-                                                                  K);
+  affine_bf16_kernel<OT><<<(unsigned)p.ctas, G_THREADS, G_SMEM, st>>>(amap, bmap, cmap, bias, M,
+                                                                      N, K);
   return cudaGetLastError();
 }
 

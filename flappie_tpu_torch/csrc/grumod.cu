@@ -81,6 +81,17 @@ extern "C" int flappie_grumod_seq(const float* xa, const float* sW, const int* l
       {xa, sW, lengths, out, nullptr, T, B, H, 0, static_cast<cudaStream_t>(stream)});
 }
 
+// K7's f32 recurrence alone over a time-major xa [T, B, 3H] -> out
+// [T, B, H] (precision ``default`` of the affine alone: the wrapper
+// launches the one-pass affine, lstm.cu flappie_affine_bf16_f32, first).
+// Returns the launch error code.
+extern "C" int flappie_grumod_rnn(const float* xa, const float* sW, const int* lengths,
+                                  float* out, int T, int B, int H, int backward, void* stream) {
+  if ((long)T * B == 0) return 0;
+  return flappie::cluster_rnn<3, false, false>(
+      {xa, sW, lengths, out, nullptr, T, B, H, backward, static_cast<cudaStream_t>(stream)});
+}
+
 // K7-bf16: K7 under the bf16 stream.  x [T*B, IN], iW [IN, 3H], the xa
 // scratch [T*B, 3H] and out [T, B, H] in bf16; b, sW f32.  One affine
 // launch, then one recurrence launch.  Returns the launch error code.

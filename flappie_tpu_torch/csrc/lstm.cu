@@ -56,6 +56,21 @@
 // plus the recurrence's f32 FMA (5.13 ms).  flappie_affine_f32 and
 // flappie_affine_bf16 launch the affines alone, for their measurement;
 // flappie_affine_info reports their plans.
+//
+// K8-bf16 (flappie_lstm_layer_train_bf16) is K8 under the bf16 stream, the
+// training forward under --fast's stream (rnn_pallas.py:278
+// _lstm_fused_train_kernel through _run_fused:514-519, both outputs at
+// xa_dtype, :542): K1-bf16 with the cell state c stored in bf16 (rounded to
+// nearest even; the carried c stays f32), so its h is K1-bf16's bit for
+// bit.  The extra write, T.B.H.2 bytes, is the only added traffic.
+//
+// At precision ``default`` (ops/precision.py) the layers run as two
+// launches from the wrapper: the block affine alone, then the recurrence
+// alone over it (time-major, lengths, direction).  flappie_affine_bf16_f32
+// is the one-pass affine of FLAPPIE_TPU_MATMUL_PRECISION=default on the f32
+// stream (affine.cuh, f32 output); flappie_lstm_rnn is K1's or K8's f32
+// recurrence alone (the instantiations above, no new kernel); the
+// recurrences with the one-pass step product are in lstm_p1.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,6 +147,44 @@ extern "C" int flappie_lstm_layer_bf16(const __nv_bfloat16* x, const __nv_bfloat
       {xa, sW, lengths, out, nullptr, T, B, H, backward, st});
 }
 
+// K8-bf16: K1-bf16 plus the cell state c_out [T, B, H] in bf16.  One
+// affine launch, then one recurrence launch.  Returns the launch error code.
+extern "C" int flappie_lstm_layer_train_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
+                                             const float* b, const float* sW,
+                                             const int* lengths, __nv_bfloat16* xa,
+                                             __nv_bfloat16* out, __nv_bfloat16* c_out, int T,
+                                             int B, int IN, int H, int backward,
+                                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)T * B;
+  if (M == 0) return 0;
+  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
+  const cudaError_t err = flappie::launch_affine_bf16(x, iW, b, xa, M, 4 * H, IN, st);
+  if (err != cudaSuccess) return err;
+  return flappie::cluster_rnn<4, true, false, __nv_bfloat16>(
+      {xa, sW, lengths, out, c_out, T, B, H, backward, st});
+}
+
+// K1's (want_c = 0) or K8's (1) f32 recurrence alone over a time-major xa
+// [T, B, 4H]: out [T, B, H] and, for K8, c_out.  Returns the launch error
+// code.
+extern "C" int flappie_lstm_rnn(const float* xa, const float* sW, const int* lengths, float* out,
+                                float* c_out, int T, int B, int H, int backward, int want_c,
+                                void* stream) {
+  if ((long)T * B == 0) return 0;
+  const flappie::RnnArgs<float> a = {xa, sW, lengths, out, c_out, T, B, H, backward,
+                                     static_cast<cudaStream_t>(stream)};
+  return want_c ? flappie::cluster_rnn<4, true, false>(a) : flappie::cluster_rnn<4, false, false>(a);
+}
+
+// The one-pass affine with an f32 output: xa [M, N] = x [M, K] . iW [K, N]
+// + b [N], x and iW bf16, f32 sums, xa f32.  Returns the launch error code.
+extern "C" int flappie_affine_bf16_f32(const __nv_bfloat16* x, const __nv_bfloat16* iW,
+                                       const float* b, float* xa, long M, int N, int K,
+                                       void* stream) {
+  return flappie::launch_affine_bf16(x, iW, b, xa, M, N, K, static_cast<cudaStream_t>(stream));
+}
+
 // The bf16 affine alone: xa [M, N] = bf16(x [M, K] . iW [K, N] + b [N]).
 // Returns the launch error code.
 extern "C" int flappie_affine_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
@@ -155,11 +208,12 @@ extern "C" int flappie_affine_info(long M, int N, int K, int bf16, int* info) {
   return flappie::affine_info(M, N, K, bf16, info);
 }
 
-// The cluster plan of K1 (variant 0), K8 (1), K12 (2) or K1-bf16 (3) for a
-// batch of B: info = {rows a cluster, clusters, shared bytes a CTA,
-// clusters the card holds at once}; K1-bf16's is K1's, as xa never enters
-// shared memory.  Returns the error code.
+// The cluster plan of K1 (variant 0), K8 (1), K12 (2), K1-bf16 (3) or
+// K8-bf16 (4) for a batch of B: info = {rows a cluster, clusters, shared
+// bytes a CTA, clusters the card holds at once}; the bf16 variants' are the
+// f32 ones', as xa never enters shared memory.  Returns the error code.
 extern "C" int flappie_lstm_cluster_info(int B, int H, int variant, int* info) {
+  if (variant == 4) return flappie::cluster_info<4, true, false, __nv_bfloat16>(B, H, info);
   if (variant == 1) return flappie::cluster_info<4, true, false>(B, H, info);
   if (variant == 2) return flappie::cluster_info<4, false, true>(B, H, info);
   if (variant == 3) return flappie::cluster_info<4, false, false, __nv_bfloat16>(B, H, info);

@@ -33,14 +33,21 @@ The bf16 stream (``stream=torch.bfloat16``, the CLIs' ``--fast``;
 casts its input to bf16 before layer 1, each layer (K1-bf16, K7-bf16)
 hands the next its bf16 output, and the result is cast back to f32 for
 the head (flappie_tpu/models/network.py:171-172).  The layer-by-layer
-stack ignores the stream, as the JAX package's does; training under it
-raises.
+stack ignores the stream, as the JAX package's does.
 
 ``train=True`` is the differentiable path (the JAX package's
 ``rnn_impl="train"``): the layers go through ops/rnn_vjp.py (K8 for
 LSTM, K7 for GRU-mod, each with its adjoint) and the head's logZ through
 ``crf_partition_ad`` (K3 forward, K4 backward); the conv stack
-differentiates through autograd.
+differentiates through autograd.  Under the bf16 stream the first layer
+takes the f32 x and rounds it itself (K8-bf16 or K7-bf16), as JAX's
+``_rnn_stack_fused_tm`` passes f32 into ``_run_fused``, so its residual
+and its dx stay f32; the trained iW stays f32 (``stream_params`` is for
+inference only).
+
+The precision levels (ops/precision.py) are resolved for each tensor's
+device where its product runs: the layers, ``ops/rnn.py affine`` and the
+convs; on the CPU every level is true f32.
 """
 
 from __future__ import annotations
@@ -176,19 +183,20 @@ def rnn_stack_tm(params, cfg: ModelConfig, x, lengths, train: bool = False,
                  stream=torch.float32):
     """[B, T, C] -> [B, T, H]: one fused kernel per layer, time-major
     in between (one transpose in, one out).  ``stream`` bf16: the input
-    cast to bf16 before layer 1, the layers' bf16 outputs passed on, the
+    cast to bf16 before layer 1 (under ``train`` the first layer takes it
+    in f32 and rounds it itself), the layers' bf16 outputs passed on, the
     result cast back to f32."""
-    if train and stream == torch.bfloat16:
-        raise ValueError("rnn_stack_tm: training under the bf16 stream is not ported "
-                         "(ROADMAP item 17's remainder)")
-    layers = LAYERS_AD if train else LAYERS
     x_tm = x.transpose(0, 1).contiguous()
-    if stream == torch.bfloat16:
+    if stream == torch.bfloat16 and not train:
         x_tm = x_tm.to(stream)
     for i, r in enumerate(cfg.rnns):
         p = params[f"rnn{i}"]
-        x_tm = layers[r.kind](x_tm, p["iW"], p["b"], p["sW"],
-                              backward=r.backward, lengths=lengths)
+        if train:
+            x_tm = LAYERS_AD[r.kind](x_tm, p["iW"], p["b"], p["sW"], backward=r.backward,
+                                     lengths=lengths, stream=stream)
+        else:
+            x_tm = LAYERS[r.kind](x_tm, p["iW"], p["b"], p["sW"], backward=r.backward,
+                                  lengths=lengths)
     return x_tm.transpose(0, 1).to(torch.float32)
 
 
@@ -248,15 +256,13 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
     (``fused``) and the layer-by-layer stack elsewhere, ``"scan"`` the
     layer-by-layer stack always (inference only: K12 has no adjoint).
     ``stream``: the fused stack's stream dtype, torch.float32 or
-    torch.bfloat16 (None: FLAPPIE_TPU_RNN_STREAM); the layer-by-layer
-    stack ignores it; ``train`` under bf16 raises.  The precision levels
-    (ops/precision.py) are resolved for the signal's device, which raises
-    for ``default`` on the card.
+    torch.bfloat16 (None: FLAPPIE_TPU_RNN_STREAM), for inference and
+    ``train`` alike; the layer-by-layer stack ignores it.  The precision
+    levels (ops/precision.py) are resolved for the signal's device by the
+    products themselves.
     """
     check_supported(cfg, rnn_impl)
     stream = precision.check_stream(stream)
-    precision.ff_precision(signal.device)
-    precision.rnn_precision(signal.device)
     if cfg.head != "flipflop" and (return_norm or train):
         raise ValueError("transitions: return_norm and train need the flip-flop head")
     if train and not (rnn_impl == "auto" and fused(cfg)):

@@ -24,6 +24,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import precision
+
+
+def _operands(x, W):
+    """x and W at the feed-forward level for x's device (ops/precision.py;
+    flappie_tpu/ops/conv.py:47, :153, :187): ``default`` on a CUDA device
+    rounds both to bf16, whose products the f32 convolution sums exactly
+    (TF32 is off); otherwise as they are."""
+    if precision.ff_precision(x.device) == precision.ONE_PASS:
+        return precision.one_pass(x), precision.one_pass(W)
+    return x, W
+
 
 def _conv_math(x, W, b, stride: int):
     """x [B, T, Cin], W [winlen, Cin, Cout] -> [B, ceil(T/stride), Cout].
@@ -32,6 +44,7 @@ def _conv_math(x, W, b, stride: int):
     a read's bits would depend on how many reads share its batch."""
     if x.shape[0] == 1:
         return _conv_math(torch.cat([x, x]), W, b, stride)[:1]
+    x, W = _operands(x, W)
     winlen = W.shape[0]
     padL = (winlen - 1) // 2
     padR = winlen // 2
@@ -119,6 +132,7 @@ def conv1d_same_ct(xc, W, b):
     """
     winlen = W.shape[0]
     T = xc.shape[-1]
+    xc, W = _operands(xc, W)
     xp = F.pad(xc, ((winlen - 1) // 2, winlen // 2))
     xs = torch.stack([xp[:, :, k : k + T] for k in range(winlen)])  # [k, B, C, T]
     return torch.einsum("kbct,kco->bot", xs, W) + b[None, :, None]
@@ -137,7 +151,7 @@ def conv1d_strided_ct(xc, W, b, stride: int, lengths):
     xp = F.pad(xc, ((winlen - 1) // 2, winlen // 2 + (stride * Tout - T) + stride))
     cols = torch.stack([xp[:, :, k : k + stride * Tout : stride]
                         for k in range(winlen)])  # [k, B, C, Tout]
-    out = torch.einsum("kbct,kco->bto", cols, W) + b
+    out = torch.einsum("kbct,kco->bto", *_operands(cols, W)) + b
     if stride > 1 and winlen % stride != 0:
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.int32, device=xc.device)

@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from . import precision
+
 
 def rows_matmul(x, W):
     """x [..., K] @ W [K, N] as one [rows, K] x [K, N] product, with one
@@ -46,14 +48,19 @@ def rows_matmul(x, W):
 
 
 def affine(x, W, b):
-    """[..., in] x [in, K] + [K] -> [..., K] in float32."""
+    """[..., in] x [in, K] + [K] -> [..., K] in float32, at the
+    feed-forward level for x's device (ops/precision.py; flappie_tpu/ops/
+    rnn.py:50): ``default`` on a CUDA device rounds x and W to bf16 and
+    sums the exact products in f32 (TF32 is off)."""
+    if precision.ff_precision(x.device) == precision.ONE_PASS:
+        x, W = precision.one_pass(x), precision.one_pass(W)
     return rows_matmul(x, W) + b
 
 
-def lstm_step(xa_t, h, c, sW):
-    """One LSTM step: returns (h', c')."""
+def lstm_step(xa_t, h, c, sW, dot=rows_matmul):
+    """One LSTM step: returns (h', c'); ``dot`` computes h . sW."""
     H = h.shape[-1]
-    xF = xa_t + rows_matmul(h, sW)
+    xF = xa_t + dot(h, sW)
     u = torch.sigmoid(xF[:, :H])
     f = torch.sigmoid(xF[:, H : 2 * H])
     g = torch.tanh(xF[:, 2 * H : 3 * H])
@@ -76,10 +83,10 @@ def lstm_seq(xaffine, sW):
     return torch.stack(ys, dim=1)
 
 
-def grumod_step(xa_t, h, sW):
-    """One GRU-mod step: returns h'."""
+def grumod_step(xa_t, h, sW, dot=rows_matmul):
+    """One GRU-mod step: returns h'; ``dot`` computes h . sW."""
     H = h.shape[-1]
-    v = rows_matmul(h, sW)
+    v = dot(h, sW)
     z = torch.sigmoid(xa_t[:, :H] + v[:, :H])
     r = torch.sigmoid(xa_t[:, H : 2 * H] + v[:, H : 2 * H])
     hbar = torch.tanh(r * v[:, 2 * H :] + xa_t[:, 2 * H :])

@@ -1,7 +1,8 @@
 """Fused recurrent layers: kernels K1 (LSTM, csrc/lstm.cu), K8 (its
 training forward, which also returns the cell state) and K7 (GRU-mod,
-csrc/grumod.cu), and their plain versions; and K12, the recurrences
-alone over a caller's affine (``lstm_seq_cuda``, ``grumod_seq_cuda``).
+csrc/grumod.cu), their bf16-stream and precision-``default`` variants,
+and their plain versions; and K12, the recurrences alone over a caller's
+affine (``lstm_seq_cuda``, ``grumod_seq_cuda``).
 
 Counterparts of flappie_tpu/ops/rnn_pallas.py:563 ``lstm_layer_tm``
 (``_lstm_fused_kernel``), :584 ``lstm_layer_tm_train``
@@ -25,27 +26,45 @@ holding an eighth of sW in shared memory, R rows a cluster
 (``_cluster_plan``); H must be a multiple of 16 and at most 256.
 
 The bf16 stream (``--fast``; ops/precision.py): an ``x_tm`` in bf16
-selects K1-bf16 / K7-bf16 (``lstm_layer_tm_bf16``,
-``grumod_layer_tm_bf16``), the counterpart of rnn_pallas.py's fused
-kernels under FLAPPIE_TPU_RNN_STREAM=bf16 (:515-519): x and iW in bf16,
-the block affine as a bf16 product with f32 accumulation plus the f32
-bias, rounded to a bf16 xa (``affine_bf16``, a tensor-core kernel in
-csrc/affine.cuh); the steps in f32 on xa widened to f32, the state and
-the step product f32; only the stored output rounded to bf16, which the
-next layer takes as it is.  K8 and K12 keep f32 and raise on bf16
-(training under the stream is ROADMAP item 17's remainder).
+selects K1-bf16 / K7-bf16 / K8-bf16 (``lstm_layer_tm_bf16``,
+``grumod_layer_tm_bf16``, ``lstm_layer_tm_train_bf16``), the counterpart
+of rnn_pallas.py's fused kernels under FLAPPIE_TPU_RNN_STREAM=bf16
+(:515-519): x and iW in bf16, the block affine as a bf16 product with
+f32 accumulation plus the f32 bias, rounded to a bf16 xa (``affine_bf16``,
+a tensor-core kernel in csrc/affine.cuh); the steps in f32 on xa widened
+to f32, the state and the step product f32; only the stored outputs (h,
+and K8's c) rounded to bf16, which the next layer takes as it is.  K12
+keeps f32 and raises on bf16: the JAX package's layer-by-layer stack
+ignores the stream.
+
+Precision ``default`` (ops/precision.py: ``"bf16"`` on a CUDA device).
+At FLAPPIE_TPU_RNN_PRECISION=default a layer runs its block affine, then
+the cluster recurrence with the one-pass step product (DOT1: sW in bf16,
+h rounded to bf16 for the product, f32 sums; csrc/lstm_p1.cu,
+csrc/grumod_p1.cu), under either stream: ``lstm_layer_tm_p1``,
+``lstm_layer_tm_train_p1``, ``grumod_layer_tm_p1``.  At
+FLAPPIE_TPU_MATMUL_PRECISION=default on the f32 stream the block affine
+is the one-pass affine with an f32 output (``affine_bf16_f32``: x and iW
+rounded to bf16 first), followed by the layer's f32 recurrence
+(``flappie_lstm_rnn`` / ``flappie_grumod_rnn``) or the DOT1 one; under
+the bf16 stream the affine is already one pass (rnn_pallas.py:517).  The
+dispatchers ``lstm_layer_tm``, ``lstm_layer_tm_train`` and
+``grumod_layer_tm`` pick the kernel from x's dtype and the levels resolved
+for x's device; on the CPU every level is true f32 (JAX's CPU bytes).
+The plain versions take the levels as arguments (``rdot``, ``ff``) and
+round where the kernels round.
 
 Both block affines live in csrc/affine.cuh and run alone through
 ``affine_f32`` (a pipelined CUDA-core SGEMM, true f32) and
 ``affine_bf16`` (wgmma on TMA tiles where K and N are multiples of 8 and
-K <= 256, every model shape; a wmma kernel elsewhere);
-``_affine_plan`` mirrors the C side's choice of path and grid.
+K <= 256, every model shape; a wmma kernel elsewhere; ``affine_bf16_f32``
+the same kernels with an f32 output); ``_affine_plan`` mirrors the C
+side's choice of path and grid.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
-plain version for a CPU tensor; any other device raises.  The recurrent
-product is true f32 (the TPU's bf16x3 split is not the parity tier).
-``<wrapper>.launches`` counts kernel launches; a layer's C entry launches
-its affine too, which its wrapper counts on ``affine_f32``, or on
+plain version for a CPU tensor; any other device raises.
+``<wrapper>.launches`` counts kernel launches; a layer launches its affine
+too, which its wrapper counts on ``affine_f32``, ``affine_bf16_f32``, or
 ``affine_bf16`` (the wgmma path) or ``affine_bf16_wmma`` (the wmma path).
 """
 
@@ -56,12 +75,11 @@ import types
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, precision
+from .precision import F32, ONE_PASS, one_pass
 from .rnn import grumod_seq, grumod_step, lstm_seq, lstm_step, rows_matmul
 
-
-_NO_TRAIN = ("training under the bf16 stream is not ported (ROADMAP item 17's remainder): "
-             "{} takes float32")
+BF16 = torch.bfloat16
 
 
 def affine_f32_plain(x, iW, b):
@@ -72,64 +90,100 @@ def affine_f32_plain(x, iW, b):
 def affine_bf16_plain(x, iW, b):
     """bf16(x . iW + b): x [..., K] and iW [K, N] rounded to bf16, the
     product and the bias in f32, one round to bf16 -> [..., N] bf16."""
-    bf = torch.bfloat16
-    return (rows_matmul(x.to(bf).float(), iW.to(bf).float()) + b).to(bf)
+    return (rows_matmul(x.to(BF16).float(), iW.to(BF16).float()) + b).to(BF16)
 
 
-def _xa_plain(x_tm, iW, b):
-    """(the block affine [T, B, G], the dtype of the steps): x's dtype,
-    or under the bf16 stream the bf16 xa (affine_bf16_plain) widened to
-    f32 and f32 steps."""
-    if x_tm.dtype == torch.bfloat16:
+def affine_bf16_f32_plain(x, iW, b):
+    """x . iW + b with x and iW rounded to bf16, the exact products and
+    the bias summed in f32 -> [..., N] f32 (the one-pass affine)."""
+    return rows_matmul(one_pass(x), one_pass(iW)) + b
+
+
+def _xa_plain(x_tm, iW, b, ff):
+    """(the block affine [T, B, G], the dtype of the steps): under the
+    bf16 stream the bf16 xa (affine_bf16_plain) widened to f32 and f32
+    steps; on the f32 stream the f32 affine, or at ``ff`` one pass
+    ``affine_bf16_f32_plain``."""
+    if x_tm.dtype == BF16:
         return affine_bf16_plain(x_tm, iW, b).float(), torch.float32
+    if ff == ONE_PASS:
+        return affine_bf16_f32_plain(x_tm, iW, b), x_tm.dtype
     return rows_matmul(x_tm, iW) + b, x_tm.dtype
 
 
-def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool):
+def _step_dot(sW, rdot):
+    """(sW as the step reads it, the step product h . sW): at ``rdot``
+    one pass, sW rounded to bf16 once and h at every step (the carried h
+    stays f32), the exact products summed in f32."""
+    if rdot == ONE_PASS:
+        return one_pass(sW), lambda h, w: rows_matmul(one_pass(h), w)
+    return sW, rows_matmul
+
+
+def _check_levels(rdot, ff):
+    for name, v in (("rdot", rdot), ("ff", ff)):
+        if v not in (F32, ONE_PASS):
+            raise ValueError(f"{name} must be {F32!r} or {ONE_PASS!r}, got {v!r}")
+
+
+def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool, rdot=F32, ff=F32):
+    _check_levels(rdot, ff)
     T, B, _ = x_tm.shape
     H = sW.shape[0]
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
-    xa, dt = _xa_plain(x_tm, iW, b)  # [T, B, 4H]
+    xa, dt = _xa_plain(x_tm, iW, b, ff)  # [T, B, 4H]
+    sW, dot = _step_dot(sW, rdot)
     h = x_tm.new_zeros(B, H, dtype=dt)
     c = x_tm.new_zeros(B, H, dtype=dt)
     out = x_tm.new_empty(T, B, H, dtype=dt)
     cout = x_tm.new_empty(T, B, H, dtype=dt) if want_c else None
     for t in (range(T - 1, -1, -1) if backward else range(T)):
-        h2, c2 = lstm_step(xa[t], h, c, sW)
+        h2, c2 = lstm_step(xa[t], h, c, sW, dot)
         valid = (t < lengths)[:, None]
         out[t] = torch.where(valid, h2, torch.zeros_like(h2))
         if want_c:
             cout[t] = torch.where(valid, c2, torch.zeros_like(c2))
         h = torch.where(valid, h2, h)
         c = torch.where(valid, c2, c)
-    return (out, cout) if want_c else out.to(x_tm.dtype)
+    if want_c:
+        return out.to(x_tm.dtype), cout.to(x_tm.dtype)
+    return out.to(x_tm.dtype)
 
 
-def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None, rdot=F32,
+                        ff=F32):
     """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math); an
-    x_tm in bf16 runs the bf16 stream and returns bf16."""
-    return _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c=False)
+    x_tm in bf16 runs the bf16 stream and returns bf16.  ``rdot`` and
+    ``ff``: the step product's and the f32 stream's affine's level,
+    ``"highest"`` (true f32) or ``"bf16"`` (one pass)."""
+    return _lstm_plain(x_tm, iW, b, sW, backward, lengths, False, rdot, ff)
 
 
-def lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+def lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None,
+                              rdot=F32, ff=F32):
     """x_tm [T, B, IN] -> (h [T, B, H], c [T, B, H]) with plain tensor
-    ops (same math); both are 0 at invalid steps."""
-    return _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c=True)
+    ops (same math); both are 0 at invalid steps and in x_tm's dtype
+    (the bf16 stream rounds both)."""
+    return _lstm_plain(x_tm, iW, b, sW, backward, lengths, True, rdot, ff)
 
 
-def grumod_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+def grumod_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None, rdot=F32,
+                          ff=F32):
     """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math); an
-    x_tm in bf16 runs the bf16 stream and returns bf16."""
+    x_tm in bf16 runs the bf16 stream and returns bf16; ``rdot``, ``ff``
+    as for ``lstm_layer_tm_plain``."""
+    _check_levels(rdot, ff)
     T, B, _ = x_tm.shape
     H = sW.shape[0]
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x_tm.device)
-    xa, dt = _xa_plain(x_tm, iW, b)  # [T, B, 3H]
+    xa, dt = _xa_plain(x_tm, iW, b, ff)  # [T, B, 3H]
+    sW, dot = _step_dot(sW, rdot)
     h = x_tm.new_zeros(B, H, dtype=dt)
     out = x_tm.new_empty(T, B, H, dtype=dt)
     for t in (range(T - 1, -1, -1) if backward else range(T)):
-        h2 = grumod_step(xa[t], h, sW)
+        h2 = grumod_step(xa[t], h, sW, dot)
         valid = (t < lengths)[:, None]
         out[t] = torch.where(valid, h2, torch.zeros_like(h2))
         h = torch.where(valid, h2, h)
@@ -143,25 +197,37 @@ CLUSTER, KSPLIT, MAX_CLUSTERS, MAX_H = 8, 4, 15, 256
 ROWS = (1, 2, 4, 8, 12, 16, 20)
 
 
-def _cluster_plan(B: int, H: int, gates: int):
+def _cluster_plan(B: int, H: int, gates: int, dot1: bool = False):
     """(R, clusters, shared bytes a CTA) of the cluster recurrence for a
     batch of B rows: the fewest rows R of ``ROWS`` that let every cluster
     run at once (at most 15), else the most (cluster_rows in
-    csrc/cluster_rnn.cuh).  Raises ValueError for an H the kernel does
-    not take."""
+    csrc/cluster_rnn.cuh); ``dot1`` (the one-pass step product) holds sW's
+    slice in bf16 (cluster_smem).  Raises ValueError for an H the kernel
+    does not take."""
     if H <= 0 or H % 16 or H > MAX_H:
         raise ValueError(f"the cluster recurrence needs H % 16 == 0 and H <= {MAX_H} (an "
                          f"eighth of sW must fit one SM's shared memory), got H={H}")
     R = next((r for r in ROWS if -(-B // r) <= MAX_CLUSTERS), ROWS[-1])
     cols = gates * H // CLUSTER
-    smem = 4 * (H * cols + 2 * H * R + KSPLIT * R * cols)
+    smem = (2 if dot1 else 4) * H * cols + 4 * (2 * H * R + KSPLIT * R * cols)
     return R, -(-B // R), smem
 
 
-# variant of each kernel in its source's <source>_cluster_info entry
+# variant of each kernel in its source's <source>_cluster_info entry; the
+# _p1 sources hold the one-pass step product (DOT1)
 _INFO = {"lstm_layer": ("lstm", 0), "lstm_layer_train": ("lstm", 1), "lstm_seq": ("lstm", 2),
-         "lstm_layer_bf16": ("lstm", 3), "grumod_layer": ("grumod", 0),
-         "grumod_seq": ("grumod", 2), "grumod_layer_bf16": ("grumod", 3)}
+         "lstm_layer_bf16": ("lstm", 3), "lstm_layer_train_bf16": ("lstm", 4),
+         "grumod_layer": ("grumod", 0), "grumod_seq": ("grumod", 2),
+         "grumod_layer_bf16": ("grumod", 3),
+         "lstm_layer_p1": ("lstm_p1", 0), "lstm_layer_train_p1": ("lstm_p1", 1),
+         "lstm_layer_bf16_p1": ("lstm_p1", 3), "lstm_layer_train_bf16_p1": ("lstm_p1", 4),
+         "grumod_layer_p1": ("grumod_p1", 0), "grumod_layer_bf16_p1": ("grumod_p1", 3)}
+
+
+def info_plan(kind: str, B: int, H: int = 256):
+    """``_cluster_plan`` of ``kind`` (a key of ``_INFO``) at batch B."""
+    source = _INFO[kind][0]
+    return _cluster_plan(B, H, 4 if source.startswith("lstm") else 3, source.endswith("_p1"))
 
 
 def cluster_info(kind: str, B: int, H: int = 256) -> dict:
@@ -246,24 +312,26 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _lib(name: str, entry: str, outputs: int):
-    lib = cuda_build.load(name)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+def _entry(source: str, name: str, argtypes: list):
+    """(library, C entry ``name`` of csrc/<source>.cu typed once)."""
+    lib = cuda_build.load(source)
+    with cuda_build.lock:
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths,
-                  want_c: bool = False):
-    """Checks shared by the fused-layer wrappers, then one launch of the
-    C entry point ``entry`` of ``csrc/<source>.cu``; with ``want_c`` it
-    also passes (and returns) the cell-state output.  The stream is x's
-    dtype: float32, or bfloat16 (the bf16 entries), where iW may arrive
-    in f32 and is cast (plain torch, as the JAX package casts it outside
-    its kernel) and the xa scratch and the output are bf16; b and sW are
-    float32 either way."""
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _layer_args(what, gates, x_tm, iW, b, sW, lengths):
+    """Checks shared by the fused-layer wrappers: (x_tm, iW, b, sW,
+    lengths) contiguous on x's device, lengths [B] int32 (default all T).
+    The stream is x's dtype: float32, or bfloat16, where iW may arrive in
+    f32 and is cast (plain torch, as the JAX package casts it outside its
+    kernel); b and sW are float32 either way."""
     T, B, IN = x_tm.shape
     H = sW.shape[0]
     G = gates * H
@@ -272,9 +340,9 @@ def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths
                          f"{tuple(b.shape)}, {tuple(sW.shape)} for IN={IN}, H={H}")
     _cluster_plan(B, H, gates)
     xdt = x_tm.dtype
-    if xdt not in (torch.float32, torch.bfloat16):
+    if xdt not in (torch.float32, BF16):
         raise ValueError(f"{what}: x must be float32 or bfloat16, got {xdt}")
-    if xdt == torch.bfloat16 and iW.dtype == torch.float32:
+    if xdt == BF16 and iW.dtype == torch.float32:
         iW = iW.to(xdt)
     for name, t, dt in (("x", x_tm, xdt), ("iW", iW, xdt), ("b", b, torch.float32),
                         ("sW", sW, torch.float32)):
@@ -286,10 +354,22 @@ def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths
     lengths = lengths.to(device=x_tm.device, dtype=torch.int32).contiguous()
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"{what}: lengths must be [{B}]")
-    xa = torch.empty(T * B, G, dtype=xdt, device=x_tm.device)
-    outs = [torch.empty(T, B, H, dtype=xdt, device=x_tm.device)
+    return x_tm, iW, b, sW, lengths
+
+
+def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths,
+                  want_c: bool = False):
+    """One launch of the fused C entry point ``entry`` of
+    ``csrc/<source>.cu`` (affine, then recurrence) after ``_layer_args``;
+    with ``want_c`` it also passes (and returns) the cell-state output.
+    The xa scratch and the outputs are in the stream's dtype."""
+    x_tm, iW, b, sW, lengths = _layer_args(what, gates, x_tm, iW, b, sW, lengths)
+    T, B, IN = x_tm.shape
+    H = sW.shape[0]
+    xa = torch.empty(T * B, gates * H, dtype=x_tm.dtype, device=x_tm.device)
+    outs = [torch.empty(T, B, H, dtype=x_tm.dtype, device=x_tm.device)
             for _ in range(2 if want_c else 1)]
-    lib, fn = _lib(source, entry, len(outs))
+    lib, fn = _entry(source, entry, [_P] * (6 + len(outs)) + [_I] * 5 + [_P])
     rc = fn(cuda_build.ptr(x_tm), cuda_build.ptr(iW), cuda_build.ptr(b),
             cuda_build.ptr(sW), cuda_build.ptr(lengths), cuda_build.ptr(xa),
             *(cuda_build.ptr(o) for o in outs), T, B, IN, H, int(backward),
@@ -298,20 +378,75 @@ def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths
     return tuple(outs) if want_c else outs[0]
 
 
+def _launch_split(what, kind, gates, x_tm, iW, b, sW, backward, lengths, ff: str,
+                  dot1: bool, want_c: bool = False):
+    """A layer as two launches, its block affine alone, then its
+    recurrence alone over the time-major xa: the affine is the bf16 one
+    under the bf16 stream, else the one-pass affine with an f32 output at
+    ``ff`` one pass (x and iW rounded to bf16 first), else the f32 one;
+    the recurrence is csrc/<kind>_p1.cu's (``dot1``: the one-pass step
+    product) or csrc/<kind>.cu's f32 one (f32 stream only).  Each
+    affine launch is counted on its wrapper's counter."""
+    x_tm, iW, b, sW, lengths = _layer_args(what, gates, x_tm, iW, b, sW, lengths)
+    T, B, IN = x_tm.shape
+    H = sW.shape[0]
+    bf16 = x_tm.dtype == BF16
+    x2 = x_tm.view(T * B, IN)
+    if bf16:
+        xa = affine_bf16(x2, iW, b)
+    elif ff == ONE_PASS:
+        xa = affine_bf16_f32(x2.to(BF16), iW.to(BF16), b)
+    else:
+        xa = affine_f32(x2, iW, b)
+    outs = [torch.empty(T, B, H, dtype=x_tm.dtype, device=x_tm.device)
+            for _ in range(2 if want_c else 1)]
+    ptrs = [cuda_build.ptr(t) for t in (xa, sW, lengths, outs[0])]
+    if kind == "lstm":
+        ptrs.append(cuda_build.ptr(outs[1]) if want_c else ctypes.c_void_p(0))
+    if dot1:
+        tail = [int(bf16)] + ([int(want_c)] if kind == "lstm" else [])
+        source, entry = f"{kind}_p1", f"flappie_{kind}_p1_rnn"
+    else:
+        tail = [int(want_c)] if kind == "lstm" else []
+        source, entry = kind, f"flappie_{kind}_rnn"
+    lib, fn = _entry(source, entry, [_P] * len(ptrs) + [_I] * (4 + len(tail)) + [_P])
+    rc = fn(*ptrs, T, B, H, int(backward), *tail, cuda_build.stream_of(x_tm))
+    cuda_build.check(lib, rc, what)
+    return tuple(outs) if want_c else outs[0]
+
+
+def _device(what, x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def _one_pass_step(x) -> bool:
+    """Whether a layer on x runs the one-pass step product: the rnn level
+    for x's device (ops/precision.py)."""
+    return precision.rnn_precision(x.device) == ONE_PASS
+
+
 def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """Fused input affine + LSTM recurrence, time-major [T, B, IN] ->
     [T, B, H]; ``lengths`` [B] int32 (default: all T).  An x_tm in bf16
-    runs the bf16 stream (``lstm_layer_tm_bf16``) and returns bf16."""
-    if x_tm.dtype == torch.bfloat16:
-        return lstm_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.device.type == "cpu":
+    runs the bf16 stream (``lstm_layer_tm_bf16``) and returns bf16; at
+    precision ``default`` on the card the step product is one pass
+    (``lstm_layer_tm_p1``) and, on the f32 stream, the affine too."""
+    if not _device("lstm_layer_tm", x_tm):
         return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.device.type != "cuda":
-        raise ValueError(f"lstm_layer_tm: unsupported device {x_tm.device}")
-    out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4,
-                        x_tm, iW, b, sW, backward, lengths)
+    if _one_pass_step(x_tm):
+        return lstm_layer_tm_p1(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.dtype == BF16:
+        return lstm_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
+    if precision.ff_precision(x_tm.device) == ONE_PASS:
+        out = _launch_split("lstm_layer_tm", "lstm", 4, x_tm, iW, b, sW, backward, lengths,
+                            ONE_PASS, False)
+    else:
+        out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4,
+                            x_tm, iW, b, sW, backward, lengths)
+        cuda_build.count(affine_f32)
     cuda_build.count(lstm_layer_tm)
-    cuda_build.count(affine_f32)
     return out
 
 
@@ -319,7 +454,7 @@ lstm_layer_tm.launches = 0
 
 
 def _need_bf16(what, x):
-    if x.dtype != torch.bfloat16:
+    if x.dtype != BF16:
         raise ValueError(f"{what}: x must be bfloat16 (the bf16 stream), got {x.dtype}")
 
 
@@ -327,10 +462,8 @@ def lstm_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K1-bf16: ``lstm_layer_tm`` under the bf16 stream.  x_tm [T, B, IN]
     bf16, iW bf16 or f32, b and sW f32 -> [T, B, H] bf16."""
     _need_bf16("lstm_layer_tm_bf16", x_tm)
-    if x_tm.device.type == "cpu":
+    if not _device("lstm_layer_tm_bf16", x_tm):
         return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.device.type != "cuda":
-        raise ValueError(f"lstm_layer_tm_bf16: unsupported device {x_tm.device}")
     out = _launch_layer("lstm_layer_tm_bf16", "lstm", "flappie_lstm_layer_bf16", 4,
                         x_tm, iW, b, sW, backward, lengths)
     cuda_build.count(lstm_layer_tm_bf16)
@@ -344,38 +477,66 @@ lstm_layer_tm_bf16.launches = 0
 def lstm_layer_tm_train(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K8: ``lstm_layer_tm`` that also returns the carried cell state,
     (h [T, B, H], c [T, B, H]), both 0 at invalid steps; h is K1's h bit
-    for bit.  The forward of the training path (ops/rnn_vjp.py); float32
-    only."""
-    if x_tm.dtype == torch.bfloat16:
-        raise ValueError(_NO_TRAIN.format("lstm_layer_tm_train (K8)"))
-    if x_tm.device.type == "cpu":
+    for bit.  The forward of the training path (ops/rnn_vjp.py).  An x_tm
+    in bf16 runs K8-bf16 (``lstm_layer_tm_train_bf16``); at precision
+    ``default`` on the card, ``lstm_layer_tm_train_p1``."""
+    if not _device("lstm_layer_tm_train", x_tm):
         return lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.device.type != "cuda":
-        raise ValueError(f"lstm_layer_tm_train: unsupported device {x_tm.device}")
-    out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4,
-                        x_tm, iW, b, sW, backward, lengths, want_c=True)
+    if _one_pass_step(x_tm):
+        return lstm_layer_tm_train_p1(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.dtype == BF16:
+        return lstm_layer_tm_train_bf16(x_tm, iW, b, sW, backward, lengths)
+    if precision.ff_precision(x_tm.device) == ONE_PASS:
+        out = _launch_split("lstm_layer_tm_train", "lstm", 4, x_tm, iW, b, sW, backward,
+                            lengths, ONE_PASS, False, want_c=True)
+    else:
+        out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4,
+                            x_tm, iW, b, sW, backward, lengths, want_c=True)
+        cuda_build.count(affine_f32)
     cuda_build.count(lstm_layer_tm_train)
-    cuda_build.count(affine_f32)
     return out
 
 
 lstm_layer_tm_train.launches = 0
 
 
+def lstm_layer_tm_train_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K8-bf16: K8 under the bf16 stream, the training forward under
+    ``--fast``'s stream.  x_tm [T, B, IN] bf16, iW bf16 or f32, b and sW
+    f32 -> (h, c) [T, B, H] bf16; h is K1-bf16's bit for bit."""
+    _need_bf16("lstm_layer_tm_train_bf16", x_tm)
+    if not _device("lstm_layer_tm_train_bf16", x_tm):
+        return lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward, lengths)
+    out = _launch_layer("lstm_layer_tm_train_bf16", "lstm", "flappie_lstm_layer_train_bf16", 4,
+                        x_tm, iW, b, sW, backward, lengths, want_c=True)
+    cuda_build.count(lstm_layer_tm_train_bf16)
+    _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
+    return out
+
+
+lstm_layer_tm_train_bf16.launches = 0
+
+
 def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """Fused input affine + GRU-mod recurrence, time-major [T, B, IN] ->
     [T, B, H]; ``lengths`` [B] int32 (default: all T).  An x_tm in bf16
-    runs the bf16 stream (``grumod_layer_tm_bf16``) and returns bf16."""
-    if x_tm.dtype == torch.bfloat16:
-        return grumod_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.device.type == "cpu":
+    runs the bf16 stream (``grumod_layer_tm_bf16``) and returns bf16; at
+    precision ``default`` on the card as ``lstm_layer_tm``
+    (``grumod_layer_tm_p1``)."""
+    if not _device("grumod_layer_tm", x_tm):
         return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.device.type != "cuda":
-        raise ValueError(f"grumod_layer_tm: unsupported device {x_tm.device}")
-    out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3,
-                        x_tm, iW, b, sW, backward, lengths)
+    if _one_pass_step(x_tm):
+        return grumod_layer_tm_p1(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.dtype == BF16:
+        return grumod_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
+    if precision.ff_precision(x_tm.device) == ONE_PASS:
+        out = _launch_split("grumod_layer_tm", "grumod", 3, x_tm, iW, b, sW, backward, lengths,
+                            ONE_PASS, False)
+    else:
+        out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3,
+                            x_tm, iW, b, sW, backward, lengths)
+        cuda_build.count(affine_f32)
     cuda_build.count(grumod_layer_tm)
-    cuda_build.count(affine_f32)
     return out
 
 
@@ -386,10 +547,8 @@ def grumod_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K7-bf16: ``grumod_layer_tm`` under the bf16 stream.  x_tm
     [T, B, IN] bf16, iW bf16 or f32, b and sW f32 -> [T, B, H] bf16."""
     _need_bf16("grumod_layer_tm_bf16", x_tm)
-    if x_tm.device.type == "cpu":
+    if not _device("grumod_layer_tm_bf16", x_tm):
         return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.device.type != "cuda":
-        raise ValueError(f"grumod_layer_tm_bf16: unsupported device {x_tm.device}")
     out = _launch_layer("grumod_layer_tm_bf16", "grumod", "flappie_grumod_layer_bf16", 3,
                         x_tm, iW, b, sW, backward, lengths)
     cuda_build.count(grumod_layer_tm_bf16)
@@ -400,10 +559,56 @@ def grumod_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
 grumod_layer_tm_bf16.launches = 0
 
 
-def _launch_affine(what: str, entry: str, dt, x, iW, b):
+def _p1_layer(wrapper, kind, gates, x_tm, iW, b, sW, backward, lengths, ff, want_c=False):
+    """A layer at rnn precision ``default``: plain on the CPU (the
+    one-pass step, ``ff`` for the affine), else ``_launch_split`` with the
+    one-pass recurrence, counted on ``wrapper``."""
+    what = wrapper.__name__
+    if ff is None:
+        ff = precision.ff_precision(x_tm.device)
+    if not _device(what, x_tm):
+        plain = {("lstm", False): lstm_layer_tm_plain, ("lstm", True): lstm_layer_tm_train_plain,
+                 ("grumod", False): grumod_layer_tm_plain}[kind, want_c]
+        return plain(x_tm, iW, b, sW, backward, lengths, rdot=ONE_PASS, ff=ff)
+    out = _launch_split(what, kind, gates, x_tm, iW, b, sW, backward, lengths, ff, True, want_c)
+    cuda_build.count(wrapper)
+    return out
+
+
+def lstm_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None, ff=None):
+    """K1 (or K1-bf16 for an x_tm in bf16) with the step product at
+    precision ``default``: one bf16 pass, f32 sums (csrc/lstm_p1.cu).
+    ``ff`` (None: the level for x's device) sets the f32 stream's affine:
+    ``"highest"`` f32, ``"bf16"`` the one-pass affine."""
+    return _p1_layer(lstm_layer_tm_p1, "lstm", 4, x_tm, iW, b, sW, backward, lengths, ff)
+
+
+lstm_layer_tm_p1.launches = 0
+
+
+def lstm_layer_tm_train_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None, ff=None):
+    """K8 (or K8-bf16) with the step product at precision ``default``:
+    (h, c) as ``lstm_layer_tm_train``; ``ff`` as for ``lstm_layer_tm_p1``."""
+    return _p1_layer(lstm_layer_tm_train_p1, "lstm", 4, x_tm, iW, b, sW, backward, lengths, ff,
+                     want_c=True)
+
+
+lstm_layer_tm_train_p1.launches = 0
+
+
+def grumod_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None, ff=None):
+    """K7 (or K7-bf16) with the step product at precision ``default``
+    (csrc/grumod_p1.cu); ``ff`` as for ``lstm_layer_tm_p1``."""
+    return _p1_layer(grumod_layer_tm_p1, "grumod", 3, x_tm, iW, b, sW, backward, lengths, ff)
+
+
+grumod_layer_tm_p1.launches = 0
+
+
+def _launch_affine(what: str, entry: str, dt, x, iW, b, out_dt=None):
     """Checks shared by the affine wrappers, then one launch of the C
     entry ``entry`` of csrc/lstm.cu: x [M, K] and iW [K, N] of dtype
-    ``dt``, b [N] f32 -> [M, N] of dtype ``dt``."""
+    ``dt``, b [N] f32 -> [M, N] of dtype ``out_dt`` (default ``dt``)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 2:
@@ -417,13 +622,8 @@ def _launch_affine(what: str, entry: str, dt, x, iW, b):
         if t.dtype != want or t.device != x.device:
             raise ValueError(f"{what}: {name} must be {want} on {x.device}")
     x, iW, b = (_aligned(t.contiguous()) for t in (x, iW, b))
-    out = torch.empty(M, N, dtype=dt, device=x.device)
-    lib = cuda_build.load("lstm")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    out = torch.empty(M, N, dtype=out_dt or dt, device=x.device)
+    lib, fn = _entry("lstm", entry, [_P] * 4 + [ctypes.c_long, _I, _I, _P])
     rc = fn(*(cuda_build.ptr(t) for t in (x, iW, b, out)), M, N, K, cuda_build.stream_of(x))
     cuda_build.check(lib, rc, what)
     return out
@@ -452,7 +652,7 @@ def affine_bf16(x, iW, b):
     (``_affine_plan``), the bf16 layers' included."""
     if x.device.type == "cpu":
         return affine_bf16_plain(x, iW, b)
-    out = _launch_affine("affine_bf16", "flappie_affine_bf16", torch.bfloat16, x, iW, b)
+    out = _launch_affine("affine_bf16", "flappie_affine_bf16", BF16, x, iW, b)
     _count_affine_bf16(x.shape[0], iW.shape[-1], x.shape[1])
     return out
 
@@ -462,12 +662,34 @@ affine_bf16.launches = 0
 affine_bf16_wmma = types.SimpleNamespace(launches=0)
 
 
+def affine_bf16_f32(x, iW, b):
+    """The one-pass affine of precision ``default`` on the f32 stream
+    (csrc/affine.cuh, the bf16 kernels with an f32 output): x [M, K] and
+    iW [K, N] bf16, b [N] f32 -> x . iW + b [M, N] f32, f32 sums.  The
+    layers round their f32 x and iW to bf16 before it; its launches, theirs
+    included, count on ``affine_bf16_f32.launches`` (either path)."""
+    if x.device.type == "cpu":
+        return affine_bf16_f32_plain(x, iW, b)
+    out = _launch_affine("affine_bf16_f32", "flappie_affine_bf16_f32", BF16, x, iW, b,
+                         torch.float32)
+    cuda_build.count(affine_bf16_f32)
+    return out
+
+
+affine_bf16_f32.launches = 0
+
+
 def _count_affine_bf16(M: int, N: int, K: int) -> None:
     """One bf16 affine launch at [M, K] x [K, N], on its path's counter."""
     if _affine_plan(M, N, K, True)[0] == PATH_WGMMA:
         cuda_build.count(affine_bf16)
     else:
         cuda_build.count(affine_bf16_wmma)
+
+
+# K12 takes no bf16: the JAX package's layer-by-layer stack ignores the stream
+_K12_F32 = ("{} (K12) takes float32: the layer-by-layer recurrence runs in f32 under "
+            "every stream, as the JAX package's does")
 
 
 def _launch_seq(what, source, entry, gates, xaffine, sW):
@@ -502,8 +724,8 @@ def lstm_seq_cuda(xaffine, sW):
     """K12: LSTM recurrence over xaffine [B, T, 4H] (= x iW + b), sW
     [H, 4H] -> [B, T, H]; ops/rnn.py ``lstm_seq`` for a CPU tensor.
     float32 only."""
-    if xaffine.dtype == torch.bfloat16:
-        raise ValueError(_NO_TRAIN.format("lstm_seq_cuda (K12)"))
+    if xaffine.dtype == BF16:
+        raise ValueError(_K12_F32.format("lstm_seq_cuda"))
     if xaffine.device.type == "cpu":
         return lstm_seq(xaffine, sW)
     if xaffine.device.type != "cuda":
@@ -519,8 +741,8 @@ lstm_seq_cuda.launches = 0
 def grumod_seq_cuda(xaffine, sW):
     """K12: GRU-mod recurrence over xaffine [B, T, 3H], sW [H, 3H] ->
     [B, T, H]; ops/rnn.py ``grumod_seq`` for a CPU tensor.  float32 only."""
-    if xaffine.dtype == torch.bfloat16:
-        raise ValueError(_NO_TRAIN.format("grumod_seq_cuda (K12)"))
+    if xaffine.dtype == BF16:
+        raise ValueError(_K12_F32.format("grumod_seq_cuda"))
     if xaffine.device.type == "cpu":
         return grumod_seq(xaffine, sW)
     if xaffine.device.type != "cuda":

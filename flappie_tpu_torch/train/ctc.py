@@ -15,7 +15,9 @@ transition weights this is exactly -log P(y | signal).
 
 The JAX package's CTC step runs its scan recurrence; the port's runs
 the same training path as ``nll_loss`` (``transitions(..., train=True)``):
-the mathematics is the same.
+the mathematics is the same.  It runs the f32 stream always: JAX's scan
+recurrence (flappie_tpu/train/ctc.py:131, ``rnn_impl="scan"``) ignores
+FLAPPIE_TPU_RNN_STREAM.
 """
 
 from __future__ import annotations
@@ -83,7 +85,8 @@ def flipflop_ctc_nll(trans, nblocks, states, target_lengths, nbase: int):
 
 def ctc_loss(params, cfg, signal, lengths, states, target_lengths):
     """Mean per-block sequence NLL of a batch through the training path."""
-    trans, nblocks = transitions(params, cfg, signal, lengths, train=True)
+    trans, nblocks = transitions(params, cfg, signal, lengths, train=True,
+                                 stream=torch.float32)
     nll = flipflop_ctc_nll(trans, nblocks, states, target_lengths, cfg.nbase)
     return torch.mean(nll / torch.clamp(nblocks, min=1).to(trans.dtype))
 

@@ -17,7 +17,9 @@ takes ``--steps`` steps of ``make_train_step(..., group=...)``
 one all_reduce before Adam).  Each rank writes ``DIR/rank<R>.npz``: the
 global loss of every step, a SHA-256 of its parameters' bytes after every
 step, the summed gradients of the first step, each step's wall seconds
-and its kernel launch counts (K8, K7 and K3/K4: zero on the CPU).  Spawn
+and its kernel launch counts (K8, K8-bf16, K7 and K3/K4: zero on the
+CPU).  The ranks inherit the environment, FLAPPIE_TPU_RNN_STREAM (the
+stream of ``nll_loss``) and the precision knobs included.  Spawn
 mode then checks that every rank's digests are equal and prints one JSON
 line with the losses, rows, step times, launch counts and digests; it
 exits 1 if the digests differ.
@@ -112,6 +114,7 @@ def run_rank(args) -> int:
                          for key, t in tree_leaves(params)}
         launches = {f"launches/{name}": c.launches for name, c in (
             ("lstm_layer_train", rnn_cuda.lstm_layer_tm_train),
+            ("lstm_layer_train_bf16", rnn_cuda.lstm_layer_tm_train_bf16),
             ("grumod_layer", rnn_cuda.grumod_layer_tm), ("crf_sum_scan", crf_bm_cuda.sum_states))}
         np.savez(os.path.join(args.out, f"rank{args.rank}.npz"), losses=np.asarray(losses),
                  seconds=np.asarray(seconds), digests=np.asarray(digests),

@@ -34,6 +34,8 @@ for Adam's step and moments, and ``step``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -51,10 +53,13 @@ def tree_leaves(params):
             for layer in sorted(params) for k in sorted(params[layer])]
 
 
-def nll_loss(params, cfg: ModelConfig, signal, lengths, target_path):
+def nll_loss(params, cfg: ModelConfig, signal, lengths, target_path, stream=None):
     """signal [B, T], lengths [B], target_path [B, ceil(T/stride) + 1]
-    int32 -> scalar loss, differentiable in ``params``."""
-    trans, nblocks = transitions(params, cfg, signal, lengths, train=True)
+    int32 -> scalar loss, differentiable in ``params``.  ``stream``: the
+    recurrent stack's stream dtype (None: FLAPPIE_TPU_RNN_STREAM at call
+    time, as ``transitions`` reads it; the JAX package's
+    ``rnn_impl="train"`` reads the same variable inside its kernels)."""
+    trans, nblocks = transitions(params, cfg, signal, lengths, train=True, stream=stream)
     score = path_score(trans, target_path, nblocks, cfg.nbase)
     return -torch.mean(score / nblocks.to(trans.dtype))
 
@@ -93,11 +98,14 @@ def all_reduce_grads(params, group) -> None:
         ofs += g.numel()
 
 
-def make_train_step(cfg: ModelConfig, lr: float = 1e-4, loss_fn=nll_loss, group=None):
+def make_train_step(cfg: ModelConfig, lr: float = 1e-4, loss_fn=nll_loss, group=None,
+                    stream=None):
     """(train_step, init).  ``init(params, device=None)`` -> (params as
     tensors on the device, their optimiser); ``train_step(params,
     optimizer, *batch)`` runs one loss, gradient and Adam update in place
-    and returns the loss (a detached scalar).
+    and returns the loss (a detached scalar).  ``stream`` (a dtype) is
+    passed to ``loss_fn``; None leaves it to the loss (``nll_loss``:
+    FLAPPIE_TPU_RNN_STREAM at each step).
 
     ``group``: a torch.distributed process group of data-parallel ranks,
     each passing its own rows of the batch (module docstring).  Every rank
@@ -106,6 +114,8 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4, loss_fn=nll_loss, group=
     import torch.distributed as dist
 
     ranks = 1 if group is None else dist.get_world_size(group)
+    if stream is not None:
+        loss_fn = functools.partial(loss_fn, stream=stream)
 
     def init(params, device=None):
         params = to_device(params, device)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import pytest
 
-from flappie_tpu_torch.ops.rnn_cuda import _INFO, _cluster_plan
+from flappie_tpu_torch.ops.rnn_cuda import _INFO, _cluster_plan, info_plan
 
 SMEM_PER_CTA = 232_448  # 227 KB: the most shared memory one block may use
 
@@ -68,3 +68,32 @@ def test_bf16_layers_are_variant_3_of_their_sources(kind, twin):
     holds the two equal (test_torch_cuda.py)."""
     assert _INFO[kind] == (_INFO[twin][0], 3)
     assert len({v for v in _INFO.values()}) == len(_INFO)
+
+
+@pytest.mark.parametrize("gates,kib", [(4, 64), (3, 48)])
+def test_one_pass_slices_are_bf16(gates, kib):
+    """The one-pass step product (DOT1) holds sW's slice in bf16: 64 KiB
+    (LSTM) or 48 KiB (GRU-mod) a CTA at H=256, the rest of the shared
+    memory as the f32 recurrence's, and the same rows and clusters."""
+    for B in (1, 24, 32, 256):
+        R, clusters, smem = _cluster_plan(B, 256, gates, dot1=True)
+        assert (R, clusters) == _cluster_plan(B, 256, gates)[:2]
+        assert smem - 4 * (2 * 256 * R + 4 * R * gates * 32) == kib * 1024
+        assert _cluster_plan(B, 256, gates)[2] - smem == kib * 1024
+
+
+@pytest.mark.parametrize("kind,source,variant", [
+    ("lstm_layer_train_bf16", "lstm", 4),
+    ("lstm_layer_p1", "lstm_p1", 0), ("lstm_layer_train_p1", "lstm_p1", 1),
+    ("lstm_layer_bf16_p1", "lstm_p1", 3), ("lstm_layer_train_bf16_p1", "lstm_p1", 4),
+    ("grumod_layer_p1", "grumod_p1", 0), ("grumod_layer_bf16_p1", "grumod_p1", 3),
+])
+def test_new_variants_of_their_sources(kind, source, variant):
+    """K8-bf16 is variant 4 of lstm.cu; the rnn-``default`` recurrences
+    keep their f32 twins' numbers in lstm_p1.cu / grumod_p1.cu, whose
+    plans ``info_plan`` reads with the bf16 slice (the card holds the C
+    side to it: chip_smoke.py, test_torch_cuda.py)."""
+    assert _INFO[kind] == (source, variant)
+    gates = 4 if source.startswith("lstm") else 3
+    for B in (1, 100, 256):
+        assert info_plan(kind, B) == _cluster_plan(B, 256, gates, source.endswith("_p1"))

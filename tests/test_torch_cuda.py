@@ -44,7 +44,20 @@ K1-bf16 and K7-bf16 within 1e-2 of their plain versions (one bf16 ulp of
 an output of |h| <= 1 is 2^-8; an ulp of xa moves a step's gates by
 about as much, and the state carries it) at every rows-a-cluster
 instantiation, bf16 out, and their cluster plan (variant 3) the f32
-layers'.
+layers'.  K8-bf16: h within 1e-2 and c within 1e-2 max(1, |c|) of its
+plain version, h bit-equal to K1-bf16's.  Precision ``default``: the
+one-pass recurrences (csrc/lstm_p1.cu, grumod_p1.cu) within 1e-2
+max(1, |value|) of their plain twins, on the f32 stream with a mean
+within 1e-4 (both sum exact products in f32 in other orders; an h whose
+two sums straddle a bf16 rounding boundary is read one bf16 ulp apart
+by the next product, and the state carries it); the one-pass affine's
+f32 output within f32 reassociation of its plain version; the
+dispatchers' counters at each level; the new plans (bf16 sW slices)
+against ``info_plan``; the training path under the stream against the
+same Function on the CPU within 1e-2 of max |grad| (the adjoint reads
+bf16 h and c that kernel and plain version may give one bf16 ulp
+apart), and at FLAPPIE_TPU_GRAD_PRECISION=default within 5e-2 of the
+f32 adjoint's.
 """
 
 from __future__ import annotations
@@ -699,3 +712,177 @@ def test_bf16_layer_cluster_info_is_the_f32_layers(cuda, kind, twin):
     memory, so the plan (and the clusters the card holds) is K1's / K7's."""
     for B in (1, 16, 32, 100, 150, 240, 256):
         assert rnn_cuda.cluster_info(kind, B) == rnn_cuda.cluster_info(twin, B)
+
+
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
+@pytest.mark.parametrize("backward", [False, True])
+def test_k8_bf16_kernel_matches_plain_and_k1_bf16(cuda, B, T, IN, H, backward):
+    """K8-bf16 through lstm_layer_tm_train on a bf16 x: its own counter,
+    h and c in bf16 within the bf16 band of the plain version (h 1e-2, c
+    1e-2 max(1, |c|)), h bit-equal to K1-bf16's."""
+    gen = torch.Generator().manual_seed(B * T + H + 9)
+    args, lengths = _bf16_layer_args(cuda, gen, "lstm", B, T, IN, H)
+    before = (rnn_cuda.lstm_layer_tm_train.launches, rnn_cuda.lstm_layer_tm_train_bf16.launches)
+    h, c = rnn_cuda.lstm_layer_tm_train(*args, backward=backward, lengths=lengths)
+    assert (rnn_cuda.lstm_layer_tm_train.launches,
+            rnn_cuda.lstm_layer_tm_train_bf16.launches) == (before[0], before[1] + 1)
+    want_h, want_c = rnn_cuda.lstm_layer_tm_train_plain(*args, backward=backward, lengths=lengths)
+    h1 = rnn_cuda.lstm_layer_tm(*args, backward=backward, lengths=lengths)
+    torch.cuda.synchronize()
+    assert h.dtype == c.dtype == torch.bfloat16
+    assert (h.float() - want_h.float()).abs().max().item() <= 1e-2
+    dc = (c.float() - want_c.float()).abs()
+    assert (dc <= 1e-2 * want_c.float().abs().clamp(min=1.0)).all()
+    assert torch.equal(h, h1)
+
+
+@pytest.fixture
+def levels():
+    """Sets the import-time precision levels for one test and restores
+    them after it."""
+    from flappie_tpu_torch.ops import precision
+
+    saved = precision._ff_level, precision._rnn_level
+    yield precision
+    precision._ff_level, precision._rnn_level = saved
+
+
+# the one-pass layers: a shape for a few rows-a-cluster instantiations
+P1_SHAPES = [(5, 37, 12, 16), (24, 40, 256, 256), (100, 40, 256, 256), (257, 40, 256, 256)]
+
+
+@pytest.mark.parametrize("B,T,IN,H", P1_SHAPES)
+@pytest.mark.parametrize("stream,ff", [("f32", "highest"), ("f32", "bf16"), ("bf16", None)])
+@pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
+def test_one_pass_layer_kernels_match_plain(cuda, kind, stream, ff, B, T, IN, H):
+    """The rnn-``default`` recurrences (csrc/lstm_p1.cu, grumod_p1.cu)
+    through their wrappers against their plain twins (rdot one pass, the
+    same ff): within 1e-2, the mean within 1e-4 on the f32 stream.  Both
+    sum exact products in f32 in other orders; where an h's two sums
+    straddle a bf16 rounding boundary the next product reads it one bf16
+    ulp apart, and the state carries that (the bf16 stream's band, as
+    K1-bf16's).  The dispatcher takes the same kernel at
+    FLAPPIE_TPU_RNN_PRECISION=default, on its wrapper's counter and the
+    affine's."""
+    base = "grumod" if kind == "grumod" else "lstm"
+    gen = torch.Generator().manual_seed(B * T + H + len(kind))
+    args, lengths = _bf16_layer_args(cuda, gen, base, B, T, IN, H)
+    if stream == "f32":
+        args[0] = args[0].float()
+    p1 = {"lstm": rnn_cuda.lstm_layer_tm_p1, "lstm_train": rnn_cuda.lstm_layer_tm_train_p1,
+          "grumod": rnn_cuda.grumod_layer_tm_p1}[kind]
+    plain = {"lstm": rnn_cuda.lstm_layer_tm_plain, "lstm_train": rnn_cuda.lstm_layer_tm_train_plain,
+             "grumod": rnn_cuda.grumod_layer_tm_plain}[kind]
+    before = p1.launches
+    got = p1(*args, True, lengths, ff=ff)
+    assert p1.launches == before + 1
+    want = plain(*args, True, lengths, rdot="bf16", ff=ff or "highest")
+    torch.cuda.synchronize()
+    for g, w in zip(*(t if kind == "lstm_train" else (t,) for t in (got, want))):
+        assert g.dtype == args[0].dtype
+        d = (g.float() - w.float()).abs()
+        assert d.max().item() <= 1e-2 * max(1.0, w.float().abs().max().item())
+        if stream == "f32":
+            assert d.mean().item() <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
+def test_default_levels_dispatch_to_their_kernels(cuda, kind, levels):
+    """At FLAPPIE_TPU_MATMUL_PRECISION=default alone an f32 layer runs
+    the one-pass affine (counted on affine_bf16_f32, not affine_f32) and
+    its f32 recurrence, within 1e-4 of the plain version at ff one pass;
+    at FLAPPIE_TPU_RNN_PRECISION=default too, its rnn-default wrapper."""
+    base = "grumod" if kind == "grumod" else "lstm"
+    gen = torch.Generator().manual_seed(31 + len(kind))
+    args, lengths = _bf16_layer_args(cuda, gen, base, 33, 40, 256, 256)
+    args[0] = args[0].float()
+    fn = {"lstm": rnn_cuda.lstm_layer_tm, "lstm_train": rnn_cuda.lstm_layer_tm_train,
+          "grumod": rnn_cuda.grumod_layer_tm}[kind]
+    p1 = {"lstm": rnn_cuda.lstm_layer_tm_p1, "lstm_train": rnn_cuda.lstm_layer_tm_train_p1,
+          "grumod": rnn_cuda.grumod_layer_tm_p1}[kind]
+    plain = {"lstm": rnn_cuda.lstm_layer_tm_plain, "lstm_train": rnn_cuda.lstm_layer_tm_train_plain,
+             "grumod": rnn_cuda.grumod_layer_tm_plain}[kind]
+
+    def counts():
+        return (fn.launches, p1.launches, rnn_cuda.affine_f32.launches,
+                rnn_cuda.affine_bf16_f32.launches)
+
+    levels.set_ff_precision("default")
+    before = counts()
+    got = fn(*args, True, lengths)
+    assert counts() == (before[0] + 1, before[1], before[2], before[3] + 1)
+    want = plain(*args, True, lengths, ff="bf16")
+    torch.cuda.synchronize()
+    for g, w in zip(*(t if kind == "lstm_train" else (t,) for t in (got, want))):
+        assert (g - w).abs().max().item() <= 1e-4
+    levels.set_rnn_precision("default")
+    before = counts()
+    fn(*args, True, lengths)
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+
+
+@pytest.mark.parametrize("M,K,N", AFFINE_SHAPES)
+def test_affine_bf16_f32_kernel_matches_plain(cuda, M, K, N):
+    """The one-pass affine's f32 output (both bf16 paths) within f32
+    reassociation of its plain version: the same exact products, summed
+    in another order."""
+    gen = torch.Generator().manual_seed(M + K + N + 2)
+    x = _rnd(gen, M, K).to(torch.bfloat16).to(cuda)
+    iW = _rnd(gen, K, N, scale=K ** -0.5).to(torch.bfloat16).to(cuda)
+    b = _rnd(gen, N, scale=0.2).to(cuda)
+    before = (rnn_cuda.affine_bf16_f32.launches, *_path_launches())
+    got = rnn_cuda.affine_bf16_f32(x, iW, b)
+    assert (rnn_cuda.affine_bf16_f32.launches, *_path_launches()) == (before[0] + 1, *before[1:])
+    want = rnn_cuda.affine_bf16_f32_plain(x, iW, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    noise = (x.float().abs() @ iW.float().abs()) * (K * 2.0 ** -23) + want.abs() * 2.0 ** -23
+    assert ((got - want).abs() <= noise).all()
+
+
+@pytest.mark.parametrize("kind", ["lstm_layer_train_bf16", "lstm_layer_p1", "lstm_layer_train_p1",
+                                  "lstm_layer_bf16_p1", "lstm_layer_train_bf16_p1",
+                                  "grumod_layer_p1", "grumod_layer_bf16_p1"])
+def test_new_cluster_info_matches_plan(cuda, kind):
+    """K8-bf16's and the one-pass recurrences' plans from the C side
+    (bf16 sW slices under DOT1) against ``info_plan``."""
+    for B in (1, 16, 32, 100, 150, 240, 256):
+        info = rnn_cuda.cluster_info(kind, B)
+        assert (info["R"], info["clusters"], info["smem"]) == rnn_cuda.info_plan(kind, B)
+        assert info["max_active_clusters"] >= 1
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["lstm", "grumod"])
+def test_layer_function_under_the_stream_and_grad_default(cuda, kind, x_dtype, monkeypatch):
+    """The training path under the bf16 stream on the card (K8-bf16 or
+    K7-bf16 forward, the adjoint backward) against the same Function on
+    the CPU (the plain forward, held to the JAX package's custom VJP in
+    test_torch_fast_train.py): every gradient within 1e-2 of its max
+    |value|, dx in x's dtype (the adjoint reads the forward's bf16 h and
+    c, which kernel and plain version may give one bf16 ulp apart); at
+    FLAPPIE_TPU_GRAD_PRECISION=default the one-pass adjoint within 5e-2 of
+    the f32 adjoint's."""
+    B, T, IN, H = 7, 48, 32, 32
+    G = {"lstm": 4, "grumod": 3}[kind] * H
+    gen = torch.Generator().manual_seed(T + G + 5)
+    lengths = _lengths(gen, B, T)
+    x = _rnd(gen, T, B, IN) * (torch.arange(T)[:, None] < lengths[None, :])[..., None]
+    leaves = [x.to(x_dtype), _rnd(gen, IN, G, scale=IN ** -0.5), _rnd(gen, G, scale=0.2),
+              _rnd(gen, H, G, scale=H ** -0.5)]
+    cot = _rnd(gen, T, B, H)
+    ad = {"lstm": rnn_vjp.lstm_layer_tm_ad, "grumod": rnn_vjp.grumod_layer_tm_ad}[kind]
+
+    def grads(device):
+        args = [t.to(device).requires_grad_() for t in leaves]
+        out = ad(*args, True, lengths.to(device), stream=torch.bfloat16)
+        assert out.dtype == torch.bfloat16
+        return [g.cpu() for g in torch.autograd.grad((out.float() * cot.to(device)).sum(), args)]
+
+    got, want = grads(cuda), grads("cpu")
+    assert got[0].dtype == x_dtype and got[1].dtype == torch.float32
+    for g, w in zip(got, want):
+        assert (g.float() - w.float()).abs().max().item() <= 1e-2 * w.float().abs().max().item()
+    monkeypatch.setenv("FLAPPIE_TPU_GRAD_PRECISION", "default")
+    for g, w in zip(grads(cuda), got):
+        assert (g.float() - w.float()).abs().max().item() <= 5e-2 * w.float().abs().max().item()

@@ -17,8 +17,8 @@ narrowed (convs of at most 8 channels, 5 LSTM layers of 16), within 5e-2
 absolute: the rounding of five layers' outputs reaches the head.  Then
 ``--fast`` on the port's three CLIs (records equal to the stream's through
 the library; no environment variable written), a stack that is not fused
-running f32 under it, the training path and K12 refusing bf16, and the
-precision knobs (ops/precision.py).
+running f32 under it, K12 refusing bf16 (the training path takes it:
+test_torch_fast_train.py), and the precision knobs (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -184,21 +184,24 @@ def test_transitions_bf16_match_jax(monkeypatch, fresh_jax):
 
 
 def test_training_and_the_layer_by_layer_recurrence_refuse_bf16():
-    """K8 (the training forward) and K12 keep f32: under the stream they
-    raise, naming the ROADMAP item; so does train=True."""
+    """K12 keeps f32 and refuses the stream, as the JAX package's
+    layer-by-layer stack ignores it.  K8 and train=True, which refused it
+    until training under the stream was ported, now take it: K8-bf16's
+    plain twin gives bf16 h and c, train=True finite transitions
+    (held to the JAX package in test_torch_fast_train.py)."""
     x = torch.zeros(4, 2, 8, dtype=BF16)
     iW, b, sW = torch.zeros(8, 64), torch.zeros(64), torch.zeros(16, 64)
-    with pytest.raises(ValueError, match="item 17"):
-        rnn_cuda.lstm_layer_tm_train(x, iW, b, sW)
-    with pytest.raises(ValueError, match="item 17"):
+    h, c = rnn_cuda.lstm_layer_tm_train(x, iW, b, sW)
+    assert h.dtype == c.dtype == BF16 and h.shape == c.shape == (4, 2, 16)
+    with pytest.raises(ValueError, match="K12.*takes float32"):
         rnn_cuda.lstm_seq_cuda(torch.zeros(2, 4, 64, dtype=BF16), sW)
-    with pytest.raises(ValueError, match="item 17"):
+    with pytest.raises(ValueError, match="K12.*takes float32"):
         rnn_cuda.grumod_seq_cuda(torch.zeros(2, 4, 48, dtype=BF16), torch.zeros(16, 48))
     cfg = _narrow(t_config)
     params = params_to_torch(init_synthetic(cfg, seed=1), "cpu")
-    with pytest.raises(ValueError, match="item 17"):
-        t_net.transitions(params, cfg, torch.zeros(1, 100), torch.tensor([100], dtype=torch.int32),
-                          train=True, stream=BF16)
+    trans, _ = t_net.transitions(params, cfg, torch.zeros(1, 100),
+                                 torch.tensor([100], dtype=torch.int32), train=True, stream=BF16)
+    assert trans.dtype == torch.float32 and torch.isfinite(trans).all()
 
 
 # -- the CLIs -------------------------------------------------------------------
@@ -315,8 +318,10 @@ def saved_levels():
 
 def test_precision_levels_resolve_to_f32_and_default_raises_on_the_card(saved_levels):
     """high and highest are true f32 everywhere, default too on the CPU;
-    on a CUDA device (a device object: no card is needed to ask) default
-    raises, naming the ROADMAP item."""
+    on a CUDA device (a device object: no card is needed to ask) default,
+    which raised until the one-pass products were ported, resolves to
+    the one-pass level "bf16".  A level that is not one of the three
+    raises."""
     cuda = torch.device("cuda")
     for get, set_ in ((precision.ff_precision, precision.set_ff_precision),
                       (precision.rnn_precision, precision.set_rnn_precision)):
@@ -327,8 +332,7 @@ def test_precision_levels_resolve_to_f32_and_default_raises_on_the_card(saved_le
             set_(level)
             assert get(cuda) == "highest"
         set_("default")
-        with pytest.raises(ValueError, match="item 17"):
-            get(cuda)
+        assert get(cuda) == get("cuda:0") == "bf16"
         with pytest.raises(ValueError, match="precision must be one of"):
             set_("bf16")
     precision._rnn_level = None  # unset: HIGHEST off the TPU
@@ -341,8 +345,8 @@ def test_precision_knobs_read_at_import(monkeypatch):
     try:
         importlib.reload(precision)
         assert (precision._ff_level, precision._rnn_level) == ("default", "highest")
-        with pytest.raises(ValueError, match="FLAPPIE_TPU_MATMUL_PRECISION"):
-            precision.ff_precision("cuda")
+        assert precision.ff_precision("cuda") == "bf16"
+        assert precision.ff_precision("cpu") == precision.rnn_precision("cuda") == "highest"
         monkeypatch.setenv("FLAPPIE_TPU_RNN_PRECISION", "fast")
         with pytest.raises(ValueError, match="FLAPPIE_TPU_RNN_PRECISION"):
             importlib.reload(precision)
@@ -369,13 +373,24 @@ def test_stream_dtype(monkeypatch):
 
 
 def test_transitions_resolve_the_levels_for_the_signals_device(monkeypatch):
-    """transitions asks both levels for its signal's device, which is
-    where default raises on the card."""
-    asked = []
-    monkeypatch.setattr(precision, "ff_precision", lambda d=None: asked.append(("ff", d)))
-    monkeypatch.setattr(precision, "rnn_precision", lambda d=None: asked.append(("rnn", d)))
+    """The feed-forward products of transitions (the convs, the head's
+    affine) ask the level for the device their tensors are on, the
+    signal's: the CPU, where every level is true f32, so ``default``
+    gives the bytes of the unset levels.  (The layers ask the rnn level
+    only on a CUDA device: on the CPU they run their plain versions.)"""
     cfg = _narrow(t_config)
     params = params_to_torch(init_synthetic(cfg, seed=2), "cpu")
-    t_net.transitions(params, cfg, torch.zeros(1, 50), torch.tensor([50], dtype=torch.int32),
-                      stream=torch.float32)
-    assert asked == [("ff", torch.device("cpu")), ("rnn", torch.device("cpu"))]
+    args = (params, cfg, torch.randn(2, 50), torch.tensor([50, 31], dtype=torch.int32))
+    want, _ = t_net.transitions(*args, stream=torch.float32)
+    asked = []
+    real = precision.ff_precision
+    monkeypatch.setattr(precision, "ff_precision", lambda d=None: asked.append(d) or real(d))
+    saved = precision._ff_level, precision._rnn_level
+    try:
+        precision.set_ff_precision("default")
+        precision.set_rnn_precision("default")
+        got, _ = t_net.transitions(*args, stream=torch.float32)
+    finally:
+        precision._ff_level, precision._rnn_level = saved
+    assert asked and set(asked) == {torch.device("cpu")}
+    assert torch.equal(got, want)
