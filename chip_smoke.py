@@ -103,10 +103,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and torch.addmm in bf16 (its library time).  The rnn-default variants of
    K1, K8 and K7 (csrc/lstm_p1.cu, grumod_p1.cu: the one-pass step product)
    on the f32 stream (f32 and one-pass affine) and the bf16 stream, both
-   directions, each within 1e-2 max(1, |value|) of its plain twin (on f32 a
-   mean within 1e-4), beside the f32 kernel's distance to that twin, timed
-   alternated with the f32 kernel and the bf16 twin (no library call:
-   null).
+   directions, each within 1e-2 max(1, |value|) of its plain twin, its mean
+   within 1e-4 and its mean over the first 16 steps within P1_EARLY, while
+   the same layer's f32-step kernel (the control) lies at least 3 P1_EARLY
+   from that twin over those steps; timed alternated with the control on
+   each stream, a row for each stream (no library call: null).
 3. Main paths, full width, synthetic weights.  Through
    flappie_tpu_torch.cli.flappie.main, default flags and then --viterbi:
    r941_native on 64 seeded synthetic fast5 reads of ~100k samples
@@ -199,8 +200,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    phred shift where the lengths align; a missing read or a median under
    90% fails the run (a broken kernel; the weights are synthetic).  The
    default band: the same 64 reads with FLAPPIE_TPU_MATMUL_PRECISION and
-   FLAPPIE_TPU_RNN_PRECISION at default (r941_native on the f32 stream and
-   under --fast, r941_5mC), exact launch counts (5 one-pass recurrences a
+   FLAPPIE_TPU_RNN_PRECISION at default (r941_native and r941_5mC, each
+   on the f32 stream and under --fast), exact launch counts (5 one-pass recurrences a
    program with their affines), each against the exact run by the same
    band and gate.
    Then the sloika-era graphs at full width (conv winlen 19, 1 -> 256,
@@ -264,7 +265,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    5 bf16 affines, 2 K3/K4 a step, no f32 K8), one step of 8 rows against
    the CPU path (loss within 1e-3 relative, gradients within 1e-2), one
    step at FLAPPIE_TPU_GRAD_PRECISION=default (the same loss, gradients
-   within 5e-2 of the f32 adjoint's), and 3 steps of K8 at
+   within 5e-2 of the f32 adjoint's and not equal to them), and 3 steps of K8 at
    FLAPPIE_TPU_RNN_PRECISION=default on each stream, counted;
    3 CTC steps on r941_native and 3
    steps on r941_5mC (K7 under autograd) with exact counts; the train
@@ -275,7 +276,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Imports nothing of JAX or of the JAX package.  Writes only under build/
 in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
-run with every phase above took 568-636 s of command time on an H100 80GB
+run with every phase above took 568-728 s of command time on an H100 80GB
 HBM3 at 700 W; it should stay well inside its 1200 s limit (at most ~60%
 of it).
 """
@@ -1774,37 +1775,78 @@ def check_layer_train_bf16(torch, peak: dict, gen) -> dict:
                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
-# kind -> (id, gates, p1 wrapper, its f32 twin, source, TPU kernel, run and
-# counter that supply the launch count) of the rnn-``default`` recurrences
+# kind -> (id, gates, p1 wrapper, its f32 twin, source, and for each stream
+# the run and counter that supply the launch count) of the rnn-``default``
+# recurrences; every one replaces the step product of rnn_pallas.py:172
 P1_LAYERS = {
     "lstm": ("K1-default", 4, "lstm_layer_tm_p1", "lstm_layer_tm", "lstm_p1.cu",
-             "rnn_pallas.py:172", "r941_native_default", "lstm_layer_p1"),
+             ("r941_native_default", "lstm_layer_p1"),
+             ("r941_native_fast_default", "lstm_layer_bf16_p1")),
     "lstm_train": ("K8-default", 4, "lstm_layer_tm_train_p1", "lstm_layer_tm_train", "lstm_p1.cu",
-                   "rnn_pallas.py:172", "r941_native_train_default", "lstm_layer_train_p1"),
+                   ("r941_native_train_default", "lstm_layer_train_p1"),
+                   ("r941_native_train_bf16_default", "lstm_layer_train_bf16_p1")),
     "grumod": ("K7-default", 3, "grumod_layer_tm_p1", "grumod_layer_tm", "grumod_p1.cu",
-               "rnn_pallas.py:172", "r941_5mC_default", "grumod_layer_p1"),
+               ("r941_5mC_default", "grumod_layer_p1"),
+               ("r941_5mC_fast_default", "grumod_layer_bf16_p1")),
 }
-# the one-pass recurrences' band against their plain twins: both sum exact
+# the one-pass recurrences' band against their plain twins, on both
+# streams: max |delta| <= P1_MAX max(1, |value|) and mean |delta| <=
+# P1_MEAN over the whole walk, and a mean <= P1_EARLY over the first
+# P1_STEPS steps each row walks.  Kernel and twin sum the same exact
 # products in f32 in other orders; where an h's two sums straddle a bf16
 # rounding boundary the next product reads it one bf16 ulp apart, and the
-# state carries it (tests/test_torch_cuda.py)
-P1_MAX, P1_MEAN = 1e-2, 1e-4
+# state carries that, so over 2560 steps the sound distance grows toward
+# the f32 step's own (tests/test_torch_cuda.py).  Over the first steps
+# such flips are still rare, and the f32 step (the control: a kernel that
+# did not round h or sW) must lie at least 3 P1_EARLY from the twin there.
+# P1_EARLY sits between the readings (H100, T=2560, B=256): the sound runs'
+# largest first-steps mean 7.8e-6, the control's smallest 1.14e-4.
+P1_MAX, P1_MEAN, P1_STEPS, P1_EARLY = 1e-2, 1e-4, 16, 1.5e-5
 
 
-def check_layer_p1(torch, peak: dict, gen, kind: str) -> dict:
+def first_steps(torch, T: int, lengths, backward: bool, steps: int):
+    """[T, B, 1] bool: the first ``steps`` valid steps each row walks
+    (from t = 0 forward, from its length down backward)."""
+    t = torch.arange(T, device=lengths.device)[:, None]
+    s = (lengths[None, :] - 1 - t) if backward else t
+    return ((s >= 0) & (s < steps) & (t < lengths[None, :]))[..., None]
+
+
+def p1_distance(got, want, early) -> tuple:
+    """(max |delta| / max(1, max |want|), mean |delta|, mean |delta| over
+    the steps ``early`` marks)."""
+    d = (got.float() - want.float()).abs()
+    scale = max(1.0, want.float().abs().max().item())
+    n = early.sum().item() * d.shape[-1]
+    return d.max().item() / scale, d.mean().item(), (d * early).sum().item() / n
+
+
+def at_ff_default(fn):
+    """``fn`` run with FLAPPIE_TPU_MATMUL_PRECISION at default."""
+    def run():
+        with precision_levels(ff="default"):
+            return fn()
+    return run
+
+
+def check_layer_p1(torch, peak: dict, gen, kind: str) -> list:
     """The rnn-``default`` variant of K1, K8 or K7 (the cluster recurrence
     with the one-pass step product, csrc/lstm_p1.cu / grumod_p1.cu) at
-    T=2560, B=256, IN=H=256, ragged lengths: on the f32 stream (affine f32
-    and the one-pass affine) and on the bf16 stream, both directions,
-    against its plain twin (rdot one pass, the same ff): max |delta| <=
-    1e-2 max(1, |value|), and on the f32 stream a mean <= 1e-4; beside it
-    the f32 kernel's distance to the same twin (what one pass costs);
-    timed over 10 runs alternated with the f32 kernel and, on the bf16
-    stream, with its bf16 twin.  No library call computes the one-pass
-    step over an f32 state: library_ms is null."""
+    T=2560, B=256, IN=H=256, ragged lengths: on the f32 stream (the f32
+    affine and, at FLAPPIE_TPU_MATMUL_PRECISION=default, the one-pass
+    affine) and on the bf16 stream, both directions, against its plain
+    twin (rdot one pass, the same ff) inside the P1 band; beside it, the
+    control, the same layer's kernel with the f32 step on the same inputs
+    (the f32 kernel, the one-pass affine's f32 kernel, K1-/K8-/K7-bf16),
+    must lie outside the band by at least 3x on the mean over the first
+    steps, so a DOT1 instantiation that computed the f32 step would fail.
+    Every reading is logged before any gate fails.  Timed over 10 runs
+    alternated with the control on each stream.  No library call computes
+    the one-pass step over an f32 state: library_ms is null.  Returns the
+    f32-stream row and the bf16-stream row."""
     from flappie_tpu_torch.ops import rnn_cuda
 
-    kid, gates, wrapper, twin, source, replaces, run, counter = P1_LAYERS[kind]
+    kid, gates, wrapper, twin, source, f32_run, bf16_run = P1_LAYERS[kind]
     fn, f32 = getattr(rnn_cuda, wrapper), getattr(rnn_cuda, twin)
     plain = getattr(rnn_cuda, twin + "_plain")
     IN = H = 256
@@ -1812,61 +1854,78 @@ def check_layer_p1(torch, peak: dict, gen, kind: str) -> dict:
     G = gates * H
     x, iW, b, sW, lengths = layer_inputs(torch, gen, gates, T, B, IN, H)
     xb = x.to(torch.bfloat16)
-    first = (lambda o: o[0]) if kind == "lstm_train" else (lambda o: o)
-    err, logs = 0.0, []
-    for xs, ff in ((x, "highest"), (x, "bf16"), (xb, None)):
+    pair = (lambda o: o) if kind == "lstm_train" else (lambda o: (o,))
+    err = {"f32": 0.0, "bf16": 0.0}
+    logs, bad = [], []
+    sound_early, control_early = 0.0, float("inf")
+    for stream, xs, ff in (("f32", x, None), ("f32", x, "default"), ("bf16", xb, None)):
         for backward in (False, True):
-            got = fn(xs, iW, b, sW, backward, lengths, ff=ff)
-            want = plain(xs, iW, b, sW, backward, lengths, rdot="bf16", ff=ff or "highest")
-            pairs = list(zip(got, want)) if kind == "lstm_train" else [(got, want)]
+            early = first_steps(torch, T, lengths, backward, P1_STEPS)
+            with precision_levels(ff=ff):
+                got = fn(xs, iW, b, sW, backward, lengths)
+                ctl = f32(xs, iW, b, sW, backward, lengths)
+            want = plain(xs, iW, b, sW, backward, lengths, rdot="bf16",
+                         ff="bf16" if ff else "highest")
             torch.cuda.synchronize()
-            for i, (g, w) in enumerate(pairs):
-                d = (g.float() - w.float()).abs()
-                scale = max(1.0, w.float().abs().max().item())
-                dmax, dmean = d.max().item() / scale, d.mean().item()
-                ok = dmax <= P1_MAX and (xs.dtype == torch.bfloat16 or dmean <= P1_MEAN)
-                if not ok:
-                    raise AssertionError(f"{kid} ({'hc'[i]}, {xs.dtype}, ff={ff}, backward="
-                                         f"{backward}): max {dmax}, mean {dmean} outside "
-                                         f"{P1_MAX}, {P1_MEAN}")
-                err = max(err, dmax)
-                logs.append(f"{'hc'[i]} {str(xs.dtype)[6:]} ff={ff} bw={int(backward)}: "
-                            f"max {dmax:.2e} mean {dmean:.2e}")
-            if xs.dtype == torch.float32 and ff == "highest":
-                exact = first(f32(x, iW, b, sW, backward, lengths))
-                torch.cuda.synchronize()
-                logs.append(f"f32 kernel to the one-pass twin: max "
-                            f"{(exact - first(want)).abs().max().item():.2e}")
-            del got, want, pairs
-    log(f"{kid} at T={T}, B={B} against its plain twin (band {P1_MAX} x max(1, |value|), mean "
-        f"{P1_MEAN} on f32): " + "; ".join(logs))
+            for name, g, c, w in zip("hc", pair(got), pair(ctl), pair(want)):
+                if g.dtype != xs.dtype:
+                    bad.append(f"{name} {stream}: {g.dtype}")
+                dmax, dmean, dearly = p1_distance(g, w, early)
+                cmax, cmean, cearly = p1_distance(c, w, early)
+                err[stream] = max(err[stream], dmax)
+                sound_early, control_early = max(sound_early, dearly), min(control_early, cearly)
+                what = f"{name} {stream} ff={ff or 'high'} bw={int(backward)}"
+                logs.append(f"{what}: max {dmax:.2e} mean {dmean:.2e} first {P1_STEPS} steps "
+                            f"{dearly:.2e}; control max {cmax:.2e} mean {cmean:.2e} first steps "
+                            f"{cearly:.2e}")
+                if not (dmax <= P1_MAX and dmean <= P1_MEAN and dearly <= P1_EARLY):
+                    bad.append(f"{what} outside the band")
+                if not cearly >= 3 * P1_EARLY:
+                    bad.append(f"{what}: the control lies within 3x the band ({cearly:.2e})")
+            del got, ctl, want
+    log(f"{kid} at T={T}, B={B} against its plain twin (band max {P1_MAX} x max(1, |value|), "
+        f"mean {P1_MEAN}, mean over the first {P1_STEPS} steps {P1_EARLY}; the control, the "
+        f"f32 step, at least {3 * P1_EARLY:.0e} there): " + "; ".join(logs))
+    log(f"{kid}: the sound runs' largest first-steps mean {sound_early:.3e}, the control's "
+        f"smallest {control_early:.3e} (ratio {control_early / max(sound_early, 1e-30):.1f})")
+    if bad:
+        raise AssertionError(f"{kid}: " + "; ".join(bad))
     iW16 = iW.to(torch.bfloat16)
-    fns = {"one_pass": lambda: fn(x, iW, b, sW, True, lengths, ff="highest"),
-           "one_pass_ff": lambda: fn(x, iW, b, sW, True, lengths, ff="bf16"),
+    fns = {"one_pass": lambda: fn(x, iW, b, sW, True, lengths),
+           "one_pass_ff": at_ff_default(lambda: fn(x, iW, b, sW, True, lengths)),
            "f32": lambda: f32(x, iW, b, sW, True, lengths),
            "one_pass_bf16": lambda: fn(xb, iW16, b, sW, True, lengths),
            "bf16": lambda: f32(xb, iW16, b, sW, True, lengths)}
     times = alternated_ms(torch, fns, ALTERNATED_REPS)
     med = {k: statistics.median(v) for k, v in times.items()}
     plain_ms = cuda_ms(torch, lambda: plain(x, iW, b, sW, True, lengths, rdot="bf16"), 1)
+    plain_bf16_ms = cuda_ms(torch, lambda: plain(xb, iW16, b, sW, True, lengths, rdot="bf16"), 1)
     nvalid = int(lengths.sum().item())
-    bms, by = bound(4 * (nvalid * IN + IN * G + G + H * G + B + T * B * H
-                         * (2 if kind == "lstm_train" else 1)), 2 * nvalid * (IN + H) * G, peak)
+    outs = T * B * H * (2 if kind == "lstm_train" else 1)
+    bms, by = bound(4 * (nvalid * IN + IN * G + G + H * G + B + outs), 2 * nvalid * (IN + H) * G,
+                    peak)
+    bms16, by16 = bound(2 * (nvalid * IN + IN * G + outs) + 4 * (G + H * G + B),
+                        2 * nvalid * H * G, peak, 2 * nvalid * IN * G)
     log(f"{kid} at T={T}, B={B}, IN=H={H}, alternated: the one-pass step, f32 affine "
         f"{spread(times['one_pass'])} = {1e3 * med['one_pass'] / T:.3f} us a step; with the "
         f"one-pass affine {spread(times['one_pass_ff'])}; the f32 kernel {spread(times['f32'])}, "
         f"one-pass/f32 {med['one_pass'] / med['f32']:.3f}; bf16 stream: one-pass "
         f"{spread(times['one_pass_bf16'])}, its bf16 twin {spread(times['bf16'])}, ratio "
-        f"{med['one_pass_bf16'] / med['bf16']:.3f}; plain {plain_ms:.1f} ms; bound {bms:.3f} ms "
-        f"({by}); library: none computes the one-pass step over an f32 state")
+        f"{med['one_pass_bf16'] / med['bf16']:.3f}; plain {plain_ms:.1f} ms, on the bf16 stream "
+        f"{plain_bf16_ms:.1f} ms; bound {bms:.3f} ms ({by}), on the bf16 stream {bms16:.3f} ms "
+        f"({by16}); library: none computes the one-pass step over an f32 state")
     from flappie_tpu_torch.ops import cuda_build
 
     log(f"{kid} ptxas ({source}, every instantiation, R = 20 ... 1, f32 then bf16 stream): "
         + ptxas_usage(cuda_build.build_log.get(source[:-3], ""),
                       f"cluster_rnn_kernelILi{gates}ELi"))
-    return row(counter, kid, source, replaces, run, counter, max_abs_err=err,
-               ms=med["one_pass"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               library_ms=None)
+    (run, counter), (run16, counter16) = f32_run, bf16_run
+    return [row(counter, kid, source, "rnn_pallas.py:172", run, counter, max_abs_err=err["f32"],
+                ms=med["one_pass"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None),
+            row(counter16, kid + "-bf16", source, "rnn_pallas.py:172", run16, counter16,
+                max_abs_err=err["bf16"], ms=med["one_pass_bf16"], plain_ms=plain_bf16_ms,
+                bound_ms=bms16, bound_by=by16, library_ms=None)]
 
 
 def check_affine_bf16_f32(torch, peak: dict, gen) -> dict:
@@ -1930,7 +1989,8 @@ def check_kernels(torch, peak: dict, libs: dict) -> list:
     rows += [check_affine_f32(torch, peak, gen), check_affine_bf16(torch, peak, gen)]
     rows += [check_layer_bf16(torch, peak, gen, kind) for kind in BF16_LAYERS]
     rows += [check_layer_train_bf16(torch, peak, gen), check_affine_bf16_f32(torch, peak, gen)]
-    rows += [check_layer_p1(torch, peak, gen, kind) for kind in P1_LAYERS]
+    for kind in P1_LAYERS:
+        rows += check_layer_p1(torch, peak, gen, kind)
     time_lstm_shapes(torch, gen)
     rows += [check_conv12(torch, peak, gen, libs)] + [check_seq(torch, peak, gen, k)
                                                 for k in SEQ_KERNELS]
@@ -2300,6 +2360,9 @@ def launch_counters() -> dict:
         "lstm_layer_p1": rnn_cuda.lstm_layer_tm_p1,
         "lstm_layer_train_p1": rnn_cuda.lstm_layer_tm_train_p1,
         "grumod_layer_p1": rnn_cuda.grumod_layer_tm_p1,
+        "lstm_layer_bf16_p1": rnn_cuda.lstm_layer_tm_bf16_p1,
+        "lstm_layer_train_bf16_p1": rnn_cuda.lstm_layer_tm_train_bf16_p1,
+        "grumod_layer_bf16_p1": rnn_cuda.grumod_layer_tm_bf16_p1,
         "affine_f32": rnn_cuda.affine_f32,
         "affine_bf16": rnn_cuda.affine_bf16,
         "affine_bf16_wmma": rnn_cuda.affine_bf16_wmma,
@@ -3850,17 +3913,19 @@ def precision_levels(ff: str = None, rnn: str = None):
 
 # the default band's runs: (run name, model, --fast, the recurrent layer's
 # counter): both knobs at default on the f32 stream (the one-pass step and
-# the one-pass affine) and under --fast (the one-pass step, the bf16 affine)
+# the one-pass affine) and under --fast (the one-pass step, the bf16 affine,
+# counted on the bf16-stream counter)
 DEFAULT_RUNS = (("r941_native_default", "r941_native", False, "lstm_layer_p1"),
-                ("r941_native_fast_default", "r941_native", True, "lstm_layer_p1"),
-                ("r941_5mC_default", "r941_5mC", False, "grumod_layer_p1"))
+                ("r941_native_fast_default", "r941_native", True, "lstm_layer_bf16_p1"),
+                ("r941_5mC_default", "r941_5mC", False, "grumod_layer_p1"),
+                ("r941_5mC_fast_default", "r941_5mC", True, "grumod_layer_bf16_p1"))
 
 
 def default_band(torch, np, card: str) -> dict:
     """Precision ``default`` on the main path: the accuracy band's 64
     reads basecalled (fb) with FLAPPIE_TPU_MATMUL_PRECISION and
-    FLAPPIE_TPU_RNN_PRECISION at default, for r941_native on the f32
-    stream and under --fast and for r941_5mC, each with exact launch
+    FLAPPIE_TPU_RNN_PRECISION at default, for r941_native and r941_5mC,
+    each on the f32 stream and under --fast, each with exact launch
     counts (5 one-pass recurrences a program, each with its affine: the
     one-pass f32-output affine on the f32 stream, the bf16 one under
     --fast; no f32 or bf16 layer), against the exact run of the accuracy
@@ -4482,6 +4547,12 @@ def training(torch, np, card: str) -> dict:
     return runs
 
 
+# the least max |delta| / max |grad| between the one-pass and the f32
+# adjoints' gradients that shows FLAPPIE_TPU_GRAD_PRECISION=default changed
+# the adjoint's products (f32 reorderings alone stay near 1e-7)
+GRAD_MOVED = 1e-6
+
+
 def grads_of(torch, loss, leaves):
     return torch.autograd.grad(loss, [t for _, t in leaves])
 
@@ -4499,8 +4570,10 @@ def stream_training(torch, np, card: str, cfg, init, batch_of, sels: list,
     ulp, 2^-8 = 3.9e-3 relative, apart, as the bf16 layers' band allows,
     and the loss averages such differences over 8 x 512 blocks); one step under
     FLAPPIE_TPU_GRAD_PRECISION=default (the one-pass adjoint): the same
-    loss (within 1e-6 relative; bit-equality logged) and every gradient
-    within 5e-2 of the f32 adjoint's max |value|.  Then 3 steps of K8 at
+    loss (within 1e-6 relative; bit-equality logged), every gradient
+    within 5e-2 of the f32 adjoint's max |value|, and some gradient more
+    than GRAD_MOVED of its max |value| from it (the env var reached the
+    adjoint's products).  Then 3 steps of K8 at
     FLAPPIE_TPU_RNN_PRECISION=default on each stream, counted.  Returns
     the launch counts by run name."""
     from flappie_tpu_torch.models.params import init_synthetic
@@ -4564,19 +4637,21 @@ def stream_training(torch, np, card: str, cfg, init, batch_of, sels: list,
         f"{one_loss.item():.6f} ({'bit-equal to' if one_loss.item() == loss.item() else 'beside'} "
         f"the f32 adjoint's run's {loss.item():.6f}, relative {d_loss:.2e}); the one-pass "
         f"adjoint's gradients against the f32 adjoint's: max over the {len(leaves)} of max "
-        f"|delta| / max |grad| {g_err:.3e} (band 5e-2)")
-    if not (d_loss <= 1e-6 and g_err <= 5e-2):
+        f"|delta| / max |grad| {g_err:.3e} (band 5e-2; above {GRAD_MOVED}: the level reached "
+        f"the adjoint)")
+    if not (d_loss <= 1e-6 and GRAD_MOVED < g_err <= 5e-2):
         raise AssertionError(f"grad default: loss {d_loss}, gradients {g_err}")
 
     # K8 at rnn default, 3 steps on each stream from the student's init
-    for run, stream, affine in (("r941_native_train_default", torch.float32, "affine_f32"),
-                                ("r941_native_train_bf16_default", bf16, "affine_bf16")):
+    for run, stream, layer, affine in (
+            ("r941_native_train_default", torch.float32, "lstm_layer_train_p1", "affine_f32"),
+            ("r941_native_train_bf16_default", bf16, "lstm_layer_train_bf16_p1", "affine_bf16")):
         step_p1, _ = trainer.make_train_step(cfg, lr=TRAIN["lr"], stream=stream)
         p1, o1 = init(init_synthetic(cfg, seed=7), "cuda")
         zero_counts()
         with precision_levels(rnn="default"):
             got = [step_p1(p1, o1, *batch_of(sel)).item() for sel in sels[:3]]
-        runs[run] = check_counts(f"{run}, 3 steps", {"lstm_layer_train_p1": 15, affine: 15,
+        runs[run] = check_counts(f"{run}, 3 steps", {layer: 15, affine: 15,
                                                      "crf_sum_scan": 6})
         log(f"train r941_native at FLAPPIE_TPU_RNN_PRECISION=default, stream {stream}: losses "
             f"{got} (the stream's first loss at the f32 step: "

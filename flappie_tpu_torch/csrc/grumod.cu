@@ -44,11 +44,24 @@
 // affine.cuh) into a bf16 xa, then the same recurrence with xa widened to
 // f32 at its load and the output rounded to bf16 at its store.
 
+// The layers that only precision ``default`` reaches, the one-pass step
+// product and the one-pass affine before the f32 step, are in
+// grumod_p1.cu: the f32-output affine kernels are not instantiated here
+// (a build of this file that held them gave K7-bf16's R=12 recurrence
+// other SASS, compare_rnn.py).  Every
+// layer entry is one call of fused_layer (layer.cuh).
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "affine.cuh"
-#include "cluster_rnn.cuh"
+#include "layer.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using flappie::fused_layer;
+
+}  // namespace
 
 extern "C" const char* flappie_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -60,14 +73,8 @@ extern "C" int flappie_grumod_layer(const float* x, const float* iW, const float
                                     const float* sW, const int* lengths, float* xa,
                                     float* out, int T, int B, int IN, int H,
                                     int backward, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long M = (long)T * B;
-  if (M == 0) return 0;
-  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
-  const cudaError_t err = flappie::launch_affine(x, iW, b, xa, M, 3 * H, IN, st);
-  if (err != cudaSuccess) return err;
-  return flappie::cluster_rnn<3, false, false>(
-      {xa, sW, lengths, out, nullptr, T, B, H, backward, st});
+  return fused_layer<3, false, float, false, flappie::AFFINE_F32>(
+      x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 
 // K12 (GRU-mod): the recurrence alone over a caller's affine, batch-major
@@ -81,32 +88,14 @@ extern "C" int flappie_grumod_seq(const float* xa, const float* sW, const int* l
       {xa, sW, lengths, out, nullptr, T, B, H, 0, static_cast<cudaStream_t>(stream)});
 }
 
-// K7's f32 recurrence alone over a time-major xa [T, B, 3H] -> out
-// [T, B, H] (precision ``default`` of the affine alone: the wrapper
-// launches the one-pass affine, lstm.cu flappie_affine_bf16_f32, first).
-// Returns the launch error code.
-extern "C" int flappie_grumod_rnn(const float* xa, const float* sW, const int* lengths,
-                                  float* out, int T, int B, int H, int backward, void* stream) {
-  if ((long)T * B == 0) return 0;
-  return flappie::cluster_rnn<3, false, false>(
-      {xa, sW, lengths, out, nullptr, T, B, H, backward, static_cast<cudaStream_t>(stream)});
-}
-
 // K7-bf16: K7 under the bf16 stream.  x [T*B, IN], iW [IN, 3H], the xa
 // scratch [T*B, 3H] and out [T, B, H] in bf16; b, sW f32.  One affine
 // launch, then one recurrence launch.  Returns the launch error code.
-extern "C" int flappie_grumod_layer_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
-                                         const float* b, const float* sW, const int* lengths,
-                                         __nv_bfloat16* xa, __nv_bfloat16* out, int T, int B,
-                                         int IN, int H, int backward, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long M = (long)T * B;
-  if (M == 0) return 0;
-  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
-  const cudaError_t err = flappie::launch_affine_bf16(x, iW, b, xa, M, 3 * H, IN, st);
-  if (err != cudaSuccess) return err;
-  return flappie::cluster_rnn<3, false, false, __nv_bfloat16>(
-      {xa, sW, lengths, out, nullptr, T, B, H, backward, st});
+extern "C" int flappie_grumod_layer_bf16(const bf16* x, const bf16* iW, const float* b,
+                                         const float* sW, const int* lengths, bf16* xa, bf16* out,
+                                         int T, int B, int IN, int H, int backward, void* stream) {
+  return fused_layer<3, false, bf16, false, flappie::AFFINE_BF16>(
+      x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 
 // The cluster plan of K7 (variant 0), K12 (2) or K7-bf16 (3, K7's: xa never

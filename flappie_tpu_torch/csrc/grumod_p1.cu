@@ -1,40 +1,40 @@
-// The GRU-mod recurrences of K7 and K7-bf16 with the step product at
-// precision ``default`` (FLAPPIE_TPU_RNN_PRECISION=default), for Hopper,
-// sm_90a.
+// The GRU-mod layers of precision ``default``, for Hopper, sm_90a: K7 and
+// K7-bf16 with the step product one bf16 pass
+// (FLAPPIE_TPU_RNN_PRECISION=default), and K7 after the one-pass affine
+// alone (FLAPPIE_TPU_MATMUL_PRECISION=default).
 //
 // Replaces the step product of flappie_tpu/ops/rnn_pallas.py:290
 // _grumod_fused_kernel (and the dual kernel :386) when _make_rdot:172 runs
 // at lax.Precision.DEFAULT: one bf16 MXU pass with f32 accumulation.  As
 // lstm_p1.cu: the cluster recurrence under DOT1 (sW's slice in bf16, 48 KiB
 // a CTA at H=256; h rounded to bf16 for the product only; z.h, the update
-// and the freeze on the carried f32 h), bound by the chain of steps; the
-// wrapper launches the block affine before it.  A source of its own, built
+// and the freeze on the carried f32 h), bound by the chain of steps; each
+// entry is one fused layer (layer.cuh default_layer), the block affine the
+// caller names first, and the f32 step after the one-pass affine is here
+// too, so that grumod.cu keeps its kernels.  A source of its own, built
 // only when ``default`` is asked for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "cluster_rnn.cuh"
+#include "layer.cuh"
 
 extern "C" const char* flappie_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The recurrence alone over a time-major xa [T, B, 3H] (f32, or bf16 when
-// bf16 != 0) -> out [T, B, H] in xa's type; the step product one bf16
-// pass.  Returns the launch error code.
-extern "C" int flappie_grumod_p1_rnn(const void* xa, const float* sW, const int* lengths,
-                                     void* out, int T, int B, int H, int backward, int bf16,
-                                     void* stream) {
-  if ((long)T * B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return flappie::cluster_rnn<3, false, false, __nv_bfloat16, true>(
-        {static_cast<const __nv_bfloat16*>(xa), sW, lengths, static_cast<__nv_bfloat16*>(out),
-         nullptr, T, B, H, backward, st});
-  return flappie::cluster_rnn<3, false, false, float, true>(
-      {static_cast<const float*>(xa), sW, lengths, static_cast<float*>(out), nullptr, T, B, H,
-       backward, st});
+// K7 (or K7-bf16) at precision default: the block affine of x [T*B, IN]
+// by ``affine`` (layer.cuh's BlockAffine: 0 f32, 1 one pass with an f32
+// output, 2 bf16, the bf16 stream) into the xa scratch [T*B, 3H], then the
+// recurrence into out [T, B, H], its step product one bf16 pass when dot1
+// (else f32, after the one-pass affine only); xa and out are bf16 under the
+// bf16 stream, else f32.  Returns the launch error code.
+extern "C" int flappie_grumod_p1_layer(const void* x, const void* iW, const float* b,
+                                       const float* sW, const int* lengths, void* xa, void* out,
+                                       int T, int B, int IN, int H, int backward, int affine,
+                                       int dot1, void* stream) {
+  return flappie::default_layer<3, false>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H,
+                                          backward, affine, dot1, stream);
 }
 
 // The cluster plan of K7 (variant 0) or K7-bf16 (3) at precision default

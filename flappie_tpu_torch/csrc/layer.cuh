@@ -1,0 +1,82 @@
+// One fused recurrent layer on the host side: the block affine of x into
+// the layer's xa scratch, then the cluster recurrence over it, both on one
+// stream.  Every layer entry of lstm.cu, grumod.cu, lstm_p1.cu and
+// grumod_p1.cu is an instantiation of fused_layer.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "affine.cuh"
+#include "cluster_rnn.cuh"
+
+namespace flappie {
+
+// The block affine a layer runs: f32 (x, iW and xa f32), one pass with an
+// f32 output (x and iW bf16, xa f32: FLAPPIE_TPU_MATMUL_PRECISION=default
+// on the f32 stream) or bf16 (x, iW and xa bf16: the bf16 stream).
+enum BlockAffine { AFFINE_F32 = 0, AFFINE_ONE_PASS = 1, AFFINE_BF16 = 2 };
+
+// xa [M, N] = x [M, K] . iW [K, N] + b [N] by AFFINE (a BlockAffine, a
+// template argument so that a source instantiates only the affine kernels
+// it launches); returns the launch error code (0 = ok).
+template <int AFFINE>
+cudaError_t launch_block_affine(const void* x, const void* iW, const float* b, void* xa, long M,
+                                int N, int K, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const auto* xh = static_cast<const bf16*>(x);
+  const auto* wh = static_cast<const bf16*>(iW);
+  if constexpr (AFFINE == AFFINE_BF16)
+    return launch_affine_bf16(xh, wh, b, static_cast<bf16*>(xa), M, N, K, st);
+  else if constexpr (AFFINE == AFFINE_ONE_PASS)
+    return launch_affine_bf16(xh, wh, b, static_cast<float*>(xa), M, N, K, st);
+  else
+    return launch_affine(static_cast<const float*>(x), static_cast<const float*>(iW), b,
+                         static_cast<float*>(xa), M, N, K, st);
+}
+
+// One layer of GN gates: the block affine of x [T*B, IN] by AFFINE into
+// xa [T*B, GN*H], then the recurrence over it (xa, out and, with WANT_C,
+// c_out [T, B, H] of type XT; the step product one bf16 pass with DOT1).
+// Returns the launch error code (0 = ok).
+template <int GN, bool WANT_C, typename XT, bool DOT1, int AFFINE>
+int fused_layer(const void* x, const void* iW, const float* b, const float* sW,
+                const int* lengths, void* xa, void* out, void* c_out, int T, int B, int IN,
+                int H, int backward, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)T * B;
+  if (M == 0) return 0;
+  if (!cluster_h_ok(H)) return cudaErrorInvalidValue;
+  const cudaError_t err = launch_block_affine<AFFINE>(x, iW, b, xa, M, GN * H, IN, st);
+  if (err != cudaSuccess) return err;
+  return cluster_rnn<GN, WANT_C, false, XT, DOT1>(
+      {static_cast<const XT*>(xa), sW, lengths, static_cast<XT*>(out), static_cast<XT*>(c_out), T,
+       B, H, backward, st});
+}
+
+// A layer of precision ``default`` (lstm_p1.cu, grumod_p1.cu) by the
+// caller's (affine, dot1): the one-pass step over the f32 affine (0, 1),
+// over the one-pass affine (1, 1) or under the bf16 stream (2, 1), or the
+// f32 step over the one-pass affine (1, 0); any other pair is a layer of
+// lstm.cu / grumod.cu and returns cudaErrorInvalidValue.
+template <int GN, bool WANT_C>
+int default_layer(const void* x, const void* iW, const float* b, const float* sW,
+                  const int* lengths, void* xa, void* out, void* c_out, int T, int B, int IN,
+                  int H, int backward, int affine, int dot1, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (affine == AFFINE_BF16 && dot1)
+    return fused_layer<GN, WANT_C, bf16, true, AFFINE_BF16>(x, iW, b, sW, lengths, xa, out, c_out,
+                                                            T, B, IN, H, backward, stream);
+  if (affine == AFFINE_ONE_PASS && dot1)
+    return fused_layer<GN, WANT_C, float, true, AFFINE_ONE_PASS>(
+        x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
+  if (affine == AFFINE_ONE_PASS)
+    return fused_layer<GN, WANT_C, float, false, AFFINE_ONE_PASS>(
+        x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
+  if (affine == AFFINE_F32 && dot1)
+    return fused_layer<GN, WANT_C, float, true, AFFINE_F32>(x, iW, b, sW, lengths, xa, out, c_out,
+                                                            T, B, IN, H, backward, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace flappie

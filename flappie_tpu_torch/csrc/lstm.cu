@@ -64,35 +64,22 @@
 // nearest even; the carried c stays f32), so its h is K1-bf16's bit for
 // bit.  The extra write, T.B.H.2 bytes, is the only added traffic.
 //
-// At precision ``default`` (ops/precision.py) the layers run as two
-// launches from the wrapper: the block affine alone, then the recurrence
-// alone over it (time-major, lengths, direction).  flappie_affine_bf16_f32
-// is the one-pass affine of FLAPPIE_TPU_MATMUL_PRECISION=default on the f32
-// stream (affine.cuh, f32 output); flappie_lstm_rnn is K1's or K8's f32
-// recurrence alone (the instantiations above, no new kernel); the
-// recurrences with the one-pass step product are in lstm_p1.cu.
+// The layers that only precision ``default`` reaches (ops/precision.py),
+// the one-pass step product and the one-pass affine before the f32 step,
+// are in lstm_p1.cu; flappie_affine_bf16_f32 launches that affine (the
+// bf16 kernels with an f32 output, affine.cuh) alone.  Every layer entry
+// is one call of fused_layer (layer.cuh): the affine, then the recurrence,
+// on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "affine.cuh"
-#include "cluster_rnn.cuh"
+#include "layer.cuh"
 
 namespace {
 
-template <bool WANT_C>
-int lstm_layer(const float* x, const float* iW, const float* b, const float* sW,
-               const int* lengths, float* xa, float* out, float* c_out, int T, int B,
-               int IN, int H, int backward, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long M = (long)T * B;
-  if (M == 0) return 0;
-  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
-  const cudaError_t err = flappie::launch_affine(x, iW, b, xa, M, 4 * H, IN, st);
-  if (err != cudaSuccess) return err;
-  return flappie::cluster_rnn<4, WANT_C, false>(
-      {xa, sW, lengths, out, c_out, T, B, H, backward, st});
-}
+using bf16 = __nv_bfloat16;
+using flappie::fused_layer;
 
 }  // namespace
 
@@ -106,8 +93,8 @@ extern "C" int flappie_lstm_layer(const float* x, const float* iW, const float* 
                                   const float* sW, const int* lengths, float* xa,
                                   float* out, int T, int B, int IN, int H,
                                   int backward, void* stream) {
-  return lstm_layer<false>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H,
-                           backward, stream);
+  return fused_layer<4, false, float, false, flappie::AFFINE_F32>(
+      x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 
 // The training forward (K8): K1 plus the cell state c_out [T, B, H].
@@ -115,8 +102,8 @@ extern "C" int flappie_lstm_layer_train(const float* x, const float* iW, const f
                                         const float* sW, const int* lengths, float* xa,
                                         float* out, float* c_out, int T, int B, int IN,
                                         int H, int backward, void* stream) {
-  return lstm_layer<true>(x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward,
-                          stream);
+  return fused_layer<4, true, float, false, flappie::AFFINE_F32>(
+      x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
 }
 
 // K12 (LSTM): the recurrence alone over a caller's affine, batch-major
@@ -133,48 +120,21 @@ extern "C" int flappie_lstm_seq(const float* xa, const float* sW, const int* len
 // K1-bf16: K1 under the bf16 stream.  x [T*B, IN], iW [IN, 4H], the xa
 // scratch [T*B, 4H] and out [T, B, H] in bf16; b, sW f32.  One affine
 // launch, then one recurrence launch.  Returns the launch error code.
-extern "C" int flappie_lstm_layer_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
-                                       const float* b, const float* sW, const int* lengths,
-                                       __nv_bfloat16* xa, __nv_bfloat16* out, int T, int B,
-                                       int IN, int H, int backward, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long M = (long)T * B;
-  if (M == 0) return 0;
-  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
-  const cudaError_t err = flappie::launch_affine_bf16(x, iW, b, xa, M, 4 * H, IN, st);
-  if (err != cudaSuccess) return err;
-  return flappie::cluster_rnn<4, false, false, __nv_bfloat16>(
-      {xa, sW, lengths, out, nullptr, T, B, H, backward, st});
+extern "C" int flappie_lstm_layer_bf16(const bf16* x, const bf16* iW, const float* b,
+                                       const float* sW, const int* lengths, bf16* xa, bf16* out,
+                                       int T, int B, int IN, int H, int backward, void* stream) {
+  return fused_layer<4, false, bf16, false, flappie::AFFINE_BF16>(
+      x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 
 // K8-bf16: K1-bf16 plus the cell state c_out [T, B, H] in bf16.  One
 // affine launch, then one recurrence launch.  Returns the launch error code.
-extern "C" int flappie_lstm_layer_train_bf16(const __nv_bfloat16* x, const __nv_bfloat16* iW,
-                                             const float* b, const float* sW,
-                                             const int* lengths, __nv_bfloat16* xa,
-                                             __nv_bfloat16* out, __nv_bfloat16* c_out, int T,
-                                             int B, int IN, int H, int backward,
-                                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long M = (long)T * B;
-  if (M == 0) return 0;
-  if (!flappie::cluster_h_ok(H)) return cudaErrorInvalidValue;
-  const cudaError_t err = flappie::launch_affine_bf16(x, iW, b, xa, M, 4 * H, IN, st);
-  if (err != cudaSuccess) return err;
-  return flappie::cluster_rnn<4, true, false, __nv_bfloat16>(
-      {xa, sW, lengths, out, c_out, T, B, H, backward, st});
-}
-
-// K1's (want_c = 0) or K8's (1) f32 recurrence alone over a time-major xa
-// [T, B, 4H]: out [T, B, H] and, for K8, c_out.  Returns the launch error
-// code.
-extern "C" int flappie_lstm_rnn(const float* xa, const float* sW, const int* lengths, float* out,
-                                float* c_out, int T, int B, int H, int backward, int want_c,
-                                void* stream) {
-  if ((long)T * B == 0) return 0;
-  const flappie::RnnArgs<float> a = {xa, sW, lengths, out, c_out, T, B, H, backward,
-                                     static_cast<cudaStream_t>(stream)};
-  return want_c ? flappie::cluster_rnn<4, true, false>(a) : flappie::cluster_rnn<4, false, false>(a);
+extern "C" int flappie_lstm_layer_train_bf16(const bf16* x, const bf16* iW, const float* b,
+                                             const float* sW, const int* lengths, bf16* xa,
+                                             bf16* out, bf16* c_out, int T, int B, int IN, int H,
+                                             int backward, void* stream) {
+  return fused_layer<4, true, bf16, false, flappie::AFFINE_BF16>(
+      x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
 }
 
 // The one-pass affine with an f32 output: xa [M, N] = x [M, K] . iW [K, N]

@@ -1,6 +1,7 @@
-// The LSTM recurrences of K1, K8, K1-bf16 and K8-bf16 with the step
-// product at precision ``default`` (FLAPPIE_TPU_RNN_PRECISION=default), for
-// Hopper, sm_90a.
+// The LSTM layers of precision ``default``, for Hopper, sm_90a: K1, K8,
+// K1-bf16 and K8-bf16 with the step product one bf16 pass
+// (FLAPPIE_TPU_RNN_PRECISION=default), and K1 and K8 after the one-pass
+// affine alone (FLAPPIE_TPU_MATMUL_PRECISION=default).
 //
 // Replaces the step product of flappie_tpu/ops/rnn_pallas.py:219
 // _lstm_fused_body (K1 :273, K8 :278, the dual kernel :322) when
@@ -10,47 +11,48 @@
 // shared memory as bf16 (64 KiB a CTA at H=256), h rounded to bf16 where it
 // is made, f32 sums in the f32 product's slice order; the carried h and c,
 // the update and the freeze stay f32.  Bound as the f32 step: the chain of
-// T dependent steps (the FMAs are the f32 product's).  The block affine is
-// launched before it by the wrapper (ops/rnn_cuda.py): f32, the one-pass
-// f32-output affine or, under the bf16 stream, the bf16 affine (lstm.cu).
+// T dependent steps (the FMAs are the f32 product's).  Each entry is one
+// fused layer (layer.cuh default_layer): the block affine the caller names
+// (f32, the one-pass affine with an f32 output, or under the bf16 stream
+// the bf16 one; affine.cuh), then the recurrence, on the caller's stream.
+// The f32 step after the one-pass affine (FLAPPIE_TPU_MATMUL_PRECISION=
+// default alone) is here too, so that lstm.cu keeps its kernels.
 //
-// These instantiations live in a source of their own so that a run that
-// never sets ``default`` never builds them, and so that their build runs
-// beside lstm.cu's.
+// These layers live in a source of their own so that a run that never
+// sets ``default`` never builds them, and so that their build runs beside
+// lstm.cu's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "cluster_rnn.cuh"
-
-namespace {
-
-template <typename XT>
-int p1_rnn(const void* xa, const float* sW, const int* lengths, void* out, void* c_out, int T,
-           int B, int H, int backward, int want_c, cudaStream_t st) {
-  const flappie::RnnArgs<XT> a = {static_cast<const XT*>(xa), sW, lengths, static_cast<XT*>(out),
-                                  static_cast<XT*>(c_out), T, B, H, backward, st};
-  return want_c ? flappie::cluster_rnn<4, true, false, XT, true>(a)
-                : flappie::cluster_rnn<4, false, false, XT, true>(a);
-}
-
-}  // namespace
+#include "layer.cuh"
 
 extern "C" const char* flappie_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The recurrence alone over a time-major xa [T, B, 4H] (f32, or bf16 when
-// bf16 != 0) -> out [T, B, H] and, with want_c (K8), c_out [T, B, H], both
-// in xa's type; the step product one bf16 pass.  Returns the launch error
-// code.
-extern "C" int flappie_lstm_p1_rnn(const void* xa, const float* sW, const int* lengths,
-                                   void* out, void* c_out, int T, int B, int H, int backward,
-                                   int bf16, int want_c, void* stream) {
-  if ((long)T * B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? p1_rnn<__nv_bfloat16>(xa, sW, lengths, out, c_out, T, B, H, backward, want_c, st)
-              : p1_rnn<float>(xa, sW, lengths, out, c_out, T, B, H, backward, want_c, st);
+// K1 (or K1-bf16) at precision default: the block affine of x [T*B, IN]
+// by ``affine`` (layer.cuh's BlockAffine: 0 f32, 1 one pass with an f32
+// output, 2 bf16, the bf16 stream) into the xa scratch [T*B, 4H], then the
+// recurrence into out [T, B, H], its step product one bf16 pass when dot1
+// (else f32, after the one-pass affine only); xa and out are bf16 under the
+// bf16 stream, else f32.  Returns the launch error code.
+extern "C" int flappie_lstm_p1_layer(const void* x, const void* iW, const float* b,
+                                     const float* sW, const int* lengths, void* xa, void* out,
+                                     int T, int B, int IN, int H, int backward, int affine,
+                                     int dot1, void* stream) {
+  return flappie::default_layer<4, false>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H,
+                                          backward, affine, dot1, stream);
+}
+
+// K8 (or K8-bf16) at precision default: flappie_lstm_p1_layer plus the
+// cell state c_out [T, B, H] in out's type.
+extern "C" int flappie_lstm_p1_layer_train(const void* x, const void* iW, const float* b,
+                                           const float* sW, const int* lengths, void* xa,
+                                           void* out, void* c_out, int T, int B, int IN, int H,
+                                           int backward, int affine, int dot1, void* stream) {
+  return flappie::default_layer<4, true>(x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H,
+                                         backward, affine, dot1, stream);
 }
 
 // The cluster plan of K1 (variant 0), K8 (1), K1-bf16 (3) or K8-bf16 (4)

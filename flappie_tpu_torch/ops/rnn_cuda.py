@@ -38,21 +38,24 @@ keeps f32 and raises on bf16: the JAX package's layer-by-layer stack
 ignores the stream.
 
 Precision ``default`` (ops/precision.py: ``"bf16"`` on a CUDA device).
-At FLAPPIE_TPU_RNN_PRECISION=default a layer runs its block affine, then
-the cluster recurrence with the one-pass step product (DOT1: sW in bf16,
-h rounded to bf16 for the product, f32 sums; csrc/lstm_p1.cu,
-csrc/grumod_p1.cu), under either stream: ``lstm_layer_tm_p1``,
-``lstm_layer_tm_train_p1``, ``grumod_layer_tm_p1``.  At
-FLAPPIE_TPU_MATMUL_PRECISION=default on the f32 stream the block affine
-is the one-pass affine with an f32 output (``affine_bf16_f32``: x and iW
-rounded to bf16 first), followed by the layer's f32 recurrence
-(``flappie_lstm_rnn`` / ``flappie_grumod_rnn``) or the DOT1 one; under
-the bf16 stream the affine is already one pass (rnn_pallas.py:517).  The
-dispatchers ``lstm_layer_tm``, ``lstm_layer_tm_train`` and
-``grumod_layer_tm`` pick the kernel from x's dtype and the levels resolved
-for x's device; on the CPU every level is true f32 (JAX's CPU bytes).
-The plain versions take the levels as arguments (``rdot``, ``ff``) and
-round where the kernels round.
+At FLAPPIE_TPU_RNN_PRECISION=default a layer runs the cluster recurrence
+with the one-pass step product (DOT1: sW in bf16, h rounded to bf16 for
+the product, f32 sums; csrc/lstm_p1.cu, csrc/grumod_p1.cu), under either
+stream: ``lstm_layer_tm_p1``, ``lstm_layer_tm_train_p1``,
+``grumod_layer_tm_p1``, counted under the bf16 stream on
+``lstm_layer_tm_bf16_p1``, ``lstm_layer_tm_train_bf16_p1`` and
+``grumod_layer_tm_bf16_p1``.  At FLAPPIE_TPU_MATMUL_PRECISION=default on
+the f32 stream the block affine is the one-pass affine with an f32 output
+(``affine_bf16_f32``: x and iW rounded to bf16 first), before the f32
+recurrence or the DOT1 one; under the bf16 stream the affine is already
+one pass (rnn_pallas.py:517).  The dispatchers ``lstm_layer_tm``,
+``lstm_layer_tm_train`` and ``grumod_layer_tm`` pick the kernel from x's
+dtype and the levels resolved for x's device; on the CPU every level is
+true f32 (JAX's CPU bytes).  The plain versions take the levels as
+arguments (``rdot``, ``ff``) and round where the kernels round.  Every
+layer is one call of a fused C entry (csrc/layer.cuh: the block affine,
+then the recurrence, on one stream); those that only ``default`` reaches
+are in the _p1 sources.
 
 Both block affines live in csrc/affine.cuh and run alone through
 ``affine_f32`` (a pipelined CUDA-core SGEMM, true f32) and
@@ -357,61 +360,55 @@ def _layer_args(what, gates, x_tm, iW, b, sW, lengths):
     return x_tm, iW, b, sW, lengths
 
 
-def _launch_layer(what, source, entry, gates, x_tm, iW, b, sW, backward, lengths,
-                  want_c: bool = False):
-    """One launch of the fused C entry point ``entry`` of
-    ``csrc/<source>.cu`` (affine, then recurrence) after ``_layer_args``;
-    with ``want_c`` it also passes (and returns) the cell-state output.
+# csrc/layer.cuh's BlockAffine: the block affine a fused layer runs
+BLOCK_F32, BLOCK_ONE_PASS, BLOCK_BF16 = 0, 1, 2
+# layer kind (its dispatcher's name) -> (C source, gates, whether it
+# returns the cell state)
+_LAYERS = {"lstm_layer_tm": ("lstm", 4, False), "lstm_layer_tm_train": ("lstm", 4, True),
+           "grumod_layer_tm": ("grumod", 3, False)}
+
+
+def _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, p1: bool):
+    """One launch of a fused C entry of layer ``kind`` (a key of
+    ``_LAYERS``) after ``_layer_args``: the block affine, then the cluster
+    recurrence (csrc/layer.cuh).  The affine follows x's dtype and the ff
+    level for x's device: the bf16 one under the bf16 stream, else the
+    one-pass affine with an f32 output (x and iW rounded to bf16 here),
+    else the f32 one; it is counted on its wrapper's counter.  The step
+    product is one pass with ``p1``, else f32.  The layers that only
+    precision ``default`` reaches (``p1``, or the one-pass affine) are
+    csrc/<source>_p1.cu's, which take the affine and the step as
+    arguments; the others csrc/<source>.cu's, an entry for each stream.
     The xa scratch and the outputs are in the stream's dtype."""
+    source, gates, want_c = _LAYERS[kind]
     x_tm, iW, b, sW, lengths = _layer_args(what, gates, x_tm, iW, b, sW, lengths)
     T, B, IN = x_tm.shape
     H = sW.shape[0]
-    xa = torch.empty(T * B, gates * H, dtype=x_tm.dtype, device=x_tm.device)
-    outs = [torch.empty(T, B, H, dtype=x_tm.dtype, device=x_tm.device)
-            for _ in range(2 if want_c else 1)]
-    lib, fn = _entry(source, entry, [_P] * (6 + len(outs)) + [_I] * 5 + [_P])
-    rc = fn(cuda_build.ptr(x_tm), cuda_build.ptr(iW), cuda_build.ptr(b),
-            cuda_build.ptr(sW), cuda_build.ptr(lengths), cuda_build.ptr(xa),
-            *(cuda_build.ptr(o) for o in outs), T, B, IN, H, int(backward),
-            cuda_build.stream_of(x_tm))
-    cuda_build.check(lib, rc, what)
-    return tuple(outs) if want_c else outs[0]
-
-
-def _launch_split(what, kind, gates, x_tm, iW, b, sW, backward, lengths, ff: str,
-                  dot1: bool, want_c: bool = False):
-    """A layer as two launches, its block affine alone, then its
-    recurrence alone over the time-major xa: the affine is the bf16 one
-    under the bf16 stream, else the one-pass affine with an f32 output at
-    ``ff`` one pass (x and iW rounded to bf16 first), else the f32 one;
-    the recurrence is csrc/<kind>_p1.cu's (``dot1``: the one-pass step
-    product) or csrc/<kind>.cu's f32 one (f32 stream only).  Each
-    affine launch is counted on its wrapper's counter."""
-    x_tm, iW, b, sW, lengths = _layer_args(what, gates, x_tm, iW, b, sW, lengths)
-    T, B, IN = x_tm.shape
-    H = sW.shape[0]
-    bf16 = x_tm.dtype == BF16
-    x2 = x_tm.view(T * B, IN)
-    if bf16:
-        xa = affine_bf16(x2, iW, b)
-    elif ff == ONE_PASS:
-        xa = affine_bf16_f32(x2.to(BF16), iW.to(BF16), b)
+    dt = x_tm.dtype
+    if dt == BF16:
+        affine = BLOCK_BF16
+    elif precision.ff_precision(x_tm.device) == ONE_PASS:
+        affine = BLOCK_ONE_PASS
+        x_tm, iW = x_tm.to(BF16), iW.to(BF16)
     else:
-        xa = affine_f32(x2, iW, b)
-    outs = [torch.empty(T, B, H, dtype=x_tm.dtype, device=x_tm.device)
-            for _ in range(2 if want_c else 1)]
-    ptrs = [cuda_build.ptr(t) for t in (xa, sW, lengths, outs[0])]
-    if kind == "lstm":
-        ptrs.append(cuda_build.ptr(outs[1]) if want_c else ctypes.c_void_p(0))
-    if dot1:
-        tail = [int(bf16)] + ([int(want_c)] if kind == "lstm" else [])
-        source, entry = f"{kind}_p1", f"flappie_{kind}_p1_rnn"
+        affine = BLOCK_F32
+    train = "_train" if want_c else ""
+    if p1 or affine == BLOCK_ONE_PASS:
+        source, entry = source + "_p1", f"flappie_{source}_p1_layer{train}"
+        flags = [affine, int(p1)]
     else:
-        tail = [int(want_c)] if kind == "lstm" else []
-        source, entry = kind, f"flappie_{kind}_rnn"
-    lib, fn = _entry(source, entry, [_P] * len(ptrs) + [_I] * (4 + len(tail)) + [_P])
-    rc = fn(*ptrs, T, B, H, int(backward), *tail, cuda_build.stream_of(x_tm))
+        entry = f"flappie_{source}_layer{train}" + ("_bf16" if affine == BLOCK_BF16 else "")
+        flags = []
+    xa = torch.empty(T * B, gates * H, dtype=dt, device=x_tm.device)
+    outs = [torch.empty(T, B, H, dtype=dt, device=x_tm.device) for _ in range(1 + want_c)]
+    lib, fn = _entry(source, entry, [_P] * (6 + len(outs)) + [_I] * (5 + len(flags)) + [_P])
+    rc = fn(*(cuda_build.ptr(t) for t in (x_tm, iW, b, sW, lengths, xa, *outs)),
+            T, B, IN, H, int(backward), *flags, cuda_build.stream_of(x_tm))
     cuda_build.check(lib, rc, what)
+    if affine == BLOCK_BF16:
+        _count_affine_bf16(T * B, gates * H, IN)
+    else:
+        cuda_build.count(affine_f32 if affine == BLOCK_F32 else affine_bf16_f32)
     return tuple(outs) if want_c else outs[0]
 
 
@@ -421,10 +418,55 @@ def _device(what, x):
     return x.device.type == "cuda"
 
 
-def _one_pass_step(x) -> bool:
-    """Whether a layer on x runs the one-pass step product: the rnn level
-    for x's device (ops/precision.py)."""
-    return precision.rnn_precision(x.device) == ONE_PASS
+def _need_bf16(what, x):
+    if x.dtype != BF16:
+        raise ValueError(f"{what}: x must be bfloat16 (the bf16 stream), got {x.dtype}")
+
+
+def _dispatch(kind, x_tm, iW, b, sW, backward, lengths):
+    """``lstm_layer_tm``, ``lstm_layer_tm_train`` and ``grumod_layer_tm``
+    (``kind``): the plain version on the CPU (every level true f32); on
+    the card the rnn-``default`` kernel where the step product's level
+    for x's device is one pass, else the bf16 stream's kernel for an x in
+    bf16, else the f32 kernel (its affine at the ff level), counted on the
+    dispatcher."""
+    w = _wrappers(kind)
+    if not _device(kind, x_tm):
+        return w.plain(x_tm, iW, b, sW, backward, lengths)
+    if precision.rnn_precision(x_tm.device) == ONE_PASS:
+        return w.p1(x_tm, iW, b, sW, backward, lengths)
+    if x_tm.dtype == BF16:
+        return w.bf16(x_tm, iW, b, sW, backward, lengths)
+    out = _launch_layer(kind, kind, x_tm, iW, b, sW, backward, lengths, False)
+    cuda_build.count(w.f32)
+    return out
+
+
+def _bf16_layer(kind, x_tm, iW, b, sW, backward, lengths):
+    """K1-bf16, K8-bf16 or K7-bf16 (``kind``): the plain version on the
+    CPU, else one launch counted on its wrapper."""
+    w = _wrappers(kind)
+    what = kind + "_bf16"
+    _need_bf16(what, x_tm)
+    if not _device(what, x_tm):
+        return w.plain(x_tm, iW, b, sW, backward, lengths)
+    out = _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, False)
+    cuda_build.count(w.bf16)
+    return out
+
+
+def _p1_layer(kind, x_tm, iW, b, sW, backward, lengths):
+    """Layer ``kind`` with the one-pass step product: its plain twin on
+    the CPU (the affine true f32, the CPU's level), else one launch
+    counted on the wrapper for an f32 x and on its ``*_bf16_p1`` counter
+    for an x in bf16."""
+    w = _wrappers(kind)
+    what = kind + "_p1"
+    if not _device(what, x_tm):
+        return w.plain(x_tm, iW, b, sW, backward, lengths, rdot=ONE_PASS)
+    out = _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, True)
+    cuda_build.count(w.p1_bf16 if x_tm.dtype == BF16 else w.p1)
+    return out
 
 
 def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
@@ -433,42 +475,16 @@ def lstm_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     runs the bf16 stream (``lstm_layer_tm_bf16``) and returns bf16; at
     precision ``default`` on the card the step product is one pass
     (``lstm_layer_tm_p1``) and, on the f32 stream, the affine too."""
-    if not _device("lstm_layer_tm", x_tm):
-        return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    if _one_pass_step(x_tm):
-        return lstm_layer_tm_p1(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.dtype == BF16:
-        return lstm_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
-    if precision.ff_precision(x_tm.device) == ONE_PASS:
-        out = _launch_split("lstm_layer_tm", "lstm", 4, x_tm, iW, b, sW, backward, lengths,
-                            ONE_PASS, False)
-    else:
-        out = _launch_layer("lstm_layer_tm", "lstm", "flappie_lstm_layer", 4,
-                            x_tm, iW, b, sW, backward, lengths)
-        cuda_build.count(affine_f32)
-    cuda_build.count(lstm_layer_tm)
-    return out
+    return _dispatch("lstm_layer_tm", x_tm, iW, b, sW, backward, lengths)
 
 
 lstm_layer_tm.launches = 0
 
 
-def _need_bf16(what, x):
-    if x.dtype != BF16:
-        raise ValueError(f"{what}: x must be bfloat16 (the bf16 stream), got {x.dtype}")
-
-
 def lstm_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K1-bf16: ``lstm_layer_tm`` under the bf16 stream.  x_tm [T, B, IN]
     bf16, iW bf16 or f32, b and sW f32 -> [T, B, H] bf16."""
-    _need_bf16("lstm_layer_tm_bf16", x_tm)
-    if not _device("lstm_layer_tm_bf16", x_tm):
-        return lstm_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    out = _launch_layer("lstm_layer_tm_bf16", "lstm", "flappie_lstm_layer_bf16", 4,
-                        x_tm, iW, b, sW, backward, lengths)
-    cuda_build.count(lstm_layer_tm_bf16)
-    _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
-    return out
+    return _bf16_layer("lstm_layer_tm", x_tm, iW, b, sW, backward, lengths)
 
 
 lstm_layer_tm_bf16.launches = 0
@@ -480,21 +496,7 @@ def lstm_layer_tm_train(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     for bit.  The forward of the training path (ops/rnn_vjp.py).  An x_tm
     in bf16 runs K8-bf16 (``lstm_layer_tm_train_bf16``); at precision
     ``default`` on the card, ``lstm_layer_tm_train_p1``."""
-    if not _device("lstm_layer_tm_train", x_tm):
-        return lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward, lengths)
-    if _one_pass_step(x_tm):
-        return lstm_layer_tm_train_p1(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.dtype == BF16:
-        return lstm_layer_tm_train_bf16(x_tm, iW, b, sW, backward, lengths)
-    if precision.ff_precision(x_tm.device) == ONE_PASS:
-        out = _launch_split("lstm_layer_tm_train", "lstm", 4, x_tm, iW, b, sW, backward,
-                            lengths, ONE_PASS, False, want_c=True)
-    else:
-        out = _launch_layer("lstm_layer_tm_train", "lstm", "flappie_lstm_layer_train", 4,
-                            x_tm, iW, b, sW, backward, lengths, want_c=True)
-        cuda_build.count(affine_f32)
-    cuda_build.count(lstm_layer_tm_train)
-    return out
+    return _dispatch("lstm_layer_tm_train", x_tm, iW, b, sW, backward, lengths)
 
 
 lstm_layer_tm_train.launches = 0
@@ -504,14 +506,7 @@ def lstm_layer_tm_train_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=No
     """K8-bf16: K8 under the bf16 stream, the training forward under
     ``--fast``'s stream.  x_tm [T, B, IN] bf16, iW bf16 or f32, b and sW
     f32 -> (h, c) [T, B, H] bf16; h is K1-bf16's bit for bit."""
-    _need_bf16("lstm_layer_tm_train_bf16", x_tm)
-    if not _device("lstm_layer_tm_train_bf16", x_tm):
-        return lstm_layer_tm_train_plain(x_tm, iW, b, sW, backward, lengths)
-    out = _launch_layer("lstm_layer_tm_train_bf16", "lstm", "flappie_lstm_layer_train_bf16", 4,
-                        x_tm, iW, b, sW, backward, lengths, want_c=True)
-    cuda_build.count(lstm_layer_tm_train_bf16)
-    _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
-    return out
+    return _bf16_layer("lstm_layer_tm_train", x_tm, iW, b, sW, backward, lengths)
 
 
 lstm_layer_tm_train_bf16.launches = 0
@@ -523,21 +518,7 @@ def grumod_layer_tm(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     runs the bf16 stream (``grumod_layer_tm_bf16``) and returns bf16; at
     precision ``default`` on the card as ``lstm_layer_tm``
     (``grumod_layer_tm_p1``)."""
-    if not _device("grumod_layer_tm", x_tm):
-        return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    if _one_pass_step(x_tm):
-        return grumod_layer_tm_p1(x_tm, iW, b, sW, backward, lengths)
-    if x_tm.dtype == BF16:
-        return grumod_layer_tm_bf16(x_tm, iW, b, sW, backward, lengths)
-    if precision.ff_precision(x_tm.device) == ONE_PASS:
-        out = _launch_split("grumod_layer_tm", "grumod", 3, x_tm, iW, b, sW, backward, lengths,
-                            ONE_PASS, False)
-    else:
-        out = _launch_layer("grumod_layer_tm", "grumod", "flappie_grumod_layer", 3,
-                            x_tm, iW, b, sW, backward, lengths)
-        cuda_build.count(affine_f32)
-    cuda_build.count(grumod_layer_tm)
-    return out
+    return _dispatch("grumod_layer_tm", x_tm, iW, b, sW, backward, lengths)
 
 
 grumod_layer_tm.launches = 0
@@ -546,63 +527,47 @@ grumod_layer_tm.launches = 0
 def grumod_layer_tm_bf16(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K7-bf16: ``grumod_layer_tm`` under the bf16 stream.  x_tm
     [T, B, IN] bf16, iW bf16 or f32, b and sW f32 -> [T, B, H] bf16."""
-    _need_bf16("grumod_layer_tm_bf16", x_tm)
-    if not _device("grumod_layer_tm_bf16", x_tm):
-        return grumod_layer_tm_plain(x_tm, iW, b, sW, backward, lengths)
-    out = _launch_layer("grumod_layer_tm_bf16", "grumod", "flappie_grumod_layer_bf16", 3,
-                        x_tm, iW, b, sW, backward, lengths)
-    cuda_build.count(grumod_layer_tm_bf16)
-    _count_affine_bf16(x_tm.shape[0] * x_tm.shape[1], sW.shape[1], x_tm.shape[2])
-    return out
+    return _bf16_layer("grumod_layer_tm", x_tm, iW, b, sW, backward, lengths)
 
 
 grumod_layer_tm_bf16.launches = 0
 
 
-def _p1_layer(wrapper, kind, gates, x_tm, iW, b, sW, backward, lengths, ff, want_c=False):
-    """A layer at rnn precision ``default``: plain on the CPU (the
-    one-pass step, ``ff`` for the affine), else ``_launch_split`` with the
-    one-pass recurrence, counted on ``wrapper``."""
-    what = wrapper.__name__
-    if ff is None:
-        ff = precision.ff_precision(x_tm.device)
-    if not _device(what, x_tm):
-        plain = {("lstm", False): lstm_layer_tm_plain, ("lstm", True): lstm_layer_tm_train_plain,
-                 ("grumod", False): grumod_layer_tm_plain}[kind, want_c]
-        return plain(x_tm, iW, b, sW, backward, lengths, rdot=ONE_PASS, ff=ff)
-    out = _launch_split(what, kind, gates, x_tm, iW, b, sW, backward, lengths, ff, True, want_c)
-    cuda_build.count(wrapper)
-    return out
+def lstm_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K1 (or K1-bf16 for an x_tm in bf16, counted on
+    ``lstm_layer_tm_bf16_p1``) with the step product at precision
+    ``default``: one bf16 pass, f32 sums (csrc/lstm_p1.cu); on the f32
+    stream the affine at the ff level for x's device."""
+    return _p1_layer("lstm_layer_tm", x_tm, iW, b, sW, backward, lengths)
 
 
-def lstm_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None, ff=None):
-    """K1 (or K1-bf16 for an x_tm in bf16) with the step product at
-    precision ``default``: one bf16 pass, f32 sums (csrc/lstm_p1.cu).
-    ``ff`` (None: the level for x's device) sets the f32 stream's affine:
-    ``"highest"`` f32, ``"bf16"`` the one-pass affine."""
-    return _p1_layer(lstm_layer_tm_p1, "lstm", 4, x_tm, iW, b, sW, backward, lengths, ff)
+def lstm_layer_tm_train_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K8 (or K8-bf16, counted on ``lstm_layer_tm_train_bf16_p1``) with
+    the step product at precision ``default``: (h, c) as
+    ``lstm_layer_tm_train``."""
+    return _p1_layer("lstm_layer_tm_train", x_tm, iW, b, sW, backward, lengths)
 
 
-lstm_layer_tm_p1.launches = 0
+def grumod_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K7 (or K7-bf16, counted on ``grumod_layer_tm_bf16_p1``) with the
+    step product at precision ``default`` (csrc/grumod_p1.cu)."""
+    return _p1_layer("grumod_layer_tm", x_tm, iW, b, sW, backward, lengths)
 
 
-def lstm_layer_tm_train_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None, ff=None):
-    """K8 (or K8-bf16) with the step product at precision ``default``:
-    (h, c) as ``lstm_layer_tm_train``; ``ff`` as for ``lstm_layer_tm_p1``."""
-    return _p1_layer(lstm_layer_tm_train_p1, "lstm", 4, x_tm, iW, b, sW, backward, lengths, ff,
-                     want_c=True)
+lstm_layer_tm_p1.launches = lstm_layer_tm_train_p1.launches = grumod_layer_tm_p1.launches = 0
+# the launch counts of the rnn-default kernels under the bf16 stream
+lstm_layer_tm_bf16_p1 = types.SimpleNamespace(launches=0)
+lstm_layer_tm_train_bf16_p1 = types.SimpleNamespace(launches=0)
+grumod_layer_tm_bf16_p1 = types.SimpleNamespace(launches=0)
 
 
-lstm_layer_tm_train_p1.launches = 0
-
-
-def grumod_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None, ff=None):
-    """K7 (or K7-bf16) with the step product at precision ``default``
-    (csrc/grumod_p1.cu); ``ff`` as for ``lstm_layer_tm_p1``."""
-    return _p1_layer(grumod_layer_tm_p1, "grumod", 3, x_tm, iW, b, sW, backward, lengths, ff)
-
-
-grumod_layer_tm_p1.launches = 0
+def _wrappers(kind):
+    """Layer ``kind``'s dispatcher (the f32 kernel's counter), bf16-stream
+    kernel, rnn-default kernel and its bf16-stream counter, and plain
+    version, looked up when called (tests may replace them)."""
+    g = globals()
+    return types.SimpleNamespace(f32=g[kind], bf16=g[kind + "_bf16"], p1=g[kind + "_p1"],
+                                 p1_bf16=g[kind + "_bf16_p1"], plain=g[kind + "_plain"])
 
 
 def _launch_affine(what: str, entry: str, dt, x, iW, b, out_dt=None):

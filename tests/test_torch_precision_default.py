@@ -277,8 +277,10 @@ def test_one_pass_plain_twins_match_the_reference(kind, rdot, ff, stream, backwa
 @pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
 def test_p1_wrappers_run_their_plain_twins_on_the_cpu(kind, saved_levels):
     """On the CPU the rnn-``default`` wrappers run their plain twins
-    (rdot one pass, ff as given, none launched), and the dispatchers
-    never reach them, whatever the levels say: the CPU is true f32."""
+    (rdot one pass, the affine true f32 at either ff level, the CPU's;
+    none launched, on the f32 or the bf16-stream counter), and the
+    dispatchers never reach them, whatever the levels say: the CPU is
+    true f32."""
     base = "lstm" if kind.startswith("lstm") else "grumod"
     x, iW, b, sW, lengths = (torch.from_numpy(a) for a in _layer_inputs(base, 10, 4, 8, 16, 3))
     p1 = {"lstm": rnn_cuda.lstm_layer_tm_p1, "lstm_train": rnn_cuda.lstm_layer_tm_train_p1,
@@ -287,13 +289,20 @@ def test_p1_wrappers_run_their_plain_twins_on_the_cpu(kind, saved_levels):
              "grumod": rnn_cuda.grumod_layer_tm_plain}[kind]
     disp = {"lstm": rnn_cuda.lstm_layer_tm, "lstm_train": rnn_cuda.lstm_layer_tm_train,
             "grumod": rnn_cuda.grumod_layer_tm}[kind]
-    before = p1.launches
-    for ff in ("highest", "bf16"):
-        got = p1(x, iW, b, sW, True, lengths, ff=ff)
-        want = plain(x, iW, b, sW, True, lengths, rdot="bf16", ff=ff)
+    p1_bf16 = getattr(rnn_cuda, p1.__name__[:-3] + "_bf16_p1")
+    before = p1.launches, p1_bf16.launches
+    want = plain(x, iW, b, sW, True, lengths, rdot="bf16")
+    for ff in ("high", "default"):
+        precision.set_ff_precision(ff)
+        got = p1(x, iW, b, sW, True, lengths)
         for g, w in zip(*(t if kind == "lstm_train" else (t,) for t in (got, want))):
             assert torch.equal(g, w)
-    assert p1.launches == before
+    got = p1(x.to(BF16), iW, b, sW, True, lengths)
+    want = plain(x.to(BF16), iW, b, sW, True, lengths, rdot="bf16")
+    for g, w in zip(*(t if kind == "lstm_train" else (t,) for t in (got, want))):
+        assert torch.equal(g, w)
+    assert (p1.launches, p1_bf16.launches) == before
+    precision.set_ff_precision("high")
     exact = disp(x, iW, b, sW, True, lengths)
     precision.set_rnn_precision("default")
     precision.set_ff_precision("default")
