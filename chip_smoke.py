@@ -184,7 +184,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    STOP file ends the server, and its launch counts are checked too.
    Then --fast (the bf16 stream): r941_native fb on its 80 reads,
    r941_5mC and runnie fb on theirs, each --fast run alternated with the
-   exact run 3 times (walls side by side), exact launch counts (5
+   exact run twice (walls side by side), exact launch counts (5
    K1-bf16 or K7-bf16 and the bf16 affine a program, no f32 K1 or K7),
    the exact runs byte-equal to the main path's, each mode's output equal
    across rounds, FLAPPIE_TPU_RNN_STREAM never set, the --fast records'
@@ -246,6 +246,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    a Chrome trace naming cluster_rnn_kernel, affine_kernel,
    crf_sum_kernel, crf_viterbi_kernel and traceback_kernel, the FASTQ
    byte-equal to the run without it.
+   Then the knobs of the JAX package, on the same 16 reads, each run's
+   wall, dispatches (Basecaller.dispatch_stats) and launches logged
+   beside the default fb (and --viterbi) run of this call:
+   FLAPPIE_TPU_CRF_IMPL=seg (fb and --viterbi) and =scan, and
+   FLAPPIE_TPU_SCANB_KERNELS=off, each in the band and launching no CRF
+   kernel; FLAPPIE_TPU_UPLOAD=d8 (a batch with a row past its exception
+   slots takes the i16 wire), FLAPPIE_TPU_DISPATCH_GROUP=2, the upload
+   and collector threads, FLAPPIE_TPU_PREWARM=1 and
+   FLAPPIE_TPU_PREPROCESS_WAVE=4, each byte-equal, and
+   FLAPPIE_TPU_UPLOAD=f32 byte-equal or in the band (the reason logged);
+   DistributedBasecaller over [cuda:0, cuda:0] under d8 and groups of 2,
+   in the band against the one-device run, its grouped dispatches in two
+   shards; d8 on 4 reads whose steps past int8 are as rare as a real
+   signal's, byte-equal, the d8 chunk and bucket programs run; runnie
+   under seg on 8 of its reads, each record's run bases within identity
+   99.5% and its run count within 1% of the default impl's, at least 4
+   records with base and dwell equal and shape and scale within 2e-5;
+   native.py built on the card's host before these runs, preprocess_batch
+   and encode_d8 bit-equal to numpy on the 80 r941_native reads, each
+   encoder timed.
 4. Training: the autograd Functions of the training path against
    autograd through the plain versions (T=512, B=32, H=256; every
    gradient within 1e-3 of its max |value|; K10's Function at B=32,
@@ -276,9 +296,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Imports nothing of JAX or of the JAX package.  Writes only under build/
 in the checkout (build/chip_smoke/ and the kernels' builds).  The whole
-run with every phase above took 568-728 s of command time on an H100 80GB
-HBM3 at 700 W; it should stay well inside its 1200 s limit (at most ~60%
-of it).
+run with every phase above took 568-750 s of command time on an H100 80GB
+HBM3 at 700 W (745 s with the knobs phase, 33 s of it); it should stay
+well inside its 1200 s limit (at most ~60-65% of it).
 """
 
 from __future__ import annotations
@@ -1935,9 +1955,14 @@ def check_affine_bf16_f32(torch, peak: dict, gen) -> dict:
     bf16: each element within f32 reassociation of its plain version
     (the same exact products summed in another order: K 2^-23 sum |x w|
     plus 2^-23 |value|), on its wgmma path, timed over 10 runs alternated
-    with torch.addmm in bf16 (its library time: the same products,
-    rounded to bf16) and with the bf16-output kernel.  Returns the G=1024
-    row."""
+    with the single torch calls of the same function (bf16 operands into
+    an f32 output: torch.addmm and torch.baddbmm with out_dtype=float32,
+    each held to the plain version by the same rule; the fastest is its
+    library time), torch.mm(x, iW, out_dtype=float32) (the product alone,
+    no bias: logged beside, not the same function), torch.addmm in bf16
+    (the bf16-output call) and the bf16-output kernel; the device kernels
+    each f32-output call launches are logged from torch.profiler.
+    Returns the G=1024 row."""
     from flappie_tpu_torch.ops import cuda_build, rnn_cuda
 
     dev = torch.device("cuda")
@@ -1960,20 +1985,59 @@ def check_affine_bf16_f32(torch, peak: dict, gen) -> dict:
         if got.dtype != torch.float32 or bad:
             raise AssertionError(f"affine_bf16_f32 at G={G}: {bad} elements outside the f32 "
                                  f"reassociation error (max |delta| {err}), dtype {got.dtype}")
+        f32 = torch.float32
+        same_fn = {  # one torch call each, bf16 operands into an f32 output with the bias
+            "addmm_f32": lambda: torch.addmm(b, x, iW, out_dtype=f32),
+            "baddbmm_f32": lambda: torch.baddbmm(b, x[None], iW[None], out_dtype=f32)[0],
+        }
+        extra = {"mm_f32": lambda: torch.mm(x, iW, out_dtype=f32)}  # the product alone
+        lib_err = {}
+        for name, fn in list(same_fn.items()) + list(extra.items()):
+            try:
+                lib = fn()
+            except (TypeError, RuntimeError) as exc:
+                log(f"affine_bf16_f32 library call {name} at G={G}: not available ({exc})")
+                same_fn.pop(name, None)
+                extra.pop(name, None)
+                continue
+            if name in extra:
+                del lib
+                continue
+            lib_err[name] = (lib - want).abs().max().item()
+            lib_bad = int(((lib - want).abs() > noise).sum().item())
+            if lib.dtype != f32 or lib_bad:
+                raise AssertionError(f"{name} at G={G} is not the same function: {lib_bad} "
+                                     f"elements outside the f32 reassociation error (max "
+                                     f"|delta| {lib_err[name]}), dtype {lib.dtype}")
+            del lib
+        if not same_fn:
+            raise AssertionError("affine_bf16_f32: no torch call of the same function ran")
         del got, want, delta, noise
-        times = alternated_ms(torch, {"kernel": lambda: rnn_cuda.affine_bf16_f32(x, iW, b),
-                                      "bf16_out": lambda: rnn_cuda.affine_bf16(x, iW, b),
-                                      "addmm": lambda: torch.addmm(b16, x, iW)}, ALTERNATED_REPS)
-        ms, bf_ms, library_ms = (statistics.median(times[k]) for k in ("kernel", "bf16_out",
-                                                                        "addmm"))
+        times = alternated_ms(torch, {
+            "kernel": lambda: rnn_cuda.affine_bf16_f32(x, iW, b),
+            "bf16_out": lambda: rnn_cuda.affine_bf16(x, iW, b),
+            "addmm": lambda: torch.addmm(b16, x, iW), **same_fn, **extra}, ALTERNATED_REPS)
+        ms, bf_ms, bf16_lib_ms = (statistics.median(times[k]) for k in (
+            "kernel", "bf16_out", "addmm"))
+        lib_name = min(same_fn, key=lambda k: statistics.median(times[k]))
+        library_ms = statistics.median(times[lib_name])
+        if G == 1024:
+            profile_f32_gemms(torch, {**same_fn, **extra})
         plain_ms = cuda_ms(torch, lambda: rnn_cuda.affine_bf16_f32_plain(x, iW, b), 1)
         bms, by = bound(2 * (M * K + K * G) + 4 * (M * G + G), 0, peak, 2 * M * K * G)
         log(f"affine_bf16_f32 at M={M}, IN={K}, G={G}: {equal} of {M * G} elements equal to the "
             f"plain version's, max |delta| {err:.2e}, every one inside the f32 reassociation "
             f"error; kernel {spread(times['kernel'])}; the bf16-output kernel "
-            f"{spread(times['bf16_out'])}; torch.addmm bf16 {spread(times['addmm'])}; "
-            f"kernel/addmm {ms / library_ms:.3f}; plain {plain_ms:.3f} ms; bound {bms:.3f} ms "
-            f"({by}) = {100 * bms / ms:.1f}% of the kernel's time")
+            f"{spread(times['bf16_out'])}; "
+            + "; ".join(f"torch {k} {spread(times[k])}"
+                        + (f" (max |delta| {lib_err[k]:.2e} to the plain version)"
+                           if k in lib_err else " (no bias: not the same function)")
+                        for k in [*same_fn, *extra])
+            + f"; library time: {lib_name}, kernel/{lib_name} {ms / library_ms:.3f}; "
+            f"torch.addmm bf16 "
+            f"{spread(times['addmm'])} (kernel/addmm_bf16 {ms / bf16_lib_ms:.3f}); plain "
+            f"{plain_ms:.3f} ms; bound {bms:.3f} ms ({by}) = {100 * bms / ms:.1f}% of the "
+            f"kernel's time")
         if out is None:
             out = row("affine_bf16_f32", "affine-bf16-f32", "affine.cuh", "rnn_pallas.py:183",
                       "r941_native_default", "affine_bf16_f32", max_abs_err=err, ms=ms,
@@ -1981,6 +2045,27 @@ def check_affine_bf16_f32(torch, peak: dict, gen) -> dict:
     log("affine_bf16_f32 ptxas: " + ptxas_usage(cuda_build.build_log.get("lstm", ""),
                                                 "affine_bf16_kernelIf"))
     return out
+
+
+def profile_f32_gemms(torch, calls: dict) -> None:
+    """The device kernels each torch call of ``calls`` launches, with
+    their device ms a call (torch.profiler, 3 calls each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        got = device_time(prof)
+        if got is None:
+            log(f"affine_bf16_f32 library call {name}: no device events recorded; not measured")
+            continue
+        log(f"affine_bf16_f32 library call {name}, device ms a call (profiler, 3 calls): "
+            + "; ".join(f"{us / 1e3 / 3:.4f} {kname[:110]}"
+                        for kname, us in sorted(got[2].items(), key=lambda kv: -kv[1])))
 
 
 def check_kernels(torch, peak: dict, libs: dict) -> list:
@@ -2306,15 +2391,18 @@ def profiled_host_calls(torch, reads_dir: str, card: str, model: str) -> None:
         log(f"  host self {e.self_cpu_time_total / 1e3:9.1f} ms  {e.count:7d} calls  {e.key[:80]}")
 
 
-# the kernel knobs at their defaults; every CLI run sets all three
+# the knobs at their defaults; every CLI run sets all of them
 KNOBS = {"FLAPPIE_TPU_CRF_IMPL": "auto", "FLAPPIE_TPU_SCANB_FB": "split",
-         "FLAPPIE_TPU_CONV_IMPL": "auto"}
+         "FLAPPIE_TPU_CONV_IMPL": "auto", "FLAPPIE_TPU_SCANB_KERNELS": "auto",
+         "FLAPPIE_TPU_UPLOAD": "auto", "FLAPPIE_TPU_DISPATCH_GROUP": "1",
+         "FLAPPIE_TPU_UPLOAD_THREADS": "0", "FLAPPIE_TPU_COLLECT_THREAD": "0",
+         "FLAPPIE_TPU_PREPROCESS_WAVE": "16", "FLAPPIE_TPU_PREWARM": "0"}
 
 
 @contextlib.contextmanager
 def knobs(env=None):
     """KNOBS updated with ``env`` inside the block, as they were after it."""
-    saved = {k: os.environ.get(k) for k in KNOBS}
+    saved = {k: os.environ.get(k) for k in {**KNOBS, **(env or {})}}
     os.environ.update({**KNOBS, **(env or {})})
     try:
         yield
@@ -3659,8 +3747,9 @@ def sloika_phase(torch, np, card: str, peak: dict, libs: dict) -> tuple:
 
 # -- phase 3, --fast: the bf16 stream --------------------------------------------
 
-# rounds of exact and --fast runs, alternated, on each main path
-FAST_ROUNDS = 3
+# rounds of exact and --fast runs, alternated, on each main path (3 until
+# the knobs phase was added; 2 keep the script inside its time)
+FAST_ROUNDS = 2
 # the accuracy band's corpus: 64 seeded reads of 16k-28k samples, above the
 # chunk size and inside one runnie bucket
 ACCURACY_READS = (64, 16_000, 28_000)
@@ -4224,6 +4313,324 @@ def multi_phase(torch, np, card: str) -> dict:
     return launches
 
 
+# -- phase 3, the JAX package's other knobs ------------------------------------
+
+# fb runs of the knobs phase, each against the default fb run on the mesh
+# reads: (name, environment, the rule: "bytes" for byte-equal, "band" for
+# compare_fastq's band, "bytes_or_band" for byte-equal or the band with the
+# reason logged)
+KNOB_PHASE_RUNS = (
+    ("crf_seg", {"FLAPPIE_TPU_CRF_IMPL": "seg"}, "band"),
+    ("crf_scan", {"FLAPPIE_TPU_CRF_IMPL": "scan"}, "band"),
+    ("upload_d8", {"FLAPPIE_TPU_UPLOAD": "d8"}, "bytes"),
+    ("upload_f32", {"FLAPPIE_TPU_UPLOAD": "f32"}, "bytes_or_band"),
+    ("dispatch_group_2", {"FLAPPIE_TPU_DISPATCH_GROUP": "2"}, "bytes"),
+    # once more: is the first grouped run's extra wall a cost paid once?
+    ("dispatch_group_2_again", {"FLAPPIE_TPU_DISPATCH_GROUP": "2"}, "bytes"),
+    ("threads", {"FLAPPIE_TPU_UPLOAD_THREADS": "1", "FLAPPIE_TPU_COLLECT_THREAD": "1"}, "bytes"),
+    ("prewarm", {"FLAPPIE_TPU_PREWARM": "1"}, "bytes"),
+    ("preprocess_wave_4", {"FLAPPIE_TPU_PREPROCESS_WAVE": "4"}, "bytes"),
+    ("scanb_plain", {"FLAPPIE_TPU_SCANB_KERNELS": "off"}, "band"),
+)
+# the CRF kernels of the batch-minor decode, silent under seg, scan and the
+# plain batch-minor scans
+CRF_KERNELS = ("crf_sum_scan", "crf_fwdbwd", "crf_viterbi", "crf_traceback", "crf_bt_fwd",
+               "crf_bt_viterbi", "crf_bt_traceback")
+# reads whose steps past int8 are as rare as a real signal's (~0.5% of the
+# deltas, events of ~30 samples): two long, two short, so that the d8
+# programs of both paths run (most rows of the main paths' reads, ~1.6%,
+# overflow their slots and take the i16 wire)
+D8_READS = ((2, 60_000, 80_000), (2, 6_000, 12_000))
+# runnie's reads run under seg, and the least of them that meet the strict
+# rule against the default impl: on the CPU, tools/torch_runnie_seg_witness.py
+# finds 4 of these 8 for the port's seg against its scan, 5 against its
+# scanb, and 6 for the JAX package's seg against its own scan
+RUNNIE_SEG_READS = 8
+RUNNIE_SEG_STRICT = 4
+
+
+def knob_cli(torch, what: str, args: list, env: dict, main=None, phases=None):
+    """One CLI run under ``env``, every launch counter zeroed before it,
+    its phase dump written to ``phases`` when given: (wall, launch counts,
+    the Basecaller's dispatch_stats or None)."""
+    from flappie_tpu_torch.cli import flappie as cli
+
+    callers = []
+    make = cli.make_caller
+
+    def capture(a):
+        caller = make(a)
+        callers.append(caller)
+        return caller
+
+    cli.make_caller = capture
+    try:
+        zero_counts()
+        with phases_to(phases):
+            wall = run_cli(torch, args, main, env)
+    finally:
+        cli.make_caller = make
+    counts = {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
+    return wall, counts, (dict(callers[0].dispatch_stats) if callers else None)
+
+
+def knob_run(torch, card: str, name: str, env: dict, rule: str, reads_dir: str, want_text: str,
+             base: dict, extra=()) -> float:
+    """One knob's fb (or ``extra``) run on the mesh reads, held to the
+    default run by ``rule``; the launch counts checked against the
+    default's; returns the wall."""
+    out = os.path.join(WORK, "knobs", f"{name}.fastq")
+    phases = (os.path.join(WORK, "knobs", f"{name}.phases.json")
+              if name.startswith("dispatch_group") else None)
+    wall, counts, stats = knob_cli(torch, name, [reads_dir, "-o", out] + list(extra), env,
+                                   phases=phases)
+    if phases:
+        log_phases(f"knob {name}", phases, wall, card)
+    with open(out) as fh:
+        text = fh.read()
+    got, want = parse_fastq(text, "ACGT"), parse_fastq(want_text, "ACGT")
+    same = text == want_text
+    if rule == "bytes" and not same:
+        raise AssertionError(f"knob {name} ({env}): the FASTQ is not the default run's bytes")
+    reason = ""
+    if not same:
+        compare_fastq(f"knob {name} vs the default run", got, want)
+        if rule == "bytes_or_band":
+            reason = (" (not byte-equal: the f32 wire normalises on the host, the i16 wire "
+                      "on the card from the ADC counts)")
+    layer = base["counts"].get("lstm_layer", 0)
+    if env.get("FLAPPIE_TPU_CRF_IMPL") in ("seg", "scan") or env.get(
+            "FLAPPIE_TPU_SCANB_KERNELS") == "off":
+        if any(counts.get(k) for k in CRF_KERNELS) or counts.get("lstm_layer", 0) != layer:
+            raise AssertionError(f"knob {name}: launches {counts}, expected {layer} K1 and no "
+                                 "CRF kernel")
+    elif name == "prewarm":
+        # the prewarm batch is a program too
+        if (layer and counts.get("lstm_layer", 0) <= layer) or any(
+                counts.get(k, 0) < v for k, v in base["counts"].items()):
+            raise AssertionError(f"knob {name}: launches {counts}, default {base['counts']}")
+    elif counts != base["counts"]:
+        raise AssertionError(f"knob {name}: launches {counts}, default {base['counts']}")
+    log(f"knob {name} ({json.dumps(env)}): wall {wall:.3f} s vs the default {base['wall']:.3f} s; "
+        f"{'byte-equal' if same else 'within the band'}{reason}; dispatches "
+        f"{json.dumps(stats)}; launches {json.dumps(counts)} [{card}]")
+    return stats
+
+
+def knobs_mesh_run(torch, card: str, reads_dir: str, names: list, want_text: str) -> None:
+    """DistributedBasecaller over MESH_DEVICES under d8 and a dispatch group
+    of 2, against the one-device default run by the band."""
+    from flappie_tpu_torch.parallel.mesh import make_mesh
+    from flappie_tpu_torch.parallel.pipeline import DistributedBasecaller
+
+    env = {"FLAPPIE_TPU_UPLOAD": "d8", "FLAPPIE_TPU_DISPATCH_GROUP": "2"}
+    with knobs(env):
+        mesh = DistributedBasecaller(mesh=make_mesh(2, devices=list(MESH_DEVICES)),
+                                     compute_trace=False)
+        try:
+            zero_counts()
+            got, wall = library_fastq(torch, mesh, reads_dir, names)
+            counts = {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
+            summary = mesh.wire_summary()
+            stats = dict(mesh.dispatch_stats)
+        finally:
+            mesh.close()
+    grouped = [k for k in summary if "_grouped[" in k]
+    if not grouped or any(summary[k]["devices"] != [2] for k in grouped):
+        raise AssertionError(f"knob mesh: no grouped dispatch over two shards: {summary}")
+    got_recs, want_recs = parse_fastq(got, "ACGT"), parse_fastq(want_text, "ACGT")
+    if list(got_recs) != list(want_recs):
+        raise AssertionError("knob mesh: the records are not in the one-device order")
+    compare_fastq("knob mesh 2 (d8, group 2) vs the one-device default run", got_recs, want_recs)
+    log(f"knob mesh 2 over {list(MESH_DEVICES)} ({json.dumps(env)}): wall {wall:.3f} s; "
+        f"dispatches {json.dumps(stats)}; wire summary {json.dumps(summary)}; launches "
+        f"{json.dumps(counts)} [{card}]")
+
+
+def knobs_d8_reads(torch, np, card: str) -> None:
+    """FLAPPIE_TPU_UPLOAD=d8 on D8_READS, whose rows fit their exception
+    slots: the d8 chunk and bucket programs run, byte-equal to the default
+    run of the same reads."""
+    wdir = os.path.join(WORK, "knobs", "d8")
+    rng = np.random.default_rng(20261018)
+    from flappie_tpu_torch.signal.fast5 import write_single_read_fast5
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    reads_dir = os.path.join(wdir, "reads")
+    os.makedirs(reads_dir)
+    sizes = [int(n) for count, lo, hi in D8_READS for n in rng.integers(lo, hi, count)]
+    for k, n in enumerate(sizes):
+        write_single_read_fast5(os.path.join(reads_dir, f"d8_{k}.fast5"),
+                                synthetic_adc(n, rng, mean_dwell=30.0),
+                                f"00000000-0000-4000-8000-{900 + k:012d}")
+    texts, walls, stats = {}, {}, {}
+    for mode, env in (("default", {}), ("d8", {"FLAPPIE_TPU_UPLOAD": "d8"})):
+        out = os.path.join(wdir, f"{mode}.fastq")
+        walls[mode], _, stats[mode] = knob_cli(torch, mode, [reads_dir, "-o", out], env)
+        with open(out) as fh:
+            texts[mode] = fh.read()
+    if texts["d8"] != texts["default"]:
+        raise AssertionError("knob upload_d8 on real-like reads: the FASTQ is not the i16 run's")
+    want = {"_device_basecall_chunk_packed_d8", "_device_basecall_packed_d8"}
+    if not want <= set(stats["d8"]):
+        raise AssertionError(f"knob upload_d8: the d8 programs did not run: {stats['d8']}")
+    log(f"knob upload_d8 on {len(sizes)} reads of real-like steps ({sizes} samples): byte-equal "
+        f"to the i16 run; dispatches {json.dumps(stats['d8'])} vs {json.dumps(stats['default'])}; "
+        f"wall {walls['d8']:.3f} s vs {walls['default']:.3f} s [{card}]")
+
+
+def strict_runs(got: list, want: list) -> bool:
+    """compare_runs' strict rule for one record: equal line for line, or
+    base and dwell equal with shape and scale within 2e-5."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        fa, fb = a.split("\t"), b.split("\t")
+        if (fa[0], fa[3]) != (fb[0], fb[3]) or any(
+                abs(float(fa[i]) - float(fb[i])) > 2e-5 for i in (1, 2)):
+            return False
+    return True
+
+
+def knobs_runnie_seg(torch, card: str) -> None:
+    """runnie fb under FLAPPIE_TPU_CRF_IMPL=seg on RUNNIE_SEG_READS of its
+    reads against the default impl, each record held by its run bases
+    (identity >= 99.5%, the flappie runs' band, and run count within 1%),
+    and at least RUNNIE_SEG_STRICT records meeting the strict rule: seg's
+    matrix products reassociate the f32 sums, and runnie's fb Viterbi over
+    unnormalised posteriors of thousands of blocks follows near ties on
+    the last bits, in the JAX package's seg too (the witness on the CPU:
+    tools/torch_runnie_seg_witness.py)."""
+    from flappie_tpu_torch.cli.runnie import main as runnie_main
+
+    src = os.path.join(WORK, "rle_r941_native", "reads")
+    sub = os.path.join(WORK, "knobs", "runnie", "reads")
+    os.makedirs(sub)
+    for n in sorted(os.listdir(src))[:RUNNIE_SEG_READS]:
+        shutil.copy(os.path.join(src, n), sub)
+    recs, walls = {}, {}
+    for impl in ("auto", "seg"):
+        out = os.path.join(WORK, "knobs", "runnie", f"{impl}.run")
+        walls[impl], counts, _ = knob_cli(torch, impl, [sub, "-o", out],
+                                          {"FLAPPIE_TPU_CRF_IMPL": impl}, runnie_main)
+        with open(out) as fh:
+            recs[impl] = parse_run(fh.read())
+        if impl == "seg" and any(counts.get(k) for k in CRF_KERNELS):
+            raise AssertionError(f"runnie seg: CRF kernels launched: {counts}")
+    if len(recs["seg"]) != RUNNIE_SEG_READS:
+        raise AssertionError(f"runnie seg: {len(recs['seg'])} records")
+    compare_runs("knob runnie seg vs the default impl", recs["seg"], recs["auto"], loose=True)
+    worst = min(identity("".join(x[0] for x in recs["seg"][u]),
+                         "".join(x[0] for x in recs["auto"][u])) for u in recs["auto"])
+    strict = sum(strict_runs(recs["seg"][u], recs["auto"][u]) for u in recs["auto"])
+    if worst < 0.995 or strict < RUNNIE_SEG_STRICT:
+        raise AssertionError(f"runnie seg: min run-base identity {worst}, {strict} records "
+                             f"meet the strict rule (at least {RUNNIE_SEG_STRICT})")
+    log(f"knob runnie seg: {RUNNIE_SEG_READS} reads, {strict} of them with base and dwell equal "
+        f"and shape and scale within 2e-5; wall {walls['seg']:.3f} s vs the default "
+        f"{walls['auto']:.3f} s [{card}]")
+
+
+def knobs_native(np) -> None:
+    """native.py on the 80 r941_native reads: the library builds, and
+    preprocess_batch and encode_d8 are bit-equal to the numpy versions
+    (each chunk-width row of each read's ADC encoded alone, so that rows
+    that overflow and rows that fit both occur)."""
+    from flappie_tpu_torch import basecall, native
+    from flappie_tpu_torch.signal.fast5 import read_raw
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"native.py: the host library did not build:\n{native.build_log}")
+    build_s = time.perf_counter() - t0
+    src = os.path.join(WORK, "r941_native", "reads")
+    reads = [read_raw(os.path.join(src, n)) for n in sorted(os.listdir(src))]
+    t0 = time.perf_counter()
+    got = native.preprocess_batch(reads)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = basecall.preprocess_batch(reads)
+    numpy_s = time.perf_counter() - t0
+    def norm(rt):
+        return None if rt.norm is None else np.array(rt.norm, np.float32).tobytes()
+
+    for a, b in zip(got, want):
+        if (a is None) != (b is None) or (a is not None and not (
+                (a.start, a.end) == (b.start, b.end) and a.raw.tobytes() == b.raw.tobytes()
+                and norm(a) == norm(b))):
+            raise AssertionError(f"native preprocess_batch differs from numpy on read {a or b}")
+    want = [rt for rt in want if rt is not None and rt.adc is not None and rt.norm is not None]
+    W, rows, fits, enc_s, fitting = 12_800, 0, 0, {"native": 0.0, "numpy": 0.0}, []
+    for rt in want:
+        adc = rt.adc[rt.start : rt.end]
+        scal = np.array([[rt.cal[0], rt.cal[1], rt.norm[0], rt.norm[1]]], np.float32)
+        for s in range(0, adc.size, W):
+            seg = adc[s : s + W]
+            row = np.zeros((1, W), np.int16)
+            row[0, : seg.size] = seg
+            z = np.zeros(1, np.int32)
+            buf = basecall.pack_chunk_inputs_i16(row, np.array([seg.size], np.int32), z, z, scal)
+            t0 = time.perf_counter()
+            a = native.encode_d8(buf)
+            t1 = time.perf_counter()
+            b = basecall._encode_d8_np(buf)
+            enc_s["native"] += t1 - t0
+            enc_s["numpy"] += time.perf_counter() - t1
+            if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+                raise AssertionError(f"native encode_d8 differs from numpy on {rt.uuid} at {s}")
+            rows, fits = rows + 1, fits + (a is not None)
+            if a is not None:
+                fitting.append(buf)
+    # the basecaller encodes a chunk batch at once: 256 rows that fit
+    batch = np.concatenate(fitting[:256])
+    batch_s = {}
+    for name, fn in (("native", native.encode_d8), ("numpy", basecall._encode_d8_np)):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(batch)
+            runs.append(time.perf_counter() - t0)
+        batch_s[name] = statistics.median(runs)
+    log(f"native.py: built into {native.lib_path()} in {build_s:.2f} s; preprocess_batch "
+        f"bit-equal to numpy on {len(reads)} reads ({native_s:.3f} s vs {numpy_s:.3f} s); "
+        f"encode_d8 bit-equal on {rows} rows of {W} samples ({fits} fit their slots, "
+        f"{rows - fits} overflow to None in both; a row at a time, {enc_s['native']:.3f} s vs "
+        f"numpy's {enc_s['numpy']:.3f} s; a batch of {batch.shape[0]} rows, median of 5, "
+        f"{batch_s['native']:.4f} s vs numpy's {batch_s['numpy']:.4f} s)")
+
+
+def knobs_phase(torch, np, card: str) -> None:
+    """The JAX package's other knobs on the mesh reads (phase 3's 16
+    r941_native reads): each run of KNOB_PHASE_RUNS and seg under
+    --viterbi against the default run in this call, the mesh under d8 and
+    groups, d8 on reads whose rows fit, runnie under seg, native.py."""
+    reads_dir = os.path.join(WORK, "mesh", "reads")
+    names = sorted(os.listdir(reads_dir))
+    os.makedirs(os.path.join(WORK, "knobs"))
+    knobs_native(np)  # first: the d8 runs' walls then hold no g++ build
+    base = {}
+    for mode, extra in (("fb", []), ("viterbi", ["--viterbi"])):
+        out = os.path.join(WORK, "knobs", f"default_{mode}.fastq")
+        phases = os.path.join(WORK, "knobs", f"default_{mode}.phases.json")
+        wall, counts, stats = knob_cli(torch, mode, [reads_dir, "-o", out] + extra, {},
+                                       phases=phases)
+        log_phases(f"knobs default {mode}", phases, wall, card)
+        with open(out) as fh:
+            base[mode] = {"text": fh.read(), "wall": wall, "counts": counts}
+        log(f"knobs: default {mode} on {len(names)} reads: wall {wall:.3f} s; dispatches "
+            f"{json.dumps(stats)}; launches {json.dumps(counts)} [{card}]")
+    for name, env, rule in KNOB_PHASE_RUNS:
+        stats = knob_run(torch, card, name, env, rule, reads_dir, base["fb"]["text"], base["fb"])
+        if name == "upload_d8":
+            log(f"knob upload_d8 on the mesh reads: {sorted(stats)} ran (a batch with a row past "
+                "its slots takes the i16 wire)")
+    knob_run(torch, card, "crf_seg_viterbi", {"FLAPPIE_TPU_CRF_IMPL": "seg"}, "band", reads_dir,
+             base["viterbi"]["text"], base["viterbi"], ["--viterbi"])
+    knobs_mesh_run(torch, card, reads_dir, names, base["fb"]["text"])
+    knobs_d8_reads(torch, np, card)
+    knobs_runnie_seg(torch, card)
+
+
 # -- phase 4: training ---------------------------------------------------------
 
 # tools/train_r5.py's recipe: batch 32, chunks of 2560 samples, Adam at lr
@@ -4715,6 +5122,9 @@ def main() -> int:
     rows += sloika_rows
     launches.update(sloika_launches)
     launches.update(multi_phase(torch, np, card))
+    t0 = time.perf_counter()
+    knobs_phase(torch, np, card)
+    log(f"knobs phase: {time.perf_counter() - t0:.1f} s")
     check_gradients(torch, card)
     launches.update(training(torch, np, card))
 

@@ -19,16 +19,38 @@ On the GPU a batch is uploaded from pinned host memory and its output
 copied back into pinned memory asynchronously on the current stream; a
 short queue of batches in flight lets the host pack the next batch while
 the device computes.  The host's phases are bracketed with timing.phase
-under the JAX package's names (fast5_read, preprocess, pack, dispatch,
-dispatch_upload, dispatch_launch, collect_wait, collect_host), which
-FLAPPIE_TPU_PHASES dumps.
+under the JAX package's names (fast5_read, preprocess, encode_d8, pack,
+dispatch, dispatch_upload, dispatch_launch, upload_wait, collect_wait,
+collect_bound_wait, collect_host), which FLAPPIE_TPU_PHASES dumps.
+
+The JAX package's host knobs, read at call time (README's knob table has
+each default beside JAX's):
+
+- FLAPPIE_TPU_UPLOAD: the wire -- ``auto`` (default: i16 where the reads
+  carry ADC, as JAX's off the TPU), ``f32``, ``i16`` or ``d8`` (int8
+  deltas with exceptions, decoded on the device to the i16 buffer bit
+  for bit; a batch whose rows overflow their exception slots takes i16);
+- FLAPPIE_TPU_DISPATCH_GROUP: G consecutive same-wire chunk batches as
+  one upload and one program over G slices (default 1);
+- FLAPPIE_TPU_UPLOAD_THREADS: dispatches on a pool of this many threads
+  (default 0: on the caller's thread);
+- FLAPPIE_TPU_COLLECT_THREAD: collection on one FIFO background thread
+  when set to anything but 0 (default: the caller's thread);
+- FLAPPIE_TPU_PREPROCESS_WAVE: reads a preprocessing wave (default 16,
+  0: one shot);
+- FLAPPIE_TPU_PREWARM (cli/flappie.py): ``prewarm_chunked`` on a thread.
+
+Each changes when or how bytes move, never the output bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import sys
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import replace
 from types import SimpleNamespace
 from typing import List, Optional, Sequence
@@ -73,6 +95,48 @@ def bucket_length(n: int, min_bucket: int = MIN_BUCKET) -> int:
 # thread while wave k's chunks pack and dispatch, so the first batch
 # leaves after one wave.  Outputs are identical for any wave size.
 PREPROCESS_WAVE = 16
+
+
+def _preprocess_wave() -> int:
+    """FLAPPIE_TPU_PREPROCESS_WAVE: reads a preprocessing wave; 0 runs
+    the preprocessing in one shot.  Default PREPROCESS_WAVE (the JAX
+    package's is 64)."""
+    v = os.environ.get("FLAPPIE_TPU_PREPROCESS_WAVE")
+    return max(0, int(v)) if v else PREPROCESS_WAVE
+
+
+def _upload_mode() -> str:
+    """FLAPPIE_TPU_UPLOAD: ``auto`` (default), ``f32``, ``i16`` or ``d8``.
+    ``auto`` resolves as the JAX package's does off the TPU: the i16 wire
+    where every read of a batch carries ADC counts, else f32 (any value
+    but f32 and d8 reads so, as in the JAX package)."""
+    return os.environ.get("FLAPPIE_TPU_UPLOAD", "auto")
+
+
+def _prefer_d8() -> bool:
+    return _upload_mode() == "d8"
+
+
+def _dispatch_group() -> int:
+    """FLAPPIE_TPU_DISPATCH_GROUP: chunk batches a dispatch (default 1,
+    the JAX package's default off the TPU)."""
+    v = os.environ.get("FLAPPIE_TPU_DISPATCH_GROUP")
+    return max(1, int(v)) if v else 1
+
+
+def _upload_threads() -> int:
+    """FLAPPIE_TPU_UPLOAD_THREADS: dispatch threads (default 0: the
+    caller's thread, the JAX package's default off the TPU)."""
+    v = os.environ.get("FLAPPIE_TPU_UPLOAD_THREADS")
+    return max(0, int(v)) if v else 0
+
+
+def _collect_threaded() -> bool:
+    """FLAPPIE_TPU_COLLECT_THREAD: collect on one background thread when
+    set to anything but 0; unset, on the caller's thread (the JAX
+    package's default is the thread)."""
+    v = os.environ.get("FLAPPIE_TPU_COLLECT_THREAD")
+    return bool(v) and v != "0"
 
 
 # -- fault injection (reference CHAOSMONKEY, src/flappie_stdlib.h:18-35) -----
@@ -264,6 +328,147 @@ def _device_basecall_chunk_packed_i16(params, buf, cfg, temperature, viterbi_onl
     return _pack_outputs(score, path, qchar, nblocks, trace, compute_trace)
 
 
+# -- the d8 wire: int8 deltas + width-scaled exception slots -----------------
+#
+# Counterpart of flappie_tpu/basecall.py:466-563.  ADC steps are mostly
+# small but not bounded, so the wire holds each row's int8 deltas clipped
+# to [-128, 127] plus (index, correction) pairs that restore the clipped
+# part; the device inverts it to the exact [B, W+16] int16 buffer of the
+# i16 wire and runs the i16 program, so d8 and i16 outputs are equal by
+# construction.  A row has ceil(W/64) exception slots; a batch with a row
+# beyond them (or a correction beyond int16) encodes to None and takes
+# the i16 wire.  Payload: W + 6*ceil(W/64) + 32 bytes against 2*W + 32.
+
+
+def d8_exc_slots(W: int) -> int:
+    """Exception slots of a row of payload width W."""
+    return (W + 63) // 64
+
+
+def _d8_widths(Wtot: int):
+    """(W, slots) of a d8 row of Wtot bytes: the inverse of Wtot = W +
+    6*d8_exc_slots(W) + 32, strictly increasing in W, so unique where it
+    is defined."""
+    W = max(1, (Wtot - 32) * 32 // 35 - 8)
+    while W + 6 * d8_exc_slots(W) + 32 < Wtot:
+        W += 1
+    if W + 6 * d8_exc_slots(W) + 32 != Wtot:
+        raise ValueError(f"not a d8 wire width: {Wtot}")
+    return W, d8_exc_slots(W)
+
+
+def encode_d8(buf_i16: np.ndarray):
+    """[B, W+16] int16 buffer (pack_chunk_inputs_i16's layout) -> the
+    [B, W + 6*exc + 32] int8 wire buffer, or None when a row needs more
+    exception slots than it has.  The native library's encoder where it
+    is available (native.py), else ``_encode_d8_np``; the two are
+    bit-identical."""
+    from . import native
+
+    with timing.phase("encode_d8"):
+        if native.available():
+            return native.encode_d8(buf_i16)
+        return _encode_d8_np(buf_i16)
+
+
+def _encode_d8_np(buf_i16: np.ndarray):
+    """The d8 encode in numpy.  Row layout: W int8 clipped deltas | exc
+    int32 LE exception indices | exc int16 LE corrections | the 16 tail
+    int16 as raw bytes; unused slots hold index W (out of range) and 0."""
+    buf_i16 = np.asarray(buf_i16, np.int16)
+    B, Wt = buf_i16.shape
+    W = Wt - 16
+    exc = d8_exc_slots(W)
+    adc = buf_i16[:, :W].astype(np.int32)
+    d = np.diff(adc, axis=1, prepend=0)
+    stored = np.clip(d, -128, 127)
+    e = d - stored
+    ii, jj = np.nonzero(e)
+    counts = np.bincount(ii, minlength=B)
+    ecorr = e[ii, jj]
+    if counts.max(initial=0) > exc or (np.abs(ecorr) > 32767).any():
+        return None
+    idx = np.full((B, exc), W, np.int32)
+    corr = np.zeros((B, exc), np.int16)
+    if ii.size:
+        # np.nonzero is row-major, so ii is sorted; slot = rank in row
+        slot = np.arange(ii.size) - np.searchsorted(ii, ii, side="left")
+        idx[ii, slot] = jj
+        corr[ii, slot] = ecorr
+    return np.concatenate([stored.astype(np.int8), idx.view(np.int8), corr.view(np.int8),
+                           buf_i16[:, W:].view(np.int8)], axis=1)
+
+
+def _decode_d8(buf):
+    """Device inverse of encode_d8: [B, Wtot] int8 -> the exact [B, W+16]
+    int16 buffer, integer ops only.  The corrections are added by a
+    scatter into one spare column that takes the unused slots' index W
+    (the JAX version drops them); torch.cumsum widens int32 to int64,
+    which changes nothing: the running sums telescope to the int16 ADC
+    values themselves."""
+    B, Wtot = buf.shape
+    W, exc = _d8_widths(Wtot)
+    d = torch.zeros(B, W + 1, dtype=torch.int32, device=buf.device)
+    d[:, :W] = buf[:, :W]
+    idx = buf[:, W : W + 4 * exc].contiguous().view(torch.int32).to(torch.int64)
+    corr = buf[:, W + 4 * exc : W + 6 * exc].contiguous().view(torch.int16).to(torch.int32)
+    d.scatter_add_(1, idx, corr)
+    adc = torch.cumsum(d[:, :W], dim=1).to(torch.int16)
+    tail = buf[:, W + 6 * exc :].contiguous().view(torch.int16)
+    return torch.cat([adc, tail], dim=1)
+
+
+def _device_basecall_packed_d8(params, buf, cfg, temperature, viterbi_only, compute_trace,
+                               rnn_impl="auto", stream=torch.float32):
+    """d8-wire bucket program: the i16 program on the decoded buffer."""
+    return _device_basecall_packed_i16(params, _decode_d8(buf), cfg, temperature, viterbi_only,
+                                       compute_trace, rnn_impl, stream)
+
+
+def _device_basecall_chunk_packed_d8(params, buf, cfg, temperature, viterbi_only,
+                                     compute_trace, rnn_impl="auto", stream=torch.float32):
+    """d8-wire chunk program: the i16 program on the decoded buffer."""
+    return _device_basecall_chunk_packed_i16(params, _decode_d8(buf), cfg, temperature,
+                                             viterbi_only, compute_trace, rnn_impl, stream)
+
+
+def _grouped(name: str, single: str):
+    """A grouped program: ``[G*rows, W]`` in, the program ``single`` (a
+    name, looked up at call time) on each of its G row slices in turn,
+    their byte matrices concatenated -- one upload and one output copy
+    for G batches; each slice's bytes are those of its own dispatch."""
+
+    def program(params, buf, G: int, cfg, temperature, viterbi_only, compute_trace,
+                rnn_impl="auto", stream=torch.float32):
+        fn = globals()[single]
+        rows = buf.shape[0] // G
+        return torch.cat([fn(params, buf[g * rows : (g + 1) * rows], cfg, temperature,
+                             viterbi_only, compute_trace, rnn_impl, stream)
+                          for g in range(G)], dim=0)
+
+    program.__name__ = program.__qualname__ = name
+    return program
+
+
+_device_basecall_chunk_packed_grouped = _grouped(
+    "_device_basecall_chunk_packed_grouped", "_device_basecall_chunk_packed")
+_device_basecall_chunk_packed_i16_grouped = _grouped(
+    "_device_basecall_chunk_packed_i16_grouped", "_device_basecall_chunk_packed_i16")
+_device_basecall_chunk_packed_d8_grouped = _grouped(
+    "_device_basecall_chunk_packed_d8_grouped", "_device_basecall_chunk_packed_d8")
+
+# the chunk programs by wire, one batch a dispatch and grouped
+CHUNK_PROGRAMS = {
+    "f32": ("_device_basecall_chunk_packed", "_device_basecall_chunk_packed_grouped"),
+    "i16": ("_device_basecall_chunk_packed_i16", "_device_basecall_chunk_packed_i16_grouped"),
+    "d8": ("_device_basecall_chunk_packed_d8", "_device_basecall_chunk_packed_d8_grouped"),
+}
+
+
+def _chunk_program(kind: str, grouped: bool):
+    return globals()[CHUNK_PROGRAMS[kind][int(grouped)]]
+
+
 def _unpack_chunk_outputs(buf: np.ndarray, T1: int, nstate: int, compute_trace: bool):
     """Inverse of the packed layout -> (score, path, qchar, nblocks, trace)."""
     path = buf[:, :T1].astype(np.int8)
@@ -310,12 +515,13 @@ def pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal) -> np.ndarray:
 def pack_bucket(items, bucket: int):
     """One bucket batch of preprocessed reads ``items`` [(tag, RawTable)],
     each padded to ``bucket`` samples -> (is_i16, packed buffer): the
-    int16 ADC wire when every read keeps its ADC counts, else the f32
-    wire of host-normalised signal."""
+    int16 ADC wire when every read keeps its ADC counts and
+    FLAPPIE_TPU_UPLOAD is not f32, else the f32 wire of host-normalised
+    signal."""
     B = len(items)
     lengths = np.zeros(B, np.int32)
     zeros = np.zeros(B, np.int32)
-    if all(_i16_capable(rt) for _, rt in items):
+    if _upload_mode() != "f32" and all(_i16_capable(rt) for _, rt in items):
         adc = np.zeros((B, bucket), np.int16)
         scal = np.zeros((B, 4), F32)
         scal[:, 3] = 1.0  # pad rows: mad=1 -> exact zero signal
@@ -331,6 +537,14 @@ def pack_bucket(items, bucket: int):
         sig[j, : seg.size] = seg
         lengths[j] = seg.size
     return False, pack_chunk_inputs(sig, lengths, zeros, zeros)
+
+
+def _on_device(device: torch.device):
+    """The context that makes ``device`` current on the calling thread
+    (the C entries size their grids on the current device)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 class _InFlight:
@@ -352,12 +566,15 @@ class _DeviceQueue:
     """Runs packed-batch programs on one device.  On the GPU each batch is
     uploaded from pinned host memory on the next of STREAMS CUDA streams,
     and its output bytes are copied back into pinned memory on the same
-    stream, so ``run`` returns at once; on the CPU it runs in place."""
+    stream, so ``run`` returns at once; on the CPU it runs in place.  Any
+    thread may call ``run`` (the upload pool's, the prewarm's): the stream
+    rotation takes a lock, and the caller makes the device current."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._streams = []
         self._next = 0
+        self._lock = threading.Lock()
         if device.type == "cuda":
             self._streams = [torch.cuda.Stream(device) for _ in range(STREAMS)]
             # the caller uploaded the weights on the current stream; the
@@ -372,8 +589,9 @@ class _DeviceQueue:
                     host = torch.from_numpy(np.ascontiguousarray(buf))
                 with timing.phase("dispatch_launch"), torch.inference_mode():
                     return _InFlight(program(host))
-            stream = self._streams[self._next % len(self._streams)]
-            self._next += 1
+            with self._lock:
+                stream = self._streams[self._next % len(self._streams)]
+                self._next += 1
             with torch.cuda.stream(stream), torch.inference_mode():
                 with timing.phase("dispatch_upload"):  # a host copy into pinned memory
                     host = torch.from_numpy(np.ascontiguousarray(buf)).pin_memory()
@@ -389,9 +607,15 @@ class _DeviceQueue:
 
 class _Pipeline:
     """Dispatch-ahead queue: push (tag, in-flight batch) pairs; the oldest
-    is collected once more than ``depth`` are queued.  ``on_error(tag,
-    exc)``, when given, absorbs a collect failure so one bad batch
-    degrades to its own reads (reference NULL-propagation,
+    is collected once more than ``depth`` are queued.  An in-flight batch
+    may be a Future of one (a dispatch on the upload pool), resolved under
+    ``upload_wait``.  Under FLAPPIE_TPU_COLLECT_THREAD collection runs on
+    one FIFO background thread, so batches are collected in push order
+    as on the caller's thread; the caller waits for the oldest collect
+    (``collect_bound_wait``) once more than ``depth`` are pending, and a
+    collect failure without ``on_error`` re-raises at the next push or
+    drain.  ``on_error(tag, exc)``, when given, absorbs a failure so one
+    bad batch degrades to its own reads (reference NULL-propagation,
     src/flappie_stdlib.h:37-45)."""
 
     def __init__(self, collect, depth: int = PIPELINE_DEPTH, on_error=None):
@@ -399,9 +623,14 @@ class _Pipeline:
         self._depth = depth
         self._on_error = on_error
         self._q: list = []
+        self._pool = (ThreadPoolExecutor(1, thread_name_prefix="flappie-collect")
+                      if _collect_threaded() else None)
 
     def _run(self, tag, pending) -> None:
         try:
+            if isinstance(pending, Future):  # a dispatch on the upload pool
+                with timing.phase("upload_wait"):
+                    pending = pending.result()
             out = pending.result()
             with timing.phase("collect_host"):  # unpack + assemble
                 self._collect(tag, out)
@@ -411,11 +640,26 @@ class _Pipeline:
             self._on_error(tag, exc)
 
     def push(self, tag, pending) -> None:
+        if self._pool is not None:
+            self._q.append(self._pool.submit(self._run, tag, pending))
+            if len(self._q) > self._depth:
+                with timing.phase("collect_bound_wait"):
+                    self._q.pop(0).result()
+            return
         self._q.append((tag, pending))
         if len(self._q) > self._depth:
             self._run(*self._q.pop(0))
 
     def drain(self) -> None:
+        if self._pool is not None:
+            try:
+                for fut in self._q:
+                    fut.result()
+            finally:
+                self._q.clear()
+                self._pool.shutdown(wait=True)
+                self._pool = None
+            return
         for tag, pending in self._q:
             self._run(tag, pending)
         self._q.clear()
@@ -479,17 +723,95 @@ class Basecaller:
         self.chunk_batch = int(chunk_batch)
         self._chaos_counter = [0]
         self._queue = _DeviceQueue(self.device)
+        # dispatches by program name, so that a run shows which wire ran;
+        # dispatches come from the caller's thread, the upload pool and
+        # the prewarm thread, so the count takes a lock
+        self.dispatch_stats: dict = {}
+        self._stats_lock = threading.Lock()
+        self._upload_pool = None  # FLAPPIE_TPU_UPLOAD_THREADS, made at first use
 
     # -- device side ------------------------------------------------------
 
-    def _dispatch(self, program, buf: np.ndarray) -> _InFlight:
-        """Upload one packed batch and enqueue its program; returns at once
-        on the GPU (the output bytes are collected later)."""
-        _chaos_maybe_fail_dispatch()
+    def _count_dispatch(self, program) -> None:
+        name = getattr(program, "__name__", str(program))
+        with self._stats_lock:
+            self.dispatch_stats[name] = self.dispatch_stats.get(name, 0) + 1
+
+    def _dispatch(self, program, buf: np.ndarray, G: Optional[int] = None,
+                  chaos: bool = True) -> _InFlight:
+        """Upload one packed batch (G batches for a grouped program) and
+        enqueue its program; returns at once on the GPU (the output bytes
+        are collected later).  The one dispatch point of every wire and
+        program, which DistributedBasecaller overrides.  ``chaos``:
+        subject to FLAPPIE_TPU_CHAOS_DISPATCH (not the prewarm's)."""
+        if chaos:
+            _chaos_maybe_fail_dispatch()
+        self._count_dispatch(program)
+        extra = () if G is None else (G,)
         return self._queue.run(
-            lambda dev: program(self.params, dev, self.cfg, self.temperature,
+            lambda dev: program(self.params, dev, *extra, self.cfg, self.temperature,
                                 self.viterbi_only, self.compute_trace, self.rnn_impl,
                                 self.stream), buf)
+
+    def _submit_dispatch(self, program, buf: np.ndarray, G: Optional[int] = None):
+        """``_dispatch`` on the upload pool under FLAPPIE_TPU_UPLOAD_THREADS
+        > 0 (a Future the pipeline resolves; the pool's thread makes this
+        Basecaller's device current), else at once on this thread."""
+        n = _upload_threads()
+        if n <= 0:
+            return self._dispatch(program, buf, G)
+        with self._stats_lock:
+            if self._upload_pool is None:
+                self._upload_pool = ThreadPoolExecutor(n, thread_name_prefix="flappie-upload")
+        return self._upload_pool.submit(self._dispatch_on_device, program, buf, G)
+
+    def _dispatch_on_device(self, program, buf, G):
+        with _on_device(self.device):
+            return self._dispatch(program, buf, G)
+
+    def close(self) -> None:
+        """Stop the upload pool, if any (after the dispatches it holds)."""
+        if self._upload_pool is not None:
+            self._upload_pool.shutdown(wait=True)
+            self._upload_pool = None
+
+    def _dummy_chunk_buf(self, kind: str, rows: int) -> np.ndarray:
+        """The prewarm's chunk batch: ``rows`` dummy rows on wire ``kind``
+        (f32, i16 or d8), a few valid samples of zero signal and an empty
+        score range each."""
+        lengths = np.full(rows, self.cfg.total_stride, np.int32)
+        z = np.zeros(rows, np.int32)
+        if kind == "f32":
+            buf = pack_chunk_inputs(np.zeros((rows, self.chunk), F32), lengths, z, z)
+        else:
+            scal = np.zeros((rows, 4), F32)
+            scal[:, 3] = 1.0  # mad=1 -> exact zero signal
+            buf = pack_chunk_inputs_i16(np.zeros((rows, self.chunk), np.int16), lengths, z, z,
+                                        scal)
+            if kind == "d8":
+                buf = encode_d8(buf)  # zero deltas never need an exception slot
+        return buf
+
+    def prewarm_chunked(self) -> None:
+        """Run one dummy chunk batch (a group of them under
+        FLAPPIE_TPU_DISPATCH_GROUP) on the wire the run will use, and wait
+        for it: the first call of the chunk program builds any kernel not
+        built yet and warms cuDNN and the allocator.  The CLI calls it on a
+        background thread under FLAPPIE_TPU_PREWARM=1.  Unlike the JAX
+        package's, a failure is not swallowed: it raises."""
+        if not self.chunk:
+            return
+        mode = _upload_mode()
+        kind = "d8" if mode == "d8" else "f32" if mode == "f32" else "i16"
+        G = _dispatch_group()
+        buf = self._dummy_chunk_buf(kind, self.chunk_batch)
+        with _on_device(self.device):
+            if G > 1:
+                pending = self._dispatch(_chunk_program(kind, True), np.concatenate([buf] * G),
+                                         G, chaos=False)
+            else:
+                pending = self._dispatch(_chunk_program(kind, False), buf, chaos=False)
+            pending.result()
 
     # -- full pipeline ----------------------------------------------------
 
@@ -540,8 +862,8 @@ class Basecaller:
                     chunked.add(long_items)
             prepped.extend(batch)
 
-        wave = PREPROCESS_WAVE
-        if len(reads) > wave:
+        wave = _preprocess_wave()
+        if wave and len(reads) > wave:
             from concurrent.futures import ThreadPoolExecutor
 
             offsets = list(range(0, len(reads), wave))
@@ -566,7 +888,10 @@ class Basecaller:
         def _dispatch(part, bucket):
             with timing.phase("pack"):
                 i16, buf = pack_bucket(part, bucket)
-            return self._dispatch(
+                b8 = encode_d8(buf) if i16 and _prefer_d8() else None
+            if b8 is not None:
+                return self._submit_dispatch(_device_basecall_packed_d8, b8)
+            return self._submit_dispatch(
                 _device_basecall_packed_i16 if i16 else _device_basecall_packed, buf)
 
         def _collect(tag, out):
@@ -604,13 +929,23 @@ class Basecaller:
         dispatches every FULL chunk batch at once, whose ``flush()``
         dispatches the remainder, and whose ``drain()`` collects every
         batch in flight: full batches at self.chunk_batch, then one final
-        (possibly bucketed) tail."""
+        (possibly bucketed) tail.
+
+        Under FLAPPIE_TPU_DISPATCH_GROUP=G > 1, G consecutive batches of
+        one wire go as one grouped dispatch (flappie_tpu/basecall.py:
+        1316-1400), and a failed group drops only its batches' reads.  A
+        partial group (the tail, or a change of wire) runs at its own
+        length: the JAX package pads it with dummy batches to reuse one
+        compiled program, and torch compiles nothing per shape."""
         stride = self.cfg.total_stride
         chunk_T = self.chunk
         nstate = self.cfg.nstate
         jobs = []  # (read index, ChunkRecord) not yet packed
         state: dict = {}
         dispatched = [False]  # has any full batch been packed yet?
+        i16_ok = _upload_mode() != "f32"
+        # the collector thread and this one both finish reads
+        lock = threading.Lock()
 
         def _register(items):
             for i, rt in items:
@@ -618,24 +953,25 @@ class Basecaller:
                 plan = plan_chunks(seg.size, stride, chunk_T, self.overlap)
                 recs = chunk_records(plan)
                 nb = plan.nblocks
-                i16 = _i16_capable(rt)
-                state[i] = {
-                    "rt": rt,
-                    "seg": seg,
-                    "adc_seg": rt.adc[rt.start : rt.end] if i16 else None,
-                    "scal": (rt.cal[0], rt.cal[1], rt.norm[0], rt.norm[1]) if i16 else None,
-                    "nb": nb,
-                    "remaining": len(recs),
-                    "score": 0.0,
-                    "path": np.zeros(nb + 1, np.int8),
-                    "qchar": np.zeros(nb + 1, np.uint8),
-                    "trace": (np.zeros((nb + 1, nstate), np.uint8)
-                              if self.compute_trace else None),
-                }
+                i16 = i16_ok and _i16_capable(rt)
+                with lock:
+                    state[i] = {
+                        "rt": rt,
+                        "seg": seg,
+                        "adc_seg": rt.adc[rt.start : rt.end] if i16 else None,
+                        "scal": (rt.cal[0], rt.cal[1], rt.norm[0], rt.norm[1]) if i16 else None,
+                        "nb": nb,
+                        "remaining": len(recs),
+                        "score": 0.0,
+                        "path": np.zeros(nb + 1, np.int8),
+                        "qchar": np.zeros(nb + 1, np.uint8),
+                        "trace": (np.zeros((nb + 1, nstate), np.uint8)
+                                  if self.compute_trace else None),
+                    }
                 jobs.extend((i, r) for r in recs)
 
         def _pack(job_slice, CB):
-            """-> (program, packed buffer) of one chunk batch."""
+            """-> (wire, packed buffer) of one chunk batch."""
             # dummy rows: a few valid samples, empty score range
             lengths = np.full(CB, stride, np.int32)
             qlo = np.zeros(CB, np.int32)
@@ -650,15 +986,16 @@ class Basecaller:
                     qlo[j] = r.qlo
                     qhi[j] = r.qhi
                     scal[j] = state[i]["scal"]
-                return (_device_basecall_chunk_packed_i16,
-                        pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal))
+                buf16 = pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal)
+                b8 = encode_d8(buf16) if _prefer_d8() else None
+                return ("d8", b8) if b8 is not None else ("i16", buf16)
             sig = np.zeros((CB, chunk_T), F32)
             for j, (i, r) in enumerate(job_slice):
                 sig[j, : r.length] = state[i]["seg"][r.start : r.start + r.length]
                 lengths[j] = r.length
                 qlo[j] = r.qlo
                 qhi[j] = r.qhi
-            return _device_basecall_chunk_packed, pack_chunk_inputs(sig, lengths, qlo, qhi)
+            return "f32", pack_chunk_inputs(sig, lengths, qlo, qhi)
 
         def _finish(i):
             st = state[i]
@@ -672,42 +1009,76 @@ class Basecaller:
         def _collect(job_slice, out):
             score, path, qchar, _, trace = _unpack_chunk_outputs(
                 out, chunk_T // stride + 1, nstate, self.compute_trace)
-            for j, (i, r) in enumerate(job_slice):
-                st = state[i]
-                if st["remaining"] <= 0:
-                    continue
-                end = r.keep_hi + (1 if r.last else 0)  # fencepost entry
-                lo, g0 = r.keep_lo, r.g0
-                st["path"][lo:end] = path[j, lo - g0 : end - g0]
-                st["qchar"][lo:end] = qchar[j, lo - g0 : end - g0]
-                if st["trace"] is not None:
-                    st["trace"][lo:end] = trace[j, lo - g0 : end - g0]
-                st["score"] += float(score[j])
-                st["remaining"] -= 1
-                _finish(i)
+            with lock:
+                for j, (i, r) in enumerate(job_slice):
+                    st = state[i]
+                    if st["remaining"] <= 0:
+                        continue
+                    end = r.keep_hi + (1 if r.last else 0)  # fencepost entry
+                    lo, g0 = r.keep_lo, r.g0
+                    st["path"][lo:end] = path[j, lo - g0 : end - g0]
+                    st["qchar"][lo:end] = qchar[j, lo - g0 : end - g0]
+                    if st["trace"] is not None:
+                        st["trace"][lo:end] = trace[j, lo - g0 : end - g0]
+                    st["score"] += float(score[j])
+                    st["remaining"] -= 1
+                    _finish(i)
 
         def _on_error(job_slice, exc):
             # a failed chunk batch fails only the reads it carries
             fails = sorted({i for i, _ in job_slice})
             print(f"chunk batch failed ({exc}); dropping read(s) {fails}",
                   file=sys.stderr)
-            for i, _r in job_slice:
-                st = state[i]
-                if st["remaining"] <= 0:
-                    continue
-                st["failed"] = True
-                st["remaining"] -= 1
-                _finish(i)
+            with lock:
+                for i, _r in job_slice:
+                    st = state[i]
+                    if st["remaining"] <= 0:
+                        continue
+                    st["failed"] = True
+                    st["remaining"] -= 1
+                    _finish(i)
 
+        G = _dispatch_group()
         pipe = _Pipeline(_collect, on_error=_on_error)
+        pend = SimpleNamespace(kind=None, parts=[], bufs=[])
+
+        def _push(part, kind, bufs):
+            try:
+                if len(bufs) == 1 and G <= 1:
+                    pending = self._submit_dispatch(_chunk_program(kind, False), bufs[0])
+                else:
+                    pending = self._submit_dispatch(_chunk_program(kind, True),
+                                                    np.concatenate(bufs), len(bufs))
+                pipe.push(part, pending)
+            except Exception as exc:  # noqa: BLE001 - batch isolation
+                _on_error(part, exc)
+
+        def _flush_group():
+            """The pending batches (G, or fewer at a partial group) as one
+            grouped dispatch."""
+            if not pend.bufs:
+                return
+            _push([j for p in pend.parts for j in p], pend.kind, list(pend.bufs))
+            pend.parts.clear()
+            pend.bufs.clear()
 
         def _route(part, CB):
             try:
                 with timing.phase("pack"):
-                    program, buf = _pack(part, CB)
-                pipe.push(part, self._dispatch(program, buf))
+                    kind, buf = _pack(part, CB)
             except Exception as exc:  # noqa: BLE001 - batch isolation
                 _on_error(part, exc)
+                return
+            if G <= 1:
+                _push(part, kind, [buf])
+                return
+            if pend.bufs and kind != pend.kind:
+                _flush_group()
+            pend.kind = kind
+            pend.parts.append(part)
+            pend.bufs.append(buf)
+            if len(pend.bufs) == G:
+                _flush_group()
 
         def add(items):
             _register(items)
@@ -728,6 +1099,7 @@ class Basecaller:
                     part = jobs[:CB]
                     del jobs[:CB]
                     _route(part, CB)
+            _flush_group()
 
         return SimpleNamespace(add=add, flush=flush, drain=pipe.drain)
 

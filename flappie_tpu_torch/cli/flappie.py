@@ -25,6 +25,13 @@ summary on stderr at exit.  Multi-process runs go through
 (the JAX CLI's flag name, so that both parsers take the same flags)
 records the basecalling loop with ``torch.profiler`` and writes a
 Chrome trace under DIR.
+
+FLAPPIE_TPU_PREWARM=1 runs ``Basecaller.prewarm_chunked`` (one dummy
+chunk batch on the run's wire and group size) on a background thread
+while the reads load and preprocess, when more than one file is given
+and the chunked path is on; ``auto`` and ``0`` mean no prewarm (``auto``
+prewarms only on a TPU in the JAX package).  A prewarm failure is raised
+when the thread is joined, after the basecalling.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import glob as globmod
 import json
 import os
 import sys
+import threading
 
 import torch
 
@@ -256,6 +264,31 @@ def basecall(caller, args, reads):
         )
 
 
+class _Prewarm(threading.Thread):
+    """``caller.prewarm_chunked()`` on a thread; its exception, if any,
+    kept in ``error`` for the joiner to raise."""
+
+    def __init__(self, caller):
+        super().__init__(name="flappie-prewarm", daemon=True)
+        self.caller, self.error = caller, None
+
+    def run(self):
+        try:
+            self.caller.prewarm_chunked()
+        except BaseException as exc:  # noqa: BLE001 - raised by the joiner
+            self.error = exc
+
+
+def start_prewarm(caller, nfiles: int):
+    """The prewarm thread, started, under FLAPPIE_TPU_PREWARM=1 for a run
+    of more than one file on the chunked path; else None."""
+    if os.environ.get("FLAPPIE_TPU_PREWARM", "auto") != "1" or nfiles <= 1 or not caller.chunk:
+        return None
+    warm = _Prewarm(caller)
+    warm.start()
+    return warm
+
+
 def expand_files(args_files):
     """Directory -> dir/*.fast5 glob; warn on misses (flappie.c:338-362)."""
     out = []
@@ -339,12 +372,17 @@ def main(argv=None) -> int:
     caller = make_caller(args)
     if caller is None:
         return 1
+    warm = start_prewarm(caller, len(files))
 
     reads, names, fnames = expand_reads(files, args.multi)
     if args.limit > 0:
         reads, names, fnames = reads[: args.limit], names[: args.limit], fnames[: args.limit]
 
     results = basecall(caller, args, reads)
+    if warm is not None:
+        warm.join()
+        if warm.error is not None:
+            raise warm.error
 
     out = open(args.output, "w") if args.output else sys.stdout
     try:
@@ -368,7 +406,7 @@ def main(argv=None) -> int:
     if args.mesh > 1:
         # which programs ran and over how many devices each dispatch spanned
         print(f"flappie-mesh: {json.dumps(caller.wire_summary())}", file=sys.stderr)
-        caller.close()
+    caller.close()
     return 0
 
 

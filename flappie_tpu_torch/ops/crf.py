@@ -14,12 +14,18 @@ src/layers.c:1035-1079):
 The run-length (runnie V2) structure is ``rle_index``.  Forbidden
 transitions are the finite NEG_BIG rather than -inf.
 
-The scans run on the port's CRF kernels, chosen by
-``FLAPPIE_TPU_CRF_IMPL`` at call time (``_impl``): ``auto`` and
-``scanb`` run the batch-minor K3/K4, K5, K6 (ops/crf_bm.py ->
-ops/crf_bm_cuda.py), the JAX package's TPU default; ``pallas`` runs the
-batch-major K11 (ops/crf_cuda.py), as the JAX package's opt-in
-crf_pallas.py does.
+The scans are chosen by ``FLAPPIE_TPU_CRF_IMPL`` at call time
+(``_impl``): ``auto`` and ``scanb`` run the batch-minor K3/K4, K5, K6
+(ops/crf_bm.py -> ops/crf_bm_cuda.py), the JAX package's TPU default;
+``pallas`` runs the batch-major K11 (ops/crf_cuda.py), as the JAX
+package's opt-in crf_pallas.py does; ``seg`` runs the two-level
+segmented scans of ops/crf_seg.py; ``scan`` runs the JAX package's
+sequential batch-major formulation (its CPU reference) as plain torch
+steps on any device, K11's plain versions (``fwd_scan_plain``,
+``viterbi_scan_plain``, ``traceback_bt_plain``) through the transposes
+the JAX scans use.  ``scan`` is a plain formulation by design, reached
+only by the knob: it is not a kernel's twin standing in for one, and on
+the card it is a Python loop of small ops a step.
 """
 
 from __future__ import annotations
@@ -177,21 +183,34 @@ def dense_from_params(p, idx: TransIndex):
     return torch.where(tab.allowed, gathered, torch.full_like(gathered, NEG_BIG))
 
 
+IMPLS = ("scanb", "pallas", "seg", "scan")
+
+
 def _impl() -> str:
     """The CRF scans' implementation, read from FLAPPIE_TPU_CRF_IMPL at
-    call time: ``auto`` (default) and ``scanb`` -> ``"scanb"``, the
-    batch-minor kernels K3/K4, K5, K6; ``pallas`` -> ``"pallas"``, the
-    batch-major K11.  The JAX package's ``scan`` (its CPU reference) and
-    ``seg`` (two-level segmented scans) are not ported and raise."""
+    call time: ``auto`` (default, on every device) and ``scanb`` ->
+    ``"scanb"``, the batch-minor kernels K3/K4, K5, K6; ``pallas``, the
+    batch-major K11; ``seg``, the segmented scans (ops/crf_seg.py);
+    ``scan``, the sequential plain formulation.  Anything else raises."""
     v = os.environ.get("FLAPPIE_TPU_CRF_IMPL", "auto")
-    if v in ("auto", "scanb"):
+    if v == "auto":
         return "scanb"
-    if v == "pallas":
-        return "pallas"
+    if v in IMPLS:
+        return v
     raise ValueError(
         f"FLAPPIE_TPU_CRF_IMPL={v!r}: flappie_tpu_torch runs 'auto'/'scanb' (batch-minor "
-        "kernels K3-K6) and 'pallas' (batch-major kernels K11); the 'scan' and 'seg' "
-        "scans are not ported (ROADMAP item 12)")
+        "kernels K3-K6), 'pallas' (batch-major kernels K11), 'seg' (segmented scans) and "
+        "'scan' (the sequential plain formulation)")
+
+
+def _bt_fns(impl: str):
+    """(forward scan, Viterbi scan, traceback) of the batch-major impls:
+    K11's wrappers under ``pallas``, their plain versions under ``scan``."""
+    from . import crf_cuda
+
+    if impl == "pallas":
+        return crf_cuda.fwd_scan, crf_cuda.viterbi_scan, crf_cuda.traceback_bt
+    return crf_cuda.fwd_scan_plain, crf_cuda.viterbi_scan_plain, crf_cuda.traceback_bt_plain
 
 
 def _time_valid(nblocks, T: int, device):
@@ -215,16 +234,21 @@ def crf_forward(trans, nblocks, nbase: int, idx: TransIndex | None = None):
 
     alpha[:, 0] = 0 (src/layers.c:1042-1047); padded blocks leave alpha
     unchanged; logZ is the lse of alpha at each read's own final block.
-    The scan is K3 (scanb) or K11's forward scan (pallas)."""
+    The scan is K3 (scanb), K11's forward scan (pallas), its plain version
+    (scan) or ops/crf_seg.py's (seg)."""
     idx = idx if idx is not None else flipflop_index(nbase)
     B, T, _ = trans.shape
     S = idx.nstate
     tvalid = _time_valid(nblocks, T, trans.device)
-    if _impl() == "pallas":
-        from .crf_cuda import fwd_scan
-
+    impl = _impl()
+    if impl in ("pallas", "scan"):
+        fwd_scan = _bt_fns(impl)[0]
         alphas = fwd_scan(dense_from_params(trans.transpose(0, 1), idx), tvalid)
         alphas = torch.cat([alphas.new_zeros(1, B, S), alphas], dim=0).transpose(0, 1)
+    elif impl == "seg":
+        from .crf_seg import seg_forward_states
+
+        alphas = seg_forward_states(dense_from_params(trans, idx), nblocks)
     else:
         from .crf_bm import _dense_tm, _fwd_states_tm
 
@@ -253,13 +277,18 @@ def crf_backward(trans, nblocks, nbase: int, idx: TransIndex | None = None):
     block is 0 (and stays 0 through the padded tail).  scanb: K4; pallas:
     K11's forward scan over the transposed, time-reversed blocks (the
     backward update lse(m + beta, axis=to) is the forward update on the
-    transposed matrices), as flappie_tpu/ops/crf.py:336-344 does."""
+    transposed matrices), as flappie_tpu/ops/crf.py:336-344 does; scan:
+    its plain version the same way; seg: ops/crf_seg.py's."""
     idx = idx if idx is not None else flipflop_index(nbase)
     B, T, _ = trans.shape
     tvalid = _time_valid(nblocks, T, trans.device)
-    if _impl() == "pallas":
-        from .crf_cuda import fwd_scan
+    impl = _impl()
+    if impl == "seg":
+        from .crf_seg import seg_backward_states
 
+        return seg_backward_states(dense_from_params(trans, idx), nblocks)
+    if impl in ("pallas", "scan"):
+        fwd_scan = _bt_fns(impl)[0]
         dense = dense_from_params(trans.transpose(0, 1), idx)  # [T, B, S, S]
         betas_rev = fwd_scan(dense.flip(0).transpose(-1, -2), tvalid.flip(0))
         betas = torch.cat([betas_rev.new_zeros(1, B, idx.nstate), betas_rev], dim=0).flip(0)
@@ -290,13 +319,22 @@ def crf_viterbi_forward(trans, nblocks, nbase: int, idx: TransIndex | None = Non
     """Max-plus forward pass: (score [B], last_state [B] int32, backptr
     [B, T, nstate] int8).  Ties resolve by ``idx.tie_rank`` (the
     reference decode loops' orders, decode.c:153-180 and :960-995).
-    scanb: K5; pallas: K11's Viterbi scan."""
+    scanb: K5; pallas: K11's Viterbi scan; scan: its plain version; seg:
+    ops/crf_seg.py's max-plus states and elementwise backpointers."""
     idx = idx if idx is not None else flipflop_index(nbase)
     B, T, _ = trans.shape
     tvalid = _time_valid(nblocks, T, trans.device)
-    if _impl() == "pallas":
-        from .crf_cuda import viterbi_scan
+    impl = _impl()
+    if impl == "seg":
+        from .crf_seg import seg_backptr, seg_viterbi_states
 
+        dense = dense_from_params(trans, idx)
+        alphas = seg_viterbi_states(dense, nblocks)
+        backptr = seg_backptr(alphas, dense, nblocks, idx.tie_rank, RANK_BIG)
+        final = alphas[:, -1]  # frozen at each read's own nblocks
+        return final.amax(dim=-1), final.argmax(dim=-1).to(torch.int32), backptr
+    if impl in ("pallas", "scan"):
+        viterbi_scan = _bt_fns(impl)[1]
         alphas, bps = viterbi_scan(dense_from_params(trans.transpose(0, 1), idx), tvalid,
                                    index_tables(idx, trans.device).tie_rank)
         # the state freezes on padded steps, so the last row is every
@@ -314,12 +352,18 @@ def viterbi_traceback(backptr, last_state, nblocks):
     int32 with path[b, nblocks[b]] = last_state[b] and path[b, t] =
     backptr[b, t, path[b, t+1]] for t < nblocks[b]; the tail beyond
     nblocks holds last_state.  scanb: K6; pallas: K11's traceback over
-    the time-reversed arrays."""
+    the time-reversed arrays; scan: its plain version; seg: the
+    composition of ops/crf_seg.py (the backpointers are the identity at
+    invalid steps, as every producer writes them)."""
     B, T, _ = backptr.shape
     tvalid = _time_valid(nblocks, T, backptr.device)
-    if _impl() == "pallas":
-        from .crf_cuda import traceback_bt
+    impl = _impl()
+    if impl == "seg":
+        from .crf_seg import seg_traceback
 
+        return seg_traceback(backptr, last_state, nblocks)
+    if impl in ("pallas", "scan"):
+        traceback_bt = _bt_fns(impl)[2]
         states_rev = traceback_bt(backptr.transpose(0, 1).flip(0), tvalid.flip(0), last_state)
         last = last_state.to(device=backptr.device, dtype=torch.int32)[None]
         return torch.cat([last, states_rev], dim=0).flip(0).T

@@ -4,8 +4,9 @@ The whole decode stays time-major with the batch minor: forward,
 backward + transition posterior, Viterbi, traceback; only the byte-sized
 outputs transpose back at the end.  The scans are the port's CRF
 kernels (ops/crf_bm_cuda.py: K3/K4, or K9 for the posterior's two
-scans under FLAPPIE_TPU_SCANB_FB=fused, then K5 and K6); everything
-around them is plain tensor code.
+scans under FLAPPIE_TPU_SCANB_FB=fused, then K5 and K6), or their plain
+versions under FLAPPIE_TPU_SCANB_KERNELS=off (``_use_kernels``);
+everything around them is plain tensor code.
 
 Reference semantics: src/decode.c:119-204 (Viterbi), :377-498
 (forward/backward transition posterior), src/layers.c:1035 (partition).
@@ -21,6 +22,19 @@ import torch
 from . import crf_bm_cuda
 from .crf import NEG_BIG, TransIndex, flipflop_index, index_tables, lse
 
+def _use_kernels(device) -> bool:
+    """FLAPPIE_TPU_SCANB_KERNELS, read at call time, as the JAX package's
+    (crf_bm.py:39-53): ``auto`` (default) calls the kernels' wrappers,
+    which launch on a CUDA device and run their plain versions on the
+    CPU; ``off`` runs the plain scans on any device (JAX's blocked
+    ``lax.scan``, the formulation reference); ``on`` (or ``1``, ``true``)
+    runs the kernels and raises on the CPU, which has none."""
+    v = os.environ.get("FLAPPIE_TPU_SCANB_KERNELS", "auto")
+    if v in ("1", "on", "true") and torch.device(device).type != "cuda":
+        raise ValueError(f"FLAPPIE_TPU_SCANB_KERNELS={v}: the CRF scan kernels run on a "
+                         f"CUDA device, not {device}")
+    return v != "off"
+
 
 def _dense_tm(trans_tm, idx: TransIndex):
     """[T, P, B] -> [T, S, S, B] (from, to); forbidden = NEG_BIG."""
@@ -34,12 +48,16 @@ def _dense_tm(trans_tm, idx: TransIndex):
 
 def _fwd_states_tm(dense_tm, tvalid_tm):
     """alphas [T+1, S, B] of the sum-semiring forward scan (K3)."""
-    return crf_bm_cuda.fwd_states(dense_tm, tvalid_tm)
+    if _use_kernels(dense_tm.device):
+        return crf_bm_cuda.fwd_states(dense_tm, tvalid_tm)
+    return crf_bm_cuda.sum_states_plain(dense_tm, tvalid_tm, False)
 
 
 def _bwd_states_tm(dense_tm, tvalid_tm):
     """betas [T+1, S, B]: beta[T]=0, beta[t]=lse_j m[t,i,j]+beta[t+1,j] (K4)."""
-    return crf_bm_cuda.bwd_states(dense_tm, tvalid_tm)
+    if _use_kernels(dense_tm.device):
+        return crf_bm_cuda.bwd_states(dense_tm, tvalid_tm)
+    return crf_bm_cuda.sum_states_plain(dense_tm, tvalid_tm, True)
 
 
 def _use_fused_fb() -> bool:
@@ -54,7 +72,7 @@ def _transpost_tm(trans_tm, tvalid_tm, idx: TransIndex):
     """Per-block transition posteriors [T, P, B], log-normalised per
     block (log_row_normalise, src/flappie_matrix.c:450-467)."""
     dense = _dense_tm(trans_tm, idx)
-    if _use_fused_fb():
+    if _use_fused_fb() and _use_kernels(dense.device):
         alphas, betas = crf_bm_cuda.fwdbwd_states(dense, tvalid_tm)
     else:
         alphas = _fwd_states_tm(dense, tvalid_tm)
@@ -122,8 +140,9 @@ class PartitionScan(torch.autograd.Function):
 
 def _viterbi_fwd_tm(dense_tm, tvalid_tm, idx: TransIndex):
     """Max-plus forward (K5): (score [B], last_state [B], backptr [T,S,B])."""
-    alpha, bps = crf_bm_cuda.viterbi_fwd(dense_tm, tvalid_tm,
-                                         index_tables(idx, dense_tm.device).tie_rank)
+    fwd = (crf_bm_cuda.viterbi_fwd if _use_kernels(dense_tm.device)
+           else crf_bm_cuda.viterbi_fwd_plain)
+    alpha, bps = fwd(dense_tm, tvalid_tm, index_tables(idx, dense_tm.device).tie_rank)
     score = alpha.amax(dim=0)
     last_state = alpha.argmax(dim=0).to(torch.int32)
     return score, last_state, bps
@@ -131,7 +150,9 @@ def _viterbi_fwd_tm(dense_tm, tvalid_tm, idx: TransIndex):
 
 def _traceback_tm(backptr_tm, last_state, tvalid_tm):
     """path [T+1, B] int32 from [T, S, B] backpointers (K6)."""
-    return crf_bm_cuda.traceback(backptr_tm, tvalid_tm, last_state)
+    if _use_kernels(backptr_tm.device):
+        return crf_bm_cuda.traceback(backptr_tm, tvalid_tm, last_state)
+    return crf_bm_cuda.traceback_plain(backptr_tm, tvalid_tm, last_state)
 
 
 def decode_bm(trans, nblocks, nbase: int, viterbi_only: bool, compute_trace: bool,

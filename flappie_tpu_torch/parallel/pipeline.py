@@ -18,6 +18,12 @@ and ops/crf.py ``lse`` keep the CPU path's sums in one order at every
 batch size), so the output bytes equal the one-device run's, on the CPU
 exactly (on the card see ROADMAP.md section 3).
 
+Every wire shards so (f32, i16, d8), a batch whose d8 encode overflowed
+to i16 too, and a grouped dispatch of G batches shards each batch's rows
+in the same bounds: a device's shard is its rows of every batch, G
+slices that its own grouped program runs in turn, and the output rows
+are put back in group order.
+
 Each mesh device has one persistent dispatch thread, which makes its
 device current (``torch.cuda.device``) around every shard: the C entries
 size their grids and set kernel attributes on the current device, and a
@@ -34,7 +40,6 @@ process group serves data-parallel training (train/trainer.py).
 
 from __future__ import annotations
 
-import contextlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -43,7 +48,7 @@ import numpy as np
 import torch
 
 from .. import timing
-from ..basecall import Basecaller, _chaos_maybe_fail_dispatch, _DeviceQueue
+from ..basecall import Basecaller, _chaos_maybe_fail_dispatch, _DeviceQueue, _on_device
 from .mesh import Mesh, batch_sharding, make_mesh, shard_params
 
 
@@ -68,25 +73,26 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
     return dist.group.WORLD
 
 
-def _on_device(device: torch.device):
-    """The context that makes ``device`` current on the calling thread."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
-
-
 class _Sharded:
     """One dispatched batch: a future a shard, in row order; each gives
-    that shard's in-flight batch (basecall._InFlight)."""
+    that shard's in-flight batch (basecall._InFlight).  A grouped batch's
+    shards hold G slices each, put back in group order."""
 
-    def __init__(self, futures):
+    def __init__(self, futures, G: Optional[int] = None):
         self._futures = futures
+        self._G = G
 
     def result(self) -> np.ndarray:
         with timing.phase("shard_wait"):  # the dispatch threads issuing the shards
             pending = [f.result() for f in self._futures]
         parts = [p.result() for p in pending]
-        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+        if len(parts) == 1:
+            return parts[0]
+        if self._G is None:
+            return np.concatenate(parts, axis=0)
+        G = self._G
+        groups = [p.reshape(G, p.shape[0] // G, p.shape[1]) for p in parts]
+        return np.concatenate(groups, axis=1).reshape(-1, parts[0].shape[1])
 
 
 class DistributedBasecaller(Basecaller):
@@ -112,33 +118,46 @@ class DistributedBasecaller(Basecaller):
         # without bound, and the summary covers the recent past
         self.wire_log: deque = deque(maxlen=4096)
 
-    def _run_shard(self, i: int, program, shard: np.ndarray):
+    def _run_shard(self, i: int, program, shard: np.ndarray, G: Optional[int]):
+        extra = () if G is None else (G,)
         with _on_device(self.mesh.devices[i]):
             return self._queues[i].run(
-                lambda dev: program(self.replicas[i], dev, self.cfg, self.temperature,
+                lambda dev: program(self.replicas[i], dev, *extra, self.cfg, self.temperature,
                                     self.viterbi_only, self.compute_trace, self.rnn_impl,
                                     self.stream), shard)
 
-    def _dispatch(self, program, buf: np.ndarray) -> _Sharded:
-        """Split one packed batch's rows over the mesh and hand each
-        shard to its device's thread; returns at once."""
-        _chaos_maybe_fail_dispatch()
+    def _dispatch(self, program, buf: np.ndarray, G: Optional[int] = None,
+                  chaos: bool = True) -> _Sharded:
+        """Split one packed batch's rows (each of a grouped dispatch's G
+        batches in the same bounds) over the mesh and hand each shard to
+        its device's thread; returns at once."""
+        if chaos:
+            _chaos_maybe_fail_dispatch()
+        self._count_dispatch(program)
         buf = np.ascontiguousarray(buf)
-        bounds = batch_sharding(self.mesh, buf.shape[0])
-        futures = [self._threads[i].submit(self._run_shard, i, program, buf[lo:hi])
-                   for i, (lo, hi) in enumerate(bounds)]
+        rows = buf.shape[0] if G is None else buf.shape[0] // G
+        bounds = batch_sharding(self.mesh, rows)
+        if G is None:
+            shards = [buf[lo:hi] for lo, hi in bounds]
+        else:
+            groups = buf.reshape(G, rows, buf.shape[1])
+            shards = [np.ascontiguousarray(groups[:, lo:hi]).reshape(-1, buf.shape[1])
+                      for lo, hi in bounds]
+        futures = [self._threads[i].submit(self._run_shard, i, program, shard, G)
+                   for i, shard in enumerate(shards)]
         self.wire_log.append({
             "program": getattr(program, "__name__", str(program)),
             "dtype": str(buf.dtype),
             "rows": int(buf.shape[0]),
             "devices": len(futures),
-            "shard_rows": [hi - lo for lo, hi in bounds],
+            "shard_rows": [len(shard) for shard in shards],
         })
-        return _Sharded(futures)
+        return _Sharded(futures, G)
 
     def wire_summary(self) -> dict:
-        """Per program and wire dtype: the dispatches, the shard counts
-        they spanned and their rows (the JAX summary's keys)."""
+        """Per program and wire dtype (float32: f32, int16: i16, int8: d8):
+        the dispatches, the shard counts they spanned and their rows (the
+        JAX summary's keys)."""
         summary: dict = {}
         for rec in self.wire_log:
             ent = summary.setdefault(f"{rec['program']}[{rec['dtype']}]",
@@ -149,6 +168,8 @@ class DistributedBasecaller(Basecaller):
         return {k: {**v, "devices": sorted(v["devices"])} for k, v in summary.items()}
 
     def close(self) -> None:
-        """Stop the dispatch threads (after the shards in flight)."""
+        """Stop the dispatch threads (after the shards in flight) and the
+        upload pool."""
+        super().close()
         for t in self._threads:
             t.shutdown(wait=True)

@@ -61,12 +61,27 @@ def _scale_signal(sig: np.ndarray, channel_attrs, scale_to_pA: bool):
     return raw, adc, cal
 
 
+def _chaos() -> bool:
+    """Fault injection (reference CHAOSMONKEY, src/flappie_stdlib.h:18-35):
+    with FLAPPIE_TPU_CHAOS=p set, each read_raw fails with probability p,
+    exercising the per-read fault isolation (flappie_tpu/signal/fast5.py:
+    56-64)."""
+    import os
+    import random
+
+    p = os.environ.get("FLAPPIE_TPU_CHAOS")
+    return p is not None and random.random() < float(p)
+
+
 def read_raw(filename: str, scale_to_pA: bool = True) -> RawTable:
     """Read the first read of a single-read fast5 file.
 
     Returns an invalid RawTable (raw=None) on any failure, matching the
-    reference's NULL-propagation fault isolation.
+    reference's NULL-propagation fault isolation (and at random under
+    FLAPPIE_TPU_CHAOS).
     """
+    if _chaos():
+        return RawTable(None, 0, 0, 0, None)
     if h5py is None:
         return _read_raw_min(filename, scale_to_pA)
     try:

@@ -16,7 +16,7 @@ them).  On the CPU every kernel wrapper takes its plain version.
   whole decode) and under ``FLAPPIE_TPU_SCANB_FB=fused`` (K9 for the
   posterior) gives the default run's output, the score's last printed
   digit aside (test_torch_e2e.py's rule);
-- an unported setting raises.
+- an unknown setting raises (``seg`` and ``scan`` run: test_torch_crf_seg.py).
 """
 
 from __future__ import annotations
@@ -149,9 +149,9 @@ def test_flappie_cli_same_bytes_under_each_knob(tmp_path, monkeypatch, knob):
     _assert_same_output(_run(t_flappie_main, args, tmp_path / "knob.fq"), default)
 
 
-@pytest.mark.parametrize("value", ["seg", "scan", "bogus"])
+@pytest.mark.parametrize("value", ["bogus"])
 def test_unported_crf_impl_raises(monkeypatch, value):
     monkeypatch.setenv("FLAPPIE_TPU_CRF_IMPL", value)
     trans, nblocks = _trans(2, 10, 40, seed=1)
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
+    with pytest.raises(ValueError, match="'seg' \\(segmented scans\\)"):
         t_crf.crf_forward(torch.from_numpy(trans), torch.from_numpy(nblocks), 4)
