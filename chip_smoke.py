@@ -107,7 +107,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    within 1e-4 and its mean over the first 16 steps within P1_EARLY, while
    the same layer's f32-step kernel (the control) lies at least 3 P1_EARLY
    from that twin over those steps; timed alternated with the control on
-   each stream, a row for each stream (no library call: null).
+   each stream, a row for each stream (no library call: null; the bound
+   counts the one-pass products as bf16 tensor operations).  The LSTM's
+   (csrc/cluster_rnn_mma.cuh, the tensor-core step) also at every rows a
+   cluster (B = 1 ... 257, T = 40-64, both streams and directions):
+   K8-default's h bit-equal to K1-default's, h and c inside the same
+   band, the control at least 3 P1_EARLY outside.
 3. Main paths, full width, synthetic weights.  Through
    flappie_tpu_torch.cli.flappie.main, default flags and then --viterbi:
    r941_native on 64 seeded synthetic fast5 reads of ~100k samples
@@ -328,6 +333,19 @@ PEAKS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# seconds of each phase of this run (logged before the result)
+phase_seconds: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its seconds added to phase_seconds[name]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        phase_seconds[name] = phase_seconds.get(name, 0.0) + time.perf_counter() - t0
 
 
 def card_line() -> str:
@@ -633,22 +651,27 @@ ENTRY_ARGS = {
     "flappie_conv12_info": "IIP",
 }
 
-# nvcc's output of each build loaded by finish_builds, by variant
+# nvcc's output of each build loaded by finish_builds, and its seconds
+# from its start to its exit, by variant
 variant_log: dict = {}
+variant_seconds: dict = {}
 
 
 def start_builds(cuda_build, variants: dict, csrc: str = None) -> dict:
     """Start one nvcc for each variant {name: (source, (-D flags))} of
     csrc/<source>.cu (``csrc``: another checkout's sources, as
-    compare_scans.py builds them): {name: (library, process)}."""
+    compare_scans.py builds them): {name: (library, process, start, wait)},
+    each process's output read from its start (cuda_build.read_async)."""
     jobs = {}
     for name, (src, flags) in variants.items():
         so = os.path.join(cuda_build.BUILD_DIR, name, f"lib{src}.so")
         os.makedirs(os.path.dirname(so), exist_ok=True)
         cu = os.path.join(csrc or cuda_build.CSRC_DIR, src + ".cu")
-        jobs[name] = so, subprocess.Popen(
+        start = time.perf_counter()
+        proc = subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs[name] = so, proc, start, cuda_build.read_async(proc)
     return jobs
 
 
@@ -658,11 +681,12 @@ def finish_builds(jobs: dict) -> dict:
     import ctypes
 
     libs = {}
-    for name, (so, proc) in jobs.items():
-        out, err = proc.communicate()
+    for name, (so, proc, start, wait) in jobs.items():
+        out, err, end = wait()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc for build {name} failed:\n{err}")
         variant_log[name] = out + err
+        variant_seconds[name] = end - start
         lib = ctypes.CDLL(so)
         for fn, kinds in ENTRY_ARGS.items():
             if hasattr(lib, fn):
@@ -1922,23 +1946,34 @@ def check_layer_p1(torch, peak: dict, gen, kind: str) -> list:
     plain_bf16_ms = cuda_ms(torch, lambda: plain(xb, iW16, b, sW, True, lengths, rdot="bf16"), 1)
     nvalid = int(lengths.sum().item())
     outs = T * B * H * (2 if kind == "lstm_train" else 1)
-    bms, by = bound(4 * (nvalid * IN + IN * G + G + H * G + B + outs), 2 * nvalid * (IN + H) * G,
-                    peak)
-    bms16, by16 = bound(2 * (nvalid * IN + IN * G + outs) + 4 * (G + H * G + B),
-                        2 * nvalid * H * G, peak, 2 * nvalid * IN * G)
+    # the one-pass products are bf16 tensor work, whatever runs them: the
+    # step's on the f32 stream (its affine f32), both on the bf16 stream
+    # and at ff one pass
+    f32_bytes = 4 * (nvalid * IN + IN * G + G + H * G + B + outs)
+    bms, by = bound(f32_bytes, 2 * nvalid * IN * G, peak, 2 * nvalid * H * G)
+    bms16, by16 = bound(2 * (nvalid * IN + IN * G + outs) + 4 * (G + H * G + B), 0, peak,
+                        2 * nvalid * (IN + H) * G)
+    bms_ff, by_ff = bound(f32_bytes, 0, peak, 2 * nvalid * (IN + H) * G)
     log(f"{kid} at T={T}, B={B}, IN=H={H}, alternated: the one-pass step, f32 affine "
         f"{spread(times['one_pass'])} = {1e3 * med['one_pass'] / T:.3f} us a step; with the "
         f"one-pass affine {spread(times['one_pass_ff'])}; the f32 kernel {spread(times['f32'])}, "
         f"one-pass/f32 {med['one_pass'] / med['f32']:.3f}; bf16 stream: one-pass "
         f"{spread(times['one_pass_bf16'])}, its bf16 twin {spread(times['bf16'])}, ratio "
         f"{med['one_pass_bf16'] / med['bf16']:.3f}; plain {plain_ms:.1f} ms, on the bf16 stream "
-        f"{plain_bf16_ms:.1f} ms; bound {bms:.3f} ms ({by}), on the bf16 stream {bms16:.3f} ms "
-        f"({by16}); library: none computes the one-pass step over an f32 state")
+        f"{plain_bf16_ms:.1f} ms; bound {bms:.3f} ms ({by}), with the one-pass affine "
+        f"{bms_ff:.3f} ms ({by_ff}), on the bf16 stream {bms16:.3f} ms ({by16}); library: none "
+        f"computes the one-pass step over an f32 state")
     from flappie_tpu_torch.ops import cuda_build
 
-    log(f"{kid} ptxas ({source}, every instantiation, R = 20 ... 1, f32 then bf16 stream): "
-        + ptxas_usage(cuda_build.build_log.get(source[:-3], ""),
-                      f"cluster_rnn_kernelILi{gates}ELi"))
+    text = cuda_build.build_log.get(source[:-3], "")
+    if gates == 4:
+        log(f"{kid} ptxas ({source}): the tensor-core step (every instantiation: n-tiles "
+            f"1-3, WANT_C, stream) " + ptxas_usage(text, "cluster_rnn_mma_kernelILi")
+            + "; the f32 step after the one-pass affine "
+            + ptxas_usage(text, "cluster_rnn_kernelILi4ELi"))
+    else:
+        log(f"{kid} ptxas ({source}, every instantiation, R = 20 ... 1, f32 then bf16 stream): "
+            + ptxas_usage(text, f"cluster_rnn_kernelILi{gates}ELi"))
     (run, counter), (run16, counter16) = f32_run, bf16_run
     return [row(counter, kid, source, "rnn_pallas.py:172", run, counter, max_abs_err=err["f32"],
                 ms=med["one_pass"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -1946,6 +1981,64 @@ def check_layer_p1(torch, peak: dict, gen, kind: str) -> list:
             row(counter16, kid + "-bf16", source, "rnn_pallas.py:172", run16, counter16,
                 max_abs_err=err["bf16"], ms=med["one_pass_bf16"], plain_ms=plain_bf16_ms,
                 bound_ms=bms16, bound_by=by16, library_ms=None)]
+
+
+# (B, T) of the one-pass LSTM at every rows-a-cluster instantiation of the
+# tensor-core step (R = 1, 1, 2, 2, 4, 8, 12, 16, 20; the last cluster of
+# B=257 holding 17 rows), as tests/test_torch_cuda.py walks them
+P1_ROWS = ((1, 40), (3, 40), (19, 64), (24, 40), (33, 40), (100, 40), (150, 40), (240, 40),
+           (257, 40))
+
+
+def check_p1_rows(torch, gen) -> None:
+    """K1-default and K8-default (the tensor-core step) at every R, IN=H=256,
+    ragged lengths including 0 and T, both directions, on the f32 stream
+    (f32 affine) and the bf16 stream: K8-default's h bit-equal to
+    K1-default's, h and c inside the P1 band against the plain twin, and
+    the f32-step control at least 3 P1_EARLY from it over the first steps
+    (its smallest distance is logged), as check_layer_p1 holds it at
+    T=2560."""
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    IN = H = 256
+    logs, bad = [], []
+    for B, T in P1_ROWS:
+        # (layer_inputs gives row 0 length T and row 1 length 0)
+        x, iW, b, sW, lengths = layer_inputs(torch, gen, 4, T, max(B, 2), IN, H)
+        x, lengths = x[:, :B].contiguous(), lengths[:B].contiguous()
+        R = rnn_cuda.info_plan("lstm_layer_p1", B)[0]
+        worst = {"early": 0.0, "max": 0.0, "control": float("inf")}
+        for stream, xs in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+            for backward in (False, True):
+                early = first_steps(torch, T, lengths, backward, P1_STEPS)
+                h1 = rnn_cuda.lstm_layer_tm_p1(xs, iW, b, sW, backward, lengths)
+                h8, c8 = rnn_cuda.lstm_layer_tm_train_p1(xs, iW, b, sW, backward, lengths)
+                ctl = rnn_cuda.lstm_layer_tm(xs, iW, b, sW, backward, lengths)
+                wh, wc = rnn_cuda.lstm_layer_tm_train_plain(xs, iW, b, sW, backward, lengths,
+                                                            rdot="bf16")
+                torch.cuda.synchronize()
+                what = f"B={B} (R={R}) {stream} bw={int(backward)}"
+                if not torch.equal(h1, h8):
+                    bad.append(f"{what}: K8-default's h is not K1-default's")
+                for got, want in ((h1, wh), (c8, wc)):
+                    dmax, dmean, dearly = p1_distance(got, want, early)
+                    worst["early"] = max(worst["early"], dearly)
+                    worst["max"] = max(worst["max"], dmax)
+                    if not (dmax <= P1_MAX and dmean <= P1_MEAN and dearly <= P1_EARLY):
+                        bad.append(f"{what}: outside the band (max {dmax:.2e}, mean "
+                                   f"{dmean:.2e}, first steps {dearly:.2e})")
+                control = p1_distance(ctl, wh, early)[2]
+                worst["control"] = min(worst["control"], control)
+                if control < 3 * P1_EARLY:
+                    bad.append(f"{what}: the f32-step control lies {control:.2e} from the twin "
+                               f"over the first steps, within 3 P1_EARLY")
+        logs.append(f"B={B} R={R}: max {worst['max']:.2e}, first steps {worst['early']:.2e}, "
+                    f"control {worst['control']:.2e}")
+    log("K1-default / K8-default at every R (T=40-64, both streams and directions; K8's h "
+        "bit-equal to K1's, h and c inside the P1 band, the control at least 3 P1_EARLY "
+        "outside): " + "; ".join(logs))
+    if bad:
+        raise AssertionError("one-pass LSTM rows: " + "; ".join(bad))
 
 
 def check_affine_bf16_f32(torch, peak: dict, gen) -> dict:
@@ -2070,22 +2163,26 @@ def profile_f32_gemms(torch, calls: dict) -> None:
 
 def check_kernels(torch, peak: dict, libs: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    rows = [check_layer(torch, peak, gen, kind) for kind in LAYER_KERNELS]
-    rows += [check_affine_f32(torch, peak, gen), check_affine_bf16(torch, peak, gen)]
-    rows += [check_layer_bf16(torch, peak, gen, kind) for kind in BF16_LAYERS]
-    rows += [check_layer_train_bf16(torch, peak, gen), check_affine_bf16_f32(torch, peak, gen)]
+    rows = [timed("check_layer", check_layer, torch, peak, gen, kind) for kind in LAYER_KERNELS]
+    rows += [timed("check_affines", check_affine_f32, torch, peak, gen),
+             timed("check_affines", check_affine_bf16, torch, peak, gen)]
+    rows += [timed("check_layer_bf16", check_layer_bf16, torch, peak, gen, kind)
+             for kind in BF16_LAYERS]
+    rows += [timed("check_layer_bf16", check_layer_train_bf16, torch, peak, gen),
+             timed("check_affines", check_affine_bf16_f32, torch, peak, gen)]
     for kind in P1_LAYERS:
-        rows += check_layer_p1(torch, peak, gen, kind)
-    time_lstm_shapes(torch, gen)
-    rows += [check_conv12(torch, peak, gen, libs)] + [check_seq(torch, peak, gen, k)
-                                                for k in SEQ_KERNELS]
-    rows += (check_scans(torch, peak, gen, 4, libs)
-             + check_scans(torch, peak, gen, 5, libs))
-    rows += check_bt_scans(torch, peak, gen, libs, "rle")
+        rows += timed("check_layer_p1", check_layer_p1, torch, peak, gen, kind)
+    timed("check_p1_rows", check_p1_rows, torch, gen)
+    timed("time_lstm_shapes", time_lstm_shapes, torch, gen)
+    rows += [timed("check_conv12", check_conv12, torch, peak, gen, libs)]
+    rows += [timed("check_seq", check_seq, torch, peak, gen, k) for k in SEQ_KERNELS]
+    rows += (timed("check_scans", check_scans, torch, peak, gen, 4, libs)
+             + timed("check_scans", check_scans, torch, peak, gen, 5, libs))
+    rows += timed("check_bt_scans", check_bt_scans, torch, peak, gen, libs, "rle")
     for nbase in (4, 5):
-        check_bt_scans(torch, peak, gen, libs, "flipflop", nbase)
-    check_runnie_scans(torch, peak, gen, libs)
-    time_traceback_floor(torch)
+        timed("check_bt_scans", check_bt_scans, torch, peak, gen, libs, "flipflop", nbase)
+    timed("check_runnie_scans", check_runnie_scans, torch, peak, gen, libs)
+    timed("time_traceback_floor", time_traceback_floor, torch)
     for r in rows:
         log("kernel " + json.dumps({
             "kernel": r["name"], "id": r["kid"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -5095,7 +5192,10 @@ def main() -> int:
     variants = start_builds(cuda_build, VARIANTS)
     built = cuda_build.build()
     libs = finish_builds(variants)
-    log(f"build: {built} and the variants {list(libs)} in {time.perf_counter() - t0:.2f} s")
+    phase_seconds["build"] = time.perf_counter() - t0
+    log(f"build: {built} and the variants {list(libs)} in {phase_seconds['build']:.2f} s")
+    log("  nvcc seconds from the start to each exit, all at once: " + ", ".join(
+        f"{n} {sec:.1f}" for n, sec in {**cuda_build.build_seconds, **variant_seconds}.items()))
     for name, text in cuda_build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -5113,20 +5213,19 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     launches = {}
     for model in RUNS:
-        launches.update(main_path(torch, np, card, model))
-    serve_stdin_run(torch, np, card)
-    serve_watch_run(torch, np, card)
-    launches["rle_r941_native_pallas"] = runnie_path(torch, np, card)
-    launches.update(fast_phase(torch, np, card))
-    sloika_rows, sloika_launches = sloika_phase(torch, np, card, peak, libs)
+        launches.update(timed("main_path", main_path, torch, np, card, model))
+    timed("serve", serve_stdin_run, torch, np, card)
+    timed("serve", serve_watch_run, torch, np, card)
+    launches["rle_r941_native_pallas"] = timed("runnie_path", runnie_path, torch, np, card)
+    launches.update(timed("fast_phase", fast_phase, torch, np, card))
+    sloika_rows, sloika_launches = timed("sloika_phase", sloika_phase, torch, np, card, peak,
+                                         libs)
     rows += sloika_rows
     launches.update(sloika_launches)
-    launches.update(multi_phase(torch, np, card))
-    t0 = time.perf_counter()
-    knobs_phase(torch, np, card)
-    log(f"knobs phase: {time.perf_counter() - t0:.1f} s")
-    check_gradients(torch, card)
-    launches.update(training(torch, np, card))
+    launches.update(timed("multi_phase", multi_phase, torch, np, card))
+    timed("knobs_phase", knobs_phase, torch, np, card)
+    timed("check_gradients", check_gradients, torch, card)
+    launches.update(timed("training", training, torch, np, card))
 
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
@@ -5134,6 +5233,8 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in rows]
+    log(f"phase seconds ({time.perf_counter() - t0:.1f} s since the build started): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(phase_seconds.items(), key=lambda kv: -kv[1])))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

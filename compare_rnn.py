@@ -5,19 +5,23 @@ checkout's, on one CUDA card.
 
 DIR is the root of another checkout of this repository (e.g. an earlier
 commit unpacked with ``git archive`` into build/) whose
-flappie_tpu_torch/csrc/lstm.cu and grumod.cu have this checkout's layer C
-entry points and whose csrc/affine.cuh has ``launch_affine`` and
-``launch_affine_bf16``.  Both sources are built from DIR beside this
-checkout's own, with a small shim that exports DIR's f32 affine alone
-(all nvcc at once), then:
+flappie_tpu_torch/csrc/lstm.cu, grumod.cu, lstm_p1.cu and grumod_p1.cu
+have this checkout's layer C entry points and whose csrc/affine.cuh has
+``launch_affine`` and ``launch_affine_bf16``.  The four sources are built
+from DIR beside this checkout's own, with a small shim that exports DIR's
+f32 affine alone (all nvcc at once), then:
 
 1. the SASS of each source's kernels (cuobjdump), matched by content: the
    script names each of DIR's kernels without an identical instruction
    list in this build and this build's kernels without a twin in DIR's (a
    template argument added to a kernel renames it, so names are not
    compared); every instantiation of the cluster recurrence must have its
-   twin; this build's bf16 affine must issue HGMMA (wgmma) and its f32
-   affine no tensor-core instruction;
+   twin, except DIR's one-pass LSTM steps (cluster_rnn.cuh's DOT1 in
+   lstm_p1.cu, or DIR's own tensor-core step), whose place the
+   tensor-core step (cluster_rnn_mma.cuh) takes: those must issue HMMA,
+   and they are the only kernels here without a twin; this build's bf16
+   affine must issue HGMMA (wgmma) and its f32 affine no tensor-core
+   instruction;
 2. ptxas's registers and spills of the cluster recurrence and the affines
    in each build;
 3. K1, K8 (h and c), K7 and both K12 through the port's wrappers on each
@@ -30,7 +34,15 @@ checkout's own, with a small shim that exports DIR's f32 affine alone
 4. both affines alone at M = 655,360, IN=256, G=1024 and 768 on each
    checkout's build: the f32 affine within 1e-4 of the other's (bit-equal
    logged), the bf16 affine held to its plain version on both
-   (chip_smoke.py's affine_agreement), each timed alternated over 10 runs.
+   (chip_smoke.py's affine_agreement), each timed alternated over 10 runs;
+5. the layers of precision ``default`` on each checkout's lstm_p1.cu and
+   grumod_p1.cu at T=2560, B=256, IN=H=256, backward: K1-default,
+   K8-default (f32 stream) and their bf16-stream twins within the one-pass
+   band's max (chip_smoke.py's P1_MAX, 1e-2 of max(1, |value|): the two
+   steps sum the same exact products in other orders), timed alternated
+   over 10 runs; K7-
+   default on both streams and K1 and K8's f32 step after the one-pass
+   affine bit-equal to the other build's (their kernels are unchanged).
 
 Prints the card's name and power limit last.  Imports nothing of JAX or of
 the JAX package; writes only under build/ in this checkout.  Exits 1 when
@@ -47,7 +59,12 @@ import sys
 import chip_smoke as cs
 from compare_scans import sass_by_kernel
 
-SOURCES = ("lstm", "grumod")
+SOURCES = ("lstm", "grumod", "lstm_p1", "grumod_p1")
+# DIR's kernels whose place this checkout's tensor-core step takes: the
+# one-pass LSTM steps of lstm_p1.cu, cluster_rnn.cuh's (GN = 4, DOT1) or
+# an earlier form of the tensor-core step
+REPLACED = {"lstm_p1": re.compile(
+    r"cluster_rnn_kernelILi4ELi\d+ELb[01]ELb0E(f|13__nv_bfloat16)Lb1E|cluster_rnn_mma_kernel")}
 # the other checkout's f32 affine alone, through its own affine.cuh
 SHIM = """#include "affine.cuh"
 extern "C" const char* flappie_cuda_error_string(int err) {
@@ -100,13 +117,21 @@ def compare_sass(source: str, parent: str) -> None:
            f"identical instruction list in this build"
            + (f"; the SASS differs for: {unmatched}" if unmatched else "")
            + f"; {len(new)} kernels here without a twin there: {new}")
-    changed = [k for k in unmatched if "cluster_rnn" in k]
+    replaced = REPLACED.get(source)
+    changed = [k for k in unmatched if "cluster_rnn" in k and not (replaced and replaced.search(k))]
     if changed:
         raise AssertionError(f"{source}.cu: the cluster recurrence's SASS differs from "
                              f"{parent}'s for {changed}")
+    if [k for k in new if "cluster_rnn_mma_kernel" not in k]:
+        raise AssertionError(f"{source}.cu: kernels without a twin in {parent}: {new}")
     tensor_ops = ("HGMMA", "HMMA", "IMMA")
     for name, code in mine.items():
         ops = {op for op in tensor_ops if any(re.search(rf"\b{op}\b", ins) for ins in code)}
+        if "cluster_rnn_mma_kernel" in name:
+            if "HMMA" not in ops:
+                raise AssertionError(f"{source}.cu: the tensor-core step {name} issues no HMMA")
+            hmma = sum(1 for ins in code if re.search(r"\bHMMA\b", ins))
+            cs.log(f"  SASS {source}.cu: {name}: {len(code)} instructions, {hmma} HMMA")
         if "affine_bf16_kernel" in name and "HGMMA" not in ops:
             raise AssertionError(f"{source}.cu: {name} issues no HGMMA")
         if "affine_kernel" in name and ops:
@@ -116,16 +141,18 @@ def compare_sass(source: str, parent: str) -> None:
                    f"instructions {sorted(ops) or 'none'}")
     for label, text in (("this", cuda_build.build_log.get(source, "")),
                         (parent, cs.variant_log.get(f"parent_{source}", ""))):
-        for entry in ("cluster_rnn_kernel", "affine_kernel", "affine_bf16_kernel",
-                      "affine_bf16_wmma_kernel"):
+        for entry in ("cluster_rnn_kernel", "cluster_rnn_mma_kernel", "affine_kernel",
+                      "affine_bf16_kernel", "affine_bf16_wmma_kernel"):
             cs.log(f"  ptxas {source}.cu ({label}): {entry} {cs.ptxas_usage(text, entry)}")
 
 
-def time_close(torch, source: str, libs: dict, fn, what: str, tol: float, T: int = 0) -> None:
+def time_close(torch, source: str, libs: dict, fn, what: str, tol: float, T: int = 0,
+               relative: bool = False) -> None:
     """``fn`` through each build of csrc/<source>.cu in ``libs`` ({label:
     library}; None: this checkout's), the outputs within ``tol`` of each
-    other (bit-equality logged), then timed alternated over 10 runs (with
-    the time a step over T steps, if given)."""
+    other (``relative``: of max(1, max |output|), as the one-pass band
+    holds c; bit-equality logged), then timed alternated over 10 runs
+    (with the time a step over T steps, if given)."""
     from flappie_tpu_torch.ops import cuda_build
 
     libs = {k: lib or cuda_build.load(source) for k, lib in libs.items()}
@@ -136,14 +163,16 @@ def time_close(torch, source: str, libs: dict, fn, what: str, tol: float, T: int
 
     outs = [run(lib) for lib in libs.values()]
     outs = [o if isinstance(o, tuple) else (o,) for o in outs]
-    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(*outs))
+    err = max((a.float() - b.float()).abs().max().item()
+              / (max(1.0, a.float().abs().max().item()) if relative else 1.0)
+              for a, b in zip(*outs))
     if not err <= tol:
         raise AssertionError(f"{what}: max |delta| between builds {err} > {tol}")
     equal = cs.same(outs[0], outs[1])
     del outs
     times = cs.alternated_ms(torch, {k: lambda lib=lib: run(lib) for k, lib in libs.items()},
                              cs.SCAN_REPS)
-    cs.log(f"{what}: max |delta| between builds {err:.2e} "
+    cs.log(f"{what}: max |delta| between builds {err:.2e}{' relative' if relative else ''} "
            f"({'bit-equal' if equal else 'not bit-equal'}; band {tol}); " + "; ".join(
                f"{k}: {cs.spread(ts)}"
                + (f" = {1e6 * statistics.median(ts) / T:.1f} ns a step" if T else "")
@@ -180,6 +209,37 @@ def compare_layers(torch, card: str, parent: str, other: dict) -> None:
         cs.time_builds(torch, source, libs, lambda: seq(xa, sW), seq(xa, sW),
                        f"{kind}_seq at T={T}, B={B}, this checkout against {parent} [{card}]",
                        T)
+
+
+def compare_p1_layers(torch, card: str, parent: str, other: dict) -> None:
+    """The layers of precision ``default`` on each checkout's _p1 builds."""
+    from flappie_tpu_torch.ops import rnn_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4326)
+    T, B, IN, H = 2560, 256, 256, 256
+    for kind, gates, source in (("lstm", 4, "lstm_p1"), ("grumod", 3, "grumod_p1")):
+        x, iW, b, sW, lengths = cs.layer_inputs(torch, gen, gates, T, B, IN, H)
+        xb = x.to(torch.bfloat16)
+        libs = {"other": other[source], "this": None}
+        if kind == "lstm":
+            one = rnn_cuda.lstm_layer_tm_p1
+            train = rnn_cuda.lstm_layer_tm_train_p1
+            calls = [(f"{kid} ({stream})", fn, xs, cs.P1_MAX)
+                     for stream, xs in (("f32 stream", x), ("bf16 stream", xb))
+                     for kid, fn in (("K1-default", one), ("K8-default", train))]
+            calls += [(f"{kid}'s f32 step after the one-pass affine", cs.at_ff_default(
+                lambda fn=fn: fn(x, iW, b, sW, True, lengths)), None, 0.0)
+                for kid, fn in (("K1", rnn_cuda.lstm_layer_tm),
+                                ("K8", rnn_cuda.lstm_layer_tm_train))]
+        else:
+            calls = [(f"K7-default ({stream})", rnn_cuda.grumod_layer_tm_p1, xs, 0.0)
+                     for stream, xs in (("f32 stream", x), ("bf16 stream", xb))]
+        for what, fn, xs, tol in calls:
+            call = fn if xs is None else (lambda fn=fn, xs=xs: fn(xs, iW, b, sW, True, lengths))
+            time_close(torch, source, libs, call,
+                       f"{what} at T={T}, B={B}, this checkout against {parent} [{card}]",
+                       tol, T, relative=tol > 0)
 
 
 def compare_affines(torch, card: str, parent: str, other: dict) -> None:
@@ -239,6 +299,7 @@ def main() -> int:
     with torch.no_grad():
         compare_affines(torch, card, sys.argv[1], other)
         compare_layers(torch, card, sys.argv[1], other)
+        compare_p1_layers(torch, card, sys.argv[1], other)
     cs.log(card)
     return 0
 

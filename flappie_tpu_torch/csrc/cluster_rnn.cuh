@@ -60,9 +60,11 @@
 // stored outputs cast; K8's c at xa_dtype, :542).
 //
 // DOT1 (precision ``default`` of the step product, rnn_pallas.py:172
-// _make_rdot at lax.Precision.DEFAULT: one bf16 MXU pass, f32 sums): the
-// CTA's slice of sW is held in shared memory as bf16, rounded once (64 KiB
-// for LSTM, 48 KiB for GRU-mod at H=256), and the product reads h rounded
+// _make_rdot at lax.Precision.DEFAULT: one bf16 MXU pass, f32 sums), which
+// ships in GRU-mod's one-pass layers (grumod_p1.cu) only: the LSTM's
+// one-pass step runs on the tensor cores, cluster_rnn_mma.cuh.  The
+// CTA's slice of sW is held in shared memory as bf16, rounded once (48 KiB
+// for GRU-mod at H=256), and the product reads h rounded
 // to bf16.  The updating thread keeps its own units' h in f32 registers
 // (the update, the freeze and GRU-mod's z.h take the carried f32 h, as
 // the TPU kernel rounds only inside the dot) and writes h rounded to bf16
@@ -89,6 +91,7 @@
 #include <type_traits>
 
 #include "affine.cuh"
+#include "step_probe.cuh"
 
 namespace flappie {
 
@@ -102,13 +105,17 @@ constexpr int MAX_H = 256;       // H.GN.H/8 floats of sW must fit an SM
 constexpr int MAX_CLUSTERS = 15;
 constexpr int ROWS[] = {1, 2, 4, 8, 12, 16, 20};  // rows a cluster, instantiated
 
-// Rows a cluster walks for a batch of B (ops/rnn_cuda.py _cluster_plan):
-// the fewest that let every cluster run at once, else the most.
-inline int cluster_rows(int B) {
+// The fewest rows of ROWS that keep a batch of B within ``most`` clusters,
+// else the most (ops/rnn_cuda.py _rows).
+inline int rows_within(int B, int most) {
   for (int R : ROWS)
-    if ((B + R - 1) / R <= MAX_CLUSTERS) return R;
+    if ((B + R - 1) / R <= most) return R;
   return ROWS[sizeof(ROWS) / sizeof(ROWS[0]) - 1];
 }
+
+// Rows a cluster walks for a batch of B (ops/rnn_cuda.py _cluster_plan):
+// the fewest that let every cluster run at once, else the most.
+inline int cluster_rows(int B) { return rows_within(B, MAX_CLUSTERS); }
 
 // Dynamic shared memory of one CTA: sW's slice (f32, or bf16 under DOT1),
 // h by step parity, and the k slices' partial sums.
@@ -324,6 +331,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
   // included, may now be written by peers) and this CTA's sW slice and h
   // are in place
   cluster.sync();
+  PROBE_INIT()
 
   const WT* w_mine = w_s + u * GN;
   float* p_mine = p_s + ks * R * C + u * GN;
@@ -335,6 +343,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
     // barrier's next phase expects step s + 2's
     if (s > 0) mbar_wait(smem_u32(&bar_s[s & 1]), ((s - 1) >> 1) & 1);
     if (tid == 0 && s + 2 < T) mbar_expect(smem_u32(&bar_s[s & 1]), step_bytes);
+    PROBE_MARK(0)
     float xcur[RP][GN];
 #pragma unroll
     for (int i = 0; i < RP; ++i)
@@ -360,6 +369,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
 #pragma unroll
     for (int r = 0; r < R; ++r) store_vec(p_mine + r * C, acc[r]);
     __syncthreads();
+    PROBE_MARK(1)
 
     float hn[RP], ho[RP], co[RP];  // next h, out, c_out
     if (updater) {
@@ -399,6 +409,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
           hn[i] = round_bf16(hn[i]);  // what the product reads
         }
       }
+      PROBE_MARK(2)
       // the new h of unit j into this CTA's next-step buffer and, unless
       // this is the last step, every peer's (st.async completes the bytes
       // on the peer's barrier of that step)
@@ -412,6 +423,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
           st_async(map_rank(a, rank), hn, map_rank(bar, rank));
         }
       }
+      PROBE_MARK(3)
 #pragma unroll
       for (int i = 0; i < RP; ++i) {
         const int row = row0 + r0 + i;
@@ -424,7 +436,9 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
     // the partial sums and this CTA's own h are read before the next step
     // writes them
     __syncthreads();
+    PROBE_MARK(4)
   }
+  PROBE_END(T)
   // no CTA leaves while a peer may still touch its shared memory
   cluster.sync();
 }
@@ -440,14 +454,22 @@ struct RnnArgs {
   cudaStream_t st;
 };
 
-// Launch one instantiation, or, with max_active, only ask how many of its
-// clusters the card holds at once (cudaOccupancyMaxActiveClusters).
-template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT, bool DOT1>
-cudaError_t cluster_rnn_r(const RnnArgs<XT>& a, int* max_active) {
-  const size_t smem = cluster_smem(a.H, GN, R, DOT1);
-  cudaError_t err = cudaFuncSetAttribute(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT, DOT1>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// a cluster recurrence kernel: (xa, sW, lengths, out, c_out, T, B, H,
+// backward, then the kernel's own arguments Extra)
+template <typename XT, typename... Extra>
+using RnnKernel = void (*)(const XT*, const float*, const int*, XT*, XT*, int, int, int, int,
+                           Extra...);
+
+// Launch a cluster recurrence ``kernel`` over a's batch at R rows a
+// cluster (clusters of CLUSTER CTAs of ``threads`` threads, ``smem``
+// dynamic shared bytes a CTA), or, with max_active, only ask how many of
+// its clusters the card holds at once (cudaOccupancyMaxActiveClusters);
+// ``extra``: the kernel's own arguments after a's.
+template <typename XT, typename... Extra>
+cudaError_t launch_clusters(RnnKernel<XT, Extra...> kernel, int R, int threads, size_t smem,
+                            const RnnArgs<XT>& a, int* max_active, Extra... extra) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int clusters = (a.B + R - 1) / R;
   if (max_active != nullptr) {
@@ -458,18 +480,24 @@ cudaError_t cluster_rnn_r(const RnnArgs<XT>& a, int* max_active) {
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(clusters * CLUSTER);
-    cfg.blockDim = dim3(a.H / 2);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    return cudaOccupancyMaxActiveClusters(
-        max_active,
-        reinterpret_cast<const void*>(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT, DOT1>),
-        &cfg);
+    return cudaOccupancyMaxActiveClusters(max_active, reinterpret_cast<const void*>(kernel),
+                                          &cfg);
   }
-  cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT, DOT1><<<clusters * CLUSTER, a.H / 2, smem, a.st>>>(
-      a.xa, a.sW, a.lengths, a.out, a.c_out, a.T, a.B, a.H, a.backward);
+  kernel<<<clusters * CLUSTER, threads, smem, a.st>>>(a.xa, a.sW, a.lengths, a.out, a.c_out, a.T,
+                                                      a.B, a.H, a.backward, extra...);
   return cudaGetLastError();
+}
+
+// Launch one instantiation, or, with max_active, only ask how many of its
+// clusters the card holds at once.
+template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT, bool DOT1>
+cudaError_t cluster_rnn_r(const RnnArgs<XT>& a, int* max_active) {
+  return launch_clusters<XT>(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT, DOT1>, R, a.H / 2,
+                             cluster_smem(a.H, GN, R, DOT1), a, max_active);
 }
 
 // The recurrence over xa at the rows cluster_rows(B) picks; returns the

@@ -1,0 +1,398 @@
+// The one-pass LSTM step on Hopper's tensor cores, sm_90a: the recurrence
+// of K1-default, K8-default, K1-default-bf16 and K8-default-bf16
+// (lstm_p1.cu), the LSTM's step product at precision ``default``.
+//
+// Replaces the step product of flappie_tpu/ops/rnn_pallas.py:219
+// _lstm_fused_body when _make_rdot:172 runs at lax.Precision.DEFAULT (one
+// bf16 MXU pass with f32 sums, h and sW rounded to bf16).  cluster_rnn.cuh's
+// DOT1 branch computed it as fmaf on CUDA cores over operands widened from
+// bf16 (5,120 FMAs a thread a step, then the k slices' partial sums through
+// shared memory) and ran slower than the f32 step it should undercut.
+//
+// What bounds it: as every cluster recurrence, the chain of T dependent
+// steps; a step's work is small (a CTA's product at H=256, R=20 is 128
+// gate columns x 256 x 24 rows), so the step's latency is its product's
+// chain, the cell update, and the exchange of h between the cluster's CTAs.
+//
+// Design (the cluster of cluster_rnn.cuh: CLUSTER = 8 CTAs on R rows, CTA q
+// owning hidden units [q.U, (q+1).U), U = H/8, and every gate of them):
+//  - The product is mma.sync.m16n8k16 bf16 -> f32: M the CTA's gate
+//    columns, N the cluster's rows padded to n-tiles of 8 (NP), K the
+//    exchanged h.  A warp owns MMA_UNITS = 8 units and two m-tiles ordered
+//    gate-major: m-tile 0 holds gates u (rows 0-7) and f (8-15) of its 8
+//    units, m-tile 1 gates g and o.  So the accumulator fragment of lane
+//    (g, t) holds all four gates of unit g for rows 2t and 2t+1 of each
+//    n-tile: the cell update runs from registers, with no partial sums in
+//    shared memory and no block barrier in the step.
+//  - sW's slice, rounded to bf16 once, is held as the warp's A fragments
+//    for the whole walk: 2 m-tiles x 16 k-tiles x 4 registers = 128
+//    registers a thread at H=256 (read from shared memory every step
+//    instead, they ran 1.3x slower at B=256, 1.15x at B=24: PERF.md).
+//  - Rows: R of cluster_rnn.cuh's ROWS from B by mma_cluster_rows, the
+//    fewest that keep the clusters within MMA_MAX_CLUSTERS = 16, one CTA
+//    an SM for 128 of the 132 (at most 24 KiB of shared memory and 128
+//    threads a CTA: the card holds 30 such clusters at once, two CTAs an
+//    SM).  A step costs about 1.5, 2.6 and 3.5 us at one, two and three
+//    n-tiles, so at B=256 R=16 (two n-tiles, 16 clusters) beats
+//    cluster_rows' R=20 (three, 13 clusters) by a quarter, while at B=24
+//    R=1 (24 clusters, SMs shared) is slower than R=2 (step_split.py).
+//    The kernel is instantiated by its n-tiles NT (1 for R <= 8, 2 for 12
+//    and 16, 3 for 20) and takes R at run time: R only bounds the rows a
+//    lane loads and stores, and the step's code is NT's.
+//  - h, rounded to bf16 where it is made, is exchanged as bf16 in chunks
+//    of 8 units: the buffer is [step parity][chunk][NP rows][8 bf16], so a
+//    chunk's rows are consecutive 16-byte lines and ldmatrix.x4 reads the B
+//    fragments of two k-tiles of an n-tile without a bank conflict.  Chunk
+//    c holds the units of warp c % W of CTA c / W (W warps a CTA): K is
+//    padded to 64.W, and the padding units' rows of A are zero.
+//  - A warp writes its chunk into its own buffer (pairs of units packed to
+//    32-bit words by one shuffle), gathers each row's 16 bytes into one
+//    lane (four shuffles) and sends each row to each of the 7 peers with
+//    one st.async, whose bytes complete the transaction count of the
+//    peer's mbarrier for that step (one cp.async.bulk of the chunk a peer
+//    instead ran 1.17x slower at B=256, 1.09x at B=24: PERF.md).
+//    The barrier of a step counts W + 1 arrivals (each warp once, after its
+//    chunk is in place, and thread 0's expect_tx) and the peers' bytes, so
+//    a warp waits for its own CTA's warps and its peers' alike: a buffer
+//    is rewritten only after every reader of it has sent the step it read
+//    it for.  As in cluster_rnn.cuh, xa is loaded a step ahead, each
+//    barrier is re-armed by parity, the last step sends nothing, and one
+//    cluster barrier before exit keeps every CTA until no peer touches its
+//    shared memory.
+//
+// Summation order (one order for every R, row, stream and WANT_C): column
+// (gate, unit) of a row is xa + P, where P is the tensor core's sum over
+// each 16-wide k-tile accumulated in f32 over the k-tiles in ascending
+// order from 0 (JAX's xa + rdot(h)).  So K8-default's h is K1-default's
+// bit for bit on each stream.
+//
+// Semantics as cluster_rnn.cuh's (rnn_pallas.py:219-266): gates (u, f, g,
+// o), c = f.c + u.g, h = o.tanh(c), backward walks t from T-1 down, a step
+// at or past a row's length freezes (h, c) and writes 0 to out and c_out,
+// padding rows neither read nor write; h and c are carried in f32 and h is
+// rounded to bf16 once a step, for the product; XT (float, or bf16 under
+// the bf16 stream) is the type of xa, out and c_out.  Limits: H % 16 == 0
+// and H <= 256.
+
+#pragma once
+
+#include "cluster_rnn.cuh"
+
+namespace flappie {
+
+constexpr int MMA_UNITS = 8;  // hidden units a warp: one 16-byte chunk of h a row
+
+// warps a CTA: the CTA's units in chunks of MMA_UNITS (the last may pad)
+inline int mma_warps(int H) { return (H / CLUSTER + MMA_UNITS - 1) / MMA_UNITS; }
+
+// the cluster's rows padded to n-tiles of 8
+inline int mma_rows(int R) { return (R + 7) / 8 * 8; }
+
+// clusters of 8 at one CTA an SM within the H100's 132 SMs
+constexpr int MMA_MAX_CLUSTERS = 16;
+
+// Rows a cluster walks for a batch of B (ops/rnn_cuda.py _cluster_plan):
+// cluster_rows' rule at MMA_MAX_CLUSTERS.
+inline int mma_cluster_rows(int B) { return rows_within(B, MMA_MAX_CLUSTERS); }
+
+// Dynamic shared memory of one CTA: h by step parity, CLUSTER.W chunks of
+// NP 16-byte rows.
+inline size_t cluster_mma_smem(int H, int R) {
+  return 2 * (size_t)CLUSTER * mma_warps(H) * mma_rows(R) * 16;
+}
+
+// lo and hi rounded to bf16 (nearest even) in one 32-bit word, lo in the
+// low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// four 8x8 bf16 matrices from shared memory; lanes 8i .. 8i+7 give the row
+// addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += A (16x16, row) . B (16x8, col), bf16 operands, f32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void st_async_v4(uint32_t a, const uint32_t (&v)[4], uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(a), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(bar) : "memory");
+}
+
+template <int NT, bool WANT_C, typename XT>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_H / 2)
+cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
+                       const float* __restrict__ sW,     // [H, 4H]
+                       const int* __restrict__ lengths,  // [B]
+                       XT* __restrict__ out,             // [T, B, H]
+                       XT* __restrict__ c_out,           // [T, B, H] if WANT_C
+                       int T, int B, int H, int backward,
+                       int R) {                          // rows a cluster, in (8.NT - 8, 8.NT]
+  constexpr int NP = 8 * NT;            // rows, padded to NT n-tiles of 8
+  constexpr int RT = 2 * NT;            // rows a thread updates
+  constexpr int KT_MAX = MAX_H / 16;    // k-tiles at H = 256
+  extern __shared__ __align__(16) uint4 mma_smem[];
+  __shared__ __align__(8) uint64_t bar_s[2];  // h of step s arrived: bar_s[s % 2]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const int U = H / CLUSTER;              // hidden units of this CTA
+  const int W = (int)blockDim.x / 32;     // warps, mma_warps(H)
+  const int KC = CLUSTER * W;             // chunks of the exchanged h
+  const int KT = KC / 2;                  // k-tiles of the product
+  const int G = 4 * H;
+  const int warp = (int)threadIdx.x / 32, lane = (int)threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;  // the fragments' group and thread in group
+  const int u = warp * MMA_UNITS + g;     // this lane's unit slot in the CTA
+  const bool unit_ok = u < U;
+  const int j = q * U + u;                // its hidden unit
+  const int row0 = (int)(blockIdx.x / CLUSTER) * R;
+  uint4* h_s = mma_smem;                  // [2][KC][NP]: 8 bf16 of h a chunk and row
+  const int c_me = q * W + warp;          // this warp's chunk
+  // the bytes of h the peers send a CTA each step
+  const uint32_t step_bytes = (uint32_t)((CLUSTER - 1) * W * NP * 16);
+  auto at = [&](int t, int row) { return (long)t * B + row; };
+
+  // sW as the A operand, rounded to bf16 once: A[m][k] of m-tile mt is
+  // gate 2.mt (m < 8) or 2.mt + 1 of this warp's unit slot m % 8, at the
+  // padded k of chunk k / 8 (zero for a padding unit)
+  auto w_at = [&](int gate, int k) -> float {
+    const int c = k / MMA_UNITS, uu = (c % W) * MMA_UNITS + k % MMA_UNITS;
+    if (!unit_ok || uu >= U) return 0.f;
+    return sW[(long)((c / W) * U + uu) * G + gate * H + j];
+  };
+  uint32_t a[2][KT_MAX][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kt = 0; kt < KT_MAX; ++kt) {
+      const int k = 16 * kt + 2 * tq;
+      const bool in = kt < KT;
+      const uint32_t f0 = in ? pack_bf16(w_at(2 * mt, k), w_at(2 * mt, k + 1)) : 0u;
+      const uint32_t f1 = in ? pack_bf16(w_at(2 * mt + 1, k), w_at(2 * mt + 1, k + 1)) : 0u;
+      const uint32_t f2 = in ? pack_bf16(w_at(2 * mt, k + 8), w_at(2 * mt, k + 9)) : 0u;
+      const uint32_t f3 = in ? pack_bf16(w_at(2 * mt + 1, k + 8), w_at(2 * mt + 1, k + 9)) : 0u;
+      a[mt][kt][0] = f0;
+      a[mt][kt][1] = f1;
+      a[mt][kt][2] = f2;
+      a[mt][kt][3] = f3;
+    }
+  for (int i = threadIdx.x; i < 2 * KC * NP; i += blockDim.x) h_s[i] = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    aff::bar_init(&bar_s[0], W + 1);
+    aff::bar_init(&bar_s[1], W + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (T > 1) mbar_expect(smem_u32(&bar_s[1]), step_bytes);  // h of step 1
+  }
+
+  // the update role: unit j, rows 2.tq and 2.tq + 1 of each n-tile
+  int len[RT];
+  float c[RT], hreg[RT];  // the carried f32 state
+  XT nx[RT][4];           // the next step's xa, as loaded
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int n = 8 * (r / 2) + 2 * tq + r % 2, row = row0 + n;
+    len[r] = (n < R && row < B) ? lengths[row] : 0;
+    c[r] = 0.f;
+    hreg[r] = 0.f;
+  }
+  auto load_xa = [&](int t) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int n = 8 * (r / 2) + 2 * tq + r % 2, row = row0 + n;
+      const bool live = unit_ok && n < R && row < B;
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt)
+        nx[r][gt] = live ? xa[at(t, row) * G + gt * H + j] : from_f32<XT>(0.f);
+    }
+  };
+  load_xa(backward ? T - 1 : 0);
+  // every CTA of the cluster has started (its barriers may now be armed by
+  // peers) and this CTA's A fragments and zero h are in place
+  cluster.sync();
+  PROBE_INIT()
+
+  const uint32_t h_base = smem_u32(h_s);
+  // this lane's ldmatrix row: matrix lane / 8 (chunk 2.kt + lane / 8), row
+  // lane % 8 of an n-tile
+  const uint32_t lm_off = (uint32_t)(((lane / 8) * NP + lane % 8) * 16);
+  for (int s = 0; s < T; ++s) {
+    const int t = backward ? T - 1 - s : s;
+    const uint32_t cur = h_base + (uint32_t)((s & 1) * KC * NP * 16);
+    uint4* nxt = h_s + ((s + 1) & 1) * KC * NP;
+    // step s's h of every warp of the cluster (step 0's is the zero
+    // state); then the barrier's next phase expects step s + 2's
+    if (s > 0) mbar_wait(smem_u32(&bar_s[s & 1]), ((s - 1) >> 1) & 1);
+    if (threadIdx.x == 0 && s + 2 < T) mbar_expect(smem_u32(&bar_s[s & 1]), step_bytes);
+    PROBE_MARK(0)
+    float xcur[RT][4];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt) xcur[r][gt] = to_f32(nx[r][gt]);
+    if (s + 1 < T) load_xa(backward ? t - 1 : t + 1);
+
+    // P = h . sW: k-tiles in ascending order into each accumulator
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT_MAX; kt += 2) {
+      if (kt < KT) {
+        uint32_t b[NT][4];  // k-tiles kt and kt + 1 of each n-tile
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          ldmatrix_x4(b[nt], cur + lm_off + (uint32_t)((2 * kt * NP + 8 * nt) * 16));
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const uint32_t(&f)[4] = a[mt][kt + k2];
+              mma_bf16(acc[mt][nt], f[0], f[1], f[2], f[3], b[nt][2 * k2], b[nt][2 * k2 + 1]);
+            }
+      }
+    }
+    PROBE_MARK(1)
+
+    float hn[RT], ho[RT], co[RT];  // next h (rounded to bf16), out, c_out
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int nt = r / 2, i = r % 2;
+      const float vu = xcur[r][0] + acc[0][nt][i];
+      const float vf = xcur[r][1] + acc[0][nt][2 + i];
+      const float vg = xcur[r][2] + acc[1][nt][i];
+      const float vo = xcur[r][3] + acc[1][nt][2 + i];
+      const bool valid = t < len[r];
+      const float ug = sigmoidf_(vu);
+      const float f = sigmoidf_(vf);
+      const float gg = tanhf(vg);
+      const float o = sigmoidf_(vo);
+      const float c2 = f * c[r] + ug * gg;
+      const float h2 = o * tanhf(c2);
+      co[r] = valid ? c2 : 0.f;
+      ho[r] = valid ? h2 : 0.f;
+      if (valid) {
+        c[r] = c2;
+        hreg[r] = h2;
+      }
+      hn[r] = unit_ok ? round_bf16(hreg[r]) : 0.f;
+    }
+    PROBE_MARK(2)
+
+    // the new h into this warp's chunk of the next-step buffer, units 2p
+    // and 2p + 1 of a row in word p (lanes g and g ^ 1 trade the row the
+    // other keeps), then to every peer's, unless this is the last step
+    if (s + 1 < T) {
+      const bool odd = g & 1;
+      uint32_t word[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float got = __shfl_xor_sync(0xffffffffu, odd ? hn[2 * nt] : hn[2 * nt + 1], 4);
+        word[nt] = odd ? pack_bf16(got, hn[2 * nt + 1]) : pack_bf16(hn[2 * nt], got);
+        const int n = 8 * nt + 2 * tq + odd;
+        reinterpret_cast<uint32_t*>(nxt + c_me * NP + n)[g >> 1] = word[nt];
+      }
+      const uint32_t bar = smem_u32(&bar_s[(s + 1) & 1]);
+      // each row's four words gathered in the lanes of that row; one of
+      // them sends it to each peer
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t row4[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          row4[p] = __shfl_sync(0xffffffffu, word[nt], 4 * (2 * p + odd) + tq);
+        if ((g >> 1) == (nt & 3)) {
+          const uint32_t a_row = smem_u32(nxt + c_me * NP + 8 * nt + 2 * tq + odd);
+#pragma unroll
+          for (int p = 1; p < CLUSTER; ++p) {
+            const uint32_t rank = (uint32_t)((q + p) % CLUSTER);
+            st_async_v4(map_rank(a_row, rank), row4, map_rank(bar, rank));
+          }
+        }
+      }
+      // the warp's arrival releases its lanes' stores (after __syncwarp)
+      __syncwarp();
+      if (lane == 0) aff::bar_arrive(&bar_s[(s + 1) & 1]);
+    }
+    PROBE_MARK(3)
+
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int n = 8 * (r / 2) + 2 * tq + r % 2, row = row0 + n;
+      if (unit_ok && n < R && row < B) {
+        out[at(t, row) * H + j] = from_f32<XT>(ho[r]);
+        if (WANT_C) c_out[at(t, row) * H + j] = from_f32<XT>(co[r]);
+      }
+    }
+    PROBE_MARK(4)
+  }
+  PROBE_END(T)
+  // no CTA leaves while a peer may still touch its shared memory
+  cluster.sync();
+}
+
+// Launch the instantiation of R's n-tiles at R rows a cluster (any R of
+// ROWS, whatever B), or, with max_active, only ask how many of its
+// clusters the card holds at once.
+template <int NT, bool WANT_C, typename XT>
+cudaError_t cluster_rnn_mma_nt(const RnnArgs<XT>& a, int R, int* max_active) {
+  return launch_clusters<XT>(cluster_rnn_mma_kernel<NT, WANT_C, XT>, R, 32 * mma_warps(a.H),
+                             cluster_mma_smem(a.H, R), a, max_active, R);
+}
+
+template <bool WANT_C, typename XT>
+cudaError_t cluster_rnn_mma_r(const RnnArgs<XT>& a, int R, int* max_active) {
+  if (!cluster_h_ok(a.H) || a.B <= 0 || R <= 0) return cudaErrorInvalidValue;
+  switch (mma_rows(R) / 8) {
+    case 1: return cluster_rnn_mma_nt<1, WANT_C, XT>(a, R, max_active);
+    case 2: return cluster_rnn_mma_nt<2, WANT_C, XT>(a, R, max_active);
+    case 3: return cluster_rnn_mma_nt<3, WANT_C, XT>(a, R, max_active);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The one-pass LSTM recurrence over a time-major xa at the rows
+// mma_cluster_rows(B) picks; returns the launch error code.
+template <bool WANT_C, typename XT>
+cudaError_t cluster_rnn_mma(const RnnArgs<XT>& a, int* max_active = nullptr) {
+  return cluster_rnn_mma_r<WANT_C, XT>(a, mma_cluster_rows(a.B), max_active);
+}
+
+// info = {rows a cluster, clusters, shared bytes a CTA, clusters the card
+// holds at once} for a batch of B; returns the error code.
+template <bool WANT_C, typename XT>
+int cluster_mma_info(int B, int H, int* info) {
+  RnnArgs<XT> a = {};
+  a.T = 1;
+  a.B = B;
+  a.H = H;
+  int n = 0;
+  const cudaError_t err = cluster_rnn_mma<WANT_C, XT>(a, &n);
+  if (err != cudaSuccess) return err;
+  const int R = mma_cluster_rows(B);
+  info[0] = R;
+  info[1] = (B + R - 1) / R;
+  info[2] = (int)cluster_mma_smem(H, R);
+  info[3] = n;
+  return 0;
+}
+
+}  // namespace flappie

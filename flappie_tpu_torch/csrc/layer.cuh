@@ -9,6 +9,7 @@
 
 #include "affine.cuh"
 #include "cluster_rnn.cuh"
+#include "cluster_rnn_mma.cuh"
 
 namespace flappie {
 
@@ -37,8 +38,9 @@ cudaError_t launch_block_affine(const void* x, const void* iW, const float* b, v
 
 // One layer of GN gates: the block affine of x [T*B, IN] by AFFINE into
 // xa [T*B, GN*H], then the recurrence over it (xa, out and, with WANT_C,
-// c_out [T, B, H] of type XT; the step product one bf16 pass with DOT1).
-// Returns the launch error code (0 = ok).
+// c_out [T, B, H] of type XT; the step product one bf16 pass with DOT1: the
+// LSTM's on the tensor cores, cluster_rnn_mma.cuh, GRU-mod's in
+// cluster_rnn.cuh).  Returns the launch error code (0 = ok).
 template <int GN, bool WANT_C, typename XT, bool DOT1, int AFFINE>
 int fused_layer(const void* x, const void* iW, const float* b, const float* sW,
                 const int* lengths, void* xa, void* out, void* c_out, int T, int B, int IN,
@@ -49,9 +51,12 @@ int fused_layer(const void* x, const void* iW, const float* b, const float* sW,
   if (!cluster_h_ok(H)) return cudaErrorInvalidValue;
   const cudaError_t err = launch_block_affine<AFFINE>(x, iW, b, xa, M, GN * H, IN, st);
   if (err != cudaSuccess) return err;
-  return cluster_rnn<GN, WANT_C, false, XT, DOT1>(
-      {static_cast<const XT*>(xa), sW, lengths, static_cast<XT*>(out), static_cast<XT*>(c_out), T,
-       B, H, backward, st});
+  const RnnArgs<XT> args = {static_cast<const XT*>(xa), sW, lengths, static_cast<XT*>(out),
+                            static_cast<XT*>(c_out), T, B, H, backward, st};
+  if constexpr (GN == 4 && DOT1)
+    return cluster_rnn_mma<WANT_C, XT>(args);
+  else
+    return cluster_rnn<GN, WANT_C, false, XT, DOT1>(args);
 }
 
 // A layer of precision ``default`` (lstm_p1.cu, grumod_p1.cu) by the

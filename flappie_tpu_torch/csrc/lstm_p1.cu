@@ -6,17 +6,18 @@
 // Replaces the step product of flappie_tpu/ops/rnn_pallas.py:219
 // _lstm_fused_body (K1 :273, K8 :278, the dual kernel :322) when
 // _make_rdot:172 runs at lax.Precision.DEFAULT: one bf16 MXU pass with f32
-// accumulation, h and sW rounded to bf16.  The kernel is the cluster
-// recurrence (cluster_rnn.cuh) under its DOT1 flag: sW's slice held in
-// shared memory as bf16 (64 KiB a CTA at H=256), h rounded to bf16 where it
-// is made, f32 sums in the f32 product's slice order; the carried h and c,
-// the update and the freeze stay f32.  Bound as the f32 step: the chain of
-// T dependent steps (the FMAs are the f32 product's).  Each entry is one
+// accumulation, h and sW rounded to bf16.  The kernel is the one-pass step
+// on the tensor cores (cluster_rnn_mma.cuh): the cluster recurrence's CTAs
+// and rows, the product on mma.sync with sW's slice held in registers as
+// bf16 A fragments, h rounded to bf16 where it is made and exchanged as
+// bf16; the carried h and c, the update and the freeze stay f32.  Bound as
+// every recurrence: the chain of T dependent steps.  Each entry is one
 // fused layer (layer.cuh default_layer): the block affine the caller names
 // (f32, the one-pass affine with an f32 output, or under the bf16 stream
 // the bf16 one; affine.cuh), then the recurrence, on the caller's stream.
 // The f32 step after the one-pass affine (FLAPPIE_TPU_MATMUL_PRECISION=
-// default alone) is here too, so that lstm.cu keeps its kernels.
+// default alone) is here too, so that lstm.cu keeps its kernels; it is
+// cluster_rnn.cuh's f32 step, unchanged.
 //
 // These layers live in a source of their own so that a run that never
 // sets ``default`` never builds them, and so that their build runs beside
@@ -56,12 +57,12 @@ extern "C" int flappie_lstm_p1_layer_train(const void* x, const void* iW, const 
 }
 
 // The cluster plan of K1 (variant 0), K8 (1), K1-bf16 (3) or K8-bf16 (4)
-// at precision default for a batch of B: info = {rows a cluster, clusters,
-// shared bytes a CTA, clusters the card holds at once}.  Returns the error
-// code.
+// at precision default for a batch of B (the tensor-core step's): info =
+// {rows a cluster, clusters, shared bytes a CTA, clusters the card holds at
+// once}.  Returns the error code.
 extern "C" int flappie_lstm_p1_cluster_info(int B, int H, int variant, int* info) {
-  if (variant == 1) return flappie::cluster_info<4, true, false, float, true>(B, H, info);
-  if (variant == 3) return flappie::cluster_info<4, false, false, __nv_bfloat16, true>(B, H, info);
-  if (variant == 4) return flappie::cluster_info<4, true, false, __nv_bfloat16, true>(B, H, info);
-  return flappie::cluster_info<4, false, false, float, true>(B, H, info);
+  if (variant == 1) return flappie::cluster_mma_info<true, float>(B, H, info);
+  if (variant == 3) return flappie::cluster_mma_info<false, __nv_bfloat16>(B, H, info);
+  if (variant == 4) return flappie::cluster_mma_info<true, __nv_bfloat16>(B, H, info);
+  return flappie::cluster_mma_info<false, float>(B, H, info);
 }

@@ -9,6 +9,11 @@ ctypes.  A library older than its source or than any shared header
 compiles several sources at once, one ``nvcc`` process each.  No
 ``--use_fast_math``: precise ``expf``/``logf``/``tanhf`` belong to the
 parity tier.
+
+    python3 -m flappie_tpu_torch.ops.cuda_build [SOURCE ...]
+
+builds the stale ones of the named sources (all by default) at once and
+prints each one's nvcc seconds.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import threading
+import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -36,6 +43,8 @@ _libs: dict = {}
 # nvcc's output per source from the last build in this process: ptxas
 # prints each kernel's registers, shared memory and spills there
 build_log: dict = {}
+# seconds from the start of that build to each source's nvcc exit
+build_seconds: dict = {}
 
 
 def _nvcc() -> str:
@@ -58,6 +67,22 @@ def _stale(name: str) -> bool:
     return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
+def read_async(proc):
+    """Read ``proc``'s output on a thread of its own from now on, so that
+    it never stalls on a full pipe and its exit is timed when it happens:
+    returns wait() -> (stdout, stderr, time.perf_counter() at its exit)."""
+    got = []
+    th = threading.Thread(target=lambda: got.append((*proc.communicate(), time.perf_counter())),
+                          daemon=True)
+    th.start()
+
+    def wait():
+        th.join()
+        return got[0]
+
+    return wait
+
+
 def build(names=SOURCES) -> list:
     """Compile every stale source in ``names`` (one nvcc per source, all
     started together); returns the names that were compiled."""
@@ -68,6 +93,7 @@ def build(names=SOURCES) -> list:
         os.makedirs(BUILD_DIR, exist_ok=True)
         nvcc = _nvcc()
         jobs = []
+        t0 = time.perf_counter()
         try:
             for n in todo:
                 src, so = _paths(n)
@@ -76,12 +102,13 @@ def build(names=SOURCES) -> list:
                     [nvcc, *NVCC_FLAGS, "-o", tmp, src],
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 )
-                jobs.append((n, proc, tmp, so))
+                jobs.append((n, proc, read_async(proc), tmp, so))
         finally:
             failed = []
-            for n, proc, tmp, so in jobs:
-                out, err = proc.communicate()
+            for n, proc, wait, tmp, so in jobs:
+                out, err, end = wait()
                 build_log[n] = out + err
+                build_seconds[n] = end - t0
                 if proc.returncode == 0:
                     os.replace(tmp, so)
                 else:
@@ -127,3 +154,9 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+if __name__ == "__main__":
+    built = build(sys.argv[1:] or SOURCES)
+    print("nvcc seconds from the build's start to each exit, all at once: " + ", ".join(
+        f"{n} {build_seconds[n]:.1f}" for n in built))

@@ -19,8 +19,8 @@ resolved as the JAX package resolves it off the TPU: ``high`` and
 ``default`` is true f32 on the CPU, where precision is ignored (JAX's
 CPU bytes).  On a CUDA device ``default`` resolves to ``"bf16"``, the
 one-pass product of the MXU: both operands rounded to bf16, the products
-summed in f32 (ops/rnn_cuda.py: the cluster recurrence's DOT1 step and
-the one-pass affine; ops/rnn.py ``affine``, ops/conv.py and
+summed in f32 (ops/rnn_cuda.py: the one-pass recurrence steps, the
+LSTM's on the tensor cores, and the one-pass affine; ops/rnn.py ``affine``, ops/conv.py and
 ops/rnn_vjp.py: plain products on rounded operands, TF32 off).
 
 Stream.  ``FLAPPIE_TPU_RNN_STREAM`` = ``f32`` (default) or ``bf16``,

@@ -39,15 +39,16 @@ ignores the stream.
 
 Precision ``default`` (ops/precision.py: ``"bf16"`` on a CUDA device).
 At FLAPPIE_TPU_RNN_PRECISION=default a layer runs the cluster recurrence
-with the one-pass step product (DOT1: sW in bf16, h rounded to bf16 for
-the product, f32 sums; csrc/lstm_p1.cu, csrc/grumod_p1.cu), under either
-stream: ``lstm_layer_tm_p1``, ``lstm_layer_tm_train_p1``,
+with the one-pass step product (sW in bf16, h rounded to bf16 for the
+product, f32 sums; csrc/lstm_p1.cu on the tensor cores,
+csrc/cluster_rnn_mma.cuh; csrc/grumod_p1.cu on CUDA cores, cluster_rnn.cuh's
+DOT1), under either stream: ``lstm_layer_tm_p1``, ``lstm_layer_tm_train_p1``,
 ``grumod_layer_tm_p1``, counted under the bf16 stream on
 ``lstm_layer_tm_bf16_p1``, ``lstm_layer_tm_train_bf16_p1`` and
 ``grumod_layer_tm_bf16_p1``.  At FLAPPIE_TPU_MATMUL_PRECISION=default on
 the f32 stream the block affine is the one-pass affine with an f32 output
 (``affine_bf16_f32``: x and iW rounded to bf16 first), before the f32
-recurrence or the DOT1 one; under the bf16 stream the affine is already
+recurrence or the one-pass one; under the bf16 stream the affine is already
 one pass (rnn_pallas.py:517).  The dispatchers ``lstm_layer_tm``,
 ``lstm_layer_tm_train`` and ``grumod_layer_tm`` pick the kernel from x's
 dtype and the levels resolved for x's device; on the CPU every level is
@@ -200,24 +201,57 @@ CLUSTER, KSPLIT, MAX_CLUSTERS, MAX_H = 8, 4, 15, 256
 ROWS = (1, 2, 4, 8, 12, 16, 20)
 
 
+# csrc/cluster_rnn_mma.cuh (the LSTM's one-pass step on the tensor cores):
+# hidden units a warp, the rows of an n-tile, the k of a k-tile, the most
+# clusters its rows rule lets a batch take (one CTA an SM for 128 SMs)
+MMA_UNITS, MMA_N, MMA_K, MMA_MAX_CLUSTERS = 8, 8, 16, 16
+
+
+def _rows(B: int, most: int) -> int:
+    """The fewest rows of ``ROWS`` that keep a batch of B within ``most``
+    clusters, else the most (rows_within in csrc/cluster_rnn.cuh)."""
+    return next((r for r in ROWS if -(-B // r) <= most), ROWS[-1])
+
+
+def _mma_plan(H: int, R: int) -> dict:
+    """The tensor-core step's layout at H and R rows a cluster (mma_warps,
+    mma_rows, cluster_mma_smem in csrc/cluster_rnn_mma.cuh): warps a CTA
+    (MMA_UNITS units each, the last padded), the exchanged h's chunks of 8
+    units (K padded to 8 of them), its k-tiles, the rows padded to
+    n-tiles, the shared bytes (h by step parity, 16 bytes a chunk and
+    row) and the A fragments a thread holds in registers (2 m-tiles of
+    4 words a k-tile)."""
+    warps = -(-(H // CLUSTER) // MMA_UNITS)
+    chunks = CLUSTER * warps
+    n_tiles = -(-R // MMA_N)
+    return dict(warps=warps, chunks=chunks, k_tiles=chunks * MMA_UNITS // MMA_K,
+                n_tiles=n_tiles, rows=MMA_N * n_tiles, smem=2 * chunks * MMA_N * n_tiles * 16,
+                a_registers=2 * 4 * chunks * MMA_UNITS // MMA_K)
+
+
 def _cluster_plan(B: int, H: int, gates: int, dot1: bool = False):
     """(R, clusters, shared bytes a CTA) of the cluster recurrence for a
     batch of B rows: the fewest rows R of ``ROWS`` that let every cluster
     run at once (at most 15), else the most (cluster_rows in
-    csrc/cluster_rnn.cuh); ``dot1`` (the one-pass step product) holds sW's
-    slice in bf16 (cluster_smem).  Raises ValueError for an H the kernel
-    does not take."""
+    csrc/cluster_rnn.cuh); ``dot1`` (the one-pass step product): the LSTM's
+    tensor-core step takes the same rule at 16 clusters (mma_cluster_rows)
+    and keeps only the exchanged h in shared memory (``_mma_plan``),
+    GRU-mod's holds sW's slice in bf16 (cluster_smem).  Raises ValueError
+    for an H the kernel does not take."""
     if H <= 0 or H % 16 or H > MAX_H:
         raise ValueError(f"the cluster recurrence needs H % 16 == 0 and H <= {MAX_H} (an "
                          f"eighth of sW must fit one SM's shared memory), got H={H}")
-    R = next((r for r in ROWS if -(-B // r) <= MAX_CLUSTERS), ROWS[-1])
+    if dot1 and gates == 4:
+        R = _rows(B, MMA_MAX_CLUSTERS)
+        return R, -(-B // R), _mma_plan(H, R)["smem"]
+    R = _rows(B, MAX_CLUSTERS)
     cols = gates * H // CLUSTER
     smem = (2 if dot1 else 4) * H * cols + 4 * (2 * H * R + KSPLIT * R * cols)
     return R, -(-B // R), smem
 
 
 # variant of each kernel in its source's <source>_cluster_info entry; the
-# _p1 sources hold the one-pass step product (DOT1)
+# _p1 sources hold the one-pass step product
 _INFO = {"lstm_layer": ("lstm", 0), "lstm_layer_train": ("lstm", 1), "lstm_seq": ("lstm", 2),
          "lstm_layer_bf16": ("lstm", 3), "lstm_layer_train_bf16": ("lstm", 4),
          "grumod_layer": ("grumod", 0), "grumod_seq": ("grumod", 2),

@@ -2,15 +2,17 @@
 ``_cluster_plan``, mirrored by ``cluster_rows`` / ``cluster_smem`` in
 csrc/cluster_rnn.cuh): rows a cluster and clusters for the batches the
 main paths run, one CTA's shared memory within an SM's 227 KB, and the
-H the kernel refuses.  Pure arithmetic: runs on the CPU; the card holds
-the C side to it (chip_smoke.py).
+H the kernel refuses; and the layout of the one-pass LSTM step on the
+tensor cores (``_mma_plan``, mirroring mma_warps / mma_rows /
+cluster_mma_smem in csrc/cluster_rnn_mma.cuh).  Pure arithmetic: runs on
+the CPU; the card holds the C side to it (chip_smoke.py).
 """
 
 from __future__ import annotations
 
 import pytest
 
-from flappie_tpu_torch.ops.rnn_cuda import _INFO, _cluster_plan, info_plan
+from flappie_tpu_torch.ops.rnn_cuda import ROWS, _INFO, _cluster_plan, _mma_plan, info_plan
 
 SMEM_PER_CTA = 232_448  # 227 KB: the most shared memory one block may use
 
@@ -72,14 +74,87 @@ def test_bf16_layers_are_variant_3_of_their_sources(kind, twin):
 
 @pytest.mark.parametrize("gates,kib", [(4, 64), (3, 48)])
 def test_one_pass_slices_are_bf16(gates, kib):
-    """The one-pass step product (DOT1) holds sW's slice in bf16: 64 KiB
-    (LSTM) or 48 KiB (GRU-mod) a CTA at H=256, the rest of the shared
-    memory as the f32 recurrence's, and the same rows and clusters."""
+    """The one-pass step product holds sW's slice in bf16, 64 KiB (LSTM)
+    or 48 KiB (GRU-mod) a CTA at H=256.  GRU-mod (cluster_rnn.cuh's DOT1)
+    keeps it in shared memory beside the f32 recurrence's h and partial
+    sums, at the f32 recurrence's rows and clusters; the LSTM's tensor-core
+    step keeps it as A fragments in registers (128 words a thread, 128
+    threads a CTA), so its shared memory is the exchanged bf16 h alone."""
     for B in (1, 24, 32, 256):
         R, clusters, smem = _cluster_plan(B, 256, gates, dot1=True)
-        assert (R, clusters) == _cluster_plan(B, 256, gates)[:2]
-        assert smem - 4 * (2 * 256 * R + 4 * R * gates * 32) == kib * 1024
-        assert _cluster_plan(B, 256, gates)[2] - smem == kib * 1024
+        if gates == 3:
+            assert (R, clusters) == _cluster_plan(B, 256, gates)[:2]
+            assert smem - 4 * (2 * 256 * R + 4 * R * gates * 32) == kib * 1024
+            assert _cluster_plan(B, 256, gates)[2] - smem == kib * 1024
+        else:
+            plan = _mma_plan(256, R)
+            assert plan["a_registers"] * 4 * 32 * plan["warps"] == kib * 1024
+            assert smem == plan["smem"] == 2 * 256 * plan["rows"] * 2
+
+
+@pytest.mark.parametrize("R", ROWS)
+@pytest.mark.parametrize("H", [16, 48, 128, 256])
+def test_tensor_core_step_layout(H, R):
+    """At every R and H: the rows padded to the fewest n-tiles of 8, the
+    CTA's H/8 units in the fewest warps of 8 (at most 4: the kernel's 128
+    threads), K padded to 8 chunks of 8 units a warp (64 a warp: whole
+    k-tiles of 16), two h buffers of a 16-byte line a chunk and row within
+    one block's shared memory."""
+    p = _mma_plan(H, R)
+    assert p["rows"] == 8 * p["n_tiles"] and p["rows"] - 8 < R <= p["rows"]
+    assert 8 * (p["warps"] - 1) < H // 8 <= 8 * p["warps"] <= 32
+    assert p["chunks"] == 8 * p["warps"] and p["k_tiles"] * 16 == p["chunks"] * 8 >= H
+    assert p["smem"] == 2 * p["chunks"] * p["rows"] * 16 < SMEM_PER_CTA
+    assert p["a_registers"] == 8 * p["k_tiles"] <= 128
+
+
+@pytest.mark.parametrize("R,n_tiles", [(1, 1), (2, 1), (4, 1), (8, 1), (12, 2), (16, 2), (20, 3)])
+def test_tensor_core_step_at_full_width(R, n_tiles):
+    """H=256: 4 warps, 32 chunks, 16 k-tiles, no padding in K; at R=20 three
+    n-tiles of 8 (24 rows, 4 of them padding) and 24 KiB of shared memory,
+    against the CUDA-core one-pass step's 64 KiB slice plus 40 KiB of h and
+    80 KiB of partial sums."""
+    assert _mma_plan(256, R) == dict(warps=4, chunks=32, k_tiles=16, n_tiles=n_tiles,
+                                      rows=8 * n_tiles, smem=8192 * n_tiles, a_registers=128)
+
+
+@pytest.mark.parametrize("B,R,clusters", [
+    (1, 1, 1), (16, 1, 16), (17, 2, 9),
+    (24, 2, 12),    # runnie's heaviest program: R=2 as the f32 recurrence's
+    (32, 2, 16),    # a training batch
+    (33, 4, 9), (100, 8, 13), (150, 12, 13), (240, 16, 15),
+    (256, 16, 16),  # a chunk batch: two n-tiles, not the f32 recurrence's R=20 (three)
+    (257, 20, 13), (321, 20, 17),
+])
+def test_tensor_core_step_rows(B, R, clusters):
+    """The tensor-core step's rows rule (mma_cluster_rows): the fewest rows
+    of ROWS that keep the clusters within 16 (one CTA an SM for 128 of the
+    H100's 132), else the most."""
+    assert _cluster_plan(B, 256, 4, dot1=True)[:2] == (R, clusters)
+    assert clusters <= 16 or R == ROWS[-1]
+
+
+@pytest.mark.parametrize("B", [1, 16, 24, 32, 100, 150, 240, 256, 257])
+@pytest.mark.parametrize("kind", ["lstm_layer_p1", "lstm_layer_train_p1", "lstm_layer_bf16_p1",
+                                  "lstm_layer_train_bf16_p1"])
+def test_one_pass_lstm_plans_are_the_tensor_core_steps(kind, B):
+    """The four one-pass LSTM variants of lstm_p1.cu (K1-default, K8-default
+    and their bf16-stream twins) plan the tensor-core step: its rows rule,
+    the exchanged h's shared bytes."""
+    R, clusters, smem = info_plan(kind, B)
+    assert (R, clusters) == (R, -(-B // R)) == _cluster_plan(B, 256, 4, dot1=True)[:2]
+    assert R == next(r for r in ROWS if -(-B // r) <= 16)
+    assert smem == _mma_plan(256, R)["smem"]
+
+
+@pytest.mark.parametrize("kind", ["grumod_layer_p1", "grumod_layer_bf16_p1"])
+def test_one_pass_grumod_plans_are_unchanged(kind):
+    """GRU-mod's one-pass step stays cluster_rnn.cuh's DOT1: its 48 KiB bf16
+    slice, f32 h by step parity and the k slices' partial sums."""
+    for B in (1, 16, 32, 100, 150, 240, 256):
+        R, clusters, smem = info_plan(kind, B)
+        assert (R, clusters) == _cluster_plan(B, 256, 3)[:2]
+        assert smem == 48 * 1024 + 4 * (2 * 256 * R + 4 * R * 96)
 
 
 @pytest.mark.parametrize("kind,source,variant", [

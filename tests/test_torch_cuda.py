@@ -52,7 +52,10 @@ mean over the first 16 steps within 1.5e-5 on both streams (both sum exact
 products in f32 in other orders; an h whose two sums straddle a bf16
 rounding boundary is read one bf16 ulp apart by the next product, and
 the state carries it), while the f32-step kernel lies at least 4.5e-5 from
-the twin over those steps; the one-pass affine's
+the twin over those steps; the LSTM's (the tensor-core step,
+csrc/cluster_rnn_mma.cuh) at every rows a cluster on both streams,
+K8-default's h bit-equal to K1-default's, h and c in the same band and
+the f32-step kernel outside it as above; the one-pass affine's
 f32 output within f32 reassociation of its plain version; the
 dispatchers' counters at each level; the new plans (bf16 sW slices)
 against ``info_plan``; the training path under the stream against the
@@ -807,6 +810,35 @@ def test_one_pass_layer_kernels_match_plain(cuda, kind, stream, ff, B, T, IN, H,
         dmax, dmean, dearly = _p1_distance(g, w, lengths, True)
         assert dmax <= P1_MAX and dmean <= P1_MEAN and dearly <= P1_EARLY
         assert _p1_distance(c, w, lengths, True)[2] >= 3 * P1_EARLY
+
+
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_one_pass_lstm_k8_is_k1_at_every_r(cuda, stream, B, T, IN, H, backward, levels):
+    """The LSTM's tensor-core one-pass step (csrc/cluster_rnn_mma.cuh) at
+    every rows a cluster (R = 1 ... 20 over its three n-tile
+    instantiations), on each stream (the f32 stream's
+    affine f32): K8-default's h bit-equal to K1-default's (one summation
+    order for every R and WANT_C), h and c inside the P1 band of the plain
+    twin, and the layer's f32-step kernel on the same inputs at least 3
+    P1_EARLY from the twin's h over the first steps."""
+    gen = torch.Generator().manual_seed(B * T + H + 11)
+    args, lengths = _bf16_layer_args(cuda, gen, "lstm", B, T, IN, H)
+    if stream == "f32":
+        args[0] = args[0].float()
+    levels.set_ff_precision("high")
+    h1 = rnn_cuda.lstm_layer_tm_p1(*args, backward, lengths)
+    h8, c8 = rnn_cuda.lstm_layer_tm_train_p1(*args, backward, lengths)
+    control = rnn_cuda.lstm_layer_tm(*args, backward, lengths)
+    want_h, want_c = rnn_cuda.lstm_layer_tm_train_plain(*args, backward, lengths, rdot="bf16")
+    torch.cuda.synchronize()
+    assert h8.dtype == c8.dtype == args[0].dtype
+    assert torch.equal(h1, h8)
+    for got, want in ((h8, want_h), (c8, want_c)):
+        dmax, dmean, dearly = _p1_distance(got, want, lengths, backward)
+        assert dmax <= P1_MAX and dmean <= P1_MEAN and dearly <= P1_EARLY
+    assert _p1_distance(control, want_h, lengths, backward)[2] >= 3 * P1_EARLY
 
 
 @pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
