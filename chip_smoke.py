@@ -108,11 +108,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the same layer's f32-step kernel (the control) lies at least 3 P1_EARLY
    from that twin over those steps; timed alternated with the control on
    each stream, a row for each stream (no library call: null; the bound
-   counts the one-pass products as bf16 tensor operations).  The LSTM's
+   counts the one-pass products as bf16 tensor operations).  All three
    (csrc/cluster_rnn_mma.cuh, the tensor-core step) also at every rows a
    cluster (B = 1 ... 257, T = 40-64, both streams and directions):
-   K8-default's h bit-equal to K1-default's, h and c inside the same
-   band, the control at least 3 P1_EARLY outside.
+   K8-default's h bit-equal to K1-default's, h (and c) inside the same
+   band, the control at least 3 P1_EARLY outside, each band over at least
+   128 rows (a smaller B runs a batch of that many, B rows a launch).
 3. Main paths, full width, synthetic weights.  Through
    flappie_tpu_torch.cli.flappie.main, default flags and then --viterbi:
    r941_native on 64 seeded synthetic fast5 reads of ~100k samples
@@ -1812,7 +1813,7 @@ def check_layer_train_bf16(torch, peak: dict, gen) -> dict:
 
     log("K8-bf16 ptxas: " + "; ".join(
         f"R={r} " + ptxas_usage(cuda_build.build_log.get("lstm", ""),
-                                f"cluster_rnn_kernelILi4ELi{r}ELb1ELb0E13__nv_bfloat16Lb0E")
+                                f"cluster_rnn_kernelILi4ELi{r}ELb1ELb0E13__nv_bfloat16E")
         for r in (1, 2, 4, 8, 12, 16, 20)))
     return row("lstm_layer_train_bf16", "K8-bf16", "lstm.cu", "rnn_pallas.py:278",
                "r941_native_train_bf16", "lstm_layer_train_bf16", max_abs_err=errs["h"], ms=ms,
@@ -1875,7 +1876,8 @@ def at_ff_default(fn):
 
 def check_layer_p1(torch, peak: dict, gen, kind: str) -> list:
     """The rnn-``default`` variant of K1, K8 or K7 (the cluster recurrence
-    with the one-pass step product, csrc/lstm_p1.cu / grumod_p1.cu) at
+    with the one-pass step product on the tensor cores, csrc/lstm_p1.cu /
+    grumod_p1.cu on csrc/cluster_rnn_mma.cuh) at
     T=2560, B=256, IN=H=256, ragged lengths: on the f32 stream (the f32
     affine and, at FLAPPIE_TPU_MATMUL_PRECISION=default, the one-pass
     affine) and on the bf16 stream, both directions, against its plain
@@ -1883,7 +1885,7 @@ def check_layer_p1(torch, peak: dict, gen, kind: str) -> list:
     control, the same layer's kernel with the f32 step on the same inputs
     (the f32 kernel, the one-pass affine's f32 kernel, K1-/K8-/K7-bf16),
     must lie outside the band by at least 3x on the mean over the first
-    steps, so a DOT1 instantiation that computed the f32 step would fail.
+    steps, so a one-pass kernel that computed the f32 step would fail.
     Every reading is logged before any gate fails.  Timed over 10 runs
     alternated with the control on each stream.  No library call computes
     the one-pass step over an f32 state: library_ms is null.  Returns the
@@ -1966,14 +1968,11 @@ def check_layer_p1(torch, peak: dict, gen, kind: str) -> list:
     from flappie_tpu_torch.ops import cuda_build
 
     text = cuda_build.build_log.get(source[:-3], "")
-    if gates == 4:
-        log(f"{kid} ptxas ({source}): the tensor-core step (every instantiation: n-tiles "
-            f"1-3, WANT_C, stream) " + ptxas_usage(text, "cluster_rnn_mma_kernelILi")
-            + "; the f32 step after the one-pass affine "
-            + ptxas_usage(text, "cluster_rnn_kernelILi4ELi"))
-    else:
-        log(f"{kid} ptxas ({source}, every instantiation, R = 20 ... 1, f32 then bf16 stream): "
-            + ptxas_usage(text, f"cluster_rnn_kernelILi{gates}ELi"))
+    log(f"{kid} ptxas ({source}): the tensor-core step at {gates} gates (every instantiation: "
+        f"n-tiles 1-3, {'WANT_C, ' if gates == 4 else ''}stream) "
+        + ptxas_usage(text, f"cluster_rnn_mma_kernelILi{gates}E")
+        + "; the f32 step after the one-pass affine (R = 20 ... 1) "
+        + ptxas_usage(text, f"cluster_rnn_kernelILi{gates}ELi"))
     (run, counter), (run16, counter16) = f32_run, bf16_run
     return [row(counter, kid, source, "rnn_pallas.py:172", run, counter, max_abs_err=err["f32"],
                 ms=med["one_pass"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -1983,62 +1982,101 @@ def check_layer_p1(torch, peak: dict, gen, kind: str) -> list:
                 bound_ms=bms16, bound_by=by16, library_ms=None)]
 
 
-# (B, T) of the one-pass LSTM at every rows-a-cluster instantiation of the
-# tensor-core step (R = 1, 1, 2, 2, 4, 8, 12, 16, 20; the last cluster of
-# B=257 holding 17 rows), as tests/test_torch_cuda.py walks them
+# (B, T) of the one-pass layers at every rows-a-cluster instantiation of
+# the tensor-core step (R = 1, 1, 2, 2, 4, 8, 12, 16, 20; the last cluster
+# of B=257 holding 17 rows), as tests/test_torch_cuda.py walks them
 P1_ROWS = ((1, 40), (3, 40), (19, 64), (24, 40), (33, 40), (100, 40), (150, 40), (240, 40),
            (257, 40))
+# rows check_p1_rows holds the band over at each B: its means are over
+# rows (it was read at 256), and over one row a bf16 rounding flip of h
+# within the first steps, after which that row's walk diverges, is common
+# (GRU-mod's more than the LSTM's: p1_band.py, PERF.md), so a smaller B
+# runs a batch of at least this many rows, B rows a launch
+P1_POOL_ROWS = 128
+
+
+def p1_rows_outputs(torch, rnn_cuda, cell: str, args: tuple, B: int) -> tuple:
+    """(pairs of a one-pass output and its plain twin's, the f32-step
+    control's h, whether K8-default's h is K1-default's) of ``cell`` on
+    ``args`` (x, iW, b, sW, backward, lengths): ``"lstm"``, K1-default's h
+    and K8-default's c; ``"grumod"``, K7-default's h.  The one-pass layers
+    run B rows a launch (the instantiation B picks), the control and the
+    twin all rows at once (a row's walk does not depend on its batch)."""
+    x, iW, b, sW, backward, lengths = args
+    parts = [(x[:, i:i + B].contiguous(), lengths[i:i + B].contiguous())
+             for i in range(0, x.shape[1], B)]
+
+    def launched(fn):
+        outs = [fn(xp, iW, b, sW, backward, lp) for xp, lp in parts]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o, dim=1) for o in zip(*outs))
+        return torch.cat(outs, dim=1)
+
+    if cell == "grumod":
+        got = launched(rnn_cuda.grumod_layer_tm_p1)
+        want = rnn_cuda.grumod_layer_tm_plain(*args, rdot="bf16")
+        return ((got, want),), rnn_cuda.grumod_layer_tm(*args), True
+    h1 = launched(rnn_cuda.lstm_layer_tm_p1)
+    h8, c8 = launched(rnn_cuda.lstm_layer_tm_train_p1)
+    wh, wc = rnn_cuda.lstm_layer_tm_train_plain(*args, rdot="bf16")
+    return ((h1, wh), (c8, wc)), rnn_cuda.lstm_layer_tm(*args), torch.equal(h1, h8)
+
+
+# the cells check_p1_rows walks: (cell, gates, the kernels it holds)
+P1_ROW_CELLS = (("lstm", 4, "K1-default / K8-default"), ("grumod", 3, "K7-default"))
 
 
 def check_p1_rows(torch, gen) -> None:
-    """K1-default and K8-default (the tensor-core step) at every R, IN=H=256,
-    ragged lengths including 0 and T, both directions, on the f32 stream
-    (f32 affine) and the bf16 stream: K8-default's h bit-equal to
-    K1-default's, h and c inside the P1 band against the plain twin, and
-    the f32-step control at least 3 P1_EARLY from it over the first steps
-    (its smallest distance is logged), as check_layer_p1 holds it at
-    T=2560."""
+    """The tensor-core step at every R, IN=H=256, ragged lengths including
+    0 and T, both directions, on the f32 stream (f32 affine) and the bf16
+    stream: K1-default and K8-default (K8-default's h bit-equal to
+    K1-default's, h and c inside the P1 band against the plain twin) and
+    K7-default (h inside the band), each with its f32-step control at
+    least 3 P1_EARLY from the twin's h over the first steps (its smallest
+    distance is logged), as check_layer_p1 holds them at T=2560; each band
+    over at least P1_POOL_ROWS rows, launched B rows at a time."""
     from flappie_tpu_torch.ops import rnn_cuda
 
     IN = H = 256
-    logs, bad = [], []
-    for B, T in P1_ROWS:
-        # (layer_inputs gives row 0 length T and row 1 length 0)
-        x, iW, b, sW, lengths = layer_inputs(torch, gen, 4, T, max(B, 2), IN, H)
-        x, lengths = x[:, :B].contiguous(), lengths[:B].contiguous()
-        R = rnn_cuda.info_plan("lstm_layer_p1", B)[0]
-        worst = {"early": 0.0, "max": 0.0, "control": float("inf")}
-        for stream, xs in (("f32", x), ("bf16", x.to(torch.bfloat16))):
-            for backward in (False, True):
-                early = first_steps(torch, T, lengths, backward, P1_STEPS)
-                h1 = rnn_cuda.lstm_layer_tm_p1(xs, iW, b, sW, backward, lengths)
-                h8, c8 = rnn_cuda.lstm_layer_tm_train_p1(xs, iW, b, sW, backward, lengths)
-                ctl = rnn_cuda.lstm_layer_tm(xs, iW, b, sW, backward, lengths)
-                wh, wc = rnn_cuda.lstm_layer_tm_train_plain(xs, iW, b, sW, backward, lengths,
-                                                            rdot="bf16")
-                torch.cuda.synchronize()
-                what = f"B={B} (R={R}) {stream} bw={int(backward)}"
-                if not torch.equal(h1, h8):
-                    bad.append(f"{what}: K8-default's h is not K1-default's")
-                for got, want in ((h1, wh), (c8, wc)):
-                    dmax, dmean, dearly = p1_distance(got, want, early)
-                    worst["early"] = max(worst["early"], dearly)
-                    worst["max"] = max(worst["max"], dmax)
-                    if not (dmax <= P1_MAX and dmean <= P1_MEAN and dearly <= P1_EARLY):
-                        bad.append(f"{what}: outside the band (max {dmax:.2e}, mean "
-                                   f"{dmean:.2e}, first steps {dearly:.2e})")
-                control = p1_distance(ctl, wh, early)[2]
-                worst["control"] = min(worst["control"], control)
-                if control < 3 * P1_EARLY:
-                    bad.append(f"{what}: the f32-step control lies {control:.2e} from the twin "
-                               f"over the first steps, within 3 P1_EARLY")
-        logs.append(f"B={B} R={R}: max {worst['max']:.2e}, first steps {worst['early']:.2e}, "
-                    f"control {worst['control']:.2e}")
-    log("K1-default / K8-default at every R (T=40-64, both streams and directions; K8's h "
-        "bit-equal to K1's, h and c inside the P1 band, the control at least 3 P1_EARLY "
-        "outside): " + "; ".join(logs))
+    bad = []
+    for cell, gates, kids in P1_ROW_CELLS:
+        logs = []
+        for B, T in P1_ROWS:
+            rows = -(-P1_POOL_ROWS // B) * B
+            # (layer_inputs gives row 0 length T and row 1 length 0)
+            x, iW, b, sW, lengths = layer_inputs(torch, gen, gates, T, max(rows, 2), IN, H)
+            x, lengths = x[:, :rows].contiguous(), lengths[:rows].contiguous()
+            R = rnn_cuda.info_plan(f"{cell}_layer_p1", B)[0]
+            worst = {"early": 0.0, "max": 0.0, "control": float("inf")}
+            for stream, xs in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+                for backward in (False, True):
+                    early = first_steps(torch, T, lengths, backward, P1_STEPS)
+                    pairs, ctl, k8_is_k1 = p1_rows_outputs(
+                        torch, rnn_cuda, cell, (xs, iW, b, sW, backward, lengths), B)
+                    torch.cuda.synchronize()
+                    what = f"{kids} B={B} (R={R}) {stream} bw={int(backward)}"
+                    if not k8_is_k1:
+                        bad.append(f"{what}: K8-default's h is not K1-default's")
+                    for got, want in pairs:
+                        dmax, dmean, dearly = p1_distance(got, want, early)
+                        worst["early"] = max(worst["early"], dearly)
+                        worst["max"] = max(worst["max"], dmax)
+                        if not (dmax <= P1_MAX and dmean <= P1_MEAN and dearly <= P1_EARLY):
+                            bad.append(f"{what}: outside the band (max {dmax:.2e}, mean "
+                                       f"{dmean:.2e}, first steps {dearly:.2e})")
+                    control = p1_distance(ctl, pairs[0][1], early)[2]
+                    worst["control"] = min(worst["control"], control)
+                    if control < 3 * P1_EARLY:
+                        bad.append(f"{what}: the f32-step control lies {control:.2e} from the "
+                                   f"twin over the first steps, within 3 P1_EARLY")
+            logs.append(f"B={B} R={R} ({rows // B} launches): max {worst['max']:.2e}, first "
+                        f"steps {worst['early']:.2e}, control {worst['control']:.2e}")
+        log(f"{kids} at every R (T=40-64, both streams and directions, at least {P1_POOL_ROWS} "
+            f"rows a band; " + ("K8's h bit-equal to K1's, h and c" if cell == "lstm" else "h")
+            + " inside the P1 band, the control at least 3 P1_EARLY outside): "
+            + "; ".join(logs))
     if bad:
-        raise AssertionError("one-pass LSTM rows: " + "; ".join(bad))
+        raise AssertionError("one-pass rows: " + "; ".join(bad))
 
 
 def check_affine_bf16_f32(torch, peak: dict, gen) -> dict:

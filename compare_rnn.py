@@ -15,12 +15,15 @@ f32 affine alone (all nvcc at once), then:
    script names each of DIR's kernels without an identical instruction
    list in this build and this build's kernels without a twin in DIR's (a
    template argument added to a kernel renames it, so names are not
-   compared); every instantiation of the cluster recurrence must have its
-   twin, except DIR's one-pass LSTM steps (cluster_rnn.cuh's DOT1 in
-   lstm_p1.cu, or DIR's own tensor-core step), whose place the
-   tensor-core step (cluster_rnn_mma.cuh) takes: those must issue HMMA,
-   and they are the only kernels here without a twin; this build's bf16
-   affine must issue HGMMA (wgmma) and its f32 affine no tensor-core
+   compared); every kernel of DIR's must have its twin here (the
+   tensor-core steps of lstm_p1.cu included), except DIR's one-pass steps
+   on CUDA cores (cluster_rnn.cuh's DOT1 instantiations, in lstm_p1.cu
+   before the LSTM's step moved to the tensor cores and in grumod_p1.cu
+   before GRU-mod's did), whose place the tensor-core step
+   (cluster_rnn_mma.cuh) takes: only in a source where such kernels went
+   may this build have kernels without a twin, and those must be
+   tensor-core steps; every tensor-core step must issue HMMA, this build's
+   bf16 affine HGMMA (wgmma) and its f32 affine no tensor-core
    instruction;
 2. ptxas's registers and spills of the cluster recurrence and the affines
    in each build;
@@ -37,12 +40,12 @@ f32 affine alone (all nvcc at once), then:
    (chip_smoke.py's affine_agreement), each timed alternated over 10 runs;
 5. the layers of precision ``default`` on each checkout's lstm_p1.cu and
    grumod_p1.cu at T=2560, B=256, IN=H=256, backward: K1-default,
-   K8-default (f32 stream) and their bf16-stream twins within the one-pass
-   band's max (chip_smoke.py's P1_MAX, 1e-2 of max(1, |value|): the two
-   steps sum the same exact products in other orders), timed alternated
-   over 10 runs; K7-
-   default on both streams and K1 and K8's f32 step after the one-pass
-   affine bit-equal to the other build's (their kernels are unchanged).
+   K8-default, K7-default (f32 stream) and their bf16-stream twins within
+   the one-pass band's max (chip_smoke.py's P1_MAX, 1e-2 of max(1,
+   |value|): two one-pass steps sum the same exact products in other
+   orders; bit-equality logged), timed alternated over 10 runs; K1, K8 and
+   K7's f32 step after the one-pass affine bit-equal to the other build's
+   (their kernels are unchanged).
 
 Prints the card's name and power limit last.  Imports nothing of JAX or of
 the JAX package; writes only under build/ in this checkout.  Exits 1 when
@@ -61,10 +64,11 @@ from compare_scans import sass_by_kernel
 
 SOURCES = ("lstm", "grumod", "lstm_p1", "grumod_p1")
 # DIR's kernels whose place this checkout's tensor-core step takes: the
-# one-pass LSTM steps of lstm_p1.cu, cluster_rnn.cuh's (GN = 4, DOT1) or
-# an earlier form of the tensor-core step
-REPLACED = {"lstm_p1": re.compile(
-    r"cluster_rnn_kernelILi4ELi\d+ELb[01]ELb0E(f|13__nv_bfloat16)Lb1E|cluster_rnn_mma_kernel")}
+# one-pass steps on CUDA cores, cluster_rnn.cuh's instantiations with the
+# DOT1 flag (its last template argument) set, in lstm_p1.cu (GN = 4) and
+# grumod_p1.cu (GN = 3)
+DOT1_STEP = re.compile(r"cluster_rnn_kernelILi[34]ELi\d+ELb[01]ELb0E(f|13__nv_bfloat16)Lb1E")
+REPLACED = {"lstm_p1": DOT1_STEP, "grumod_p1": DOT1_STEP}
 # the other checkout's f32 affine alone, through its own affine.cuh
 SHIM = """#include "affine.cuh"
 extern "C" const char* flappie_cuda_error_string(int err) {
@@ -118,12 +122,13 @@ def compare_sass(source: str, parent: str) -> None:
            + (f"; the SASS differs for: {unmatched}" if unmatched else "")
            + f"; {len(new)} kernels here without a twin there: {new}")
     replaced = REPLACED.get(source)
-    changed = [k for k in unmatched if "cluster_rnn" in k and not (replaced and replaced.search(k))]
+    gone = [k for k in unmatched if replaced and replaced.search(k)]
+    changed = [k for k in unmatched if k not in gone]
     if changed:
-        raise AssertionError(f"{source}.cu: the cluster recurrence's SASS differs from "
-                             f"{parent}'s for {changed}")
-    if [k for k in new if "cluster_rnn_mma_kernel" not in k]:
-        raise AssertionError(f"{source}.cu: kernels without a twin in {parent}: {new}")
+        raise AssertionError(f"{source}.cu: the SASS differs from {parent}'s for {changed}")
+    if [k for k in new if not (gone and "cluster_rnn_mma_kernel" in k)]:
+        raise AssertionError(f"{source}.cu: kernels without a twin in {parent}: {new}"
+                             + ("" if gone else f" ({parent} had no one-pass step they replace)"))
     tensor_ops = ("HGMMA", "HMMA", "IMMA")
     for name, code in mine.items():
         ops = {op for op in tensor_ops if any(re.search(rf"\b{op}\b", ins) for ins in code)}
@@ -223,18 +228,17 @@ def compare_p1_layers(torch, card: str, parent: str, other: dict) -> None:
         xb = x.to(torch.bfloat16)
         libs = {"other": other[source], "this": None}
         if kind == "lstm":
-            one = rnn_cuda.lstm_layer_tm_p1
-            train = rnn_cuda.lstm_layer_tm_train_p1
-            calls = [(f"{kid} ({stream})", fn, xs, cs.P1_MAX)
-                     for stream, xs in (("f32 stream", x), ("bf16 stream", xb))
-                     for kid, fn in (("K1-default", one), ("K8-default", train))]
-            calls += [(f"{kid}'s f32 step after the one-pass affine", cs.at_ff_default(
-                lambda fn=fn: fn(x, iW, b, sW, True, lengths)), None, 0.0)
-                for kid, fn in (("K1", rnn_cuda.lstm_layer_tm),
-                                ("K8", rnn_cuda.lstm_layer_tm_train))]
+            one_pass = (("K1-default", rnn_cuda.lstm_layer_tm_p1),
+                        ("K8-default", rnn_cuda.lstm_layer_tm_train_p1))
+            f32_step = (("K1", rnn_cuda.lstm_layer_tm), ("K8", rnn_cuda.lstm_layer_tm_train))
         else:
-            calls = [(f"K7-default ({stream})", rnn_cuda.grumod_layer_tm_p1, xs, 0.0)
-                     for stream, xs in (("f32 stream", x), ("bf16 stream", xb))]
+            one_pass = (("K7-default", rnn_cuda.grumod_layer_tm_p1),)
+            f32_step = (("K7", rnn_cuda.grumod_layer_tm),)
+        calls = [(f"{kid} ({stream})", fn, xs, cs.P1_MAX)
+                 for stream, xs in (("f32 stream", x), ("bf16 stream", xb))
+                 for kid, fn in one_pass]
+        calls += [(f"{kid}'s f32 step after the one-pass affine", cs.at_ff_default(
+            lambda fn=fn: fn(x, iW, b, sW, True, lengths)), None, 0.0) for kid, fn in f32_step]
         for what, fn, xs, tol in calls:
             call = fn if xs is None else (lambda fn=fn, xs=xs: fn(xs, iW, b, sW, True, lengths))
             time_close(torch, source, libs, call,

@@ -59,21 +59,10 @@
 // (rnn_pallas.py:255, :263-265: xa.astype(f32) + h.sW, the carry f32, the
 // stored outputs cast; K8's c at xa_dtype, :542).
 //
-// DOT1 (precision ``default`` of the step product, rnn_pallas.py:172
-// _make_rdot at lax.Precision.DEFAULT: one bf16 MXU pass, f32 sums), which
-// ships in GRU-mod's one-pass layers (grumod_p1.cu) only: the LSTM's
-// one-pass step runs on the tensor cores, cluster_rnn_mma.cuh.  The
-// CTA's slice of sW is held in shared memory as bf16, rounded once (48 KiB
-// for GRU-mod at H=256), and the product reads h rounded
-// to bf16.  The updating thread keeps its own units' h in f32 registers
-// (the update, the freeze and GRU-mod's z.h take the carried f32 h, as
-// the TPU kernel rounds only inside the dot) and writes h rounded to bf16
-// (as f32) into the exchanged buffers, so each value is rounded once,
-// where it is made.  A product of two bf16 values is exact in f32, so the
-// sums are fmaf on the widened operands in the same slice order as the
-// f32 product.  Bound as the f32 step: the chain of dependent steps.
-// The float, !DOT1 instantiations' code depends on neither XT nor DOT1
-// (compare_rnn.py matches their SASS with an earlier build's).
+// The one-pass step product of precision ``default`` is not here: it runs
+// on the tensor cores for both cell types (cluster_rnn_mma.cuh).  The
+// float instantiations' code does not depend on XT (compare_rnn.py matches
+// their SASS with an earlier build's).
 //
 // Semantics (flappie_tpu/ops/rnn_pallas.py:236-266, :307-317): backward
 // walks t from T-1 down; a step at or past a row's length freezes (h, c)
@@ -88,7 +77,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "affine.cuh"
 #include "step_probe.cuh"
@@ -117,12 +105,11 @@ inline int rows_within(int B, int most) {
 // the fewest that let every cluster run at once, else the most.
 inline int cluster_rows(int B) { return rows_within(B, MAX_CLUSTERS); }
 
-// Dynamic shared memory of one CTA: sW's slice (f32, or bf16 under DOT1),
-// h by step parity, and the k slices' partial sums.
-inline size_t cluster_smem(int H, int GN, int R, bool dot1 = false) {
+// Dynamic shared memory of one CTA: sW's slice, h by step parity, and the
+// k slices' partial sums.
+inline size_t cluster_smem(int H, int GN, int R) {
   const size_t C = (size_t)GN * (H / CLUSTER);
-  return (dot1 ? 2 : sizeof(float)) * H * C +
-         sizeof(float) * (2 * (size_t)H * R + KSPLIT * R * C);
+  return sizeof(float) * (H * C + 2 * (size_t)H * R + KSPLIT * R * C);
 }
 
 inline bool cluster_h_ok(int H) { return H > 0 && H % 16 == 0 && H <= MAX_H; }
@@ -256,7 +243,7 @@ __device__ __forceinline__ void store_vec(float* p, const float (&s)[N]) {
 // GN = 4: LSTM, gates (u, f, g, o), c = f*c + u*g, h = o*tanh(c).
 // GN = 3: GRU-mod, gates (z, r, hbar), hbar = tanh(r*v_h + xa_h),
 //         h = z*h + (1-z)*hbar.
-template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT, bool DOT1>
+template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_H / 2)
 cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, GN.H]
                    const float* __restrict__ sW,     // [H, GN.H]
@@ -266,7 +253,6 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
                    int T, int B, int H, int backward) {
   constexpr bool LSTM = GN == 4;
   constexpr int RP = R >= KSPLIT ? R / KSPLIT : 1;  // rows a thread updates
-  using WT = std::conditional_t<DOT1, __nv_bfloat16, float>;  // sW's type in shared memory
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) uint64_t bar_s[2];  // h of step s arrived: bar_s[s % 2]
   cg::cluster_group cluster = cg::this_cluster();
@@ -275,8 +261,8 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
   const int C = GN * U;       // its gate columns, unit-major: u.GN + g
   const int G = GN * H;
   const int KS = H / KSPLIT;  // k a slice
-  WT* w_s = reinterpret_cast<WT*>(smem);  // [H][U][GN]: this CTA's columns of sW
-  float* h_s = reinterpret_cast<float*>(w_s + H * C);  // [2][H][R]: h by step parity
+  float* w_s = smem;              // [H][U][GN]: this CTA's columns of sW
+  float* h_s = w_s + H * C;       // [2][H][R]: h by step parity
   float* p_s = h_s + 2 * H * R;   // [KSPLIT][R][U][GN]: the slices' partial sums
   const int tid = threadIdx.x;    // blockDim.x == U * KSPLIT == H / 2
   const int u = tid % U, ks = tid / U;
@@ -293,7 +279,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
   // coalesced reads)
   for (int i = tid; i < H * C; i += blockDim.x) {
     const int k = i / C, g = (i % C) / U, uu = i % U;
-    w_s[k * C + uu * GN + g] = from_f32<WT>(sW[(long)k * G + g * H + q * U + uu]);
+    w_s[k * C + uu * GN + g] = sW[(long)k * G + g * H + q * U + uu];
   }
   for (int i = tid; i < 2 * H * R; i += blockDim.x) h_s[i] = 0.f;
   if (tid == 0) {
@@ -308,14 +294,12 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
   const bool updater = r0 < R;
   int len[RP];
   float c[RP];
-  float hreg[RP];  // DOT1: this thread's units' carried f32 h (h_s holds it rounded)
   XT nx[RP][GN];  // the next step's xa, as loaded (widened when the step takes it)
 #pragma unroll
   for (int i = 0; i < RP; ++i) {
     const int row = row0 + r0 + i;
     len[i] = (updater && row < B) ? lengths[row] : 0;
     c[i] = 0.f;
-    hreg[i] = 0.f;
   }
   auto load_xa = [&](int t) {
 #pragma unroll
@@ -333,7 +317,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
   cluster.sync();
   PROBE_INIT()
 
-  const WT* w_mine = w_s + u * GN;
+  const float* w_mine = w_s + u * GN;
   float* p_mine = p_s + ks * R * C + u * GN;
   for (int s = 0; s < T; ++s) {
     const int t = backward ? T - 1 - s : s;
@@ -384,7 +368,7 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
 #pragma unroll
           for (int kk = 0; kk < KSPLIT; ++kk) v[g] += p_s[(kk * R + r) * C + u * GN + g];
         }
-        const float h_old = DOT1 ? hreg[i] : h_cur[j * R + r];
+        const float h_old = h_cur[j * R + r];
         const bool valid = t < len[i];
         float h2;
         if constexpr (LSTM) {
@@ -404,10 +388,6 @@ cluster_rnn_kernel(const XT* __restrict__ xa,        // [T, B, GN.H] or [B, T, G
         }
         ho[i] = valid ? h2 : 0.f;
         hn[i] = valid ? h2 : h_old;
-        if constexpr (DOT1) {
-          hreg[i] = hn[i];
-          hn[i] = round_bf16(hn[i]);  // what the product reads
-        }
       }
       PROBE_MARK(2)
       // the new h of unit j into this CTA's next-step buffer and, unless
@@ -494,45 +474,44 @@ cudaError_t launch_clusters(RnnKernel<XT, Extra...> kernel, int R, int threads, 
 
 // Launch one instantiation, or, with max_active, only ask how many of its
 // clusters the card holds at once.
-template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT, bool DOT1>
+template <int GN, int R, bool WANT_C, bool BATCH_MAJOR, typename XT>
 cudaError_t cluster_rnn_r(const RnnArgs<XT>& a, int* max_active) {
-  return launch_clusters<XT>(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT, DOT1>, R, a.H / 2,
-                             cluster_smem(a.H, GN, R, DOT1), a, max_active);
+  return launch_clusters<XT>(cluster_rnn_kernel<GN, R, WANT_C, BATCH_MAJOR, XT>, R, a.H / 2,
+                             cluster_smem(a.H, GN, R), a, max_active);
 }
 
 // The recurrence over xa at the rows cluster_rows(B) picks; returns the
 // launch error code (a refused launch, e.g. cudaErrorClusterOutOfResources,
-// included).  XT: the stream type of xa, out and c_out; DOT1: the step
-// product as one bf16 pass.
-template <int GN, bool WANT_C, bool BATCH_MAJOR, typename XT = float, bool DOT1 = false>
+// included).  XT: the stream type of xa, out and c_out.
+template <int GN, bool WANT_C, bool BATCH_MAJOR, typename XT = float>
 cudaError_t cluster_rnn(const RnnArgs<XT>& a, int* max_active = nullptr) {
   if (!cluster_h_ok(a.H) || a.B <= 0) return cudaErrorInvalidValue;
   switch (cluster_rows(a.B)) {
-    case 1: return cluster_rnn_r<GN, 1, WANT_C, BATCH_MAJOR, XT, DOT1>(a, max_active);
-    case 2: return cluster_rnn_r<GN, 2, WANT_C, BATCH_MAJOR, XT, DOT1>(a, max_active);
-    case 4: return cluster_rnn_r<GN, 4, WANT_C, BATCH_MAJOR, XT, DOT1>(a, max_active);
-    case 8: return cluster_rnn_r<GN, 8, WANT_C, BATCH_MAJOR, XT, DOT1>(a, max_active);
-    case 12: return cluster_rnn_r<GN, 12, WANT_C, BATCH_MAJOR, XT, DOT1>(a, max_active);
-    case 16: return cluster_rnn_r<GN, 16, WANT_C, BATCH_MAJOR, XT, DOT1>(a, max_active);
-    default: return cluster_rnn_r<GN, 20, WANT_C, BATCH_MAJOR, XT, DOT1>(a, max_active);
+    case 1: return cluster_rnn_r<GN, 1, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 2: return cluster_rnn_r<GN, 2, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 4: return cluster_rnn_r<GN, 4, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 8: return cluster_rnn_r<GN, 8, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 12: return cluster_rnn_r<GN, 12, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    case 16: return cluster_rnn_r<GN, 16, WANT_C, BATCH_MAJOR, XT>(a, max_active);
+    default: return cluster_rnn_r<GN, 20, WANT_C, BATCH_MAJOR, XT>(a, max_active);
   }
 }
 
 // info = {rows a cluster, clusters, shared bytes a CTA, clusters the card
 // holds at once} for a batch of B; returns the error code.
-template <int GN, bool WANT_C, bool BATCH_MAJOR, typename XT = float, bool DOT1 = false>
+template <int GN, bool WANT_C, bool BATCH_MAJOR, typename XT = float>
 int cluster_info(int B, int H, int* info) {
   RnnArgs<XT> a = {};
   a.T = 1;
   a.B = B;
   a.H = H;
   int n = 0;
-  const cudaError_t err = cluster_rnn<GN, WANT_C, BATCH_MAJOR, XT, DOT1>(a, &n);
+  const cudaError_t err = cluster_rnn<GN, WANT_C, BATCH_MAJOR, XT>(a, &n);
   if (err != cudaSuccess) return err;
   const int R = cluster_rows(B);
   info[0] = R;
   info[1] = (B + R - 1) / R;
-  info[2] = (int)cluster_smem(H, GN, R, DOT1);
+  info[2] = (int)cluster_smem(H, GN, R);
   info[3] = n;
   return 0;
 }

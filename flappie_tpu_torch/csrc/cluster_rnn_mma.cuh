@@ -1,17 +1,19 @@
-// The one-pass LSTM step on Hopper's tensor cores, sm_90a: the recurrence
-// of K1-default, K8-default, K1-default-bf16 and K8-default-bf16
-// (lstm_p1.cu), the LSTM's step product at precision ``default``.
+// The one-pass step on Hopper's tensor cores, sm_90a: the recurrence of
+// the layers of precision ``default``, the LSTM's (K1-default, K8-default,
+// K1-default-bf16, K8-default-bf16; lstm_p1.cu, GN = 4) and GRU-mod's
+// (K7-default, K7-default-bf16; grumod_p1.cu, GN = 3).
 //
 // Replaces the step product of flappie_tpu/ops/rnn_pallas.py:219
-// _lstm_fused_body when _make_rdot:172 runs at lax.Precision.DEFAULT (one
-// bf16 MXU pass with f32 sums, h and sW rounded to bf16).  cluster_rnn.cuh's
-// DOT1 branch computed it as fmaf on CUDA cores over operands widened from
-// bf16 (5,120 FMAs a thread a step, then the k slices' partial sums through
-// shared memory) and ran slower than the f32 step it should undercut.
+// _lstm_fused_body and :290 _grumod_fused_kernel (dual kernels :322, :386)
+// when _make_rdot:172 runs at lax.Precision.DEFAULT: one bf16 MXU pass with
+// f32 sums, h and sW rounded to bf16.  The same product on CUDA cores (fmaf
+// over operands widened from bf16, 5,120 FMAs a thread a step at R=20, then
+// the k slices' partial sums through shared memory) ran slower than the f32
+// step it should undercut (PERF.md).
 //
 // What bounds it: as every cluster recurrence, the chain of T dependent
-// steps; a step's work is small (a CTA's product at H=256, R=20 is 128
-// gate columns x 256 x 24 rows), so the step's latency is its product's
+// steps; a step's work is small (a CTA's product at H=256, R=16 is GN.32
+// gate columns x 256 x 16 rows), so the step's latency is its product's
 // chain, the cell update, and the exchange of h between the cluster's CTAs.
 //
 // Design (the cluster of cluster_rnn.cuh: CLUSTER = 8 CTAs on R rows, CTA q
@@ -19,15 +21,21 @@
 //  - The product is mma.sync.m16n8k16 bf16 -> f32: M the CTA's gate
 //    columns, N the cluster's rows padded to n-tiles of 8 (NP), K the
 //    exchanged h.  A warp owns MMA_UNITS = 8 units and two m-tiles ordered
-//    gate-major: m-tile 0 holds gates u (rows 0-7) and f (8-15) of its 8
-//    units, m-tile 1 gates g and o.  So the accumulator fragment of lane
-//    (g, t) holds all four gates of unit g for rows 2t and 2t+1 of each
-//    n-tile: the cell update runs from registers, with no partial sums in
-//    shared memory and no block barrier in the step.
+//    gate-major: row m of m-tile mt is gate 2.mt + m / 8 of unit slot
+//    m % 8 (ops/rnn_cuda.py's _mma_gate_rows mirrors the map).  LSTM: m-tile 0
+//    holds gates u | f, m-tile 1 g | o.  GRU-mod: m-tile 0 z | r, m-tile 1
+//    hbar | zero rows (gate 3 is a compile-time zero: its A words are the
+//    constant 0, a quarter of the MMAs multiply them).  So the accumulator
+//    fragment of lane (g, t) holds every gate of unit g for rows 2t and
+//    2t+1 of each n-tile: the cell update runs from registers, with no
+//    partial sums in shared memory and no block barrier in the step.
+//    (One m-tile a gate over 16 units instead would hold 192 A registers
+//    at GN = 3, which the accumulators and the state would spill.)
 //  - sW's slice, rounded to bf16 once, is held as the warp's A fragments
 //    for the whole walk: 2 m-tiles x 16 k-tiles x 4 registers = 128
-//    registers a thread at H=256 (read from shared memory every step
-//    instead, they ran 1.3x slower at B=256, 1.15x at B=24: PERF.md).
+//    registers a thread at H=256, GN.32 of them not zero (read from shared
+//    memory every step instead, they ran 1.3x slower at B=256, 1.15x at
+//    B=24: PERF.md).
 //  - Rows: R of cluster_rnn.cuh's ROWS from B by mma_cluster_rows, the
 //    fewest that keep the clusters within MMA_MAX_CLUSTERS = 16, one CTA
 //    an SM for 128 of the 132 (at most 24 KiB of shared memory and 128
@@ -63,16 +71,19 @@
 // Summation order (one order for every R, row, stream and WANT_C): column
 // (gate, unit) of a row is xa + P, where P is the tensor core's sum over
 // each 16-wide k-tile accumulated in f32 over the k-tiles in ascending
-// order from 0 (JAX's xa + rdot(h)).  So K8-default's h is K1-default's
-// bit for bit on each stream.
+// order from 0 (JAX's xa + rdot(h)); GRU-mod's candidate is r.P + xa_h
+// (its xa never summed into P).  So K8-default's h is K1-default's bit for
+// bit on each stream.
 //
-// Semantics as cluster_rnn.cuh's (rnn_pallas.py:219-266): gates (u, f, g,
-// o), c = f.c + u.g, h = o.tanh(c), backward walks t from T-1 down, a step
-// at or past a row's length freezes (h, c) and writes 0 to out and c_out,
-// padding rows neither read nor write; h and c are carried in f32 and h is
-// rounded to bf16 once a step, for the product; XT (float, or bf16 under
-// the bf16 stream) is the type of xa, out and c_out.  Limits: H % 16 == 0
-// and H <= 256.
+// Semantics as cluster_rnn.cuh's (rnn_pallas.py:219-266, :307-317): LSTM
+// gates (u, f, g, o), c = f.c + u.g, h = o.tanh(c); GRU-mod gates (z, r,
+// hbar), hbar = tanh(r.v_h + xa_h), h = z.h + (1-z).hbar; backward walks t
+// from T-1 down, a step at or past a row's length freezes the state and
+// writes 0 to out and c_out, padding rows neither read nor write; h (and
+// c) are carried in f32 and h is rounded to bf16 once a step, for the
+// product; XT (float, or bf16 under the bf16 stream) is the type of xa,
+// out and c_out.  WANT_C only with GN = 4.  Limits: H % 16 == 0 and
+// H <= 256.
 
 #pragma once
 
@@ -132,15 +143,17 @@ __device__ __forceinline__ void st_async_v4(uint32_t a, const uint32_t (&v)[4], 
       :: "r"(a), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(bar) : "memory");
 }
 
-template <int NT, bool WANT_C, typename XT>
+template <int GN, int NT, bool WANT_C, typename XT>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_H / 2)
-cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
-                       const float* __restrict__ sW,     // [H, 4H]
+cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
+                       const float* __restrict__ sW,     // [H, GN.H]
                        const int* __restrict__ lengths,  // [B]
                        XT* __restrict__ out,             // [T, B, H]
                        XT* __restrict__ c_out,           // [T, B, H] if WANT_C
                        int T, int B, int H, int backward,
                        int R) {                          // rows a cluster, in (8.NT - 8, 8.NT]
+  static_assert(GN == 4 || (GN == 3 && !WANT_C), "LSTM (with or without c) or GRU-mod");
+  constexpr bool LSTM = GN == 4;
   constexpr int NP = 8 * NT;            // rows, padded to NT n-tiles of 8
   constexpr int RT = 2 * NT;            // rows a thread updates
   constexpr int KT_MAX = MAX_H / 16;    // k-tiles at H = 256
@@ -152,7 +165,7 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
   const int W = (int)blockDim.x / 32;     // warps, mma_warps(H)
   const int KC = CLUSTER * W;             // chunks of the exchanged h
   const int KT = KC / 2;                  // k-tiles of the product
-  const int G = 4 * H;
+  const int G = GN * H;
   const int warp = (int)threadIdx.x / 32, lane = (int)threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;  // the fragments' group and thread in group
   const int u = warp * MMA_UNITS + g;     // this lane's unit slot in the CTA
@@ -167,11 +180,15 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
 
   // sW as the A operand, rounded to bf16 once: A[m][k] of m-tile mt is
   // gate 2.mt (m < 8) or 2.mt + 1 of this warp's unit slot m % 8, at the
-  // padded k of chunk k / 8 (zero for a padding unit)
+  // padded k of chunk k / 8 (zero for a padding unit); a_word packs A[m][k]
+  // and A[m][k + 1], the constant 0 on GRU-mod's zero rows (gate 3)
   auto w_at = [&](int gate, int k) -> float {
     const int c = k / MMA_UNITS, uu = (c % W) * MMA_UNITS + k % MMA_UNITS;
     if (!unit_ok || uu >= U) return 0.f;
     return sW[(long)((c / W) * U + uu) * G + gate * H + j];
+  };
+  auto a_word = [&](int gate, int k) -> uint32_t {
+    return gate < GN ? pack_bf16(w_at(gate, k), w_at(gate, k + 1)) : 0u;
   };
   uint32_t a[2][KT_MAX][4];
 #pragma unroll
@@ -180,10 +197,10 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
     for (int kt = 0; kt < KT_MAX; ++kt) {
       const int k = 16 * kt + 2 * tq;
       const bool in = kt < KT;
-      const uint32_t f0 = in ? pack_bf16(w_at(2 * mt, k), w_at(2 * mt, k + 1)) : 0u;
-      const uint32_t f1 = in ? pack_bf16(w_at(2 * mt + 1, k), w_at(2 * mt + 1, k + 1)) : 0u;
-      const uint32_t f2 = in ? pack_bf16(w_at(2 * mt, k + 8), w_at(2 * mt, k + 9)) : 0u;
-      const uint32_t f3 = in ? pack_bf16(w_at(2 * mt + 1, k + 8), w_at(2 * mt + 1, k + 9)) : 0u;
+      const uint32_t f0 = in ? a_word(2 * mt, k) : 0u;
+      const uint32_t f1 = in ? a_word(2 * mt + 1, k) : 0u;
+      const uint32_t f2 = in ? a_word(2 * mt, k + 8) : 0u;
+      const uint32_t f3 = in ? a_word(2 * mt + 1, k + 8) : 0u;
       a[mt][kt][0] = f0;
       a[mt][kt][1] = f1;
       a[mt][kt][2] = f2;
@@ -199,8 +216,8 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
 
   // the update role: unit j, rows 2.tq and 2.tq + 1 of each n-tile
   int len[RT];
-  float c[RT], hreg[RT];  // the carried f32 state
-  XT nx[RT][4];           // the next step's xa, as loaded
+  float c[RT], hreg[RT];  // the carried f32 state (c: LSTM only)
+  XT nx[RT][GN];          // the next step's xa, as loaded
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int n = 8 * (r / 2) + 2 * tq + r % 2, row = row0 + n;
@@ -214,7 +231,7 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
       const int n = 8 * (r / 2) + 2 * tq + r % 2, row = row0 + n;
       const bool live = unit_ok && n < R && row < B;
 #pragma unroll
-      for (int gt = 0; gt < 4; ++gt)
+      for (int gt = 0; gt < GN; ++gt)
         nx[r][gt] = live ? xa[at(t, row) * G + gt * H + j] : from_f32<XT>(0.f);
     }
   };
@@ -237,11 +254,11 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
     if (s > 0) mbar_wait(smem_u32(&bar_s[s & 1]), ((s - 1) >> 1) & 1);
     if (threadIdx.x == 0 && s + 2 < T) mbar_expect(smem_u32(&bar_s[s & 1]), step_bytes);
     PROBE_MARK(0)
-    float xcur[RT][4];
+    float xcur[RT][GN];
 #pragma unroll
     for (int r = 0; r < RT; ++r)
 #pragma unroll
-      for (int gt = 0; gt < 4; ++gt) xcur[r][gt] = to_f32(nx[r][gt]);
+      for (int gt = 0; gt < GN; ++gt) xcur[r][gt] = to_f32(nx[r][gt]);
     if (s + 1 < T) load_xa(backward ? t - 1 : t + 1);
 
     // P = h . sW: k-tiles in ascending order into each accumulator
@@ -276,22 +293,33 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
       const int nt = r / 2, i = r % 2;
-      const float vu = xcur[r][0] + acc[0][nt][i];
-      const float vf = xcur[r][1] + acc[0][nt][2 + i];
-      const float vg = xcur[r][2] + acc[1][nt][i];
-      const float vo = xcur[r][3] + acc[1][nt][2 + i];
-      const bool valid = t < len[r];
-      const float ug = sigmoidf_(vu);
-      const float f = sigmoidf_(vf);
-      const float gg = tanhf(vg);
-      const float o = sigmoidf_(vo);
-      const float c2 = f * c[r] + ug * gg;
-      const float h2 = o * tanhf(c2);
-      co[r] = valid ? c2 : 0.f;
-      ho[r] = valid ? h2 : 0.f;
-      if (valid) {
-        c[r] = c2;
-        hreg[r] = h2;
+      if constexpr (LSTM) {
+        const float vu = xcur[r][0] + acc[0][nt][i];
+        const float vf = xcur[r][1] + acc[0][nt][2 + i];
+        const float vg = xcur[r][2] + acc[1][nt][i];
+        const float vo = xcur[r][3] + acc[1][nt][2 + i];
+        const bool valid = t < len[r];
+        const float ug = sigmoidf_(vu);
+        const float f = sigmoidf_(vf);
+        const float gg = tanhf(vg);
+        const float o = sigmoidf_(vo);
+        const float c2 = f * c[r] + ug * gg;
+        const float h2 = o * tanhf(c2);
+        co[r] = valid ? c2 : 0.f;
+        ho[r] = valid ? h2 : 0.f;
+        if (valid) {
+          c[r] = c2;
+          hreg[r] = h2;
+        }
+      } else {
+        // the candidate's product times r, then its xa (never summed into P)
+        const float z = sigmoidf_(xcur[r][0] + acc[0][nt][i]);
+        const float rg = sigmoidf_(xcur[r][1] + acc[0][nt][2 + i]);
+        const float hbar = tanhf(rg * acc[1][nt][i] + xcur[r][2]);
+        const bool valid = t < len[r];
+        const float h2 = z * hreg[r] + (1.f - z) * hbar;
+        ho[r] = valid ? h2 : 0.f;
+        if (valid) hreg[r] = h2;
       }
       hn[r] = unit_ok ? round_bf16(hreg[r]) : 0.f;
     }
@@ -352,40 +380,41 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, 4H]
 // Launch the instantiation of R's n-tiles at R rows a cluster (any R of
 // ROWS, whatever B), or, with max_active, only ask how many of its
 // clusters the card holds at once.
-template <int NT, bool WANT_C, typename XT>
+template <int GN, int NT, bool WANT_C, typename XT>
 cudaError_t cluster_rnn_mma_nt(const RnnArgs<XT>& a, int R, int* max_active) {
-  return launch_clusters<XT>(cluster_rnn_mma_kernel<NT, WANT_C, XT>, R, 32 * mma_warps(a.H),
+  return launch_clusters<XT>(cluster_rnn_mma_kernel<GN, NT, WANT_C, XT>, R, 32 * mma_warps(a.H),
                              cluster_mma_smem(a.H, R), a, max_active, R);
 }
 
-template <bool WANT_C, typename XT>
+template <int GN, bool WANT_C, typename XT>
 cudaError_t cluster_rnn_mma_r(const RnnArgs<XT>& a, int R, int* max_active) {
   if (!cluster_h_ok(a.H) || a.B <= 0 || R <= 0) return cudaErrorInvalidValue;
   switch (mma_rows(R) / 8) {
-    case 1: return cluster_rnn_mma_nt<1, WANT_C, XT>(a, R, max_active);
-    case 2: return cluster_rnn_mma_nt<2, WANT_C, XT>(a, R, max_active);
-    case 3: return cluster_rnn_mma_nt<3, WANT_C, XT>(a, R, max_active);
+    case 1: return cluster_rnn_mma_nt<GN, 1, WANT_C, XT>(a, R, max_active);
+    case 2: return cluster_rnn_mma_nt<GN, 2, WANT_C, XT>(a, R, max_active);
+    case 3: return cluster_rnn_mma_nt<GN, 3, WANT_C, XT>(a, R, max_active);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The one-pass LSTM recurrence over a time-major xa at the rows
-// mma_cluster_rows(B) picks; returns the launch error code.
-template <bool WANT_C, typename XT>
+// The one-pass recurrence of GN gates (4 LSTM, 3 GRU-mod) over a
+// time-major xa at the rows mma_cluster_rows(B) picks; returns the launch
+// error code.
+template <int GN, bool WANT_C, typename XT>
 cudaError_t cluster_rnn_mma(const RnnArgs<XT>& a, int* max_active = nullptr) {
-  return cluster_rnn_mma_r<WANT_C, XT>(a, mma_cluster_rows(a.B), max_active);
+  return cluster_rnn_mma_r<GN, WANT_C, XT>(a, mma_cluster_rows(a.B), max_active);
 }
 
 // info = {rows a cluster, clusters, shared bytes a CTA, clusters the card
 // holds at once} for a batch of B; returns the error code.
-template <bool WANT_C, typename XT>
+template <int GN, bool WANT_C, typename XT>
 int cluster_mma_info(int B, int H, int* info) {
   RnnArgs<XT> a = {};
   a.T = 1;
   a.B = B;
   a.H = H;
   int n = 0;
-  const cudaError_t err = cluster_rnn_mma<WANT_C, XT>(a, &n);
+  const cudaError_t err = cluster_rnn_mma<GN, WANT_C, XT>(a, &n);
   if (err != cudaSuccess) return err;
   const int R = mma_cluster_rows(B);
   info[0] = R;

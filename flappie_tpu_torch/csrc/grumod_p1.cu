@@ -5,14 +5,18 @@
 //
 // Replaces the step product of flappie_tpu/ops/rnn_pallas.py:290
 // _grumod_fused_kernel (and the dual kernel :386) when _make_rdot:172 runs
-// at lax.Precision.DEFAULT: one bf16 MXU pass with f32 accumulation.  As
-// lstm_p1.cu: the cluster recurrence under DOT1 (sW's slice in bf16, 48 KiB
-// a CTA at H=256; h rounded to bf16 for the product only; z.h, the update
-// and the freeze on the carried f32 h), bound by the chain of steps; each
-// entry is one fused layer (layer.cuh default_layer), the block affine the
-// caller names first, and the f32 step after the one-pass affine is here
-// too, so that grumod.cu keeps its kernels.  A source of its own, built
-// only when ``default`` is asked for.
+// at lax.Precision.DEFAULT: one bf16 MXU pass with f32 accumulation, h and
+// sW rounded to bf16.  As lstm_p1.cu: the one-pass step on the tensor
+// cores (cluster_rnn_mma.cuh at GN = 3: m-tile 0 gates z | r, m-tile 1 the
+// candidate hbar | zero rows, sW's slice held in registers as bf16 A
+// fragments, h rounded to bf16 where it is made and exchanged as bf16; z.h,
+// the update and the freeze on the carried f32 h, the candidate's xa added
+// after the multiply by r), bound by the chain of steps; each entry is one
+// fused layer (layer.cuh default_layer), the block affine the caller names
+// first.  The f32 step after the one-pass affine is here too, so that
+// grumod.cu keeps its kernels; it is cluster_rnn.cuh's f32 step,
+// unchanged.  A source of its own, built only when ``default`` is asked
+// for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,9 +42,10 @@ extern "C" int flappie_grumod_p1_layer(const void* x, const void* iW, const floa
 }
 
 // The cluster plan of K7 (variant 0) or K7-bf16 (3) at precision default
-// for a batch of B: info = {rows a cluster, clusters, shared bytes a CTA,
-// clusters the card holds at once}.  Returns the error code.
+// for a batch of B (the tensor-core step's): info = {rows a cluster,
+// clusters, shared bytes a CTA, clusters the card holds at once}.  Returns
+// the error code.
 extern "C" int flappie_grumod_p1_cluster_info(int B, int H, int variant, int* info) {
-  if (variant == 3) return flappie::cluster_info<3, false, false, __nv_bfloat16, true>(B, H, info);
-  return flappie::cluster_info<3, false, false, float, true>(B, H, info);
+  if (variant == 3) return flappie::cluster_mma_info<3, false, __nv_bfloat16>(B, H, info);
+  return flappie::cluster_mma_info<3, false, float>(B, H, info);
 }

@@ -38,9 +38,9 @@ cudaError_t launch_block_affine(const void* x, const void* iW, const float* b, v
 
 // One layer of GN gates: the block affine of x [T*B, IN] by AFFINE into
 // xa [T*B, GN*H], then the recurrence over it (xa, out and, with WANT_C,
-// c_out [T, B, H] of type XT; the step product one bf16 pass with DOT1: the
-// LSTM's on the tensor cores, cluster_rnn_mma.cuh, GRU-mod's in
-// cluster_rnn.cuh).  Returns the launch error code (0 = ok).
+// c_out [T, B, H] of type XT; with DOT1 the step product one bf16 pass on
+// the tensor cores, cluster_rnn_mma.cuh, else cluster_rnn.cuh's f32 step).
+// Returns the launch error code (0 = ok).
 template <int GN, bool WANT_C, typename XT, bool DOT1, int AFFINE>
 int fused_layer(const void* x, const void* iW, const float* b, const float* sW,
                 const int* lengths, void* xa, void* out, void* c_out, int T, int B, int IN,
@@ -53,10 +53,10 @@ int fused_layer(const void* x, const void* iW, const float* b, const float* sW,
   if (err != cudaSuccess) return err;
   const RnnArgs<XT> args = {static_cast<const XT*>(xa), sW, lengths, static_cast<XT*>(out),
                             static_cast<XT*>(c_out), T, B, H, backward, st};
-  if constexpr (GN == 4 && DOT1)
-    return cluster_rnn_mma<WANT_C, XT>(args);
+  if constexpr (DOT1)
+    return cluster_rnn_mma<GN, WANT_C, XT>(args);
   else
-    return cluster_rnn<GN, WANT_C, false, XT, DOT1>(args);
+    return cluster_rnn<GN, WANT_C, false, XT>(args);
 }
 
 // A layer of precision ``default`` (lstm_p1.cu, grumod_p1.cu) by the

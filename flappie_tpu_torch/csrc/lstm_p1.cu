@@ -61,8 +61,8 @@ extern "C" int flappie_lstm_p1_layer_train(const void* x, const void* iW, const 
 // {rows a cluster, clusters, shared bytes a CTA, clusters the card holds at
 // once}.  Returns the error code.
 extern "C" int flappie_lstm_p1_cluster_info(int B, int H, int variant, int* info) {
-  if (variant == 1) return flappie::cluster_mma_info<true, float>(B, H, info);
-  if (variant == 3) return flappie::cluster_mma_info<false, __nv_bfloat16>(B, H, info);
-  if (variant == 4) return flappie::cluster_mma_info<true, __nv_bfloat16>(B, H, info);
-  return flappie::cluster_mma_info<false, float>(B, H, info);
+  if (variant == 1) return flappie::cluster_mma_info<4, true, float>(B, H, info);
+  if (variant == 3) return flappie::cluster_mma_info<4, false, __nv_bfloat16>(B, H, info);
+  if (variant == 4) return flappie::cluster_mma_info<4, true, __nv_bfloat16>(B, H, info);
+  return flappie::cluster_mma_info<4, false, float>(B, H, info);
 }

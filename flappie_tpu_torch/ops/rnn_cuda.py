@@ -21,8 +21,8 @@ recurrence kernel as K1/K7, which reads and writes the batch-major
 tensors in place (a template flag on its row offsets), every row
 running all T steps.
 
-Every recurrence runs csrc/cluster_rnn.cuh: clusters of 8 CTAs, each
-holding an eighth of sW in shared memory, R rows a cluster
+Every f32-step recurrence runs csrc/cluster_rnn.cuh: clusters of 8 CTAs,
+each holding an eighth of sW in shared memory, R rows a cluster
 (``_cluster_plan``); H must be a multiple of 16 and at most 256.
 
 The bf16 stream (``--fast``; ops/precision.py): an ``x_tm`` in bf16
@@ -39,11 +39,11 @@ ignores the stream.
 
 Precision ``default`` (ops/precision.py: ``"bf16"`` on a CUDA device).
 At FLAPPIE_TPU_RNN_PRECISION=default a layer runs the cluster recurrence
-with the one-pass step product (sW in bf16, h rounded to bf16 for the
-product, f32 sums; csrc/lstm_p1.cu on the tensor cores,
-csrc/cluster_rnn_mma.cuh; csrc/grumod_p1.cu on CUDA cores, cluster_rnn.cuh's
-DOT1), under either stream: ``lstm_layer_tm_p1``, ``lstm_layer_tm_train_p1``,
-``grumod_layer_tm_p1``, counted under the bf16 stream on
+with the one-pass step product on the tensor cores (sW in bf16, h rounded
+to bf16 for the product, f32 sums; csrc/lstm_p1.cu and csrc/grumod_p1.cu,
+both csrc/cluster_rnn_mma.cuh), under either stream: ``lstm_layer_tm_p1``,
+``lstm_layer_tm_train_p1``, ``grumod_layer_tm_p1``, counted under the bf16
+stream on
 ``lstm_layer_tm_bf16_p1``, ``lstm_layer_tm_train_bf16_p1`` and
 ``grumod_layer_tm_bf16_p1``.  At FLAPPIE_TPU_MATMUL_PRECISION=default on
 the f32 stream the block affine is the one-pass affine with an f32 output
@@ -201,10 +201,11 @@ CLUSTER, KSPLIT, MAX_CLUSTERS, MAX_H = 8, 4, 15, 256
 ROWS = (1, 2, 4, 8, 12, 16, 20)
 
 
-# csrc/cluster_rnn_mma.cuh (the LSTM's one-pass step on the tensor cores):
-# hidden units a warp, the rows of an n-tile, the k of a k-tile, the most
-# clusters its rows rule lets a batch take (one CTA an SM for 128 SMs)
-MMA_UNITS, MMA_N, MMA_K, MMA_MAX_CLUSTERS = 8, 8, 16, 16
+# csrc/cluster_rnn_mma.cuh (the one-pass step on the tensor cores): hidden
+# units a warp, the rows of an n-tile and of an m-tile, the k of a k-tile,
+# the m-tiles a warp, the most clusters its rows rule lets a batch take
+# (one CTA an SM for 128 SMs)
+MMA_UNITS, MMA_N, MMA_M, MMA_K, MMA_M_TILES, MMA_MAX_CLUSTERS = 8, 8, 16, 16, 2, 16
 
 
 def _rows(B: int, most: int) -> int:
@@ -213,40 +214,53 @@ def _rows(B: int, most: int) -> int:
     return next((r for r in ROWS if -(-B // r) <= most), ROWS[-1])
 
 
-def _mma_plan(H: int, R: int) -> dict:
-    """The tensor-core step's layout at H and R rows a cluster (mma_warps,
-    mma_rows, cluster_mma_smem in csrc/cluster_rnn_mma.cuh): warps a CTA
-    (MMA_UNITS units each, the last padded), the exchanged h's chunks of 8
-    units (K padded to 8 of them), its k-tiles, the rows padded to
-    n-tiles, the shared bytes (h by step parity, 16 bytes a chunk and
-    row) and the A fragments a thread holds in registers (2 m-tiles of
-    4 words a k-tile)."""
+def _mma_plan(H: int, R: int, gates: int = 4) -> dict:
+    """The tensor-core step's layout at H, R rows a cluster and ``gates``
+    (mma_warps, mma_rows, cluster_mma_smem in csrc/cluster_rnn_mma.cuh):
+    warps a CTA (MMA_UNITS units each, the last padded), the exchanged h's
+    chunks of 8 units (K padded to 8 of them), its k-tiles, the rows
+    padded to n-tiles, the shared bytes (h by step parity, 16 bytes a
+    chunk and row) and the A words a thread holds in registers that are
+    not the constant 0 (2 a k-tile for each gate of its 8 units: 4 a
+    k-tile for each of its 2 m-tiles at 4 gates; GRU-mod's zero rows,
+    ``_mma_gate_rows``, hold none)."""
     warps = -(-(H // CLUSTER) // MMA_UNITS)
     chunks = CLUSTER * warps
     n_tiles = -(-R // MMA_N)
-    return dict(warps=warps, chunks=chunks, k_tiles=chunks * MMA_UNITS // MMA_K,
-                n_tiles=n_tiles, rows=MMA_N * n_tiles, smem=2 * chunks * MMA_N * n_tiles * 16,
-                a_registers=2 * 4 * chunks * MMA_UNITS // MMA_K)
+    k_tiles = chunks * MMA_UNITS // MMA_K
+    return dict(warps=warps, chunks=chunks, k_tiles=k_tiles, n_tiles=n_tiles,
+                rows=MMA_N * n_tiles, smem=2 * chunks * MMA_N * n_tiles * 16,
+                a_registers=2 * gates * k_tiles)
+
+
+def _mma_gate_rows(gates: int) -> list:
+    """The tensor-core step's A rows (the gate-to-row map of
+    cluster_rnn_mma_kernel): [m-tile][row] -> (gate, unit slot of the
+    warp's 8), or None for a zero row.  Row m of m-tile mt is gate
+    2 mt + m // 8 of unit slot m % 8, so the accumulator rows of lane group
+    g (rows g and g + 8 of each m-tile) hold every gate of unit slot g;
+    GRU-mod's gate 3 (m-tile 1, rows 8-15) is zero."""
+    return [[(gate, m % MMA_UNITS) if (gate := 2 * mt + m // MMA_UNITS) < gates else None
+             for m in range(MMA_M)] for mt in range(MMA_M_TILES)]
 
 
 def _cluster_plan(B: int, H: int, gates: int, dot1: bool = False):
     """(R, clusters, shared bytes a CTA) of the cluster recurrence for a
     batch of B rows: the fewest rows R of ``ROWS`` that let every cluster
     run at once (at most 15), else the most (cluster_rows in
-    csrc/cluster_rnn.cuh); ``dot1`` (the one-pass step product): the LSTM's
-    tensor-core step takes the same rule at 16 clusters (mma_cluster_rows)
-    and keeps only the exchanged h in shared memory (``_mma_plan``),
-    GRU-mod's holds sW's slice in bf16 (cluster_smem).  Raises ValueError
-    for an H the kernel does not take."""
+    csrc/cluster_rnn.cuh); ``dot1`` (the one-pass step product, the
+    tensor-core step of either cell): the same rule at 16 clusters
+    (mma_cluster_rows), only the exchanged h in shared memory
+    (``_mma_plan``).  Raises ValueError for an H the kernel does not take."""
     if H <= 0 or H % 16 or H > MAX_H:
         raise ValueError(f"the cluster recurrence needs H % 16 == 0 and H <= {MAX_H} (an "
                          f"eighth of sW must fit one SM's shared memory), got H={H}")
-    if dot1 and gates == 4:
+    if dot1:
         R = _rows(B, MMA_MAX_CLUSTERS)
-        return R, -(-B // R), _mma_plan(H, R)["smem"]
+        return R, -(-B // R), _mma_plan(H, R, gates)["smem"]
     R = _rows(B, MAX_CLUSTERS)
     cols = gates * H // CLUSTER
-    smem = (2 if dot1 else 4) * H * cols + 4 * (2 * H * R + KSPLIT * R * cols)
+    smem = 4 * (H * cols + 2 * H * R + KSPLIT * R * cols)
     return R, -(-B // R), smem
 
 
@@ -584,7 +598,9 @@ def lstm_layer_tm_train_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None
 
 def grumod_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K7 (or K7-bf16, counted on ``grumod_layer_tm_bf16_p1``) with the
-    step product at precision ``default`` (csrc/grumod_p1.cu)."""
+    step product at precision ``default``: one bf16 pass, f32 sums
+    (csrc/grumod_p1.cu); on the f32 stream the affine at the ff level for
+    x's device."""
     return _p1_layer("grumod_layer_tm", x_tm, iW, b, sW, backward, lengths)
 
 

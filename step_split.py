@@ -1,23 +1,26 @@
-"""Where a step of the one-pass LSTM recurrence goes, on one CUDA card.
+"""Where a step of the cluster recurrences goes, on one CUDA card.
 
     python3 step_split.py
 
 Builds a small source of its own (written under build/) that runs the
-recurrence alone over a time-major xa [T, B, 4H] in three forms:
-cluster_rnn.cuh's one-pass step on CUDA cores (DOT1, the LSTM's step
-before csrc/cluster_rnn_mma.cuh), the tensor-core step of
-cluster_rnn_mma.cuh, and cluster_rnn.cuh's f32 step; once as the
-kernels ship and once with -DFLAPPIE_STEP_PROBE (csrc/step_probe.cuh),
-both nvcc at once.  Then, at T=2560, H=256, B=256 and B=24, ragged
-lengths including 0 and T, backward, the three forms each at its own
-plan's rows (cluster_rnn.cuh's R=20 and R=2, the tensor-core step's R=16
-and R=2):
+recurrence alone over a time-major xa [T, B, GN.H] in two forms for each
+cell (the LSTM, GN = 4, and GRU-mod, GN = 3): the one-pass step on the
+tensor cores (csrc/cluster_rnn_mma.cuh) and cluster_rnn.cuh's f32 step;
+once as the kernels ship and once with -DFLAPPIE_STEP_PROBE
+(csrc/step_probe.cuh), both nvcc at once.  Then, for each cell at T=2560,
+H=256, B=256 and B=24, ragged lengths including 0 and T, backward, the two
+forms each at its own plan's rows (cluster_rnn.cuh's R=20 and R=2, the
+tensor-core step's R=16 and R=2):
 
-1. ptxas's registers and spills of each kernel at R=20 and R=2, and HMMA
-   in the tensor-core kernels' SASS (none in the others);
-2. the tensor-core step against the CUDA-core one-pass step (the distance
-   logged: the two sum the same exact products in other orders);
-3. the three forms timed alternated over 10 runs (CUDA events), their
+1. ptxas's registers and spills of each kernel at R=20 and R=2 (the
+   tensor-core step's by n-tiles, GRU-mod's beside the LSTM's: what its
+   zero rows cost), and HMMA in the tensor-core kernels' SASS (none in
+   the others);
+2. the tensor-core step and the f32 step against the plain one-pass twin
+   of the recurrence (ops/rnn.py's steps over h and sW rounded to bf16,
+   f32 sums; the distances logged: kernel and twin sum the same exact
+   products in other orders, the f32 step rounds neither);
+3. the two forms timed alternated over 10 runs (CUDA events), their
    microseconds a step, and the tensor-core step at each R of ROWS_AT[B]
    (bit-equal to its plan's; the clusters each launches and the card
    holds at once);
@@ -46,25 +49,30 @@ SHIM = r"""#include "layer.cuh"
 extern "C" const char* flappie_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-// which: 0 cluster_rnn.cuh's one-pass step (DOT1), 1 the tensor-core step
-// (cluster_rnn_mma.cuh), 2 cluster_rnn.cuh's f32 step; xa [T, B, 4H] f32 ->
-// out [T, B, H].  Returns the launch error code.
-extern "C" int flappie_probe_rnn(int which, const float* xa, const float* sW, const int* lengths,
-                                 float* out, int T, int B, int H, int backward, void* stream) {
+// The recurrence of ``gates`` gates (4 LSTM, 3 GRU-mod) in form ``which``:
+// 0 the tensor-core step (cluster_rnn_mma.cuh), 1 cluster_rnn.cuh's f32
+// step; xa [T, B, gates.H] f32 -> out [T, B, H].  Returns the launch error
+// code.
+extern "C" int flappie_probe_rnn(int gates, int which, const float* xa, const float* sW,
+                                 const int* lengths, float* out, int T, int B, int H,
+                                 int backward, void* stream) {
   const flappie::RnnArgs<float> a = {xa, sW, lengths, out, nullptr, T, B, H, backward,
                                      static_cast<cudaStream_t>(stream)};
-  if (which == 0) return flappie::cluster_rnn<4, false, false, float, true>(a);
-  if (which == 1) return flappie::cluster_rnn_mma<false, float>(a);
-  return flappie::cluster_rnn<4, false, false, float, false>(a);
+  if (gates == 3)
+    return which == 0 ? flappie::cluster_rnn_mma<3, false, float>(a)
+                      : flappie::cluster_rnn<3, false, false, float>(a);
+  return which == 0 ? flappie::cluster_rnn_mma<4, false, float>(a)
+                    : flappie::cluster_rnn<4, false, false, float>(a);
 }
 // the tensor-core step at R rows a cluster, whatever B (max_active: only
 // ask how many of its clusters the card holds at once)
-extern "C" int flappie_probe_rows(int R, const float* xa, const float* sW, const int* lengths,
-                                  float* out, int T, int B, int H, int backward, void* stream,
-                                  int* max_active) {
+extern "C" int flappie_probe_rows(int gates, int R, const float* xa, const float* sW,
+                                  const int* lengths, float* out, int T, int B, int H,
+                                  int backward, void* stream, int* max_active) {
   const flappie::RnnArgs<float> a = {xa, sW, lengths, out, nullptr, T, B, H, backward,
                                      static_cast<cudaStream_t>(stream)};
-  return flappie::cluster_rnn_mma_r<false, float>(a, R, max_active);
+  if (gates == 3) return flappie::cluster_rnn_mma_r<3, false, float>(a, R, max_active);
+  return flappie::cluster_rnn_mma_r<4, false, float>(a, R, max_active);
 }
 """
 # the two builds: {name: -D flags}
@@ -72,7 +80,8 @@ BUILDS = {"shipped": (), "probe": ("-DFLAPPIE_STEP_PROBE",)}
 # rows a cluster the tensor-core step is timed at, by batch (its plan's
 # and the others it instantiates)
 ROWS_AT = {256: (8, 12, 16, 20), 24: (1, 2, 4)}
-FORMS = {0: "CUDA-core one-pass (DOT1)", 1: "tensor-core", 2: "f32 step"}
+FORMS = {0: "tensor-core", 1: "f32 step"}
+CELLS = {4: "LSTM", 3: "GRU-mod"}
 BUCKETS = ("wait", "product", "update", "exchange", "rest")
 T, H = 2560, 256
 
@@ -96,50 +105,77 @@ def build(compile_: bool = True) -> dict:
     for lib in libs.values():
         lib.flappie_cuda_error_string.argtypes = [ctypes.c_int]
         lib.flappie_cuda_error_string.restype = ctypes.c_char_p
-        lib.flappie_probe_rnn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        lib.flappie_probe_rnn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.flappie_probe_rnn.restype = ctypes.c_int
-        lib.flappie_probe_rows.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        lib.flappie_probe_rows.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         lib.flappie_probe_rows.restype = ctypes.c_int
     return libs
 
 
 def log_code(libs: dict) -> None:
-    """ptxas's registers and spills at R = 20 and 2, and the tensor-core
-    instructions in each build's kernels."""
+    """ptxas's registers and spills at R = 20 and 2 of each cell's forms,
+    and the tensor-core instructions in each build's kernels."""
     from flappie_tpu_torch.ops import cuda_build
 
     for name in libs:
         text = cs.variant_log[name]
-        for r in (20, 2):
-            cs.log(f"ptxas {name} R={r}: tensor-core "
-                   f"{cs.ptxas_usage(text, f'cluster_rnn_mma_kernelILi{-(-r // 8)}E')}; CUDA-core "
-                   f"one-pass "
-                   f"{cs.ptxas_usage(text, f'cluster_rnn_kernelILi4ELi{r}ELb0ELb0EfLb1E')}; f32 "
-                   f"{cs.ptxas_usage(text, f'cluster_rnn_kernelILi4ELi{r}ELb0ELb0EfLb0E')}")
+        for gates, cell in CELLS.items():
+            for r in (20, 2):
+                mma = f"cluster_rnn_mma_kernelILi{gates}ELi{-(-r // 8)}E"
+                f32 = f"cluster_rnn_kernelILi{gates}ELi{r}ELb0ELb0EfE"
+                cs.log(f"ptxas {name} {cell} R={r}: tensor-core {cs.ptxas_usage(text, mma)}; "
+                       f"f32 {cs.ptxas_usage(text, f32)}")
         so = os.path.join(cuda_build.BUILD_DIR, name, "libstep_shim.so")
         for kernel, code in sorted(sass_by_kernel(so).items()):
             hmma = sum(1 for ins in code if re.search(r"\bHMMA\b", ins))
             if ("cluster_rnn_mma_kernel" in kernel) != (hmma > 0):
                 raise AssertionError(f"{name}: {kernel} issues {hmma} HMMA")
-            if "mma_kernelILi3E" in kernel or "ILi4ELi20E" in kernel:
+            if "mma_kernel" in kernel or "ELi20E" in kernel:
                 cs.log(f"  SASS {name}: {kernel}: {len(code)} instructions, {hmma} HMMA")
 
 
-def run(torch, lib, which: int, xa, sW, lengths):
+def run(torch, lib, gates: int, which: int, xa, sW, lengths):
     from flappie_tpu_torch.ops import cuda_build
 
     Tn, B, _ = xa.shape
     out = torch.empty(Tn, B, H, device=xa.device)
-    rc = lib.flappie_probe_rnn(which, xa.data_ptr(), sW.data_ptr(), lengths.data_ptr(),
+    rc = lib.flappie_probe_rnn(gates, which, xa.data_ptr(), sW.data_ptr(), lengths.data_ptr(),
                                out.data_ptr(), Tn, B, H, 1,
                                torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, rc, f"flappie_probe_rnn({which})")
+    cuda_build.check(lib, rc, f"flappie_probe_rnn({gates}, {which})")
     return out
 
 
-def time_rows(torch, lib, xa, sW, lengths, card: str) -> None:
+def plain(torch, gates: int, xa, sW, lengths):
+    """The one-pass twin of the recurrence alone, backward: ops/rnn.py's
+    step with h and sW rounded to bf16 for the product, the exact
+    products summed in f32 (TF32 off), the state carried in f32."""
+    from flappie_tpu_torch.ops import rnn
+    from flappie_tpu_torch.ops.precision import one_pass
+
+    Tn, B, _ = xa.shape
+    w = one_pass(sW)
+
+    def dot(h, w):
+        return rnn.rows_matmul(one_pass(h), w)
+
+    h = xa.new_zeros(B, H)
+    c = xa.new_zeros(B, H)
+    out = xa.new_empty(Tn, B, H)
+    for t in range(Tn - 1, -1, -1):
+        if gates == 4:
+            h2, c2 = rnn.lstm_step(xa[t], h, c, w, dot)
+        else:
+            h2, c2 = rnn.grumod_step(xa[t], h, w, dot), c
+        valid = (t < lengths)[:, None]
+        out[t] = torch.where(valid, h2, torch.zeros_like(h2))
+        h, c = torch.where(valid, h2, h), torch.where(valid, c2, c)
+    return out
+
+
+def time_rows(torch, lib, gates: int, xa, sW, lengths, card: str) -> None:
     """The tensor-core step at each R of ROWS_AT[B], alternated, each
     bit-equal to the plan's, with the clusters it launches and the
     clusters the card holds at once."""
@@ -150,31 +186,32 @@ def time_rows(torch, lib, xa, sW, lengths, card: str) -> None:
 
     def launch(R):
         out = torch.empty(Tn, B, H, device=xa.device)
-        rc = lib.flappie_probe_rows(R, xa.data_ptr(), sW.data_ptr(), lengths.data_ptr(),
+        rc = lib.flappie_probe_rows(gates, R, xa.data_ptr(), sW.data_ptr(), lengths.data_ptr(),
                                     out.data_ptr(), Tn, B, H, 1, stream, None)
-        cuda_build.check(lib, rc, f"flappie_probe_rows({R})")
+        cuda_build.check(lib, rc, f"flappie_probe_rows({gates}, {R})")
         return out
 
-    ref = run(torch, lib, 1, xa, sW, lengths)
+    ref = run(torch, lib, gates, 0, xa, sW, lengths)
     held = []
     for R in ROWS_AT[B]:
         n = ctypes.c_int(0)
-        cuda_build.check(lib, lib.flappie_probe_rows(R, 0, 0, 0, 0, Tn, B, H, 1, stream,
+        cuda_build.check(lib, lib.flappie_probe_rows(gates, R, 0, 0, 0, 0, Tn, B, H, 1, stream,
                                                      ctypes.addressof(n)), "max active")
         if not torch.equal(launch(R), ref):
-            raise AssertionError(f"R={R} at B={B} is not the plan's output bit for bit")
+            raise AssertionError(f"{CELLS[gates]} R={R} at B={B} is not the plan's output bit "
+                                 f"for bit")
         held.append(f"R={R}: {-(-B // R)} clusters, the card holds {n.value}")
     times = cs.alternated_ms(torch, {R: lambda R=R: launch(R) for R in ROWS_AT[B]},
                              cs.ALTERNATED_REPS)
-    cs.log(f"tensor-core step by rows a cluster at T={Tn}, B={B} [{card}], each bit-equal to "
-           f"the plan's: " + "; ".join(held) + "; " + "; ".join(
+    cs.log(f"{CELLS[gates]} tensor-core step by rows a cluster at T={Tn}, B={B} [{card}], each "
+           f"bit-equal to the plan's: " + "; ".join(held) + "; " + "; ".join(
                f"R={R} {cs.spread(ts)} = {1e3 * statistics.median(ts) / Tn:.3f} us a step"
                for R, ts in times.items()))
 
 
-def split(torch, lib, which: int, xa, sW, lengths) -> str:
+def split(torch, lib, gates: int, which: int, xa, sW, lengths) -> str:
     """The probe's buckets of one launch, in microseconds a step."""
-    run(torch, lib, which, xa, sW, lengths)
+    run(torch, lib, gates, which, xa, sW, lengths)
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * 8)()
     rc = lib.flappie_step_probe(buf)
@@ -187,22 +224,37 @@ def split(torch, lib, which: int, xa, sW, lengths) -> str:
             + f"; total {cycles / ghz / 1e3 / steps:.3f} us a step at {ghz:.3f} GHz")
 
 
+def cell_inputs(torch, gen, gates: int, B: int):
+    """sW [H, gates.H], xa [T, B, gates.H] (the LSTM's forget gate, or
+    GRU-mod's candidate, shifted off zero) and ragged lengths with row 0
+    full and row 1 empty."""
+    dev = torch.device("cuda")
+    sW = torch.randn(H, gates * H, generator=gen, device=dev) / H ** 0.5
+    lengths = torch.randint(1, T, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = T, 0
+    xa = torch.randn(T, B, gates * H, generator=gen, device=dev)
+    xa[:, :, (1 if gates == 4 else 2) * H : (2 if gates == 4 else 3) * H] += 1.0
+    return sW, xa, lengths
+
+
 def smoke(torch, libs: dict) -> None:
-    """One short launch of every form in every build (T=8, B=24), each
-    finite: run first in a child process with a time limit, so that a
-    kernel that never finishes is killed with it."""
+    """One short launch of every form of each cell in every build (T=8,
+    B=24), each finite: run first in a child process with a time limit, so
+    that a kernel that never finishes is killed with it."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    sW = torch.randn(H, 4 * H, generator=gen, device=dev) / H ** 0.5
-    xa = torch.randn(8, 24, 4 * H, generator=gen, device=dev)
     lengths = torch.full((24,), 8, dtype=torch.int32, device=dev)
-    for name, lib in libs.items():
-        for which in FORMS:
-            out = run(torch, lib, which, xa, sW, lengths)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                raise AssertionError(f"smoke: {name} form {which}: non-finite h")
-    cs.log("smoke: every form of every build ran at T=8, B=24")
+    for gates in CELLS:
+        sW = torch.randn(H, gates * H, generator=gen, device=dev) / H ** 0.5
+        xa = torch.randn(8, 24, gates * H, generator=gen, device=dev)
+        for name, lib in libs.items():
+            for which in FORMS:
+                out = run(torch, lib, gates, which, xa, sW, lengths)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"smoke: {name} {CELLS[gates]} form {which}: "
+                                         f"non-finite h")
+    cs.log("smoke: every form of every cell and build ran at T=8, B=24")
 
 
 # seconds the child process's smoke run may take
@@ -226,41 +278,36 @@ def main() -> int:
     log_code(libs)
     subprocess.run([sys.executable, os.path.abspath(__file__), "--smoke"], check=True,
                    timeout=SMOKE_LIMIT)
-    dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(4325)
-    sW = torch.randn(H, 4 * H, generator=gen, device=dev) / H ** 0.5
-    for B in (256, 24):
-        lengths = torch.randint(1, T, (B,), generator=gen, device=dev, dtype=torch.int32)
-        lengths[0], lengths[1] = T, 0
-        xa = torch.randn(T, B, 4 * H, generator=gen, device=dev)
-        xa[:, :, H : 2 * H] += 1.0
-        early = cs.first_steps(torch, T, lengths, True, cs.P1_STEPS)
-        lib = libs["shipped"]
-        ref = run(torch, lib, 0, xa, sW, lengths)
-        f32 = run(torch, lib, 2, xa, sW, lengths)
-        got = run(torch, lib, 1, xa, sW, lengths)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"tensor-core step at B={B}: non-finite h")
-        dmax, dmean, dearly = cs.p1_distance(got, ref, early)
-        cmax, cmean, cearly = cs.p1_distance(f32, ref, early)
-        cs.log(f"B={B}, tensor-core step against the CUDA-core one-pass step: max {dmax:.2e} "
-               f"mean {dmean:.2e} first {cs.P1_STEPS} steps {dearly:.2e}; the f32 step against "
-               f"it: max {cmax:.2e} mean {cmean:.2e} first steps {cearly:.2e}")
-        del ref, f32, got
-        fns = {"DOT1": lambda: run(torch, lib, 0, xa, sW, lengths),
-               "mma": lambda: run(torch, lib, 1, xa, sW, lengths),
-               "f32": lambda: run(torch, lib, 2, xa, sW, lengths)}
-        times = cs.alternated_ms(torch, fns, cs.ALTERNATED_REPS)
-        cs.log(f"recurrence alone at T={T}, B={B}, H={H}, alternated [{card}]: " + "; ".join(
-            f"{k} {cs.spread(ts)} = {1e3 * statistics.median(ts) / T:.3f} us a step"
-            for k, ts in times.items()))
-        time_rows(torch, lib, xa, sW, lengths, card)
-        probe = libs["probe"]
-        for which in FORMS:
-            ms = cs.cuda_ms(torch, lambda: run(torch, probe, which, xa, sW, lengths), 3)
-            cs.log(f"step split at B={B}, {FORMS[which]} (probe build, {ms:.3f} ms a launch with "
-                   f"the probe): " + split(torch, probe, which, xa, sW, lengths))
+    lib, probe = libs["shipped"], libs["probe"]
+    for gates, cell in CELLS.items():
+        for B in (256, 24):
+            sW, xa, lengths = cell_inputs(torch, gen, gates, B)
+            early = cs.first_steps(torch, T, lengths, True, cs.P1_STEPS)
+            want = plain(torch, gates, xa, sW, lengths)
+            for which in FORMS:
+                got = run(torch, lib, gates, which, xa, sW, lengths)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{cell} {FORMS[which]} at B={B}: non-finite h")
+                dmax, dmean, dearly = cs.p1_distance(got, want, early)
+                cs.log(f"{cell} B={B}, the {FORMS[which]} against the plain one-pass twin: max "
+                       f"{dmax:.2e} mean {dmean:.2e} first {cs.P1_STEPS} steps {dearly:.2e}")
+            del want, got
+            fns = {FORMS[w]: lambda w=w: run(torch, lib, gates, w, xa, sW, lengths)
+                   for w in FORMS}
+            times = cs.alternated_ms(torch, fns, cs.ALTERNATED_REPS)
+            cs.log(f"{cell} recurrence alone at T={T}, B={B}, H={H}, alternated [{card}]: "
+                   + "; ".join(f"{k} {cs.spread(ts)} = "
+                               f"{1e3 * statistics.median(ts) / T:.3f} us a step"
+                               for k, ts in times.items()))
+            time_rows(torch, lib, gates, xa, sW, lengths, card)
+            for which in FORMS:
+                ms = cs.cuda_ms(torch, lambda: run(torch, probe, gates, which, xa, sW, lengths),
+                                3)
+                cs.log(f"{cell} step split at B={B}, {FORMS[which]} (probe build, {ms:.3f} ms a "
+                       f"launch with the probe): "
+                       + split(torch, probe, gates, which, xa, sW, lengths))
     cs.log(card)
     return 0
 

@@ -2,17 +2,19 @@
 ``_cluster_plan``, mirrored by ``cluster_rows`` / ``cluster_smem`` in
 csrc/cluster_rnn.cuh): rows a cluster and clusters for the batches the
 main paths run, one CTA's shared memory within an SM's 227 KB, and the
-H the kernel refuses; and the layout of the one-pass LSTM step on the
-tensor cores (``_mma_plan``, mirroring mma_warps / mma_rows /
-cluster_mma_smem in csrc/cluster_rnn_mma.cuh).  Pure arithmetic: runs on
-the CPU; the card holds the C side to it (chip_smoke.py).
+H the kernel refuses; and the layout of the one-pass step on the tensor
+cores, the LSTM's and GRU-mod's (``_mma_plan``, mirroring mma_warps /
+mma_rows / cluster_mma_smem in csrc/cluster_rnn_mma.cuh, and
+``_mma_gate_rows``, its gate-to-row map).  Pure arithmetic: runs on the
+CPU; the card holds the C side to it (chip_smoke.py).
 """
 
 from __future__ import annotations
 
 import pytest
 
-from flappie_tpu_torch.ops.rnn_cuda import ROWS, _INFO, _cluster_plan, _mma_plan, info_plan
+from flappie_tpu_torch.ops.rnn_cuda import (ROWS, _INFO, _cluster_plan, _mma_gate_rows, _mma_plan,
+                                            info_plan)
 
 SMEM_PER_CTA = 232_448  # 227 KB: the most shared memory one block may use
 
@@ -75,21 +77,17 @@ def test_bf16_layers_are_variant_3_of_their_sources(kind, twin):
 @pytest.mark.parametrize("gates,kib", [(4, 64), (3, 48)])
 def test_one_pass_slices_are_bf16(gates, kib):
     """The one-pass step product holds sW's slice in bf16, 64 KiB (LSTM)
-    or 48 KiB (GRU-mod) a CTA at H=256.  GRU-mod (cluster_rnn.cuh's DOT1)
-    keeps it in shared memory beside the f32 recurrence's h and partial
-    sums, at the f32 recurrence's rows and clusters; the LSTM's tensor-core
-    step keeps it as A fragments in registers (128 words a thread, 128
-    threads a CTA), so its shared memory is the exchanged bf16 h alone."""
+    or 48 KiB (GRU-mod) a CTA at H=256, as the tensor-core step's A
+    fragments in registers (128 words a thread at 4 gates, 96 not zero at
+    3; 128 threads a CTA), so its shared memory is the exchanged bf16 h
+    alone, whatever the cell."""
     for B in (1, 24, 32, 256):
         R, clusters, smem = _cluster_plan(B, 256, gates, dot1=True)
-        if gates == 3:
-            assert (R, clusters) == _cluster_plan(B, 256, gates)[:2]
-            assert smem - 4 * (2 * 256 * R + 4 * R * gates * 32) == kib * 1024
-            assert _cluster_plan(B, 256, gates)[2] - smem == kib * 1024
-        else:
-            plan = _mma_plan(256, R)
-            assert plan["a_registers"] * 4 * 32 * plan["warps"] == kib * 1024
-            assert smem == plan["smem"] == 2 * 256 * plan["rows"] * 2
+        plan = _mma_plan(256, R, gates)
+        assert plan["a_registers"] * 4 * 32 * plan["warps"] == kib * 1024
+        assert plan["a_registers"] == 32 * gates
+        assert smem == plan["smem"] == 2 * 256 * plan["rows"] * 2
+        assert smem == _cluster_plan(B, 256, 7 - gates, dot1=True)[2]
 
 
 @pytest.mark.parametrize("R", ROWS)
@@ -126,11 +124,12 @@ def test_tensor_core_step_at_full_width(R, n_tiles):
     (256, 16, 16),  # a chunk batch: two n-tiles, not the f32 recurrence's R=20 (three)
     (257, 20, 13), (321, 20, 17),
 ])
-def test_tensor_core_step_rows(B, R, clusters):
-    """The tensor-core step's rows rule (mma_cluster_rows): the fewest rows
-    of ROWS that keep the clusters within 16 (one CTA an SM for 128 of the
-    H100's 132), else the most."""
-    assert _cluster_plan(B, 256, 4, dot1=True)[:2] == (R, clusters)
+@pytest.mark.parametrize("gates", [4, 3])
+def test_tensor_core_step_rows(B, R, clusters, gates):
+    """The tensor-core step's rows rule (mma_cluster_rows), the LSTM's and
+    GRU-mod's: the fewest rows of ROWS that keep the clusters within 16
+    (one CTA an SM for 128 of the H100's 132), else the most."""
+    assert _cluster_plan(B, 256, gates, dot1=True)[:2] == (R, clusters)
     assert clusters <= 16 or R == ROWS[-1]
 
 
@@ -147,14 +146,53 @@ def test_one_pass_lstm_plans_are_the_tensor_core_steps(kind, B):
     assert smem == _mma_plan(256, R)["smem"]
 
 
+@pytest.mark.parametrize("B", [1, 16, 24, 32, 100, 150, 240, 256, 257])
 @pytest.mark.parametrize("kind", ["grumod_layer_p1", "grumod_layer_bf16_p1"])
-def test_one_pass_grumod_plans_are_unchanged(kind):
-    """GRU-mod's one-pass step stays cluster_rnn.cuh's DOT1: its 48 KiB bf16
-    slice, f32 h by step parity and the k slices' partial sums."""
-    for B in (1, 16, 32, 100, 150, 240, 256):
-        R, clusters, smem = info_plan(kind, B)
-        assert (R, clusters) == _cluster_plan(B, 256, 3)[:2]
-        assert smem == 48 * 1024 + 4 * (2 * 256 * R + 4 * R * 96)
+def test_one_pass_grumod_plans_are_the_tensor_core_steps(kind, B):
+    """GRU-mod's two one-pass variants of grumod_p1.cu (K7-default and its
+    bf16-stream twin) plan the tensor-core step, as the LSTM's do: its rows
+    rule, its clusters, the exchanged h's shared bytes (no sW slice, no
+    partial sums)."""
+    R, clusters, smem = info_plan(kind, B)
+    assert (R, clusters) == (R, -(-B // R)) == _cluster_plan(B, 256, 3, dot1=True)[:2]
+    assert R == next(r for r in ROWS if -(-B // r) <= 16)
+    assert smem == _mma_plan(256, R, 3)["smem"] == _mma_plan(256, R)["smem"]
+    assert info_plan(kind, B) == info_plan("lstm_layer_p1", B)
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_mma_gate_rows_meet_in_one_lane_group(gates):
+    """Every gate of a unit slot lands in one lane group: the accumulator
+    rows g and g + 8 of the two m-tiles, which lanes 4 g ... 4 g + 3 hold,
+    carry all ``gates`` gates of unit slot g and nothing of another unit;
+    each gate of each of the 8 slots appears once."""
+    rows = _mma_gate_rows(gates)
+    assert len(rows) == 2 and all(len(r) == 16 for r in rows)
+    for g in range(8):
+        held = [rows[mt][m] for mt in range(2) for m in (g, g + 8)]
+        assert {cell[1] for cell in held if cell} == {g}
+        assert sorted(cell[0] for cell in held if cell) == list(range(gates))
+    cells = [cell for r in rows for cell in r if cell]
+    assert len(cells) == len(set(cells)) == 8 * gates
+
+
+def test_mma_zero_rows_are_grumods_m_tile_1_high_half():
+    """GRU-mod's zero rows (gate 3, a compile-time zero) are exactly rows
+    8-15 of m-tile 1; its m-tile 0 holds z | r and m-tile 1's low half the
+    candidate; the LSTM has no zero row."""
+    rows = _mma_gate_rows(3)
+    zero = [(mt, m) for mt in range(2) for m in range(16) if rows[mt][m] is None]
+    assert zero == [(1, m) for m in range(8, 16)]
+    assert [rows[0][m][0] for m in range(16)] == [0] * 8 + [1] * 8
+    assert [rows[1][m][0] for m in range(8)] == [2] * 8
+    assert all(cell is not None for r in _mma_gate_rows(4) for cell in r)
+
+
+def test_lstm_gate_rows_are_as_before():
+    """The LSTM's map as it was: row m of m-tile mt is gate 2 mt + m // 8
+    (u | f, then g | o) of unit slot m % 8."""
+    assert _mma_gate_rows(4) == [[(2 * mt + m // 8, m % 8) for m in range(16)]
+                                 for mt in range(2)]
 
 
 @pytest.mark.parametrize("kind,source,variant", [

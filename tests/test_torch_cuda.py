@@ -52,11 +52,13 @@ mean over the first 16 steps within 1.5e-5 on both streams (both sum exact
 products in f32 in other orders; an h whose two sums straddle a bf16
 rounding boundary is read one bf16 ulp apart by the next product, and
 the state carries it), while the f32-step kernel lies at least 4.5e-5 from
-the twin over those steps; the LSTM's (the tensor-core step,
-csrc/cluster_rnn_mma.cuh) at every rows a cluster on both streams,
-K8-default's h bit-equal to K1-default's, h and c in the same band and
-the f32-step kernel outside it as above; the one-pass affine's
-f32 output within f32 reassociation of its plain version; the
+the twin over those steps; the LSTM's and GRU-mod's (the tensor-core step,
+csrc/cluster_rnn_mma.cuh) at every rows a cluster on both streams and
+directions, K8-default's h bit-equal to K1-default's, h (and c) in the
+same band (GRU-mod's over at least 128 rows: a smaller B runs a batch of
+that many, B rows a launch) and the f32-step kernel outside it as above;
+the one-pass affine's f32 output within f32 reassociation of its plain
+version; the
 dispatchers' counters at each level; the new plans (bf16 sW slices)
 against ``info_plan``; the training path under the stream against the
 same Function on the CPU within 1e-2 of max |grad| (the adjoint reads
@@ -841,6 +843,51 @@ def test_one_pass_lstm_k8_is_k1_at_every_r(cuda, stream, B, T, IN, H, backward, 
     assert _p1_distance(control, want_h, lengths, backward)[2] >= 3 * P1_EARLY
 
 
+# rows the P1 band is held over at every R: the band's means are over rows
+# (it was read at 256), and a sound kernel agrees with its twin to f32
+# rounding until an h's two sums straddle a bf16 rounding boundary, after
+# which that row's walk diverges; over one row such a flip within the
+# first 16 steps is common (GRU-mod's more than the LSTM's: p1_band.py,
+# PERF.md), so a smaller B runs a batch of at least this many rows, B rows
+# a launch (the instantiation B picks)
+P1_POOL_ROWS = 128
+
+
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_one_pass_grumod_at_every_r(cuda, stream, B, T, IN, H, backward, levels):
+    """GRU-mod's tensor-core one-pass step (K7-default, csrc/grumod_p1.cu
+    on csrc/cluster_rnn_mma.cuh at three gates) at every rows a cluster
+    (R = 1 ... 20 over its three n-tile instantiations), on each stream
+    (the f32 stream's affine f32), through its wrapper, B rows a launch,
+    each counted on it or on its ``*_bf16_p1`` counter: h inside the P1
+    band of the plain twin over at least P1_POOL_ROWS rows, and the
+    layer's f32-step kernel on the same inputs at least 3 P1_EARLY from
+    the twin over the first steps."""
+    gen = torch.Generator().manual_seed(B * T + H + 13)
+    rows = -(-P1_POOL_ROWS // B) * B
+    args, lengths = _bf16_layer_args(cuda, gen, "grumod", rows, T, IN, H)
+    if stream == "f32":
+        args[0] = args[0].float()
+    x, rest = args[0], args[1:]
+    levels.set_ff_precision("high")
+    counter = (rnn_cuda.grumod_layer_tm_bf16_p1 if stream == "bf16"
+               else rnn_cuda.grumod_layer_tm_p1)
+    before = counter.launches
+    got = torch.cat([rnn_cuda.grumod_layer_tm_p1(x[:, i:i + B].contiguous(), *rest, backward,
+                                                 lengths[i:i + B].contiguous())
+                     for i in range(0, rows, B)], dim=1)
+    assert counter.launches == before + rows // B
+    control = rnn_cuda.grumod_layer_tm(*args, backward, lengths)
+    want = rnn_cuda.grumod_layer_tm_plain(*args, backward, lengths, rdot="bf16")
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (T, rows, H)
+    dmax, dmean, dearly = _p1_distance(got, want, lengths, backward)
+    assert dmax <= P1_MAX and dmean <= P1_MEAN and dearly <= P1_EARLY
+    assert _p1_distance(control, want, lengths, backward)[2] >= 3 * P1_EARLY
+
+
 @pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
 def test_default_levels_dispatch_to_their_kernels(cuda, kind, levels):
     """At FLAPPIE_TPU_MATMUL_PRECISION=default alone an f32 layer runs
@@ -899,8 +946,8 @@ def test_affine_bf16_f32_kernel_matches_plain(cuda, M, K, N):
                                   "lstm_layer_bf16_p1", "lstm_layer_train_bf16_p1",
                                   "grumod_layer_p1", "grumod_layer_bf16_p1"])
 def test_new_cluster_info_matches_plan(cuda, kind):
-    """K8-bf16's and the one-pass recurrences' plans from the C side
-    (bf16 sW slices under DOT1) against ``info_plan``."""
+    """K8-bf16's and the one-pass recurrences' plans from the C side (the
+    tensor-core step's) against ``info_plan``."""
     for B in (1, 16, 32, 100, 150, 240, 256):
         info = rnn_cuda.cluster_info(kind, B)
         assert (info["R"], info["clusters"], info["smem"]) == rnn_cuda.info_plan(kind, B)
