@@ -1,7 +1,9 @@
 // The one-pass step on Hopper's tensor cores, sm_90a: the recurrence of
 // the layers of precision ``default``, the LSTM's (K1-default, K8-default,
 // K1-default-bf16, K8-default-bf16; lstm_p1.cu, GN = 4) and GRU-mod's
-// (K7-default, K7-default-bf16; grumod_p1.cu, GN = 3).
+// (K7-default, K7-default-bf16; grumod_p1.cu, GN = 3).  With PASSES = 3,
+// the three-pass step of rnn precision ``high`` (lstm_h3.cu, grumod_h3.cu;
+// the last section below).
 //
 // Replaces the step product of flappie_tpu/ops/rnn_pallas.py:219
 // _lstm_fused_body and :290 _grumod_fused_kernel (dual kernels :322, :386)
@@ -84,6 +86,40 @@
 // product; XT (float, or bf16 under the bf16 stream) is the type of xa,
 // out and c_out.  WANT_C only with GN = 4.  Limits: H % 16 == 0 and
 // H <= 256.
+//
+// Three passes (PASSES = 3; FLAPPIE_TPU_RNN_PRECISION=high on the card).
+// Replaces flappie_tpu/ops/rnn_pallas.py:161 _dot_bf16x3, which _make_rdot
+// :172 runs at "high3" (rnn level HIGH, :505-507): h and sW each split into
+// a bf16 high part and a bf16 remainder (:154 _split_bf16: hi = bf16(a),
+// lo = bf16(a - hi), nearest even), the product h_hi.sW_hi + h_hi.sW_lo +
+// h_lo.sW_hi, each pass's exact bf16 products summed in f32 (the lo.lo
+// term, ~2^-16 of a product, is dropped; about 2^-21 of mantissa).
+//  - sW_hi stays the A fragments in registers.  sW_lo's A fragments, split
+//    once, live in shared memory for the whole walk in ldmatrix order: per
+//    warp, per k-tile, per m-tile a block of 32 16-byte lines (line 8 i + g
+//    holds register i of the lanes 4 g .. 4 g + 3), read every step by one
+//    ldmatrix.x4 (64 KiB a CTA at H=256 for the LSTM).  GRU-mod's m-tile 1
+//    stores only its gate-2 half (16 lines, ldmatrix.x2): its rows 8-15
+//    stay the constant 0 (48 KiB).  A second register copy would not fit
+//    beside the first (the one-pass kernel holds 240-243 registers at NT=2).
+//  - h_lo = bf16(h - h_hi) is made where h_hi is, and exchanged beside it:
+//    the h buffer holds two parts a step parity, [2][hi | lo][KC][NP], each
+//    read by ldmatrix as the one-pass kernel reads h; a row's lo line goes
+//    to the peers by st.async from other lanes than its hi line, in the
+//    same instructions, and the barrier's step bytes double.
+//  - Order: for each k-tile in ascending order, acc += A_hi.B_hi, then
+//    the correction passes corr += A_hi.B_lo and corr += A_lo.B_hi into a
+//    second accumulator; P = acc + corr after the last k-tile: h_hi.sW_hi
+//    + (h_hi.sW_lo + h_lo.sW_hi), JAX's (h_hi.sW_hi + h_hi.sW_lo) +
+//    h_lo.sW_hi reassociated.  (All three passes in one accumulator save
+//    8.NT registers, but the tensor core aligns each small correction to
+//    the large running sum and drops its low bits, one way: on chip_smoke's
+//    crafted probe that order lay as far from the three-pass twin as the
+//    f32 step does, and at one n-tile it ran up to 1.27x slower; PERF.md.)
+//    One order for every R, row and WANT_C: K8-high3's h is K1-high3's bit
+//    for bit on each stream.
+//  - The next step's xa is loaded after the update (not before the
+//    product), so that the product holds one set of xa registers, not two.
 
 #pragma once
 
@@ -106,10 +142,19 @@ constexpr int MMA_MAX_CLUSTERS = 16;
 // cluster_rows' rule at MMA_MAX_CLUSTERS.
 inline int mma_cluster_rows(int B) { return rows_within(B, MMA_MAX_CLUSTERS); }
 
-// Dynamic shared memory of one CTA: h by step parity, CLUSTER.W chunks of
-// NP 16-byte rows.
-inline size_t cluster_mma_smem(int H, int R) {
-  return 2 * (size_t)CLUSTER * mma_warps(H) * mma_rows(R) * 16;
+// 16-byte lines of sW_lo's A fragments a warp keeps for one k-tile (three
+// passes): 32 for m-tile 0, and 32 for m-tile 1, or 16 at GN = 3
+inline int mma_lo_lines(int GN) { return 32 + (GN == 4 ? 32 : 16); }
+
+// Dynamic shared memory of one CTA: h by step parity (and, with three
+// passes, part: hi, lo), CLUSTER.W chunks of NP 16-byte rows; with three
+// passes then sW_lo's A fragments, W warps x KT k-tiles x mma_lo_lines.
+inline size_t cluster_mma_smem(int H, int R, int GN = 4, int passes = 1) {
+  const size_t parts = passes == 3 ? 2 : 1;
+  const size_t h = 2 * parts * CLUSTER * mma_warps(H) * mma_rows(R) * 16;
+  if (passes != 3) return h;
+  const int W = mma_warps(H);
+  return h + (size_t)W * (CLUSTER * W / 2) * mma_lo_lines(GN) * 16;
 }
 
 // lo and hi rounded to bf16 (nearest even) in one 32-bit word, lo in the
@@ -124,6 +169,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// two 8x8 bf16 matrices from shared memory; lanes 8i .. 8i+7 give the row
+// addresses of matrix i (lanes 16-31 give valid addresses, unused)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&d)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(d[0]), "=r"(d[1])
                : "r"(addr)
                : "memory");
 }
@@ -143,7 +197,7 @@ __device__ __forceinline__ void st_async_v4(uint32_t a, const uint32_t (&v)[4], 
       :: "r"(a), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(bar) : "memory");
 }
 
-template <int GN, int NT, bool WANT_C, typename XT>
+template <int GN, int NT, bool WANT_C, typename XT, int PASSES>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_H / 2)
 cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
                        const float* __restrict__ sW,     // [H, GN.H]
@@ -153,10 +207,14 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
                        int T, int B, int H, int backward,
                        int R) {                          // rows a cluster, in (8.NT - 8, 8.NT]
   static_assert(GN == 4 || (GN == 3 && !WANT_C), "LSTM (with or without c) or GRU-mod");
+  static_assert(PASSES == 1 || PASSES == 3, "one bf16 pass or three");
   constexpr bool LSTM = GN == 4;
+  constexpr bool H3 = PASSES == 3;
+  constexpr int PARTS = H3 ? 2 : 1;     // h's exchanged bf16 parts: hi (and lo)
   constexpr int NP = 8 * NT;            // rows, padded to NT n-tiles of 8
   constexpr int RT = 2 * NT;            // rows a thread updates
   constexpr int KT_MAX = MAX_H / 16;    // k-tiles at H = 256
+  constexpr int LO0 = 32, LO1 = GN == 4 ? 32 : 16;  // sW_lo lines of m-tiles 0 and 1
   extern __shared__ __align__(16) uint4 mma_smem[];
   __shared__ __align__(8) uint64_t bar_s[2];  // h of step s arrived: bar_s[s % 2]
   cg::cluster_group cluster = cg::this_cluster();
@@ -172,10 +230,10 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
   const bool unit_ok = u < U;
   const int j = q * U + u;                // its hidden unit
   const int row0 = (int)(blockIdx.x / CLUSTER) * R;
-  uint4* h_s = mma_smem;                  // [2][KC][NP]: 8 bf16 of h a chunk and row
+  uint4* h_s = mma_smem;                  // [2][PARTS][KC][NP]: 8 bf16 of h a chunk and row
   const int c_me = q * W + warp;          // this warp's chunk
   // the bytes of h the peers send a CTA each step
-  const uint32_t step_bytes = (uint32_t)((CLUSTER - 1) * W * NP * 16);
+  const uint32_t step_bytes = (uint32_t)((CLUSTER - 1) * W * NP * 16 * PARTS);
   auto at = [&](int t, int row) { return (long)t * B + row; };
 
   // sW as the A operand, rounded to bf16 once: A[m][k] of m-tile mt is
@@ -206,7 +264,36 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
       a[mt][kt][2] = f2;
       a[mt][kt][3] = f3;
     }
-  for (int i = threadIdx.x; i < 2 * KC * NP; i += blockDim.x) h_s[i] = make_uint4(0, 0, 0, 0);
+  // three passes: sW_lo's A fragments, split once, in ldmatrix order into
+  // this warp's blocks [KT][LO0 + LO1 lines]: register i of lane (g, tq) at
+  // word tq of line 8 i + g (GRU-mod's m-tile 1: registers 0 and 2 at lines
+  // g and 8 + g, its gate-3 rows never stored)
+  uint4* lo_s = h_s + 2 * PARTS * KC * NP;  // [W][KT][LO0 + LO1]
+  if constexpr (H3) {
+    auto lo_word = [&](int gate, int k) -> uint32_t {
+      if (gate >= GN) return 0u;
+      const float w0 = w_at(gate, k), w1 = w_at(gate, k + 1);
+      return pack_bf16(w0 - round_bf16(w0), w1 - round_bf16(w1));
+    };
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int k = 16 * kt + 2 * tq;
+        const uint32_t f[4] = {lo_word(2 * mt, k), lo_word(2 * mt + 1, k),
+                               lo_word(2 * mt, k + 8), lo_word(2 * mt + 1, k + 8)};
+        uint32_t* blk =
+            reinterpret_cast<uint32_t*>(lo_s + (warp * KT + kt) * (LO0 + LO1) + mt * LO0);
+        if (mt == 1 && !LSTM) {
+          blk[g * 4 + tq] = f[0];
+          blk[(8 + g) * 4 + tq] = f[2];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) blk[(8 * i + g) * 4 + tq] = f[i];
+        }
+      }
+  }
+  for (int i = threadIdx.x; i < 2 * PARTS * KC * NP; i += blockDim.x)
+    h_s[i] = make_uint4(0, 0, 0, 0);
   if (threadIdx.x == 0) {
     aff::bar_init(&bar_s[0], W + 1);
     aff::bar_init(&bar_s[1], W + 1);
@@ -245,30 +332,42 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
   // this lane's ldmatrix row: matrix lane / 8 (chunk 2.kt + lane / 8), row
   // lane % 8 of an n-tile
   const uint32_t lm_off = (uint32_t)(((lane / 8) * NP + lane % 8) * 16);
+  // three passes: this warp's sW_lo blocks, and the lo part's offset in a
+  // step's h buffer
+  const uint32_t lo_base = smem_u32(lo_s) + (uint32_t)(warp * KT * (LO0 + LO1) * 16);
+  const uint32_t lo_part = (uint32_t)(KC * NP * 16);
   for (int s = 0; s < T; ++s) {
     const int t = backward ? T - 1 - s : s;
-    const uint32_t cur = h_base + (uint32_t)((s & 1) * KC * NP * 16);
-    uint4* nxt = h_s + ((s + 1) & 1) * KC * NP;
+    const uint32_t cur = h_base + (uint32_t)((s & 1) * PARTS * KC * NP * 16);
+    uint4* nxt = h_s + ((s + 1) & 1) * PARTS * KC * NP;
     // step s's h of every warp of the cluster (step 0's is the zero
     // state); then the barrier's next phase expects step s + 2's
     if (s > 0) mbar_wait(smem_u32(&bar_s[s & 1]), ((s - 1) >> 1) & 1);
     if (threadIdx.x == 0 && s + 2 < T) mbar_expect(smem_u32(&bar_s[s & 1]), step_bytes);
     PROBE_MARK(0)
     float xcur[RT][GN];
+    if constexpr (!H3) {
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
+      for (int r = 0; r < RT; ++r)
 #pragma unroll
-      for (int gt = 0; gt < GN; ++gt) xcur[r][gt] = to_f32(nx[r][gt]);
-    if (s + 1 < T) load_xa(backward ? t - 1 : t + 1);
+        for (int gt = 0; gt < GN; ++gt) xcur[r][gt] = to_f32(nx[r][gt]);
+      if (s + 1 < T) load_xa(backward ? t - 1 : t + 1);
+    }
 
-    // P = h . sW: k-tiles in ascending order into each accumulator
+    // P = h . sW: k-tiles in ascending order into each accumulator (three
+    // passes: h_hi.sW_hi into acc, the corrections h_hi.sW_lo and
+    // h_lo.sW_hi after it into corr)
     float acc[2][NT][4];
+    float corr[2][NT][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          acc[mt][nt][i] = 0.f;
+          if constexpr (H3) corr[mt][nt][i] = 0.f;
+        }
 #pragma unroll
     for (int kt = 0; kt < KT_MAX; kt += 2) {
       if (kt < KT) {
@@ -276,20 +375,61 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
           ldmatrix_x4(b[nt], cur + lm_off + (uint32_t)((2 * kt * NP + 8 * nt) * 16));
+        uint32_t bl[NT][4];  // three passes: h_lo's, the same k-tiles
+        if constexpr (H3) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            ldmatrix_x4(bl[nt], cur + lo_part + lm_off + (uint32_t)((2 * kt * NP + 8 * nt) * 16));
+        }
 #pragma unroll
         for (int k2 = 0; k2 < 2; ++k2)
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
+          for (int mt = 0; mt < 2; ++mt) {
+            uint32_t al[4];  // three passes: sW_lo's A fragment of (mt, kt + k2)
+            if constexpr (H3) {
+              const uint32_t blk =
+                  lo_base + (uint32_t)(((kt + k2) * (LO0 + LO1) + mt * LO0) * 16);
+              if (mt == 1 && !LSTM) {
+                uint32_t d[2];
+                ldmatrix_x2(d, blk + (uint32_t)((lane % 16) * 16));
+                al[0] = d[0];
+                al[1] = 0u;
+                al[2] = d[1];
+                al[3] = 0u;
+              } else {
+                ldmatrix_x4(al, blk + (uint32_t)(lane * 16));
+              }
+            }
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
               const uint32_t(&f)[4] = a[mt][kt + k2];
               mma_bf16(acc[mt][nt], f[0], f[1], f[2], f[3], b[nt][2 * k2], b[nt][2 * k2 + 1]);
+              if constexpr (H3) {
+                mma_bf16(corr[mt][nt], f[0], f[1], f[2], f[3], bl[nt][2 * k2],
+                         bl[nt][2 * k2 + 1]);
+                mma_bf16(corr[mt][nt], al[0], al[1], al[2], al[3], b[nt][2 * k2],
+                         b[nt][2 * k2 + 1]);
+              }
             }
+          }
       }
+    }
+    if constexpr (H3) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += corr[mt][nt][i];
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int gt = 0; gt < GN; ++gt) xcur[r][gt] = to_f32(nx[r][gt]);
     }
     PROBE_MARK(1)
 
     float hn[RT], ho[RT], co[RT];  // next h (rounded to bf16), out, c_out
+    float hl[RT];                  // three passes: the next h's bf16 remainder
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
       const int nt = r / 2, i = r % 2;
@@ -322,37 +462,69 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
         if (valid) hreg[r] = h2;
       }
       hn[r] = unit_ok ? round_bf16(hreg[r]) : 0.f;
+      if constexpr (H3) hl[r] = unit_ok ? round_bf16(hreg[r] - hn[r]) : 0.f;
+    }
+    if constexpr (H3) {
+      if (s + 1 < T) load_xa(backward ? t - 1 : t + 1);
     }
     PROBE_MARK(2)
 
     // the new h into this warp's chunk of the next-step buffer, units 2p
     // and 2p + 1 of a row in word p (lanes g and g ^ 1 trade the row the
     // other keeps), then to every peer's, unless this is the last step
+    // (three passes: h_lo likewise into the lo part)
     if (s + 1 < T) {
       const bool odd = g & 1;
       uint32_t word[NT];
+      uint32_t wlo[NT];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float got = __shfl_xor_sync(0xffffffffu, odd ? hn[2 * nt] : hn[2 * nt + 1], 4);
         word[nt] = odd ? pack_bf16(got, hn[2 * nt + 1]) : pack_bf16(hn[2 * nt], got);
         const int n = 8 * nt + 2 * tq + odd;
         reinterpret_cast<uint32_t*>(nxt + c_me * NP + n)[g >> 1] = word[nt];
+        if constexpr (H3) {
+          const float gl = __shfl_xor_sync(0xffffffffu, odd ? hl[2 * nt] : hl[2 * nt + 1], 4);
+          wlo[nt] = odd ? pack_bf16(gl, hl[2 * nt + 1]) : pack_bf16(hl[2 * nt], gl);
+          reinterpret_cast<uint32_t*>(nxt + KC * NP + c_me * NP + n)[g >> 1] = wlo[nt];
+        }
       }
       const uint32_t bar = smem_u32(&bar_s[(s + 1) & 1]);
       // each row's four words gathered in the lanes of that row; one of
-      // them sends it to each peer
+      // them sends it to each peer (three passes: the hi line from lanes
+      // g / 2 == nt % 4, the lo line from lanes g / 2 == (nt + 2) % 4)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         uint32_t row4[4];
 #pragma unroll
         for (int p = 0; p < 4; ++p)
           row4[p] = __shfl_sync(0xffffffffu, word[nt], 4 * (2 * p + odd) + tq);
-        if ((g >> 1) == (nt & 3)) {
-          const uint32_t a_row = smem_u32(nxt + c_me * NP + 8 * nt + 2 * tq + odd);
+        if constexpr (!H3) {
+          if ((g >> 1) == (nt & 3)) {
+            const uint32_t a_row = smem_u32(nxt + c_me * NP + 8 * nt + 2 * tq + odd);
 #pragma unroll
-          for (int p = 1; p < CLUSTER; ++p) {
-            const uint32_t rank = (uint32_t)((q + p) % CLUSTER);
-            st_async_v4(map_rank(a_row, rank), row4, map_rank(bar, rank));
+            for (int p = 1; p < CLUSTER; ++p) {
+              const uint32_t rank = (uint32_t)((q + p) % CLUSTER);
+              st_async_v4(map_rank(a_row, rank), row4, map_rank(bar, rank));
+            }
+          }
+        } else {
+          uint32_t row4l[4];
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            row4l[p] = __shfl_sync(0xffffffffu, wlo[nt], 4 * (2 * p + odd) + tq);
+          const bool hi_lane = (g >> 1) == (nt & 3), lo_lane = (g >> 1) == ((nt + 2) & 3);
+          if (hi_lane || lo_lane) {
+            uint32_t v[4];
+#pragma unroll
+            for (int p = 0; p < 4; ++p) v[p] = lo_lane ? row4l[p] : row4[p];
+            const uint32_t a_row =
+                smem_u32(nxt + (lo_lane ? KC * NP : 0) + c_me * NP + 8 * nt + 2 * tq + odd);
+#pragma unroll
+            for (int p = 1; p < CLUSTER; ++p) {
+              const uint32_t rank = (uint32_t)((q + p) % CLUSTER);
+              st_async_v4(map_rank(a_row, rank), v, map_rank(bar, rank));
+            }
           }
         }
       }
@@ -380,46 +552,47 @@ cluster_rnn_mma_kernel(const XT* __restrict__ xa,        // [T, B, GN.H]
 // Launch the instantiation of R's n-tiles at R rows a cluster (any R of
 // ROWS, whatever B), or, with max_active, only ask how many of its
 // clusters the card holds at once.
-template <int GN, int NT, bool WANT_C, typename XT>
+template <int GN, int NT, bool WANT_C, typename XT, int PASSES>
 cudaError_t cluster_rnn_mma_nt(const RnnArgs<XT>& a, int R, int* max_active) {
-  return launch_clusters<XT>(cluster_rnn_mma_kernel<GN, NT, WANT_C, XT>, R, 32 * mma_warps(a.H),
-                             cluster_mma_smem(a.H, R), a, max_active, R);
+  return launch_clusters<XT>(cluster_rnn_mma_kernel<GN, NT, WANT_C, XT, PASSES>, R,
+                             32 * mma_warps(a.H), cluster_mma_smem(a.H, R, GN, PASSES), a,
+                             max_active, R);
 }
 
-template <int GN, bool WANT_C, typename XT>
+template <int GN, bool WANT_C, typename XT, int PASSES = 1>
 cudaError_t cluster_rnn_mma_r(const RnnArgs<XT>& a, int R, int* max_active) {
   if (!cluster_h_ok(a.H) || a.B <= 0 || R <= 0) return cudaErrorInvalidValue;
   switch (mma_rows(R) / 8) {
-    case 1: return cluster_rnn_mma_nt<GN, 1, WANT_C, XT>(a, R, max_active);
-    case 2: return cluster_rnn_mma_nt<GN, 2, WANT_C, XT>(a, R, max_active);
-    case 3: return cluster_rnn_mma_nt<GN, 3, WANT_C, XT>(a, R, max_active);
+    case 1: return cluster_rnn_mma_nt<GN, 1, WANT_C, XT, PASSES>(a, R, max_active);
+    case 2: return cluster_rnn_mma_nt<GN, 2, WANT_C, XT, PASSES>(a, R, max_active);
+    case 3: return cluster_rnn_mma_nt<GN, 3, WANT_C, XT, PASSES>(a, R, max_active);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The one-pass recurrence of GN gates (4 LSTM, 3 GRU-mod) over a
-// time-major xa at the rows mma_cluster_rows(B) picks; returns the launch
-// error code.
-template <int GN, bool WANT_C, typename XT>
+// The one-pass (or, with PASSES = 3, three-pass) recurrence of GN gates (4
+// LSTM, 3 GRU-mod) over a time-major xa at the rows mma_cluster_rows(B)
+// picks; returns the launch error code.
+template <int GN, bool WANT_C, typename XT, int PASSES = 1>
 cudaError_t cluster_rnn_mma(const RnnArgs<XT>& a, int* max_active = nullptr) {
-  return cluster_rnn_mma_r<GN, WANT_C, XT>(a, mma_cluster_rows(a.B), max_active);
+  return cluster_rnn_mma_r<GN, WANT_C, XT, PASSES>(a, mma_cluster_rows(a.B), max_active);
 }
 
 // info = {rows a cluster, clusters, shared bytes a CTA, clusters the card
 // holds at once} for a batch of B; returns the error code.
-template <int GN, bool WANT_C, typename XT>
+template <int GN, bool WANT_C, typename XT, int PASSES = 1>
 int cluster_mma_info(int B, int H, int* info) {
   RnnArgs<XT> a = {};
   a.T = 1;
   a.B = B;
   a.H = H;
   int n = 0;
-  const cudaError_t err = cluster_rnn_mma<GN, WANT_C, XT>(a, &n);
+  const cudaError_t err = cluster_rnn_mma<GN, WANT_C, XT, PASSES>(a, &n);
   if (err != cudaSuccess) return err;
   const int R = mma_cluster_rows(B);
   info[0] = R;
   info[1] = (B + R - 1) / R;
-  info[2] = (int)cluster_mma_smem(H, R);
+  info[2] = (int)cluster_mma_smem(H, R, GN, PASSES);
   info[3] = n;
   return 0;
 }

@@ -73,7 +73,7 @@ extern "C" int flappie_grumod_layer(const float* x, const float* iW, const float
                                     const float* sW, const int* lengths, float* xa,
                                     float* out, int T, int B, int IN, int H,
                                     int backward, void* stream) {
-  return fused_layer<3, false, float, false, flappie::AFFINE_F32>(
+  return fused_layer<3, false, float, 0, flappie::AFFINE_F32>(
       x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 
@@ -94,7 +94,7 @@ extern "C" int flappie_grumod_seq(const float* xa, const float* sW, const int* l
 extern "C" int flappie_grumod_layer_bf16(const bf16* x, const bf16* iW, const float* b,
                                          const float* sW, const int* lengths, bf16* xa, bf16* out,
                                          int T, int B, int IN, int H, int backward, void* stream) {
-  return fused_layer<3, false, bf16, false, flappie::AFFINE_BF16>(
+  return fused_layer<3, false, bf16, 0, flappie::AFFINE_BF16>(
       x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 

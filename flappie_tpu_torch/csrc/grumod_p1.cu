@@ -37,8 +37,8 @@ extern "C" int flappie_grumod_p1_layer(const void* x, const void* iW, const floa
                                        const float* sW, const int* lengths, void* xa, void* out,
                                        int T, int B, int IN, int H, int backward, int affine,
                                        int dot1, void* stream) {
-  return flappie::default_layer<3, false>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H,
-                                          backward, affine, dot1, stream);
+  return flappie::default_layer<3, false, 1>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN,
+                                             H, backward, affine, dot1, stream);
 }
 
 // The cluster plan of K7 (variant 0) or K7-bf16 (3) at precision default

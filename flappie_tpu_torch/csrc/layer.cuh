@@ -1,7 +1,8 @@
 // One fused recurrent layer on the host side: the block affine of x into
 // the layer's xa scratch, then the cluster recurrence over it, both on one
-// stream.  Every layer entry of lstm.cu, grumod.cu, lstm_p1.cu and
-// grumod_p1.cu is an instantiation of fused_layer.
+// stream.  Every layer entry of lstm.cu, grumod.cu, lstm_p1.cu,
+// grumod_p1.cu, lstm_h3.cu and grumod_h3.cu is an instantiation of
+// fused_layer.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,13 +39,14 @@ cudaError_t launch_block_affine(const void* x, const void* iW, const float* b, v
 
 // One layer of GN gates: the block affine of x [T*B, IN] by AFFINE into
 // xa [T*B, GN*H], then the recurrence over it (xa, out and, with WANT_C,
-// c_out [T, B, H] of type XT; with DOT1 the step product one bf16 pass on
-// the tensor cores, cluster_rnn_mma.cuh, else cluster_rnn.cuh's f32 step).
-// Returns the launch error code (0 = ok).
-template <int GN, bool WANT_C, typename XT, bool DOT1, int AFFINE>
+// c_out [T, B, H] of type XT; STEP the step product: 0 cluster_rnn.cuh's
+// f32 step, 1 one bf16 pass or 3 three bf16 passes on the tensor cores,
+// cluster_rnn_mma.cuh).  Returns the launch error code (0 = ok).
+template <int GN, bool WANT_C, typename XT, int STEP, int AFFINE>
 int fused_layer(const void* x, const void* iW, const float* b, const float* sW,
                 const int* lengths, void* xa, void* out, void* c_out, int T, int B, int IN,
                 int H, int backward, void* stream) {
+  static_assert(STEP == 0 || STEP == 1 || STEP == 3, "the f32 step, one pass or three");
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)T * B;
   if (M == 0) return 0;
@@ -53,34 +55,40 @@ int fused_layer(const void* x, const void* iW, const float* b, const float* sW,
   if (err != cudaSuccess) return err;
   const RnnArgs<XT> args = {static_cast<const XT*>(xa), sW, lengths, static_cast<XT*>(out),
                             static_cast<XT*>(c_out), T, B, H, backward, st};
-  if constexpr (DOT1)
-    return cluster_rnn_mma<GN, WANT_C, XT>(args);
+  if constexpr (STEP != 0)
+    return cluster_rnn_mma<GN, WANT_C, XT, STEP>(args);
   else
     return cluster_rnn<GN, WANT_C, false, XT>(args);
 }
 
-// A layer of precision ``default`` (lstm_p1.cu, grumod_p1.cu) by the
-// caller's (affine, dot1): the one-pass step over the f32 affine (0, 1),
-// over the one-pass affine (1, 1) or under the bf16 stream (2, 1), or the
-// f32 step over the one-pass affine (1, 0); any other pair is a layer of
-// lstm.cu / grumod.cu and returns cudaErrorInvalidValue.
-template <int GN, bool WANT_C>
+// A layer of rnn precision ``default`` (lstm_p1.cu, grumod_p1.cu; PASSES =
+// 1) or ``high`` on the card (lstm_h3.cu, grumod_h3.cu; PASSES = 3) by the
+// caller's (affine, step), step the step product's bf16 passes (0: the f32
+// step): the tensor-core step of PASSES passes over the f32 affine (0,
+// PASSES), over the one-pass affine (1, PASSES) or under the bf16 stream
+// (2, PASSES), and with PASSES = 1 the f32 step over the one-pass affine
+// (1, 0); any other pair is a layer of another source and returns
+// cudaErrorInvalidValue.
+template <int GN, bool WANT_C, int PASSES>
 int default_layer(const void* x, const void* iW, const float* b, const float* sW,
                   const int* lengths, void* xa, void* out, void* c_out, int T, int B, int IN,
-                  int H, int backward, int affine, int dot1, void* stream) {
+                  int H, int backward, int affine, int step, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (affine == AFFINE_BF16 && dot1)
-    return fused_layer<GN, WANT_C, bf16, true, AFFINE_BF16>(x, iW, b, sW, lengths, xa, out, c_out,
-                                                            T, B, IN, H, backward, stream);
-  if (affine == AFFINE_ONE_PASS && dot1)
-    return fused_layer<GN, WANT_C, float, true, AFFINE_ONE_PASS>(
+  static_assert(PASSES == 1 || PASSES == 3, "one pass or three");
+  if (affine == AFFINE_BF16 && step == PASSES)
+    return fused_layer<GN, WANT_C, bf16, PASSES, AFFINE_BF16>(x, iW, b, sW, lengths, xa, out,
+                                                              c_out, T, B, IN, H, backward, stream);
+  if (affine == AFFINE_ONE_PASS && step == PASSES)
+    return fused_layer<GN, WANT_C, float, PASSES, AFFINE_ONE_PASS>(
         x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
-  if (affine == AFFINE_ONE_PASS)
-    return fused_layer<GN, WANT_C, float, false, AFFINE_ONE_PASS>(
-        x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
-  if (affine == AFFINE_F32 && dot1)
-    return fused_layer<GN, WANT_C, float, true, AFFINE_F32>(x, iW, b, sW, lengths, xa, out, c_out,
-                                                            T, B, IN, H, backward, stream);
+  if constexpr (PASSES == 1) {
+    if (affine == AFFINE_ONE_PASS && step == 0)
+      return fused_layer<GN, WANT_C, float, 0, AFFINE_ONE_PASS>(
+          x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
+  }
+  if (affine == AFFINE_F32 && step == PASSES)
+    return fused_layer<GN, WANT_C, float, PASSES, AFFINE_F32>(x, iW, b, sW, lengths, xa, out,
+                                                              c_out, T, B, IN, H, backward, stream);
   return cudaErrorInvalidValue;
 }
 

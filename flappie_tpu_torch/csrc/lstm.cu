@@ -93,7 +93,7 @@ extern "C" int flappie_lstm_layer(const float* x, const float* iW, const float* 
                                   const float* sW, const int* lengths, float* xa,
                                   float* out, int T, int B, int IN, int H,
                                   int backward, void* stream) {
-  return fused_layer<4, false, float, false, flappie::AFFINE_F32>(
+  return fused_layer<4, false, float, 0, flappie::AFFINE_F32>(
       x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 
@@ -102,7 +102,7 @@ extern "C" int flappie_lstm_layer_train(const float* x, const float* iW, const f
                                         const float* sW, const int* lengths, float* xa,
                                         float* out, float* c_out, int T, int B, int IN,
                                         int H, int backward, void* stream) {
-  return fused_layer<4, true, float, false, flappie::AFFINE_F32>(
+  return fused_layer<4, true, float, 0, flappie::AFFINE_F32>(
       x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
 }
 
@@ -123,7 +123,7 @@ extern "C" int flappie_lstm_seq(const float* xa, const float* sW, const int* len
 extern "C" int flappie_lstm_layer_bf16(const bf16* x, const bf16* iW, const float* b,
                                        const float* sW, const int* lengths, bf16* xa, bf16* out,
                                        int T, int B, int IN, int H, int backward, void* stream) {
-  return fused_layer<4, false, bf16, false, flappie::AFFINE_BF16>(
+  return fused_layer<4, false, bf16, 0, flappie::AFFINE_BF16>(
       x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H, backward, stream);
 }
 
@@ -133,7 +133,7 @@ extern "C" int flappie_lstm_layer_train_bf16(const bf16* x, const bf16* iW, cons
                                              const float* sW, const int* lengths, bf16* xa,
                                              bf16* out, bf16* c_out, int T, int B, int IN, int H,
                                              int backward, void* stream) {
-  return fused_layer<4, true, bf16, false, flappie::AFFINE_BF16>(
+  return fused_layer<4, true, bf16, 0, flappie::AFFINE_BF16>(
       x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H, backward, stream);
 }
 

@@ -42,8 +42,8 @@ extern "C" int flappie_lstm_p1_layer(const void* x, const void* iW, const float*
                                      const float* sW, const int* lengths, void* xa, void* out,
                                      int T, int B, int IN, int H, int backward, int affine,
                                      int dot1, void* stream) {
-  return flappie::default_layer<4, false>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN, H,
-                                          backward, affine, dot1, stream);
+  return flappie::default_layer<4, false, 1>(x, iW, b, sW, lengths, xa, out, nullptr, T, B, IN,
+                                             H, backward, affine, dot1, stream);
 }
 
 // K8 (or K8-bf16) at precision default: flappie_lstm_p1_layer plus the
@@ -52,8 +52,8 @@ extern "C" int flappie_lstm_p1_layer_train(const void* x, const void* iW, const 
                                            const float* sW, const int* lengths, void* xa,
                                            void* out, void* c_out, int T, int B, int IN, int H,
                                            int backward, int affine, int dot1, void* stream) {
-  return flappie::default_layer<4, true>(x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H,
-                                         backward, affine, dot1, stream);
+  return flappie::default_layer<4, true, 1>(x, iW, b, sW, lengths, xa, out, c_out, T, B, IN, H,
+                                            backward, affine, dot1, stream);
 }
 
 // The cluster plan of K1 (variant 0), K8 (1), K1-bf16 (3) or K8-bf16 (4)

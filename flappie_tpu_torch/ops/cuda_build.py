@@ -30,8 +30,10 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "flappie_tpu_torch")
 # lstm_p1 and grumod_p1 hold the recurrences of precision ``default`` (the
-# one-pass step product): load() builds them only when a layer needs them
-SOURCES = ("lstm", "grumod", "crf_scan", "crf_bt", "conv12", "lstm_p1", "grumod_p1")
+# one-pass step product), lstm_h3 and grumod_h3 those of rnn ``high`` on the
+# card (three passes): load() builds them only when a layer needs them
+SOURCES = ("lstm", "grumod", "crf_scan", "crf_bt", "conv12", "lstm_p1", "grumod_p1", "lstm_h3",
+           "grumod_h3")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

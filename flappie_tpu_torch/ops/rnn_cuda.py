@@ -1,7 +1,7 @@
 """Fused recurrent layers: kernels K1 (LSTM, csrc/lstm.cu), K8 (its
 training forward, which also returns the cell state) and K7 (GRU-mod,
-csrc/grumod.cu), their bf16-stream and precision-``default`` variants,
-and their plain versions; and K12, the recurrences alone over a caller's
+csrc/grumod.cu), their bf16-stream, precision-``default`` and rnn-``high``
+variants, and their plain versions; and K12, the recurrences alone over a caller's
 affine (``lstm_seq_cuda``, ``grumod_seq_cuda``).
 
 Counterparts of flappie_tpu/ops/rnn_pallas.py:563 ``lstm_layer_tm``
@@ -58,6 +58,17 @@ layer is one call of a fused C entry (csrc/layer.cuh: the block affine,
 then the recurrence, on one stream); those that only ``default`` reaches
 are in the _p1 sources.
 
+Rnn precision ``high`` on the card (ops/precision.py: ``"bf16x3"``).  At
+an explicit FLAPPIE_TPU_RNN_PRECISION=high a layer runs the cluster
+recurrence with the three-pass step product on the tensor cores (h and sW
+split into bf16 high parts and remainders, h_hi.sW_hi + h_hi.sW_lo +
+h_lo.sW_hi with f32 sums; csrc/lstm_h3.cu and csrc/grumod_h3.cu, both
+csrc/cluster_rnn_mma.cuh at three passes), under either stream and after
+any of the three block affines: ``lstm_layer_tm_h3``,
+``lstm_layer_tm_train_h3``, ``grumod_layer_tm_h3``, counted under the bf16
+stream on ``lstm_layer_tm_bf16_h3``, ``lstm_layer_tm_train_bf16_h3`` and
+``grumod_layer_tm_bf16_h3``.  The plain versions take it as ``rdot``.
+
 Both block affines live in csrc/affine.cuh and run alone through
 ``affine_f32`` (a pipelined CUDA-core SGEMM, true f32) and
 ``affine_bf16`` (wgmma on TMA tiles where K and N are multiples of 8 and
@@ -80,7 +91,7 @@ import types
 import torch
 
 from . import cuda_build, precision
-from .precision import F32, ONE_PASS, one_pass
+from .precision import F32, ONE_PASS, THREE_PASS, one_pass, split_bf16
 from .rnn import grumod_seq, grumod_step, lstm_seq, lstm_step, rows_matmul
 
 BF16 = torch.bfloat16
@@ -118,16 +129,27 @@ def _xa_plain(x_tm, iW, b, ff):
 def _step_dot(sW, rdot):
     """(sW as the step reads it, the step product h . sW): at ``rdot``
     one pass, sW rounded to bf16 once and h at every step (the carried h
-    stays f32), the exact products summed in f32."""
+    stays f32), the exact products summed in f32; three passes, sW split
+    once into bf16 hi and lo (``split_bf16``) and h at every step,
+    (h_hi.sW_hi + h_hi.sW_lo) + h_lo.sW_hi, each product in f32 (JAX's
+    ``_dot_bf16x3`` and its order)."""
     if rdot == ONE_PASS:
         return one_pass(sW), lambda h, w: rows_matmul(one_pass(h), w)
+    if rdot == THREE_PASS:
+        hi, lo = split_bf16(sW)
+
+        def dot3(h, w):
+            h_hi, h_lo = split_bf16(h)
+            return (rows_matmul(h_hi, w) + rows_matmul(h_hi, lo)) + rows_matmul(h_lo, w)
+
+        return hi, dot3
     return sW, rows_matmul
 
 
 def _check_levels(rdot, ff):
-    for name, v in (("rdot", rdot), ("ff", ff)):
-        if v not in (F32, ONE_PASS):
-            raise ValueError(f"{name} must be {F32!r} or {ONE_PASS!r}, got {v!r}")
+    for name, v, ok in (("rdot", rdot, (F32, ONE_PASS, THREE_PASS)), ("ff", ff, (F32, ONE_PASS))):
+        if v not in ok:
+            raise ValueError(f"{name} must be one of {ok}, got {v!r}")
 
 
 def _lstm_plain(x_tm, iW, b, sW, backward, lengths, want_c: bool, rdot=F32, ff=F32):
@@ -160,7 +182,8 @@ def lstm_layer_tm_plain(x_tm, iW, b, sW, backward: bool = False, lengths=None, r
     """x_tm [T, B, IN] -> [T, B, H] with plain tensor ops (same math); an
     x_tm in bf16 runs the bf16 stream and returns bf16.  ``rdot`` and
     ``ff``: the step product's and the f32 stream's affine's level,
-    ``"highest"`` (true f32) or ``"bf16"`` (one pass)."""
+    ``"highest"`` (true f32) or ``"bf16"`` (one pass), and for ``rdot``
+    also ``"bf16x3"`` (three passes)."""
     return _lstm_plain(x_tm, iW, b, sW, backward, lengths, False, rdot, ff)
 
 
@@ -214,23 +237,31 @@ def _rows(B: int, most: int) -> int:
     return next((r for r in ROWS if -(-B // r) <= most), ROWS[-1])
 
 
-def _mma_plan(H: int, R: int, gates: int = 4) -> dict:
-    """The tensor-core step's layout at H, R rows a cluster and ``gates``
-    (mma_warps, mma_rows, cluster_mma_smem in csrc/cluster_rnn_mma.cuh):
-    warps a CTA (MMA_UNITS units each, the last padded), the exchanged h's
-    chunks of 8 units (K padded to 8 of them), its k-tiles, the rows
-    padded to n-tiles, the shared bytes (h by step parity, 16 bytes a
-    chunk and row) and the A words a thread holds in registers that are
-    not the constant 0 (2 a k-tile for each gate of its 8 units: 4 a
-    k-tile for each of its 2 m-tiles at 4 gates; GRU-mod's zero rows,
-    ``_mma_gate_rows``, hold none)."""
+def _mma_plan(H: int, R: int, gates: int = 4, passes: int = 1) -> dict:
+    """The tensor-core step's layout at H, R rows a cluster, ``gates`` and
+    ``passes`` (1 or 3; mma_warps, mma_rows, mma_lo_lines,
+    cluster_mma_smem in csrc/cluster_rnn_mma.cuh): warps a CTA (MMA_UNITS
+    units each, the last padded), the exchanged h's chunks of 8 units (K
+    padded to 8 of them), its k-tiles, the rows padded to n-tiles, the
+    shared bytes (h by step parity, 16 bytes a chunk and row, two parts
+    hi and lo at three passes; then at three passes sW_lo's A fragments,
+    ``lo_lines`` 16-byte lines a warp and k-tile: 32 an m-tile, 16 for
+    GRU-mod's m-tile 1, whose zero rows are not stored) and the A words a
+    thread holds in registers that are not the constant 0 (sW_hi: 2 a
+    k-tile for each gate of its 8 units: 4 a k-tile for each of its 2
+    m-tiles at 4 gates; GRU-mod's zero rows, ``_mma_gate_rows``, hold
+    none)."""
     warps = -(-(H // CLUSTER) // MMA_UNITS)
     chunks = CLUSTER * warps
     n_tiles = -(-R // MMA_N)
     k_tiles = chunks * MMA_UNITS // MMA_K
+    parts = 2 if passes == 3 else 1
+    lo_lines = 32 + (32 if gates == 4 else 16)
+    smem = 2 * parts * chunks * MMA_N * n_tiles * 16
+    if passes == 3:
+        smem += warps * k_tiles * lo_lines * 16
     return dict(warps=warps, chunks=chunks, k_tiles=k_tiles, n_tiles=n_tiles,
-                rows=MMA_N * n_tiles, smem=2 * chunks * MMA_N * n_tiles * 16,
-                a_registers=2 * gates * k_tiles)
+                rows=MMA_N * n_tiles, smem=smem, a_registers=2 * gates * k_tiles)
 
 
 def _mma_gate_rows(gates: int) -> list:
@@ -244,20 +275,20 @@ def _mma_gate_rows(gates: int) -> list:
              for m in range(MMA_M)] for mt in range(MMA_M_TILES)]
 
 
-def _cluster_plan(B: int, H: int, gates: int, dot1: bool = False):
+def _cluster_plan(B: int, H: int, gates: int, passes: int = 0):
     """(R, clusters, shared bytes a CTA) of the cluster recurrence for a
     batch of B rows: the fewest rows R of ``ROWS`` that let every cluster
     run at once (at most 15), else the most (cluster_rows in
-    csrc/cluster_rnn.cuh); ``dot1`` (the one-pass step product, the
-    tensor-core step of either cell): the same rule at 16 clusters
-    (mma_cluster_rows), only the exchanged h in shared memory
-    (``_mma_plan``).  Raises ValueError for an H the kernel does not take."""
+    csrc/cluster_rnn.cuh); ``passes`` 1 or 3 (the one-pass or three-pass
+    step product, the tensor-core step of either cell): the same rule at
+    16 clusters (mma_cluster_rows), the shared bytes ``_mma_plan``'s.
+    Raises ValueError for an H the kernel does not take."""
     if H <= 0 or H % 16 or H > MAX_H:
         raise ValueError(f"the cluster recurrence needs H % 16 == 0 and H <= {MAX_H} (an "
                          f"eighth of sW must fit one SM's shared memory), got H={H}")
-    if dot1:
+    if passes:
         R = _rows(B, MMA_MAX_CLUSTERS)
-        return R, -(-B // R), _mma_plan(H, R, gates)["smem"]
+        return R, -(-B // R), _mma_plan(H, R, gates, passes)["smem"]
     R = _rows(B, MAX_CLUSTERS)
     cols = gates * H // CLUSTER
     smem = 4 * (H * cols + 2 * H * R + KSPLIT * R * cols)
@@ -265,20 +296,25 @@ def _cluster_plan(B: int, H: int, gates: int, dot1: bool = False):
 
 
 # variant of each kernel in its source's <source>_cluster_info entry; the
-# _p1 sources hold the one-pass step product
+# _p1 sources hold the one-pass step product, the _h3 sources the
+# three-pass one
 _INFO = {"lstm_layer": ("lstm", 0), "lstm_layer_train": ("lstm", 1), "lstm_seq": ("lstm", 2),
          "lstm_layer_bf16": ("lstm", 3), "lstm_layer_train_bf16": ("lstm", 4),
          "grumod_layer": ("grumod", 0), "grumod_seq": ("grumod", 2),
          "grumod_layer_bf16": ("grumod", 3),
          "lstm_layer_p1": ("lstm_p1", 0), "lstm_layer_train_p1": ("lstm_p1", 1),
          "lstm_layer_bf16_p1": ("lstm_p1", 3), "lstm_layer_train_bf16_p1": ("lstm_p1", 4),
-         "grumod_layer_p1": ("grumod_p1", 0), "grumod_layer_bf16_p1": ("grumod_p1", 3)}
+         "grumod_layer_p1": ("grumod_p1", 0), "grumod_layer_bf16_p1": ("grumod_p1", 3),
+         "lstm_layer_h3": ("lstm_h3", 0), "lstm_layer_train_h3": ("lstm_h3", 1),
+         "lstm_layer_bf16_h3": ("lstm_h3", 3), "lstm_layer_train_bf16_h3": ("lstm_h3", 4),
+         "grumod_layer_h3": ("grumod_h3", 0), "grumod_layer_bf16_h3": ("grumod_h3", 3)}
 
 
 def info_plan(kind: str, B: int, H: int = 256):
     """``_cluster_plan`` of ``kind`` (a key of ``_INFO``) at batch B."""
     source = _INFO[kind][0]
-    return _cluster_plan(B, H, 4 if source.startswith("lstm") else 3, source.endswith("_p1"))
+    passes = 1 if source.endswith("_p1") else 3 if source.endswith("_h3") else 0
+    return _cluster_plan(B, H, 4 if source.startswith("lstm") else 3, passes)
 
 
 def cluster_info(kind: str, B: int, H: int = 256) -> dict:
@@ -416,18 +452,20 @@ _LAYERS = {"lstm_layer_tm": ("lstm", 4, False), "lstm_layer_tm_train": ("lstm", 
            "grumod_layer_tm": ("grumod", 3, False)}
 
 
-def _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, p1: bool):
+def _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, step: str):
     """One launch of a fused C entry of layer ``kind`` (a key of
     ``_LAYERS``) after ``_layer_args``: the block affine, then the cluster
     recurrence (csrc/layer.cuh).  The affine follows x's dtype and the ff
     level for x's device: the bf16 one under the bf16 stream, else the
     one-pass affine with an f32 output (x and iW rounded to bf16 here),
     else the f32 one; it is counted on its wrapper's counter.  The step
-    product is one pass with ``p1``, else f32.  The layers that only
-    precision ``default`` reaches (``p1``, or the one-pass affine) are
-    csrc/<source>_p1.cu's, which take the affine and the step as
-    arguments; the others csrc/<source>.cu's, an entry for each stream.
-    The xa scratch and the outputs are in the stream's dtype."""
+    product is at level ``step`` (``F32``, ``ONE_PASS`` or
+    ``THREE_PASS``).  The three-pass layers are csrc/<source>_h3.cu's,
+    which take the affine as an argument; the others that only precision
+    ``default`` reaches (the one-pass step, or the one-pass affine)
+    csrc/<source>_p1.cu's, which take the affine and the step; the rest
+    csrc/<source>.cu's, an entry for each stream.  The xa scratch and the
+    outputs are in the stream's dtype."""
     source, gates, want_c = _LAYERS[kind]
     x_tm, iW, b, sW, lengths = _layer_args(what, gates, x_tm, iW, b, sW, lengths)
     T, B, IN = x_tm.shape
@@ -441,9 +479,12 @@ def _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, p1: bool):
     else:
         affine = BLOCK_F32
     train = "_train" if want_c else ""
-    if p1 or affine == BLOCK_ONE_PASS:
+    if step == THREE_PASS:
+        source, entry = source + "_h3", f"flappie_{source}_h3_layer{train}"
+        flags = [affine]
+    elif step == ONE_PASS or affine == BLOCK_ONE_PASS:
         source, entry = source + "_p1", f"flappie_{source}_p1_layer{train}"
-        flags = [affine, int(p1)]
+        flags = [affine, int(step == ONE_PASS)]
     else:
         entry = f"flappie_{source}_layer{train}" + ("_bf16" if affine == BLOCK_BF16 else "")
         flags = []
@@ -475,17 +516,20 @@ def _dispatch(kind, x_tm, iW, b, sW, backward, lengths):
     """``lstm_layer_tm``, ``lstm_layer_tm_train`` and ``grumod_layer_tm``
     (``kind``): the plain version on the CPU (every level true f32); on
     the card the rnn-``default`` kernel where the step product's level
-    for x's device is one pass, else the bf16 stream's kernel for an x in
-    bf16, else the f32 kernel (its affine at the ff level), counted on the
-    dispatcher."""
+    for x's device is one pass, the rnn-``high`` kernel where it is three
+    passes, else the bf16 stream's kernel for an x in bf16, else the f32
+    kernel (its affine at the ff level), counted on the dispatcher."""
     w = _wrappers(kind)
     if not _device(kind, x_tm):
         return w.plain(x_tm, iW, b, sW, backward, lengths)
-    if precision.rnn_precision(x_tm.device) == ONE_PASS:
+    level = precision.rnn_precision(x_tm.device)
+    if level == ONE_PASS:
         return w.p1(x_tm, iW, b, sW, backward, lengths)
+    if level == THREE_PASS:
+        return w.h3(x_tm, iW, b, sW, backward, lengths)
     if x_tm.dtype == BF16:
         return w.bf16(x_tm, iW, b, sW, backward, lengths)
-    out = _launch_layer(kind, kind, x_tm, iW, b, sW, backward, lengths, False)
+    out = _launch_layer(kind, kind, x_tm, iW, b, sW, backward, lengths, F32)
     cuda_build.count(w.f32)
     return out
 
@@ -498,22 +542,28 @@ def _bf16_layer(kind, x_tm, iW, b, sW, backward, lengths):
     _need_bf16(what, x_tm)
     if not _device(what, x_tm):
         return w.plain(x_tm, iW, b, sW, backward, lengths)
-    out = _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, False)
+    out = _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, F32)
     cuda_build.count(w.bf16)
     return out
 
 
-def _p1_layer(kind, x_tm, iW, b, sW, backward, lengths):
-    """Layer ``kind`` with the one-pass step product: its plain twin on
-    the CPU (the affine true f32, the CPU's level), else one launch
-    counted on the wrapper for an f32 x and on its ``*_bf16_p1`` counter
-    for an x in bf16."""
+def _step_layer(kind, step, x_tm, iW, b, sW, backward, lengths):
+    """Layer ``kind`` with the step product at ``step`` (``ONE_PASS``:
+    the ``*_p1`` wrappers, ``THREE_PASS``: the ``*_h3`` ones): its plain
+    twin on the CPU (the affine true f32, the CPU's level), else one
+    launch counted on the wrapper for an f32 x and on its ``*_bf16_p1`` /
+    ``*_bf16_h3`` counter for an x in bf16.  A launch that fails raises:
+    nothing runs another kernel or the plain twin in its place."""
     w = _wrappers(kind)
-    what = kind + "_p1"
+    sfx = "_p1" if step == ONE_PASS else "_h3"
+    what = kind + sfx
     if not _device(what, x_tm):
-        return w.plain(x_tm, iW, b, sW, backward, lengths, rdot=ONE_PASS)
-    out = _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, True)
-    cuda_build.count(w.p1_bf16 if x_tm.dtype == BF16 else w.p1)
+        return w.plain(x_tm, iW, b, sW, backward, lengths, rdot=step)
+    out = _launch_layer(kind, what, x_tm, iW, b, sW, backward, lengths, step)
+    if step == ONE_PASS:
+        cuda_build.count(w.p1_bf16 if x_tm.dtype == BF16 else w.p1)
+    else:
+        cuda_build.count(w.h3_bf16 if x_tm.dtype == BF16 else w.h3)
     return out
 
 
@@ -586,14 +636,14 @@ def lstm_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     ``lstm_layer_tm_bf16_p1``) with the step product at precision
     ``default``: one bf16 pass, f32 sums (csrc/lstm_p1.cu); on the f32
     stream the affine at the ff level for x's device."""
-    return _p1_layer("lstm_layer_tm", x_tm, iW, b, sW, backward, lengths)
+    return _step_layer("lstm_layer_tm", ONE_PASS, x_tm, iW, b, sW, backward, lengths)
 
 
 def lstm_layer_tm_train_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     """K8 (or K8-bf16, counted on ``lstm_layer_tm_train_bf16_p1``) with
     the step product at precision ``default``: (h, c) as
     ``lstm_layer_tm_train``."""
-    return _p1_layer("lstm_layer_tm_train", x_tm, iW, b, sW, backward, lengths)
+    return _step_layer("lstm_layer_tm_train", ONE_PASS, x_tm, iW, b, sW, backward, lengths)
 
 
 def grumod_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
@@ -601,7 +651,7 @@ def grumod_layer_tm_p1(x_tm, iW, b, sW, backward: bool = False, lengths=None):
     step product at precision ``default``: one bf16 pass, f32 sums
     (csrc/grumod_p1.cu); on the f32 stream the affine at the ff level for
     x's device."""
-    return _p1_layer("grumod_layer_tm", x_tm, iW, b, sW, backward, lengths)
+    return _step_layer("grumod_layer_tm", ONE_PASS, x_tm, iW, b, sW, backward, lengths)
 
 
 lstm_layer_tm_p1.launches = lstm_layer_tm_train_p1.launches = grumod_layer_tm_p1.launches = 0
@@ -611,13 +661,45 @@ lstm_layer_tm_train_bf16_p1 = types.SimpleNamespace(launches=0)
 grumod_layer_tm_bf16_p1 = types.SimpleNamespace(launches=0)
 
 
+def lstm_layer_tm_h3(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K1 (or K1-bf16 for an x_tm in bf16, counted on
+    ``lstm_layer_tm_bf16_h3``) with the step product at rnn precision
+    ``high``: three bf16 passes, f32 sums (csrc/lstm_h3.cu); on the f32
+    stream the affine at the ff level for x's device."""
+    return _step_layer("lstm_layer_tm", THREE_PASS, x_tm, iW, b, sW, backward, lengths)
+
+
+def lstm_layer_tm_train_h3(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K8 (or K8-bf16, counted on ``lstm_layer_tm_train_bf16_h3``) with
+    the step product at rnn precision ``high``: (h, c) as
+    ``lstm_layer_tm_train``; h is ``lstm_layer_tm_h3``'s bit for bit."""
+    return _step_layer("lstm_layer_tm_train", THREE_PASS, x_tm, iW, b, sW, backward, lengths)
+
+
+def grumod_layer_tm_h3(x_tm, iW, b, sW, backward: bool = False, lengths=None):
+    """K7 (or K7-bf16, counted on ``grumod_layer_tm_bf16_h3``) with the
+    step product at rnn precision ``high``: three bf16 passes, f32 sums
+    (csrc/grumod_h3.cu); on the f32 stream the affine at the ff level for
+    x's device."""
+    return _step_layer("grumod_layer_tm", THREE_PASS, x_tm, iW, b, sW, backward, lengths)
+
+
+lstm_layer_tm_h3.launches = lstm_layer_tm_train_h3.launches = grumod_layer_tm_h3.launches = 0
+# the launch counts of the rnn-high kernels under the bf16 stream
+lstm_layer_tm_bf16_h3 = types.SimpleNamespace(launches=0)
+lstm_layer_tm_train_bf16_h3 = types.SimpleNamespace(launches=0)
+grumod_layer_tm_bf16_h3 = types.SimpleNamespace(launches=0)
+
+
 def _wrappers(kind):
     """Layer ``kind``'s dispatcher (the f32 kernel's counter), bf16-stream
-    kernel, rnn-default kernel and its bf16-stream counter, and plain
-    version, looked up when called (tests may replace them)."""
+    kernel, rnn-default and rnn-high kernels and their bf16-stream
+    counters, and plain version, looked up when called (tests may replace
+    them)."""
     g = globals()
     return types.SimpleNamespace(f32=g[kind], bf16=g[kind + "_bf16"], p1=g[kind + "_p1"],
-                                 p1_bf16=g[kind + "_bf16_p1"], plain=g[kind + "_plain"])
+                                 p1_bf16=g[kind + "_bf16_p1"], h3=g[kind + "_h3"],
+                                 h3_bf16=g[kind + "_bf16_h3"], plain=g[kind + "_plain"])
 
 
 def _launch_affine(what: str, entry: str, dt, x, iW, b, out_dt=None):

@@ -3,25 +3,28 @@
     python3 step_split.py
 
 Builds a small source of its own (written under build/) that runs the
-recurrence alone over a time-major xa [T, B, GN.H] in two forms for each
+recurrence alone over a time-major xa [T, B, GN.H] in three forms for each
 cell (the LSTM, GN = 4, and GRU-mod, GN = 3): the one-pass step on the
-tensor cores (csrc/cluster_rnn_mma.cuh) and cluster_rnn.cuh's f32 step;
-once as the kernels ship and once with -DFLAPPIE_STEP_PROBE
-(csrc/step_probe.cuh), both nvcc at once.  Then, for each cell at T=2560,
-H=256, B=256 and B=24, ragged lengths including 0 and T, backward, the two
-forms each at its own plan's rows (cluster_rnn.cuh's R=20 and R=2, the
-tensor-core step's R=16 and R=2):
+tensor cores (csrc/cluster_rnn_mma.cuh), cluster_rnn.cuh's f32 step, and
+the three-pass step on the tensor cores (cluster_rnn_mma.cuh at PASSES =
+3, rnn precision ``high`` on the card); as the kernels ship and with
+-DFLAPPIE_STEP_PROBE (csrc/step_probe.cuh), both nvcc at once.  Then, for
+each cell at T=2560, H=256, B=256 and B=24, ragged lengths including 0 and
+T, backward, the forms each at its own plan's rows (cluster_rnn.cuh's R=20
+and R=2, the tensor-core steps' R=16 and R=2):
 
 1. ptxas's registers and spills of each kernel at R=20 and R=2 (the
-   tensor-core step's by n-tiles, GRU-mod's beside the LSTM's: what its
-   zero rows cost), and HMMA in the tensor-core kernels' SASS (none in
-   the others);
-2. the tensor-core step and the f32 step against the plain one-pass twin
-   of the recurrence (ops/rnn.py's steps over h and sW rounded to bf16,
-   f32 sums; the distances logged: kernel and twin sum the same exact
-   products in other orders, the f32 step rounds neither);
-3. the two forms timed alternated over 10 runs (CUDA events), their
-   microseconds a step, and the tensor-core step at each R of ROWS_AT[B]
+   tensor-core steps' by n-tiles, GRU-mod's beside the LSTM's: what its
+   zero rows cost; the three-pass step's at every n-tile count), and HMMA
+   in the tensor-core kernels' SASS (none in the others; the three-pass
+   kernels issue three times the one-pass kernels' HMMA);
+2. every form against the plain one-pass twin and the plain three-pass
+   twin of the recurrence (ops/rnn.py's steps over h and sW rounded to
+   bf16, or split into bf16 high parts and remainders, f32 sums; the
+   distances logged: kernel and twin sum the same exact products in other
+   orders, the f32 step rounds nothing);
+3. the forms timed alternated over 10 runs (CUDA events), their
+   microseconds a step, and each tensor-core step at each R of ROWS_AT[B]
    (bit-equal to its plan's; the clusters each launches and the card
    holds at once);
 4. the probe build: thread 0 of CTA 0's cycles a step in wait, product,
@@ -50,37 +53,46 @@ extern "C" const char* flappie_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 // The recurrence of ``gates`` gates (4 LSTM, 3 GRU-mod) in form ``which``:
-// 0 the tensor-core step (cluster_rnn_mma.cuh), 1 cluster_rnn.cuh's f32
-// step; xa [T, B, gates.H] f32 -> out [T, B, H].  Returns the launch error
-// code.
+// 0 the one-pass tensor-core step (cluster_rnn_mma.cuh), 1 cluster_rnn.cuh's
+// f32 step, 2 the three-pass tensor-core step; xa [T, B, gates.H] f32 ->
+// out [T, B, H].  Returns the launch error code.
 extern "C" int flappie_probe_rnn(int gates, int which, const float* xa, const float* sW,
                                  const int* lengths, float* out, int T, int B, int H,
                                  int backward, void* stream) {
   const flappie::RnnArgs<float> a = {xa, sW, lengths, out, nullptr, T, B, H, backward,
                                      static_cast<cudaStream_t>(stream)};
-  if (gates == 3)
+  if (gates == 3) {
+    if (which == 2) return flappie::cluster_rnn_mma<3, false, float, 3>(a);
     return which == 0 ? flappie::cluster_rnn_mma<3, false, float>(a)
                       : flappie::cluster_rnn<3, false, false, float>(a);
+  }
+  if (which == 2) return flappie::cluster_rnn_mma<4, false, float, 3>(a);
   return which == 0 ? flappie::cluster_rnn_mma<4, false, float>(a)
                     : flappie::cluster_rnn<4, false, false, float>(a);
 }
-// the tensor-core step at R rows a cluster, whatever B (max_active: only
-// ask how many of its clusters the card holds at once)
-extern "C" int flappie_probe_rows(int gates, int R, const float* xa, const float* sW,
-                                  const int* lengths, float* out, int T, int B, int H,
-                                  int backward, void* stream, int* max_active) {
+// the tensor-core step of ``passes`` passes (1 or 3) at R rows a cluster,
+// whatever B (max_active: only ask how many of its clusters the card holds
+// at once)
+extern "C" int flappie_probe_rows(int gates, int passes, int R, const float* xa,
+                                  const float* sW, const int* lengths, float* out, int T, int B,
+                                  int H, int backward, void* stream, int* max_active) {
   const flappie::RnnArgs<float> a = {xa, sW, lengths, out, nullptr, T, B, H, backward,
                                      static_cast<cudaStream_t>(stream)};
-  if (gates == 3) return flappie::cluster_rnn_mma_r<3, false, float>(a, R, max_active);
-  return flappie::cluster_rnn_mma_r<4, false, float>(a, R, max_active);
+  if (gates == 3)
+    return passes == 3 ? flappie::cluster_rnn_mma_r<3, false, float, 3>(a, R, max_active)
+                       : flappie::cluster_rnn_mma_r<3, false, float>(a, R, max_active);
+  return passes == 3 ? flappie::cluster_rnn_mma_r<4, false, float, 3>(a, R, max_active)
+                     : flappie::cluster_rnn_mma_r<4, false, float>(a, R, max_active);
 }
 """
-# the two builds: {name: -D flags}
+# the builds: {name: -D flags}
 BUILDS = {"shipped": (), "probe": ("-DFLAPPIE_STEP_PROBE",)}
-# rows a cluster the tensor-core step is timed at, by batch (its plan's
-# and the others it instantiates)
+# rows a cluster the tensor-core steps are timed at, by batch (their plan's
+# and the others they instantiate)
 ROWS_AT = {256: (8, 12, 16, 20), 24: (1, 2, 4)}
-FORMS = {0: "tensor-core", 1: "f32 step"}
+FORMS = {0: "tensor-core", 1: "f32 step", 2: "three-pass"}
+# the tensor-core forms' bf16 passes
+PASSES = {0: 1, 2: 3}
 CELLS = {4: "LSTM", 3: "GRU-mod"}
 BUCKETS = ("wait", "product", "update", "exchange", "rest")
 T, H = 2560, 256
@@ -108,7 +120,7 @@ def build(compile_: bool = True) -> dict:
         lib.flappie_probe_rnn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.flappie_probe_rnn.restype = ctypes.c_int
-        lib.flappie_probe_rows.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
+        lib.flappie_probe_rows.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         lib.flappie_probe_rows.restype = ctypes.c_int
     return libs
@@ -123,17 +135,26 @@ def log_code(libs: dict) -> None:
         text = cs.variant_log[name]
         for gates, cell in CELLS.items():
             for r in (20, 2):
-                mma = f"cluster_rnn_mma_kernelILi{gates}ELi{-(-r // 8)}E"
+                mma = f"cluster_rnn_mma_kernelILi{gates}ELi{-(-r // 8)}ELb0EfLi1E"
                 f32 = f"cluster_rnn_kernelILi{gates}ELi{r}ELb0ELb0EfE"
                 cs.log(f"ptxas {name} {cell} R={r}: tensor-core {cs.ptxas_usage(text, mma)}; "
                        f"f32 {cs.ptxas_usage(text, f32)}")
+            cs.log(f"ptxas {name} {cell} three-pass, n-tiles 1, 2, 3: " + "; ".join(
+                cs.ptxas_usage(text, f"cluster_rnn_mma_kernelILi{gates}ELi{nt}ELb0EfLi3E")
+                for nt in (1, 2, 3)))
         so = os.path.join(cuda_build.BUILD_DIR, name, "libstep_shim.so")
+        hmmas = {}
         for kernel, code in sorted(sass_by_kernel(so).items()):
             hmma = sum(1 for ins in code if re.search(r"\bHMMA\b", ins))
             if ("cluster_rnn_mma_kernel" in kernel) != (hmma > 0):
                 raise AssertionError(f"{name}: {kernel} issues {hmma} HMMA")
             if "mma_kernel" in kernel or "ELi20E" in kernel:
                 cs.log(f"  SASS {name}: {kernel}: {len(code)} instructions, {hmma} HMMA")
+            hmmas[kernel] = hmma
+        for kernel, n in hmmas.items():
+            one = kernel.replace("ELb0EfLi3E", "ELb0EfLi1E")
+            if "ELb0EfLi3E" in kernel and hmmas.get(one) and n != 3 * hmmas[one]:
+                raise AssertionError(f"{name}: {kernel} issues {n} HMMA, not 3x {one}'s")
 
 
 def run(torch, lib, gates: int, which: int, xa, sW, lengths):
@@ -148,18 +169,15 @@ def run(torch, lib, gates: int, which: int, xa, sW, lengths):
     return out
 
 
-def plain(torch, gates: int, xa, sW, lengths):
+def plain(torch, gates: int, xa, sW, lengths, rdot: str = "bf16"):
     """The one-pass twin of the recurrence alone, backward: ops/rnn.py's
     step with h and sW rounded to bf16 for the product, the exact
-    products summed in f32 (TF32 off), the state carried in f32."""
-    from flappie_tpu_torch.ops import rnn
-    from flappie_tpu_torch.ops.precision import one_pass
+    products summed in f32 (TF32 off), the state carried in f32; ``rdot``
+    "bf16x3", the three-pass twin (ops/rnn_cuda.py ``_step_dot``)."""
+    from flappie_tpu_torch.ops import rnn, rnn_cuda
 
     Tn, B, _ = xa.shape
-    w = one_pass(sW)
-
-    def dot(h, w):
-        return rnn.rows_matmul(one_pass(h), w)
+    w, dot = rnn_cuda._step_dot(sW, rdot)
 
     h = xa.new_zeros(B, H)
     c = xa.new_zeros(B, H)
@@ -175,36 +193,38 @@ def plain(torch, gates: int, xa, sW, lengths):
     return out
 
 
-def time_rows(torch, lib, gates: int, xa, sW, lengths, card: str) -> None:
-    """The tensor-core step at each R of ROWS_AT[B], alternated, each
-    bit-equal to the plan's, with the clusters it launches and the
-    clusters the card holds at once."""
+def time_rows(torch, lib, gates: int, xa, sW, lengths, card: str, which: int = 0) -> None:
+    """The tensor-core step of form ``which`` (0 one pass, 2 three passes)
+    at each R of ROWS_AT[B], alternated, each bit-equal to the plan's,
+    with the clusters it launches and the clusters the card holds at
+    once."""
     from flappie_tpu_torch.ops import cuda_build
 
     Tn, B, _ = xa.shape
     stream = torch.cuda.current_stream().cuda_stream
+    passes = PASSES[which]
 
     def launch(R):
         out = torch.empty(Tn, B, H, device=xa.device)
-        rc = lib.flappie_probe_rows(gates, R, xa.data_ptr(), sW.data_ptr(), lengths.data_ptr(),
-                                    out.data_ptr(), Tn, B, H, 1, stream, None)
-        cuda_build.check(lib, rc, f"flappie_probe_rows({gates}, {R})")
+        rc = lib.flappie_probe_rows(gates, passes, R, xa.data_ptr(), sW.data_ptr(),
+                                    lengths.data_ptr(), out.data_ptr(), Tn, B, H, 1, stream, None)
+        cuda_build.check(lib, rc, f"flappie_probe_rows({gates}, {passes}, {R})")
         return out
 
-    ref = run(torch, lib, gates, 0, xa, sW, lengths)
+    ref = run(torch, lib, gates, which, xa, sW, lengths)
     held = []
     for R in ROWS_AT[B]:
         n = ctypes.c_int(0)
-        cuda_build.check(lib, lib.flappie_probe_rows(gates, R, 0, 0, 0, 0, Tn, B, H, 1, stream,
-                                                     ctypes.addressof(n)), "max active")
+        cuda_build.check(lib, lib.flappie_probe_rows(gates, passes, R, 0, 0, 0, 0, Tn, B, H, 1,
+                                                     stream, ctypes.addressof(n)), "max active")
         if not torch.equal(launch(R), ref):
             raise AssertionError(f"{CELLS[gates]} R={R} at B={B} is not the plan's output bit "
                                  f"for bit")
         held.append(f"R={R}: {-(-B // R)} clusters, the card holds {n.value}")
     times = cs.alternated_ms(torch, {R: lambda R=R: launch(R) for R in ROWS_AT[B]},
                              cs.ALTERNATED_REPS)
-    cs.log(f"{CELLS[gates]} tensor-core step by rows a cluster at T={Tn}, B={B} [{card}], each "
-           f"bit-equal to the plan's: " + "; ".join(held) + "; " + "; ".join(
+    cs.log(f"{CELLS[gates]} {FORMS[which]} step by rows a cluster at T={Tn}, B={B} [{card}], "
+           f"each bit-equal to the plan's: " + "; ".join(held) + "; " + "; ".join(
                f"R={R} {cs.spread(ts)} = {1e3 * statistics.median(ts) / Tn:.3f} us a step"
                for R, ts in times.items()))
 
@@ -284,16 +304,24 @@ def main() -> int:
         for B in (256, 24):
             sW, xa, lengths = cell_inputs(torch, gen, gates, B)
             early = cs.first_steps(torch, T, lengths, True, cs.P1_STEPS)
-            want = plain(torch, gates, xa, sW, lengths)
-            for which in FORMS:
-                got = run(torch, lib, gates, which, xa, sW, lengths)
-                torch.cuda.synchronize()
+            twins = {"one-pass": plain(torch, gates, xa, sW, lengths),
+                     "three-pass": plain(torch, gates, xa, sW, lengths, "bf16x3")}
+            outs = {w: run(torch, lib, gates, w, xa, sW, lengths) for w in FORMS}
+            torch.cuda.synchronize()
+            for which, got in outs.items():
+                what = FORMS[which]
                 if not torch.isfinite(got).all():
-                    raise AssertionError(f"{cell} {FORMS[which]} at B={B}: non-finite h")
-                dmax, dmean, dearly = cs.p1_distance(got, want, early)
-                cs.log(f"{cell} B={B}, the {FORMS[which]} against the plain one-pass twin: max "
-                       f"{dmax:.2e} mean {dmean:.2e} first {cs.P1_STEPS} steps {dearly:.2e}")
-            del want, got
+                    raise AssertionError(f"{cell} {what} at B={B}: non-finite h")
+                parts = []
+                for k, want in twins.items():
+                    dmax, dmean, dearly = cs.p1_distance(got, want, early)
+                    parts.append(f"{k}: max {dmax:.2e} mean {dmean:.2e} first {cs.P1_STEPS} "
+                                 f"steps {dearly:.2e}")
+                cs.log(f"{cell} B={B}, the {what} against the plain twins: " + "; ".join(parts))
+            h3_err = (outs[2] - twins["three-pass"]).abs().max().item()
+            if not h3_err <= cs.H3_MAX:
+                raise AssertionError(f"{cell} three-pass step at B={B}: {h3_err} from its twin")
+            del twins, outs
             fns = {FORMS[w]: lambda w=w: run(torch, lib, gates, w, xa, sW, lengths)
                    for w in FORMS}
             times = cs.alternated_ms(torch, fns, cs.ALTERNATED_REPS)
@@ -301,7 +329,8 @@ def main() -> int:
                    + "; ".join(f"{k} {cs.spread(ts)} = "
                                f"{1e3 * statistics.median(ts) / T:.3f} us a step"
                                for k, ts in times.items()))
-            time_rows(torch, lib, gates, xa, sW, lengths, card)
+            for which in PASSES:
+                time_rows(torch, lib, gates, xa, sW, lengths, card, which)
             for which in FORMS:
                 ms = cs.cuda_ms(torch, lambda: run(torch, probe, gates, which, xa, sW, lengths),
                                 3)

@@ -3,9 +3,9 @@
 csrc/cluster_rnn.cuh): rows a cluster and clusters for the batches the
 main paths run, one CTA's shared memory within an SM's 227 KB, and the
 H the kernel refuses; and the layout of the one-pass step on the tensor
-cores, the LSTM's and GRU-mod's (``_mma_plan``, mirroring mma_warps /
-mma_rows / cluster_mma_smem in csrc/cluster_rnn_mma.cuh, and
-``_mma_gate_rows``, its gate-to-row map).  Pure arithmetic: runs on the
+cores, the LSTM's and GRU-mod's, at one pass and at three (``_mma_plan``,
+mirroring mma_warps / mma_rows / mma_lo_lines / cluster_mma_smem in
+csrc/cluster_rnn_mma.cuh, and ``_mma_gate_rows``, its gate-to-row map).  Pure arithmetic: runs on the
 CPU; the card holds the C side to it (chip_smoke.py).
 """
 
@@ -82,12 +82,12 @@ def test_one_pass_slices_are_bf16(gates, kib):
     3; 128 threads a CTA), so its shared memory is the exchanged bf16 h
     alone, whatever the cell."""
     for B in (1, 24, 32, 256):
-        R, clusters, smem = _cluster_plan(B, 256, gates, dot1=True)
+        R, clusters, smem = _cluster_plan(B, 256, gates, passes=1)
         plan = _mma_plan(256, R, gates)
         assert plan["a_registers"] * 4 * 32 * plan["warps"] == kib * 1024
         assert plan["a_registers"] == 32 * gates
         assert smem == plan["smem"] == 2 * 256 * plan["rows"] * 2
-        assert smem == _cluster_plan(B, 256, 7 - gates, dot1=True)[2]
+        assert smem == _cluster_plan(B, 256, 7 - gates, passes=1)[2]
 
 
 @pytest.mark.parametrize("R", ROWS)
@@ -129,7 +129,7 @@ def test_tensor_core_step_rows(B, R, clusters, gates):
     """The tensor-core step's rows rule (mma_cluster_rows), the LSTM's and
     GRU-mod's: the fewest rows of ROWS that keep the clusters within 16
     (one CTA an SM for 128 of the H100's 132), else the most."""
-    assert _cluster_plan(B, 256, gates, dot1=True)[:2] == (R, clusters)
+    assert _cluster_plan(B, 256, gates, passes=1)[:2] == (R, clusters)
     assert clusters <= 16 or R == ROWS[-1]
 
 
@@ -141,7 +141,7 @@ def test_one_pass_lstm_plans_are_the_tensor_core_steps(kind, B):
     and their bf16-stream twins) plan the tensor-core step: its rows rule,
     the exchanged h's shared bytes."""
     R, clusters, smem = info_plan(kind, B)
-    assert (R, clusters) == (R, -(-B // R)) == _cluster_plan(B, 256, 4, dot1=True)[:2]
+    assert (R, clusters) == (R, -(-B // R)) == _cluster_plan(B, 256, 4, passes=1)[:2]
     assert R == next(r for r in ROWS if -(-B // r) <= 16)
     assert smem == _mma_plan(256, R)["smem"]
 
@@ -154,7 +154,7 @@ def test_one_pass_grumod_plans_are_the_tensor_core_steps(kind, B):
     rule, its clusters, the exchanged h's shared bytes (no sW slice, no
     partial sums)."""
     R, clusters, smem = info_plan(kind, B)
-    assert (R, clusters) == (R, -(-B // R)) == _cluster_plan(B, 256, 3, dot1=True)[:2]
+    assert (R, clusters) == (R, -(-B // R)) == _cluster_plan(B, 256, 3, passes=1)[:2]
     assert R == next(r for r in ROWS if -(-B // r) <= 16)
     assert smem == _mma_plan(256, R, 3)["smem"] == _mma_plan(256, R)["smem"]
     assert info_plan(kind, B) == info_plan("lstm_layer_p1", B)
@@ -210,3 +210,43 @@ def test_new_variants_of_their_sources(kind, source, variant):
     gates = 4 if source.startswith("lstm") else 3
     for B in (1, 100, 256):
         assert info_plan(kind, B) == _cluster_plan(B, 256, gates, source.endswith("_p1"))
+
+
+@pytest.mark.parametrize("R", ROWS)
+@pytest.mark.parametrize("gates,lo_kib", [(4, 64), (3, 48)])
+def test_three_pass_step_layout(gates, lo_kib, R):
+    """The three-pass step (rnn ``high`` on the card) keeps the one-pass
+    step's warps, k-tiles and sW_hi registers, exchanges h in two parts
+    (hi, lo: twice the h buffer) and holds sW_lo's A fragments in shared
+    memory: 64 KiB a CTA for the LSTM, 48 KiB for GRU-mod (m-tile 1's zero
+    rows not stored), so at R=16 a CTA takes 96 or 80 KiB and two of them
+    still share an SM's 228 KB."""
+    one, three = _mma_plan(256, R, gates), _mma_plan(256, R, gates, 3)
+    assert {k: v for k, v in three.items() if k != "smem"} == \
+        {k: v for k, v in one.items() if k != "smem"}
+    assert three["smem"] == 2 * one["smem"] + lo_kib * 1024
+    assert three["smem"] == 2 * 2 * 256 * three["rows"] * 2 + three["warps"] * 16 * (
+        32 + (32 if gates == 4 else 16)) * 16
+    assert 2 * three["smem"] + 2 * 1024 <= 233_472
+    if R == 16:
+        assert three["smem"] == {4: 96, 3: 80}[gates] * 1024
+
+
+@pytest.mark.parametrize("B", [1, 16, 24, 32, 100, 150, 240, 256, 257])
+@pytest.mark.parametrize("kind,source,variant", [
+    ("lstm_layer_h3", "lstm_h3", 0), ("lstm_layer_train_h3", "lstm_h3", 1),
+    ("lstm_layer_bf16_h3", "lstm_h3", 3), ("lstm_layer_train_bf16_h3", "lstm_h3", 4),
+    ("grumod_layer_h3", "grumod_h3", 0), ("grumod_layer_bf16_h3", "grumod_h3", 3),
+])
+def test_three_pass_plans_are_the_tensor_core_steps(kind, source, variant, B):
+    """The six rnn-``high`` variants of lstm_h3.cu / grumod_h3.cu keep their
+    f32 twins' variant numbers and plan the tensor-core step at three
+    passes: the one-pass step's rows rule and clusters, its own shared
+    bytes (the card holds the C side to it: chip_smoke.py,
+    test_torch_cuda.py)."""
+    assert _INFO[kind] == (source, variant)
+    gates = 4 if source.startswith("lstm") else 3
+    R, clusters, smem = info_plan(kind, B)
+    assert (R, clusters) == info_plan(f"{kind[:-3]}_p1", B)[:2]
+    assert (R, clusters, smem) == _cluster_plan(B, 256, gates, 3)
+    assert smem == _mma_plan(256, R, gates, 3)["smem"]

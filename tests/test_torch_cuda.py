@@ -64,7 +64,13 @@ against ``info_plan``; the training path under the stream against the
 same Function on the CPU within 1e-2 of max |grad| (the adjoint reads
 bf16 h and c that kernel and plain version may give one bf16 ulp
 apart), and at FLAPPIE_TPU_GRAD_PRECISION=default within 5e-2 of the
-f32 adjoint's but not equal to it.
+f32 adjoint's but not equal to it.  Rnn precision ``high`` on the card:
+the three-pass recurrences (csrc/lstm_h3.cu, grumod_h3.cu) within 1e-4 of
+their plain twins on the f32 stream (1e-2 max(1, |value|) on the bf16
+stream: one bf16 ulp of a stored output) and within 1e-5 over the first 16
+steps, the one-pass kernel at least 3e-5 from the twin there, at every
+rows a cluster, K8-high3's h bit-equal to K1-high3's; the dispatchers at
+rnn high; their plans against ``info_plan``.
 """
 
 from __future__ import annotations
@@ -944,10 +950,13 @@ def test_affine_bf16_f32_kernel_matches_plain(cuda, M, K, N):
 
 @pytest.mark.parametrize("kind", ["lstm_layer_train_bf16", "lstm_layer_p1", "lstm_layer_train_p1",
                                   "lstm_layer_bf16_p1", "lstm_layer_train_bf16_p1",
-                                  "grumod_layer_p1", "grumod_layer_bf16_p1"])
+                                  "grumod_layer_p1", "grumod_layer_bf16_p1", "lstm_layer_h3",
+                                  "lstm_layer_train_h3", "lstm_layer_bf16_h3",
+                                  "lstm_layer_train_bf16_h3", "grumod_layer_h3",
+                                  "grumod_layer_bf16_h3"])
 def test_new_cluster_info_matches_plan(cuda, kind):
-    """K8-bf16's and the one-pass recurrences' plans from the C side (the
-    tensor-core step's) against ``info_plan``."""
+    """K8-bf16's, the one-pass and the three-pass recurrences' plans from
+    the C side (the tensor-core steps') against ``info_plan``."""
     for B in (1, 16, 32, 100, 150, 240, 256):
         info = rnn_cuda.cluster_info(kind, B)
         assert (info["R"], info["clusters"], info["smem"]) == rnn_cuda.info_plan(kind, B)
@@ -993,3 +1002,122 @@ def test_layer_function_under_the_stream_and_grad_default(cuda, kind, x_dtype, m
         assert d <= 5e-2
         moved = max(moved, d)
     assert moved > 1e-6  # the env var reached the adjoint's products
+
+
+# chip_smoke.py's band of the three-pass layers (rnn ``high`` on the card)
+# against their plain twins: max |delta| on the f32 stream (absolute) and
+# on the bf16 stream (of max(1, |value|)), and the mean over the first
+# P1_STEPS steps each row walks, where the one-pass kernel lies at least
+# 3 H3_EARLY from the twin
+H3_MAX, H3_MAX_BF16, H3_EARLY = 1e-4, 1e-2, 1e-5
+H3_NAMES = {"lstm": "lstm_layer_tm", "lstm_train": "lstm_layer_tm_train",
+            "grumod": "grumod_layer_tm"}
+
+
+def _h3_close(got, want, control, lengths, backward):
+    """got inside the H3 band of want, and control (None: none) outside it
+    by 3x over the first steps."""
+    dmax, _, dearly = _p1_distance(got, want, lengths, backward)
+    if got.dtype == torch.float32:
+        assert (got - want).abs().max().item() <= H3_MAX
+    else:
+        assert dmax <= H3_MAX_BF16
+    assert dearly <= H3_EARLY
+    if control is not None:
+        assert _p1_distance(control, want, lengths, backward)[2] >= 3 * H3_EARLY
+
+
+@pytest.mark.parametrize("B,T,IN,H", P1_SHAPES)
+@pytest.mark.parametrize("stream,ff", [("f32", "highest"), ("f32", "bf16"), ("bf16", None)])
+@pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
+def test_three_pass_layer_kernels_match_plain(cuda, kind, stream, ff, B, T, IN, H, levels):
+    """The rnn-``high`` recurrences (csrc/lstm_h3.cu, grumod_h3.cu: the
+    three-pass step on the tensor cores) through their wrappers, the f32
+    stream's affine at ``ff``, against their plain twins (rdot three
+    passes, the same affine) inside the H3 band, the one-pass kernel on
+    the same inputs outside it; each launch counts on the wrapper (f32
+    stream) or its ``*_bf16_h3`` counter."""
+    base = "grumod" if kind == "grumod" else "lstm"
+    gen = torch.Generator().manual_seed(B * T + H + len(kind) + 3)
+    args, lengths = _bf16_layer_args(cuda, gen, base, B, T, IN, H)
+    if stream == "f32":
+        args[0] = args[0].float()
+    name = H3_NAMES[kind]
+    h3, p1 = getattr(rnn_cuda, name + "_h3"), getattr(rnn_cuda, name + "_p1")
+    plain = getattr(rnn_cuda, name + "_plain")
+    counter = getattr(rnn_cuda, name + "_bf16_h3") if stream == "bf16" else h3
+    levels.set_ff_precision("default" if ff == "bf16" else "high")
+    before = counter.launches
+    got = h3(*args, True, lengths)
+    assert counter.launches == before + 1
+    control = p1(*args, True, lengths)
+    want = plain(*args, True, lengths, rdot="bf16x3", ff=ff or "highest")
+    torch.cuda.synchronize()
+    for g, c, w in zip(*(t if kind == "lstm_train" else (t,) for t in (got, control, want))):
+        assert g.dtype == args[0].dtype
+        _h3_close(g, w, c, lengths, True)
+
+
+@pytest.mark.parametrize("B,T,IN,H", LAYER_SHAPES)
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+@pytest.mark.parametrize("cell", ["lstm", "grumod"])
+def test_three_pass_step_at_every_r(cuda, cell, stream, B, T, IN, H, backward, levels):
+    """The three-pass tensor-core step at every rows a cluster (R = 1 ...
+    20 over its three n-tile instantiations), on each stream (the f32
+    stream's affine f32): K8-high3's h bit-equal to K1-high3's, h (and c)
+    inside the H3 band of the plain twin, the one-pass kernel outside."""
+    gen = torch.Generator().manual_seed(B * T + H + 17)
+    args, lengths = _bf16_layer_args(cuda, gen, cell, B, T, IN, H)
+    if stream == "f32":
+        args[0] = args[0].float()
+    levels.set_ff_precision("high")
+    if cell == "grumod":
+        got = rnn_cuda.grumod_layer_tm_h3(*args, backward, lengths)
+        control = rnn_cuda.grumod_layer_tm_p1(*args, backward, lengths)
+        want = rnn_cuda.grumod_layer_tm_plain(*args, backward, lengths, rdot="bf16x3")
+        pairs = ((got, want),)
+    else:
+        h1 = rnn_cuda.lstm_layer_tm_h3(*args, backward, lengths)
+        h8, c8 = rnn_cuda.lstm_layer_tm_train_h3(*args, backward, lengths)
+        control = rnn_cuda.lstm_layer_tm_p1(*args, backward, lengths)
+        want_h, want_c = rnn_cuda.lstm_layer_tm_train_plain(*args, backward, lengths,
+                                                            rdot="bf16x3")
+        torch.cuda.synchronize()
+        assert torch.equal(h1, h8)
+        pairs = ((h8, want_h), (c8, want_c))
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(pairs):
+        assert got.dtype == args[0].dtype
+        _h3_close(got, want, control if i == 0 else None, lengths, backward)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "lstm_train", "grumod"])
+def test_high_level_dispatches_to_its_kernels(cuda, kind, levels):
+    """At FLAPPIE_TPU_RNN_PRECISION=high on the card each dispatcher runs
+    its rnn-high wrapper (counted there and on the affine's counter, the
+    f32 layer's not), within the H3 band of the plain twin; ff high stays
+    the f32 affine."""
+    base = "grumod" if kind == "grumod" else "lstm"
+    gen = torch.Generator().manual_seed(37 + len(kind))
+    args, lengths = _bf16_layer_args(cuda, gen, base, 33, 40, 256, 256)
+    args[0] = args[0].float()
+    name = H3_NAMES[kind]
+    fn, h3 = getattr(rnn_cuda, name), getattr(rnn_cuda, name + "_h3")
+
+    def counts():
+        return fn.launches, h3.launches, rnn_cuda.affine_f32.launches
+
+    levels.set_ff_precision("high")
+    levels.set_rnn_precision("high")
+    before = counts()
+    got = fn(*args, True, lengths)
+    assert counts() == (before[0], before[1] + 1, before[2] + 1)
+    want = getattr(rnn_cuda, name + "_plain")(*args, True, lengths, rdot="bf16x3")
+    torch.cuda.synchronize()
+    for g, w in zip(*(t if kind == "lstm_train" else (t,) for t in (got, want))):
+        assert (g - w).abs().max().item() <= H3_MAX
+    levels.set_rnn_precision("highest")
+    before = counts()
+    fn(*args, True, lengths)
+    assert counts() == (before[0] + 1, before[1], before[2] + 1)

@@ -46,6 +46,18 @@ from flappie_tpu_torch.ops.crf import phred_from_qpath
 from flappie_tpu_torch.ops.crf_bm import decode_bm
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """As in test_torch_models.py: beside the test runner's other workers,
+    torch's intra-op thread pool spends longer waiting for its threads than
+    computing the CPU path's many small steps (the mc5_fb golden case took
+    200 s in a 6-worker run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 _SCORE_RE = re.compile(r'"normalised_score" : (-?[\d.]+|nan)')
 
 

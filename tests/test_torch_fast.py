@@ -317,11 +317,12 @@ def saved_levels():
 
 
 def test_precision_levels_resolve_to_f32_and_default_raises_on_the_card(saved_levels):
-    """high and highest are true f32 everywhere, default too on the CPU;
-    on a CUDA device (a device object: no card is needed to ask) default,
-    which raised until the one-pass products were ported, resolves to
-    the one-pass level "bf16".  A level that is not one of the three
-    raises."""
+    """high and highest are true f32 on the CPU, default too; on a CUDA
+    device (a device object: no card is needed to ask) highest is true
+    f32, ff high too, rnn high the three-pass level "bf16x3" (ported after
+    the one-pass products), and default, which raised until the one-pass
+    products were ported, resolves to the one-pass level "bf16".  A level
+    that is not one of the three raises."""
     cuda = torch.device("cuda")
     for get, set_ in ((precision.ff_precision, precision.set_ff_precision),
                       (precision.rnn_precision, precision.set_rnn_precision)):
@@ -330,7 +331,8 @@ def test_precision_levels_resolve_to_f32_and_default_raises_on_the_card(saved_le
             assert get() == get("cpu") == get(torch.device("cpu")) == "highest"
         for level in ("high", "highest"):
             set_(level)
-            assert get(cuda) == "highest"
+            three = get is precision.rnn_precision and level == "high"
+            assert get(cuda) == ("bf16x3" if three else "highest")
         set_("default")
         assert get(cuda) == get("cuda:0") == "bf16"
         with pytest.raises(ValueError, match="precision must be one of"):
