@@ -261,7 +261,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    warmed up once, by the band, in input order, every dispatch in two
    shards, every launch counter twice the plain run's, both walls
    logged; the CLI's --mesh 2 refused with rc 1 and the JAX CLI's
-   message; launch -- python -m flappie_tpu_torch.parallel.launch
+   message; tp -- the mesh's model axis: DistributedBasecaller over a
+   (1, 4) mesh on [cuda:0] x 4 (every rnn*/ff leaf in four column shards,
+   each held to its own columns and nothing more, gathered a layer at a
+   time) byte-equal to the plain fb run with its launch counts, and over
+   a (2, 2) mesh in the band, in input order, twice the launches; three
+   r941_native training steps (batch 32, 512 blocks) on a (1, 4) mesh
+   against one device, both under torch's deterministic algorithms (with
+   the defaults two one-device runs differ): every loss within 1e-5
+   relative, the launches equal, every parameter and Adam moment
+   bit-equal, the moments beside their shards; library -- Basecaller.call_batch
+   on 8 short reads byte-equal to the f32 bucket program's output for
+   them, and basecall_read_chunked on two long synthetic reads (60,000
+   and 120,000 samples, chunk 16000, overlap 2000: one forward batch of
+   chunks, the stitched row decoded as one) against the port's CPU run
+   of the same call by the band, with K1's and the decode's launches on
+   each read; launch -- python -m flappie_tpu_torch.parallel.launch
    --nproc 2 with --trace (both workers on cuda:0) against the CLI in
    this process: the merged FASTQ in input order and in the band, the
    merged trace's groups the plain run's (signals equal, traces within
@@ -4656,13 +4671,20 @@ def mesh_reads() -> tuple:
     return dst, chosen
 
 
-def library_fastq(torch, caller, reads_dir: str, names: list) -> tuple:
-    """(the FASTQ the flappie CLI writes for ``names`` at its defaults,
-    basecalled through ``caller``; the wall, the device synchronised)."""
-    from flappie_tpu_torch.io.fastx import format_read
+def read_raws(reads_dir: str, names: list) -> list:
+    """The RawTables of ``names`` in ``reads_dir``, as the flappie CLI reads
+    them (basecall_raw_tables copies before it changes one)."""
     from flappie_tpu_torch.signal.fast5 import read_raw
 
-    raws = [read_raw(os.path.join(reads_dir, n), scale_to_pA=True) for n in names]
+    return [read_raw(os.path.join(reads_dir, n), scale_to_pA=True) for n in names]
+
+
+def library_fastq(torch, caller, raws: list, names: list) -> tuple:
+    """(the FASTQ the flappie CLI writes for ``names`` at its defaults,
+    basecalled through ``caller`` from their RawTables ``raws``; the wall,
+    the device synchronised)."""
+    from flappie_tpu_torch.io.fastx import format_read
+
     t0 = time.perf_counter()
     results = caller.basecall_raw_tables(raws)
     torch.cuda.synchronize()
@@ -4682,19 +4704,20 @@ def mesh_phase(torch, card: str, reads_dir: str, names: list) -> dict:
     from flappie_tpu_torch.parallel.pipeline import DistributedBasecaller
 
     launches = {}
+    raws = read_raws(reads_dir, names)
     for mode in ("fb", "viterbi"):
         kw = dict(viterbi_only=mode == "viterbi", compute_trace=False)
         plain = Basecaller(**kw)
-        library_fastq(torch, plain, reads_dir, names)  # the programs' first calls
+        library_fastq(torch, plain, raws, names)  # the programs' first calls
         zero_counts()
-        want, plain_wall = library_fastq(torch, plain, reads_dir, names)
+        want, plain_wall = library_fastq(torch, plain, raws, names)
         plain_counts = {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
         mesh = DistributedBasecaller(mesh=make_mesh(2, devices=list(MESH_DEVICES)), **kw)
         try:
-            library_fastq(torch, mesh, reads_dir, names)
+            library_fastq(torch, mesh, raws, names)
             mesh.wire_log.clear()
             zero_counts()
-            got, mesh_wall = library_fastq(torch, mesh, reads_dir, names)
+            got, mesh_wall = library_fastq(torch, mesh, raws, names)
             counts = check_counts(f"mesh {mode} (twice the one-device run's {plain_counts})",
                                   {k: 2 * v for k, v in plain_counts.items()})
             summary = mesh.wire_summary()
@@ -4722,6 +4745,271 @@ def mesh_phase(torch, card: str, reads_dir: str, names: list) -> dict:
                                  f"{err.text()[-300:]!r}")
         log(f"mesh: the CLI refuses --mesh 2 on this host with rc 1 and {msg!r}")
     return launches
+
+
+# the model axis on the one-card host: every rnn*/ff leaf in four column
+# shards on cuda:0 (one data replica), then two replicas of two shards
+TP_MESHES = ((1, 4), (2, 2))
+# the model-axis training run: r941_native's training shape on a (1, 4) mesh
+TP_TRAIN = dict(batch=32, blocks=512, steps=3, seed=1, lr=2e-4)
+# the library step: basecall_read_chunked's reads (samples) at the JAX
+# package's defaults, chunk 16000 and overlap 2000
+LIBRARY_READS = (60_000, 120_000)
+LIBRARY_CHUNK = (16_000, 2_000)
+
+
+def check_model_shards(torch, caller) -> int:
+    """Every rnn*/ff leaf of every data replica of ``caller`` (a
+    DistributedBasecaller) is a Sharded whose shard j lies on the row's
+    device j and holds exactly its own columns of the whole leaf (a copy
+    of its own); the conv leaves are whole.  Returns the shard count."""
+    from flappie_tpu_torch.parallel.mesh import Sharded
+
+    n_model, count = caller.mesh.shape["model"], 0
+    for rep, row in zip(caller.replicas, caller.mesh.grid):
+        for layer, leaves in rep.items():
+            for k, leaf in leaves.items():
+                full = caller.params[layer][k]
+                if not isinstance(leaf, Sharded):
+                    if layer.startswith(("rnn", "ff")):
+                        raise AssertionError(f"tp: {layer}/{k} is not sharded")
+                    continue
+                cols = full.shape[-1] // n_model
+                for j, (t, dev) in enumerate(zip(leaf.shards, row)):
+                    if (t.device != dev or tuple(t.shape) != tuple(full.shape[:-1]) + (cols,)
+                            or t.data_ptr() == full.data_ptr()
+                            or not torch.equal(t, full[..., j * cols : (j + 1) * cols])):
+                        raise AssertionError(f"tp: shard {j} of {layer}/{k} on {t.device}, "
+                                             f"shape {tuple(t.shape)}: not its own columns")
+                    count += 1
+    return count
+
+
+def tp_phase(torch, np, card: str, reads_dir: str, names: list) -> dict:
+    """The mesh's model axis (module docstring, phase 3's tp); returns
+    the runs' launch counts."""
+    from flappie_tpu_torch.basecall import Basecaller
+    from flappie_tpu_torch.models.config import get_model_config
+    from flappie_tpu_torch.models.params import init_synthetic
+    from flappie_tpu_torch.parallel.mesh import leaf_tensors, make_mesh
+    from flappie_tpu_torch.parallel.pipeline import DistributedBasecaller
+    from flappie_tpu_torch.train import trainer
+
+    raws = read_raws(reads_dir, names)
+
+    def fastq(caller) -> tuple:
+        return library_fastq(torch, caller, raws, names)
+
+    secs, t0 = {}, time.perf_counter()
+    kw = dict(compute_trace=False)
+    plain = Basecaller(**kw)
+    fastq(plain)  # the programs' first calls
+    zero_counts()
+    want, plain_wall = fastq(plain)
+    plain_counts = {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
+    runs = {}
+    secs["one device"] = time.perf_counter() - t0
+    for n_data, n_model in TP_MESHES:
+        t0 = time.perf_counter()
+        devices = ["cuda:0"] * (n_data * n_model)
+        caller = DistributedBasecaller(mesh=make_mesh(n_data, n_model, devices=devices), **kw)
+        try:
+            shards = check_model_shards(torch, caller)
+            fastq(caller)  # the gathers' first allocations
+            caller.wire_log.clear()
+            zero_counts()
+            got, wall = fastq(caller)
+            counts = check_counts(f"tp ({n_data}, {n_model}) ({n_data} x the one-device run's "
+                                  f"{plain_counts})",
+                                  {k: n_data * v for k, v in plain_counts.items()})
+            summary = caller.wire_summary()
+        finally:
+            caller.close()
+        what = f"tp ({n_data}, {n_model}) mesh on {devices[0]} x {len(devices)}"
+        if any(ent["devices"] != [n_data * n_model] for ent in summary.values()):
+            raise AssertionError(f"{what}: a dispatch did not span the mesh: {summary}")
+        got_recs, want_recs = parse_fastq(got, "ACGT"), parse_fastq(want, "ACGT")
+        if list(got_recs) != list(want_recs):
+            raise AssertionError(f"{what}: the records are not in the one-device order")
+        if n_data == 1:
+            if got != want:
+                raise AssertionError(f"{what}: the FASTQ is not byte-equal to one device's")
+            log(f"{what}: the FASTQ of {len(names)} reads byte-equal to one device's")
+        else:
+            compare_fastq(f"{what} vs one device", got_recs, want_recs)
+        runs[f"r941_native_tp_{n_data}x{n_model}"] = counts
+        secs[f"({n_data}, {n_model})"] = time.perf_counter() - t0
+        log(f"{what}: {shards} shards, each its own columns; one device {plain_wall:.3f} s, the "
+            f"mesh {wall:.3f} s (the placement path, not a speed-up); dispatches "
+            f"{json.dumps(summary)}; launches {json.dumps(counts)} [{card}]")
+
+    # training on a (1, 4) mesh against one device, the same batch and
+    # weights, both under torch's deterministic algorithms: with the default
+    # ones two one-device runs already differ (5 of the 23 first gradients
+    # in their last bits), and Adam carries any difference on
+    t0 = time.perf_counter()
+    cfg = get_model_config("r941_native")
+    dev = torch.device("cuda")
+    B, steps = TP_TRAIN["batch"], TP_TRAIN["steps"]
+    batch = [torch.from_numpy(a).to(dev) for a in trainer.synthetic_batch(
+        cfg, B, TP_TRAIN["blocks"] * cfg.total_stride, TP_TRAIN["seed"])]
+    weights = init_synthetic(cfg, seed=TP_TRAIN["seed"])
+    step1, init1 = trainer.make_train_step(cfg, lr=TP_TRAIN["lr"])
+    step4, init4 = trainer.make_train_step(cfg, lr=TP_TRAIN["lr"],
+                                           mesh=make_mesh(1, 4, devices=["cuda:0"] * 4))
+    p1, o1 = init1(weights, dev)
+    p4, o4 = init4(weights)
+    was = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        secs["training set-up"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zero_counts()
+        losses1 = [float(step1(p1, o1, *batch)) for _ in range(steps)]
+        counts1 = {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
+        secs["one device's steps"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zero_counts()
+        losses4 = [float(step4(p4, o4, *batch)) for _ in range(steps)]
+        secs["(1, 4) steps"] = time.perf_counter() - t0
+        counts4 = check_counts("tp training (1, 4)", counts1)
+    finally:
+        torch.backends.cudnn.deterministic = was[0]
+        torch.use_deterministic_algorithms(was[1])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses4, losses1)]
+    same, moments = 0, 0
+    plain = dict(trainer.tree_leaves(p1))
+    for key, leaf in trainer.tree_leaves(p4[0]):
+        ts = leaf_tensors(leaf)
+        whole = [torch.cat([(t if m is None else o4.state[t][m]).detach() for t in ts], dim=-1)
+                 for m in (None, "exp_avg", "exp_avg_sq")]
+        want = [plain[key].detach(), o1.state[plain[key]]["exp_avg"],
+                o1.state[plain[key]]["exp_avg_sq"]]
+        same += all(torch.equal(x, y) for x, y in zip(whole, want))
+        for t in ts:
+            st = o4.state[t]
+            if st["exp_avg"].shape != t.shape or st["exp_avg_sq"].device != t.device:
+                raise AssertionError(f"tp training: {key}'s moments are not its shards'")
+            moments += 1
+    log(f"tp training (1, 4) on cuda:0 x 4, torch's deterministic algorithms: {steps} steps of "
+        f"batch {B}, {TP_TRAIN['blocks']} blocks, losses {losses4} vs one device {losses1} "
+        f"(relative {max(rel):.2e}); {same} of {len(plain)} leaves bit-equal with both Adam "
+        f"moments; {moments} shard moments beside their shards; launches {json.dumps(counts4)} "
+        f"[{card}]")
+    if max(rel) > 1e-5 or same != len(plain):
+        raise AssertionError(f"tp training: losses relative {rel}, {same} of {len(plain)} "
+                             "leaves bit-equal")
+    runs["r941_native_tp_train"] = counts4
+    log("tp step seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return runs
+
+
+def library_refs(np):
+    """The long reads of the library step and the port's CPU runs of
+    basecall_read_chunked on them, started on a thread of their own
+    (main() starts it beside the kernels' builds, which leave cores idle
+    behind their longest nvcc): (reads, a future of [(result,
+    seconds)])."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flappie_tpu_torch.basecall import Basecaller
+    from flappie_tpu_torch.signal.preprocess import RawTable
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    rng = np.random.default_rng(31)
+    reads = []
+    for k, n in enumerate(LIBRARY_READS):
+        adc = synthetic_adc(n, rng)
+        cal = (np.float32(4.0), np.float32(0.18))
+        raw = ((adc.astype(np.float32) + cal[0]) * cal[1]).astype(np.float32)
+        reads.append(RawTable(f"long-{k}", n, 0, n, raw, adc=adc, cal=cal))
+    cpu = Basecaller(device="cpu")
+
+    def run():
+        out = []
+        for rt in reads:
+            t0 = time.perf_counter()
+            out.append((cpu.basecall_read_chunked(rt, *LIBRARY_CHUNK), time.perf_counter() - t0))
+        return out
+
+    pool = ThreadPoolExecutor(1, thread_name_prefix="library-cpu")
+    try:
+        return reads, pool.submit(run)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def library_phase(torch, np, card: str, reads_dir: str, names: list, refs: tuple) -> dict:
+    """The Basecaller's per-batch entries (module docstring, phase 3's
+    library) against ``refs`` (library_refs); returns the runs' launch
+    counts."""
+    from flappie_tpu_torch.basecall import (Basecaller, _device_basecall_packed,
+                                            _unpack_chunk_outputs, bucket_length,
+                                            pack_chunk_inputs, preprocess_batch)
+    from flappie_tpu_torch.parallel.chunking import plan_chunks
+
+    caller = Basecaller()
+    cfg = caller.cfg
+    pre = preprocess_batch(read_raws(reads_dir, names))
+    segs = [rt.active() for rt in pre if rt is not None and rt.end - rt.start <= caller.chunk][:8]
+    if len(segs) != 8:
+        raise AssertionError(f"library: {len(segs)} short reads, expected 8")
+    bucket = bucket_length(max(s.size for s in segs))
+    sig = np.zeros((8, bucket), np.float32)
+    lengths = np.array([s.size for s in segs], np.int32)
+    for j, s in enumerate(segs):
+        sig[j, : s.size] = s
+    zero_counts()
+    got = caller.call_batch(sig, lengths)
+    runs = {"r941_native_call_batch": {k: fn.launches for k, fn in launch_counters().items()
+                                       if fn.launches}}
+    z = np.zeros(8, np.int32)
+    with torch.inference_mode():
+        out = _device_basecall_packed(caller.params,
+                                      torch.from_numpy(pack_chunk_inputs(sig, lengths, z, z)).cuda(),
+                                      cfg, caller.temperature, False, True)
+    want = _unpack_chunk_outputs(out.cpu().numpy(), -(-bucket // cfg.total_stride) + 1,
+                                 cfg.nstate, True)
+    for name, a, b in zip(("score", "path", "qchar", "nblocks", "trace"), got, want):
+        if a.shape != b.shape or not np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                                    np.ascontiguousarray(b).view(np.uint8)):
+            raise AssertionError(f"library call_batch: {name} differs from the bucket program's")
+    log(f"library call_batch: 8 reads in bucket {bucket}, every output byte-equal to the f32 "
+        f"bucket program's; launches {json.dumps(runs['r941_native_call_batch'])}")
+
+    chunk, overlap = LIBRARY_CHUNK
+    got_recs, want_recs, results = {}, {}, []
+    reads, pending = refs
+    for rt in reads:
+        n = rt.n
+        zero_counts()
+        t0 = time.perf_counter()
+        res = caller.basecall_read_chunked(rt, chunk, overlap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = check_counts(f"library basecall_read_chunked {n} samples",
+                              {"lstm_layer": 5, **FB_CRF})
+        results.append((rt, res, wall, counts))
+    for (rt, res, wall, counts), (ref, cpu_wall) in zip(results, pending.result()):
+        n = rt.n
+        if res is None or ref is None or res.nblock != ref.nblock:
+            raise AssertionError(f"library basecall_read_chunked {n}: no call or another length")
+        # (sequence, the header's normalised score, the record's bytes)
+        got_recs[rt.uuid] = (res.basecall, res.score / res.nblock,
+                             res.basecall + "\n" + res.quality)
+        want_recs[rt.uuid] = (ref.basecall, ref.score / ref.nblock,
+                              ref.basecall + "\n" + ref.quality)
+        runs[f"r941_native_chunked_{n}"] = counts
+        nchunk = plan_chunks(res.trim_end - res.trim_start, cfg.total_stride, chunk,
+                             overlap).nchunk
+        log(f"library basecall_read_chunked: {n} samples, {nchunk} chunks in one forward "
+            f"batch, one stitched row of {res.nblock} blocks, "
+            f"{len(res.basecall)} bases; card {wall:.3f} s, the port's CPU {cpu_wall:.1f} s (on "
+            f"a thread beside the builds); "
+            f"launches {json.dumps(counts)} [{card}]")
+    compare_fastq("library basecall_read_chunked, card vs the port's CPU", got_recs, want_recs)
+    return runs
 
 
 def launch_phase(torch, card: str, reads_dir: str, names: list) -> None:
@@ -4846,12 +5134,17 @@ def profile_phase(torch, card: str, reads_dir: str) -> None:
         f"wall {wall:.3f} s with the profiler vs {plain_wall:.3f} s [{card}]")
 
 
-def multi_phase(torch, np, card: str) -> dict:
-    """The mesh, launcher, data-parallel training and --jax-profile runs;
-    returns their in-process launch counts by run name."""
+def multi_phase(torch, np, card: str, refs: tuple) -> dict:
+    """The mesh (and its model axis), the library entries, the launcher,
+    data-parallel training and --jax-profile runs; returns their
+    in-process launch counts by run name.  ``refs``: library_refs,
+    started beside the builds."""
     reads_dir, names = mesh_reads()
     log(f"multi-device phases: {len(names)} of phase 3's r941_native reads ({names})")
     launches = mesh_phase(torch, card, reads_dir, names)
+    launches.update(timed("tp_phase", tp_phase, torch, np, card, reads_dir, names))
+    launches.update(timed("library_phase", library_phase, torch, np, card, reads_dir, names,
+                          refs))
     # the worker processes below share the card with this one: hand back
     # the blocks its caching allocator keeps from the earlier phases
     held = torch.cuda.memory_reserved()
@@ -4981,7 +5274,7 @@ def knobs_mesh_run(torch, card: str, reads_dir: str, names: list, want_text: str
                                      compute_trace=False)
         try:
             zero_counts()
-            got, wall = library_fastq(torch, mesh, reads_dir, names)
+            got, wall = library_fastq(torch, mesh, read_raws(reads_dir, names), names)
             counts = {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
             summary = mesh.wire_summary()
             stats = dict(mesh.dispatch_stats)
@@ -5652,6 +5945,8 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     peak = PEAKS["pcie" if "PCIe" in card else "sxm"]
     t0 = time.perf_counter()
+    # the library step's CPU runs use no kernel: they run beside the builds
+    refs = library_refs(np)
     variants = start_builds(cuda_build, VARIANTS)
     built = cuda_build.build()
     libs = finish_builds(variants)
@@ -5685,7 +5980,7 @@ def main() -> int:
                                          libs)
     rows += sloika_rows
     launches.update(sloika_launches)
-    launches.update(timed("multi_phase", multi_phase, torch, np, card))
+    launches.update(timed("multi_phase", multi_phase, torch, np, card, refs))
     timed("knobs_phase", knobs_phase, torch, np, card)
     timed("check_gradients", check_gradients, torch, card)
     launches.update(timed("training", training, torch, np, card))

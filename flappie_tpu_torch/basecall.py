@@ -66,7 +66,7 @@ from .models.network import check_supported, stream_params, transitions
 from .models.params import init_synthetic, load_npz, params_to_torch, validate
 from .ops import precision
 from .ops.crf import crf_decode_fused, phred_from_qpath
-from .parallel.chunking import chunk_records, plan_chunks
+from .parallel.chunking import chunk_records, extract_chunks, plan_chunks, stitch_trans
 from .signal.preprocess import RawTable, normalise_signal, trim_and_segment
 
 F32 = np.float32
@@ -196,6 +196,18 @@ def _i16_capable(rt) -> bool:
 # -- device programs ---------------------------------------------------------
 
 
+def _device_decode(trans, nblocks, nbase: int, nstate: int, viterbi_only: bool,
+                   compute_trace: bool):
+    """CRF decode of transition weights (fb posterior unless
+    ``viterbi_only``) through ops/crf.py's impl dispatch: (score f32 [B],
+    path int8 [B, T+1], qchar uint8 [B, T+1], trace uint8), one byte a
+    block for the host.  ``nstate`` is the JAX program's static argument;
+    the decode reads the states from ``nbase``."""
+    score, path, qpath, trace = crf_decode_fused(trans, nblocks, nbase, viterbi_only,
+                                                 compute_trace)
+    return score, path.to(torch.int8), phred_from_qpath(qpath), trace
+
+
 def _device_basecall(params, signal, lengths, cfg: ModelConfig, temperature: float,
                      viterbi_only: bool, compute_trace: bool, rnn_impl: str = "auto",
                      stream=torch.float32):
@@ -203,9 +215,16 @@ def _device_basecall(params, signal, lengths, cfg: ModelConfig, temperature: flo
     nblocks, trace).  ``stream``: the recurrent stack's stream dtype."""
     trans, nblocks = transitions(params, cfg, signal, lengths, temperature, rnn_impl=rnn_impl,
                                  stream=stream)
-    score, path, qpath, trace = crf_decode_fused(trans, nblocks, cfg.nbase, viterbi_only,
-                                                 compute_trace)
-    return score, path.to(torch.int8), phred_from_qpath(qpath), nblocks, trace
+    score, path, qchar, trace = _device_decode(trans, nblocks, cfg.nbase, cfg.nstate,
+                                               viterbi_only, compute_trace)
+    return score, path, qchar, nblocks, trace
+
+
+def _device_basecall_fwd(params, signal, lengths, cfg: ModelConfig, temperature: float,
+                         rnn_impl: str = "auto", stream=torch.float32):
+    """The network alone: (trans [B, T', P], nblocks [B])."""
+    return transitions(params, cfg, signal, lengths, temperature, rnn_impl=rnn_impl,
+                       stream=stream)
 
 
 def _device_basecall_chunk(params, signal, lengths, qlo, qhi, cfg: ModelConfig,
@@ -769,6 +788,25 @@ class Basecaller:
         with _on_device(self.device):
             return self._dispatch(program, buf, G)
 
+    def call_batch_device(self, signals, lengths):
+        """Run the full-read program on one batch on this Basecaller's
+        device: ``signals`` [B, T] float32 normalised signal
+        (zero-padded), ``lengths`` [B] (numpy or tensors).  Returns the
+        device tensors (score, path, qchar, nblocks, trace) without
+        waiting for them, so callers can overlap host work with the
+        device's."""
+        with _on_device(self.device), torch.inference_mode():
+            sig = torch.as_tensor(signals, dtype=torch.float32).to(self.device)
+            lens = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
+            return _device_basecall(self.params, sig, lens, self.cfg, self.temperature,
+                                    self.viterbi_only, self.compute_trace, self.rnn_impl,
+                                    self.stream)
+
+    def call_batch(self, signals, lengths):
+        """``call_batch_device`` collected: numpy (score, path, qpath,
+        nblocks, trace), qpath the phred bytes."""
+        return tuple(x.cpu().numpy() for x in self.call_batch_device(signals, lengths))
+
     def close(self) -> None:
         """Stop the upload pool, if any (after the dispatches it holds)."""
         if self._upload_pool is not None:
@@ -921,6 +959,45 @@ class Basecaller:
             chunked.drain()
         pipe.drain()
         return results
+
+    def basecall_read(self, rt: RawTable, **kw) -> Optional[BasecallResult]:
+        """One read through ``basecall_raw_tables``."""
+        return self.basecall_raw_tables([rt], **kw)[0]
+
+    def basecall_read_chunked(self, rt: RawTable, chunk: int = 16000, overlap: int = 2000,
+                              delta: float = 0.0, reverse: bool = False,
+                              **trim_kw) -> Optional[BasecallResult]:
+        """One long read decoded as one row: trim and normalise, cut the
+        signal into overlapping chunks (``plan_chunks``), run the network
+        on the chunks as one batch, stitch their transition weights at
+        the overlap midpoints (``stitch_trans``) and decode the stitched
+        matrix, padded to a multiple of 256 blocks, in one call.
+        ``trim_kw``: trim_and_segment's arguments."""
+        if rt.raw is None:
+            return None
+        rt = replace(rt, raw=rt.raw.copy())  # callers keep their data
+        rt = trim_and_segment(rt, **trim_kw)
+        if not rt.valid:
+            return None
+        normalise_signal(rt, delta)
+        seg = rt.active()
+        plan = plan_chunks(seg.size, self.cfg.total_stride, chunk, overlap)
+        chunks, lengths = extract_chunks(seg, plan)
+        dev = self.device
+        with _on_device(dev), torch.inference_mode():
+            trans, _ = _device_basecall_fwd(self.params, torch.from_numpy(chunks).to(dev),
+                                            torch.from_numpy(lengths).to(dev), self.cfg,
+                                            self.temperature, self.rnn_impl, self.stream)
+            stitched = stitch_trans(trans.cpu().numpy(), plan)
+            T = stitched.shape[0]
+            buf = np.zeros((1, -(-T // 256) * 256, stitched.shape[1]), F32)
+            buf[0, :T] = stitched
+            out = _device_decode(torch.from_numpy(buf).to(dev),
+                                 torch.tensor([T], dtype=torch.int32, device=dev),
+                                 self.cfg.nbase, self.cfg.nstate, self.viterbi_only,
+                                 self.compute_trace)
+            score, path, qchar, trace = (x[0].cpu().numpy() for x in out)
+        return self._assemble(rt, float(score), path, qchar, T, trace, reverse)
 
     # -- chunked production path -------------------------------------------
 

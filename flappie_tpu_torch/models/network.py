@@ -48,6 +48,12 @@ inference only).
 The precision levels (ops/precision.py) are resolved for each tensor's
 device where its product runs: the layers, ``ops/rnn.py affine`` and the
 convs; on the CPU every level is true f32.
+
+A data replica's tree from parallel/mesh.py ``shard_params`` runs as a
+plain one: each ``rnn*`` layer and the ``ff`` head read their leaves
+through ``whole``, which gathers a model-sharded leaf on the layer's
+device for that layer alone, so the kernels see the tensors they see on
+one device.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from ..ops.masking import mask_tail, reverse_sequence
 from ..ops.rnn import affine, gru_relu_seq, gru_seq
 from ..ops.rnn_cuda import grumod_layer_tm, grumod_seq_cuda, lstm_layer_tm, lstm_seq_cuda
 from ..ops.rnn_vjp import grumod_layer_tm_ad, lstm_layer_tm_ad
+from ..parallel.mesh import whole
 from .config import ModelConfig
 
 
@@ -190,7 +197,7 @@ def rnn_stack_tm(params, cfg: ModelConfig, x, lengths, train: bool = False,
     if stream == torch.bfloat16 and not train:
         x_tm = x_tm.to(stream)
     for i, r in enumerate(cfg.rnns):
-        p = params[f"rnn{i}"]
+        p = whole(params[f"rnn{i}"], x_tm.device)
         if train:
             x_tm = LAYERS_AD[r.kind](x_tm, p["iW"], p["b"], p["sW"], backward=r.backward,
                                      lengths=lengths, stream=stream)
@@ -221,7 +228,7 @@ def rnn_stack(params, cfg: ModelConfig, x, lengths):
     (K12 on the card, the plain scan on the CPU), reversal back, the
     residual add, tail mask."""
     for i, r in enumerate(cfg.rnns):
-        p = params[f"rnn{i}"]
+        p = whole(params[f"rnn{i}"], x.device)
         xa = affine(x, p["iW"], p["b"])
         if r.backward:
             xa = reverse_sequence(xa, lengths)
@@ -279,7 +286,8 @@ def transitions(params, cfg: ModelConfig, signal, lengths, temperature=1.0,
         x = rnn_stack_tm(params, cfg, x, nblocks, train, stream)
     else:
         x = rnn_stack(params, cfg, x, nblocks)
-    W, b = params["ff"]["W"], params["ff"]["b"]
+    ff = whole(params["ff"], x.device)
+    W, b = ff["W"], ff["b"]
     if cfg.head == "runlengthV2":
         return globalnorm_runlengthV2(x, W, b, temperature, nblocks, cfg.nbase), nblocks
     if cfg.head == "runlength":

@@ -22,6 +22,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Tuple
 
+import numpy as np
+
+F32 = np.float32
 
 @dataclass(frozen=True)
 class ChunkPlan:
@@ -68,6 +71,18 @@ def plan_chunks(nsample: int, stride: int, chunk: int = 16000, overlap: int = 20
         cuts.append(min(mid // stride, total_blocks))
     cuts.append(total_blocks)
     return ChunkPlan(nsample, stride, chunk, step, starts, tuple(cuts))
+
+
+def extract_chunks(seg: np.ndarray, plan: ChunkPlan) -> Tuple[np.ndarray, np.ndarray]:
+    """[nsample] -> (chunks [N, chunk] zero-padded, lengths [N])."""
+    N = plan.nchunk
+    out = np.zeros((N, plan.chunk), F32)
+    lengths = np.zeros(N, np.int32)
+    for i, s in enumerate(plan.starts):
+        piece = seg[s : s + plan.chunk]
+        out[i, : piece.size] = piece
+        lengths[i] = piece.size
+    return out, lengths
 
 
 @dataclass(frozen=True)
@@ -119,3 +134,18 @@ def chunk_records(plan: ChunkPlan) -> List[ChunkRecord]:
         )
     return recs
 
+
+
+def stitch_trans(trans_chunks: np.ndarray, plan: ChunkPlan) -> np.ndarray:
+    """Per-chunk transition weights [N, TB, P] -> full read [nblocks, P].
+
+    Chunk i contributes global blocks [cuts[i], cuts[i+1]); its local
+    block b maps to global block starts[i]//stride + b.
+    """
+    P = trans_chunks.shape[-1]
+    out = np.zeros((plan.nblocks, P), trans_chunks.dtype)
+    for i in range(plan.nchunk):
+        g0 = plan.starts[i] // plan.stride
+        lo, hi = plan.cuts[i], plan.cuts[i + 1]
+        out[lo:hi] = trans_chunks[i, lo - g0 : hi - g0]
+    return out

@@ -3,8 +3,9 @@
 Counterpart of flappie_tpu/parallel/pipeline.py, the replacement for the
 reference's process-level fan-out (``find ... | parallel -P $(nproc) -X
 flappie``, its README.md:81-83): each packed batch's rows shard over the
-mesh's devices, each holding a replica of the weights, and the shards'
-output bytes are concatenated back in input order.
+mesh's data replicas, each holding its tree of the weights (model-sharded
+over its row's devices where the mesh has a model axis, parallel/mesh.py),
+and the shards' output bytes are concatenated back in input order.
 
 The JAX version pads every batch to a multiple of the data axis with
 filler rows (its ``_filler_rows``), because an SPMD program needs equal
@@ -24,8 +25,8 @@ in the same bounds: a device's shard is its rows of every batch, G
 slices that its own grouped program runs in turn, and the output rows
 are put back in group order.
 
-Each mesh device has one persistent dispatch thread, which makes its
-device current (``torch.cuda.device``) around every shard: the C entries
+Each data replica has one persistent dispatch thread, which makes its
+first device current (``torch.cuda.device``) around every shard: the C entries
 size their grids and set kernel attributes on the current device, and a
 shard's streams and tensors belong to its device.  A launch returns only
 when the host has issued it, so one thread dispatching N shards in turn
@@ -48,7 +49,8 @@ import numpy as np
 import torch
 
 from .. import timing
-from ..basecall import Basecaller, _chaos_maybe_fail_dispatch, _DeviceQueue, _on_device
+from ..basecall import (Basecaller, _chaos_maybe_fail_dispatch, _device_basecall, _DeviceQueue,
+                        _on_device)
 from .mesh import Mesh, batch_sharding, make_mesh, shard_params
 
 
@@ -96,21 +98,31 @@ class _Sharded:
 
 
 class DistributedBasecaller(Basecaller):
-    """A Basecaller whose packed batches shard over a Mesh's devices.
+    """A Basecaller whose batches shard over a Mesh's data replicas.
 
-    ``mesh`` defaults to every visible card (``make_mesh()``); the
-    devices come from it, so ``device`` is not an argument here.  Every
-    other argument is Basecaller's.  The weights (after ``stream_params``,
-    so ``stream=torch.bfloat16`` holds under the mesh too) are replicated
-    onto each device, which gets a dispatch queue and thread of its own.
+    ``mesh`` defaults to ``make_mesh(n_model=n_model)`` over every
+    visible card (``n_model`` is read only then, as in the JAX package);
+    the devices come from it, so ``device`` is not an argument here.
+    Every other argument is Basecaller's.  The weights (after
+    ``stream_params``, so ``stream=torch.bfloat16`` holds under the mesh
+    too) are placed by ``shard_params``: a tree a data replica, its
+    ``rnn*`` / ``ff`` leaves in column shards over the row's devices when
+    the mesh has a model axis.  Each replica gets a dispatch queue and a
+    thread of its own on its first device, where its layers run.
+    ``self.params`` stays whole on the first replica's first device
+    (``basecall_read_chunked`` runs there).
     """
 
-    def __init__(self, *args, mesh: Optional[Mesh] = None, **kw):
+    def __init__(self, *args, mesh: Optional[Mesh] = None, n_model: int = 1, **kw):
         if "device" in kw:
             raise TypeError("DistributedBasecaller: the devices come from the mesh")
-        self.mesh = mesh if mesh is not None else make_mesh()
+        self.mesh = mesh if mesh is not None else make_mesh(n_model=n_model)
         super().__init__(*args, device=self.mesh.devices[0], **kw)
         self.replicas = shard_params(self.params, self.mesh)
+        # the shards were copied on each device's current stream; the
+        # batch streams read them
+        for d in {d for row in self.mesh.grid for d in row if d.type == "cuda"}:
+            torch.cuda.synchronize(d)
         self._queues = [_DeviceQueue(d) for d in self.mesh.devices]
         self._threads = [ThreadPoolExecutor(1, thread_name_prefix=f"flappie-shard{i}")
                          for i in range(len(self.mesh))]
@@ -149,10 +161,31 @@ class DistributedBasecaller(Basecaller):
             "program": getattr(program, "__name__", str(program)),
             "dtype": str(buf.dtype),
             "rows": int(buf.shape[0]),
-            "devices": len(futures),
+            # every mesh device the dispatch used: data shards x model devices
+            "devices": len(futures) * self.mesh.shape["model"],
             "shard_rows": [len(shard) for shard in shards],
         })
         return _Sharded(futures, G)
+
+    def call_batch_device(self, signals, lengths):
+        """Basecaller's ``call_batch_device`` with the rows sharded over
+        the data replicas (``batch_sharding``; unequal shards, no filler
+        rows), each replica's program issued on its first device in turn;
+        the outputs are concatenated on the first replica's device, in
+        input order, without waiting for them."""
+        signals = torch.as_tensor(signals, dtype=torch.float32)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32)
+        outs = []
+        for i, (lo, hi) in enumerate(batch_sharding(self.mesh, signals.shape[0])):
+            dev = self.mesh.devices[i]
+            with _on_device(dev), torch.inference_mode():
+                outs.append(_device_basecall(
+                    self.replicas[i], signals[lo:hi].to(dev), lengths[lo:hi].to(dev), self.cfg,
+                    self.temperature, self.viterbi_only, self.compute_trace, self.rnn_impl,
+                    self.stream))
+        first = self.mesh.devices[0]
+        with _on_device(first), torch.inference_mode():
+            return tuple(torch.cat([o[k].to(first) for o in outs]) for k in range(len(outs[0])))
 
     def wire_summary(self) -> dict:
         """Per program and wire dtype (float32: f32, int16: i16, int8: d8):

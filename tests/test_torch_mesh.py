@@ -10,7 +10,8 @@ the launch counters under threads, and ``--jax-profile``.
   run, byte for byte, trace included, over shards of unequal size (a
   bucket batch of five reads: three and two);
 - the mesh (``make_mesh``, ``batch_sharding``, ``shard_params``,
-  ``shard_batch``) and its refusals (tensor parallelism);
+  ``shard_batch``), its refusals and a ``(1, 2)`` mesh's shape (the
+  model axis itself: test_torch_tp.py);
 - each shard launched on a thread whose current device is the shard's
   (a fake device context, as this host has no card);
 - ``cuda_build.count`` under many threads, with the switch interval
@@ -169,8 +170,9 @@ def test_make_mesh_and_placement():
     assert mesh.shape == {"data": 2, "model": 1} and len(mesh) == 2
     assert mesh.devices == (torch.device("cpu"),) * 2
     assert len(p_mesh.make_mesh(devices=["cpu"] * 3)) == 3
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        p_mesh.make_mesh(1, n_model=2, devices=["cpu", "cpu"])
+    tp = p_mesh.make_mesh(1, n_model=2, devices=["cpu", "cpu"])
+    assert tp.shape == {"data": 1, "model": 2} and len(tp) == 1
+    assert tp.grid == ((torch.device("cpu"),) * 2,)
     with pytest.raises(ValueError):
         p_mesh.make_mesh(4, devices=["cpu"] * 3)
     cards = torch.cuda.device_count()
