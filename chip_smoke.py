@@ -276,7 +276,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and 120,000 samples, chunk 16000, overlap 2000: one forward batch of
    chunks, the stitched row decoded as one) against the port's CPU run
    of the same call by the band, with K1's and the decode's launches on
-   each read; launch -- python -m flappie_tpu_torch.parallel.launch
+   each read; dispatch -- the Basecaller's public packed-dispatch entries
+   on r941_native at bench.py's geometry (3 chunk batches of 256 x 12,800
+   samples, 3 full-read batches of 64 x 65,536, ragged; ADC whose steps
+   past int8 are as rare as a real signal's): every dispatch_packed_*
+   single entry byte-equal to its private program on the same buffer,
+   each grouped entry (G = 3) byte-equal to its batches' single
+   dispatches (the d8 groups to the i16 singles), the d8 entries to the
+   i16 entries, the f32 entries held to the i16 entries by the band (the
+   byte-equal rows logged), call_chunk_batch_device + unpack_chunk_outputs
+   to the f32 chunk program field by field, np.asarray(handle) beside
+   handle.result(), exact launch counts (5 K1, 3 K3/K4, 1 K5, 1 K6 a
+   batch), each entry's wall from dispatch to np.asarray beside its
+   program's device-only time, both in Msamples/s; and a
+   DistributedBasecaller over [cuda:0, cuda:0] through
+   dispatch_packed_chunk_i16 and its grouped form: twice the launches, in
+   the band against the one-device singles, wire_summary naming both
+   programs on two devices; launch -- python -m flappie_tpu_torch.parallel.launch
    --nproc 2 with --trace (both workers on cuda:0) against the CLI in
    this process: the merged FASTQ in input order and in the band, the
    merged trace's groups the plain run's (signals equal, traces within
@@ -5012,6 +5028,254 @@ def library_phase(torch, np, card: str, reads_dir: str, names: list, refs: tuple
     return runs
 
 
+# the dispatch step: the Basecaller's public packed-dispatch entries on
+# r941_native at bench.py's geometry -- chunk batches of 256 x 12,800
+# samples (2,560 blocks), full-read batches of 64 reads x 65,536 samples
+# (13,108 blocks) -- and G batches a grouped entry (bench.py's G)
+DISPATCH_CHUNK = (256, 12_800)
+DISPATCH_FULL = (64, 65_536)
+DISPATCH_G = 3
+# entries by family: (entry, wire, grouped)
+DISPATCH_ENTRIES = {
+    "chunk": (("dispatch_packed_chunk", "f32", False), ("dispatch_packed_chunk_i16", "i16", False),
+              ("dispatch_packed_chunk_d8", "d8", False),
+              ("dispatch_packed_chunk_grouped", "f32", True),
+              ("dispatch_packed_chunk_i16_grouped", "i16", True),
+              ("dispatch_packed_chunk_d8_grouped", "d8", True)),
+    "full": (("dispatch_packed_batch", "f32", False), ("dispatch_packed_batch_i16", "i16", False),
+             ("dispatch_packed_batch_d8", "d8", False),
+             ("dispatch_packed_batch_i16_grouped", "i16", True),
+             ("dispatch_packed_batch_d8_grouped", "d8", True)),
+}
+# each entry's private program, by family and wire (single, grouped)
+DISPATCH_PROGRAMS = {
+    ("chunk", "f32"): ("_device_basecall_chunk_packed", "_device_basecall_chunk_packed_grouped"),
+    ("chunk", "i16"): ("_device_basecall_chunk_packed_i16",
+                       "_device_basecall_chunk_packed_i16_grouped"),
+    ("chunk", "d8"): ("_device_basecall_chunk_packed_d8",
+                      "_device_basecall_chunk_packed_d8_grouped"),
+    ("full", "f32"): ("_device_basecall_packed", None),
+    ("full", "i16"): ("_device_basecall_packed_i16", "_device_basecall_packed_i16_grouped"),
+    ("full", "d8"): ("_device_basecall_packed_d8", "_device_basecall_packed_d8_grouped"),
+}
+
+
+def dispatch_batches(np, rng, rows: int, width: int, chunk: bool) -> list:
+    """DISPATCH_G batches of ``rows`` x ``width`` ADC whose steps past int8
+    are as rare as a real signal's (every row fits its d8 slots), each
+    packed on the three wires: [{"f32", "i16", "d8": buffer, "args": the
+    f32 wire's (signal, lengths, qlo, qhi), "samples": valid samples}].
+    Chunk rows are full and own their whole range; full-read rows are
+    ragged, the first full.  The f32 signal is the i16 program's
+    normalisation done on the host, in the same float32 operations."""
+    from flappie_tpu_torch.basecall import Basecaller, _encode_d8_np
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    raw_unit = np.float32(1373.41) / np.float32(8192.0)
+    out = []
+    for _ in range(DISPATCH_G):
+        lengths = np.full(rows, width, np.int32)
+        if not chunk:
+            lengths[1:] = rng.integers(width // 4, width + 1, rows - 1)
+        adc = np.zeros((rows, width), np.int16)
+        sig = np.zeros((rows, width), np.float32)
+        scal = np.zeros((rows, 4), np.float32)
+        for j, n in enumerate(lengths):
+            adc[j, :n] = synthetic_adc(int(n), rng, mean_dwell=30.0)
+            pa = (adc[j, :n].astype(np.float32) + np.float32(16.0)) * raw_unit
+            med = np.float32(np.median(pa))
+            mad = np.float32(np.median(np.abs(pa - med))) * np.float32(1.4826)
+            scal[j] = (16.0, raw_unit, med, mad)
+            sig[j, :n] = (pa - med) / mad
+        z = np.zeros(rows, np.int32)
+        qlo, qhi = (np.ones(rows, np.int32), lengths // 5) if chunk else (z, z)
+        i16 = Basecaller.pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal)
+        d8 = _encode_d8_np(i16)
+        if d8 is None:
+            raise AssertionError("dispatch: a batch's rows overflow their d8 exception slots")
+        out.append({"f32": Basecaller.pack_chunk_inputs(sig, lengths, qlo, qhi), "i16": i16,
+                    "d8": d8, "args": (sig, lengths, qlo, qhi), "samples": int(lengths.sum())})
+    return out
+
+
+def hold_rows(np, what: str, got, want, cfg, T1: int) -> int:
+    """Each row of the output bytes ``got`` within the GPU band of
+    ``want``'s (identity >= 99.5% of the basecall, |score delta| <= 1e-4
+    normalised by the row's blocks, as the FASTQ header's score); a
+    byte-equal row passes as it is.  Logs and returns the byte-equal
+    rows."""
+    from flappie_tpu_torch.basecall import _unpack_chunk_outputs
+    from flappie_tpu_torch.decode.seq import path_to_basecall
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: outputs {got.shape}, expected {want.shape}")
+    same = (got == want).all(axis=1)
+    gs, gp, gq, gn, _ = _unpack_chunk_outputs(got, T1, cfg.nstate, False)
+    ws, wp, wq, wn, _ = _unpack_chunk_outputs(want, T1, cfg.nstate, False)
+    worst_id, worst_ds = 1.0, 0.0
+    for j in np.flatnonzero(~same):
+        a = path_to_basecall(gp[j], gq[j], int(gn[j]), cfg.nbase)[0]
+        b = path_to_basecall(wp[j], wq[j], int(wn[j]), cfg.nbase)[0]
+        ident = identity(a, b)
+        ds = abs(float(gs[j]) / max(int(gn[j]), 1) - float(ws[j]) / max(int(wn[j]), 1))
+        worst_id, worst_ds = min(worst_id, ident), max(worst_ds, ds)
+        if not (ident >= 0.995 and ds <= 1e-4 and gn[j] == wn[j]):
+            raise AssertionError(f"{what} row {j}: outside the band (identity {ident}, score "
+                                 f"delta {ds}, blocks {gn[j]} against {wn[j]})")
+    log(f"{what}: {len(same)} rows, {int(same.sum())} byte-equal, min identity "
+        f"{worst_id:.6f}, max |score delta| {worst_ds:.2e}")
+    return int(same.sum())
+
+
+def dispatch_phase(torch, np, card: str) -> dict:
+    """The Basecaller's packed-dispatch entries (module docstring, phase 3's
+    dispatch); returns the entries' launch counts by run name."""
+    from flappie_tpu_torch import basecall as bc
+    from flappie_tpu_torch.parallel.mesh import make_mesh
+    from flappie_tpu_torch.parallel.pipeline import DistributedBasecaller
+
+    G = DISPATCH_G
+    caller = bc.Basecaller(compute_trace=False)  # bench.py's Basecaller
+    cfg = caller.cfg
+    rng = np.random.default_rng(20261018)
+    t0 = time.perf_counter()
+    fams = {"chunk": dispatch_batches(np, rng, *DISPATCH_CHUNK, True),
+            "full": dispatch_batches(np, rng, *DISPATCH_FULL, False)}
+    log(f"dispatch: {G} chunk batches of {DISPATCH_CHUNK[0]} x {DISPATCH_CHUNK[1]} and {G} "
+        f"full-read batches of {DISPATCH_FULL[0]} x {DISPATCH_FULL[1]} (ragged; valid samples "
+        f"{[b['samples'] for b in fams['full']]}) packed on the f32, i16 and d8 wires in "
+        f"{time.perf_counter() - t0:.2f} s")
+    T1s = {"chunk": caller.chunk // cfg.total_stride + 1,
+           "full": -(-DISPATCH_FULL[1] // cfg.total_stride) + 1}
+    if T1s["chunk"] != DISPATCH_CHUNK[1] // cfg.total_stride + 1:
+        raise AssertionError(f"dispatch: the Basecaller's chunk {caller.chunk} is not the batches'")
+    one = {"lstm_layer": 5, **FB_CRF}
+    runs, refs, singles_of = {}, {}, {}
+
+    def private(name, buf, *extra):
+        fn = getattr(bc, name)
+        dev = torch.from_numpy(buf).cuda()
+        with torch.inference_mode():
+            out, ms = event_ms(torch, lambda: fn(caller.params, dev, *extra, cfg,
+                                                 caller.temperature, False, False))
+        return out.cpu().numpy(), ms
+
+    def entry(name, args, batches, what):
+        """One entry run from an idle card to np.asarray, counted."""
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        handle = getattr(caller, name)(*args)
+        t_ret = time.perf_counter() - t0
+        out = np.asarray(handle)
+        wall = time.perf_counter() - t0
+        runs[f"r941_native_{what}"] = check_counts(
+            f"dispatch {name}", {k: v * batches for k, v in one.items()})
+        return handle, out, t_ret, wall
+
+    for fam, bufs in fams.items():
+        T1 = T1s[fam]
+        # the private programs on the first batch (a first call warms the
+        # allocator), timed on the device alone
+        private(DISPATCH_PROGRAMS[fam, "i16"][0], bufs[0]["i16"])
+        ref = refs[fam] = {}
+        for wire in ("f32", "i16", "d8"):
+            ref[wire] = private(DISPATCH_PROGRAMS[fam, wire][0], bufs[0][wire])
+        singles = {}
+        for name, wire, grouped in DISPATCH_ENTRIES[fam]:
+            if grouped:
+                continue
+            _, out, t_ret, wall = entry(name, (bufs[0][wire],), 1, f"dispatch_{fam}_{wire}")
+            want, ms = ref[wire]
+            if not np.array_equal(out, want):
+                raise AssertionError(f"dispatch {name}: not byte-equal to "
+                                     f"{DISPATCH_PROGRAMS[fam, wire][0]} on the same buffer")
+            singles[wire] = out
+            n = bufs[0]["samples"]
+            log(f"dispatch {name}: byte-equal to {DISPATCH_PROGRAMS[fam, wire][0]}; returned in "
+                f"{t_ret * 1e3:.1f} ms, wall to np.asarray {wall * 1e3:.1f} ms = "
+                f"{n / wall / 1e6:.3f} Msamples/s, the program device-only {ms:.1f} ms = "
+                f"{n / ms / 1e3:.3f} Msamples/s [{card}]")
+        if not np.array_equal(singles["d8"], singles["i16"]):
+            raise AssertionError(f"dispatch {fam}: the d8 entry's bytes are not the i16 entry's")
+        log(f"dispatch {fam}: the d8 entry byte-equal to the i16 entry on the same ADC")
+        hold_rows(np, f"dispatch {fam}: the f32 entry against the i16 entry on the same reads",
+                  singles["f32"], singles["i16"], cfg, T1)
+        # the singles of the groups' other batches (the d8 groups are held to
+        # the i16 singles: the d8 entry gives the i16 entry's bytes)
+        per = {}
+        for wire in ("f32", "i16") if fam == "chunk" else ("i16",):
+            name = DISPATCH_ENTRIES[fam][("f32", "i16").index(wire)][0]
+            per[wire] = [singles[wire]] + [np.asarray(getattr(caller, name)(b[wire]))
+                                           for b in bufs[1:]]
+        per["d8"] = per["i16"]
+        singles_of[fam] = per
+        n = sum(b["samples"] for b in bufs)
+        for name, wire, grouped in DISPATCH_ENTRIES[fam]:
+            if not grouped:
+                continue
+            buf = np.concatenate([b[wire] for b in bufs])
+            gname = DISPATCH_PROGRAMS[fam, wire][1]
+            _, ms = private(gname, buf, G)
+            handle, out, t_ret, wall = entry(name, (buf, G), G, f"dispatch_{fam}_{wire}_g{G}")
+            if not np.array_equal(out, np.concatenate(per[wire])):
+                raise AssertionError(f"dispatch {name}: not byte-equal to its {G} batches' "
+                                     f"single dispatches")
+            if not np.array_equal(np.asarray(handle), handle.result()):
+                raise AssertionError(f"dispatch {name}: np.asarray(handle) is not result()")
+            log(f"dispatch {name} (G={G}): byte-equal to the {G} batches' single "
+                f"{'i16 ' if wire == 'd8' else ''}dispatches, np.asarray(handle) = "
+                f"handle.result(); returned in {t_ret * 1e3:.1f} ms, wall to np.asarray "
+                f"{wall * 1e3:.1f} ms = {n / wall / 1e6:.3f} Msamples/s, {gname} device-only "
+                f"{ms:.1f} ms = {n / ms / 1e3:.3f} Msamples/s [{card}]")
+
+    # call_chunk_batch_device + unpack_chunk_outputs on the first chunk batch
+    b0 = fams["chunk"][0]
+    zero_counts()
+    t0 = time.perf_counter()
+    handle = caller.call_chunk_batch_device(*b0["args"])
+    fields = caller.unpack_chunk_outputs(handle)
+    wall = time.perf_counter() - t0
+    runs["r941_native_dispatch_call_chunk"] = check_counts("dispatch call_chunk_batch_device", one)
+    want = refs["chunk"]["f32"][0]
+    for label, a, b in zip(("score", "path", "qchar", "nblocks"), fields,
+                           bc._unpack_chunk_outputs(want, T1s["chunk"], cfg.nstate, False)):
+        if not np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                              np.ascontiguousarray(b).view(np.uint8)):
+            raise AssertionError(f"dispatch call_chunk_batch_device: {label} differs from "
+                                 f"_device_basecall_chunk_packed's")
+    log(f"dispatch call_chunk_batch_device + unpack_chunk_outputs: every field byte-equal to "
+        f"_device_basecall_chunk_packed's on the same batch; wall {wall * 1e3:.1f} ms [{card}]")
+
+    # the entries through the mesh: two replicas on the one card
+    mesh = DistributedBasecaller(mesh=make_mesh(2, devices=list(MESH_DEVICES)),
+                                 compute_trace=False)
+    try:
+        chunk = fams["chunk"]
+        zero_counts()
+        got = np.asarray(mesh.dispatch_packed_chunk_i16(chunk[0]["i16"]))
+        runs["r941_native_dispatch_mesh"] = check_counts(
+            "dispatch mesh dispatch_packed_chunk_i16", {k: 2 * v for k, v in one.items()})
+        zero_counts()
+        got_g = np.asarray(mesh.dispatch_packed_chunk_i16_grouped(
+            np.concatenate([b["i16"] for b in chunk]), G))
+        runs[f"r941_native_dispatch_mesh_g{G}"] = check_counts(
+            "dispatch mesh dispatch_packed_chunk_i16_grouped",
+            {k: 2 * G * v for k, v in one.items()})
+        summary = mesh.wire_summary()
+    finally:
+        mesh.close()
+    if len(summary) != 2 or any(ent["devices"] != [2] for ent in summary.values()):
+        raise AssertionError(f"dispatch mesh: not two programs on two devices: {summary}")
+    ones = singles_of["chunk"]["i16"]
+    hold_rows(np, f"dispatch mesh over {list(MESH_DEVICES)}: dispatch_packed_chunk_i16 against "
+              f"one device", got, ones[0], cfg, T1s["chunk"])
+    hold_rows(np, f"dispatch mesh: dispatch_packed_chunk_i16_grouped (G={G}) against one "
+              f"device's singles", got_g, np.concatenate(ones), cfg, T1s["chunk"])
+    log(f"dispatch mesh: wire_summary {json.dumps(summary)}")
+    return runs
+
+
 def launch_phase(torch, card: str, reads_dir: str, names: list) -> None:
     """python -m flappie_tpu_torch.parallel.launch --nproc 2 with --trace,
     both workers on cuda:0, against the CLI in this process."""
@@ -5145,6 +5409,7 @@ def multi_phase(torch, np, card: str, refs: tuple) -> dict:
     launches.update(timed("tp_phase", tp_phase, torch, np, card, reads_dir, names))
     launches.update(timed("library_phase", library_phase, torch, np, card, reads_dir, names,
                           refs))
+    launches.update(timed("dispatch_phase", dispatch_phase, torch, np, card))
     # the worker processes below share the card with this one: hand back
     # the blocks its caching allocator keeps from the earlier phases
     held = torch.cuda.memory_reserved()

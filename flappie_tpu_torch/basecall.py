@@ -475,6 +475,10 @@ _device_basecall_chunk_packed_i16_grouped = _grouped(
     "_device_basecall_chunk_packed_i16_grouped", "_device_basecall_chunk_packed_i16")
 _device_basecall_chunk_packed_d8_grouped = _grouped(
     "_device_basecall_chunk_packed_d8_grouped", "_device_basecall_chunk_packed_d8")
+_device_basecall_packed_i16_grouped = _grouped(
+    "_device_basecall_packed_i16_grouped", "_device_basecall_packed_i16")
+_device_basecall_packed_d8_grouped = _grouped(
+    "_device_basecall_packed_d8_grouped", "_device_basecall_packed_d8")
 
 # the chunk programs by wire, one batch a dispatch and grouped
 CHUNK_PROGRAMS = {
@@ -579,6 +583,17 @@ class _InFlight:
             if self.event is not None:
                 self.event.synchronize()
             return self.host.numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        """``np.asarray(handle)``: the output bytes, waited for, as the
+        JAX package's device arrays read."""
+        return _as_array(self.result(), dtype, copy)
+
+
+def _as_array(out: np.ndarray, dtype=None, copy=None) -> np.ndarray:
+    """``__array__``'s result (numpy 2's signature) from ``out``."""
+    out = np.asarray(out, dtype=dtype)
+    return out.copy() if copy else out
 
 
 class _DeviceQueue:
@@ -784,9 +799,80 @@ class Basecaller:
                 self._upload_pool = ThreadPoolExecutor(n, thread_name_prefix="flappie-upload")
         return self._upload_pool.submit(self._dispatch_on_device, program, buf, G)
 
-    def _dispatch_on_device(self, program, buf, G):
+    def _dispatch_on_device(self, program, buf, G=None):
         with _on_device(self.device):
             return self._dispatch(program, buf, G)
+
+    # -- the packed-dispatch entries (the JAX Basecaller's public API) -------
+    #
+    # Each uploads one packed buffer (G batches of equal rows for a grouped
+    # entry) through ``_dispatch``, with this Basecaller's device current,
+    # and returns a handle without collecting the output: its ``result()``
+    # or ``np.asarray`` waits for the byte matrix (unpack_chunk_outputs's
+    # layout).
+    # Going through ``_dispatch`` lets DistributedBasecaller shard every
+    # entry.  The programs take their widths from the buffer, not from
+    # ``self.chunk``.
+
+    @staticmethod
+    def pack_chunk_inputs(signals, lengths, qlo, qhi) -> np.ndarray:
+        """The f32 wire's [CB, chunk+4] buffer (module ``pack_chunk_inputs``)."""
+        return pack_chunk_inputs(signals, lengths, qlo, qhi)
+
+    @staticmethod
+    def pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal) -> np.ndarray:
+        """The int16 wire's [CB, chunk+16] buffer (module
+        ``pack_chunk_inputs_i16``); ``encode_d8`` of it is the d8 wire's."""
+        return pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal)
+
+    def call_chunk_batch_device(self, signals, lengths, qlo, qhi):
+        """One [CB, chunk] batch of normalised signal through the chunk
+        program (per-chunk owned-range score sums in [qlo, qhi)); returns
+        the dispatch's handle without waiting."""
+        return self.dispatch_packed_chunk(pack_chunk_inputs(signals, lengths, qlo, qhi))
+
+    def dispatch_packed_batch(self, buf):
+        """One full-read (bucket) batch on the f32 wire."""
+        return self._dispatch_on_device(_device_basecall_packed, buf)
+
+    def dispatch_packed_batch_i16(self, buf):
+        return self._dispatch_on_device(_device_basecall_packed_i16, buf)
+
+    def dispatch_packed_batch_d8(self, buf):
+        return self._dispatch_on_device(_device_basecall_packed_d8, buf)
+
+    def dispatch_packed_chunk(self, buf):
+        """One chunk batch on the f32 wire."""
+        return self._dispatch_on_device(_device_basecall_chunk_packed, buf)
+
+    def dispatch_packed_chunk_i16(self, buf):
+        return self._dispatch_on_device(_device_basecall_chunk_packed_i16, buf)
+
+    def dispatch_packed_chunk_d8(self, buf):
+        return self._dispatch_on_device(_device_basecall_chunk_packed_d8, buf)
+
+    def dispatch_packed_chunk_grouped(self, buf, G: int):
+        """G chunk batches as one upload; their output rows in order."""
+        return self._dispatch_on_device(_device_basecall_chunk_packed_grouped, buf, G)
+
+    def dispatch_packed_chunk_i16_grouped(self, buf, G: int):
+        return self._dispatch_on_device(_device_basecall_chunk_packed_i16_grouped, buf, G)
+
+    def dispatch_packed_chunk_d8_grouped(self, buf, G: int):
+        return self._dispatch_on_device(_device_basecall_chunk_packed_d8_grouped, buf, G)
+
+    def dispatch_packed_batch_i16_grouped(self, buf, G: int):
+        """G full-read batches of one bucket as one upload."""
+        return self._dispatch_on_device(_device_basecall_packed_i16_grouped, buf, G)
+
+    def dispatch_packed_batch_d8_grouped(self, buf, G: int):
+        return self._dispatch_on_device(_device_basecall_packed_d8_grouped, buf, G)
+
+    def unpack_chunk_outputs(self, buf):
+        """A chunk batch's output bytes (or its handle) -> (score, path,
+        qchar, nblocks, trace) at this Basecaller's chunk width."""
+        T1 = self.chunk // self.cfg.total_stride + 1
+        return _unpack_chunk_outputs(np.asarray(buf), T1, self.cfg.nstate, self.compute_trace)
 
     def call_batch_device(self, signals, lengths):
         """Run the full-read program on one batch on this Basecaller's

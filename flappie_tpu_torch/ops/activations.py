@@ -20,4 +20,9 @@ def elu(x):
     return torch.where(x >= 0, x, torch.expm1(x))
 
 
+def softplus(x):
+    """jax.nn.softplus's formula, log(1 + e^x) = max(x, 0) + log1p(e^-|x|)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 ACTIVATIONS = {"swish": swish, "tanh": tanh, "elu": elu}

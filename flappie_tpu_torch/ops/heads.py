@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .activations import softplus
 from .crf import crf_forward, crf_partition, crf_partition_ad, lse, rle_index
 from .masking import mask_tail
 from .rnn import affine
@@ -62,19 +63,14 @@ def globalnorm_flipflop(x, W, b, temperature, nblocks, nbase: int,
     return mask_tail(C - logZ[:, None, None], nblocks)
 
 
-def _softplus(x):
-    """jax.nn.softplus's formula, log(1 + e^x) = max(x, 0) + log1p(e^-|x|)."""
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
-
-
 def globalnorm_runlengthV2(x, W, b, temperature, nblocks, nbase: int):
     """x: [B, T, H] -> params [B, T, 2*nbase + 2*nbase^2]: per block nbase
     shapes, nbase scales, then the 2*nbase^2 transitions, logZ-normalised
     per read over the transition block only.  Padded blocks are zeroed."""
     raw = affine(x, W, b)
     nrun = 2 * nbase
-    shape = 1.0 + _softplus(raw[..., :nbase])
-    scale = 1e-8 + _softplus(raw[..., nbase:nrun])
+    shape = 1.0 + softplus(raw[..., :nbase])
+    scale = 1e-8 + softplus(raw[..., nbase:nrun])
     trans = torch.tanh(raw[..., nrun:]) * (5.0 / temperature)
     logZ = crf_partition(trans, nblocks, 0, idx=rle_index(nbase)) / _safe_n(nblocks, raw.dtype)
     out = torch.cat([shape, scale, trans - logZ[:, None, None]], dim=-1)
@@ -88,8 +84,8 @@ def globalnorm_runlength(x, W, b, temperature, nblocks, nbase: int):
     other base (the weight independent of the origin), or stay in the
     same base (src/layers.c:1127-1174).  Padded blocks are zeroed."""
     raw = affine(x, W, b)
-    shape = 1.0 + _softplus(raw[..., :nbase])
-    scale = 1e-1 + _softplus(raw[..., nbase : 2 * nbase])
+    shape = 1.0 + softplus(raw[..., :nbase])
+    scale = 1e-1 + softplus(raw[..., nbase : 2 * nbase])
     move = torch.tanh(raw[..., 2 * nbase : 3 * nbase]) * (5.0 / temperature)
     stay = torch.tanh(raw[..., 3 * nbase :]) * (5.0 / temperature)
     logZ = _runlength_v1_partition(move, stay, nblocks) / _safe_n(nblocks, raw.dtype)

@@ -36,6 +36,14 @@ def reverse_sequence(x, lengths):
     return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
 
 
+def mask_tail_tm(x_tm, lengths):
+    """Time-major mask_tail: zero x[t, b, :] for t >= lengths[b]."""
+    T = x_tm.shape[0]
+    m = (torch.arange(T, device=x_tm.device)[:, None]
+         < lengths[None, :].to(x_tm.device)).to(x_tm.dtype)
+    return x_tm * m[:, :, None]
+
+
 def reverse_sequence_tm(x_tm, lengths):
     """Time-major reverse_sequence: x [T, B, C]."""
     T = x_tm.shape[0]

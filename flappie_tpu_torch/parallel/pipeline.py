@@ -49,8 +49,8 @@ import numpy as np
 import torch
 
 from .. import timing
-from ..basecall import (Basecaller, _chaos_maybe_fail_dispatch, _device_basecall, _DeviceQueue,
-                        _on_device)
+from ..basecall import (Basecaller, _as_array, _chaos_maybe_fail_dispatch, _device_basecall,
+                        _DeviceQueue, _on_device)
 from .mesh import Mesh, batch_sharding, make_mesh, shard_params
 
 
@@ -95,6 +95,10 @@ class _Sharded:
         G = self._G
         groups = [p.reshape(G, p.shape[0] // G, p.shape[1]) for p in parts]
         return np.concatenate(groups, axis=1).reshape(-1, parts[0].shape[1])
+
+    def __array__(self, dtype=None, copy=None):
+        """``np.asarray(handle)``: the output bytes, as ``result()``."""
+        return _as_array(self.result(), dtype, copy)
 
 
 class DistributedBasecaller(Basecaller):

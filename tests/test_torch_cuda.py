@@ -1121,3 +1121,50 @@ def test_high_level_dispatches_to_its_kernels(cuda, kind, levels):
     before = counts()
     fn(*args, True, lengths)
     assert counts() == (before[0] + 1, before[1], before[2] + 1)
+
+
+def _packed_i16(gen, B, W, chunk):
+    """One i16-wire batch of B rows of W samples of synthetic ADC (ragged,
+    the first full; chunk rows own their whole range)."""
+    from flappie_tpu_torch.basecall import pack_chunk_inputs_i16
+    from flappie_tpu_torch.signal.synthetic import synthetic_adc
+
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+    lengths = rng.integers(W // 4, W + 1, B).astype(np.int32)
+    lengths[0] = W
+    adc = np.zeros((B, W), np.int16)
+    for j, n in enumerate(lengths):
+        adc[j, :n] = synthetic_adc(int(n), rng, mean_dwell=30.0)
+    scal = np.tile(np.array([16.0, 0.17, 80.0, 11.0], np.float32), (B, 1))
+    z = np.zeros(B, np.int32)
+    qlo, qhi = (np.ones(B, np.int32), lengths // 5) if chunk else (z, z)
+    return pack_chunk_inputs_i16(adc, lengths, qlo, qhi, scal)
+
+
+@pytest.mark.parametrize("entry", ["dispatch_packed_chunk_i16", "dispatch_packed_batch_d8_grouped"])
+def test_packed_entry_is_its_program(cuda, entry):
+    """The Basecaller's public entries on the card (r941_native at full
+    width, synthetic weights): a chunk entry's bytes are its private
+    program's on the same buffer, a grouped full-read entry's the
+    concatenation of that program's single batches, byte for byte; each
+    launches K1 five times a batch."""
+    from flappie_tpu_torch import basecall as bc
+
+    gen = torch.Generator().manual_seed(len(entry))
+    caller = bc.Basecaller(compute_trace=False, device=cuda)
+    grouped = entry.endswith("_grouped")
+    G = 3 if grouped else 1
+    bufs = [_packed_i16(gen, 16, 4096 if grouped else 2560, not grouped) for _ in range(G)]
+    if grouped:
+        bufs = [bc.encode_d8(b) for b in bufs]
+        assert all(b is not None for b in bufs)
+    single = getattr(bc, "_device_basecall_packed_d8" if grouped
+                     else "_device_basecall_chunk_packed_i16")
+    with torch.inference_mode():
+        want = np.concatenate([single(caller.params, torch.from_numpy(b).to(cuda), caller.cfg, 1.0,
+                                      False, False).cpu().numpy() for b in bufs])
+    before = rnn_cuda.lstm_layer_tm.launches
+    args = (np.concatenate(bufs), G) if grouped else (bufs[0],)
+    got = np.asarray(getattr(caller, entry)(*args))
+    assert rnn_cuda.lstm_layer_tm.launches == before + 5 * G
+    np.testing.assert_array_equal(got, want)
