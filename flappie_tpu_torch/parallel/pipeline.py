@@ -159,7 +159,8 @@ class DistributedBasecaller(Basecaller):
             groups = buf.reshape(G, rows, buf.shape[1])
             shards = [np.ascontiguousarray(groups[:, lo:hi]).reshape(-1, buf.shape[1])
                       for lo, hi in bounds]
-        futures = [self._threads[i].submit(self._run_shard, i, program, shard, G)
+        run = timing.carry(self._run_shard)  # each shard under the batch's ids
+        futures = [self._threads[i].submit(run, i, program, shard, G)
                    for i, shard in enumerate(shards)]
         self.wire_log.append({
             "program": getattr(program, "__name__", str(program)),

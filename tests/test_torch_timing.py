@@ -2,12 +2,15 @@
 JAX package.
 
 - ``timing.report()`` and ``maybe_dump`` (to a path and to stderr) equal
-  the JAX module's on the same calls, but for the process wall;
+  the JAX module's on the same calls in every field the two share, but
+  for the process wall; the port's own sections (``PORT_SECTIONS``) are
+  checked on their own;
 - the flappie CLI and flappie-serve dump at exit under
   FLAPPIE_TPU_PHASES the phases the JAX package's own runs of the same
   reads name, but the three the port has no counterpart for (the d8
   wire's encode, the upload threads' and the collector thread's waits),
-  and the FASTQ bytes do not change with the variable set.
+  and beside them the port's own phases (``PORT_ONLY``); the FASTQ bytes
+  do not change with the variable set.
 """
 
 from __future__ import annotations
@@ -33,6 +36,12 @@ from test_torch_e2e import CHUNK_ARGS, _run, reads  # noqa: F401 (reads is a fix
 JAX_ONLY = {"encode_d8", "upload_wait", "collect_bound_wait"}
 CLI_PHASES = {"fast5_read", "preprocess", "pack", "dispatch", "dispatch_upload",
               "dispatch_launch", "collect_wait", "collect_host", "format_write"}
+# the port's phases without a JAX counterpart: the caller's wait for a
+# preprocessing wave, and dispatch_launch's parts (the copy-back's only
+# on a card)
+PORT_ONLY = {"wave_wait", "launch_network", "launch_decode", "launch_copyback"}
+# the port's report sections beyond the JAX module's
+PORT_SECTIONS = {"phase_cpu_s", "device", "counters", "spans"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -60,7 +69,13 @@ def _drive(mod):
 
 def test_report_and_dump_match_jax(tmp_path, monkeypatch, capsys):
     ours, theirs = _drive(p_timing), _drive(j_timing)
-    assert ours.keys() == theirs.keys() == {"process_wall_s", "phases", "accounted_s"}
+    assert theirs.keys() == {"process_wall_s", "phases", "accounted_s"}
+    assert ours.keys() == theirs.keys() | PORT_SECTIONS
+    # add() keeps no span and no CPU time; only the one phase() call does
+    assert set(ours["phase_cpu_s"]) == {"collect_wait"}
+    assert ours["device"] is None  # no batch ran on a card
+    assert ours["counters"] == {"batches": 0, "rows": 0, "rows_valid": 0, "slots": 0, "owned": 0}
+    assert ours["spans"] == {"kept": 1, "dropped": 0}
     assert list(ours["phases"]) == list(theirs["phases"]) == [
         "_inner", "dispatch", "pack", "collect_wait"]
     assert ours["phases"] == theirs["phases"]
@@ -82,6 +97,8 @@ def test_report_and_dump_match_jax(tmp_path, monkeypatch, capsys):
         assert err.startswith("flappie-phases: {") and err.endswith("}\n")
         dumps[name] = (json.loads(path.read_text()), json.loads(err[len("flappie-phases: "):]))
     for (ours, theirs) in zip(dumps["port"], dumps["jax"]):
+        port = {k: ours.pop(k) for k in PORT_SECTIONS}
+        assert port["device"] is None and port["spans"] == {"kept": 1, "dropped": 0}
         for rep in (ours, theirs):
             rep.pop("process_wall_s")
             rep["phases"]["collect_wait"]["wall_s"] = 0.0
@@ -104,10 +121,16 @@ def test_cli_phase_dump_matches_jax_names(reads, tmp_path, monkeypatch):  # noqa
     port_args = args + ["--device", "cpu"]
     ours = _phases(lambda: p_flappie.main(port_args + ["-o", str(tmp_path / "port.fq")]),
                    tmp_path / "port.json", monkeypatch, p_timing)
-    assert set(ours["phases"]) == set(theirs["phases"]) - JAX_ONLY == CLI_PHASES
+    assert set(ours["phases"]) - PORT_ONLY == set(theirs["phases"]) - JAX_ONLY == CLI_PHASES
+    # 3 reads, one wave: no wave_wait; no card: no copy-back
+    assert set(ours["phases"]) & PORT_ONLY == {"launch_network", "launch_decode"}
     assert ours["phases"]["fast5_read"]["calls"] == 3  # one a lazy read
     assert ours["phases"]["format_write"]["calls"] == 1
     assert ours["phases"]["dispatch"]["calls"] == ours["phases"]["collect_wait"]["calls"] == 2
+    assert ours["phases"]["launch_network"]["calls"] == 2
+    assert set(ours["phase_cpu_s"]) == set(ours["phases"])
+    assert ours["device"] is None
+    assert ours["counters"]["batches"] == 2 and ours["spans"]["dropped"] == 0
     assert 0 < ours["accounted_s"] and 0 < ours["process_wall_s"]
     assert (tmp_path / "port.fq").read_text() == _run(p_flappie.main, port_args,
                                                       tmp_path / "plain.fq")
@@ -124,6 +147,8 @@ def test_serve_dumps_phases_at_exit(reads, tmp_path, monkeypatch):  # noqa: F811
         argv = ["--output-dir", str(tmp_path / name)] + CHUNK_ARGS + extra
         dumps[name] = _phases(lambda: serve.main(argv), tmp_path / f"{name}.json", monkeypatch,
                               mod)
-    assert set(dumps["port"]["phases"]) == set(dumps["jax"]["phases"]) - JAX_ONLY == (
+    assert set(dumps["port"]["phases"]) - PORT_ONLY == set(dumps["jax"]["phases"]) - JAX_ONLY == (
         CLI_PHASES - {"format_write"})
+    assert set(dumps["port"]["phases"]) & PORT_ONLY == {"launch_network", "launch_decode"}
+    assert PORT_SECTIONS <= set(dumps["port"])
     assert dumps["port"]["phases"]["fast5_read"]["calls"] == 4
